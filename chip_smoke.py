@@ -8,19 +8,31 @@ Phases (each prints a line on entry and its seconds on exit):
 1. device: the card, and ``nvidia-smi``'s name and power limit;
 2. build: the CUDA kernels, one ``nvcc`` call (``vqattack_tpu_torch/ops/_build.py``);
 3. kernels: each kernel against its plain PyTorch version on the card, at the
-   main path's shapes, with times, bounds and the stated tolerances;
+   shapes both paths give it (batch 1, the batched chunks of 4 and 8, the
+   victim's 16), with the stated tolerances: K1 (PGD update), K2 (residual +
+   LayerNorm, forward and backward) and K3 (flash attention, forward and
+   backward, ragged and bias cases); times and bounds at the batched chunk
+   of 8, and K3's also at 16, beside ``scaled_dot_product_attention``;
 4. model: the full-width surrogate with the fused kernels against the same
-   weights through plain LayerNorms, forward features and d/dpixels;
-5. main path: the per-sample ALBEF attack at full width (ViT-B/16 at 480 px,
-   12-layer fusion BERT, 40 PGD iterations) on two synthetic samples, one
-   on the alternating (MAR) path and one feature-only, each with the text
-   attack, the victim's ``rank_answer`` and the artifacts, written to a
-   temporary directory.  The kernels' launch counts are reset just before
-   and read just after, and must equal what the samples' schedules imply.
+   weights through plain LayerNorms, and with the flash kernel against the
+   product + softmax attention: forward features and d/dpixels;
+5. per-sample path: the per-sample ALBEF attack at full width (ViT-B/16 at
+   480 px, 12-layer fusion BERT, 40 PGD iterations) on two synthetic
+   samples, one on the alternating (MAR) path and one feature-only, each
+   with the text attack, the victim's ``rank_answer`` and the artifacts;
+6. batched path: the lockstep sweep as ``run.py --batch-size 8 --attn flash
+   --pipeline-depth 2`` runs it, on 11 samples (a MAR bucket of 8 and a
+   feature bucket of 3 padded to 4), the victim scored in one batched call,
+   with the phase timing and the aggregate sample-iterations/s;
+7. one PGD gradient step at batch 16 with ``--attn flash`` and with
+   ``--attn xla``: time and peak device memory of each.
 
-Prints the kernel table as one JSON line, then, as the last line,
-``{"ok": true, "device": {...}}``.  Exits non-zero, without those lines,
-when there is no CUDA device or any check fails.  Needs torch and numpy.
+Before phases 5 and 6 the kernels' launch counts are reset, and after each
+they must equal what the samples' schedules imply.  Prints the kernel
+table as one JSON line, the card's name and power limit, then, as the last
+line, ``{"ok": true, "device": {...}}``.  Exits non-zero, without those
+lines, when there is no CUDA device or any check fails.  Needs torch and
+numpy.
 """
 
 from __future__ import annotations
@@ -40,10 +52,13 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from vqattack_tpu_torch import run as port_run  # noqa: E402
+from vqattack_tpu_torch.attacks import batched  # noqa: E402
 from vqattack_tpu_torch.attacks.orchestrator import save_artifacts  # noqa: E402
+from vqattack_tpu_torch.attacks.pgd import pgd_feature  # noqa: E402
 from vqattack_tpu_torch.data.side_tables import SideTables  # noqa: E402
 from vqattack_tpu_torch.models.albef import AlbefPretrain  # noqa: E402
-from vqattack_tpu_torch.ops import _build, fused_ln, pgd_update  # noqa: E402
+from vqattack_tpu_torch.ops import _build, attention, fused_ln, pgd_update  # noqa: E402
+from vqattack_tpu_torch.rng import TorchKey  # noqa: E402
 from vqattack_tpu_torch.text.tokenizer import WordPieceTokenizer  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
@@ -73,13 +88,14 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def time_ms(fn, iters: int = 50) -> float:
+def time_ms(fn, iters: int = 50, sleep_cycles: int = 1_000_000) -> float:
     """Mean device time of ``fn`` in ms by CUDA events.  Before every call
     the 50 MB L2 is emptied of the inputs by reading a 64 MB buffer (a read
     leaves clean lines, so the timed call pays no write-back), and the
     stream is held busy for ~0.5 ms, so that the host has enqueued all of
     ``fn``'s launches before the start event runs: the interval is device
-    time, not the wrapper's Python."""
+    time, not the wrapper's Python.  Callers whose ``fn`` enqueues for
+    longer than ~0.5 ms pass a longer ``sleep_cycles``."""
     flush = torch.ones(16 * 2 ** 20, dtype=torch.float32, device="cuda")
     for _ in range(3):
         fn()
@@ -87,7 +103,7 @@ def time_ms(fn, iters: int = 50) -> float:
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for i in range(iters):
         flush.sum()
-        torch.cuda._sleep(1_000_000)
+        torch.cuda._sleep(sleep_cycles)
         starts[i].record()
         fn()
         ends[i].record()
@@ -106,30 +122,41 @@ def bound_ms(n_bytes: float, n_flops: float):
 # ---------------------------------------------------------------------------
 
 
+# The batched path runs its chunks at batch 8 and 4 and scores the victim at
+# 16; the kernel table's times are taken at its chunk of 8.
+TIMED_BATCH = 8
+
+
 def check_pgd_update(gen) -> dict:
-    shape = (1, 3, 480, 480)
-    ori = torch.rand(shape, generator=gen, device="cuda") * 2 - 1
-    adv = (ori + (torch.rand(shape, generator=gen, device="cuda") - 0.5) * 0.25).clamp(-1, 1)
-    grad = torch.randn(shape, generator=gen, device="cuda")
-    grad[torch.rand(shape, generator=gen, device="cuda") < 0.01] = 0.0  # sign(0) = 0
-    args = (adv, grad, ori, 0.125, 0.01, -1.0, 1.0)
-    out = pgd_update.pgd_linf_update(*args)
-    ref = pgd_update.pgd_linf_update_reference(*args)
-    torch.cuda.synchronize()
-    # tolerance: none, the kernel repeats the plain chain's IEEE operations
-    require(torch.equal(out, ref), "pgd_linf_update differs from its plain version")
+    """K1 bit-exact against its plain version at the per-sample path's
+    batch 1 and the batched path's 4 and 8; timed at batch 8."""
+    for batch in (1, 4, TIMED_BATCH):
+        shape = (batch, 3, 480, 480)
+        ori = torch.rand(shape, generator=gen, device="cuda") * 2 - 1
+        adv = (ori + (torch.rand(shape, generator=gen, device="cuda") - 0.5) * 0.25).clamp(-1, 1)
+        grad = torch.randn(shape, generator=gen, device="cuda")
+        grad[torch.rand(shape, generator=gen, device="cuda") < 0.01] = 0.0  # sign(0) = 0
+        args = (adv, grad, ori, 0.125, 0.01, -1.0, 1.0)
+        out = pgd_update.pgd_linf_update(*args)
+        ref = pgd_update.pgd_linf_update_reference(*args)
+        torch.cuda.synchronize()
+        # tolerance: none, the kernel repeats the plain chain's IEEE operations
+        require(torch.equal(out, ref), f"pgd_linf_update differs from its plain version "
+                                       f"at {list(shape)}")
+        print(f"  pgd_linf_update {list(shape)} f32: bit-exact", flush=True)
     n = adv.numel()
     b, by = bound_ms(16 * n, 10 * n)
     row = {
         "name": "pgd_linf_update", "route": "cuda",
         "source": "vqattack_tpu_torch/csrc/pgd_update.cu",
         "replaces": "vqattack_tpu/ops/pgd_update.py:59",
+        "shape": list(shape),
         "max_abs_err": float((out - ref).abs().max()),
         "ms": time_ms(lambda: pgd_update.pgd_linf_update(*args)),
         "plain_ms": time_ms(lambda: pgd_update.pgd_linf_update_reference(*args)),
         "bound_ms": b, "bound_by": by, "library_ms": None,
     }
-    print(f"  pgd_linf_update {list(shape)} f32: bit-exact, {row['ms'] * 1e3:.1f} us "
+    print(f"  pgd_linf_update {list(shape)} f32: {row['ms'] * 1e3:.1f} us "
           f"(plain {row['plain_ms'] * 1e3:.1f} us, bound {b * 1e3:.2f} us)", flush=True)
     return row
 
@@ -159,9 +186,15 @@ def _close(name, got, ref, dtype):
     return float(err.max())
 
 
+# K2's row counts: one 901-token image (the per-sample path), the batched
+# chunks of 4 and 8 and the victim's padded 16, and 1000 (not a multiple of
+# the kernel's row tile)
+LN_ROWS = (901, 1000, 4 * 901, TIMED_BATCH * 901, 16 * 901)
+
+
 def check_fused_ln(gen):
     fwd_row = bwd_row = None
-    for rows in (901, 1000):
+    for rows in LN_ROWS:
         for dtype in (torch.float32, torch.bfloat16):
             x, delta, gamma, beta, gs, gh = _ln_case(gen, rows, dtype)
             s, h = fused_ln.residual_layernorm_fwd(x, delta, gamma, beta, 1e-6)
@@ -191,10 +224,11 @@ def check_fused_ln(gen):
             print(f"  residual_layernorm rows={rows} {str(dtype)[6:]}: s bit-exact, "
                   f"h err {h_err:.3g}, dx err {dx_err:.3g}, "
                   f"dgamma err {float((dg - dg_r).abs().max()):.3g}, deterministic", flush=True)
-            if rows == 901 and dtype == torch.float32:
+            if rows == TIMED_BATCH * 901 and dtype == torch.float32:
                 fwd_row = _time_fwd(x, delta, gamma, beta, rows, max(h_err, 0.0))
                 bwd_row = _time_bwd(s, gs, gh, gamma, rows, dx_err)
-    _check_autograd(gen)
+    for rows in (901, TIMED_BATCH * 901):
+        _check_autograd(gen, rows)
     return fwd_row, bwd_row
 
 
@@ -205,6 +239,7 @@ def _time_fwd(x, delta, gamma, beta, rows, err):
         "name": "residual_layernorm_fwd", "route": "cuda",
         "source": "vqattack_tpu_torch/csrc/fused_ln.cu",
         "replaces": "vqattack_tpu/ops/fused_ln.py:135",
+        "shape": [rows, D],
         "max_abs_err": err,
         "ms": time_ms(lambda: fused_ln.residual_layernorm_fwd(x, delta, gamma, beta, 1e-6)),
         "plain_ms": time_ms(
@@ -213,7 +248,7 @@ def _time_fwd(x, delta, gamma, beta, rows, err):
         "library_ms": time_ms(
             lambda: torch.nn.functional.layer_norm(x + delta, (D,), gamma, beta, 1e-6)),
     }
-    print(f"  residual_layernorm_fwd [901, 768] f32: {row['ms'] * 1e3:.1f} us (plain "
+    print(f"  residual_layernorm_fwd [{rows}, {D}] f32: {row['ms'] * 1e3:.1f} us (plain "
           f"{row['plain_ms'] * 1e3:.1f} us, layer_norm(x + delta) "
           f"{row['library_ms'] * 1e3:.1f} us, bound {b * 1e3:.2f} us)", flush=True)
     return row
@@ -227,6 +262,7 @@ def _time_bwd(s, gs, gh, gamma, rows, err):
         "name": "residual_layernorm_bwd", "route": "cuda",
         "source": "vqattack_tpu_torch/csrc/fused_ln.cu",
         "replaces": "vqattack_tpu/ops/fused_ln.py:159",
+        "shape": [rows, D],
         "max_abs_err": err,
         "ms": time_ms(lambda: fused_ln.residual_layernorm_bwd(
             s, gs, gh, gamma, 1e-6, param_grads=False)),
@@ -234,16 +270,16 @@ def _time_bwd(s, gs, gh, gamma, rows, err):
             s, gs, gh, gamma, 1e-6, param_grads=False)),
         "bound_ms": b, "bound_by": by, "library_ms": None,
     }
-    print(f"  residual_layernorm_bwd [901, 768] f32: {row['ms'] * 1e3:.1f} us (plain "
+    print(f"  residual_layernorm_bwd [{rows}, {D}] f32: {row['ms'] * 1e3:.1f} us (plain "
           f"{row['plain_ms'] * 1e3:.1f} us, bound {b * 1e3:.2f} us)", flush=True)
     return row
 
 
-def _check_autograd(gen):
+def _check_autograd(gen, rows):
     """The autograd Function against autograd through the plain version."""
-    x, delta, gamma, beta, _, _ = _ln_case(gen, 901, torch.float32)
-    w_s = torch.randn(901, D, generator=gen, device="cuda")
-    w_h = torch.randn(901, D, generator=gen, device="cuda")
+    x, delta, gamma, beta, _, _ = _ln_case(gen, rows, torch.float32)
+    w_s = torch.randn(rows, D, generator=gen, device="cuda")
+    w_h = torch.randn(rows, D, generator=gen, device="cuda")
     grads = []
     for fn in (fused_ln.residual_layernorm, fused_ln.residual_layernorm_reference):
         xs = [t.clone().requires_grad_(True) for t in (x, delta, gamma, beta)]
@@ -254,8 +290,136 @@ def _check_autograd(gen):
         err = float((a - b).abs().max())
         require(err <= 1e-4 * max(1.0, float(b.abs().max())),
                 f"autograd {name}: max abs err {err}")
-    print("  residual_layernorm autograd Function matches autograd of the plain version",
+    print(f"  residual_layernorm autograd Function matches autograd of the plain version "
+          f"at rows={rows}", flush=True)
+
+
+HEADS, HEAD_DIM = 12, 64
+SCALE = HEAD_DIM ** -0.5
+
+
+def _qkv(gen, b, s, h=HEADS):
+    """q, k, v as [B, S, H, 64] views of one [B, S, 3, H, 64] buffer:
+    strided, like the projections the model hands over."""
+    qkv = torch.randn(b, s, 3, h, HEAD_DIM, generator=gen, device="cuda")
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+
+def _attn_err(what, got, ref):
+    """Tolerance: 2e-5 of the reference's largest magnitude (at least 1).
+    Both sides sum in float32, over up to 901 keys or queries, in another
+    order (the kernel's FMA chains against cuBLAS's)."""
+    err = float((got - ref).abs().max())
+    tol = 2e-5 * max(1.0, float(ref.abs().max()))
+    require(err <= tol, f"{what}: max abs err {err} > {tol}")
+    return err
+
+
+def _check_attention_case(gen, b, s, bias_kind):
+    q, k, v = _qkv(gen, b, s)
+    bias = None
+    if bias_kind == "table":  # the VLMo form: one [1, H, S, S] table
+        bias = torch.randn(1, HEADS, s, s, generator=gen, device="cuda") * 0.5
+    elif bias_kind == "key_mask":  # [B, 1, 1, S], about a third masked
+        keep = torch.rand(b, s, generator=gen, device="cuda") > 0.33
+        keep[:, 0] = True
+        bias = torch.where(keep, 0.0, -1e9)[:, None, None, :]
+    elif bias_kind == "left_pad":  # [B, 1, 1, S], the first 70 keys at -inf:
+        # every row's first key tile is masked whole
+        keep = torch.arange(s, device="cuda") >= 70
+        bias = torch.where(keep, 0.0, -torch.inf).expand(b, s)[:, None, None, :]
+    o, lse = attention.flash_attention_fwd(q, k, v, bias, SCALE)
+    o_r, lse_r = attention.flash_attention_reference(q, k, v, bias, SCALE, return_lse=True)
+    do = torch.randn(o.shape, generator=gen, device="cuda")
+    grads = attention.flash_attention_bwd(q, k, v, bias, SCALE, o, lse, do)
+    again = attention.flash_attention_bwd(q, k, v, bias, SCALE, o, lse, do)
+    refs = attention.flash_attention_bwd_reference(q, k, v, bias, SCALE, o, lse, do)
+    torch.cuda.synchronize()
+    errs = {"o": _attn_err("o", o, o_r), "lse": _attn_err("lse", lse, lse_r)}
+    for name, g, g2, r in zip(("dq", "dk", "dv"), grads, again, refs):
+        require(torch.equal(g, g2), f"flash backward {name} differs between two runs")
+        errs[name] = _attn_err(name, g, r)
+    print(f"  flash_attention [{b}, {s}, {HEADS}, 64] bias={bias_kind}: "
+          + ", ".join(f"{k} err {v:.3g}" for k, v in errs.items())
+          + ", backward deterministic", flush=True)
+    return errs
+
+
+def check_flash_attention(gen):
+    """K3 against its plain versions: the batched chunk's shape, ragged
+    lengths, both bias forms and a -inf key mask; then the times at the
+    batched chunk of 8 (the kernel table's rows) and at batch 16."""
+    errs = _check_attention_case(gen, 8, 901, "none")
+    for s in (1, 63, 130, 901):
+        _check_attention_case(gen, 2, s, "none")
+    _check_attention_case(gen, 2, 130, "table")
+    _check_attention_case(gen, 2, 901, "table")
+    _check_attention_case(gen, 2, 901, "key_mask")
+    _check_attention_case(gen, 2, 901, "left_pad")
+    # the autograd Function against autograd through the plain version
+    q, k, v = _qkv(gen, 2, 901)
+    w = torch.randn(2, 901, HEADS, HEAD_DIM, generator=gen, device="cuda")
+    grads = []
+    for fn in (attention.flash_attention, attention.flash_attention_reference):
+        xs = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        grads.append(torch.autograd.grad((fn(*xs, None, SCALE) * w).sum(), xs))
+    for name, a, r in zip(("dq", "dk", "dv"), *grads):
+        _attn_err(f"autograd {name}", a, r)
+    print("  flash_attention autograd Function matches autograd of the plain version",
           flush=True)
+    return time_flash_attention(gen, errs, TIMED_BATCH), time_flash_attention(gen, errs, 16)
+
+
+def time_flash_attention(gen, errs, b):
+    """Device times at ``[b, 901, 12, 64]``, float32, no bias: the kernels,
+    the plain versions and ``scaled_dot_product_attention`` (forward;
+    backward through autograd).  The forward is also held against its plain
+    version at this shape."""
+    s = 901
+    q, k, v = _qkv(gen, b, s)
+    o, lse = attention.flash_attention_fwd(q, k, v, None, SCALE)
+    _attn_err(f"o at batch {b}", o, attention.flash_attention_reference(q, k, v, None, SCALE))
+    do = torch.randn(o.shape, generator=gen, device="cuda")
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, scale=SCALE)
+    do_t = do.transpose(1, 2)
+    unit = b * HEADS * s * s * HEAD_DIM
+    row = b * s * HEADS * HEAD_DIM * 4  # bytes of one [B, S, H, 64] float32 tensor
+    lse_bytes = b * HEADS * s * 4
+    long_sleep = 20_000_000  # the plain versions enqueue for several ms
+    fwd_b, fwd_by = bound_ms(4 * row + lse_bytes, 4 * unit)
+    bwd_b, bwd_by = bound_ms(8 * row + lse_bytes, 10 * unit)
+    fwd = {
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": "vqattack_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "vqattack_tpu/ops/attention.py:134",
+        "shape": [b, s, HEADS, HEAD_DIM],
+        "max_abs_err": errs["o"],
+        "ms": time_ms(lambda: attention.flash_attention_fwd(q, k, v, None, SCALE), 20),
+        "plain_ms": time_ms(lambda: attention.flash_attention_reference(q, k, v, None, SCALE),
+                            20, long_sleep),
+        "bound_ms": fwd_b, "bound_by": fwd_by,
+        "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, scale=SCALE), 20),
+    }
+    bwd = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "vqattack_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "vqattack_tpu/ops/attention.py:134",
+        "shape": [b, s, HEADS, HEAD_DIM],
+        "max_abs_err": max(errs["dq"], errs["dk"], errs["dv"]),
+        "ms": time_ms(lambda: attention.flash_attention_bwd(q, k, v, None, SCALE, o, lse, do), 20),
+        "plain_ms": time_ms(lambda: attention.flash_attention_bwd_reference(
+            q, k, v, None, SCALE, o, lse, do), 20, long_sleep),
+        "bound_ms": bwd_b, "bound_by": bwd_by,
+        "library_ms": time_ms(lambda: torch.autograd.grad(
+            sdpa_out, (qt, kt, vt), do_t, retain_graph=True), 20),
+    }
+    for r in (fwd, bwd):
+        print(f"  {r['name']} {r['shape']} f32: {r['ms']:.3f} ms (plain "
+              f"{r['plain_ms']:.3f} ms, scaled_dot_product_attention {r['library_ms']:.3f} ms, "
+              f"bound {r['bound_ms']:.3f} ms by {r['bound_by']})", flush=True)
+    return fwd, bwd
 
 
 # ---------------------------------------------------------------------------
@@ -291,6 +455,35 @@ def check_model(cfg, surrogate, gen):
     del plain
 
 
+def check_model_flash(surrogate, gen):
+    """gen_feats and d(feature loss)/d(pixels) of the full-width surrogate
+    under ``attention_impl("flash")`` (every ViT attention through K3)
+    against the same weights on the product + softmax path.  Tolerance: 1e-4
+    of each tensor's largest magnitude (float32 reassociation over 12
+    blocks)."""
+    px = torch.rand((2, 3, 480, 480), generator=gen, device="cuda") * 2 - 1
+    ids = torch.randint(1000, 2000, (2, 25), generator=gen, device="cuda")
+    mask = torch.ones_like(ids)
+    outs = []
+    for impl in ("flash", "xla"):
+        before = attention.flash_attention_fwd.launches
+        with attention.attention_impl(impl):
+            p = px.clone().requires_grad_(True)
+            img_f, txt_f, _ = surrogate.gen_feats(p, ids, mask)
+            (g,) = torch.autograd.grad(img_f.square().mean() + txt_f.square().mean(), p)
+        launched = attention.flash_attention_fwd.launches - before
+        require(launched == (surrogate.cfg.vit.depth if impl == "flash" else 0),
+                f"{impl}: {launched} flash forward launches")
+        outs.append((img_f.detach(), txt_f.detach(), g))
+    for name, a, b in zip(("img_feats", "txt_feats", "d/dpixels"), *outs):
+        require(bool(torch.isfinite(a).all()), f"{name} not finite")
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        require(err <= 1e-4 * scale, f"flash {name}: max abs err {err} vs scale {scale}")
+        print(f"  flash vs product+softmax {name} {list(a.shape)}: max abs err {err:.3g} "
+              f"(scale {scale:.3g})", flush=True)
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the main path
 # ---------------------------------------------------------------------------
@@ -307,12 +500,29 @@ SAMPLES = [
     (1001, "what color is the dog", "red", "the dog is red"),
     (1002, "what is the man holding", "frisbee", None),
 ]
+# the batched path's traffic: every question has two substitutable words
+# (3 blocks); 8 MAR samples fill bucket (0, 3) at batch 8, 3 feature-only
+# samples form bucket (1, 3), padded to 4.  Bucket order is qid order.
+BATCH_SAMPLES = [
+    (2001, "what color is the dog", "red", "the dog is red"),
+    (2002, "what color is the cat", "black", "the cat is black"),
+    (2003, "what is the man holding", "frisbee", "the man is holding a frisbee"),
+    (2004, "what is the woman wearing", "hat", "the woman is wearing a hat"),
+    (2005, "what color is the shirt", "blue", "the shirt is blue"),
+    (2006, "what color is the ball", "yellow", "the ball is yellow"),
+    (2007, "what is the person holding", "ball", "the person is holding a ball"),
+    (2008, "what color is the grass", "green", "the grass is green"),
+    (3001, "what color is the hat", "white", None),
+    (3002, "what is the woman holding", "frisbee", None),
+    (3003, "what color is the table", "white", None),
+]
+BATCH_SIZE, PIPELINE_DEPTH = 8, 2
 
 
 def write_assets(tmp: str) -> dict:
     """A 30,522-token vocab with bert-base-uncased's special ids ([PAD]=0,
     [UNK]=100, [CLS]=101, [SEP]=102, [MASK]=103), 3,129 answers and the
-    side tables, all in ``tmp``."""
+    side tables of SAMPLES and BATCH_SAMPLES, all in ``tmp``."""
     toks = ["[PAD]"] + [f"[unused{i}]" for i in range(99)]
     toks += ["[UNK]", "[CLS]", "[SEP]", "[MASK]"] + WORDS + ["##" + w for w in WORDS]
     while len(toks) < 30522:
@@ -325,91 +535,121 @@ def write_assets(tmp: str) -> dict:
         f.write("\n".join(toks[:30522]) + "\n")
     answers = ["red", "blue", "green", "frisbee", "ball", "dog", "cat", "hat", "two", "yes"]
     answers += [f"tok{i}" for i in range(1000, 1000 + 3129 - len(answers))]
+    everything = SAMPLES + BATCH_SAMPLES
     tables = {
         "answers": answers,
-        "sur": {str(q): a for q, _, a, _ in SAMPLES},
-        "tgt": {str(q): a for q, _, a, _ in SAMPLES},
-        "para": {str(q): [a, p] for q, _, a, p in SAMPLES if p is not None},
-        "allc": {str(q): [a] for q, _, a, _ in SAMPLES},
+        "sur": {str(q): a for q, _, a, _ in everything},
+        "tgt": {str(q): a for q, _, a, _ in everything},
+        "para": {str(q): [a, p] for q, _, a, p in everything if p is not None},
+        "allc": {str(q): [a] for q, _, a, _ in everything},
     }
     for k, obj in tables.items():
         with open(paths[k], "w") as f:
             json.dump(obj, f)
     with open(paths["right"], "w") as f:
-        f.write("\n".join(str(q) for q, *_ in SAMPLES) + "\n")
+        f.write("\n".join(str(q) for q, *_ in everything) + "\n")
     return paths
 
 
-def expected_launches(res, fused_sites: int) -> dict:
-    """Kernel launches one sample's schedule implies: K1 ends every PGD
-    step (on the alternating path only the MLM half-step) and every VL
-    step; each ViT forward runs ``fused_sites`` K2 forwards (clean targets,
-    every gradient step, every VL step, the victim) and each backward as
-    many K2 backwards (every gradient step and VL step)."""
-    n_feat = len(res.feat_losses)
-    n_mlm = 0 if res.mlm_losses is None else len(res.mlm_losses)
-    grads = n_feat + n_mlm
-    k1_steps = n_feat if res.old_alg == 1 else n_mlm
-    return {
-        "pgd_linf_update": k1_steps + res.vl_steps,
-        "residual_layernorm_fwd": fused_sites * (1 + grads + res.vl_steps + 1),
-        "residual_layernorm_bwd": fused_sites * (grads + res.vl_steps),
-    }
+KERNELS = {
+    "pgd_linf_update": pgd_update.pgd_linf_update,
+    "residual_layernorm_fwd": fused_ln.residual_layernorm_fwd,
+    "residual_layernorm_bwd": fused_ln.residual_layernorm_bwd,
+    "flash_attention_fwd": attention.flash_attention_fwd,
+    "flash_attention_bwd": attention.flash_attention_bwd,
+}
 
 
 def counts() -> dict:
-    return {
-        "pgd_linf_update": pgd_update.pgd_linf_update.launches,
-        "residual_layernorm_fwd": fused_ln.residual_layernorm_fwd.launches,
-        "residual_layernorm_bwd": fused_ln.residual_layernorm_bwd.launches,
-    }
+    return {name: fn.launches for name, fn in KERNELS.items()}
 
 
 def reset_counts() -> None:
-    pgd_update.pgd_linf_update.launches = 0
-    fused_ln.residual_layernorm_fwd.launches = 0
-    fused_ln.residual_layernorm_bwd.launches = 0
+    for fn in KERNELS.values():
+        fn.launches = 0
 
 
-def run_main_path(pipe, cfg, tokenizer, paths, answer_max_len):
-    """Attack every sample of SAMPLES through the pipeline and check the
-    victim on the result; returns ``(results, launches, expected launches)``
-    with the launch counts reset just before and read just after."""
-    device = pipe.device
-    side = SideTables.load([paths["right"]], [paths["sur"]], [paths["tgt"]],
-                           [paths["para"]], [paths["allc"]])
+def implied_launches(cfg, vit_fwd: int, vit_bwd: int, k1: int, flash: bool) -> dict:
+    """Launches that ``vit_fwd`` ViT forwards, ``vit_bwd`` ViT backwards and
+    ``k1`` L-inf updates imply: each forward runs 2 x depth fused
+    residual+LayerNorm sites (K2) and, with ``--attn flash``, depth
+    attentions (K3); each backward as many backward kernels."""
+    depth = cfg.albef.vit.depth
+    attn = depth if flash else 0
+    return {
+        "pgd_linf_update": k1,
+        "residual_layernorm_fwd": 2 * depth * vit_fwd,
+        "residual_layernorm_bwd": 2 * depth * vit_bwd,
+        "flash_attention_fwd": attn * vit_fwd,
+        "flash_attention_bwd": attn * vit_bwd,
+    }
+
+
+def schedule_passes(res, extra_grads: int = 0):
+    """(ViT forwards, ViT backwards, K1 updates) of one attacked chunk,
+    victim excluded.  K1 ends every PGD step (on the alternating path only
+    the MLM half-step) and every VL step; every gradient step and VL step is
+    one forward and one backward, the clean targets one forward.  A mixed
+    second loss adds one forward and one backward per call
+    (``extra_grads``)."""
+    n_feat = len(res.feat_losses)
+    n_mlm = 0 if res.mlm_losses is None else len(res.mlm_losses)
+    grads = n_feat + n_mlm + res.vl_steps + extra_grads
+    k1 = (n_feat if res.old_alg == 1 else n_mlm) + res.vl_steps
+    return 1 + grads, grads, k1
+
+
+def check_result(res, px, atk, size):
+    losses = [res.feat_losses] + ([res.mlm_losses] if res.mlm_losses is not None else [])
+    require(all(np.isfinite(l).all() and l.size > 0 for l in losses), "non-finite loss")
+    require(res.adv_image.shape == (1, 3, size, size), "adversarial image shape")
+    require(float(np.abs(res.adv_image - px).max()) <= atk.eps + 1e-6, "outside the eps ball")
+    require(float(res.adv_image.min()) >= -1 and float(res.adv_image.max()) <= 1,
+            "pixels outside [-1, 1]")
+
+
+def load_answers(paths, tokenizer, answer_max_len, device):
     with open(paths["answers"]) as f:
         answer_list = json.load(f)
     a_ids, a_mask = tokenizer.encode_batch([a + "[SEP]" for a in answer_list],
                                            max_length=answer_max_len)
-    answer_ids = torch.as_tensor(a_ids, dtype=torch.long, device=device)
-    answer_mask = torch.as_tensor(a_mask, dtype=torch.long, device=device)
-    fused_sites = 2 * cfg.albef.vit.depth
+    return (answer_list, torch.as_tensor(a_ids, dtype=torch.long, device=device),
+            torch.as_tensor(a_mask, dtype=torch.long, device=device))
+
+
+def sample_pixels(i: int, size: int) -> np.ndarray:
+    return np.random.default_rng(SEED + i).uniform(-1, 1, (1, 3, size, size)).astype(np.float32)
+
+
+def run_main_path(pipe, cfg, tokenizer, paths, answer_max_len):
+    """Attack every sample of SAMPLES one at a time and check the victim on
+    the result; returns ``(results, launches, expected launches)`` with the
+    launch counts reset just before and read just after."""
+    side = SideTables.load([paths["right"]], [paths["sur"]], [paths["tgt"]],
+                           [paths["para"]], [paths["allc"]])
+    answer_list, answer_ids, answer_mask = load_answers(paths, tokenizer, answer_max_len,
+                                                        pipe.device)
     atk = cfg.attack
     size = cfg.albef.vit.image_size
-    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-    results, expected = [], {k: 0 for k in counts()}
+    flash = attention.get_impl() == "flash"
+    results, expected = [], {k: 0 for k in KERNELS}
     reset_counts()
     for i, (qid, question, _, _) in enumerate(SAMPLES):
         info = side.attack_inputs(qid)
-        px = np.random.default_rng(SEED + i).uniform(-1, 1, (1, 3, size, size)).astype(np.float32)
-        sync()
+        px = sample_pixels(i, size)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = pipe.attack_sample(px, question, str(qid), info["paraphrase"],
                                  info["target_answer"], info["all_correct_answers"])
         topk_ids, topk_probs = pipe.evaluate_victim(res.adv_image, res.adv_text,
                                                     answer_ids, answer_mask)
-        sync()
+        torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        losses = [res.feat_losses] + ([res.mlm_losses] if res.mlm_losses is not None else [])
-        require(all(np.isfinite(l).all() and l.size > 0 for l in losses), "non-finite loss")
-        require(res.adv_image.shape == (1, 3, size, size), "adversarial image shape")
-        require(float(np.abs(res.adv_image - px).max()) <= atk.eps + 1e-6, "outside the eps ball")
-        require(float(res.adv_image.min()) >= -1 and float(res.adv_image.max()) <= 1,
-                "pixels outside [-1, 1]")
+        check_result(res, px, atk, size)
         require(topk_ids.shape == (1, min(cfg.k_test, len(answer_list)))
                 and np.isfinite(topk_probs).all(), "victim rank_answer output")
-        for k, v in expected_launches(res, fused_sites).items():
+        fwd, bwd, k1 = schedule_passes(res)
+        for k, v in implied_launches(cfg, fwd + 1, bwd, k1, flash).items():  # + victim
             expected[k] += v
         results.append(res)
         n_grads = len(res.feat_losses) + (0 if res.mlm_losses is None else len(res.mlm_losses))
@@ -418,6 +658,122 @@ def run_main_path(pipe, cfg, tokenizer, paths, answer_max_len):
               f"victim top1={answer_list[int(topk_ids[0, 0])]!r} {dt:.2f} s/sample",
               flush=True)
     return results, counts(), expected
+
+
+def run_batched_path(pipe, cfg, tokenizer, paths, args):
+    """The lockstep sweep over BATCH_SAMPLES as ``run.py`` flushes a buffer
+    (``BatchedAlbefAttack.run``, then the victim through
+    ``evaluate_victim_batch`` in chunks of 16), with the phase timer on (the
+    engine prints its breakdown);
+    returns ``(results, launches, expected launches, seconds)`` with the
+    launch counts reset just before and read just after."""
+    side = SideTables.load([paths["right"]], [paths["sur"]], [paths["tgt"]],
+                           [paths["para"]], [paths["allc"]])
+    answer_list, answer_ids, answer_mask = load_answers(paths, tokenizer, args.answer_max_len,
+                                                        pipe.device)
+    size = cfg.albef.vit.image_size
+    samples = []
+    for i, (qid, question, _, _) in enumerate(BATCH_SAMPLES):
+        info = side.attack_inputs(qid)
+        samples.append({"qid": str(qid), "pixels": sample_pixels(100 + i, size),
+                        "question": question, "paraphrase": info["paraphrase"],
+                        "target_answer": info["target_answer"],
+                        "all_correct_answers": info["all_correct_answers"]})
+    engine = batched.BatchedAlbefAttack(pipe)
+    engine._timer = batched.PhaseTimer(True, pipe.device)
+    mixed, mixed_calls = engine._mixed_loss, []
+    engine._mixed_loss = lambda *a: mixed_calls.append(1) or mixed(*a)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = engine.run(samples, batch_size=args.batch_size,
+                         rng=TorchKey(cfg.seed, pipe.device),
+                         pipeline_depth=args.pipeline_depth)
+    torch.cuda.synchronize()
+    attack_s = time.perf_counter() - t0
+    n_victim = 0
+    top1 = []
+    for start in range(0, len(results), 16):
+        chunk = results[start : start + 16]
+        topk_ids, topk_probs = pipe.evaluate_victim_batch(
+            [r.adv_image for r in chunk], [r.adv_text for r in chunk], answer_ids, answer_mask)
+        n_victim += 1
+        require(topk_ids.shape == (len(chunk), min(cfg.k_test, len(answer_list)))
+                and np.isfinite(topk_probs).all(), "batched victim output")
+        top1 += [answer_list[int(row[0])] for row in topk_ids]
+    torch.cuda.synchronize()
+    launched = counts()
+    wall = time.perf_counter() - t0
+
+    require([r.qid for r in results] == [str(q) for q, *_ in BATCH_SAMPLES],
+            "results not in qid order")
+    require(engine.last_chunk_sizes == [8, 4], f"chunks {engine.last_chunk_sizes}")
+    expected = implied_launches(cfg, n_victim, 0, 0, True)
+    for old_alg, extra in ((0, len(mixed_calls)), (1, 0)):
+        # one chunk per bucket: its real rows share one schedule
+        res = next(r for r in results if r.old_alg == old_alg)
+        for k, v in implied_launches(cfg, *schedule_passes(res, extra), True).items():
+            expected[k] += v
+    for s, r in zip(samples, results):
+        check_result(r, s["pixels"], cfg.attack, size)
+    n_iters = sum(len(r.feat_losses) + (0 if r.mlm_losses is None else len(r.mlm_losses))
+                  for r in results)
+    for r, t in zip(results, top1):
+        print(f"  sample {r.qid}: old_alg={r.old_alg} blocks={r.num_blocks} "
+              f"vl_steps={r.vl_steps} adv_text={r.adv_text!r} victim top1={t!r}", flush=True)
+    print(f"  batched: {len(results)} samples, chunks {engine.last_chunk_sizes}, occupancy "
+          f"{engine.last_occupancy:.3f}, mixed-loss calls {len(mixed_calls)}, attack "
+          f"{attack_s:.2f} s, with the victim {wall:.2f} s: "
+          f"{cfg.attack.num_iters * len(results) / attack_s:.2f} aggregate sample-iterations/s "
+          f"({n_iters} PGD gradient steps counted)", flush=True)
+    return results, launched, expected, attack_s
+
+
+def one_step_ab(pipe, cfg, tokenizer, gen):
+    """One PGD gradient step (feature loss, forward + backward + K1) at batch
+    16 with ``--attn flash`` and ``--attn xla``, after one warm-up each, in
+    the turns flash, xla, xla, flash twice over: the median, the mean and
+    every step's seconds, and the peak device memory of each.  A step's wall
+    time includes the host's enqueueing, which varies from call to call."""
+    b, size, dev = 16, cfg.albef.vit.image_size, pipe.device
+    ori = torch.rand((b, 3, size, size), generator=gen, device=dev) * 2 - 1
+    ids, mask = tokenizer.encode_batch(["what color is the dog"] * b, cfg.attack.max_text_len)
+    ids = torch.as_tensor(ids, dtype=torch.long, device=dev)
+    mask = torch.as_tensor(mask, dtype=torch.long, device=dev)
+    aux = {"text_ids": ids, "text_mask": mask, "ori_ids": ids, "ori_mask": mask,
+           "txt_token_mask": mask.float(), "special_ids": pipe._special}
+    aux.update(pipe._targets_fn(ori, TorchKey(1, dev), aux))
+    atk = cfg.attack
+
+    def step():
+        pgd_feature(pipe._feature_loss, ori, ori, TorchKey(2, dev), aux,
+                    eps=atk.eps, eps_iter=atk.step_size, nb_iter=1)
+
+    out = {"flash": [], "xla": []}
+    peak = {}
+    for impl in ("flash", "xla") + ("flash", "xla", "xla", "flash") * 2:
+        warm = impl not in peak
+        with attention.attention_impl(impl):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        if warm:
+            peak[impl] = torch.cuda.max_memory_allocated()
+        else:
+            out[impl].append(dt)
+        torch.cuda.empty_cache()
+    ab = {impl: {"s_per_step": sum(v) / len(v), "median_s": float(np.median(v)),
+                 "steps_s": v, "peak_bytes": peak[impl]}
+          for impl, v in out.items()}
+    for impl, r in ab.items():
+        print(f"  one gradient step at batch 16, --attn {impl}: median {r['median_s']:.4f} s, "
+              f"mean {r['s_per_step']:.4f} s (min {min(r['steps_s']):.4f}, max "
+              f"{max(r['steps_s']):.4f}), peak memory {r['peak_bytes'] / 2 ** 30:.2f} GiB",
+              flush=True)
+    return ab
 
 
 def main() -> int:
@@ -443,47 +799,74 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     with Phase("kernels against their plain versions"):
-        rows = [check_pgd_update(gen), *check_fused_ln(gen)]
+        flash_rows, flash_b16 = check_flash_attention(gen)
+        rows = [check_pgd_update(gen), *check_fused_ln(gen), *flash_rows]
 
     tmp = tempfile.mkdtemp(prefix="vqattack_chip_smoke_")
     paths = write_assets(tmp)
     out_dir = os.path.join(tmp, "out")
-    args = port_run.build_argparser().parse_args([
+    common = [
         "--vocab", paths["vocab"], "--answer-list", paths["answers"],
         "--right-part", paths["right"], "--surrogate-ans", paths["sur"],
         "--target-ans", paths["tgt"], "--paraphrases", paths["para"],
         "--all-correct", paths["allc"], "--output", out_dir,
         "--seed", str(SEED), "--device", "cuda",
-    ])
+    ]
+    args = port_run.build_argparser().parse_args(common)
+    batch_args = port_run.build_argparser().parse_args(common + [
+        "--batch-size", str(BATCH_SIZE), "--attn", "flash",
+        "--pipeline-depth", str(PIPELINE_DEPTH)])
     cfg = port_run.resolve_config(args)
     require(cfg.albef.vit.fused_ln and cfg.albef.vit.image_size == 480
             and cfg.albef.vit.depth == 12 and cfg.albef.bert.num_layers == 12
+            and cfg.albef.vit.hidden_size == HEADS * HEAD_DIM
             and cfg.attack.num_iters == 40, "not the full-width ALBEF attack config")
     tokenizer = WordPieceTokenizer.from_file(paths["vocab"])
     with Phase("pipeline (random full-width weights)"):
         pipe = port_run._build_pipeline(args, cfg, tokenizer)
-    with Phase("model: kernels against plain LayerNorms"):
+    with Phase("model: kernels against plain LayerNorms and attention"):
         check_model(cfg, pipe.surrogate, gen)
+        check_model_flash(pipe.surrogate, gen)
 
-    with Phase("main path: per-sample ALBEF attack, 2 samples"):
+    with Phase("per-sample path: ALBEF attack, 2 samples, --attn xla"):
         results, launched, expected = run_main_path(pipe, cfg, tokenizer, paths,
                                                     args.answer_max_len)
     require(sorted(r.old_alg for r in results) == [0, 1], "both PGD paths must run")
     for k, n in launched.items():
-        require(n > 0, f"{k} was not launched on the main path")
-        require(n == expected[k], f"{k}: {n} launches, the schedules imply {expected[k]}")
+        require(n == expected[k], f"per-sample {k}: {n} launches, the schedules imply "
+                                  f"{expected[k]}")
+        require(n > 0 or k.startswith("flash"), f"{k} was not launched on the per-sample path")
     save_artifacts(results, out_dir)
     for r in results:
         for ext in (".pt", ".npy"):
             require(os.path.exists(os.path.join(out_dir, r.qid + ext)), f"artifact {r.qid}{ext}")
     require(os.path.exists(os.path.join(out_dir, "adv_txt_dict.json")), "adversarial-text json")
-    shutil.rmtree(tmp)
+
+    with Phase(f"batched path: {len(BATCH_SAMPLES)} samples, --batch-size {BATCH_SIZE} "
+               f"--attn flash --pipeline-depth {PIPELINE_DEPTH}"):
+        with attention.attention_impl(batch_args.attn):
+            b_results, b_launched, b_expected, _ = run_batched_path(
+                pipe, cfg, tokenizer, paths, batch_args)
+    require(sorted({r.old_alg for r in b_results}) == [0, 1], "both PGD paths must run")
+    for k, n in b_launched.items():
+        require(n > 0, f"{k} was not launched on the batched path")
+        require(n == b_expected[k], f"batched {k}: {n} launches, the schedules imply "
+                                    f"{b_expected[k]}")
+
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    with Phase("one gradient step at batch 16: --attn flash against --attn xla"):
+        ab = one_step_ab(pipe, cfg, tokenizer, gen)
 
     for row in rows:
-        row["launches"] = launched[row["name"]]
+        row["launches"] = b_launched[row["name"]]
     print(f"wall: {time.perf_counter() - t_start:.1f} s since start", flush=True)
-    print(json.dumps({"kernel_launches": launched}), flush=True)
+    print(json.dumps({"kernel_launches": {"per_sample": launched, "batched": b_launched}}),
+          flush=True)
+    print(json.dumps({"attn_ab_batch16": ab}), flush=True)
+    print(json.dumps({"flash_attention_batch16": flash_b16}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
+    print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

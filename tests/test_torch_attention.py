@@ -1,0 +1,180 @@
+"""Flash attention (kernel K3's plain versions) against the JAX package:
+the library kernel's own oracle behind the JAX wrapper's padding and bias
+preparation, the JAX einsum path of ``MultiHeadAttention``, ``jax.grad`` of
+that path for the backward written from the log-sum-exp, and the port's
+``MultiHeadAttention`` flash branch against its product + softmax path on a
+tiny ViT with more than 128 tokens."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas.ops.tpu.flash_attention import SegmentIds, mha_reference
+
+from torch_port_util import nchw
+from vqattack_tpu import config as jcfg
+from vqattack_tpu.models.layers import MultiHeadAttention as JMultiHeadAttention
+from vqattack_tpu.models.vit import VisionTransformer as JVisionTransformer
+from vqattack_tpu.ops.attention import _prepare
+from vqattack_tpu_torch import config as tcfg
+from vqattack_tpu_torch.checkpoint.convert import load_jax_params
+from vqattack_tpu_torch.models.layers import MultiHeadAttention
+from vqattack_tpu_torch.models.vit import VisionTransformer
+from vqattack_tpu_torch.ops import attention
+
+T = torch.from_numpy
+B, H, DH = 2, 2, 64
+SCALE = DH ** -0.5
+
+
+def _qkv(s: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(B, s, H, DH)).astype(np.float32) for _ in range(3)]
+
+
+def _bias(kind: str, s: int, seed: int):
+    rng = np.random.default_rng(seed + 100)
+    if kind == "dense":  # the VLMo relative-position form
+        return (rng.normal(size=(B, H, s, s)) * 0.5).astype(np.float32)
+    if kind == "key_mask":  # a [B, 1, 1, S] key mask, the last key masked
+        mask = np.ones((B, s), np.float32)
+        if s > 1:
+            mask[1, -1] = 0.0
+        return np.where(mask > 0, 0.0, -1e9).astype(np.float32)[:, None, None, :]
+    return None
+
+
+def _jax_einsum(q, k, v, bias):
+    """The einsum path of the JAX ``MultiHeadAttention`` (``layers.py``)."""
+    attn = jnp.einsum("bqhd,bkhd->bhqk", q * SCALE, k)
+    if bias is not None:
+        attn = attn + bias
+    return jnp.einsum("bhqk,bkhd->bqhd", jax.nn.softmax(attn, axis=-1), v)
+
+
+CASES = [(s, kind) for s in (1, 130) for kind in ("none", "dense", "key_mask")]
+
+
+@pytest.mark.parametrize("s,kind", CASES)
+def test_flash_attention_matches_the_library_oracle(s, kind):
+    """The port's ``flash_attention`` (the plain path on the CPU) against the
+    JAX wrapper's ``_prepare`` (padding to 128 with segment ids, or the
+    pre-divided dense bias with its key pad) and the library kernel's
+    ``mha_reference``, sliced back to ``Sq``.  Tolerance 2e-5 absolute on
+    outputs of order 1, the bound the JAX package's own test gives this
+    oracle: float32 sums over up to 130 keys in another order."""
+    q, k, v = _qkv(s, seed=s)
+    bias = _bias(kind, s, seed=s)
+    qt, kt, vt, ab, seg, sq = _prepare(q, k, v, None if bias is None else jnp.asarray(bias), SCALE)
+    ref = mha_reference(qt, kt, vt, ab, segment_ids=None if seg is None else SegmentIds(*seg),
+                        sm_scale=SCALE)
+    ref = np.asarray(ref)[:, :, :sq].transpose(0, 2, 1, 3)
+    out = attention.flash_attention(T(q), T(k), T(v), None if bias is None else T(bias), SCALE)
+    assert out.shape == (B, s, H, DH)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("s,kind", CASES)
+def test_flash_attention_and_its_backward_match_the_einsum_path(s, kind):
+    """Forward against the JAX einsum path; the log-sum-exp backward
+    (``flash_attention_bwd_reference``, the kernel's algorithm) against
+    ``jax.vjp`` of that path for dq, dk and dv.  Tolerance 1e-5 relative to
+    each tensor's largest magnitude, and at least 1e-5: float32
+    reassociation over at most 130 keys or queries, and P recomputed as
+    exp(S - L) instead of the softmax's exp(S - max) / sum.  (With one key,
+    dq and dk are exactly 0 and what is computed is the rounding residue of
+    P * (dO V^T - D), whose terms are of order 1.)"""
+    q, k, v = _qkv(s, seed=10 + s)
+    bias = _bias(kind, s, seed=10 + s)
+    jb = None if bias is None else jnp.asarray(bias)
+    tb = None if bias is None else T(bias)
+    do = np.random.default_rng(20 + s).normal(size=(B, s, H, DH)).astype(np.float32)
+    j_out, vjp = jax.vjp(lambda q, k, v: _jax_einsum(q, k, v, jb), q, k, v)
+    j_grads = vjp(jnp.asarray(do))
+
+    o, lse = attention.flash_attention_reference(T(q), T(k), T(v), tb, SCALE, return_lse=True)
+    assert lse.shape == (B, H, s)
+    np.testing.assert_allclose(o.numpy(), np.asarray(j_out), rtol=0, atol=1e-5)
+    t_grads = attention.flash_attention_bwd_reference(T(q), T(k), T(v), tb, SCALE, o, lse, T(do))
+    for name, t, j in zip(("dq", "dk", "dv"), t_grads, j_grads):
+        j = np.asarray(j)
+        np.testing.assert_allclose(t.numpy(), j, rtol=0, atol=1e-5 * max(np.abs(j).max(), 1.0),
+                                   err_msg=name)
+
+
+def test_multihead_attention_flash_branch_matches_the_jax_einsum_path():
+    """The port's ``MultiHeadAttention`` under ``attention_impl("flash")`` at
+    130 queries (the flash branch: q/k/v handed over as [B, S, H, Dh] views)
+    against the JAX module's einsum path on the same weights, with a key
+    mask.  Tolerance 1e-5 relative to the output's largest magnitude."""
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(B, 130, H * DH)).astype(np.float32)
+    bias = _bias("key_mask", 130, seed=3)
+    j_mha = JMultiHeadAttention(num_heads=H, head_dim=DH, out_dim=H * DH)
+    params = jax.jit(j_mha.init)(jax.random.key(0), x)
+    ref = np.asarray(j_mha.apply(params, x, bias=jnp.asarray(bias)))
+    t_mha = load_jax_params(MultiHeadAttention(H * DH, H), jax.device_get(params))
+    calls = []
+    real = attention.flash_attention
+
+    def spy(*a):
+        calls.append(a[0].shape)
+        return real(*a)
+
+    attention.flash_attention = spy
+    try:
+        with attention.attention_impl("flash"), torch.no_grad():
+            out = t_mha(T(x), bias=T(bias)).numpy()
+    finally:
+        attention.flash_attention = real
+    assert calls == [(B, 130, H, DH)]
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+
+
+def test_tiny_vit_flash_equals_xla_and_matches_jax():
+    """A tiny ViT at 192 px (145 tokens, width 32): the port's features and
+    their pixel gradient under ``attention_impl("flash")`` equal its
+    ``"xla"`` path, and both match the JAX ViT on the ``"xla"`` path (its
+    flash path needs a TPU).  Tolerance 1e-5 relative to each tensor's
+    largest magnitude (float32 reassociation over 2 blocks)."""
+    jvit = dataclasses.replace(jcfg.tiny_test_config().albef.vit, image_size=192)
+    tvit = dataclasses.replace(tcfg.tiny_test_config().albef.vit, image_size=192)
+    px = np.random.default_rng(4).uniform(-1, 1, (1, 192, 192, 3)).astype(np.float32)
+    j_model = JVisionTransformer(jvit)
+    params = jax.jit(j_model.init)(jax.random.key(1), px)
+    _, j_feats = j_model.apply(params, px)
+    model = load_jax_params(VisionTransformer(tvit), jax.device_get(params)).eval()
+    model.requires_grad_(False)
+    outs = {}
+    for impl in ("xla", "flash"):
+        p = T(nchw(px)).requires_grad_(True)
+        with attention.attention_impl(impl):
+            out, feats = model(p)
+            (g,) = torch.autograd.grad(feats.square().mean() + out.square().mean(), p)
+        outs[impl] = (feats.detach().numpy(), g.numpy())
+    assert outs["flash"][0].shape == (1, 3, 145, 32)
+    for a, b in zip(outs["flash"], outs["xla"]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * np.abs(b).max())
+    j_feats = np.asarray(j_feats)
+    np.testing.assert_allclose(outs["flash"][0], j_feats, rtol=0,
+                               atol=1e-5 * np.abs(j_feats).max())
+
+
+def test_backend_selection_and_kernel_wrapper_refusals():
+    assert attention.get_impl() == "xla"
+    with attention.attention_impl("flash"):
+        assert attention.get_impl() == "flash"
+    assert attention.get_impl() == "xla"
+    with pytest.raises(ValueError, match="unknown attention backend"):
+        attention.set_impl("pallas")
+    q = torch.zeros(1, 4, 1, DH)
+    # the kernel wrappers take CUDA tensors only; flash_attention routes a
+    # CPU tensor to the plain version instead
+    with pytest.raises(ValueError, match="expected cuda"):
+        attention.flash_attention_fwd(q, q, q, None, SCALE)
+    assert attention.flash_attention(q, q, q, None, SCALE).shape == (1, 4, 1, DH)

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from vqattack_tpu_torch.attacks.pgd import _update
-from vqattack_tpu_torch.ops import fused_ln, pgd_update
+from vqattack_tpu_torch.ops import attention, fused_ln, pgd_update
 
 pytestmark = pytest.mark.cuda
 
@@ -21,6 +21,7 @@ pytestmark = pytest.mark.cuda
 def gen():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in float32
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
     return g
@@ -76,3 +77,83 @@ def test_residual_layernorm_kernels(gen, rows, dtype):
                                                             param_grads=False)
     assert dgn is None and dbn is None
     torch.testing.assert_close(dxn.float(), dxn_r.float(), **tol)
+
+
+def _attention_case(gen, b, sq, sk, kind, h=4):
+    """q, k, v as [B, S, H, 64] views of packed projections (strided, as the
+    model hands them over), and a bias of the given broadcast form."""
+    def packed(s):
+        return torch.randn(b, s, 3, h, 64, generator=gen, device="cuda")
+    q = packed(sq)[:, :, 0]
+    kv = packed(sk)
+    k, v = kv[:, :, 1], kv[:, :, 2]
+    bias = None
+    if kind == "table":  # the VLMo form: one [1, H, Sq, Sk] table
+        bias = torch.randn(1, h, sq, sk, generator=gen, device="cuda") * 0.5
+    elif kind == "key_mask":  # [B, 1, 1, Sk], a third of the keys masked
+        keep = torch.rand(b, sk, generator=gen, device="cuda") > 0.33
+        keep[:, 0] = True
+        bias = torch.where(keep, 0.0, -1e9)[:, None, None, :]
+    elif kind == "left_pad":  # [B, 1, 1, Sk], the first 70 keys at -inf:
+        # every row's first key tile is masked whole
+        keep = torch.arange(sk, device="cuda") >= 70
+        bias = torch.where(keep, 0.0, -torch.inf).expand(b, sk)[:, None, None, :]
+    return q, k, v, bias
+
+
+def _close(got, ref, what):
+    """Within 2e-5 of the reference's largest magnitude (at least 1): float32
+    sums over up to 901 keys or queries in another order than cuBLAS's."""
+    tol = 2e-5 * max(1.0, float(ref.abs().max()))
+    err = float((got - ref).abs().max())
+    assert err <= tol, f"{what}: max abs err {err} > {tol}"
+
+
+@pytest.mark.parametrize("b,sq,sk,kind", [
+    (2, 1, 1, "none"), (2, 63, 63, "none"), (2, 130, 130, "none"), (1, 901, 901, "none"),
+    (2, 200, 77, "none"), (2, 130, 130, "table"), (2, 130, 130, "key_mask"),
+    (1, 901, 901, "key_mask"), (2, 130, 130, "left_pad"), (1, 901, 901, "left_pad"),
+])
+def test_flash_attention_kernels(gen, b, sq, sk, kind):
+    """K3 forward (output and log-sum-exp) and backward against the plain
+    versions, ragged lengths, both bias forms and a -inf key mask; the backward is the same
+    bit for bit on every run."""
+    q, k, v, bias = _attention_case(gen, b, sq, sk, kind)
+    scale = 64 ** -0.5
+    o, lse = attention.flash_attention_fwd(q, k, v, bias, scale)
+    o_r, lse_r = attention.flash_attention_reference(q, k, v, bias, scale, return_lse=True)
+    _close(o, o_r, "o")
+    _close(lse, lse_r, "lse")
+    do = torch.randn(o.shape, generator=gen, device="cuda")
+    grads = attention.flash_attention_bwd(q, k, v, bias, scale, o, lse, do)
+    again = attention.flash_attention_bwd(q, k, v, bias, scale, o, lse, do)
+    refs = attention.flash_attention_bwd_reference(q, k, v, bias, scale, o, lse, do)
+    for name, g, g2, r in zip(("dq", "dk", "dv"), grads, again, refs):
+        assert g.shape == r.shape
+        assert torch.equal(g, g2), f"{name} differs between two runs"
+        _close(g, r, name)
+
+
+def test_flash_attention_autograd_and_refusals(gen):
+    """The autograd Function against autograd through the plain version, one
+    launch of each kernel per call; and the wrapper refuses what the kernel
+    does not take."""
+    q, k, v, bias = _attention_case(gen, 2, 150, 150, "key_mask")
+    w = torch.randn(2, 150, 4, 64, generator=gen, device="cuda")
+    grads = []
+    for fn in (attention.flash_attention, attention.flash_attention_reference):
+        xs = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        fwd, bwd = attention.flash_attention_fwd.launches, attention.flash_attention_bwd.launches
+        out = fn(*xs, bias, 0.125)
+        grads.append(torch.autograd.grad((out * w).sum(), xs))
+        if fn is attention.flash_attention:
+            assert attention.flash_attention_fwd.launches == fwd + 1
+            assert attention.flash_attention_bwd.launches == bwd + 1
+    for name, a, r in zip(("dq", "dk", "dv"), *grads):
+        _close(a, r, name)
+    with pytest.raises(ValueError, match="64"):
+        attention.flash_attention(q[..., :32], k[..., :32], v[..., :32], None, 0.125)
+    with pytest.raises(TypeError):
+        attention.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), None, 0.125)
+    with pytest.raises(ValueError, match="no gradient"):
+        attention.flash_attention(q, k, v, bias.clone().requires_grad_(True), 0.125)

@@ -6,8 +6,6 @@ and the import hygiene of the port."""
 from __future__ import annotations
 
 import ast
-import dataclasses
-import importlib.util
 import json
 import os
 import shutil
@@ -21,7 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import WORDS, JaxKey, nchw, nhwc, tiny_configs, tiny_models
+from torch_port_util import (WORDS, JaxKey, nchw, nhwc, synth_cli_assets, tiny_configs,
+                             tiny_models)
 from vqattack_tpu.attacks.orchestrator import AlbefAttackPipeline as JPipeline
 from vqattack_tpu.text.similarity import NullGate as JNullGate
 from vqattack_tpu.text.tokenizer import WordPieceTokenizer as JTokenizer
@@ -84,40 +83,9 @@ def test_attack_sample_matches_jax(pipelines, paraphrase, answer):
     np.testing.assert_array_equal(t_ids, np.asarray(j_ids))
 
 
-def _synth_assets(tmp: Path) -> list:
-    """The assets of scripts/make_synth_assets.py (its vocab and JPEG
-    writers) for a one-sample run, plus a tiny RunConfig json."""
-    spec = importlib.util.spec_from_file_location("make_synth_assets",
-                                                  ROOT / "scripts" / "make_synth_assets.py")
-    synth = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(synth)
-    synth.make_vocab(str(tmp / "vocab.txt"))
-    synth.make_image(str(tmp / "img0.jpg"), size=40)
-    qid, q, ans, para = 1001, "what color is the dog", "red", "the dog is red"
-    files = {
-        "ann.json": [{"image": "img0.jpg", "question": q, "question_id": qid,
-                      "answer": [ans] * 10}],
-        "answers.json": ["red", "blue", "green", "dog"],
-        "sur.json": {str(qid): ans}, "tgt.json": {str(qid): ans},
-        "para.json": {str(qid): [ans, para]}, "allc.json": {str(qid): [ans]},
-    }
-    for name, obj in files.items():
-        (tmp / name).write_text(json.dumps(obj))
-    (tmp / "right.txt").write_text(f"{qid}\n")
-    cfg = tcfg.tiny_test_config(vocab_size=30522)
-    cfg = dataclasses.replace(cfg, attack=dataclasses.replace(cfg.attack, max_text_len=12),
-                              k_test=3)
-    tcfg.save_config(cfg, str(tmp / "cfg.json"))
-    return ["--config", str(tmp / "cfg.json"), "--vocab", str(tmp / "vocab.txt"),
-            "--ann", str(tmp / "ann.json"), "--image-root", str(tmp),
-            "--answer-list", str(tmp / "answers.json"), "--right-part", str(tmp / "right.txt"),
-            "--surrogate-ans", str(tmp / "sur.json"), "--target-ans", str(tmp / "tgt.json"),
-            "--paraphrases", str(tmp / "para.json"), "--all-correct", str(tmp / "allc.json"),
-            "--output", str(tmp / "out"), "--limit", "1", "--device", "cpu"]
-
-
 def test_cli_runs_on_cpu(tmp_path, capsys):
-    argv = _synth_assets(tmp_path)
+    argv = synth_cli_assets(tmp_path, [(1001, "what color is the dog", "red", "the dog is red")])
+    argv += ["--limit", "1"]
     summary = port_run.main(argv)
     assert summary["samples"] == 1 and summary["device"] == "cpu"
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == summary

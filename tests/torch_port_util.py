@@ -4,12 +4,16 @@
   package's ``jax.random`` draws, so both packages see the same noise;
 - tiny ALBEF geometry and models built in both packages with the same
   weights (flax init -> ``load_jax_params``);
-- layout helpers: the port's pixels are NCHW, the JAX package's NHWC.
+- layout helpers: the port's pixels are NCHW, the JAX package's NHWC;
+- :func:`synth_cli_assets`: synthetic data and side tables for a CLI run.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
+import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -110,3 +114,42 @@ def tiny_models(jc, tc, seed: int = 0, victim: bool = True, mlm: bool = True):
         t_mlm_cfg = dataclasses.replace(tc.albef.bert, fusion_layer=tc.albef.bert.num_layers)
         t_mlm = load_jax_params(FusionBert(t_mlm_cfg, with_mlm_head=True), _host(p_mlm)).eval()
     return (j_sur, j_vic, j_mlm), (p_sur, p_vic, p_mlm), (t_sur, t_vic, t_mlm)
+
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def synth_cli_assets(tmp: Path, samples, image_size: int = 32) -> list:
+    """The assets of scripts/make_synth_assets.py (its vocab and JPEG
+    writers) for a CLI run over ``samples`` = ``[(qid, question, answer,
+    paraphrase or None), ...]``, all on one image, plus a tiny RunConfig json
+    at ``image_size``.  Returns the CLI arguments, ``--device cpu``
+    included."""
+    spec = importlib.util.spec_from_file_location("make_synth_assets",
+                                                  ROOT / "scripts" / "make_synth_assets.py")
+    synth = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(synth)
+    synth.make_vocab(str(tmp / "vocab.txt"))
+    synth.make_image(str(tmp / "img0.jpg"), size=image_size + 8)
+    files = {
+        "ann.json": [{"image": "img0.jpg", "question": q, "question_id": qid,
+                      "answer": [ans] * 10} for qid, q, ans, _ in samples],
+        "answers.json": ["red", "blue", "green", "dog"],
+        "sur.json": {str(qid): ans for qid, _, ans, _ in samples},
+        "tgt.json": {str(qid): ans for qid, _, ans, _ in samples},
+        "para.json": {str(qid): [ans, para] for qid, _, ans, para in samples if para},
+        "allc.json": {str(qid): [ans] for qid, _, ans, _ in samples},
+    }
+    for name, obj in files.items():
+        (tmp / name).write_text(json.dumps(obj))
+    (tmp / "right.txt").write_text("".join(f"{qid}\n" for qid, *_ in samples))
+    cfg = tcfg.tiny_test_config(image_size=image_size, vocab_size=30522)
+    cfg = dataclasses.replace(cfg, attack=dataclasses.replace(cfg.attack, max_text_len=12),
+                              k_test=3)
+    tcfg.save_config(cfg, str(tmp / "cfg.json"))
+    return ["--config", str(tmp / "cfg.json"), "--vocab", str(tmp / "vocab.txt"),
+            "--ann", str(tmp / "ann.json"), "--image-root", str(tmp),
+            "--answer-list", str(tmp / "answers.json"), "--right-part", str(tmp / "right.txt"),
+            "--surrogate-ans", str(tmp / "sur.json"), "--target-ans", str(tmp / "tgt.json"),
+            "--paraphrases", str(tmp / "para.json"), "--all-correct", str(tmp / "allc.json"),
+            "--output", str(tmp / "out"), "--device", "cpu"]

@@ -40,6 +40,28 @@ from vqattack_tpu_torch.text.similarity import SimilarityGate, pad_to_bucket
 from vqattack_tpu_torch.text.tokenizer import WordPieceTokenizer
 
 
+def pad_eval_batch(
+    adv_images: Sequence[np.ndarray],
+    adv_texts: Sequence[str],
+    tokenizer: WordPieceTokenizer,
+    max_text_len: int,
+    device: torch.device,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """A victim-eval batch padded to a power of two: ``(pixels [P, 3, H, W],
+    ids [P, S], mask [P, S], n_real)``; callers slice results ``[:n_real]``.
+    Padding rows repeat the last image with an empty question."""
+    padded_texts, n = pad_to_bucket(list(adv_texts))
+    pad = len(padded_texts) - n
+    px = np.concatenate(list(adv_images) + [adv_images[-1]] * pad, axis=0)
+    ids, mask = tokenizer.encode_batch(padded_texts, max_text_len)
+
+    def as_long(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.long, device=device)
+
+    return (torch.as_tensor(px, dtype=torch.float32, device=device),
+            as_long(ids), as_long(mask), n)
+
+
 @dataclasses.dataclass
 class AttackResult:
     qid: str
@@ -269,17 +291,27 @@ class AlbefAttackPipeline:
 
     # ------------------------------------------------------------------ eval
 
-    @torch.no_grad()
     def evaluate_victim(self, adv_image, adv_text: str, answer_ids: torch.Tensor,
                         answer_mask: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
         """The victim's ranked answers on the adversarial pair
         (``adv_attack.py:717-733``); ``k_test`` clamps to the answer count."""
-        ids, mask = self.encode(adv_text)
+        return self.evaluate_victim_batch([adv_image], [adv_text], answer_ids, answer_mask)
+
+    @torch.no_grad()
+    def evaluate_victim_batch(self, adv_images: Sequence[np.ndarray], adv_texts: Sequence[str],
+                              answer_ids: torch.Tensor, answer_mask: torch.Tensor
+                              ) -> Tuple[np.ndarray, np.ndarray]:
+        """:meth:`evaluate_victim` for N pairs (each image ``[1, 3, H, W]``) in
+        ONE ``rank_answer`` call over the power-of-two-padded batch; returns
+        ``(topk_ids [N, k], topk_probs [N, k])``."""
         k = min(self.cfg.k_test, int(answer_ids.shape[0]))
-        px = torch.as_tensor(np.asarray(adv_image), dtype=torch.float32, device=self.device)
+        if not adv_texts:
+            return np.zeros((0, k), np.int64), np.zeros((0, k), np.float32)
+        px, ids, mask, n = pad_eval_batch(adv_images, adv_texts, self.tokenizer,
+                                          self.cfg.attack.max_text_len, self.device)
         topk_ids, topk_probs = self.victim(px, ids, mask, answer_ids.to(self.device),
                                            answer_mask.to(self.device), k)
-        return topk_ids.cpu().numpy(), topk_probs.cpu().numpy()
+        return topk_ids[:n].cpu().numpy(), topk_probs[:n].cpu().numpy()
 
 
 def save_artifacts(results: Sequence[AttackResult], out_dir: str,

@@ -25,6 +25,7 @@ values come back to the host.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -274,6 +275,8 @@ def select_substitutions_multi(
     embed_texts_fn: Callable[[Sequence[str]], np.ndarray],
     gate_pairs_fn: Callable[[Sequence[str], Sequence[str]], np.ndarray],
     max_length: int = 25,
+    question_suffix: str = "",
+    timer=None,
 ) -> List[Tuple[str, List[Tuple[str, str]]]]:
     """Substitution selection for a whole lockstep bucket at once.
 
@@ -293,80 +296,95 @@ def select_substitutions_multi(
       ``1 + max_over_samples(#acceptances)`` instead of
       ``sum(#candidates)``.
 
+    ``question_suffix``: the VLMo dialect strips a trailing ``?`` off the
+    question before word-splitting and re-appends it to every candidate, gate
+    and returned sentence; ALBEF passes ``""``.  ``timer``: an optional
+    ``PhaseTimer`` that splits the wall into ``sub_build``, ``sub_embed``,
+    ``sub_rank``, ``sub_walk`` and ``sub_gate``.
+
     Returns one ``(new_adv_text, ops)`` per request, in order.
     """
+    def _p(name: str):
+        return timer.phase(name) if timer is not None else contextlib.nullcontext()
+
     def _finish(words: Sequence[str]) -> str:
-        return " ".join(words)
+        return " ".join(words) + question_suffix
 
     results: List[Optional[Tuple[str, List[Tuple[str, str]]]]] = [None] * len(requests)
     walks: List[dict] = []
     all_sentences: List[str] = []
 
-    for ri, req in enumerate(requests):
-        adv_words = [w for w in req.adv_text.replace("\n", "").lower().split(" ") if w]
-        ori_words = list(adv_words)
+    with _p("sub_build"):
+        for ri, req in enumerate(requests):
+            adv_text = req.adv_text
+            if question_suffix:
+                adv_text = adv_text.strip(question_suffix)
+            adv_words = [w for w in adv_text.replace("\n", "").lower().split(" ") if w]
+            ori_words = list(adv_words)
 
-        # build every candidate sentence (word wi replaced by candidate c)
-        entries: List[Tuple[int, int, int, int]] = []  # (wi, ci, grad_row, pos)
-        sentences: List[str] = []
-        max_pos = min(max_length, req.ori_emb.shape[0]) - 1  # pre-[SEP] slot
-        drift = False
-        for p, (wi, pos) in enumerate(
-            zip(req.cands.attack_word_indices, req.cands.attack_positions)
-        ):
-            if wi >= len(adv_words):
-                # tokenization drift (reference 'onebug' guard,
-                # adv_attack.py:280-283)
-                drift = True
-                break
-            if pos >= max_pos:
-                # word lies past the surrogate's text truncation: its
-                # embedding row does not exist (the vl-step gather clamps on
-                # device), so it can't be scored — skip it, keeping grad-row
-                # alignment via p
+            # build every candidate sentence (word wi replaced by candidate c)
+            entries: List[Tuple[int, int, int, int]] = []  # (wi, ci, grad_row, pos)
+            sentences: List[str] = []
+            max_pos = min(max_length, req.ori_emb.shape[0]) - 1  # pre-[SEP] slot
+            drift = False
+            for p, (wi, pos) in enumerate(
+                zip(req.cands.attack_word_indices, req.cands.attack_positions)
+            ):
+                if wi >= len(adv_words):
+                    # tokenization drift (reference 'onebug' guard,
+                    # adv_attack.py:280-283)
+                    drift = True
+                    break
+                if pos >= max_pos:
+                    # word lies past the surrogate's text truncation: its
+                    # embedding row does not exist (the vl-step gather clamps on
+                    # device), so it can't be scored — skip it, keeping grad-row
+                    # alignment via p
+                    continue
+                for ci, cand in enumerate(req.cands.candidate_lists[wi]):
+                    trial = list(adv_words)
+                    trial[wi] = cand
+                    sentences.append(_finish(trial))
+                    entries.append((wi, ci, p, pos))
+            if drift:
+                results[ri] = (_finish(ori_words), [])
                 continue
-            for ci, cand in enumerate(req.cands.candidate_lists[wi]):
-                trial = list(adv_words)
-                trial[wi] = cand
-                sentences.append(_finish(trial))
-                entries.append((wi, ci, p, pos))
-        if drift:
-            results[ri] = (_finish(ori_words), [])
-            continue
-        if not sentences:
-            results[ri] = (_finish(adv_words), [])
-            continue
-        walks.append(
-            {
-                "ri": ri,
-                "req": req,
-                "ori_words": ori_words,
-                "entries": entries,
-                "slice": (len(all_sentences), len(sentences)),
-                "current": list(adv_words),
-                "occupied": set(),
-                "ops": [],
-                "threshold": req.sim_threshold,
-                "k": 0,
-                "scores": {},
-            }
-        )
-        all_sentences.extend(sentences)
+            if not sentences:
+                results[ri] = (_finish(adv_words), [])
+                continue
+            walks.append(
+                {
+                    "ri": ri,
+                    "req": req,
+                    "ori_words": ori_words,
+                    "entries": entries,
+                    "slice": (len(all_sentences), len(sentences)),
+                    "current": list(adv_words),
+                    "occupied": set(),
+                    "ops": [],
+                    "threshold": req.sim_threshold,
+                    "k": 0,
+                    "scores": {},
+                }
+            )
+            all_sentences.extend(sentences)
 
     if walks:
         # one batched embedding call scores every sample's candidates
-        embs_all = np.asarray(embed_texts_fn(all_sentences))  # [N, S, D]
-    for w in walks:
-        start, count = w["slice"]
-        embs = embs_all[start : start + count]
-        req, entries = w["req"], w["entries"]
-        dir_sims = np.empty(len(entries), np.float32)
-        for n, (wi, ci, p, pos) in enumerate(entries):
-            d = embs[n, pos] - req.ori_emb[pos]
-            g = req.text_grad[p]
-            denom = max(np.linalg.norm(d) * np.linalg.norm(g), 1e-6)
-            dir_sims[n] = float(np.dot(d, g) / denom)
-        w["order"] = [int(n) for n in np.argsort(-dir_sims)]
+        with _p("sub_embed"):
+            embs_all = np.asarray(embed_texts_fn(all_sentences))  # [N, S, D]
+    with _p("sub_rank"):
+        for w in walks:
+            start, count = w["slice"]
+            embs = embs_all[start : start + count]
+            req, entries = w["req"], w["entries"]
+            dir_sims = np.empty(len(entries), np.float32)
+            for n, (wi, ci, p, pos) in enumerate(entries):
+                d = embs[n, pos] - req.ori_emb[pos]
+                g = req.text_grad[p]
+                denom = max(np.linalg.norm(d) * np.linalg.norm(g), 1e-6)
+                dir_sims[n] = float(np.dot(d, g) / denom)
+            w["order"] = [int(n) for n in np.argsort(-dir_sims)]
 
     # greedy rounds: round g gates every walk's generation-g trials at once
     pending = walks
@@ -374,20 +392,22 @@ def select_substitutions_multi(
         refs: List[str] = []
         texts: List[str] = []
         owners: List[Tuple[dict, int]] = []
-        for w in pending:
-            w["scores"] = {}
-            for n in w["order"][w["k"] :]:
-                wi, ci, _, _ = w["entries"][n]
-                if wi in w["occupied"]:
-                    continue
-                trial = list(w["current"])
-                trial[wi] = w["req"].cands.candidate_lists[wi][ci]
-                refs.append(w["req"].ori_text)
-                texts.append(_finish(trial))
-                owners.append((w, n))
+        with _p("sub_walk"):
+            for w in pending:
+                w["scores"] = {}
+                for n in w["order"][w["k"] :]:
+                    wi, ci, _, _ = w["entries"][n]
+                    if wi in w["occupied"]:
+                        continue
+                    trial = list(w["current"])
+                    trial[wi] = w["req"].cands.candidate_lists[wi][ci]
+                    refs.append(w["req"].ori_text)
+                    texts.append(_finish(trial))
+                    owners.append((w, n))
         if not texts:
             break
-        sims = np.asarray(gate_pairs_fn(refs, texts), np.float32)
+        with _p("sub_gate"):
+            sims = np.asarray(gate_pairs_fn(refs, texts), np.float32)
         for (w, n), s in zip(owners, sims):
             w["scores"][n] = float(s)
 

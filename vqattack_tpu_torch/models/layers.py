@@ -4,7 +4,8 @@ Port of ``vqattack_tpu/models/layers.py``.  Sub-module names follow the flax
 modules (``query``/``key``/``value``/``proj``, ``fc1``/``fc2``,
 ``norm1``/``norm2``), so ``checkpoint/convert.py`` maps one tree onto the
 other by name.  Attention is the explicit product + softmax of the JAX
-einsum path; the flash kernel (``--attn flash``) is not ported yet.
+einsum path, or under ``attention_impl("flash")`` (``--attn flash``) the
+flash kernel K3 for sequences of at least 128 queries (``ops/attention.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vqattack_tpu_torch.ops import attention
 from vqattack_tpu_torch.ops.fused_ln import residual_layernorm
 
 NEG_INF = -1e9  # additive-mask fill, as in the JAX package
@@ -83,15 +85,21 @@ class MultiHeadAttention(nn.Module):
         b, sq, _ = x.shape
         sk = kv.shape[1]
         h, dh = self.num_heads, self.head_dim
-        # [B, S, H*Dh] -> [B, H, S, Dh]
-        q = self.query(x).view(b, sq, h, dh).transpose(1, 2)
-        k = self.key(kv).view(b, sk, h, dh).transpose(1, 2)
-        v = self.value(kv).view(b, sk, h, dh).transpose(1, 2)
-        attn = torch.matmul(q * dh ** -0.5, k.transpose(-1, -2))
-        if bias is not None:
-            attn = attn + bias.to(attn.dtype)
-        attn = torch.softmax(attn.to(self.softmax_dtype), dim=-1).to(q.dtype)
-        out = torch.matmul(attn, v).transpose(1, 2).reshape(b, sq, h * dh)
+        # [B, S, H*Dh] -> [B, S, H, Dh] views, no copy
+        q = self.query(x).view(b, sq, h, dh)
+        k = self.key(kv).view(b, sk, h, dh)
+        v = self.value(kv).view(b, sk, h, dh)
+        if attention.get_impl() == "flash" and sq >= 128:
+            out = attention.flash_attention(q, k, v, bias, dh ** -0.5)
+        else:
+            # [B, H, S, Dh]
+            q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            attn = torch.matmul(q * dh ** -0.5, k.transpose(-1, -2))
+            if bias is not None:
+                attn = attn + bias.to(attn.dtype)
+            attn = torch.softmax(attn.to(self.softmax_dtype), dim=-1).to(q.dtype)
+            out = torch.matmul(attn, v).transpose(1, 2)
+        out = out.reshape(b, sq, h * dh)
         return out if self.proj is None else self.proj(out)
 
 

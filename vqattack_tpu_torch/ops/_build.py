@@ -20,12 +20,13 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("pgd_update.cu", "fused_ln.cu")
+SOURCES = ("pgd_update.cu", "fused_ln.cu", "flash_attention.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -38,6 +39,11 @@ SIGNATURES = {
     "vq_residual_layernorm_fwd": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
     "vq_residual_layernorm_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                   _F, _P),
+    # q, k, v, bias, out, lse; B, H, Sq, Sk; q/k/v (b, s, h) and bias
+    # (b, h, q, k) element strides; scale; stream
+    "vq_flash_attention_fwd": (_P,) * 6 + (_I,) * 4 + (_LL,) * 13 + (_F, _P),
+    # q, k, v, bias, o, lse, dout, dq, dk, dv, delta; then as the forward
+    "vq_flash_attention_bwd": (_P,) * 11 + (_I,) * 4 + (_LL,) * 13 + (_F, _P),
 }
 
 
@@ -106,6 +112,16 @@ def load() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``; buckets pipelined over threads
+    launch concurrently, so the count is taken under a lock."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1
 
 
 def check(status: int, what: str) -> None:

@@ -1,0 +1,230 @@
+"""Attention backend selection and flash attention: kernel K3.
+
+Port of ``vqattack_tpu/ops/attention.py``.  The backend is a process-wide
+choice with the JAX package's values, so the CLI's ``--attn`` carries over:
+
+- ``"xla"`` (default): the explicit product + softmax of
+  ``models/layers.py::MultiHeadAttention``;
+- ``"flash"``: :func:`flash_attention`, taken by ``MultiHeadAttention`` for
+  sequences of at least 128 queries (the ViT's 901 tokens).
+
+:func:`flash_attention` takes the JAX layout ``[B, S, H, Dh]`` and returns
+``[B, Sq, H, Dh]``.  On a CUDA tensor it runs the kernels of
+``csrc/flash_attention.cu`` behind a ``torch.autograd.Function`` (forward,
+and the backward from the saved log-sum-exp); on a CPU tensor it runs the
+plain version under autograd.  There is no padding and no dense bias: the
+kernel masks ragged lengths itself and reads the bias through broadcast
+strides.  The plain versions are also the kernels' oracles on the card:
+:func:`flash_attention_bwd_reference` is the backward written from the
+log-sum-exp exactly as the kernel computes it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Optional, Tuple
+
+import torch
+
+from vqattack_tpu_torch.ops import _build
+
+HEAD_DIM = 64  # the only head width the kernel takes (ALBEF's and VLMo's)
+
+_IMPL = "xla"
+_KINDS = ("xla", "flash")
+
+
+def get_impl() -> str:
+    return _IMPL
+
+
+def set_impl(kind: str) -> None:
+    """Process-wide backend choice (the CLI ``--attn`` flag); prefer the
+    :func:`attention_impl` context in library code."""
+    global _IMPL
+    if kind not in _KINDS:
+        raise ValueError(f"unknown attention backend {kind!r}; use one of {_KINDS}")
+    _IMPL = kind
+
+
+@contextlib.contextmanager
+def attention_impl(kind: str):
+    """``with attention_impl("flash"): ...`` selects the backend inside."""
+    prev = get_impl()
+    set_impl(kind)
+    try:
+        yield
+    finally:
+        set_impl(prev)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def _scores(q, k, bias, scale):
+    """``[B, H, Sq, Sk]`` scores ``(q * scale) k^T + bias``."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
+    return s if bias is None else s + bias.to(s.dtype)
+
+
+def flash_attention_reference(q, k, v, bias, scale, return_lse: bool = False):
+    """``softmax((q * scale) k^T + bias) v`` by the explicit product, in the
+    ``[B, S, H, Dh]`` layout; with ``return_lse`` also the rows'
+    log-sum-exp ``[B, H, Sq]`` that the kernel saves."""
+    s = _scores(q, k, bias, scale)
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1)
+    return out
+
+
+def flash_attention_bwd_reference(q, k, v, bias, scale, o, lse, do):
+    """The kernel's backward in plain PyTorch: ``(dq, dk, dv)`` from the
+    forward output ``o``, its log-sum-exp ``lse`` and the output gradient
+    ``do``, with ``P = exp(S - lse)`` recomputed and ``D = rowsum(do * o)``."""
+    p = torch.exp(_scores(q, k, bias, scale) - lse[..., None])
+    d = (do * o).sum(-1).transpose(1, 2)  # [B, H, Sq]
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    ds = p * (dp - d[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_inputs(q, k, v, bias) -> Tuple[int, int, int, int]:
+    """``(B, H, Sq, Sk)`` after checking what the kernel takes."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda":
+            raise ValueError(f"flash_attention kernel: {name} on {t.device}, expected cuda")
+        if t.dtype != torch.float32:
+            raise TypeError(f"flash_attention kernel: {name} is {t.dtype}; takes float32")
+        if t.dim() != 4 or t.shape[-1] != HEAD_DIM:
+            raise ValueError(f"flash_attention kernel: {name} {tuple(t.shape)}; "
+                             f"takes [B, S, H, {HEAD_DIM}]")
+        if t.stride(-1) != 1:
+            raise ValueError(f"flash_attention kernel: {name}'s head dim is not contiguous")
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2] != h or k.device != q.device:
+        raise ValueError(f"flash_attention kernel: k {tuple(k.shape)}, v {tuple(v.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+    if sq == 0 or sk == 0:
+        raise ValueError("flash_attention kernel: empty sequence")
+    if bias is not None:
+        if bias.device != q.device or bias.dtype != torch.float32:
+            raise TypeError(f"flash_attention kernel: bias {bias.dtype} on {bias.device}; "
+                            f"takes float32 on {q.device}")
+        if bias.requires_grad:
+            raise ValueError("flash_attention kernel: the bias has no gradient (no dbias)")
+        if bias.dim() != 4 or any(n not in (1, full) for n, full in
+                                  zip(bias.shape, (b, h, sq, sk))) or bias.shape[3] != sk:
+            raise ValueError(f"flash_attention kernel: bias {tuple(bias.shape)} does not "
+                             f"broadcast as [1|B, 1|H, 1|Sq, Sk] to {(b, h, sq, sk)}")
+    return b, h, sq, sk
+
+
+def _common_args(q, k, v, bias, b, h, sq, sk):
+    """Pointers, sizes and element strides of the C entry points."""
+    if bias is None:
+        bias_ptr, bias_strides = None, (0, 0, 0, 0)
+    else:
+        bias_ptr = bias.data_ptr()
+        # a broadcast dimension reads with stride 0
+        bias_strides = bias.expand(b, h, sq, sk).stride()
+    strides = []
+    for t in (q, k, v):
+        strides += [t.stride(0), t.stride(1), t.stride(2)]
+    return ([q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr],
+            [b, h, sq, sk, *strides, *bias_strides])
+
+
+def flash_attention_fwd(q, k, v, bias, scale: float):
+    """Forward kernel: ``(o [B, Sq, H, 64], lse [B, H, Sq])``."""
+    b, h, sq, sk = _check_inputs(q, k, v, bias)
+    ptrs, sizes = _common_args(q, k, v, bias, b, h, sq, sk)
+    out = torch.empty((b, sq, h, HEAD_DIM), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        status = lib.vq_flash_attention_fwd(
+            *ptrs, out.data_ptr(), lse.data_ptr(), *sizes, scale,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(status, "flash_attention_fwd")
+    _build.count_launch(flash_attention_fwd)
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, bias, scale: float, o, lse, do):
+    """Backward kernels (the D pass, dK/dV over key tiles, dQ over query
+    tiles): ``(dq, dk, dv)``, contiguous, in the shapes of ``q``, ``k``, ``v``."""
+    b, h, sq, sk = _check_inputs(q, k, v, bias)
+    do = do.contiguous()
+    for name, t, shape in (("o", o, (b, sq, h, HEAD_DIM)), ("grad of o", do, (b, sq, h, HEAD_DIM)),
+                           ("lse", lse, (b, h, sq))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"flash_attention_bwd: {name} {tuple(t.shape)} {t.dtype}; "
+                             f"takes contiguous float32 {shape}")
+    ptrs, sizes = _common_args(q, k, v, bias, b, h, sq, sk)
+    dq = torch.empty((b, sq, h, HEAD_DIM), dtype=torch.float32, device=q.device)
+    dk = torch.empty((b, sk, h, HEAD_DIM), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        status = lib.vq_flash_attention_bwd(
+            *ptrs, o.data_ptr(), lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), *sizes, scale,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(status, "flash_attention_bwd")
+    _build.count_launch(flash_attention_bwd)
+    return dq, dk, dv
+
+
+# calls of each entry point in this process (plain counts for chip_smoke.py)
+flash_attention_fwd.launches = 0
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """The kernel pair as one differentiable op (the library kernel's VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        o, lse = flash_attention_fwd(q, k, v, bias, scale)
+        ctx.save_for_backward(q, k, v, bias, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, bias, ctx.scale, o, lse, do)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, Sq, H, Dh]
+    k: torch.Tensor,  # [B, Sk, H, Dh]
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor],  # [1|B, 1|H, 1|Sq, Sk] additive, post-scale
+    scale: float,
+) -> torch.Tensor:
+    """``softmax((q k^T) * scale + bias) v`` as ``[B, Sq, H, Dh]``.
+
+    A CUDA tensor runs the kernels (float32, ``Dh = 64``, a bias without
+    gradient; anything else raises); a CPU tensor runs the plain version."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, bias, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return _FlashAttentionFn.apply(q, k, v, bias, scale)

@@ -135,7 +135,7 @@ def residual_layernorm_fwd(x, delta, gamma, beta, eps: float = 1e-6):
             rows, d, eps, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(status, "residual_layernorm_fwd")
-    residual_layernorm_fwd.launches += 1
+    _build.count_launch(residual_layernorm_fwd)
     return s, h
 
 
@@ -166,7 +166,7 @@ def residual_layernorm_bwd(s, gs, gh, gamma, eps: float = 1e-6, param_grads: boo
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(status, "residual_layernorm_bwd")
-    residual_layernorm_bwd.launches += 1
+    _build.count_launch(residual_layernorm_bwd)
     if dgdb is None:
         return dx, None, None
     return dx, dgdb[0], dgdb[1]

@@ -54,7 +54,7 @@ def pgd_linf_update(
             adv.numel(), eps, eps_iter, clip_min, clip_max, stream,
         )
     _build.check(status, "pgd_linf_update")
-    pgd_linf_update.launches += 1
+    _build.count_launch(pgd_linf_update)
     return out
 
 

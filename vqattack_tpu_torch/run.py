@@ -5,11 +5,16 @@
         --right-part right.txt --surrogate-ans sur.json --target-ans tgt.json \\
         --paraphrases para.json --all-correct allc.json --output attack_out
 
-Port of the per-sample ALBEF path of ``vqattack_tpu/run.py``: subset and
-alignment guards -> per-sample attack -> black-box victim check every
-``eval_every`` samples -> artifacts.  Runs on ``cuda`` unless ``--device cpu``.
-Weights are random, drawn from ``--seed``: loading ``.pth`` checkpoints, the
-batched engine, the VLMo pipeline and the USE gate are not ported yet.
+Port of the ALBEF path of ``vqattack_tpu/run.py``: subset and alignment
+guards -> the attack -> black-box victim check every ``eval_every`` samples
+-> artifacts.  ``--batch-size 1`` attacks one sample at a time; a larger
+batch buffers ``--buffer-factor`` batches of samples and runs them through
+the lockstep engine (``attacks/batched.py``), ``--pipeline-depth`` chunks at
+a time.  ``--attn flash`` sends every attention over at least 128 queries
+(the ViT's) through the flash kernel.  Runs on ``cuda`` unless ``--device
+cpu``.  Weights are random, drawn from ``--seed``: loading ``.pth``
+checkpoints, the VLMo pipeline, the device mesh and the USE gate are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -48,6 +53,18 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--bert-threshold", type=float, default=None,
                    help="operating point of the BertMeanPoolGate in its own space")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    p.add_argument("--attn", choices=["xla", "flash"], default="xla",
+                   help="attention over >= 128 queries: the explicit product + "
+                        "softmax (xla) or the flash kernel (flash)")
+    p.add_argument("--batch-size", type=int, default=1,
+                   help=">1 runs same-schedule samples in lockstep batches "
+                        "(attacks/batched.py)")
+    p.add_argument("--buffer-factor", type=int, default=16,
+                   help="buffer this many batches of samples before bucketing "
+                        "them by (old_alg, k) and running them")
+    p.add_argument("--pipeline-depth", type=int, default=4,
+                   help="chunks in flight at once: one chunk's host text work "
+                        "overlaps the next one's device work; 1 runs them in order")
     return p
 
 
@@ -98,6 +115,14 @@ def _build_pipeline(args, cfg, tokenizer):
 
 def main(argv: Optional[list] = None) -> dict:
     args = build_argparser().parse_args(argv)
+    from vqattack_tpu_torch.ops.attention import attention_impl
+
+    with attention_impl(args.attn):
+        return _main(args)
+
+
+def _main(args) -> dict:
+    from vqattack_tpu_torch.attacks.batched import BatchedAlbefAttack
     from vqattack_tpu_torch.attacks.orchestrator import save_artifacts
     from vqattack_tpu_torch.data.side_tables import SideTables
     from vqattack_tpu_torch.data.transforms import test_transform
@@ -125,17 +150,40 @@ def main(argv: Optional[list] = None) -> dict:
 
     flip = AttackAccuracy(print_every=50)
     key = TorchKey(cfg.seed, pipeline.device)
-    results, pending, attack_s = [], [], []
+    batched = BatchedAlbefAttack(pipeline) if args.batch_size > 1 else None
+    results, pending, attack_s, occupancy = [], [], [], []
+    sample_buffer: list = []
 
     def eval_pending():
-        for r, clean in pending:
-            if clean is None:
-                continue
-            topk_ids, _ = pipeline.evaluate_victim(r.adv_image, r.adv_text,
-                                                   answer_ids, answer_mask)
-            flip.update(dataset.answer_list[int(topk_ids[0, 0])], clean)
-            flip.maybe_log()
+        # one victim rank_answer per chunk of at most 16 pairs: its second
+        # pass holds batch x k decoder rows
+        todo = [(r, clean) for r, clean in pending if clean is not None]
+        for start in range(0, len(todo), 16):
+            chunk = todo[start : start + 16]
+            topk_ids, _ = pipeline.evaluate_victim_batch(
+                [r.adv_image for r, _ in chunk], [r.adv_text for r, _ in chunk],
+                answer_ids, answer_mask)
+            for (_, clean), row in zip(chunk, topk_ids):
+                flip.update(dataset.answer_list[int(row[0])], clean)
+                flip.maybe_log()
         pending.clear()
+
+    def flush_buffer():
+        if not sample_buffer:
+            return
+        t0 = time.perf_counter()
+        out = batched.run(sample_buffer, batch_size=args.batch_size, rng=key,
+                          pipeline_depth=args.pipeline_depth)
+        dt = (time.perf_counter() - t0) / max(1, len(out))
+        occupancy.append(batched.last_occupancy)
+        clean_of = {s["qid"]: s["surrogate_answer"] for s in sample_buffer}
+        for r in out:
+            attack_s.append(dt)
+            results.append(r)
+            pending.append((r, clean_of[r.qid]))
+        sample_buffer.clear()
+        if len(pending) >= cfg.eval_every:
+            eval_pending()
 
     for item in dataset:
         qid = item["qid"]
@@ -152,6 +200,19 @@ def main(argv: Optional[list] = None) -> dict:
             continue
         if args.resume and os.path.exists(os.path.join(args.output, f"{qid}.pt")):
             continue
+        if batched is not None:
+            sample_buffer.append({
+                "qid": str(qid), "pixels": item["pixels"], "question": item["question"],
+                "paraphrase": info["paraphrase"], "target_answer": info["target_answer"],
+                "all_correct_answers": info["all_correct_answers"],
+                "surrogate_answer": info["surrogate_answer"],
+            })
+            if len(sample_buffer) >= args.buffer_factor * args.batch_size:
+                flush_buffer()
+            if args.limit and len(results) + len(sample_buffer) >= args.limit:
+                flush_buffer()
+                break
+            continue
         t0 = time.perf_counter()
         res = pipeline.attack_sample(
             item["pixels"], item["question"], str(qid), info["paraphrase"],
@@ -164,6 +225,8 @@ def main(argv: Optional[list] = None) -> dict:
             eval_pending()
         if args.limit and len(results) >= args.limit:
             break
+    if batched is not None:
+        flush_buffer()
     eval_pending()
     save_artifacts(results, args.output)
     summary = {
@@ -174,6 +237,11 @@ def main(argv: Optional[list] = None) -> dict:
         "device": str(pipeline.device),
         "output": args.output,
     }
+    if occupancy:
+        # real rows over padded rows of every chunk the engine ran
+        summary["bucket_occupancy"] = float(np.mean(occupancy))
+    if batched is not None and batched._timer.acc:
+        summary["phase_s"] = dict(sorted(batched._timer.acc.items(), key=lambda kv: -kv[1]))
     print(json.dumps(summary))
     return summary
 

@@ -39,6 +39,18 @@ class SimilarityGate:
     def scores(self, reference: str, candidates: Sequence[str]) -> np.ndarray:
         raise NotImplementedError
 
+    def scores_pairs(self, references: Sequence[str], candidates: Sequence[str]) -> np.ndarray:
+        """``[sim(references[i], candidates[i])]``: one call scores a whole
+        bucket's trials, each against its own original question.  Default:
+        group by reference and delegate to :meth:`scores`."""
+        out = np.empty(len(candidates), np.float32)
+        groups: dict = {}
+        for i, r in enumerate(references):
+            groups.setdefault(r, []).append(i)
+        for r, idxs in groups.items():
+            out[idxs] = np.asarray(self.scores(r, [candidates[i] for i in idxs]))
+        return out
+
     def operating_point(self, use_space_threshold: float) -> float:
         return use_space_threshold
 
@@ -85,6 +97,15 @@ class BertMeanPoolGate(SimilarityGate):
     def scores(self, reference, candidates):
         embs = self._pool([reference, *candidates])
         return embs[1:] @ embs[0]
+
+    def scores_pairs(self, references, candidates):
+        """One pooled batch: the distinct references, then the candidates."""
+        uniq = list(dict.fromkeys(references))
+        embs = self._pool([*uniq, *candidates])
+        ref_rows = {r: embs[i] for i, r in enumerate(uniq)}
+        cand = embs[len(uniq):]
+        return np.asarray([cand[i] @ ref_rows[r] for i, r in enumerate(references)],
+                          np.float32)
 
 
 def make_gate(kind: str = "bert", *, embed_fn=None, tokenizer=None, max_length: int = 25,
