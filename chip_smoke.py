@@ -10,9 +10,10 @@ Phases (each prints a line on entry and its seconds on exit):
 3. kernels: each kernel against its plain PyTorch version on the card, at the
    shapes both paths give it (batch 1, the batched chunks of 4 and 8, the
    victim's 16), with the stated tolerances: K1 (PGD update), K2 (residual +
-   LayerNorm, forward and backward) and K3 (flash attention, forward and
-   backward, ragged and bias cases); times and bounds at the batched chunk
-   of 8, and K3's also at 16, beside ``scaled_dot_product_attention``;
+   LayerNorm, forward and backward) and K3 (flash attention on the tensor
+   cores in three TF32 passes, forward and backward, ragged and bias cases);
+   times and bounds at the batched chunk of 8, and K3's also at 16, beside
+   ``scaled_dot_product_attention``;
 4. model: the full-width surrogate with the fused kernels against the same
    weights through plain LayerNorms, and with the flash kernel against the
    product + softmax attention: forward features and d/dpixels;
@@ -63,6 +64,7 @@ from vqattack_tpu_torch.text.tokenizer import WordPieceTokenizer  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
+TF32_FLOPS = 495e12         # H100 SXM dense TF32 on the tensor cores
 SEED = 0
 D = 768
 
@@ -111,10 +113,16 @@ def time_ms(fn, iters: int = 50, sleep_cycles: int = 1_000_000) -> float:
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def bound_ms(n_bytes: float, n_flops: float, flops_per_s: float = FP32_FLOPS):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / FP32_FLOPS * 1e3
+    t_ops = n_flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tensor_core_bound_ms(n_bytes: float, product_flops: float):
+    """The bound of a float32 product on the tensor cores in three TF32
+    passes (K3): 3x its operations at the dense TF32 rate, or its bytes."""
+    return bound_ms(n_bytes, 3 * product_flops, TF32_FLOPS)
 
 
 # ---------------------------------------------------------------------------
@@ -226,7 +234,7 @@ def check_fused_ln(gen):
                   f"dgamma err {float((dg - dg_r).abs().max()):.3g}, deterministic", flush=True)
             if rows == TIMED_BATCH * 901 and dtype == torch.float32:
                 fwd_row = _time_fwd(x, delta, gamma, beta, rows, max(h_err, 0.0))
-                bwd_row = _time_bwd(s, gs, gh, gamma, rows, dx_err)
+                bwd_row = _time_bwd(x, delta, gamma, beta, s, gs, gh, rows, dx_err)
     for rows in (901, TIMED_BATCH * 901):
         _check_autograd(gen, rows)
     return fwd_row, bwd_row
@@ -254,10 +262,16 @@ def _time_fwd(x, delta, gamma, beta, rows, err):
     return row
 
 
-def _time_bwd(s, gs, gh, gamma, rows, err):
-    # the main path's backward: frozen parameters, so no dgamma/dbeta
+def _time_bwd(x, delta, gamma, beta, s, gs, gh, rows, err):
+    # the main path's backward: frozen parameters, so no dgamma/dbeta; the
+    # library's: autograd through s = x + delta, h = layer_norm(s), the same
+    # dx = gs + LayerNorm's backward of gh (its host enqueue can outlast the
+    # default hold of the stream, so the hold is longer)
     n = rows * D
     b, by = bound_ms(4 * n * 4 + D * 4, 12 * n)  # read s, gs, gh; write dx
+    x_leaf = x.detach().clone().requires_grad_(True)
+    s_l = x_leaf + delta
+    h_l = torch.nn.functional.layer_norm(s_l, (D,), gamma, beta, 1e-6)
     row = {
         "name": "residual_layernorm_bwd", "route": "cuda",
         "source": "vqattack_tpu_torch/csrc/fused_ln.cu",
@@ -268,10 +282,13 @@ def _time_bwd(s, gs, gh, gamma, rows, err):
             s, gs, gh, gamma, 1e-6, param_grads=False)),
         "plain_ms": time_ms(lambda: fused_ln.residual_layernorm_bwd_reference(
             s, gs, gh, gamma, 1e-6, param_grads=False)),
-        "bound_ms": b, "bound_by": by, "library_ms": None,
+        "bound_ms": b, "bound_by": by,
+        "library_ms": time_ms(lambda: torch.autograd.grad(
+            (s_l, h_l), x_leaf, (gs, gh), retain_graph=True), sleep_cycles=20_000_000),
     }
     print(f"  residual_layernorm_bwd [{rows}, {D}] f32: {row['ms'] * 1e3:.1f} us (plain "
-          f"{row['plain_ms'] * 1e3:.1f} us, bound {b * 1e3:.2f} us)", flush=True)
+          f"{row['plain_ms'] * 1e3:.1f} us, autograd of layer_norm(x + delta) "
+          f"{row['library_ms'] * 1e3:.1f} us, bound {b * 1e3:.2f} us)", flush=True)
     return row
 
 
@@ -308,7 +325,9 @@ def _qkv(gen, b, s, h=HEADS):
 def _attn_err(what, got, ref):
     """Tolerance: 2e-5 of the reference's largest magnitude (at least 1).
     Both sides sum in float32, over up to 901 keys or queries, in another
-    order (the kernel's FMA chains against cuBLAS's)."""
+    order (the kernel's tensor-core passes against cuBLAS's), and the
+    kernel's products carry the 3xTF32 split's error (about 2^-22 of each
+    term)."""
     err = float((got - ref).abs().max())
     tol = 2e-5 * max(1.0, float(ref.abs().max()))
     require(err <= tol, f"{what}: max abs err {err} > {tol}")
@@ -374,7 +393,11 @@ def time_flash_attention(gen, errs, b):
     """Device times at ``[b, 901, 12, 64]``, float32, no bias: the kernels,
     the plain versions and ``scaled_dot_product_attention`` (forward;
     backward through autograd).  The forward is also held against its plain
-    version at this shape."""
+    version at this shape.  The bound is the tensor cores' in three TF32
+    passes (``tensor_core_bound_ms``) over the operations the function needs
+    (4 and 10 x B*H*S^2*Dh); ``executed_tflops`` counts what the kernels
+    execute (the dQ pass recomputes S and dO V^T: 14x in the backward), to
+    hold against the 67 TFLOP/s of float32 outside the tensor cores."""
     s = 901
     q, k, v = _qkv(gen, b, s)
     o, lse = attention.flash_attention_fwd(q, k, v, None, SCALE)
@@ -387,8 +410,8 @@ def time_flash_attention(gen, errs, b):
     row = b * s * HEADS * HEAD_DIM * 4  # bytes of one [B, S, H, 64] float32 tensor
     lse_bytes = b * HEADS * s * 4
     long_sleep = 20_000_000  # the plain versions enqueue for several ms
-    fwd_b, fwd_by = bound_ms(4 * row + lse_bytes, 4 * unit)
-    bwd_b, bwd_by = bound_ms(8 * row + lse_bytes, 10 * unit)
+    fwd_b, fwd_by = tensor_core_bound_ms(4 * row + lse_bytes, 4 * unit)
+    bwd_b, bwd_by = tensor_core_bound_ms(8 * row + lse_bytes, 10 * unit)
     fwd = {
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "vqattack_tpu_torch/csrc/flash_attention.cu",
@@ -415,10 +438,15 @@ def time_flash_attention(gen, errs, b):
         "library_ms": time_ms(lambda: torch.autograd.grad(
             sdpa_out, (qt, kt, vt), do_t, retain_graph=True), 20),
     }
-    for r in (fwd, bwd):
+    for r, executed in ((fwd, 4 * unit), (bwd, 14 * unit)):
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        r["executed_tflops"] = executed / r["ms"] / 1e9
+        require(r["bound_share"] <= 1.0, f"{r['name']}: {r['ms']} ms is under its bound "
+                                         f"{r['bound_ms']} ms: the timing or the bound is wrong")
         print(f"  {r['name']} {r['shape']} f32: {r['ms']:.3f} ms (plain "
               f"{r['plain_ms']:.3f} ms, scaled_dot_product_attention {r['library_ms']:.3f} ms, "
-              f"bound {r['bound_ms']:.3f} ms by {r['bound_by']})", flush=True)
+              f"bound {r['bound_ms']:.3f} ms by {r['bound_by']}: {100 * r['bound_share']:.1f}%; "
+              f"executed {r['executed_tflops']:.1f} TFLOP/s)", flush=True)
     return fwd, bwd
 
 

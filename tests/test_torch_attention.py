@@ -1,7 +1,8 @@
 """Flash attention (kernel K3's plain versions) against the JAX package:
 the library kernel's own oracle behind the JAX wrapper's padding and bias
 preparation, the JAX einsum path of ``MultiHeadAttention``, ``jax.grad`` of
-that path for the backward written from the log-sum-exp, and the port's
+that path for the backward written from the log-sum-exp, the kernel's
+3xTF32 arithmetic (emulated) against both, and the port's
 ``MultiHeadAttention`` flash branch against its product + softmax path on a
 tiny ViT with more than 128 tokens."""
 
@@ -32,9 +33,9 @@ B, H, DH = 2, 2, 64
 SCALE = DH ** -0.5
 
 
-def _qkv(s: int, seed: int):
+def _qkv(s: int, seed: int, b: int = B):
     rng = np.random.default_rng(seed)
-    return [rng.normal(size=(B, s, H, DH)).astype(np.float32) for _ in range(3)]
+    return [rng.normal(size=(b, s, H, DH)).astype(np.float32) for _ in range(3)]
 
 
 def _bias(kind: str, s: int, seed: int):
@@ -105,6 +106,87 @@ def test_flash_attention_and_its_backward_match_the_einsum_path(s, kind):
         j = np.asarray(j)
         np.testing.assert_allclose(t.numpy(), j, rtol=0, atol=1e-5 * max(np.abs(j).max(), 1.0),
                                    err_msg=name)
+
+
+def _one_tf32_pass(a, b):
+    return attention.tf32_round(a) @ attention.tf32_round(b)
+
+
+def _emulated(q, k, v, bias, do, mm=attention.mm_3xtf32):
+    """``(o, dq, dk, dv)`` with every product of the kernel (Q K^T, P V,
+    dO V^T, dS K, dS^T Q, P^T dO) through ``mm``, by default
+    ``mm_3xtf32``: the kernel's arithmetic on the CPU, in the
+    ``[B, S, H, Dh]`` layout."""
+    qh, kh, vh, doh = (T(x).transpose(1, 2) for x in (q, k, v, do))  # [B, H, S, Dh]
+    s = mm(qh, kh.transpose(-1, -2)) * SCALE
+    if bias is not None:
+        s = s + T(bias)
+    p = torch.exp(s - torch.logsumexp(s, -1, keepdim=True))
+    o = mm(p, vh)
+    ds = p * (mm(doh, vh.transpose(-1, -2)) - (doh * o).sum(-1, keepdim=True))
+    grads = (mm(ds, kh) * SCALE, mm(ds.transpose(-1, -2), qh) * SCALE,
+             mm(p.transpose(-1, -2), doh))
+    return [t.transpose(1, 2).numpy() for t in (o, *grads)]
+
+
+def _oracles(q, k, v, bias, do):
+    """The forward by the library kernel's ``mha_reference`` (behind the JAX
+    wrapper's ``_prepare``) and the gradients by ``jax.vjp`` of the einsum
+    path."""
+    qt, kt, vt, ab, seg, sq = _prepare(q, k, v, None if bias is None else jnp.asarray(bias), SCALE)
+    out = mha_reference(qt, kt, vt, ab, segment_ids=None if seg is None else SegmentIds(*seg),
+                        sm_scale=SCALE)
+    jb = None if bias is None else jnp.asarray(bias)
+    _, vjp = jax.vjp(lambda q, k, v: _jax_einsum(q, k, v, jb), q, k, v)
+    grads = vjp(jnp.asarray(do))
+    return [np.asarray(out)[:, :, :sq].transpose(0, 2, 1, 3)] + [np.asarray(g) for g in grads]
+
+
+def _card_tolerance(ref):
+    """The tolerance the card holds K3 to: 2e-5 of the largest magnitude, at least 1."""
+    return 2e-5 * max(1.0, float(np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("s,kind", [(901, "none")] + CASES)
+def test_the_kernels_3xtf32_products_match_the_jax_oracles(s, kind):
+    """The kernel's arithmetic, every product in three TF32 passes (emulated
+    by ``mm_3xtf32``: hi rounded as ``cvt.rna`` rounds, lo truncated as the
+    tensor cores read it), against ``mha_reference``
+    (forward) and ``jax.vjp`` of the einsum path (dq, dk, dv), within the
+    card's 2e-5 of each tensor's largest magnitude (at least 1), at one
+    ViT-length head pair [1, 901, 2, 64] and the lengths and biases of
+    ``CASES``."""
+    b = 1 if s == 901 else B
+    q, k, v = _qkv(s, seed=30 + s, b=b)
+    bias = _bias(kind, s, seed=30 + s)
+    do = np.random.default_rng(40 + s).normal(size=(b, s, H, DH)).astype(np.float32)
+    for name, got, ref in zip(("o", "dq", "dk", "dv"), _emulated(q, k, v, bias, do),
+                              _oracles(q, k, v, bias, do)):
+        err = float(np.abs(got - ref).max())
+        assert err <= _card_tolerance(ref), f"{name}: max abs err {err}"
+
+
+def test_a_single_tf32_pass_misses_the_cards_tolerance():
+    """Why the kernel splits every operand: with one TF32 pass (11
+    significant bits) the output and every gradient at [1, 901, 2, 64] are
+    outside the card's tolerance (by 8-17x), with three passes inside it."""
+    q, k, v = _qkv(901, seed=50, b=1)
+    do = np.random.default_rng(51).normal(size=q.shape).astype(np.float32)
+    refs = _oracles(q, k, v, None, do)
+    for mm, inside in ((_one_tf32_pass, False), (attention.mm_3xtf32, True)):
+        for name, got, ref in zip(("o", "dq", "dk", "dv"), _emulated(q, k, v, None, do, mm),
+                                  refs):
+            err = float(np.abs(got - ref).max())
+            assert (err <= _card_tolerance(ref)) == inside, (mm.__name__, name, err)
+
+
+def test_tf32_round_ties_away_from_zero_and_tf32_truncate_cuts():
+    ulp = 2.0 ** -10  # of a TF32 value in [1, 2)
+    x = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2 ** -23, 1 + 1.5 * ulp,
+                      3.0, -0.0, 2 - ulp / 4], dtype=torch.float32)
+    want = [1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, 3.0, -0.0, 2.0]
+    assert attention.tf32_round(x).tolist() == want
+    assert attention.tf32_truncate(x).tolist() == [1.0, -1.0, 1.0, 1 + ulp, 3.0, -0.0, 2 - ulp]
 
 
 def test_multihead_attention_flash_branch_matches_the_jax_einsum_path():

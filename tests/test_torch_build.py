@@ -1,0 +1,92 @@
+"""The kernel library's build: concurrent first calls build and load it once.
+
+``--pipeline-depth`` runs buckets on worker threads, and on a checkout with
+no ``build/`` their first kernel launches call ``_build.load()`` together.
+Here ``nvcc`` is a stub script that counts its runs and writes its output
+file, and ``ctypes.CDLL`` a stub that counts its loads, so the test runs on
+the CPU.
+"""
+
+from __future__ import annotations
+
+import stat
+import threading
+import types
+
+from vqattack_tpu_torch.ops import _build
+
+N_THREADS = 8
+
+
+def _stub_nvcc(tmp_path):
+    """An ``nvcc`` that appends a line to ``runs.log``, waits a little (so
+    that unserialised callers would overlap) and writes its ``-o`` file."""
+    log = tmp_path / "runs.log"
+    stub = tmp_path / "nvcc"
+    stub.write_text(
+        "#!/bin/sh\n"
+        f'echo "$*" >> "{log}"\n'
+        'while [ $# -gt 0 ]; do [ "$1" = "-o" ] && out="$2"; shift; done\n'
+        "sleep 0.2\n"
+        'echo built > "$out"\n'
+    )
+    stub.chmod(stub.stat().st_mode | stat.S_IXUSR)
+    return stub, log
+
+
+def _in_threads(fn):
+    barrier = threading.Barrier(N_THREADS)
+    results, errors = [], []
+
+    def run():
+        barrier.wait()
+        try:
+            results.append(fn())
+        except Exception as e:  # noqa: BLE001 - reported by the assertion below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run) for _ in range(N_THREADS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not errors, errors
+    return results
+
+
+def test_concurrent_first_builds_run_nvcc_once(tmp_path, monkeypatch):
+    stub, log = _stub_nvcc(tmp_path)
+    lib_dir = tmp_path / "kernels"
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(stub))
+    monkeypatch.setattr(_build, "library_path", lambda: lib_dir / "libvqattack_kernels.so")
+    results = _in_threads(_build.build)
+    # one build: a compile of each source, all started together, and one link
+    runs = log.read_text().splitlines()
+    assert len(runs) == len(_build.SOURCES) + 1, runs
+    assert sum(" -shared " in f" {r} " for r in runs) == 1
+    assert [p.name for p in lib_dir.iterdir()] == ["libvqattack_kernels.so"]
+    assert set(results) == {lib_dir / "libvqattack_kernels.so"}
+    # built: a later call runs nothing
+    _build.build()
+    assert len(log.read_text().splitlines()) == len(runs)
+
+
+def test_concurrent_first_loads_build_and_load_once(tmp_path, monkeypatch):
+    stub, log = _stub_nvcc(tmp_path)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(stub))
+    monkeypatch.setattr(_build, "library_path", lambda: tmp_path / "libvqattack_kernels.so")
+    monkeypatch.setattr(_build, "_LIB", None)
+    loads = []
+
+    def fake_cdll(path):
+        loads.append(path)
+        return types.SimpleNamespace(**{name: types.SimpleNamespace()
+                                        for name in _build.SIGNATURES})
+
+    monkeypatch.setattr(_build.ctypes, "CDLL", fake_cdll)
+    libs = _in_threads(_build.load)
+    assert loads == [str(tmp_path / "libvqattack_kernels.so")]
+    assert len({id(lib) for lib in libs}) == 1
+    assert len(log.read_text().splitlines()) == len(_build.SOURCES) + 1
+    fn = getattr(libs[0], next(iter(_build.SIGNATURES)))
+    assert fn.restype is _build.ctypes.c_int

@@ -103,7 +103,8 @@ def _attention_case(gen, b, sq, sk, kind, h=4):
 
 def _close(got, ref, what):
     """Within 2e-5 of the reference's largest magnitude (at least 1): float32
-    sums over up to 901 keys or queries in another order than cuBLAS's."""
+    sums over up to 901 keys or queries in another order than cuBLAS's, with
+    the 3xTF32 split's error (about 2^-22 of each term) in the kernel's."""
     tol = 2e-5 * max(1.0, float(ref.abs().max()))
     err = float((got - ref).abs().max())
     assert err <= tol, f"{what}: max abs err {err} > {tol}"
@@ -157,3 +158,31 @@ def test_flash_attention_autograd_and_refusals(gen):
         attention.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), None, 0.125)
     with pytest.raises(ValueError, match="no gradient"):
         attention.flash_attention(q, k, v, bias.clone().requires_grad_(True), 0.125)
+
+
+def test_flash_attention_refuses_rows_off_16_bytes(gen):
+    """The kernel copies rows in 16-byte chunks: a view whose rows start
+    elsewhere (here columns 1..64 of a 65-wide buffer) is refused, not read
+    wrong."""
+    buf = torch.randn(2, 130, 4, 65, generator=gen, device="cuda")
+    q = buf[..., 1:65]
+    with pytest.raises(ValueError, match="16 bytes"):
+        attention.flash_attention_fwd(q, q, q, None, 0.125)
+    wide = torch.randn(2, 130, 4, 66, generator=gen, device="cuda")  # aligned start, stride 66
+    with pytest.raises(ValueError, match="16 bytes"):
+        attention.flash_attention(wide[..., :64], wide[..., :64], wide[..., :64], None, 0.125)
+
+
+def test_flash_attention_backward_bit_identical_at_the_victims_batch(gen):
+    """At [16, 901, 12, 64], the victim's batch at ViT length, two backward
+    runs give the same bits (no atomics), and the forward agrees with the
+    plain version."""
+    q, k, v, _ = _attention_case(gen, 16, 901, 901, "none", h=12)
+    scale = 64 ** -0.5
+    o, lse = attention.flash_attention_fwd(q, k, v, None, scale)
+    _close(o, attention.flash_attention_reference(q, k, v, None, scale), "o")
+    do = torch.randn(o.shape, generator=gen, device="cuda")
+    first = attention.flash_attention_bwd(q, k, v, None, scale, o, lse, do)
+    second = attention.flash_attention_bwd(q, k, v, None, scale, o, lse, do)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), f"{name} differs between two runs"

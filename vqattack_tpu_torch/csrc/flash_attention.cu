@@ -1,4 +1,5 @@
-// Flash attention, forward and backward, float32, head dim 64.
+// Flash attention, forward and backward, float32, head dim 64, on the
+// tensor cores with a 3xTF32 split.
 //
 // Replaces the TPU kernel behind vqattack_tpu/ops/attention.py::flash_attention,
 // which wraps jax.experimental.pallas.ops.tpu.flash_attention (its forward,
@@ -24,25 +25,57 @@
 // Bound on the H100: operations.  At the main path's shape (B=16, H=12,
 // S=901, Dh=64) B*H*S^2*Dh = 9.98e9; the forward needs 4x that (39.9
 // GFLOP) and the backward, recomputing P from L, 10x (99.8 GFLOP), against
-// 177 MB of q, k, v and o (53 us at 3.35 TB/s).  On CUDA cores at the
-// 67 TFLOP/s float32 peak that is 0.60 ms forward and 1.49 ms backward.
-// The main path runs float32 with TF32 off, so tensor cores would change
-// the numbers; the products run as FMAs on CUDA cores.
+// 177 MB of q, k, v and o (53 us at 3.35 TB/s).  The main path runs float32,
+// and one TF32 pass keeps 11 significant bits, too few for its tolerances,
+// so every product is three TF32 passes: x = hi + lo with hi = tf32(x) and
+// lo = x - hi (read by the tensor cores to TF32), and a b ~ a_lo b_hi +
+// a_hi b_lo + a_hi b_hi (lo lo dropped), accumulated in float32.  At the
+// dense TF32 rate (495 TFLOP/s) three passes bound the forward at 0.242 ms
+// and the backward at 0.605 ms.
 //
-// Design (right and simple; wgmma/TMA/bf16 are later work):
-// - one block of 256 threads per (64-row tile, head, batch); the 16 x 16
-//   threads each own a 4 x 4 sub-tile whose rows and columns are strided by
-//   16, so that a half-warp shares its rows (broadcast shared-memory reads)
-//   and its columns hit 16 distinct banks;
-// - 64 x 64 float32 tiles in shared memory with rows padded to 65 floats;
-// - forward: online softmax (running max and sum per row) in registers, row
-//   reductions by shuffles inside the half-warp that owns a row;
+// Design:
+// - every product runs as mma.sync.m16n8k8 tf32 (inline PTX, sm_80+); one
+//   block of 4 warps per 64-row query tile (forward, dQ) or key tile
+//   (dK/dV), 16 rows a warp;
+// - the m16n8k8 accumulator does not have the A operand's layout (a thread
+//   holds columns 2t, 2t+1 of a row, the A operand wants t and t+4).  The
+//   product that consumes P or dS sums over its depth in the permuted order
+//   t -> 2t, t + 4 -> 2t + 1, and reads the matching rows of its B operand,
+//   so the accumulator feeds the next product as it is: no shuffles, no
+//   round trip through shared memory;
+// - 64 x 64 tiles in shared memory with rows padded to 68 floats.  The
+//   fragments read a tile either at rows g, columns t (banks 4g + t) or,
+//   in the permuted order, at rows 2t or 2t + 1, columns g (banks 8t + g
+//   and 8t + 4 + g): 32 distinct banks both ways.  Every fragment load is a
+//   per-thread base plus a constant, so the products issue no address
+//   arithmetic (an XOR swizzle would make every address a runtime
+//   computation: ~1,500 integer instructions a warp and key tile);
+// - the bias is a template parameter: without one the scores take no
+//   branch, and keys past Sk (queries past Sq) are masked on the last tile
+//   only;
+// - tiles arrive by 16-byte cp.async (zero-filled past Sq or Sk), double
+//   buffered: the next key tile (forward, dQ) or query tile (dK/dV) loads
+//   while the current one is in the products;
+// - forward: online softmax (running max and sum per row) in registers,
+//   row reductions by shuffles inside the quad that owns a row;
 // - backward: a pass for D, one kernel over key tiles that accumulates dK
-//   and dV in registers while it walks every query tile, and one over query
+//   and dV in registers while it walks every query tile (it computes S^T and
+//   dP^T, so P^T and dS^T come out in its own rows), and one over query
 //   tiles that accumulates dQ while it walks every key tile.  No atomics:
 //   every sum runs in a fixed order, so the result is the same on every run.
 //   The dQ kernel recomputes S and dO V^T, so the backward performs 14x
-//   B*H*S^2*Dh where the bound counts 10x.
+//   B*H*S^2*Dh where the bound counts 10x.  The other way, partial dQ per
+//   key tile from the dK/dV kernel summed by a fixed-order pass, needs a
+//   third 16 x 64 accumulator there, where dK, dV, P^T and dS^T already
+//   take 208 registers (255 with a bias).
+//
+// What bounds it now (PERF.md): instruction issue.  The forward's loop
+// issues ~3,200 instructions a warp and key tile for its 384 mma.sync; the
+// split (3 a value) and the fragment loads are most of the rest, the 4
+// warps of a block split the same K and V values, and 2 blocks an SM
+// (registers, shared memory) leave 2 warps a scheduler to hide latency.
+// wgmma reads B from shared memory, where a block would split each value
+// once, not once a warp.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -50,11 +83,14 @@
 
 namespace {
 
-constexpr int kD = 64;        // head dim
-constexpr int kTile = 64;     // rows of a query or key tile
-constexpr int kLd = kD + 1;   // padded shared-memory row, in floats
-constexpr int kThreads = 256;
+constexpr int kD = 64;          // head dim
+constexpr int kTile = 64;       // rows of a query or key tile
+constexpr int kLd = kD + 4;     // shared-memory row, in floats (16-byte aligned)
+constexpr int kWarps = 4;       // 16 rows of a tile each
+constexpr int kThreads = 32 * kWarps;
 constexpr int kTileFloats = kTile * kLd;
+constexpr int kSteps = kD / 8;  // m16n8k8 steps over 64 columns (or keys)
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
   const float* q;
@@ -77,149 +113,332 @@ struct Params {
   float scale;
 };
 
-// Rows [row0, row0 + 64) of one (batch, head) slice into a padded shared
-// tile; rows past ``nrows`` read as zero.  ``base`` points at row 0.
-__device__ __forceinline__ void load_tile(float* __restrict__ sm,
-                                          const float* __restrict__ base,
-                                          long long row_stride, int row0,
-                                          int nrows) {
-  for (int idx = threadIdx.x; idx < kTile * kD; idx += kThreads) {
-    const int r = idx / kD, c = idx % kD;
+// ---------------------------------------------------------------------------
+// shared-memory tiles and asynchronous copies
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most one group (the one just committed) is in flight.
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Rows [row0, row0 + 64) of one (batch, head) slice into a tile by 16-byte
+// copies; rows past ``nrows`` are zero-filled.  ``base`` points at row 0,
+// 16-byte aligned, as is every row (the wrapper checks).
+__device__ __forceinline__ void load_tile(float* sm, const float* base, long long row_stride,
+                                          int row0, int nrows) {
+  for (int idx = threadIdx.x; idx < kTile * kD / 4; idx += kThreads) {
+    const int r = idx >> 4, c = (idx & 15) << 2;
     const int row = row0 + r;
-    sm[r * kLd + c] = row < nrows ? base[(long long)row * row_stride + c] : 0.f;
+    const bool ok = row < nrows;
+    cp_async16(sm + r * kLd + c, ok ? base + row * row_stride + c : base, ok);
   }
 }
 
-// Reductions over the 16 lanes of a half-warp (the threads sharing a row).
-__device__ __forceinline__ float half_warp_max(float v) {
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float half_warp_sum(float v) {
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// acc[i][j] += sum_d A[ty + 16 i][d] * B[tx + 16 j][d] over padded tiles.
-__device__ __forceinline__ void tile_abt(const float* __restrict__ A,
-                                         const float* __restrict__ Bt, int ty,
-                                         int tx, float acc[4][4]) {
-#pragma unroll 16
-  for (int d = 0; d < kD; ++d) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * kLd + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = Bt[(tx + 16 * j) * kLd + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+// L and D of query rows [q0, q0 + 64) (0 past Sq); ``off`` is (b, h)'s row 0.
+__device__ __forceinline__ void load_rows(const Params& p, float* Ls, float* Ds,
+                                          long long off, int q0) {
+  if (threadIdx.x < kTile) {
+    const int row = q0 + threadIdx.x;
+    const bool ok = row < p.Sq;
+    cp_async4(Ls + threadIdx.x, ok ? p.lse + off + row : p.lse, ok);
+    cp_async4(Ds + threadIdx.x, ok ? p.delta + off + row : p.delta, ok);
   }
 }
 
-// The scaled, biased score of (row, col), or -inf for a key past Sk.
-__device__ __forceinline__ float score(const Params& p, const float* bias_bh,
-                                       float s, int row, int col) {
-  if (col >= p.Sk) return -INFINITY;
-  float x = s * p.scale;
-  if (bias_bh != nullptr && row < p.Sq) x += bias_bh[row * p.bsq + col * p.bsk];
-  return x;
+// ---------------------------------------------------------------------------
+// 3xTF32 fragments and products
+//
+// A thread (lane) holds, with g = lane / 4 and t = lane % 4,
+//   A (16 x 8): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
+//   B (8 x 8):  b0 (t, g), b1 (t + 4, g);
+//   C (16 x 8): c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1).
+// A tile is read through a per-thread base: ``rows`` = X + g * kLd + t for
+// rows g and columns t (an A operand, or B = X^T), ``cols`` = X + 2t * kLd + g
+// for rows 2t, 2t + 1 and columns g (B = X in the permuted depth order).
+// ---------------------------------------------------------------------------
+
+// x = hi + lo.  hi is x rounded to TF32 (10 mantissa bits) to nearest,
+// ties away from zero: cvt.rna.tf32.f32's rounding, bit for bit on finite
+// values, in two integer operations (add half of the dropped 13 bits' unit
+// to the magnitude, clear them), because the conversion instruction issues
+// on a narrower pipe.  lo = x - hi is exact and goes to the tensor cores as
+// it is: they read a TF32 operand's top 19 bits, so lo is truncated to TF32
+// (as CUTLASS's FastF32 does it).  A warp splits 320 values per key tile of
+// the forward, and these 3 instructions a value, not 5 with lo rounded too,
+// cut K3's time by 10% (PERF.md).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const Params p) {
-  extern __shared__ float smem[];
+// 2^x in one instruction (denormal results flush to 0, a weight that does
+// not count next to the row's largest, which is 1).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b: the two cross terms first, then hi hi.
+__device__ __forceinline__ void mma_3xtf32(float c[4], const FragA& a, const FragB& b) {
+  mma_tf32(c, a.lo, b.hi);
+  mma_tf32(c, a.hi, b.lo);
+  mma_tf32(c, a.hi, b.hi);
+}
+
+// A = rows [r0, r0 + 16), columns [k0, k0 + 8) of a tile.
+__device__ __forceinline__ void load_a(FragA& f, const float* rows, int r0, int k0) {
+  split(rows[r0 * kLd + k0], f.hi[0], f.lo[0]);
+  split(rows[(r0 + 8) * kLd + k0], f.hi[1], f.lo[1]);
+  split(rows[r0 * kLd + k0 + 4], f.hi[2], f.lo[2]);
+  split(rows[(r0 + 8) * kLd + k0 + 4], f.hi[3], f.lo[3]);
+}
+
+// B = X^T for X's rows [n0, n0 + 8) and columns [k0, k0 + 8).
+__device__ __forceinline__ void load_bt(FragB& f, const float* rows, int n0, int k0) {
+  split(rows[n0 * kLd + k0], f.hi[0], f.lo[0]);
+  split(rows[n0 * kLd + k0 + 4], f.hi[1], f.lo[1]);
+}
+
+// B = X for X's rows [k0, k0 + 8) in the permuted depth order (t -> 2t,
+// t + 4 -> 2t + 1) and columns [n0, n0 + 8).
+__device__ __forceinline__ void load_b_perm(FragB& f, const float* cols, int k0, int n0) {
+  split(cols[k0 * kLd + n0], f.hi[0], f.lo[0]);
+  split(cols[(k0 + 1) * kLd + n0], f.hi[1], f.lo[1]);
+}
+
+// A from an accumulator tile c (its 8 columns as the depth, in the permuted
+// order that load_b_perm reads).
+__device__ __forceinline__ void acc_to_a(FragA& f, const float c[4]) {
+  split(c[0], f.hi[0], f.lo[0]);
+  split(c[2], f.hi[1], f.lo[1]);
+  split(c[1], f.hi[2], f.lo[2]);
+  split(c[3], f.hi[3], f.lo[3]);
+}
+
+// acc[n] (16 x 8 each, n < 8) = rows [r0, r0 + 16) of A times X^T, X a
+// 64 x 64 tile: a 16 x 64 product over 64 columns.  ``a_rows`` and
+// ``x_rows`` are the tiles' per-thread row bases.
+__device__ __forceinline__ void product_abt(float acc[kSteps][4], const float* a_rows, int r0,
+                                            const float* x_rows) {
+#pragma unroll
+  for (int n = 0; n < kSteps; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kD; kk += 8) {
+    FragA a;
+    load_a(a, a_rows, r0, kk);
+#pragma unroll
+    for (int n = 0; n < kSteps; ++n) {
+      FragB b;
+      load_bt(b, x_rows, 8 * n, kk);
+      mma_3xtf32(acc[n], a, b);
+    }
+  }
+}
+
+// acc[n] += C X, C a 16 x 64 accumulator tile (c[j] its columns 8j..8j+7)
+// and X a 64 x 64 tile given by its per-thread column base.
+__device__ __forceinline__ void product_cx(float acc[kSteps][4], const float c[kSteps][4],
+                                           const float* x_cols) {
+#pragma unroll
+  for (int j = 0; j < kSteps; ++j) {
+    FragA a;
+    acc_to_a(a, c[j]);
+#pragma unroll
+    for (int n = 0; n < kSteps; ++n) {
+      FragB b;
+      load_b_perm(b, x_cols, 8 * j, 8 * n);
+      mma_3xtf32(acc[n], a, b);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// scores
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// s = s * scale + bias over a 16 x 64 accumulator tile whose element (n, e)
+// sits at row r + 8 (e / 2) and column c + 8 n + (e % 2) (r = its first
+// row + g, c = its first column + 2t).  Rows are queries and columns keys,
+// or the other way round (``kKeyRows``).  The bias index is clamped, so that
+// rows and columns past Sq and Sk (masked or never written) read in bounds.
+template <bool kBias, bool kKeyRows>
+__device__ __forceinline__ void scale_bias(float s[kSteps][4], const Params& p,
+                                           const float* bias_bh, int r, int c) {
+#pragma unroll
+  for (int n = 0; n < kSteps; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[n][e] * p.scale;
+      if (kBias) {
+        const int row = r + 8 * (e >> 1), col = c + 8 * n + (e & 1);
+        const int qi = min(kKeyRows ? col : row, p.Sq - 1);
+        const int kj = min(kKeyRows ? row : col, p.Sk - 1);
+        x += bias_bh[qi * p.bsq + kj * p.bsk];
+      }
+      s[n][e] = x;
+    }
+}
+
+// s = -inf in the columns c + 8 n + (e % 2) at or past ``n_valid``.
+__device__ __forceinline__ void mask_cols(float s[kSteps][4], int c, int n_valid) {
+#pragma unroll
+  for (int n = 0; n < kSteps; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (c + 8 * n + (e & 1) >= n_valid) s[n][e] = -INFINITY;
+}
+
+// Store rows r and r + 8 of a 16 x 64 accumulator tile times ``mul`` as two
+// rows of a contiguous [B, S, H, 64] tensor; rows at or past ``nrows`` are
+// not written.
+__device__ __forceinline__ void store_rows(float* base, long long row_stride, int row, int nrows,
+                                           const float acc[kSteps][4], float mul0, float mul1,
+                                           int t) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row + 8 * i;
+    if (r >= nrows) continue;
+    const float mul = i == 0 ? mul0 : mul1;
+    float* dst = base + r * row_stride + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kSteps; ++n)
+      *reinterpret_cast<float2*>(dst + 8 * n) =
+          make_float2(acc[n][2 * i] * mul, acc[n][2 * i + 1] * mul);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// kernels
+// ---------------------------------------------------------------------------
+
+template <bool kBias>
+__global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(const Params p) {
+  extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
-  float* Ks = Qs + kTileFloats;
-  float* Vs = Ks + kTileFloats;
-  float* Ps = Vs + kTileFloats;
+  float* Ks = Qs + kTileFloats;      // two buffers
+  float* Vs = Ks + 2 * kTileFloats;  // two buffers
 
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const float* qb = p.q + b * p.qsb + h * p.qsh;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16;  // this warp's rows of the tile
+  const int rows_off = g * kLd + t, cols_off = 2 * t * kLd + g;
   const float* kb = p.k + b * p.ksb + h * p.ksh;
   const float* vb = p.v + b * p.vsb + h * p.vsh;
-  const float* bias_bh =
-      p.bias == nullptr ? nullptr : p.bias + b * p.bsb + h * p.bsh;
+  const float* bias_bh = kBias ? p.bias + b * p.bsb + h * p.bsh : nullptr;
+  const int n_tiles = (p.Sk + kTile - 1) / kTile;
 
-  load_tile(Qs, qb, p.qss, q0, p.Sq);
+  load_tile(Qs, p.q + b * p.qsb + h * p.qsh, p.qss, q0, p.Sq);
+  load_tile(Ks, kb, p.kss, 0, p.Sk);
+  load_tile(Vs, vb, p.vss, 0, p.Sk);
+  cp_async_commit();
 
-  float m[4], l[4], acc[4][4];
+  // rows q0 + r0 + g (i = 0: c0, c1) and q0 + r0 + g + 8 (i = 1: c2, c3)
+  const int row = q0 + r0 + g;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[kSteps][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
+  for (int n = 0; n < kSteps; ++n)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  for (int k0 = 0; k0 < p.Sk; k0 += kTile) {
-    __syncthreads();  // the previous tile's readers of Ks, Vs, Ps are done
-    load_tile(Ks, kb, p.kss, k0, p.Sk);
-    load_tile(Vs, vb, p.vss, k0, p.Sk);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * kTile;
+    const float* Kt = Ks + (j & 1) * kTileFloats;
+    const float* Vt = Vs + (j & 1) * kTileFloats;
+    if (j + 1 < n_tiles) {  // into the buffers that tile j - 1 used
+      load_tile(Ks + ((j + 1) & 1) * kTileFloats, kb, p.kss, k0 + kTile, p.Sk);
+      load_tile(Vs + ((j + 1) & 1) * kTileFloats, vb, p.vss, k0 + kTile, p.Sk);
+    }
+    cp_async_commit();
+    cp_async_wait_prev();
     __syncthreads();
 
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    tile_abt(Qs, Ks, ty, tx, s);
+    float s[kSteps][4];
+    product_abt(s, Qs + rows_off, r0, Kt + rows_off);
+    scale_bias<kBias, false>(s, p, bias_bh, row, k0 + 2 * t);
+    if (k0 + kTile > p.Sk) mask_cols(s, k0 + 2 * t, p.Sk);
 
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      float mx = -INFINITY;
+    for (int n = 0; n < kSteps; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = score(p, bias_bh, s[i][j], row, k0 + tx + 16 * j);
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+    float m_ref[2], alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], quad_max(mx[i]));
       // -inf while every key so far is masked (a -inf bias): exponentiate
-      // against 0 instead, so that alpha and every pr come out 0, not NaN
-      const float m_ref = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = expf(m[i] - m_ref);  // 0 on the first tile
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float pr = expf(s[i][j] - m_ref);  // 0 for a masked key
-        Ps[(ty + 16 * i) * kLd + tx + 16 * j] = pr;
-        rs += pr;
-      }
-      l[i] = l[i] * alpha + half_warp_sum(rs);
+      // against 0 instead, so that alpha and every p come out 0, not NaN
+      m_ref[i] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[i] = exp2_approx((m[i] - m_ref[i]) * kLog2e);  // 0 on the first tile
       m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
     }
-    __syncthreads();
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < kSteps; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = exp2_approx((s[n][e] - m_ref[e >> 1]) * kLog2e);  // 0 for a masked key
+        rs[e >> 1] += s[n][e];
+        acc[n][e] *= alpha[e >> 1];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(rs[i]);
 
-    // acc[i][d] += sum_k P[i][k] V[k][d], d = tx + 16 j
-#pragma unroll 16
-    for (int kk = 0; kk < kTile; ++kk) {
-      float pv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * kLd + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) vv[j] = Vs[kk * kLd + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
+    product_cx(acc, s, Vt + cols_off);  // O += P V
+    __syncthreads();  // every warp is done with tile j's buffers
   }
 
   const long long oss = (long long)p.H * kD, osb = (long long)p.Sq * oss;
+  store_rows(p.out + b * osb + (long long)h * kD, oss, row, p.Sq, acc, 1.f / l[0], 1.f / l[1], t);
+  if (t == 0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= p.Sq) continue;
-    const float inv = 1.f / l[i];
-    float* orow = p.out + b * osb + row * oss + (long long)h * kD;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) orow[tx + 16 * j] = acc[i][j] * inv;
-    if (tx == 0) p.out_lse[((long long)b * p.H + h) * p.Sq + row] = m[i] + logf(l[i]);
+    for (int i = 0; i < 2; ++i)
+      if (row + 8 * i < p.Sq)
+        p.out_lse[((long long)b * p.H + h) * p.Sq + row + 8 * i] = m[i] + logf(l[i]);
   }
 }
 
@@ -228,8 +447,8 @@ __global__ void flash_bwd_delta_kernel(const Params p) {
   const long long n_rows = (long long)p.B * p.H * p.Sq;
   const int lane = threadIdx.x & 31;
   const long long n_warps = ((long long)gridDim.x * blockDim.x) >> 5;
-  for (long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-       w < n_rows; w += n_warps) {
+  for (long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5; w < n_rows;
+       w += n_warps) {
     const int i = (int)(w % p.Sq);
     const long long bh = w / p.Sq;
     const int h = (int)(bh % p.H), b = (int)(bh / p.H);
@@ -241,211 +460,164 @@ __global__ void flash_bwd_delta_kernel(const Params p) {
   }
 }
 
-// For query rows i = q0 + ty + 16 a and keys j = k0 + tx + 16 c of the
-// staged tiles: P and dS = P o (dO V^T - D), zero outside Sq x Sk.
-__device__ __forceinline__ void probs_and_dscores(
-    const Params& p, const float* bias_bh, const float* Qs, const float* dOs,
-    const float* Ks, const float* Vs, const float* Ls, const float* Ds, int q0,
-    int k0, int ty, int tx, float pr[4][4], float ds[4][4]) {
-  float s[4][4], dp[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) s[a][c] = dp[a][c] = 0.f;
-  tile_abt(Qs, Ks, ty, tx, s);
-  tile_abt(dOs, Vs, ty, tx, dp);
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = ty + 16 * a, row = q0 + r;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int col = k0 + tx + 16 * c;
-      if (row < p.Sq && col < p.Sk) {
-        pr[a][c] = expf(score(p, bias_bh, s[a][c], row, col) - Ls[r]);
-        ds[a][c] = pr[a][c] * (dp[a][c] - Ds[r]);
-      } else {
-        pr[a][c] = ds[a][c] = 0.f;
-      }
-    }
-  }
-}
-
-// L and D of query rows [q0, q0 + 64) into shared memory (0 past Sq).
-__device__ __forceinline__ void load_rows(const Params& p, float* Ls, float* Ds,
-                                          int b, int h, int q0) {
-  if (threadIdx.x < kTile) {
-    const int row = q0 + threadIdx.x;
-    const long long idx = ((long long)b * p.H + h) * p.Sq + row;
-    Ls[threadIdx.x] = row < p.Sq ? p.lse[idx] : 0.f;
-    Ds[threadIdx.x] = row < p.Sq ? p.delta[idx] : 0.f;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const Params p) {
-  extern __shared__ float smem[];
+template <bool kBias>
+__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_kernel(const Params p) {
+  extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
   float* Vs = Ks + kTileFloats;
-  float* Qs = Vs + kTileFloats;
-  float* dOs = Qs + kTileFloats;
-  float* Ps = dOs + kTileFloats;
-  float* dSs = Ps + kTileFloats;
-  float* Ls = dSs + kTileFloats;
-  float* Ds = Ls + kTile;
+  float* Qs = Vs + kTileFloats;       // two buffers
+  float* dOs = Qs + 2 * kTileFloats;  // two buffers
+  float* Ls = dOs + 2 * kTileFloats;  // two buffers of 64
+  float* Ds = Ls + 2 * kTile;         // two buffers of 64
 
   const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16;  // this warp's keys of the tile
+  const int rows_off = g * kLd + t, cols_off = 2 * t * kLd + g;
   const long long oss = (long long)p.H * kD, osb = (long long)p.Sq * oss;
   const float* qb = p.q + b * p.qsb + h * p.qsh;
   const float* dob = p.dout + b * osb + (long long)h * kD;
-  const float* bias_bh =
-      p.bias == nullptr ? nullptr : p.bias + b * p.bsb + h * p.bsh;
+  const long long rows_bh = ((long long)b * p.H + h) * p.Sq;
+  const float* bias_bh = kBias ? p.bias + b * p.bsb + h * p.bsh : nullptr;
+  const int n_tiles = (p.Sq + kTile - 1) / kTile;
 
   load_tile(Ks, p.k + b * p.ksb + h * p.ksh, p.kss, k0, p.Sk);
   load_tile(Vs, p.v + b * p.vsb + h * p.vsh, p.vss, k0, p.Sk);
+  load_tile(Qs, qb, p.qss, 0, p.Sq);
+  load_tile(dOs, dob, oss, 0, p.Sq);
+  load_rows(p, Ls, Ds, rows_bh, 0);
+  cp_async_commit();
 
-  // this thread's key rows ty + 16 c and dims tx + 16 e
-  float dk[4][4], dv[4][4];
+  // keys k0 + r0 + g (c0, c1) and k0 + r0 + g + 8 (c2, c3); columns are
+  // queries.  Keys past Sk are never written, so only queries are masked.
+  const int key = k0 + r0 + g;
+  float dk[kSteps][4], dv[kSteps][4];
 #pragma unroll
-  for (int c = 0; c < 4; ++c)
+  for (int n = 0; n < kSteps; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[c][e] = dv[c][e] = 0.f;
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
 
-  for (int q0 = 0; q0 < p.Sq; q0 += kTile) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile(Qs, qb, p.qss, q0, p.Sq);
-    load_tile(dOs, dob, oss, q0, p.Sq);
-    load_rows(p, Ls, Ds, b, h, q0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int q0 = j * kTile, buf = j & 1, nxt = (j + 1) & 1;
+    const float* Qt = Qs + buf * kTileFloats;
+    const float* dOt = dOs + buf * kTileFloats;
+    const float* Lt = Ls + buf * kTile + 2 * t;
+    const float* Dt = Ds + buf * kTile + 2 * t;
+    if (j + 1 < n_tiles) {  // into the buffers that tile j - 1 used
+      load_tile(Qs + nxt * kTileFloats, qb, p.qss, q0 + kTile, p.Sq);
+      load_tile(dOs + nxt * kTileFloats, dob, oss, q0 + kTile, p.Sq);
+      load_rows(p, Ls + nxt * kTile, Ds + nxt * kTile, rows_bh, q0 + kTile);
+    }
+    cp_async_commit();
+    cp_async_wait_prev();
     __syncthreads();
 
-    float pr[4][4], ds[4][4];
-    probs_and_dscores(p, bias_bh, Qs, dOs, Ks, Vs, Ls, Ds, q0, k0, ty, tx, pr, ds);
+    // S^T = K Q^T and dP^T = V dO^T over this warp's 16 keys
+    float pt[kSteps][4], dst[kSteps][4];
+    product_abt(pt, Ks + rows_off, r0, Qt + rows_off);
+    product_abt(dst, Vs + rows_off, r0, dOt + rows_off);
+    scale_bias<kBias, true>(pt, p, bias_bh, key, q0 + 2 * t);
+    if (q0 + kTile > p.Sq) mask_cols(pt, q0 + 2 * t, p.Sq);
+    // P^T = exp(S^T - L) and dS^T = P^T o (dP^T - D): 0 for a masked query
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        Ps[(ty + 16 * a) * kLd + tx + 16 * c] = pr[a][c];
-        dSs[(ty + 16 * a) * kLd + tx + 16 * c] = ds[a][c];
-      }
-    __syncthreads();
-
-    // dV[j][d] += sum_i P[i][j] dO[i][d],  dK[j][d] += sum_i dS[i][j] Q[i][d]
-#pragma unroll 8
-    for (int i = 0; i < kTile; ++i) {
-      float pj[4], sj[4], dov[4], qv[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        pj[c] = Ps[i * kLd + ty + 16 * c];
-        sj[c] = dSs[i * kLd + ty + 16 * c];
-      }
+    for (int n = 0; n < kSteps; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        dov[e] = dOs[i * kLd + tx + 16 * e];
-        qv[e] = Qs[i * kLd + tx + 16 * e];
+        const int i = 8 * n + (e & 1);
+        pt[n][e] = exp2_approx((pt[n][e] - Lt[i]) * kLog2e);
+        dst[n][e] = pt[n][e] * (dst[n][e] - Dt[i]);
       }
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          dv[c][e] = fmaf(pj[c], dov[e], dv[c][e]);
-          dk[c][e] = fmaf(sj[c], qv[e], dk[c][e]);
-        }
-    }
+    product_cx(dv, pt, dOt + cols_off);  // dV += P^T dO
+    product_cx(dk, dst, Qt + cols_off);  // dK += dS^T Q
+    __syncthreads();  // every warp is done with tile j's buffers
   }
 
   const long long kss = (long long)p.H * kD, ksb = (long long)p.Sk * kss;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int row = k0 + ty + 16 * c;
-    if (row >= p.Sk) continue;
-    const long long off = b * ksb + row * kss + (long long)h * kD;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      p.dk[off + tx + 16 * e] = dk[c][e] * p.scale;
-      p.dv[off + tx + 16 * e] = dv[c][e];
-    }
-  }
+  const long long off = b * ksb + (long long)h * kD;
+  store_rows(p.dk + off, kss, key, p.Sk, dk, p.scale, p.scale, t);
+  store_rows(p.dv + off, kss, key, p.Sk, dv, 1.f, 1.f, t);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const Params p) {
-  extern __shared__ float smem[];
+template <bool kBias>
+__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Params p) {
+  extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* dOs = Qs + kTileFloats;
-  float* Ks = dOs + kTileFloats;
-  float* Vs = Ks + kTileFloats;
-  float* dSs = Vs + kTileFloats;
-  float* Ls = dSs + kTileFloats;
-  float* Ds = Ls + kTile;
+  float* Ks = dOs + kTileFloats;     // two buffers
+  float* Vs = Ks + 2 * kTileFloats;  // two buffers
 
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16;  // this warp's rows of the tile
+  const int rows_off = g * kLd + t, cols_off = 2 * t * kLd + g;
   const long long oss = (long long)p.H * kD, osb = (long long)p.Sq * oss;
   const float* kb = p.k + b * p.ksb + h * p.ksh;
   const float* vb = p.v + b * p.vsb + h * p.vsh;
-  const float* bias_bh =
-      p.bias == nullptr ? nullptr : p.bias + b * p.bsb + h * p.bsh;
+  const float* bias_bh = kBias ? p.bias + b * p.bsb + h * p.bsh : nullptr;
+  const int n_tiles = (p.Sk + kTile - 1) / kTile;
 
   load_tile(Qs, p.q + b * p.qsb + h * p.qsh, p.qss, q0, p.Sq);
   load_tile(dOs, p.dout + b * osb + (long long)h * kD, oss, q0, p.Sq);
-  load_rows(p, Ls, Ds, b, h, q0);
+  load_tile(Ks, kb, p.kss, 0, p.Sk);
+  load_tile(Vs, vb, p.vss, 0, p.Sk);
+  cp_async_commit();
 
-  // this thread's query rows ty + 16 a and dims tx + 16 e
-  float dq[4][4];
+  // rows q0 + r0 + g (c0, c1) and q0 + r0 + g + 8 (c2, c3); rows past Sq
+  // are never written, so only keys are masked
+  const int row = q0 + r0 + g;
+  float lse[2], dlt[2];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int i = 0; i < 2; ++i) {
+    const bool ok = row + 8 * i < p.Sq;
+    const long long idx = ((long long)b * p.H + h) * p.Sq + row + 8 * i;
+    lse[i] = ok ? p.lse[idx] : 0.f;
+    dlt[i] = ok ? p.delta[idx] : 0.f;
+  }
+  float dq[kSteps][4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dq[a][e] = 0.f;
+  for (int n = 0; n < kSteps; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
 
-  for (int k0 = 0; k0 < p.Sk; k0 += kTile) {
-    __syncthreads();
-    load_tile(Ks, kb, p.kss, k0, p.Sk);
-    load_tile(Vs, vb, p.vss, k0, p.Sk);
-    __syncthreads();
-
-    float pr[4][4], ds[4][4];
-    probs_and_dscores(p, bias_bh, Qs, dOs, Ks, Vs, Ls, Ds, q0, k0, ty, tx, pr, ds);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) dSs[(ty + 16 * a) * kLd + tx + 16 * c] = ds[a][c];
-    __syncthreads();
-
-    // dQ[i][d] += sum_j dS[i][j] K[j][d]
-#pragma unroll 16
-    for (int j = 0; j < kTile; ++j) {
-      float sv[4], kv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) sv[a] = dSs[(ty + 16 * a) * kLd + j];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) kv[e] = Ks[j * kLd + tx + 16 * e];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dq[a][e] = fmaf(sv[a], kv[e], dq[a][e]);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * kTile;
+    const float* Kt = Ks + (j & 1) * kTileFloats;
+    const float* Vt = Vs + (j & 1) * kTileFloats;
+    if (j + 1 < n_tiles) {  // into the buffers that tile j - 1 used
+      load_tile(Ks + ((j + 1) & 1) * kTileFloats, kb, p.kss, k0 + kTile, p.Sk);
+      load_tile(Vs + ((j + 1) & 1) * kTileFloats, vb, p.vss, k0 + kTile, p.Sk);
     }
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T over this warp's 16 rows
+    float s[kSteps][4], dp[kSteps][4];
+    product_abt(s, Qs + rows_off, r0, Kt + rows_off);
+    product_abt(dp, dOs + rows_off, r0, Vt + rows_off);
+    scale_bias<kBias, false>(s, p, bias_bh, row, k0 + 2 * t);
+    if (k0 + kTile > p.Sk) mask_cols(s, k0 + 2 * t, p.Sk);
+    // dS = P o (dP - D), P = exp(S - L): 0 for a masked key
+#pragma unroll
+    for (int n = 0; n < kSteps; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[n][e] = exp2_approx((s[n][e] - lse[e >> 1]) * kLog2e) * (dp[n][e] - dlt[e >> 1]);
+    product_cx(dq, s, Kt + cols_off);  // dQ += dS K
+    __syncthreads();  // every warp is done with tile j's buffers
   }
 
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = q0 + ty + 16 * a;
-    if (row >= p.Sq) continue;
-    float* orow = p.out + b * osb + row * oss + (long long)h * kD;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) orow[tx + 16 * e] = dq[a][e] * p.scale;
-  }
+  store_rows(p.out + b * osb + (long long)h * kD, oss, row, p.Sq, dq, p.scale, p.scale, t);
 }
 
-constexpr size_t kFwdSmem = 4 * kTileFloats * sizeof(float);
-constexpr size_t kDkvSmem = (6 * kTileFloats + 2 * kTile) * sizeof(float);
-constexpr size_t kDqSmem = (5 * kTileFloats + 2 * kTile) * sizeof(float);
+constexpr size_t kFwdSmem = 5 * kTileFloats * sizeof(float);
+constexpr size_t kDkvSmem = (6 * kTileFloats + 4 * kTile) * sizeof(float);
+constexpr size_t kDqSmem = 6 * kTileFloats * sizeof(float);
 
-Params make_params(const void* q, const void* k, const void* v,
-                   const void* bias, int B, int H, int Sq, int Sk,
-                   long long qsb, long long qss, long long qsh, long long ksb,
-                   long long kss, long long ksh, long long vsb, long long vss,
-                   long long vsh, long long bsb, long long bsh, long long bsq,
-                   long long bsk, float scale) {
+Params make_params(const void* q, const void* k, const void* v, const void* bias, int B, int H,
+                   int Sq, int Sk, long long qsb, long long qss, long long qsh, long long ksb,
+                   long long kss, long long ksh, long long vsb, long long vss, long long vsh,
+                   long long bsb, long long bsh, long long bsq, long long bsk, float scale) {
   Params p = {};
   p.q = (const float*)q;
   p.k = (const float*)k;
@@ -460,9 +632,20 @@ Params make_params(const void* q, const void* k, const void* v,
   return p;
 }
 
+// Launch ``kernel`` with ``smem`` bytes of dynamic shared memory.
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, const Params& p) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// O [B, Sq, H, 64] and L [B, H, Sq], both contiguous.
+// O [B, Sq, H, 64] and L [B, H, Sq], both contiguous.  q, k and v start
+// every row on 16 bytes (the wrapper checks).
 extern "C" int vq_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* bias, void* out,
     void* lse, int B, int H, int Sq, int Sk, long long qsb, long long qss,
@@ -474,16 +657,14 @@ extern "C" int vq_flash_attention_fwd(
                          ksh, vsb, vss, vsh, bsb, bsh, bsq, bsk, scale);
   p.out = (float*)out;
   p.out_lse = (float*)lse;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFwdSmem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + kTile - 1) / kTile, H, B);
-  flash_fwd_kernel<<<grid, kThreads, kFwdSmem, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  const dim3 grid((Sq + kTile - 1) / kTile, H, B);
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(bias != nullptr ? launch(flash_fwd_kernel<true>, grid, kFwdSmem, s, p)
+                               : launch(flash_fwd_kernel<false>, grid, kFwdSmem, s, p));
 }
 
 // dQ [B, Sq, H, 64], dK and dV [B, Sk, H, 64], all contiguous; o and dout
-// contiguous [B, Sq, H, 64]; delta a [B, H, Sq] scratch.
+// contiguous [B, Sq, H, 64], dout 16-byte aligned; delta a [B, H, Sq] scratch.
 extern "C" int vq_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* bias,
     const void* o, const void* lse, const void* dout, void* dq, void* dk,
@@ -502,22 +683,18 @@ extern "C" int vq_flash_attention_bwd(
   p.dv = (float*)dv;
   p.delta = (float*)delta;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDkvSmem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDqSmem);
-  if (err != cudaSuccess) return (int)err;
 
   const long long rows = (long long)B * H * Sq;
   long long blocks = (rows + 7) / 8;  // 8 warps of 256 threads, a row each
   if (blocks > 65535) blocks = 65535;
   flash_bwd_delta_kernel<<<(unsigned)blocks, 256, 0, s>>>(p);
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkv_kernel<<<dim3((Sk + kTile - 1) / kTile, H, B), kThreads, kDkvSmem, s>>>(p);
-  err = cudaGetLastError();
+  const dim3 kv_grid((Sk + kTile - 1) / kTile, H, B), q_grid((Sq + kTile - 1) / kTile, H, B);
+  const bool biased = bias != nullptr;
+  err = biased ? launch(flash_bwd_dkv_kernel<true>, kv_grid, kDkvSmem, s, p)
+               : launch(flash_bwd_dkv_kernel<false>, kv_grid, kDkvSmem, s, p);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<<<dim3((Sq + kTile - 1) / kTile, H, B), kThreads, kDqSmem, s>>>(p);
-  return (int)cudaGetLastError();
+  return (int)(biased ? launch(flash_bwd_dq_kernel<true>, q_grid, kDqSmem, s, p)
+                      : launch(flash_bwd_dq_kernel<false>, q_grid, kDqSmem, s, p));
 }

@@ -1,20 +1,22 @@
 """Build and load the port's CUDA kernels.
 
-All sources under ``vqattack_tpu_torch/csrc/`` are compiled by ONE ``nvcc``
-call into one shared library with a plain C interface, which is loaded with
-``ctypes``.  Nothing here includes PyTorch's headers, so the build takes
-seconds and needs neither ``ninja`` nor a JIT compile at first launch.
+The sources under ``vqattack_tpu_torch/csrc/`` are compiled by one ``nvcc``
+process each, all started together, and linked by one more into one shared
+library with a plain C interface, which is loaded with ``ctypes``.  Nothing
+here includes PyTorch's headers, so the build takes seconds and needs
+neither ``ninja`` nor a JIT compile at first launch.
 
 The library lands in ``build/kernels/<hash of the sources>/`` at the root of
 the checkout (git ignores ``build/``) and is reused while the sources are
 unchanged.  Nothing is built when the module is imported: the first kernel
-launch calls :func:`load`.
+launch calls :func:`load`.  Pipelined buckets launch from worker threads, so
+:func:`build` and :func:`load` run under one lock: concurrent first calls
+build and load the library once.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
@@ -29,7 +31,8 @@ CSRC = _PKG / "csrc"
 SOURCES = ("pgd_update.cu", "fused_ln.cu", "flash_attention.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills of each kernel, printed
 )
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -79,39 +82,72 @@ def library_path() -> Path:
     return _PKG.parent / "build" / "kernels" / source_hash() / "libvqattack_kernels.so"
 
 
+_BUILD_LOCK = threading.RLock()
+_LIB = None
+
+
 def build() -> Path:
     """Compile the sources if this version is not built yet; returns the
     library's path.  Prints the build time."""
-    out = library_path()
-    if out.exists():
+    with _BUILD_LOCK:
+        out = library_path()
+        if out.exists():
+            return out
+        out.parent.mkdir(parents=True, exist_ok=True)
+        # unique per process and thread: another checkout's process may
+        # build the same version into the same directory
+        stem = f".{out.name}.{os.getpid()}.{threading.get_ident()}"
+        nvcc = find_nvcc()
+        objs = [out.with_name(f"{stem}.{name}.o") for name in SOURCES]
+        t0 = time.perf_counter()
+        compiles = [
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)]
+            for name, obj in zip(SOURCES, objs)
+        ]
+        tmp = out.with_name(f"{stem}.tmp")
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for cmd in compiles]
+        try:
+            for cmd, proc in zip(compiles, procs):
+                stdout, stderr = proc.communicate()
+                _check_run(cmd, proc, stdout, stderr)
+                print(stderr, end="", file=sys.stderr, flush=True)  # ptxas's report
+            link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+            proc = subprocess.Popen(link, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            _check_run(link, proc, *proc.communicate())
+            os.replace(tmp, out)
+        finally:
+            for proc in procs:  # a failed compile leaves the others nothing to do
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            for f in (*objs, tmp):
+                f.unlink(missing_ok=True)
+        print(f"[kernels] nvcc built {out} in {time.perf_counter() - t0:.2f} s",
+              file=sys.stderr, flush=True)
         return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / name) for name in SOURCES)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+
+
+def _check_run(cmd, proc, stdout: str, stderr: str) -> None:
     if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    print(f"[kernels] nvcc built {out} in {time.perf_counter() - t0:.2f} s",
-          file=sys.stderr, flush=True)
-    return out
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{stdout}\n{stderr}")
 
 
-@functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
     """The kernel library, built at first use, with every entry point's
     ``argtypes``/``restype`` set."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    with _BUILD_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _LIB = lib
+        return _LIB
 
 
 _LAUNCH_LOCK = threading.Lock()

@@ -16,7 +16,9 @@ plain version under autograd.  There is no padding and no dense bias: the
 kernel masks ragged lengths itself and reads the bias through broadcast
 strides.  The plain versions are also the kernels' oracles on the card:
 :func:`flash_attention_bwd_reference` is the backward written from the
-log-sum-exp exactly as the kernel computes it.
+log-sum-exp exactly as the kernel computes it.  The kernel runs its products
+on the tensor cores in three TF32 passes; :func:`mm_3xtf32` emulates that
+arithmetic on the CPU for the tests.
 """
 
 from __future__ import annotations
@@ -94,6 +96,32 @@ def flash_attention_bwd_reference(q, k, v, bias, scale, o, lse, do):
     return dq, dk, dv
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero: ``cvt.rna.tf32.f32``'s rounding, by the two integer operations
+    the kernel uses.  Used by the tests only (:func:`mm_3xtf32`)."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    # sign and magnitude: adding half of the dropped 13 bits' unit to the
+    # magnitude, then truncating, rounds a tie away from zero
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` cut to TF32 (its top 19 bits), as the tensor cores read
+    an operand.  Used by the tests only (:func:`mm_3xtf32`)."""
+    return (x.to(torch.float32).contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the kernel's tensor cores compute it, for the tests only:
+    each operand split as ``hi = tf32_round(x)`` and ``lo = x - hi``, which
+    the tensor cores read truncated to TF32, and ``a_lo b_hi + a_hi b_lo``
+    then ``+ a_hi b_hi`` summed in float32 (``lo lo`` dropped)."""
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    a_lo, b_lo = tf32_truncate(a - a_hi), tf32_truncate(b - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -111,6 +139,11 @@ def _check_inputs(q, k, v, bias) -> Tuple[int, int, int, int]:
                              f"takes [B, S, H, {HEAD_DIM}]")
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention kernel: {name}'s head dim is not contiguous")
+        # the kernel copies rows in 16-byte chunks
+        if t.data_ptr() % 16 or any(st % 4 for st, n in zip(t.stride()[:3], t.shape) if n > 1):
+            raise ValueError(f"flash_attention kernel: {name}'s rows do not start on 16 bytes "
+                             f"(data pointer {t.data_ptr()}, strides {t.stride()}); the b, s "
+                             f"and h strides must be multiples of 4")
     b, sq, h, _ = q.shape
     sk = k.shape[1]
     if k.shape != v.shape or k.shape[0] != b or k.shape[2] != h or k.device != q.device:
@@ -165,9 +198,12 @@ def flash_attention_fwd(q, k, v, bias, scale: float):
 
 def flash_attention_bwd(q, k, v, bias, scale: float, o, lse, do):
     """Backward kernels (the D pass, dK/dV over key tiles, dQ over query
-    tiles): ``(dq, dk, dv)``, contiguous, in the shapes of ``q``, ``k``, ``v``."""
+    tiles): ``(dq, dk, dv)``, contiguous, in the shapes of ``q``, ``k``, ``v``.
+    The same bit for bit on every run: no atomics."""
     b, h, sq, sk = _check_inputs(q, k, v, bias)
     do = do.contiguous()
+    if do.data_ptr() % 16:  # the kernel copies rows in 16-byte chunks
+        do = do.clone()
     for name, t, shape in (("o", o, (b, sq, h, HEAD_DIM)), ("grad of o", do, (b, sq, h, HEAD_DIM)),
                            ("lse", lse, (b, h, sq))):
         if tuple(t.shape) != shape or t.dtype != torch.float32 or not t.is_contiguous():
