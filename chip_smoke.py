@@ -26,10 +26,24 @@ Phases (each prints a line on entry and its seconds on exit):
    feature bucket of 3 padded to 4), the victim scored in one batched call,
    with the phase timing and the aggregate sample-iterations/s;
 7. one PGD gradient step at batch 16 with ``--attn flash`` and with
-   ``--attn xla``: time and peak device memory of each.
+   ``--attn xla``: time and peak device memory of each;
+8. VLMo (``--pipeline vlmo``, ``vlmo_attack_config``: 480 px, 12 MoME
+   blocks of width 768, 941 joint tokens, 40 iterations): K3 with both
+   additive terms (a relative-position table from
+   ``precompute_joint_biases`` and the padded-text key bias) against its
+   plain versions at batch 1, 8 and 16, a -inf first key tile, the autograd
+   Function, and its times beside SDPA with the summed mask;
+9. the full-width VLMo surrogate: one feature-loss gradient step with
+   ``--attn flash`` against ``--attn xla``;
+10. the per-sample VLMo path (2 samples, MAR and feature-only, ``--attn
+    xla``) with the classifier victim and the artifacts;
+11. the batched VLMo path (``--batch-size 8 --attn flash --pipeline-depth
+    2``, 11 samples in both ``old_alg`` buckets);
+12. one VLMo gradient step at batch 16, flash against xla: time, peak
+    memory, and no saved [16, 12, 941, 941] tensor on the flash side.
 
-Before phases 5 and 6 the kernels' launch counts are reset, and after each
-they must equal what the samples' schedules imply.  Prints the kernel
+Before phases 5, 6, 10 and 11 the kernels' launch counts are reset, and
+after each they must equal what the samples' schedules imply.  Prints the kernel
 table as one JSON line, the card's name and power limit, then, as the last
 line, ``{"ok": true, "device": {...}}``.  Exits non-zero, without those
 lines, when there is no CUDA device or any check fails.  Needs torch and
@@ -38,6 +52,7 @@ numpy.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -58,6 +73,7 @@ from vqattack_tpu_torch.attacks.orchestrator import save_artifacts  # noqa: E402
 from vqattack_tpu_torch.attacks.pgd import pgd_feature  # noqa: E402
 from vqattack_tpu_torch.data.side_tables import SideTables  # noqa: E402
 from vqattack_tpu_torch.models.albef import AlbefPretrain  # noqa: E402
+from vqattack_tpu_torch.models.layers import mask_to_key_bias  # noqa: E402
 from vqattack_tpu_torch.ops import _build, attention, fused_ln, pgd_update  # noqa: E402
 from vqattack_tpu_torch.rng import TorchKey  # noqa: E402
 from vqattack_tpu_torch.text.tokenizer import WordPieceTokenizer  # noqa: E402
@@ -549,23 +565,26 @@ BATCH_SIZE, PIPELINE_DEPTH = 8, 2
 
 def write_assets(tmp: str) -> dict:
     """A 30,522-token vocab with bert-base-uncased's special ids ([PAD]=0,
-    [UNK]=100, [CLS]=101, [SEP]=102, [MASK]=103), 3,129 answers and the
-    side tables of SAMPLES and BATCH_SAMPLES, all in ``tmp``."""
+    [UNK]=100, [CLS]=101, [SEP]=102, [MASK]=103), 3,129 answers (as the
+    ALBEF answer list and VLMo's id2answer) and the side tables of every
+    sample list, all in ``tmp``."""
     toks = ["[PAD]"] + [f"[unused{i}]" for i in range(99)]
     toks += ["[UNK]", "[CLS]", "[SEP]", "[MASK]"] + WORDS + ["##" + w for w in WORDS]
     while len(toks) < 30522:
         toks.append(f"tok{len(toks)}")
+    toks[30520:30522] = ["?", "."]  # VLMo's raw questions; no other id moves
     paths = {k: os.path.join(tmp, f) for k, f in (
         ("vocab", "vocab.txt"), ("answers", "answers.json"), ("right", "right.txt"),
         ("sur", "sur.json"), ("tgt", "tgt.json"), ("para", "para.json"),
-        ("allc", "allc.json"))}
+        ("allc", "allc.json"), ("id2answer", "id2answer.json"))}
     with open(paths["vocab"], "w") as f:
         f.write("\n".join(toks[:30522]) + "\n")
     answers = ["red", "blue", "green", "frisbee", "ball", "dog", "cat", "hat", "two", "yes"]
     answers += [f"tok{i}" for i in range(1000, 1000 + 3129 - len(answers))]
-    everything = SAMPLES + BATCH_SAMPLES
+    everything = SAMPLES + BATCH_SAMPLES + VLMO_SAMPLES + VLMO_BATCH_SAMPLES
     tables = {
         "answers": answers,
+        "id2answer": {str(i): a for i, a in enumerate(answers)},
         "sur": {str(q): a for q, _, a, _ in everything},
         "tgt": {str(q): a for q, _, a, _ in everything},
         "para": {str(q): [a, p] for q, _, a, p in everything if p is not None},
@@ -579,29 +598,33 @@ def write_assets(tmp: str) -> dict:
     return paths
 
 
+# each kernel's row name -> (wrapper, its count); the two key-bias rows
+# count K3's launches with a key bias, VLMo's two-term form
 KERNELS = {
-    "pgd_linf_update": pgd_update.pgd_linf_update,
-    "residual_layernorm_fwd": fused_ln.residual_layernorm_fwd,
-    "residual_layernorm_bwd": fused_ln.residual_layernorm_bwd,
-    "flash_attention_fwd": attention.flash_attention_fwd,
-    "flash_attention_bwd": attention.flash_attention_bwd,
+    "pgd_linf_update": (pgd_update.pgd_linf_update, "launches"),
+    "residual_layernorm_fwd": (fused_ln.residual_layernorm_fwd, "launches"),
+    "residual_layernorm_bwd": (fused_ln.residual_layernorm_bwd, "launches"),
+    "flash_attention_fwd": (attention.flash_attention_fwd, "launches"),
+    "flash_attention_bwd": (attention.flash_attention_bwd, "launches"),
+    "flash_attention_fwd_key_bias": (attention.flash_attention_fwd, "key_bias_launches"),
+    "flash_attention_bwd_key_bias": (attention.flash_attention_bwd, "key_bias_launches"),
 }
 
 
 def counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in KERNELS.items()}
 
 
 def reset_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    for fn, attr in KERNELS.values():
+        setattr(fn, attr, 0)
 
 
 def implied_launches(cfg, vit_fwd: int, vit_bwd: int, k1: int, flash: bool) -> dict:
     """Launches that ``vit_fwd`` ViT forwards, ``vit_bwd`` ViT backwards and
     ``k1`` L-inf updates imply: each forward runs 2 x depth fused
     residual+LayerNorm sites (K2) and, with ``--attn flash``, depth
-    attentions (K3); each backward as many backward kernels."""
+    attentions (K3, no key bias); each backward as many backward kernels."""
     depth = cfg.albef.vit.depth
     attn = depth if flash else 0
     return {
@@ -610,6 +633,26 @@ def implied_launches(cfg, vit_fwd: int, vit_bwd: int, k1: int, flash: bool) -> d
         "residual_layernorm_bwd": 2 * depth * vit_bwd,
         "flash_attention_fwd": attn * vit_fwd,
         "flash_attention_bwd": attn * vit_bwd,
+        "flash_attention_fwd_key_bias": 0,
+        "flash_attention_bwd_key_bias": 0,
+    }
+
+
+def vlmo_implied_launches(cfg, fwd: int, bwd: int, k1: int, flash: bool) -> dict:
+    """Launches that ``fwd`` joint VLMo forwards, ``bwd`` backwards and
+    ``k1`` L-inf updates imply: with ``--attn flash`` each forward runs
+    depth attentions over 941 tokens, each with the relative-position table
+    and the text mask (K3 with a key bias), each backward as many; VLMo's
+    LayerNorms are plain (no K2)."""
+    attn = cfg.vlmo.depth if flash else 0
+    return {
+        "pgd_linf_update": k1,
+        "residual_layernorm_fwd": 0,
+        "residual_layernorm_bwd": 0,
+        "flash_attention_fwd": attn * fwd,
+        "flash_attention_bwd": attn * bwd,
+        "flash_attention_fwd_key_bias": attn * fwd,
+        "flash_attention_bwd_key_bias": attn * bwd,
     }
 
 
@@ -688,62 +731,55 @@ def run_main_path(pipe, cfg, tokenizer, paths, answer_max_len):
     return results, counts(), expected
 
 
-def run_batched_path(pipe, cfg, tokenizer, paths, args):
-    """The lockstep sweep over BATCH_SAMPLES as ``run.py`` flushes a buffer
-    (``BatchedAlbefAttack.run``, then the victim through
-    ``evaluate_victim_batch`` in chunks of 16), with the phase timer on (the
-    engine prints its breakdown);
-    returns ``(results, launches, expected launches, seconds)`` with the
-    launch counts reset just before and read just after."""
+def run_batched_path(engine, cfg, paths, args, sample_list, pixel_base, size, victim,
+                     implied):
+    """The lockstep sweep over ``sample_list`` as ``run.py`` flushes a
+    buffer (``engine.run``, then ``victim(results) -> top-1 answers`` in
+    chunks of 16), with the phase timer on (the engine prints its
+    breakdown); returns ``(results, launches, expected launches, seconds)``
+    with the launch counts reset just before and read just after.
+    ``implied(cfg, fwd, bwd, k1, flash)`` gives the launches a schedule
+    implies."""
     side = SideTables.load([paths["right"]], [paths["sur"]], [paths["tgt"]],
                            [paths["para"]], [paths["allc"]])
-    answer_list, answer_ids, answer_mask = load_answers(paths, tokenizer, args.answer_max_len,
-                                                        pipe.device)
-    size = cfg.albef.vit.image_size
     samples = []
-    for i, (qid, question, _, _) in enumerate(BATCH_SAMPLES):
+    for i, (qid, question, _, _) in enumerate(sample_list):
         info = side.attack_inputs(qid)
-        samples.append({"qid": str(qid), "pixels": sample_pixels(100 + i, size),
+        samples.append({"qid": str(qid), "pixels": sample_pixels(pixel_base + i, size),
                         "question": question, "paraphrase": info["paraphrase"],
                         "target_answer": info["target_answer"],
                         "all_correct_answers": info["all_correct_answers"]})
-    engine = batched.BatchedAlbefAttack(pipe)
-    engine._timer = batched.PhaseTimer(True, pipe.device)
+    engine._timer = batched.PhaseTimer(True, engine.p.device)
     mixed, mixed_calls = engine._mixed_loss, []
     engine._mixed_loss = lambda *a: mixed_calls.append(1) or mixed(*a)
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results = engine.run(samples, batch_size=args.batch_size,
-                         rng=TorchKey(cfg.seed, pipe.device),
+                         rng=TorchKey(cfg.seed, engine.p.device),
                          pipeline_depth=args.pipeline_depth)
     torch.cuda.synchronize()
     attack_s = time.perf_counter() - t0
     n_victim = 0
     top1 = []
     for start in range(0, len(results), 16):
-        chunk = results[start : start + 16]
-        topk_ids, topk_probs = pipe.evaluate_victim_batch(
-            [r.adv_image for r in chunk], [r.adv_text for r in chunk], answer_ids, answer_mask)
+        top1 += victim(results[start : start + 16])
         n_victim += 1
-        require(topk_ids.shape == (len(chunk), min(cfg.k_test, len(answer_list)))
-                and np.isfinite(topk_probs).all(), "batched victim output")
-        top1 += [answer_list[int(row[0])] for row in topk_ids]
     torch.cuda.synchronize()
     launched = counts()
     wall = time.perf_counter() - t0
 
-    require([r.qid for r in results] == [str(q) for q, *_ in BATCH_SAMPLES],
+    require([r.qid for r in results] == [str(q) for q, *_ in sample_list],
             "results not in qid order")
     require(engine.last_chunk_sizes == [8, 4], f"chunks {engine.last_chunk_sizes}")
-    expected = implied_launches(cfg, n_victim, 0, 0, True)
+    expected = implied(cfg, n_victim, 0, 0, True)
     for old_alg, extra in ((0, len(mixed_calls)), (1, 0)):
         # one chunk per bucket: its real rows share one schedule
         res = next(r for r in results if r.old_alg == old_alg)
-        for k, v in implied_launches(cfg, *schedule_passes(res, extra), True).items():
+        for k, v in implied(cfg, *schedule_passes(res, extra), True).items():
             expected[k] += v
-    for s, r in zip(samples, results):
-        check_result(r, s["pixels"], cfg.attack, size)
+    for smp, r in zip(samples, results):
+        check_result(r, smp["pixels"], cfg.attack, size)
     n_iters = sum(len(r.feat_losses) + (0 if r.mlm_losses is None else len(r.mlm_losses))
                   for r in results)
     for r, t in zip(results, top1):
@@ -757,12 +793,75 @@ def run_batched_path(pipe, cfg, tokenizer, paths, args):
     return results, launched, expected, attack_s
 
 
+def run_albef_batched_path(pipe, cfg, tokenizer, paths, args):
+    """BATCH_SAMPLES through ``BatchedAlbefAttack``, the victim's batched
+    ``rank_answer``."""
+    answer_list, answer_ids, answer_mask = load_answers(paths, tokenizer, args.answer_max_len,
+                                                        pipe.device)
+
+    def victim(chunk):
+        topk_ids, topk_probs = pipe.evaluate_victim_batch(
+            [r.adv_image for r in chunk], [r.adv_text for r in chunk], answer_ids, answer_mask)
+        require(topk_ids.shape == (len(chunk), min(cfg.k_test, len(answer_list)))
+                and np.isfinite(topk_probs).all(), "batched victim output")
+        return [answer_list[int(row[0])] for row in topk_ids]
+
+    return run_batched_path(batched.BatchedAlbefAttack(pipe), cfg, paths, args, BATCH_SAMPLES,
+                            100, cfg.albef.vit.image_size, victim, implied_launches)
+
+
+def step_ab(step, square, what):
+    """``step()`` with ``--attn flash`` and ``--attn xla``, after one
+    warm-up each, in the turns flash, xla, xla, flash twice over: the
+    median, the mean and every step's seconds, and the peak device memory
+    of each.  The warm-up steps also count the tensors of shape ``square`` that
+    autograd saves: the flash step must hold none (the xla step holds its
+    attention probabilities).  A step's wall time includes the host's
+    enqueueing, which varies from call to call."""
+    out = {"flash": [], "xla": []}
+    peak, squares = {}, {}
+    for impl in ("flash", "xla") + ("flash", "xla", "xla", "flash") * 2:
+        warm = impl not in peak
+        saved = []
+
+        def pack(t):
+            if tuple(t.shape) == square:
+                saved.append(1)
+            return t
+
+        hooks = (torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t) if warm
+                 else contextlib.nullcontext())
+        with attention.attention_impl(impl), hooks:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        if warm:
+            peak[impl] = torch.cuda.max_memory_allocated()
+            squares[impl] = len(saved)
+        else:
+            out[impl].append(dt)
+        torch.cuda.empty_cache()
+    require(squares["flash"] == 0, f"the flash step saved {squares['flash']} {list(square)} "
+                                   f"tensors")
+    require(squares["xla"] > 0, f"the xla step saved no {list(square)} tensors: the check "
+                                f"cannot see them")
+    ab = {impl: {"s_per_step": sum(v) / len(v), "median_s": float(np.median(v)),
+                 "steps_s": v, "peak_bytes": peak[impl], "saved_bhss_tensors": squares[impl]}
+          for impl, v in out.items()}
+    for impl, r in ab.items():
+        print(f"  {what}, --attn {impl}: median {r['median_s']:.4f} s, "
+              f"mean {r['s_per_step']:.4f} s (min {min(r['steps_s']):.4f}, max "
+              f"{max(r['steps_s']):.4f}), peak memory {r['peak_bytes'] / 2 ** 30:.2f} GiB, "
+              f"{r['saved_bhss_tensors']} saved {list(square)} tensors", flush=True)
+    return ab
+
+
 def one_step_ab(pipe, cfg, tokenizer, gen):
     """One PGD gradient step (feature loss, forward + backward + K1) at batch
-    16 with ``--attn flash`` and ``--attn xla``, after one warm-up each, in
-    the turns flash, xla, xla, flash twice over: the median, the mean and
-    every step's seconds, and the peak device memory of each.  A step's wall
-    time includes the host's enqueueing, which varies from call to call."""
+    16, flash against xla (:func:`step_ab`)."""
     b, size, dev = 16, cfg.albef.vit.image_size, pipe.device
     ori = torch.rand((b, 3, size, size), generator=gen, device=dev) * 2 - 1
     ids, mask = tokenizer.encode_batch(["what color is the dog"] * b, cfg.attack.max_text_len)
@@ -777,31 +876,273 @@ def one_step_ab(pipe, cfg, tokenizer, gen):
         pgd_feature(pipe._feature_loss, ori, ori, TorchKey(2, dev), aux,
                     eps=atk.eps, eps_iter=atk.step_size, nb_iter=1)
 
-    out = {"flash": [], "xla": []}
-    peak = {}
-    for impl in ("flash", "xla") + ("flash", "xla", "xla", "flash") * 2:
-        warm = impl not in peak
+    seq = cfg.albef.vit.seq_len
+    return step_ab(step, (b, cfg.albef.vit.num_heads, seq, seq), "one gradient step at batch 16")
+
+
+# ---------------------------------------------------------------------------
+# the VLMo phases (--pipeline vlmo): 941 joint tokens, the relative-position
+# table and the padded-text mask as K3's two additive terms
+# ---------------------------------------------------------------------------
+
+VLMO_SAMPLES = [
+    # VLMo questions keep their '?': the pipeline strips it to substitute
+    (4001, "what color is the dog?", "red", "the dog is red"),
+    (4002, "what is the man holding?", "frisbee", None),
+]
+VLMO_BATCH_SAMPLES = [(q + 3000, question + "?", a, p) for q, question, a, p in BATCH_SAMPLES]
+
+
+def _vlmo_qkv_terms(pipe, tokenizer, gen, b, layer=0):
+    """q, k, v at [b, 941, 12, 64], layer ``layer``'s [1, 12, 941, 941]
+    table from ``precompute_joint_biases`` and the key bias of ``b`` real
+    questions padded to 40 tokens (their padded text keys at -1e9, inside
+    the sequence), as the joint trunk hands them to K3."""
+    seq = pipe.max_text_len + pipe.model.cfg.image_seq_len
+    q, k, v = _qkv(gen, b, seq)
+    questions = [q for _, q, _, _ in VLMO_BATCH_SAMPLES]
+    _, mask = tokenizer.encode_batch([questions[i % len(questions)] for i in range(b)],
+                                     pipe.max_text_len)
+    co = torch.cat([torch.as_tensor(mask, device="cuda"),
+                    torch.ones(b, seq - pipe.max_text_len, dtype=torch.int32, device="cuda")], 1)
+    key_bias = mask_to_key_bias(co)
+    return q, k, v, pipe._rel_biases[layer][None], key_bias
+
+
+def _check_two_term_case(q, k, v, table, key_bias, what):
+    o, lse = attention.flash_attention_fwd(q, k, v, table, SCALE, key_bias)
+    o_r, lse_r = attention.flash_attention_reference(q, k, v, table, SCALE, return_lse=True,
+                                                     key_bias=key_bias)
+    do = torch.randn(o.shape, generator=torch.Generator("cuda").manual_seed(1), device="cuda")
+    grads = attention.flash_attention_bwd(q, k, v, table, SCALE, o, lse, do, key_bias)
+    again = attention.flash_attention_bwd(q, k, v, table, SCALE, o, lse, do, key_bias)
+    refs = attention.flash_attention_bwd_reference(q, k, v, table, SCALE, o, lse, do, key_bias)
+    torch.cuda.synchronize()
+    errs = {"o": _attn_err("o", o, o_r), "lse": _attn_err("lse", lse, lse_r)}
+    for name, g, g2, r in zip(("dq", "dk", "dv"), grads, again, refs):
+        require(torch.equal(g, g2), f"two-term flash backward {name} differs between two runs")
+        errs[name] = _attn_err(name, g, r)
+    print(f"  flash_attention {list(q.shape)} table + key bias ({what}): "
+          + ", ".join(f"{k} err {v:.3g}" for k, v in errs.items())
+          + ", backward deterministic", flush=True)
+    return errs
+
+
+def check_flash_attention_key_bias(pipe, tokenizer, gen):
+    """K3 with both additive terms against its plain versions at the shapes
+    the VLMo path gives it: batch 1 (per-sample), 8 (the batched chunk) and
+    16 (the victim), 941 tokens, a real table and padded text keys; a -inf
+    key bias over every row's first key tile; the autograd Function.  Then
+    the times at [16, 941, 12, 64]."""
+    errs = {}
+    for b in (1, TIMED_BATCH, 16):
+        errs[b] = _check_two_term_case(*_vlmo_qkv_terms(pipe, tokenizer, gen, b),
+                                       "padded text keys")
+    q, k, v, table, key_bias = _vlmo_qkv_terms(pipe, tokenizer, gen, 2, layer=5)
+    _check_two_term_case(q, k, v, table, key_bias.index_fill(1, torch.arange(70, device="cuda"),
+                                                             -torch.inf),
+                         "the first key tile at -inf")
+    w = torch.randn(q.shape, generator=gen, device="cuda")
+    grads = []
+    for fn in (attention.flash_attention, attention.flash_attention_reference):
+        xs = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        grads.append(torch.autograd.grad(
+            (fn(*xs, table, SCALE, key_bias=key_bias) * w).sum(), xs))
+    for name, a, r in zip(("dq", "dk", "dv"), *grads):
+        _attn_err(f"two-term autograd {name}", a, r)
+    print("  flash_attention autograd Function with a key bias matches autograd of the plain "
+          "version", flush=True)
+    return time_flash_attention_key_bias(pipe, tokenizer, gen, errs[16])
+
+
+def time_flash_attention_key_bias(pipe, tokenizer, gen, errs):
+    """Device times at [16, 941, 12, 64] with the table and the key bias:
+    the kernels, the plain versions and ``scaled_dot_product_attention`` with
+    the two terms summed into one [16, 12, 941, 941] float mask (forward;
+    backward through autograd).  The bound counts each input once, the
+    table's 42.5 MB included; ``table_per_bh_bytes`` is the table read once
+    per (batch, head), which the kernel does unless L2 keeps it.  The same
+    kernels without the key bias and without either term are timed beside
+    them (``table_only_ms``, ``no_terms_ms``)."""
+    b = 16
+    q, k, v, table, key_bias = _vlmo_qkv_terms(pipe, tokenizer, gen, b)
+    s = q.shape[1]
+    o, lse = attention.flash_attention_fwd(q, k, v, table, SCALE, key_bias)
+    do = torch.randn(o.shape, generator=gen, device="cuda")
+    dense = table + key_bias[:, None, None, :]  # the sum K3 never forms
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=dense,
+                                                                scale=SCALE)
+    do_t = do.transpose(1, 2)
+    unit = b * HEADS * s * s * HEAD_DIM
+    row = b * s * HEADS * HEAD_DIM * 4
+    terms = table.numel() * 4 + key_bias.numel() * 4
+    lse_bytes = b * HEADS * s * 4
+    long_sleep = 20_000_000
+    fwd_b, fwd_by = tensor_core_bound_ms(4 * row + lse_bytes + terms, 4 * unit)
+    bwd_b, bwd_by = tensor_core_bound_ms(8 * row + lse_bytes + terms, 10 * unit)
+    common = {"route": "cuda", "source": "vqattack_tpu_torch/csrc/flash_attention.cu",
+              "replaces": "vqattack_tpu/ops/attention.py:134", "shape": [b, s, HEADS, HEAD_DIM],
+              "table_bytes": table.numel() * 4, "table_per_bh_bytes": b * table.numel() * 4}
+    fwd = dict(common, **{
+        "name": "flash_attention_fwd_key_bias",
+        "max_abs_err": errs["o"],
+        "ms": time_ms(lambda: attention.flash_attention_fwd(q, k, v, table, SCALE, key_bias), 20),
+        "plain_ms": time_ms(lambda: attention.flash_attention_reference(
+            q, k, v, table, SCALE, key_bias=key_bias), 20, long_sleep),
+        "bound_ms": fwd_b, "bound_by": fwd_by,
+        "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=dense, scale=SCALE), 20),
+    })
+    bwd = dict(common, **{
+        "name": "flash_attention_bwd_key_bias",
+        "max_abs_err": max(errs["dq"], errs["dk"], errs["dv"]),
+        "ms": time_ms(lambda: attention.flash_attention_bwd(
+            q, k, v, table, SCALE, o, lse, do, key_bias), 20),
+        "plain_ms": time_ms(lambda: attention.flash_attention_bwd_reference(
+            q, k, v, table, SCALE, o, lse, do, key_bias), 20, long_sleep),
+        "bound_ms": bwd_b, "bound_by": bwd_by,
+        "library_ms": time_ms(lambda: torch.autograd.grad(
+            sdpa_out, (qt, kt, vt), do_t, retain_graph=True), 20),
+    })
+    # the same kernels at the same shape without the key bias and without
+    # either term: what each term costs
+    o0, lse0 = attention.flash_attention_fwd(q, k, v, None, SCALE)
+    o1, lse1 = attention.flash_attention_fwd(q, k, v, table, SCALE)
+    fwd["table_only_ms"] = time_ms(lambda: attention.flash_attention_fwd(q, k, v, table, SCALE), 20)
+    fwd["no_terms_ms"] = time_ms(lambda: attention.flash_attention_fwd(q, k, v, None, SCALE), 20)
+    bwd["table_only_ms"] = time_ms(lambda: attention.flash_attention_bwd(
+        q, k, v, table, SCALE, o1, lse1, do), 20)
+    bwd["no_terms_ms"] = time_ms(lambda: attention.flash_attention_bwd(
+        q, k, v, None, SCALE, o0, lse0, do), 20)
+    for r, executed in ((fwd, 4 * unit), (bwd, 14 * unit)):
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        r["executed_tflops"] = executed / r["ms"] / 1e9
+        require(r["bound_share"] <= 1.0, f"{r['name']}: {r['ms']} ms is under its bound "
+                                         f"{r['bound_ms']} ms: the timing or the bound is wrong")
+        print(f"  {r['name']} {r['shape']} f32: {r['ms']:.3f} ms (table only "
+              f"{r['table_only_ms']:.3f} ms, no terms {r['no_terms_ms']:.3f} ms; plain "
+              f"{r['plain_ms']:.3f} ms, scaled_dot_product_attention with the summed mask "
+              f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms by {r['bound_by']}: "
+              f"{100 * r['bound_share']:.1f}%; executed {r['executed_tflops']:.1f} TFLOP/s; "
+              f"table {r['table_bytes'] / 1e6:.1f} MB, {r['table_per_bh_bytes'] / 1e6:.1f} MB "
+              f"read per (b, h))", flush=True)
+    del dense, sdpa_out
+    return fwd, bwd
+
+
+def check_vlmo_model_flash(pipe, tokenizer, gen):
+    """One feature-loss gradient step of the full-width VLMo surrogate at
+    batch 2: its features and d/dpixels under ``attention_impl("flash")``
+    (all 12 joint attentions through K3 with both terms) against the
+    product + softmax path.  Tolerance: 1e-4 of each tensor's largest
+    magnitude (float32 reassociation over 12 blocks)."""
+    size, dev = pipe.model.cfg.image_size, pipe.device
+    px = torch.rand((2, 3, size, size), generator=gen, device=dev) * 2 - 1
+    ids, mask = tokenizer.encode_batch(["what color is the dog?", "what is the man holding?"],
+                                       pipe.max_text_len)
+    ids = torch.as_tensor(ids, dtype=torch.long, device=dev)
+    mask = torch.as_tensor(mask, dtype=torch.long, device=dev)
+    aux = {"text_ids": ids, "text_mask": mask, "rel_biases": pipe._rel_biases,
+           "ori_ids": ids, "ori_mask": mask}
+    aux.update(pipe._targets_fn(torch.rand_like(px) * 2 - 1, None, aux))
+    outs = []
+    for impl in ("flash", "xla"):
+        before = counts()
         with attention.attention_impl(impl):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-        if warm:
-            peak[impl] = torch.cuda.max_memory_allocated()
-        else:
-            out[impl].append(dt)
-        torch.cuda.empty_cache()
-    ab = {impl: {"s_per_step": sum(v) / len(v), "median_s": float(np.median(v)),
-                 "steps_s": v, "peak_bytes": peak[impl]}
-          for impl, v in out.items()}
-    for impl, r in ab.items():
-        print(f"  one gradient step at batch 16, --attn {impl}: median {r['median_s']:.4f} s, "
-              f"mean {r['s_per_step']:.4f} s (min {min(r['steps_s']):.4f}, max "
-              f"{max(r['steps_s']):.4f}), peak memory {r['peak_bytes'] / 2 ** 30:.2f} GiB",
-              flush=True)
-    return ab
+            p = px.clone().requires_grad_(True)
+            _, layer_cls, tokens, _ = pipe.model.attack_feats(p, ids, mask, pipe._rel_biases)
+            loss, _ = pipe._feature_loss(p, None, aux)
+            (g,) = torch.autograd.grad(loss, p)
+        after = counts()
+        depth = pipe.model.cfg.depth if impl == "flash" else 0
+        for name in ("flash_attention_fwd_key_bias", "flash_attention_bwd_key_bias"):
+            want = 2 * depth if name.startswith("flash_attention_fwd") else depth
+            require(after[name] - before[name] == want,
+                    f"{impl}: {after[name] - before[name]} {name} launches, expected {want}")
+        outs.append((layer_cls.detach(), tokens.detach(), g))
+    for name, a, b in zip(("layer_cls", "token_feats", "d/dpixels"), *outs):
+        require(bool(torch.isfinite(a).all()), f"VLMo {name} not finite")
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        require(err <= 1e-4 * scale, f"VLMo flash {name}: max abs err {err} vs scale {scale}")
+        print(f"  VLMo flash vs product+softmax {name} {list(a.shape)}: max abs err {err:.3g} "
+              f"(scale {scale:.3g})", flush=True)
+
+
+def run_vlmo_main_path(pipe, cfg, paths):
+    """The per-sample VLMo attack over VLMO_SAMPLES and the victim's
+    classifier on each result; returns ``(results, launches, expected
+    launches)`` with the counts reset just before and read just after."""
+    side = SideTables.load([paths["right"]], [paths["sur"]], [paths["tgt"]],
+                           [paths["para"]], [paths["allc"]])
+    size = cfg.vlmo.image_size
+    flash = attention.get_impl() == "flash"
+    results, expected = [], {k: 0 for k in KERNELS}
+    reset_counts()
+    for i, (qid, question, _, _) in enumerate(VLMO_SAMPLES):
+        info = side.attack_inputs(qid)
+        px = sample_pixels(200 + i, size)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pipe.attack_sample(px, question, str(qid), info["paraphrase"],
+                                 info["target_answer"], info["all_correct_answers"])
+        pred, answer = pipe.evaluate_victim(res.adv_image, res.adv_text)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check_result(res, px, cfg.attack, size)
+        require(0 <= pred < cfg.vlmo.vqa_label_size and answer == pipe.id2answer[pred],
+                "VLMo victim output")
+        fwd, bwd, k1 = schedule_passes(res)
+        for k, v in vlmo_implied_launches(cfg, fwd + 1, bwd, k1, flash).items():  # + victim
+            expected[k] += v
+        results.append(res)
+        print(f"  sample {qid}: old_alg={res.old_alg} blocks={res.num_blocks} "
+              f"vl_steps={res.vl_steps} adv_text={res.adv_text!r} victim {answer!r} "
+              f"{dt:.2f} s/sample", flush=True)
+    return results, counts(), expected
+
+
+def run_vlmo_batched_path(pipe, cfg, paths, args):
+    """VLMO_BATCH_SAMPLES through ``BatchedVlmoAttack`` as ``run.py
+    --pipeline vlmo`` runs it, the victim's classifier through
+    ``evaluate_victim_batch``; every question keeps its '?'."""
+
+    def victim(chunk):
+        out = pipe.evaluate_victim_batch([r.adv_image for r in chunk],
+                                         [r.adv_text for r in chunk])
+        require(len(out) == len(chunk) and all(a == pipe.id2answer[p] for p, a in out),
+                "batched VLMo victim output")
+        return [a for _, a in out]
+
+    res = run_batched_path(batched.BatchedVlmoAttack(pipe), cfg, paths, args,
+                           VLMO_BATCH_SAMPLES, 300, cfg.vlmo.image_size, victim,
+                           vlmo_implied_launches)
+    for r in res[0]:
+        require(r.adv_text.endswith("?"), f"{r.qid}: the VLMo question lost its '?'")
+    return res
+
+
+def vlmo_one_step_ab(pipe, cfg, tokenizer, gen):
+    """One VLMo feature-loss PGD step at batch 16, flash against xla
+    (:func:`step_ab`): the flash step holds no [16, 12, 941, 941] tensor."""
+    b, size, dev = 16, cfg.vlmo.image_size, pipe.device
+    ori = torch.rand((b, 3, size, size), generator=gen, device=dev) * 2 - 1
+    ids, mask = tokenizer.encode_batch(["what color is the dog?"] * b, pipe.max_text_len)
+    ids = torch.as_tensor(ids, dtype=torch.long, device=dev)
+    mask = torch.as_tensor(mask, dtype=torch.long, device=dev)
+    aux = {"text_ids": ids, "text_mask": mask, "rel_biases": pipe._rel_biases,
+           "ori_ids": ids, "ori_mask": mask}
+    aux.update(pipe._targets_fn(ori, None, aux))
+    atk = cfg.attack
+
+    def step():
+        pgd_feature(pipe._feature_loss, ori, ori, TorchKey(2, dev), aux,
+                    eps=atk.eps, eps_iter=atk.step_size, nb_iter=1)
+
+    seq = pipe.max_text_len + cfg.vlmo.image_seq_len
+    return step_ab(step, (b, cfg.vlmo.num_heads, seq, seq),
+                   "one VLMo gradient step at batch 16")
 
 
 def main() -> int:
@@ -873,25 +1214,85 @@ def main() -> int:
     with Phase(f"batched path: {len(BATCH_SAMPLES)} samples, --batch-size {BATCH_SIZE} "
                f"--attn flash --pipeline-depth {PIPELINE_DEPTH}"):
         with attention.attention_impl(batch_args.attn):
-            b_results, b_launched, b_expected, _ = run_batched_path(
+            b_results, b_launched, b_expected, _ = run_albef_batched_path(
                 pipe, cfg, tokenizer, paths, batch_args)
     require(sorted({r.old_alg for r in b_results}) == [0, 1], "both PGD paths must run")
     for k, n in b_launched.items():
-        require(n > 0, f"{k} was not launched on the batched path")
+        require(n > 0 or k.endswith("key_bias"), f"{k} was not launched on the batched path")
         require(n == b_expected[k], f"batched {k}: {n} launches, the schedules imply "
                                     f"{b_expected[k]}")
 
-    shutil.rmtree(tmp, ignore_errors=True)
-
     with Phase("one gradient step at batch 16: --attn flash against --attn xla"):
         ab = one_step_ab(pipe, cfg, tokenizer, gen)
+    del pipe
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------- VLMo
+    v_common = [a for a in common if a not in ("--answer-list", paths["answers"])]
+    v_common += ["--pipeline", "vlmo", "--id2answer", paths["id2answer"]]
+    v_args = port_run.build_argparser().parse_args(v_common)
+    v_batch_args = port_run.build_argparser().parse_args(v_common + [
+        "--batch-size", str(BATCH_SIZE), "--attn", "flash",
+        "--pipeline-depth", str(PIPELINE_DEPTH)])
+    v_cfg = port_run.resolve_config(v_args)
+    vc = v_cfg.vlmo
+    require(vc.image_size == 480 and vc.patch_size == 16 and vc.depth == 12
+            and vc.hidden_size == HEADS * HEAD_DIM and vc.num_heads == HEADS
+            and vc.vlffn_start_layer == 10 and vc.layer_scale_init == 0.1
+            and vc.max_text_len + vc.image_seq_len == 941 and vc.vqa_label_size == 3129
+            and v_cfg.attack.num_iters == 40 and v_cfg.attack.eps == 0.125
+            and v_cfg.attack.step_size == 0.01, "not the full-width VLMo attack config")
+    with Phase("VLMo pipeline (random full-width weights)"):
+        v_pipe = port_run._build_pipeline(v_args, v_cfg, tokenizer)
+    require(tuple(v_pipe._rel_biases.shape) == (12, HEADS, 941, 941),
+            "the precomputed relative-position biases")
+    with Phase("K3 with a key bias against its plain versions (VLMo shapes)"):
+        kb_rows = check_flash_attention_key_bias(v_pipe, tokenizer, gen)
+    with Phase("VLMo model: flash (two-term K3) against product + softmax"):
+        check_vlmo_model_flash(v_pipe, tokenizer, gen)
+
+    with Phase("VLMo per-sample path: 2 samples, --attn xla"):
+        v_results, v_launched, v_expected = run_vlmo_main_path(v_pipe, v_cfg, paths)
+    require(sorted(r.old_alg for r in v_results) == [0, 1], "both VLMo PGD paths must run")
+    require(all(r.vl_steps > 0 for r in v_results), "no VLMo VL step ran")
+    for k, n in v_launched.items():
+        require(n == v_expected[k], f"VLMo per-sample {k}: {n} launches, the schedules imply "
+                                    f"{v_expected[k]}")
+    require(v_launched["pgd_linf_update"] > 0, "K1 was not launched on the VLMo per-sample path")
+    v_out = os.path.join(tmp, "out_vlmo")
+    save_artifacts(v_results, v_out)
+    for r in v_results:
+        for ext in (".pt", ".npy"):
+            require(os.path.exists(os.path.join(v_out, r.qid + ext)), f"artifact {r.qid}{ext}")
+    require(os.path.exists(os.path.join(v_out, "adv_txt_dict.json")), "VLMo adversarial text")
+
+    with Phase(f"VLMo batched path: {len(VLMO_BATCH_SAMPLES)} samples, --pipeline vlmo "
+               f"--batch-size {BATCH_SIZE} --attn flash --pipeline-depth {PIPELINE_DEPTH}"):
+        with attention.attention_impl(v_batch_args.attn):
+            vb_results, vb_launched, vb_expected, _ = run_vlmo_batched_path(
+                v_pipe, v_cfg, paths, v_batch_args)
+    require(sorted({r.old_alg for r in vb_results}) == [0, 1], "both VLMo PGD paths must run")
+    for k, n in vb_launched.items():
+        require(n == vb_expected[k], f"VLMo batched {k}: {n} launches, the schedules imply "
+                                     f"{vb_expected[k]}")
+        require((n == 0) == k.startswith("residual_layernorm"),
+                f"VLMo batched {k}: {n} launches (K2 none, every other kernel some)")
+
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    with Phase("one VLMo gradient step at batch 16: --attn flash against --attn xla"):
+        v_ab = vlmo_one_step_ab(v_pipe, v_cfg, tokenizer, gen)
 
     for row in rows:
         row["launches"] = b_launched[row["name"]]
+    for row in kb_rows:
+        row["launches"] = vb_launched[row["name"]]
+    rows += list(kb_rows)
     print(f"wall: {time.perf_counter() - t_start:.1f} s since start", flush=True)
-    print(json.dumps({"kernel_launches": {"per_sample": launched, "batched": b_launched}}),
-          flush=True)
-    print(json.dumps({"attn_ab_batch16": ab}), flush=True)
+    print(json.dumps({"kernel_launches": {
+        "per_sample": launched, "batched": b_launched,
+        "vlmo_per_sample": v_launched, "vlmo_batched": vb_launched}}), flush=True)
+    print(json.dumps({"attn_ab_batch16": ab, "vlmo_attn_ab_batch16": v_ab}), flush=True)
     print(json.dumps({"flash_attention_batch16": flash_b16}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -17,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import JaxKey, nchw, nhwc, synth_cli_assets, tiny_configs, tiny_models
+from torch_port_util import (JaxKey, fixed_topk, nchw, nhwc, synth_cli_assets, tiny_configs,
+                             tiny_models)
 from vqattack_tpu.attacks import text_attack as jtext
 from vqattack_tpu.attacks.batched import BatchedAlbefAttack as JBatched
 from vqattack_tpu.attacks.orchestrator import AlbefAttackPipeline as JPipeline
@@ -54,22 +55,6 @@ SAMPLES = [
 ATK = dict(eps=0.125, eps_iter=0.01)
 
 
-def _topk_fn(tok):
-    """``mlm_topk_fn(ids, mask) -> (scores, ids)`` from CANDIDATES."""
-    table = {tok.vocab[w]: [tok.vocab[c] for c in cs] for w, cs in CANDIDATES.items()}
-
-    def topk(ids, mask):
-        ids = np.asarray(ids)
-        scores = np.zeros(ids.shape + (5,), np.float32)
-        out = np.zeros(ids.shape + (5,), np.int64)
-        for pos in np.ndindex(*ids.shape):
-            for r, c in enumerate(table.get(int(ids[pos]), [])):
-                scores[pos + (r,)], out[pos + (r,)] = 1.0 - 0.1 * r, c
-        return scores, out
-
-    return topk
-
-
 def _shallow_text(cfg):
     bert = dataclasses.replace(cfg.albef.bert, num_layers=2, fusion_layer=1)
     return dataclasses.replace(cfg, albef=dataclasses.replace(cfg.albef, bert=bert,
@@ -91,7 +76,7 @@ def engines():
                    mlm_model=j_mlm, mlm_params=p_mlm)
     tp = AlbefAttackPipeline(tc, t_sur, t_tok, NullGate(), victim=t_vic, mlm_model=t_mlm,
                              device="cpu")
-    jp.candidate_mlm_topk = tp.candidate_mlm_topk = _topk_fn(t_tok)
+    jp.candidate_mlm_topk = tp.candidate_mlm_topk = fixed_topk(t_tok, CANDIDATES)
     rng = np.random.default_rng(0)
     samples = []
     for qid, q, para, ans in SAMPLES:

@@ -186,3 +186,92 @@ def test_flash_attention_backward_bit_identical_at_the_victims_batch(gen):
     second = attention.flash_attention_bwd(q, k, v, None, scale, o, lse, do)
     for name, a, b in zip(("dq", "dk", "dv"), first, second):
         assert torch.equal(a, b), f"{name} differs between two runs"
+
+
+def _two_terms(gen, b, s, kind, h=4, text=40):
+    """A [1, H, S, S] table as ``bias`` and a [B, S] key bias: ``"text_pad"``
+    masks (-1e9) the last 12 of the first ``text`` keys of row 1, the
+    padded text of VLMo's joint sequence; ``"left_pad"`` masks the first 70
+    keys of every row at -inf, the whole first key tile; ``"zero"`` masks
+    nothing."""
+    q, k, v, _ = _attention_case(gen, b, s, s, "none", h)
+    table = torch.randn(1, h, s, s, generator=gen, device="cuda") * 0.5
+    key_bias = torch.zeros(b, s, device="cuda")
+    if kind == "text_pad":
+        key_bias[min(1, b - 1), text - 12 : text] = -1e9
+    elif kind == "left_pad":
+        key_bias[:, :70] = -torch.inf
+    return q, k, v, table, key_bias
+
+
+@pytest.mark.parametrize("b,s,kind", [
+    (2, 1, "zero"), (2, 63, "text_pad"), (2, 130, "text_pad"), (1, 941, "text_pad"),
+    (3, 941, "text_pad"), (2, 130, "left_pad"), (1, 941, "left_pad"),
+])
+def test_flash_attention_kernels_with_a_key_bias(gen, b, s, kind):
+    """K3 with both terms (the table and the key bias) against the plain
+    versions at ragged lengths and VLMo's 941 tokens, with padded text keys
+    inside the sequence and a -inf first key tile; the [1, Sk] broadcast
+    key bias too; the backward the same bit for bit."""
+    q, k, v, table, kb = _two_terms(gen, b, s, kind)
+    scale = 64 ** -0.5
+    for key_bias in (kb, kb[:1]):
+        o, lse = attention.flash_attention_fwd(q, k, v, table, scale, key_bias)
+        o_r, lse_r = attention.flash_attention_reference(q, k, v, table, scale,
+                                                         return_lse=True, key_bias=key_bias)
+        _close(o, o_r, "o")
+        _close(lse, lse_r, "lse")
+        do = torch.randn(o.shape, generator=gen, device="cuda")
+        grads = attention.flash_attention_bwd(q, k, v, table, scale, o, lse, do, key_bias)
+        again = attention.flash_attention_bwd(q, k, v, table, scale, o, lse, do, key_bias)
+        refs = attention.flash_attention_bwd_reference(q, k, v, table, scale, o, lse, do,
+                                                       key_bias)
+        for name, g, g2, r in zip(("dq", "dk", "dv"), grads, again, refs):
+            assert torch.equal(g, g2), f"{name} differs between two runs"
+            _close(g, r, name)
+
+
+def test_flash_attention_key_bias_autograd_counts_and_refusals(gen):
+    """The autograd Function with both terms against autograd through the
+    plain version, counted as key-bias launches; the wrapper refuses a key
+    bias of the wrong shape, type, layout or with a gradient."""
+    q, k, v, table, kb = _two_terms(gen, 2, 150, "text_pad")
+    w = torch.randn(2, 150, 4, 64, generator=gen, device="cuda")
+    grads = []
+    for fn in (attention.flash_attention, attention.flash_attention_reference):
+        xs = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        fwd, bwd = (attention.flash_attention_fwd.key_bias_launches,
+                    attention.flash_attention_bwd.key_bias_launches)
+        out = fn(*xs, table, 0.125, key_bias=kb[:, None, None, :])
+        grads.append(torch.autograd.grad((out * w).sum(), xs))
+        if fn is attention.flash_attention:
+            assert attention.flash_attention_fwd.key_bias_launches == fwd + 1
+            assert attention.flash_attention_bwd.key_bias_launches == bwd + 1
+    for name, a, r in zip(("dq", "dk", "dv"), *grads):
+        _close(a, r, name)
+    with pytest.raises(ValueError, match="key_bias"):
+        attention.flash_attention(q, k, v, table, 0.125, key_bias=kb[:, :149])
+    with pytest.raises(ValueError, match="key_bias"):
+        attention.flash_attention(q, k, v, table, 0.125, key_bias=kb[:, None, :])
+    with pytest.raises(TypeError, match="key_bias"):
+        attention.flash_attention(q, k, v, table, 0.125, key_bias=kb.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        attention.flash_attention(q, k, v, table, 0.125,
+                                  key_bias=torch.zeros(150, 2, device="cuda").t())
+    with pytest.raises(ValueError, match="no gradient"):
+        attention.flash_attention(q, k, v, table, 0.125, key_bias=kb.clone().requires_grad_(True))
+
+
+def test_flash_attention_two_term_backward_bit_identical_at_the_victims_batch(gen):
+    """At [16, 941, 12, 64] with the table and the padded-text key bias,
+    VLMo's victim batch: two backward runs give the same bits, and the
+    forward agrees with the plain version."""
+    q, k, v, table, kb = _two_terms(gen, 16, 941, "text_pad", h=12)
+    scale = 64 ** -0.5
+    o, lse = attention.flash_attention_fwd(q, k, v, table, scale, kb)
+    _close(o, attention.flash_attention_reference(q, k, v, table, scale, key_bias=kb), "o")
+    do = torch.randn(o.shape, generator=gen, device="cuda")
+    first = attention.flash_attention_bwd(q, k, v, table, scale, o, lse, do, kb)
+    second = attention.flash_attention_bwd(q, k, v, table, scale, o, lse, do, kb)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), f"{name} differs between two runs"

@@ -2,8 +2,8 @@
 
 - :class:`JaxKey`: an ``rng.py`` key of the port that replays the JAX
   package's ``jax.random`` draws, so both packages see the same noise;
-- tiny ALBEF geometry and models built in both packages with the same
-  weights (flax init -> ``load_jax_params``);
+- tiny ALBEF and VLMo geometries and models built in both packages with
+  the same weights (flax init -> ``load_jax_params``);
 - layout helpers: the port's pixels are NCHW, the JAX package's NHWC;
 - :func:`synth_cli_assets`: synthetic data and side tables for a CLI run.
 """
@@ -24,10 +24,12 @@ from vqattack_tpu import config as jcfg
 from vqattack_tpu.models.albef import AlbefPretrain as JAlbefPretrain
 from vqattack_tpu.models.albef import AlbefVQA as JAlbefVQA
 from vqattack_tpu.models.bert import FusionBert as JFusionBert
+from vqattack_tpu.models.vlmo import VLMo as JVLMo
 from vqattack_tpu_torch import config as tcfg
 from vqattack_tpu_torch.checkpoint.convert import load_jax_params
 from vqattack_tpu_torch.models.albef import AlbefPretrain, AlbefVQA
 from vqattack_tpu_torch.models.bert import FusionBert
+from vqattack_tpu_torch.models.vlmo import VLMo
 
 WORDS = ["what", "color", "is", "the", "dog", "cat", "red", "blue", "hat",
          "a", "frisbee", "park"]
@@ -60,6 +62,24 @@ class JaxKey:
 
     def randint(self, shape, lo, hi):
         return torch.from_numpy(np.array(jax.random.randint(self.key, tuple(shape), lo, hi))).long()
+
+
+def fixed_topk(tok, candidates):
+    """A candidate MLM's ``mlm_topk_fn(ids, mask) -> (scores, ids)`` that
+    proposes ``candidates[word]`` (scores 1.0, 0.9, ...) at each occurrence
+    of ``word`` and nothing elsewhere, the same for both packages."""
+    table = {tok.vocab[w]: [tok.vocab[c] for c in cs] for w, cs in candidates.items()}
+
+    def topk(ids, mask):
+        ids = np.asarray(ids)
+        scores = np.zeros(ids.shape + (5,), np.float32)
+        out = np.zeros(ids.shape + (5,), np.int64)
+        for pos in np.ndindex(*ids.shape):
+            for r, c in enumerate(table.get(int(ids[pos]), [])):
+                scores[pos + (r,)], out[pos + (r,)] = 1.0 - 0.1 * r, c
+        return scores, out
+
+    return topk
 
 
 def nhwc(x) -> np.ndarray:
@@ -108,12 +128,47 @@ def tiny_models(jc, tc, seed: int = 0, victim: bool = True, mlm: bool = True):
             jax.random.key(seed + 3))
         t_vic = load_jax_params(AlbefVQA(tc.albef), _host(p_vic)).eval()
     if mlm:
-        j_mlm = JFusionBert(dataclasses.replace(jc.albef.bert, fusion_layer=jc.albef.bert.num_layers),
-                            with_mlm_head=True)
-        p_mlm = jax.jit(lambda k: j_mlm.init(k, ids, mask))(jax.random.key(seed + 1))
-        t_mlm_cfg = dataclasses.replace(tc.albef.bert, fusion_layer=tc.albef.bert.num_layers)
-        t_mlm = load_jax_params(FusionBert(t_mlm_cfg, with_mlm_head=True), _host(p_mlm)).eval()
+        j_mlm, p_mlm, t_mlm = tiny_mlm(jc, tc, seed + 1)
     return (j_sur, j_vic, j_mlm), (p_sur, p_vic, p_mlm), (t_sur, t_vic, t_mlm)
+
+
+def tiny_mlm(jc, tc, seed: int):
+    """(JAX module, JAX params, port module) of the candidate-generation MLM:
+    the tiny BERT as a text-only encoder with its MLM head."""
+    ids = jnp.ones((1, jc.attack.max_text_len), jnp.int32)
+    j_mlm = JFusionBert(dataclasses.replace(jc.albef.bert, fusion_layer=jc.albef.bert.num_layers),
+                        with_mlm_head=True)
+    p_mlm = jax.jit(lambda k: j_mlm.init(k, ids, jnp.ones_like(ids)))(jax.random.key(seed))
+    t_mlm_cfg = dataclasses.replace(tc.albef.bert, fusion_layer=tc.albef.bert.num_layers)
+    t_mlm = load_jax_params(FusionBert(t_mlm_cfg, with_mlm_head=True), _host(p_mlm)).eval()
+    return j_mlm, p_mlm, t_mlm
+
+
+def tiny_vlmo_configs(vocab_size: int, depth: int = 4, **attack_kw):
+    """The same tiny RunConfig in both packages, with the toy vocab in the
+    VLMo and BERT geometries: ``depth`` VLMo blocks (4 by default), the VL
+    expert in the last."""
+    return [dataclasses.replace(c, vlmo=dataclasses.replace(
+                c.vlmo, vocab_size=vocab_size, depth=depth, vlffn_start_layer=depth - 1))
+            for c in tiny_configs(vocab_size, **attack_kw)]
+
+
+def tiny_vlmo(jc, tc, seed: int = 0):
+    """(JAX module, JAX params, port module) of the tiny VLMo with the VQA
+    head.  ``init_all`` leaves the relative-position table at zeros; it is
+    redrawn normal(0, 0.5) from ``seed`` so that the bias path adds
+    something."""
+    cfg = jc.vlmo
+    px = jnp.zeros((1, cfg.image_size, cfg.image_size, 3))
+    ids = jnp.ones((1, cfg.max_text_len), jnp.int32)
+    j_model = JVLMo(cfg)
+    params = _host(jax.jit(lambda k: j_model.init(k, ids, jnp.ones_like(ids), px,
+                                                  method=JVLMo.init_all))(jax.random.key(seed)))
+    table = params["params"]["relative_position_bias_table"]
+    params["params"]["relative_position_bias_table"] = (
+        np.random.default_rng(seed).normal(size=table.shape) * 0.5).astype(np.float32)
+    t_model = load_jax_params(VLMo(tc.vlmo), params).eval()
+    return j_model, params, t_model
 
 
 ROOT = Path(__file__).resolve().parent.parent

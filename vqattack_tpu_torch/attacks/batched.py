@@ -1,11 +1,12 @@
-"""Batched multi-sample ALBEF attack: the sweep's throughput engine.
+"""Batched multi-sample attack: the sweep's throughput engine.
 
-Port of ``vqattack_tpu/attacks/batched.py`` (the ALBEF engine; the VLMo
-subclass and the device mesh are not ported yet).  Samples that share a
-block schedule run in lockstep: one PGD loop advances the whole batch, the
-VL step harvests every sample's text-embedding gradients at once, and the
-candidate sentences of all samples are embedded and gated in single device
-calls.  The host does the WordPiece bookkeeping between blocks.
+Port of ``vqattack_tpu/attacks/batched.py``: the ALBEF engine and its VLMo
+subclass, which swaps the target and ``aux`` adapters and the text dialect
+(the device mesh is not ported yet).  Samples that share a block schedule
+run in lockstep: one PGD loop advances the whole batch, the VL step
+harvests every sample's text-embedding gradients at once, and the candidate
+sentences of all samples are embedded and gated in single device calls.
+The host does the WordPiece bookkeeping between blocks.
 
 Bucketing: the schedule is fixed by ``k``, the number of substitutable
 words (``compute_iter_schedule``), so a bucket is the samples with equal
@@ -38,6 +39,7 @@ import numpy as np
 import torch
 
 from vqattack_tpu_torch.attacks import albef as albef_losses
+from vqattack_tpu_torch.attacks import vlmo as vlmo_losses
 from vqattack_tpu_torch.attacks.mar_labels import MarLabels, build_mar_labels
 from vqattack_tpu_torch.attacks.orchestrator import AlbefAttackPipeline, AttackResult
 from vqattack_tpu_torch.attacks.pgd import pgd_alternating_block, pgd_feature_block
@@ -49,6 +51,7 @@ from vqattack_tpu_torch.attacks.text_attack import (
     select_substitutions_multi,
 )
 from vqattack_tpu_torch.models.albef import AlbefPretrain
+from vqattack_tpu_torch.models.vlmo import VLMo
 from vqattack_tpu_torch.rng import TorchKey
 from vqattack_tpu_torch.text.similarity import next_pow2
 
@@ -102,13 +105,10 @@ def _make_timer(device: Optional[torch.device] = None) -> PhaseTimer:
 _PREPARE_CHUNK = 64
 
 
-@functools.lru_cache(maxsize=None)
-def make_mixed_second_loss(model: AlbefPretrain):
-    """Per-sample convex mix of the MAR and feature losses, weighted by
-    ``aux['mlm_weight'] [B]``: the batched form of the reference's
-    per-sample shape fallback (``fgm:102-118``)."""
-    feat = albef_losses.make_feature_loss(model)
-    mlm = albef_losses.make_mlm_loss(model)
+def _mixed_loss(feat, mlm):
+    """Per-sample convex mix of the MAR loss ``mlm`` and the feature loss
+    ``feat``, weighted by ``aux['mlm_weight'] [B]``: the batched form of the
+    reference's per-sample shape fallback (``fgm:102-118``)."""
 
     def loss_fn(adv_px, key, aux):
         k1, k2 = key.split(2)
@@ -119,6 +119,18 @@ def make_mixed_second_loss(model: AlbefPretrain):
         return ps.sum(), ps
 
     return loss_fn
+
+
+@functools.lru_cache(maxsize=None)
+def make_mixed_second_loss(model: AlbefPretrain):
+    """The mixed second loss of ALBEF buckets (:func:`_mixed_loss`)."""
+    return _mixed_loss(albef_losses.make_feature_loss(model), albef_losses.make_mlm_loss(model))
+
+
+@functools.lru_cache(maxsize=None)
+def make_vlmo_mixed_second_loss(model: VLMo):
+    """The mixed second loss of VLMo buckets (:func:`_mixed_loss`)."""
+    return _mixed_loss(vlmo_losses.make_feature_loss(model), vlmo_losses.make_mlm_loss(model))
 
 
 @dataclasses.dataclass
@@ -134,16 +146,26 @@ class _SampleState:
 
 
 class BatchedAlbefAttack:
-    """Lockstep attack over buckets of same-schedule samples."""
+    """Lockstep attack over buckets of same-schedule samples.  Subclassed by
+    :class:`BatchedVlmoAttack`, which swaps the adapters below."""
 
     _target_keys = ("tgt_img", "tgt_txt")
+    # text dialect: VLMo strips and re-appends '?' around questions and ends
+    # every encoded paraphrase sentence with '.' (vlmo_module.py:1539,1644,
+    # 1756,1802); ALBEF's text arrives pre_question-normalized, no appends
+    _question_suffix = ""
+    _sentence_suffix = ""
 
     def __init__(self, pipeline: AlbefAttackPipeline):
         self.p = pipeline
-        self._mixed_loss = make_mixed_second_loss(pipeline.surrogate)
+        self._mixed_loss = self._mixed_second_loss(pipeline)
         self._timer = _make_timer(pipeline.device)
         self.last_occupancy = 1.0
         self.last_chunk_sizes: List[int] = []
+
+    @staticmethod
+    def _mixed_second_loss(pipeline):
+        return make_mixed_second_loss(pipeline.surrogate)
 
     @property
     def _max_text_len(self) -> int:
@@ -181,12 +203,15 @@ class BatchedAlbefAttack:
                     sample["paraphrase"], sample["target_answer"],
                     sample.get("all_correct_answers", ()),
                     p.tokenizer, self._max_text_len, atk.max_answers,
+                    sentence_suffix=self._sentence_suffix,
                 ))
             else:
                 mars.append(MarLabels(1, None, None, None, [], [], [], 0))
         if p.mlm_model is not None:
+            qs = [s["question"].strip(self._question_suffix) if self._question_suffix
+                  else s["question"] for s in samples]
             cands_list = generate_candidates_batch(
-                [s["question"] for s in samples], p.tokenizer, p.candidate_mlm_topk,
+                qs, p.tokenizer, p.candidate_mlm_topk,
                 p.filter_words, total_iters=atk.num_iters, top_k=atk.mlm_top_k,
                 score_threshold=atk.mlm_score_threshold, max_mlm_batch=_PREPARE_CHUNK,
             )
@@ -219,7 +244,8 @@ class BatchedAlbefAttack:
         tok = self.p.tokenizer
         mlm_ids, mlm_mask, weights = [], [], []
         for s in states:
-            ci, cm = tok.encode(" ".join(s.mar_words), self._max_text_len)
+            ci, cm = tok.encode(" ".join(s.mar_words) + self._sentence_suffix,
+                                self._max_text_len)
             mlm_ids.append(ci)
             mlm_mask.append(cm)
             weights.append(1.0 if int(cm.sum()) == s.mar.true_len else 0.0)
@@ -330,7 +356,8 @@ class BatchedAlbefAttack:
                     req_j.append(j)
                 outs = select_substitutions_multi(
                     reqs, p.embed_texts, p.gate.scores_pairs,
-                    max_length=self._max_text_len, timer=self._timer,
+                    max_length=self._max_text_len, question_suffix=self._question_suffix,
+                    timer=self._timer,
                 ) if reqs else []
                 for j, (new_text, ops) in zip(req_j, outs):
                     s = states[j]
@@ -425,3 +452,34 @@ class BatchedAlbefAttack:
                     results.extend(pending.popleft().result())
         self._timer.report()
         return results
+
+
+class BatchedVlmoAttack(BatchedAlbefAttack):
+    """Lockstep VLMo buckets: the same block loop over a
+    :class:`~vqattack_tpu_torch.attacks.vlmo_orchestrator.VlmoAttackPipeline`,
+    with VLMo's targets (``tgt_layer_cls``/``tgt_tokens``/``tgt_token_mask``),
+    its ``aux`` (the relative-position biases instead of ALBEF's token mask
+    and special ids) and its text dialect."""
+
+    _target_keys = ("tgt_layer_cls", "tgt_tokens", "tgt_token_mask")
+    _question_suffix = "?"
+    _sentence_suffix = "."
+
+    @staticmethod
+    def _mixed_second_loss(pipeline):
+        return make_vlmo_mixed_second_loss(pipeline.model)
+
+    @property
+    def _max_text_len(self) -> int:
+        return self.p.max_text_len
+
+    def _block_aux(self, targets, ids, mask, n):
+        del n  # VLMo masks tokens by tgt_token_mask x the adversarial mask
+        aux = {
+            "text_ids": self._tensor(ids),
+            "text_mask": self._tensor(mask),
+            "rel_biases": self.p._rel_biases,
+        }
+        if targets is not None:
+            aux.update(targets)
+        return aux

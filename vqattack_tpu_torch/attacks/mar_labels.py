@@ -53,16 +53,22 @@ def build_mar_labels(
     tokenizer: WordPieceTokenizer,
     max_len: int = 25,
     max_answers: int = 8,
+    sentence_suffix: str = "",
 ) -> MarLabels:
     """Build the masked paraphrase + stacked labels.
 
     ``old_alg == 1`` (no answer word found in the paraphrase) means the
     attack falls back to the feature-only loss (``adv_attack.py:467-468``).
+
+    ``sentence_suffix``: the VLMo dialect re-appends ``.`` to every encoded
+    paraphrase sentence (``vlmo_module.py:1756,1802,1867``: the gt, masked
+    and answer-variant encodings) where ALBEF's appends are commented out
+    (``adv_attack.py:440,536``).  Pass ``"."`` for VLMo.
     """
     pa_text = paraphrase.strip(".").lower()
     pa_words, _, pa_keys = tokenizer.word_spans(pa_text)
     gt_ids, _, gt_len = _encode_fixed(
-        tokenizer, " ".join(pa_words), max_len
+        tokenizer, " ".join(pa_words) + sentence_suffix, max_len
     )
 
     ans_words, _, _ = tokenizer.word_spans(target_answer.lower())
@@ -102,7 +108,7 @@ def build_mar_labels(
         labels0[s + 1 : e + 1] = gt_ids[s + 1 : e + 1]  # +1 = [CLS] offset
 
     mlm_ids, mlm_mask, _ = _encode_fixed(
-        tokenizer, " ".join(list_words), max_len
+        tokenizer, " ".join(list_words) + sentence_suffix, max_len
     )
 
     variants = [labels0]
@@ -137,7 +143,7 @@ def build_mar_labels(
         for pos, w in zip(sorted(mask_positions, reverse=True), cand_words):
             cand_pa[pos] = w
         cand_ids, _, _ = _encode_fixed(
-            tokenizer, " ".join(cand_pa), max_len
+            tokenizer, " ".join(cand_pa) + sentence_suffix, max_len
         )
         cand_labels = np.full(max_len, IGNORE, np.int64)
         for i in order:

@@ -173,11 +173,10 @@ def _maybe_vl(vl_loss_fn, embed_fn, adv, ori_x, positions, vl_key, aux, do_vl,
               eps, eps_iter, norm, clip_min, clip_max):
     """The VL step at a block's end; a zero text gradient when ``do_vl`` is
     False (a sample's last block)."""
-    if not do_vl:
-        d = aux["tgt_txt"].shape[-1]  # the text width
-        return adv, torch.zeros((positions.shape[0], positions.shape[1], d),
-                                dtype=torch.float32, device=adv.device)
     embeds = embed_fn(aux["text_ids"])
+    if not do_vl:
+        return adv, torch.zeros((positions.shape[0], positions.shape[1], embeds.shape[-1]),
+                                dtype=torch.float32, device=adv.device)
     adv, tg = pgd_vl_step(vl_loss_fn, adv, embeds, ori_x, positions, vl_key, aux,
                           eps=eps, eps_iter=eps_iter, clip_min=clip_min,
                           clip_max=clip_max, norm=norm)

@@ -244,6 +244,7 @@ def select_substitutions(
     gate_scores_fn: Callable[[str, Sequence[str]], np.ndarray],
     sim_threshold: float = 0.95,
     max_length: int = 25,
+    question_suffix: str = "",
 ) -> Tuple[str, List[Tuple[str, str]]]:
     """Rank + greedily accept substitutions (``update_adv_text``,
     ``adv_attack.py:265-324``) for ONE sample.
@@ -252,7 +253,11 @@ def select_substitutions(
       (from :func:`vqattack_tpu_torch.attacks.pgd.pgd_vl_step`);
     - ``ori_emb [S, D]``: embedding of the *original* question;
     - ``embed_texts_fn(texts) -> [N, S, D]``: batched BERT embedding lookup;
-    - ``gate_scores_fn(ref, texts) -> [N]``: sentence-similarity gate.
+    - ``gate_scores_fn(ref, texts) -> [N]``: sentence-similarity gate;
+    - ``question_suffix``: the VLMo dialect (``vlmo_module.py:1644-1704``)
+      strips the trailing ``?`` off the question before word-splitting and
+      re-appends it to every candidate, gate and returned sentence.  Pass
+      ``"?"`` for the VLMo pipeline, ``""`` (default) for ALBEF.
 
     Returns ``(new_adv_text, [(original_word, new_word), ...])``.
 
@@ -267,6 +272,7 @@ def select_substitutions(
         embed_texts_fn,
         lambda refs, texts: gate_scores_fn(refs[0], texts),
         max_length=max_length,
+        question_suffix=question_suffix,
     )[0]
 
 

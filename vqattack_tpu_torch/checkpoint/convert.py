@@ -9,12 +9,15 @@ layer type:
 - ``nn.Conv2d``: ``weight`` [O, I, kh, kw] = ``kernel`` [kh, kw, I, O] (HWIO);
 - ``nn.LayerNorm`` and ``ResidualLayerNorm``: ``weight`` = ``scale``;
 - ``nn.Embedding``: ``weight`` = ``embedding``;
-- ``bias`` and bare parameters (``cls_token``, ``pos_embed``, ``temp``) keep
-  their names.
+- ``bias`` and bare parameters (``cls_token``, ``pos_embed``, ``temp``;
+  VLMo's ``gamma_1``/``gamma_2``, ``relative_position_bias_table`` and the
+  0-d ``logit_scale/scale``) keep their names.
 
 The tree is nested dicts of numpy arrays (``jax.device_get`` of a flax
 ``variables`` or ``variables["params"]``).  Works for ``AlbefPretrain``,
-``AlbefVQA`` and the candidate-MLM ``FusionBert``.
+``AlbefVQA``, the candidate-MLM ``FusionBert`` and ``VLMo`` (the tree of
+its ``init_all``: both experts of the VL layers, the ITC projections, both
+logit scales, ``itm_score``, with nothing left over).
 """
 
 from __future__ import annotations

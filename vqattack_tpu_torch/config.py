@@ -1,11 +1,10 @@
 """Typed configuration tree of the PyTorch port.
 
-A copy of the ALBEF part of ``vqattack_tpu/config.py`` (the port imports
-nothing of the JAX package): the same frozen dataclasses, field names and
-defaults, so a ``RunConfig`` json written by either package loads in the
-other.  Keys of the JAX tree that this port does not carry (``vlmo``,
-``data``, ``mesh``: the CLI takes the data paths as flags) are ignored on
-load.
+A copy of the ALBEF and VLMo parts of ``vqattack_tpu/config.py`` (the port
+imports nothing of the JAX package): the same frozen dataclasses, field
+names and defaults, so a ``RunConfig`` json written by either package loads
+in the other.  Keys of the JAX tree that this port does not carry (``data``,
+``mesh``: the CLI takes the data paths as flags) are ignored on load.
 
 Fields that shape XLA programs on the TPU (``remat``, ``remat_scores``,
 ``scan_unroll``, ``dynamic_pgd``, ``fused_block``) are kept so configs
@@ -19,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Optional, Tuple
 
 
 def _replace(cfg, **kw):
@@ -102,6 +101,48 @@ class ALBEFConfig:
 
 
 @dataclass(frozen=True)
+class VLMoConfig:
+    """VLMo MoME multiway transformer (reference
+    ``vlmo/modules/multiway_transformer.py:244-412`` + ``vlmo/config.py``)."""
+
+    image_size: int = 480
+    patch_size: int = 16
+    hidden_size: int = 768
+    depth: int = 12
+    num_heads: int = 12
+    mlp_ratio: float = 4.0
+    layer_norm_eps: float = 1e-6
+    vlffn_start_layer: int = 10
+    layer_scale_init: Optional[float] = 0.1
+    use_abs_pos_emb: bool = False
+    need_relative_position_embed: bool = True
+    max_text_len: int = 40
+    vocab_size: int = 30522
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2  # token type embeddings reused as modality embeds
+    vqa_label_size: int = 3129
+    drop_path_rate: float = 0.0
+    remat: bool = False
+    remat_scores: bool = False
+    softmax_dtype: str = "float32"
+    # False: one shared FFN a block (the ViLT family); not ported yet
+    moe: bool = True
+
+    @property
+    def num_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+    @property
+    def image_seq_len(self) -> int:
+        return self.num_patches + 1
+
+    @property
+    def window_size(self) -> Tuple[int, int]:
+        g = self.image_size // self.patch_size
+        return (g, g)
+
+
+@dataclass(frozen=True)
 class AttackConfig:
     """PGD + word-substitution attack budget (``adv_attack.py:607-695``)."""
 
@@ -131,6 +172,7 @@ class AttackConfig:
 @dataclass(frozen=True)
 class RunConfig:
     albef: ALBEFConfig = field(default_factory=ALBEFConfig)
+    vlmo: VLMoConfig = field(default_factory=VLMoConfig)
     attack: AttackConfig = field(default_factory=AttackConfig)
     seed: int = 42
     batch_size: int = 1
@@ -153,6 +195,15 @@ def albef_attack_config() -> RunConfig:
                     attack=_replace(base.attack, dynamic_pgd=True))
 
 
+def vlmo_attack_config() -> RunConfig:
+    """The reference VLMo attack configuration
+    (``task_finetune_vqa_base_image480``), with the same field values as the
+    JAX preset."""
+    base = RunConfig()
+    return _replace(base, vlmo=_replace(base.vlmo, remat=True),
+                    attack=_replace(base.attack, dynamic_pgd=True))
+
+
 def tiny_test_config(image_size: int = 32, vocab_size: int = 64) -> RunConfig:
     """A miniature geometry for unit tests (2 layers, 32px, toy vocab)."""
     vit = ViTConfig(image_size=image_size, patch_size=16, hidden_size=32, depth=2, num_heads=2)
@@ -166,11 +217,23 @@ def tiny_test_config(image_size: int = 32, vocab_size: int = 64) -> RunConfig:
         encoder_width=32,
         max_position_embeddings=64,
     )
+    vlmo = VLMoConfig(
+        image_size=image_size,
+        patch_size=16,
+        hidden_size=32,
+        depth=4,
+        num_heads=2,
+        vlffn_start_layer=3,
+        max_text_len=8,
+        vocab_size=vocab_size,
+        max_position_embeddings=64,
+        vqa_label_size=16,
+    )
     albef = ALBEFConfig(vit=vit, bert=bert, embed_dim=16, decoder_layers=2)
     attack = AttackConfig(
         num_iters=4, max_text_len=8, max_answers=2, max_sub_words=4, max_candidates=3
     )
-    return RunConfig(albef=albef, attack=attack, batch_size=2, k_test=4)
+    return RunConfig(albef=albef, vlmo=vlmo, attack=attack, batch_size=2, k_test=4)
 
 
 def to_dict(cfg: Any) -> Any:
@@ -183,6 +246,7 @@ def to_dict(cfg: Any) -> Any:
 
 _NESTED = {
     "albef": ALBEFConfig,
+    "vlmo": VLMoConfig,
     "attack": AttackConfig,
     "vit": ViTConfig,
     "bert": BertConfig,

@@ -8,7 +8,7 @@
 // [B, H, Sq_p, Sk_p] bias.  This kernel computes the same function, not the
 // TPU kernel's blocks:
 //
-//   forward   S = Q K^T * scale + bias,  L = logsumexp_rows(S),
+//   forward   S = Q K^T * scale + bias + key_bias,  L = logsumexp_rows(S),
 //             O = softmax(S) V           (L saved for the backward)
 //   backward  D_i = sum_d dO_id O_id,    P = exp(S - L),
 //             dV = P^T dO,  dS = P o (dO V^T - D),
@@ -16,11 +16,14 @@
 //
 // for every (batch, head), with q/k/v read through their [B, S, H, 64]
 // strides, O/dQ/dK/dV written as contiguous [B, S, H, 64] and L, D as
-// [B, H, Sq].  The bias is optional, additive after the scale, and read
-// through broadcast strides (0 along a broadcast dimension), so a
+// [B, H, Sq].  Two additive terms, each optional, follow the scale: the bias,
+// read through broadcast strides (0 along a broadcast dimension), so a
 // [1, H, S, S] table or a [B, 1, 1, Sk] key mask is never materialized at
-// [B, H, Sq, Sk].  Ragged lengths need no padding: keys j >= Sk are masked
-// inside the kernel and rows i >= Sq are never written.
+// [B, H, Sq, Sk]; and the key bias, one value a key ([1|B, Sk], contiguous
+// along Sk), which carries a key mask beside a table: VLMo's relative-position
+// table plus its padded-text mask, whose sum would be [B, H, S, S].  Ragged
+// lengths need no padding: keys j >= Sk are masked inside the kernel and rows
+// i >= Sq are never written.
 //
 // Bound on the H100: operations.  At the main path's shape (B=16, H=12,
 // S=901, Dh=64) B*H*S^2*Dh = 9.98e9; the forward needs 4x that (39.9
@@ -50,9 +53,12 @@
 //   per-thread base plus a constant, so the products issue no address
 //   arithmetic (an XOR swizzle would make every address a runtime
 //   computation: ~1,500 integer instructions a warp and key tile);
-// - the bias is a template parameter: without one the scores take no
-//   branch, and keys past Sk (queries past Sq) are masked on the last tile
-//   only;
+// - the bias and the key bias are template parameters: without them the
+//   scores take no branch, and keys past Sk (queries past Sq) are masked on
+//   the last tile only.  A key tile's 64 key-bias values arrive with its K
+//   tile (forward, dQ; or once, with the block's K tile, in dK/dV) into
+//   shared memory, where the scores read them: no registers held across the
+//   loop;
 // - tiles arrive by 16-byte cp.async (zero-filled past Sq or Sk), double
 //   buffered: the next key tile (forward, dQ) or query tile (dK/dV) loads
 //   while the current one is in the products;
@@ -67,7 +73,13 @@
 //   B*H*S^2*Dh where the bound counts 10x.  The other way, partial dQ per
 //   key tile from the dK/dV kernel summed by a fixed-order pass, needs a
 //   third 16 x 64 accumulator there, where dK, dV, P^T and dS^T already
-//   take 208 registers (255 with a bias).
+//   take 208 registers (255 with a bias, with or without a key bias).
+//
+// With both terms, at VLMo's [16, 941, 12, 64] (a [1, 12, 941, 941] table,
+// 42.5 MB, and the padded-text mask), each (batch, head) reads its head's
+// 3.5 MB slice of the table, 680 MB in all when L2 keeps none of it; the
+// products still set the pace (PERF.md times the kernels with both terms,
+// with the table alone and with neither).
 //
 // What bounds it now (PERF.md): instruction issue.  The forward's loop
 // issues ~3,200 instructions a warp and key tile for its 384 mma.sync; the
@@ -97,6 +109,7 @@ struct Params {
   const float* k;
   const float* v;
   const float* bias;  // nullptr: no bias
+  const float* key_bias;  // nullptr: no key bias; [1|B, Sk]
   const float* o;     // backward: forward output, contiguous [B, Sq, H, 64]
   const float* lse;   // backward: [B, H, Sq]
   const float* dout;  // backward: contiguous [B, Sq, H, 64]
@@ -109,6 +122,7 @@ struct Params {
   long long ksb, kss, ksh;
   long long vsb, vss, vsh;
   long long bsb, bsh, bsq, bsk;
+  long long kbsb;  // the key bias's batch stride (0: broadcast)
   int B, H, Sq, Sk;
   float scale;
 };
@@ -148,6 +162,16 @@ __device__ __forceinline__ void load_tile(float* sm, const float* base, long lon
     const int row = row0 + r;
     const bool ok = row < nrows;
     cp_async16(sm + r * kLd + c, ok ? base + row * row_stride + c : base, ok);
+  }
+}
+
+// Key-bias values of keys [k0, k0 + 64) (0 past Sk, where the keys are
+// masked) into ``dst``; ``kb`` is (b)'s key 0.
+__device__ __forceinline__ void load_key_bias(float* dst, const float* kb, int k0, int Sk) {
+  if (threadIdx.x < kTile) {
+    const int key = k0 + threadIdx.x;
+    const bool ok = key < Sk;
+    cp_async4(dst + threadIdx.x, ok ? kb + key : kb, ok);
   }
 }
 
@@ -299,14 +323,18 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// s = s * scale + bias over a 16 x 64 accumulator tile whose element (n, e)
-// sits at row r + 8 (e / 2) and column c + 8 n + (e % 2) (r = its first
-// row + g, c = its first column + 2t).  Rows are queries and columns keys,
-// or the other way round (``kKeyRows``).  The bias index is clamped, so that
-// rows and columns past Sq and Sk (masked or never written) read in bounds.
-template <bool kBias, bool kKeyRows>
+// s = (s * scale + bias) + key_bias over a 16 x 64 accumulator tile whose
+// element (n, e) sits at row r + 8 (e / 2) and column c + 8 n + (e % 2)
+// (r = its first row + g, c = its first column + 2t).  Rows are queries and
+// columns keys, or the other way round (``kKeyRows``).  The bias index is
+// clamped, so that rows and columns past Sq and Sk (masked or never written)
+// read in bounds.  ``kbs`` is the key-bias tile in shared memory, offset to
+// this thread's first key: + 2t for key columns, + the warp's first row + g
+// for key rows.
+template <bool kBias, bool kKeyBias, bool kKeyRows>
 __device__ __forceinline__ void scale_bias(float s[kSteps][4], const Params& p,
-                                           const float* bias_bh, int r, int c) {
+                                           const float* bias_bh, const float* kbs, int r,
+                                           int c) {
 #pragma unroll
   for (int n = 0; n < kSteps; ++n)
 #pragma unroll
@@ -318,6 +346,7 @@ __device__ __forceinline__ void scale_bias(float s[kSteps][4], const Params& p,
         const int kj = min(kKeyRows ? row : col, p.Sk - 1);
         x += bias_bh[qi * p.bsq + kj * p.bsk];
       }
+      if (kKeyBias) x += kKeyRows ? kbs[8 * (e >> 1)] : kbs[8 * n + (e & 1)];
       s[n][e] = x;
     }
 }
@@ -354,12 +383,13 @@ __device__ __forceinline__ void store_rows(float* base, long long row_stride, in
 // kernels
 // ---------------------------------------------------------------------------
 
-template <bool kBias>
+template <bool kBias, bool kKeyBias>
 __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* Ks = Qs + kTileFloats;      // two buffers
   float* Vs = Ks + 2 * kTileFloats;  // two buffers
+  float* KBs = Vs + 2 * kTileFloats; // two buffers of 64 (with a key bias)
 
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -368,11 +398,13 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(const Params p) 
   const float* kb = p.k + b * p.ksb + h * p.ksh;
   const float* vb = p.v + b * p.vsb + h * p.vsh;
   const float* bias_bh = kBias ? p.bias + b * p.bsb + h * p.bsh : nullptr;
+  const float* kbb = kKeyBias ? p.key_bias + b * p.kbsb : nullptr;
   const int n_tiles = (p.Sk + kTile - 1) / kTile;
 
   load_tile(Qs, p.q + b * p.qsb + h * p.qsh, p.qss, q0, p.Sq);
   load_tile(Ks, kb, p.kss, 0, p.Sk);
   load_tile(Vs, vb, p.vss, 0, p.Sk);
+  if (kKeyBias) load_key_bias(KBs, kbb, 0, p.Sk);
   cp_async_commit();
 
   // rows q0 + r0 + g (i = 0: c0, c1) and q0 + r0 + g + 8 (i = 1: c2, c3)
@@ -391,6 +423,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(const Params p) 
     if (j + 1 < n_tiles) {  // into the buffers that tile j - 1 used
       load_tile(Ks + ((j + 1) & 1) * kTileFloats, kb, p.kss, k0 + kTile, p.Sk);
       load_tile(Vs + ((j + 1) & 1) * kTileFloats, vb, p.vss, k0 + kTile, p.Sk);
+      if (kKeyBias) load_key_bias(KBs + ((j + 1) & 1) * kTile, kbb, k0 + kTile, p.Sk);
     }
     cp_async_commit();
     cp_async_wait_prev();
@@ -398,7 +431,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(const Params p) 
 
     float s[kSteps][4];
     product_abt(s, Qs + rows_off, r0, Kt + rows_off);
-    scale_bias<kBias, false>(s, p, bias_bh, row, k0 + 2 * t);
+    scale_bias<kBias, kKeyBias, false>(s, p, bias_bh, KBs + (j & 1) * kTile + 2 * t, row,
+                                       k0 + 2 * t);
     if (k0 + kTile > p.Sk) mask_cols(s, k0 + 2 * t, p.Sk);
 
     float mx[2] = {-INFINITY, -INFINITY};
@@ -460,7 +494,7 @@ __global__ void flash_bwd_delta_kernel(const Params p) {
   }
 }
 
-template <bool kBias>
+template <bool kBias, bool kKeyBias>
 __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
@@ -469,6 +503,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_kernel(const Params
   float* dOs = Qs + 2 * kTileFloats;  // two buffers
   float* Ls = dOs + 2 * kTileFloats;  // two buffers of 64
   float* Ds = Ls + 2 * kTile;         // two buffers of 64
+  float* KBs = Ds + 2 * kTile;        // 64, the block's keys (with a key bias)
 
   const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -483,6 +518,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_kernel(const Params
 
   load_tile(Ks, p.k + b * p.ksb + h * p.ksh, p.kss, k0, p.Sk);
   load_tile(Vs, p.v + b * p.vsb + h * p.vsh, p.vss, k0, p.Sk);
+  if (kKeyBias) load_key_bias(KBs, p.key_bias + b * p.kbsb, k0, p.Sk);
   load_tile(Qs, qb, p.qss, 0, p.Sq);
   load_tile(dOs, dob, oss, 0, p.Sq);
   load_rows(p, Ls, Ds, rows_bh, 0);
@@ -516,7 +552,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_kernel(const Params
     float pt[kSteps][4], dst[kSteps][4];
     product_abt(pt, Ks + rows_off, r0, Qt + rows_off);
     product_abt(dst, Vs + rows_off, r0, dOt + rows_off);
-    scale_bias<kBias, true>(pt, p, bias_bh, key, q0 + 2 * t);
+    scale_bias<kBias, kKeyBias, true>(pt, p, bias_bh, KBs + r0 + g, key, q0 + 2 * t);
     if (q0 + kTile > p.Sq) mask_cols(pt, q0 + 2 * t, p.Sq);
     // P^T = exp(S^T - L) and dS^T = P^T o (dP^T - D): 0 for a masked query
 #pragma unroll
@@ -538,13 +574,14 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_kernel(const Params
   store_rows(p.dv + off, kss, key, p.Sk, dv, 1.f, 1.f, t);
 }
 
-template <bool kBias>
+template <bool kBias, bool kKeyBias>
 __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* dOs = Qs + kTileFloats;
   float* Ks = dOs + kTileFloats;     // two buffers
   float* Vs = Ks + 2 * kTileFloats;  // two buffers
+  float* KBs = Vs + 2 * kTileFloats; // two buffers of 64 (with a key bias)
 
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -554,12 +591,14 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Params 
   const float* kb = p.k + b * p.ksb + h * p.ksh;
   const float* vb = p.v + b * p.vsb + h * p.vsh;
   const float* bias_bh = kBias ? p.bias + b * p.bsb + h * p.bsh : nullptr;
+  const float* kbb = kKeyBias ? p.key_bias + b * p.kbsb : nullptr;
   const int n_tiles = (p.Sk + kTile - 1) / kTile;
 
   load_tile(Qs, p.q + b * p.qsb + h * p.qsh, p.qss, q0, p.Sq);
   load_tile(dOs, p.dout + b * osb + (long long)h * kD, oss, q0, p.Sq);
   load_tile(Ks, kb, p.kss, 0, p.Sk);
   load_tile(Vs, vb, p.vss, 0, p.Sk);
+  if (kKeyBias) load_key_bias(KBs, kbb, 0, p.Sk);
   cp_async_commit();
 
   // rows q0 + r0 + g (c0, c1) and q0 + r0 + g + 8 (c2, c3); rows past Sq
@@ -586,6 +625,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Params 
     if (j + 1 < n_tiles) {  // into the buffers that tile j - 1 used
       load_tile(Ks + ((j + 1) & 1) * kTileFloats, kb, p.kss, k0 + kTile, p.Sk);
       load_tile(Vs + ((j + 1) & 1) * kTileFloats, vb, p.vss, k0 + kTile, p.Sk);
+      if (kKeyBias) load_key_bias(KBs + ((j + 1) & 1) * kTile, kbb, k0 + kTile, p.Sk);
     }
     cp_async_commit();
     cp_async_wait_prev();
@@ -595,7 +635,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Params 
     float s[kSteps][4], dp[kSteps][4];
     product_abt(s, Qs + rows_off, r0, Kt + rows_off);
     product_abt(dp, dOs + rows_off, r0, Vt + rows_off);
-    scale_bias<kBias, false>(s, p, bias_bh, row, k0 + 2 * t);
+    scale_bias<kBias, kKeyBias, false>(s, p, bias_bh, KBs + (j & 1) * kTile + 2 * t, row,
+                                       k0 + 2 * t);
     if (k0 + kTile > p.Sk) mask_cols(s, k0 + 2 * t, p.Sk);
     // dS = P o (dP - D), P = exp(S - L): 0 for a masked key
 #pragma unroll
@@ -610,23 +651,30 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Params 
   store_rows(p.out + b * osb + (long long)h * kD, oss, row, p.Sq, dq, p.scale, p.scale, t);
 }
 
+// dynamic shared memory of each kernel, without and with a key bias
 constexpr size_t kFwdSmem = 5 * kTileFloats * sizeof(float);
 constexpr size_t kDkvSmem = (6 * kTileFloats + 4 * kTile) * sizeof(float);
 constexpr size_t kDqSmem = 6 * kTileFloats * sizeof(float);
+constexpr size_t kFwdSmemKb = kFwdSmem + 2 * kTile * sizeof(float);
+constexpr size_t kDkvSmemKb = kDkvSmem + kTile * sizeof(float);
+constexpr size_t kDqSmemKb = kDqSmem + 2 * kTile * sizeof(float);
 
-Params make_params(const void* q, const void* k, const void* v, const void* bias, int B, int H,
-                   int Sq, int Sk, long long qsb, long long qss, long long qsh, long long ksb,
-                   long long kss, long long ksh, long long vsb, long long vss, long long vsh,
-                   long long bsb, long long bsh, long long bsq, long long bsk, float scale) {
+Params make_params(const void* q, const void* k, const void* v, const void* bias,
+                   const void* key_bias, int B, int H, int Sq, int Sk, long long qsb,
+                   long long qss, long long qsh, long long ksb, long long kss, long long ksh,
+                   long long vsb, long long vss, long long vsh, long long bsb, long long bsh,
+                   long long bsq, long long bsk, long long kbsb, float scale) {
   Params p = {};
   p.q = (const float*)q;
   p.k = (const float*)k;
   p.v = (const float*)v;
   p.bias = (const float*)bias;
+  p.key_bias = (const float*)key_bias;
   p.qsb = qsb; p.qss = qss; p.qsh = qsh;
   p.ksb = ksb; p.kss = kss; p.ksh = ksh;
   p.vsb = vsb; p.vss = vss; p.vsh = vsh;
   p.bsb = bsb; p.bsh = bsh; p.bsq = bsq; p.bsk = bsk;
+  p.kbsb = kbsb;
   p.B = B; p.H = H; p.Sq = Sq; p.Sk = Sk;
   p.scale = scale;
   return p;
@@ -642,39 +690,66 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, c
   return cudaGetLastError();
 }
 
+// The instance of a kernel for the terms present: ``L::run<kBias, kKeyBias>``.
+template <typename L>
+cudaError_t dispatch(const Params& p, dim3 grid, cudaStream_t stream) {
+  if (p.bias != nullptr)
+    return p.key_bias != nullptr ? L::template run<true, true>(p, grid, stream)
+                                 : L::template run<true, false>(p, grid, stream);
+  return p.key_bias != nullptr ? L::template run<false, true>(p, grid, stream)
+                               : L::template run<false, false>(p, grid, stream);
+}
+
+struct Fwd {
+  template <bool kB, bool kKB>
+  static cudaError_t run(const Params& p, dim3 grid, cudaStream_t s) {
+    return launch(flash_fwd_kernel<kB, kKB>, grid, kKB ? kFwdSmemKb : kFwdSmem, s, p);
+  }
+};
+struct Dkv {
+  template <bool kB, bool kKB>
+  static cudaError_t run(const Params& p, dim3 grid, cudaStream_t s) {
+    return launch(flash_bwd_dkv_kernel<kB, kKB>, grid, kKB ? kDkvSmemKb : kDkvSmem, s, p);
+  }
+};
+struct Dq {
+  template <bool kB, bool kKB>
+  static cudaError_t run(const Params& p, dim3 grid, cudaStream_t s) {
+    return launch(flash_bwd_dq_kernel<kB, kKB>, grid, kKB ? kDqSmemKb : kDqSmem, s, p);
+  }
+};
+
 }  // namespace
 
 // O [B, Sq, H, 64] and L [B, H, Sq], both contiguous.  q, k and v start
-// every row on 16 bytes (the wrapper checks).
+// every row on 16 bytes (the wrapper checks).  bias and key_bias may be null.
 extern "C" int vq_flash_attention_fwd(
-    const void* q, const void* k, const void* v, const void* bias, void* out,
-    void* lse, int B, int H, int Sq, int Sk, long long qsb, long long qss,
+    const void* q, const void* k, const void* v, const void* bias, const void* key_bias,
+    void* out, void* lse, int B, int H, int Sq, int Sk, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
     long long vss, long long vsh, long long bsb, long long bsh, long long bsq,
-    long long bsk, float scale, void* stream) {
+    long long bsk, long long kbsb, float scale, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return 0;
-  Params p = make_params(q, k, v, bias, B, H, Sq, Sk, qsb, qss, qsh, ksb, kss,
-                         ksh, vsb, vss, vsh, bsb, bsh, bsq, bsk, scale);
+  Params p = make_params(q, k, v, bias, key_bias, B, H, Sq, Sk, qsb, qss, qsh, ksb, kss,
+                         ksh, vsb, vss, vsh, bsb, bsh, bsq, bsk, kbsb, scale);
   p.out = (float*)out;
   p.out_lse = (float*)lse;
   const dim3 grid((Sq + kTile - 1) / kTile, H, B);
-  cudaStream_t s = (cudaStream_t)stream;
-  return (int)(bias != nullptr ? launch(flash_fwd_kernel<true>, grid, kFwdSmem, s, p)
-                               : launch(flash_fwd_kernel<false>, grid, kFwdSmem, s, p));
+  return (int)dispatch<Fwd>(p, grid, (cudaStream_t)stream);
 }
 
 // dQ [B, Sq, H, 64], dK and dV [B, Sk, H, 64], all contiguous; o and dout
 // contiguous [B, Sq, H, 64], dout 16-byte aligned; delta a [B, H, Sq] scratch.
 extern "C" int vq_flash_attention_bwd(
-    const void* q, const void* k, const void* v, const void* bias,
+    const void* q, const void* k, const void* v, const void* bias, const void* key_bias,
     const void* o, const void* lse, const void* dout, void* dq, void* dk,
     void* dv, void* delta, int B, int H, int Sq, int Sk, long long qsb,
     long long qss, long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, long long bsb, long long bsh,
-    long long bsq, long long bsk, float scale, void* stream) {
+    long long bsq, long long bsk, long long kbsb, float scale, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return 0;
-  Params p = make_params(q, k, v, bias, B, H, Sq, Sk, qsb, qss, qsh, ksb, kss,
-                         ksh, vsb, vss, vsh, bsb, bsh, bsq, bsk, scale);
+  Params p = make_params(q, k, v, bias, key_bias, B, H, Sq, Sk, qsb, qss, qsh, ksb, kss,
+                         ksh, vsb, vss, vsh, bsb, bsh, bsq, bsk, kbsb, scale);
   p.o = (const float*)o;
   p.lse = (const float*)lse;
   p.dout = (const float*)dout;
@@ -691,10 +766,7 @@ extern "C" int vq_flash_attention_bwd(
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 kv_grid((Sk + kTile - 1) / kTile, H, B), q_grid((Sq + kTile - 1) / kTile, H, B);
-  const bool biased = bias != nullptr;
-  err = biased ? launch(flash_bwd_dkv_kernel<true>, kv_grid, kDkvSmem, s, p)
-               : launch(flash_bwd_dkv_kernel<false>, kv_grid, kDkvSmem, s, p);
+  err = dispatch<Dkv>(p, kv_grid, s);
   if (err != cudaSuccess) return (int)err;
-  return (int)(biased ? launch(flash_bwd_dq_kernel<true>, q_grid, kDqSmem, s, p)
-                      : launch(flash_bwd_dq_kernel<false>, q_grid, kDqSmem, s, p));
+  return (int)dispatch<Dq>(p, q_grid, s);
 }

@@ -6,6 +6,9 @@ modules (``query``/``key``/``value``/``proj``, ``fc1``/``fc2``,
 other by name.  Attention is the explicit product + softmax of the JAX
 einsum path, or under ``attention_impl("flash")`` (``--attn flash``) the
 flash kernel K3 for sequences of at least 128 queries (``ops/attention.py``).
+It adds up to two terms to the scaled scores: ``bias``, broadcast
+``[1|B, 1|H, 1|Sq, Sk]`` (VLMo's relative-position table, a causal mask),
+and ``key_bias``, one value a key ``[B, Sk]`` (a key mask).
 """
 
 from __future__ import annotations
@@ -34,11 +37,15 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
+def mask_to_key_bias(mask: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """[B, K] {0,1} key mask -> [B, K] additive bias, one value a key."""
+    zero = torch.zeros((), dtype=dtype, device=mask.device)
+    return torch.where(mask > 0, zero, torch.full_like(zero, NEG_INF))
+
+
 def mask_to_bias(mask: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """[B, K] {0,1} key mask -> [B, 1, 1, K] additive attention bias."""
-    zero = torch.zeros((), dtype=dtype, device=mask.device)
-    bias = torch.where(mask > 0, zero, torch.full_like(zero, NEG_INF))
-    return bias[:, None, None, :]
+    return mask_to_key_bias(mask, dtype)[:, None, None, :]
 
 
 def causal_bias(seq_len: int, device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -63,24 +70,32 @@ class Mlp(nn.Module):
 
 class MultiHeadAttention(nn.Module):
     """Multi-head attention with separate q/k/v projections; self- or
-    cross-attention (``kv``), additive ``bias``; ``use_out_proj=False`` is the
-    HF BERT layout, whose output dense lives in the next block."""
+    cross-attention (``kv``), additive ``bias`` and ``key_bias``;
+    ``use_out_proj=False`` is the HF BERT layout, whose output dense lives in
+    the next block.  ``q_bias``/``k_bias``/``v_bias`` give each projection a
+    bias or none (VLMo's decomposed qkv bias: q and v, not k)."""
 
     def __init__(self, dim: int, num_heads: int, kv_dim: Optional[int] = None,
                  out_dim: Optional[int] = None, use_out_proj: bool = True,
-                 softmax_dtype="float32"):
+                 softmax_dtype="float32", q_bias: bool = True, k_bias: bool = True,
+                 v_bias: bool = True):
         super().__init__()
         kv_dim = dim if kv_dim is None else kv_dim
         self.num_heads = num_heads
         self.head_dim = dim // num_heads
         self.softmax_dtype = resolve_dtype(softmax_dtype)
-        self.query = nn.Linear(dim, dim)
-        self.key = nn.Linear(kv_dim, dim)
-        self.value = nn.Linear(kv_dim, dim)
+        self.query = nn.Linear(dim, dim, bias=q_bias)
+        self.key = nn.Linear(kv_dim, dim, bias=k_bias)
+        self.value = nn.Linear(kv_dim, dim, bias=v_bias)
         self.proj = nn.Linear(dim, out_dim or dim) if use_out_proj else None
 
     def forward(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                bias: Optional[torch.Tensor] = None,
+                key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``(s * scale + bias) + key_bias``, softmax, times v.  For a 0 /
+        -1e9 ``key_bias`` this is the JAX sum ``s * scale + (bias +
+        mask)`` after the softmax: the two differ only in masked columns,
+        whose weights are 0 either way."""
         kv = x if kv is None else kv
         b, sq, _ = x.shape
         sk = kv.shape[1]
@@ -90,13 +105,15 @@ class MultiHeadAttention(nn.Module):
         k = self.key(kv).view(b, sk, h, dh)
         v = self.value(kv).view(b, sk, h, dh)
         if attention.get_impl() == "flash" and sq >= 128:
-            out = attention.flash_attention(q, k, v, bias, dh ** -0.5)
+            out = attention.flash_attention(q, k, v, bias, dh ** -0.5, key_bias)
         else:
             # [B, H, S, Dh]
             q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
             attn = torch.matmul(q * dh ** -0.5, k.transpose(-1, -2))
             if bias is not None:
                 attn = attn + bias.to(attn.dtype)
+            if key_bias is not None:
+                attn = attn + key_bias.to(attn.dtype)[:, None, None, :]
             attn = torch.softmax(attn.to(self.softmax_dtype), dim=-1).to(q.dtype)
             out = torch.matmul(attn, v).transpose(1, 2)
         out = out.reshape(b, sq, h * dh)

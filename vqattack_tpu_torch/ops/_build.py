@@ -42,11 +42,12 @@ SIGNATURES = {
     "vq_residual_layernorm_fwd": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
     "vq_residual_layernorm_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                   _F, _P),
-    # q, k, v, bias, out, lse; B, H, Sq, Sk; q/k/v (b, s, h) and bias
-    # (b, h, q, k) element strides; scale; stream
-    "vq_flash_attention_fwd": (_P,) * 6 + (_I,) * 4 + (_LL,) * 13 + (_F, _P),
-    # q, k, v, bias, o, lse, dout, dq, dk, dv, delta; then as the forward
-    "vq_flash_attention_bwd": (_P,) * 11 + (_I,) * 4 + (_LL,) * 13 + (_F, _P),
+    # q, k, v, bias, key bias, out, lse; B, H, Sq, Sk; q/k/v (b, s, h),
+    # bias (b, h, q, k) and key bias (b) element strides; scale; stream
+    "vq_flash_attention_fwd": (_P,) * 7 + (_I,) * 4 + (_LL,) * 14 + (_F, _P),
+    # q, k, v, bias, key bias, o, lse, dout, dq, dk, dv, delta; then as the
+    # forward
+    "vq_flash_attention_bwd": (_P,) * 12 + (_I,) * 4 + (_LL,) * 14 + (_F, _P),
 }
 
 
@@ -153,11 +154,14 @@ def load() -> ctypes.CDLL:
 _LAUNCH_LOCK = threading.Lock()
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``; buckets pipelined over threads
-    launch concurrently, so the count is taken under a lock."""
+def count_launch(wrapper, key_bias: bool = False) -> None:
+    """Add one to ``wrapper.launches`` and, for a flash-attention launch with
+    a key bias, to ``wrapper.key_bias_launches``; buckets pipelined over
+    threads launch concurrently, so the count is taken under a lock."""
     with _LAUNCH_LOCK:
         wrapper.launches += 1
+        if key_bias:
+            wrapper.key_bias_launches += 1
 
 
 def check(status: int, what: str) -> None:

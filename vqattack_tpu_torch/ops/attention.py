@@ -13,10 +13,12 @@ choice with the JAX package's values, so the CLI's ``--attn`` carries over:
 ``csrc/flash_attention.cu`` behind a ``torch.autograd.Function`` (forward,
 and the backward from the saved log-sum-exp); on a CPU tensor it runs the
 plain version under autograd.  There is no padding and no dense bias: the
-kernel masks ragged lengths itself and reads the bias through broadcast
-strides.  The plain versions are also the kernels' oracles on the card:
-:func:`flash_attention_bwd_reference` is the backward written from the
-log-sum-exp exactly as the kernel computes it.  The kernel runs its products
+kernel masks ragged lengths itself, reads ``bias`` through broadcast strides
+and ``key_bias``, a second term with one value a key (VLMo's padded-text
+mask beside its relative-position table), as a vector.  The plain versions
+are also the kernels' oracles on the card: :func:`flash_attention_bwd_reference`
+is the backward written from the log-sum-exp exactly as the kernel computes
+it.  The kernel runs its products
 on the tensor cores in three TF32 passes; :func:`mm_3xtf32` emulates that
 arithmetic on the CPU for the tests.
 """
@@ -65,28 +67,40 @@ def attention_impl(kind: str):
 # ---------------------------------------------------------------------------
 
 
-def _scores(q, k, bias, scale):
-    """``[B, H, Sq, Sk]`` scores ``(q * scale) k^T + bias``."""
+def _key_bias_2d(key_bias):
+    """A ``[1|B, Sk]`` or ``[1|B, 1, 1, Sk]`` key bias as ``[1|B, Sk]``."""
+    if key_bias is not None and key_bias.dim() == 4 and key_bias.shape[1:3] == (1, 1):
+        return key_bias[:, 0, 0]
+    return key_bias
+
+
+def _scores(q, k, bias, scale, key_bias=None):
+    """``[B, H, Sq, Sk]`` scores ``((q * scale) k^T + bias) + key_bias``."""
     s = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
-    return s if bias is None else s + bias.to(s.dtype)
+    if bias is not None:
+        s = s + bias.to(s.dtype)
+    key_bias = _key_bias_2d(key_bias)
+    return s if key_bias is None else s + key_bias.to(s.dtype)[:, None, None, :]
 
 
-def flash_attention_reference(q, k, v, bias, scale, return_lse: bool = False):
-    """``softmax((q * scale) k^T + bias) v`` by the explicit product, in the
-    ``[B, S, H, Dh]`` layout; with ``return_lse`` also the rows'
-    log-sum-exp ``[B, H, Sq]`` that the kernel saves."""
-    s = _scores(q, k, bias, scale)
+def flash_attention_reference(q, k, v, bias, scale, return_lse: bool = False,
+                              key_bias=None):
+    """``softmax((q * scale) k^T + bias + key_bias) v`` by the explicit
+    product, in the ``[B, S, H, Dh]`` layout; with ``return_lse`` also the
+    rows' log-sum-exp ``[B, H, Sq]`` that the kernel saves."""
+    s = _scores(q, k, bias, scale, key_bias)
     out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
     if return_lse:
         return out, torch.logsumexp(s, dim=-1)
     return out
 
 
-def flash_attention_bwd_reference(q, k, v, bias, scale, o, lse, do):
+def flash_attention_bwd_reference(q, k, v, bias, scale, o, lse, do, key_bias=None):
     """The kernel's backward in plain PyTorch: ``(dq, dk, dv)`` from the
     forward output ``o``, its log-sum-exp ``lse`` and the output gradient
-    ``do``, with ``P = exp(S - lse)`` recomputed and ``D = rowsum(do * o)``."""
-    p = torch.exp(_scores(q, k, bias, scale) - lse[..., None])
+    ``do``, with ``P = exp(S - lse)`` recomputed (both additive terms) and
+    ``D = rowsum(do * o)``."""
+    p = torch.exp(_scores(q, k, bias, scale, key_bias) - lse[..., None])
     d = (do * o).sum(-1).transpose(1, 2)  # [B, H, Sq]
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
     dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
@@ -127,7 +141,7 @@ def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _check_inputs(q, k, v, bias) -> Tuple[int, int, int, int]:
+def _check_inputs(q, k, v, bias, key_bias=None) -> Tuple[int, int, int, int]:
     """``(B, H, Sq, Sk)`` after checking what the kernel takes."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
@@ -161,10 +175,22 @@ def _check_inputs(q, k, v, bias) -> Tuple[int, int, int, int]:
                                   zip(bias.shape, (b, h, sq, sk))) or bias.shape[3] != sk:
             raise ValueError(f"flash_attention kernel: bias {tuple(bias.shape)} does not "
                              f"broadcast as [1|B, 1|H, 1|Sq, Sk] to {(b, h, sq, sk)}")
+    if key_bias is not None:
+        if key_bias.device != q.device or key_bias.dtype != torch.float32:
+            raise TypeError(f"flash_attention kernel: key_bias {key_bias.dtype} on "
+                            f"{key_bias.device}; takes float32 on {q.device}")
+        if key_bias.requires_grad:
+            raise ValueError("flash_attention kernel: the key bias has no gradient")
+        kb = _key_bias_2d(key_bias)
+        if kb.dim() != 2 or kb.shape[0] not in (1, b) or kb.shape[1] != sk:
+            raise ValueError(f"flash_attention kernel: key_bias {tuple(key_bias.shape)} is "
+                             f"not [1|B, Sk] or [1|B, 1, 1, Sk] for B={b}, Sk={sk}")
+        if sk > 1 and kb.stride(1) != 1:
+            raise ValueError("flash_attention kernel: key_bias is not contiguous along Sk")
     return b, h, sq, sk
 
 
-def _common_args(q, k, v, bias, b, h, sq, sk):
+def _common_args(q, k, v, bias, key_bias, b, h, sq, sk):
     """Pointers, sizes and element strides of the C entry points."""
     if bias is None:
         bias_ptr, bias_strides = None, (0, 0, 0, 0)
@@ -172,17 +198,22 @@ def _common_args(q, k, v, bias, b, h, sq, sk):
         bias_ptr = bias.data_ptr()
         # a broadcast dimension reads with stride 0
         bias_strides = bias.expand(b, h, sq, sk).stride()
+    kb = _key_bias_2d(key_bias)
+    if kb is None:
+        kb_ptr, kb_stride = None, 0
+    else:
+        kb_ptr, kb_stride = kb.data_ptr(), kb.expand(b, sk).stride(0)
     strides = []
     for t in (q, k, v):
         strides += [t.stride(0), t.stride(1), t.stride(2)]
-    return ([q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr],
-            [b, h, sq, sk, *strides, *bias_strides])
+    return ([q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, kb_ptr],
+            [b, h, sq, sk, *strides, *bias_strides, kb_stride])
 
 
-def flash_attention_fwd(q, k, v, bias, scale: float):
+def flash_attention_fwd(q, k, v, bias, scale: float, key_bias=None):
     """Forward kernel: ``(o [B, Sq, H, 64], lse [B, H, Sq])``."""
-    b, h, sq, sk = _check_inputs(q, k, v, bias)
-    ptrs, sizes = _common_args(q, k, v, bias, b, h, sq, sk)
+    b, h, sq, sk = _check_inputs(q, k, v, bias, key_bias)
+    ptrs, sizes = _common_args(q, k, v, bias, key_bias, b, h, sq, sk)
     out = torch.empty((b, sq, h, HEAD_DIM), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = _build.load()
@@ -192,15 +223,15 @@ def flash_attention_fwd(q, k, v, bias, scale: float):
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(status, "flash_attention_fwd")
-    _build.count_launch(flash_attention_fwd)
+    _build.count_launch(flash_attention_fwd, key_bias is not None)
     return out, lse
 
 
-def flash_attention_bwd(q, k, v, bias, scale: float, o, lse, do):
+def flash_attention_bwd(q, k, v, bias, scale: float, o, lse, do, key_bias=None):
     """Backward kernels (the D pass, dK/dV over key tiles, dQ over query
     tiles): ``(dq, dk, dv)``, contiguous, in the shapes of ``q``, ``k``, ``v``.
     The same bit for bit on every run: no atomics."""
-    b, h, sq, sk = _check_inputs(q, k, v, bias)
+    b, h, sq, sk = _check_inputs(q, k, v, bias, key_bias)
     do = do.contiguous()
     if do.data_ptr() % 16:  # the kernel copies rows in 16-byte chunks
         do = do.clone()
@@ -209,7 +240,7 @@ def flash_attention_bwd(q, k, v, bias, scale: float, o, lse, do):
         if tuple(t.shape) != shape or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"flash_attention_bwd: {name} {tuple(t.shape)} {t.dtype}; "
                              f"takes contiguous float32 {shape}")
-    ptrs, sizes = _common_args(q, k, v, bias, b, h, sq, sk)
+    ptrs, sizes = _common_args(q, k, v, bias, key_bias, b, h, sq, sk)
     dq = torch.empty((b, sq, h, HEAD_DIM), dtype=torch.float32, device=q.device)
     dk = torch.empty((b, sk, h, HEAD_DIM), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
@@ -222,30 +253,32 @@ def flash_attention_bwd(q, k, v, bias, scale: float, o, lse, do):
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(status, "flash_attention_bwd")
-    _build.count_launch(flash_attention_bwd)
+    _build.count_launch(flash_attention_bwd, key_bias is not None)
     return dq, dk, dv
 
 
-# calls of each entry point in this process (plain counts for chip_smoke.py)
-flash_attention_fwd.launches = 0
-flash_attention_bwd.launches = 0
+# calls of each entry point in this process, and those of them with a key
+# bias (plain counts for chip_smoke.py)
+for _fn in (flash_attention_fwd, flash_attention_bwd):
+    _fn.launches = 0
+    _fn.key_bias_launches = 0
 
 
 class _FlashAttentionFn(torch.autograd.Function):
     """The kernel pair as one differentiable op (the library kernel's VJP)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, scale):
-        o, lse = flash_attention_fwd(q, k, v, bias, scale)
-        ctx.save_for_backward(q, k, v, bias, o, lse)
+    def forward(ctx, q, k, v, bias, scale, key_bias):
+        o, lse = flash_attention_fwd(q, k, v, bias, scale, key_bias)
+        ctx.save_for_backward(q, k, v, bias, o, lse, key_bias)
         ctx.scale = scale
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, bias, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, bias, ctx.scale, o, lse, do)
-        return dq, dk, dv, None, None
+        q, k, v, bias, o, lse, key_bias = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, bias, ctx.scale, o, lse, do, key_bias)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(
@@ -254,13 +287,15 @@ def flash_attention(
     v: torch.Tensor,
     bias: Optional[torch.Tensor],  # [1|B, 1|H, 1|Sq, Sk] additive, post-scale
     scale: float,
+    key_bias: Optional[torch.Tensor] = None,  # [1|B, Sk] or [1|B, 1, 1, Sk]
 ) -> torch.Tensor:
-    """``softmax((q k^T) * scale + bias) v`` as ``[B, Sq, H, Dh]``.
+    """``softmax((q k^T) * scale + bias + key_bias) v`` as ``[B, Sq, H, Dh]``.
 
-    A CUDA tensor runs the kernels (float32, ``Dh = 64``, a bias without
-    gradient; anything else raises); a CPU tensor runs the plain version."""
+    A CUDA tensor runs the kernels (float32, ``Dh = 64``, bias and key bias
+    without gradient; anything else raises); a CPU tensor runs the plain
+    version."""
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, bias, scale)
+        return flash_attention_reference(q, k, v, bias, scale, key_bias=key_bias)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    return _FlashAttentionFn.apply(q, k, v, bias, scale)
+    return _FlashAttentionFn.apply(q, k, v, bias, scale, key_bias)

@@ -1,20 +1,25 @@
-"""The ALBEF attack CLI of the port::
+"""The attack CLI of the port::
 
     python -m vqattack_tpu_torch.run --pipeline albef --vocab vocab.txt \\
         --ann vqa_val.json --image-root /data/val2014 --answer-list answers.json \\
         --right-part right.txt --surrogate-ans sur.json --target-ans tgt.json \\
         --paraphrases para.json --all-correct allc.json --output attack_out
 
-Port of the ALBEF path of ``vqattack_tpu/run.py``: subset and alignment
-guards -> the attack -> black-box victim check every ``eval_every`` samples
--> artifacts.  ``--batch-size 1`` attacks one sample at a time; a larger
-batch buffers ``--buffer-factor`` batches of samples and runs them through
-the lockstep engine (``attacks/batched.py``), ``--pipeline-depth`` chunks at
-a time.  ``--attn flash`` sends every attention over at least 128 queries
-(the ViT's) through the flash kernel.  Runs on ``cuda`` unless ``--device
+Port of the ALBEF and VLMo paths of ``vqattack_tpu/run.py``: subset and
+alignment guards -> the attack -> black-box victim check every
+``eval_every`` samples -> artifacts.  ``--pipeline albef`` attacks the ALBEF
+surrogate and ranks ``--answer-list`` with the ALBEF victim; ``--pipeline
+vlmo`` attacks VLMo (``vlmo_attack_config``) and checks its 3,129-way VQA
+classifier, decoded through ``--id2answer``.  ``--batch-size 1`` attacks
+one sample at a time; a larger batch buffers ``--buffer-factor`` batches of
+samples and runs them through the lockstep engine (``attacks/batched.py``),
+``--pipeline-depth`` chunks at a time.  ``--attn flash`` sends every
+attention over at least 128 queries (ALBEF's ViT, VLMo's joint trunk)
+through the flash kernel.  Runs on ``cuda`` unless ``--device
 cpu``.  Weights are random, drawn from ``--seed``: loading ``.pth``
-checkpoints, the VLMo pipeline, the device mesh and the USE gate are not
-ported yet.
+checkpoints (``--surrogate-ckpt``), VLMo's named configs
+(``--named-config``) and arrow tables (``--arrow``), the device mesh and the
+USE gate are not ported yet, and the flags of the first three stop the run.
 """
 
 from __future__ import annotations
@@ -32,8 +37,16 @@ import torch
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="VQAttack on PyTorch + CUDA")
-    p.add_argument("--pipeline", choices=["albef"], default="albef")
+    p.add_argument("--pipeline", choices=["albef", "vlmo"], default="albef")
     p.add_argument("--config", default=None, help="RunConfig json")
+    p.add_argument("--named-config", nargs="*", default=[],
+                   help="VLMo named-config presets (not ported yet)")
+    p.add_argument("--surrogate-ckpt", default=None,
+                   help="surrogate .pth checkpoint (not ported yet)")
+    p.add_argument("--arrow", nargs="*", default=[], help="VLMo arrow tables (not ported yet)")
+    p.add_argument("--id2answer", default=None,
+                   help="VLMo classifier index -> answer (json, or the reference's "
+                        "dill pickle)")
     p.add_argument("--vocab", required=True, help="WordPiece vocab.txt")
     p.add_argument("--ann", nargs="*", default=[], help="VQA annotation json(s)")
     p.add_argument("--image-root", default="")
@@ -68,15 +81,29 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
+_NOT_PORTED = (("named_config", "--named-config"), ("surrogate_ckpt", "--surrogate-ckpt"),
+               ("arrow", "--arrow"))
+
+
 def resolve_config(args):
-    """--config if given, else the ALBEF attack preset; then --seed,
-    --output, and the slice's kernel switch: the ViT's residual+LayerNorm
-    sites take the fused kernel (``vit.fused_ln``) on the card."""
+    """--config if given, else the pipeline's attack preset; then --seed,
+    --output, and the ALBEF path's kernel switch: the ViT's
+    residual+LayerNorm sites take the fused kernel (``vit.fused_ln``) on the
+    card (VLMo's blocks have plain LayerNorms, as in the JAX package)."""
     from vqattack_tpu_torch import config as cfg_mod
 
-    cfg = cfg_mod.load_config(args.config) if args.config else cfg_mod.albef_attack_config()
+    given = [flag for attr, flag in _NOT_PORTED if getattr(args, attr)]
+    if given:
+        raise SystemExit(f"{', '.join(given)}: not ported yet (the port runs random "
+                         f"weights from --seed on the presets and --config, over --ann)")
+    if args.config:
+        cfg = cfg_mod.load_config(args.config)
+    elif args.pipeline == "vlmo":
+        cfg = cfg_mod.vlmo_attack_config()
+    else:
+        cfg = cfg_mod.albef_attack_config()
     cfg = dataclasses.replace(cfg, output_dir=args.output, seed=args.seed)
-    if args.device == "cuda":
+    if args.device == "cuda" and args.pipeline == "albef":
         vit = dataclasses.replace(cfg.albef.vit, fused_ln=True)
         cfg = dataclasses.replace(cfg, albef=dataclasses.replace(cfg.albef, vit=vit))
     if cfg.compute_dtype != "float32":
@@ -86,22 +113,45 @@ def resolve_config(args):
 
 def _build_pipeline(args, cfg, tokenizer):
     """Random-weight surrogate, victim and candidate MLM on ``args.device``,
-    the BertMeanPoolGate over the surrogate's text tower, and the pipeline."""
-    from vqattack_tpu_torch.attacks.orchestrator import AlbefAttackPipeline
+    the BertMeanPoolGate over the surrogate's text tower, and the pipeline.
+    VLMo's victim is its surrogate module, with the VQA head (the JAX CLI's
+    victim without ``--victim-ckpt``)."""
     from vqattack_tpu_torch.device import resolve_device
-    from vqattack_tpu_torch.models.albef import AlbefPretrain, AlbefVQA, init_weights
+    from vqattack_tpu_torch.models.albef import init_weights
     from vqattack_tpu_torch.models.bert import FusionBert
     from vqattack_tpu_torch.text.similarity import make_gate
 
     device = resolve_device(args.device)
     mlm_cfg = dataclasses.replace(cfg.albef.bert, fusion_layer=cfg.albef.bert.num_layers)
+    kw = {}
+    if args.bert_threshold is not None:
+        kw["bert_threshold"] = args.bert_threshold
+    if args.pipeline == "vlmo":
+        from vqattack_tpu_torch.attacks.vlmo_orchestrator import (VlmoAttackPipeline,
+                                                                  load_id2answer)
+        from vqattack_tpu_torch.models.vlmo import VLMo, init_vlmo_weights
+
+        with torch.device(device):
+            model = init_vlmo_weights(VLMo(cfg.vlmo), seed=args.seed)
+            mlm = init_weights(FusionBert(mlm_cfg, with_mlm_head=True), seed=args.seed + 1)
+
+        @torch.no_grad()
+        def vlmo_text(ids, mask):
+            return model.infer_text(ids, mask)["text_feats"]
+
+        gate = make_gate("bert", embed_fn=vlmo_text, tokenizer=tokenizer,
+                         max_length=cfg.vlmo.max_text_len, device=device, **kw)
+        id2answer = load_id2answer(args.id2answer) if args.id2answer else {}
+        return VlmoAttackPipeline(cfg, model, tokenizer, gate, mlm_model=mlm,
+                                  id2answer=id2answer, device=device)
+
+    from vqattack_tpu_torch.attacks.orchestrator import AlbefAttackPipeline
+    from vqattack_tpu_torch.models.albef import AlbefPretrain, AlbefVQA
+
     with torch.device(device):
         surrogate = init_weights(AlbefPretrain(cfg.albef), seed=args.seed)
         victim = init_weights(AlbefVQA(cfg.albef), seed=args.seed + 3)
         mlm = init_weights(FusionBert(mlm_cfg, with_mlm_head=True), seed=args.seed + 1)
-    kw = {}
-    if args.bert_threshold is not None:
-        kw["bert_threshold"] = args.bert_threshold
 
     @torch.no_grad()
     def embed_fn(ids, mask):
@@ -122,7 +172,7 @@ def main(argv: Optional[list] = None) -> dict:
 
 
 def _main(args) -> dict:
-    from vqattack_tpu_torch.attacks.batched import BatchedAlbefAttack
+    from vqattack_tpu_torch.attacks.batched import BatchedAlbefAttack, BatchedVlmoAttack
     from vqattack_tpu_torch.attacks.orchestrator import save_artifacts
     from vqattack_tpu_torch.data.side_tables import SideTables
     from vqattack_tpu_torch.data.transforms import test_transform
@@ -137,34 +187,43 @@ def _main(args) -> dict:
     if args.right_part:
         side = SideTables.load(args.right_part, args.surrogate_ans, args.target_ans,
                                args.paraphrases, args.all_correct)
+    vlmo = args.pipeline == "vlmo"
     pipeline = _build_pipeline(args, cfg, tokenizer)
-    dataset = VQADataset(args.ann, args.image_root, test_transform(cfg.albef.vit.image_size),
+    size = cfg.vlmo.image_size if vlmo else cfg.albef.vit.image_size
+    dataset = VQADataset(args.ann, args.image_root, test_transform(size),
                          answer_list=args.answer_list)
-    if not dataset.answer_list:
-        raise SystemExit("--answer-list is required: the ALBEF victim ranks a fixed "
-                         "candidate-answer list (model_vqa.py:149)")
-    ids, mask = tokenizer.encode_batch([a + "[SEP]" for a in dataset.answer_list],
-                                       max_length=args.answer_max_len)
-    answer_ids = torch.as_tensor(ids, dtype=torch.long, device=pipeline.device)
-    answer_mask = torch.as_tensor(mask, dtype=torch.long, device=pipeline.device)
+    if not vlmo:
+        if not dataset.answer_list:
+            raise SystemExit("--answer-list is required for --pipeline albef: the ALBEF "
+                             "victim ranks a fixed candidate-answer list (model_vqa.py:149)")
+        ids, mask = tokenizer.encode_batch([a + "[SEP]" for a in dataset.answer_list],
+                                           max_length=args.answer_max_len)
+        answer_ids = torch.as_tensor(ids, dtype=torch.long, device=pipeline.device)
+        answer_mask = torch.as_tensor(mask, dtype=torch.long, device=pipeline.device)
 
     flip = AttackAccuracy(print_every=50)
     key = TorchKey(cfg.seed, pipeline.device)
-    batched = BatchedAlbefAttack(pipeline) if args.batch_size > 1 else None
+    batched = None
+    if args.batch_size > 1:
+        batched = (BatchedVlmoAttack if vlmo else BatchedAlbefAttack)(pipeline)
     results, pending, attack_s, occupancy = [], [], [], []
     sample_buffer: list = []
 
     def eval_pending():
-        # one victim rank_answer per chunk of at most 16 pairs: its second
-        # pass holds batch x k decoder rows
+        # one victim call per chunk of at most 16 pairs: ALBEF's rank_answer
+        # holds batch x k decoder rows in its second pass
         todo = [(r, clean) for r, clean in pending if clean is not None]
         for start in range(0, len(todo), 16):
             chunk = todo[start : start + 16]
-            topk_ids, _ = pipeline.evaluate_victim_batch(
-                [r.adv_image for r, _ in chunk], [r.adv_text for r, _ in chunk],
-                answer_ids, answer_mask)
-            for (_, clean), row in zip(chunk, topk_ids):
-                flip.update(dataset.answer_list[int(row[0])], clean)
+            images, texts = [r.adv_image for r, _ in chunk], [r.adv_text for r, _ in chunk]
+            if vlmo:
+                preds = [a for _, a in pipeline.evaluate_victim_batch(images, texts)]
+            else:
+                topk_ids, _ = pipeline.evaluate_victim_batch(images, texts, answer_ids,
+                                                             answer_mask)
+                preds = [dataset.answer_list[int(row[0])] for row in topk_ids]
+            for (_, clean), pred in zip(chunk, preds):
+                flip.update(pred, clean)
                 flip.maybe_log()
         pending.clear()
 
@@ -235,6 +294,7 @@ def _main(args) -> dict:
         "attack_accuracy_note": "random-weight victim: flips are no evidence of attack success",
         "mean_attack_s": float(np.mean(attack_s)) if attack_s else 0.0,
         "device": str(pipeline.device),
+        "pipeline": args.pipeline,
         "output": args.output,
     }
     if occupancy:
