@@ -40,14 +40,28 @@ Phases (each prints a line on entry and its seconds on exit):
 11. the batched VLMo path (``--batch-size 8 --attn flash --pipeline-depth
     2``, 11 samples in both ``old_alg`` buckets);
 12. one VLMo gradient step at batch 16, flash against xla: time, peak
-    memory, and no saved [16, 12, 941, 941] tensor on the flash side.
+    memory, and no saved [16, 12, 941, 941] tensor on the flash side;
+13. the checkpoint path: full-width synthetic checkpoints in the
+    reference's names from seed 0 (``checkpoint/synthetic.py``: an ALBEF
+    pretrain ``{'model': sd}`` at 224 px with momentum copies and queues, an
+    ALBEF VQA file at 384 px, a ``bert-base-uncased`` directory with
+    ``gamma``/``beta`` LayerNorms and no decoder weight, a VLMo surrogate at
+    224 px behind ``module.`` prefixes, a VLMo VQA victim at 480 px with an
+    NLVR2 head), then ``run.main`` for each surrogate with
+    ``--surrogate-ckpt --victim-ckpt --bert-mlm --batch-size 8 --attn flash
+    --pipeline-depth 2`` (ALBEF also ``--calibrate-gate``) over the batched
+    samples, whose images are served by name (no PIL on the card's
+    machine); every loaded parameter is held against the file's tensor by
+    the reference's names, the resized ``pos_embed`` and relative table
+    against the port's resize on the CPU; then the files are deleted.
 
-Before phases 5, 6, 10 and 11 the kernels' launch counts are reset, and
-after each they must equal what the samples' schedules imply.  Prints the kernel
-table as one JSON line, the card's name and power limit, then, as the last
-line, ``{"ok": true, "device": {...}}``.  Exits non-zero, without those
-lines, when there is no CUDA device or any check fails.  Needs torch and
-numpy.
+Before phases 5, 6, 10, 11 and each run of 13 the kernels' launch counts
+are reset, and after each they must equal what the samples' schedules
+imply.  Prints the kernel table as one JSON line, the checkpoint loads'
+seconds beside the card's name and power limit, the card's name and power
+limit, then, as the last line, ``{"ok": true, "device": {...}}``.  Exits
+non-zero, without those lines, when there is no CUDA device or any check
+fails.  Needs torch, numpy and scipy (the relative table's resize).
 """
 
 from __future__ import annotations
@@ -56,6 +70,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1145,6 +1160,316 @@ def vlmo_one_step_ab(pipe, cfg, tokenizer, gen):
                    "one VLMo gradient step at batch 16")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the checkpoint path, run.main with the reference's .pth files
+# ---------------------------------------------------------------------------
+
+
+def _qkv_rows(name: str, prefix: str):
+    """``blocks.N.attn.{query,key,value}.*`` -> (the fused ``qkv`` tensor's
+    name, which third of its rows); None for any other name."""
+    m = re.fullmatch(r"blocks\.(\d+)\.attn\.(query|key|value)\.(weight|bias)", name)
+    if m is None:
+        return None
+    return f"{prefix}blocks.{m[1]}.attn.qkv.{m[3]}", ("query", "key", "value").index(m[2])
+
+
+def _bert_source(name: str, prefix: str, head: str, ln=("weight", "bias")) -> str:
+    """The HF name (encoder under ``prefix``, MLM head under ``head``) of a
+    ``FusionBert`` parameter; ``ln`` spells the LayerNorms' two tensors."""
+    for pattern, repl in ((r"layer\.(\d+)\.(crossattention|attention)_(self|output)\.(.*)",
+                           r"encoder.layer.\1.\2.\3.\4"),
+                          (r"layer\.(\d+)\.intermediate_dense\.(.*)", r"encoder.layer.\1.intermediate.dense.\2"),
+                          (r"layer\.(\d+)\.output_(dense|LayerNorm)\.(.*)", r"encoder.layer.\1.output.\2.\3")):
+        if re.fullmatch(pattern, name):
+            name = prefix + re.sub(pattern, repl, name)
+            break
+    else:
+        if name.startswith("embeddings."):
+            name = prefix + name
+        elif name == "mlm_head.decoder.bias":
+            name = f"{head}predictions.bias"
+        elif name.startswith("mlm_head."):
+            name = head + "predictions." + name[len("mlm_head."):].replace("transform_", "transform.")
+    if "LayerNorm." in name:
+        name = name.replace("LayerNorm.weight", f"LayerNorm.{ln[0]}").replace(
+            "LayerNorm.bias", f"LayerNorm.{ln[1]}")
+    return name
+
+
+def albef_source(kind: str):
+    """``name -> (reference name, third of a fused qkv or None)`` for the
+    ALBEF surrogate (``"pretrain"``) or victim (``"vqa"``): the names the
+    reference's ``model_pretrain.py`` / ``model_vqa.py`` save, written out
+    here apart from ``checkpoint/convert.py``."""
+    def source(name):
+        top, rest = name.split(".", 1) if "." in name else (name, "")
+        if top == "visual_encoder":
+            qkv = _qkv_rows(rest, "visual_encoder.")
+            return qkv or (name, None)
+        if top == "text_encoder":
+            enc = "text_encoder.bert." if kind == "pretrain" else "text_encoder."
+            return _bert_source(rest, enc, "text_encoder.cls."), None
+        if top == "text_decoder":
+            return _bert_source(rest, "text_decoder.bert.", "text_decoder.cls."), None
+        return name, None  # vision_proj, text_proj, itm_head, temp
+    return source
+
+
+def mlm_source(name: str):
+    """The original ``bert-base-uncased`` file's names: ``gamma``/``beta``
+    LayerNorms and the decoder tied to the word embeddings."""
+    if name == "mlm_head.decoder.weight":
+        return "bert.embeddings.word_embeddings.weight", None
+    return _bert_source(name, "bert.", "cls.", ("gamma", "beta")), None
+
+
+def vlmo_source(name: str):
+    """The names ``vlmo_module.py`` saves: the trunk under ``transformer.``
+    with the fused qkv and the separate q/v biases, ``.fc`` heads, the
+    classifier's ``Sequential`` indices, the 0-d logit scales."""
+    qkv = _qkv_rows(name, "transformer.")
+    if qkv is not None and qkv[0].endswith("weight"):
+        return qkv
+    if qkv is not None:
+        return f"transformer.{name.rsplit('.', 2)[0]}.{'q' if qkv[1] == 0 else 'v'}_bias", None
+    top = name.split(".")[0]
+    if top in ("blocks", "cls_token", "patch_embed", "norm", "pos_embed"):
+        return "transformer." + name, None
+    if top == "mlm_score":
+        if name == "mlm_score.decoder.bias":
+            return "mlm_score.bias", None
+        return name.replace("transform_", "transform."), None
+    if top in ("itm_score", "itc_text_proj", "itc_image_proj", "itc_vl_text_proj",
+               "itc_vl_image_proj"):
+        return name.replace(f"{top}.", f"{top}.fc."), None
+    if top in ("logit_scale", "logit_vl_scale"):
+        return top, None
+    if top == "vqa_classifier":
+        for port, ref in (("fc1", "0"), ("norm", "1"), ("fc2", "3")):
+            name = name.replace(f".{port}.", f".{ref}.")
+        return name, None
+    return name, None  # text_embeddings, token_type_embeddings, pooler, the table
+
+
+def check_loaded(module, sd, source, resized, absent=()) -> int:
+    """Every parameter of ``module`` equals the file's tensor it came from
+    (``source(name)``), or for a resized one the port's resize run on the
+    CPU (``resized``); only the heads in ``absent`` may have no source.
+    Returns the number of tensors checked."""
+    n = 0
+    for name, p in module.named_parameters():
+        key, third = source(name)
+        if name in resized:
+            key, want = "resize", resized[name]
+        elif key in sd:
+            want = sd[key]
+            if third is not None:
+                rows = want.shape[0] // 3
+                want = want[third * rows : (third + 1) * rows]
+        else:
+            require(name.split(".")[0] in absent, f"{name}: the file has no {key}")
+            continue
+        got = p.detach().cpu()
+        require(got.shape == want.shape and torch.equal(got, want),
+                f"{name} is not the file's {key}")
+        n += 1
+    return n
+
+
+@contextlib.contextmanager
+def record_main():
+    """What ``run.main`` builds and runs, recorded through the module
+    attributes it reads at call time: the pipeline (its victim calls
+    counted), the lockstep engine with its results and mixed-loss calls, and
+    each checkpoint load's seconds.  ``run.py`` itself is not changed."""
+    rec = {"loads": [], "results": [], "mixed": [], "victim_calls": 0}
+    build, load = port_run._build_pipeline, port_run._load_checkpoint
+    engines = {n: getattr(batched, n) for n in ("BatchedAlbefAttack", "BatchedVlmoAttack")}
+
+    def build_recorded(*a):
+        pipe = rec["pipe"] = build(*a)
+        evaluate = pipe.evaluate_victim_batch
+
+        def counted(*b, **kw):
+            rec["victim_calls"] += 1
+            return evaluate(*b, **kw)
+
+        pipe.evaluate_victim_batch = counted
+        return pipe
+
+    def load_timed(what, loader, path, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = load(what, loader, path, *a, **kw)
+        torch.cuda.synchronize()
+        size = (os.path.getsize(path) if os.path.isfile(path) else
+                sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)))
+        rec["loads"].append({"what": what, "file": os.path.basename(path), "bytes": size,
+                             "s": round(time.perf_counter() - t0, 3)})
+        return out
+
+    def recording(cls):
+        class Recording(cls):
+            def __init__(self, pipeline):
+                super().__init__(pipeline)
+                rec["engine"] = self
+                mixed = self._mixed_loss
+                self._mixed_loss = lambda *a: rec["mixed"].append(1) or mixed(*a)
+
+            def run(self, *a, **kw):
+                out = super().run(*a, **kw)
+                rec["results"].extend(out)
+                return out
+
+        return Recording
+
+    port_run._build_pipeline, port_run._load_checkpoint = build_recorded, load_timed
+    for name, cls in engines.items():
+        setattr(batched, name, recording(cls))
+    try:
+        yield rec
+    finally:
+        port_run._build_pipeline, port_run._load_checkpoint = build, load
+        for name, cls in engines.items():
+            setattr(batched, name, cls)
+
+
+def run_main_with_checkpoints(argv, sample_list, pixel_base, size, implied):
+    """``run.main(argv)`` over ``sample_list`` (its images served by name:
+    the card's machine has no PIL to decode JPEGs), the launch counts reset
+    just before and read just after; returns ``(summary, record, launches,
+    expected launches, seconds)``.  The schedules imply the launches as in
+    the batched phases: one chunk per bucket, plus the victim's calls."""
+    from vqattack_tpu_torch.data.vqa import VQADataset
+
+    pixels = {f"{qid}.jpg": sample_pixels(pixel_base + i, size)
+              for i, (qid, *_) in enumerate(sample_list)}
+    load_pixels = VQADataset._load_pixels
+    VQADataset._load_pixels = lambda self, name: pixels[name]
+    try:
+        with record_main() as rec:
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            summary = port_run.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launched = counts()
+    finally:
+        VQADataset._load_pixels = load_pixels
+    results, cfg, engine = rec["results"], rec["pipe"].cfg, rec["engine"]
+    require(summary["samples"] == len(sample_list) == len(results), "samples attacked")
+    require(engine.last_chunk_sizes == [8, 4], f"chunks {engine.last_chunk_sizes}")
+    require(sorted({r.old_alg for r in results}) == [0, 1], "both PGD paths must run")
+    for r, (qid, *_) in zip(results, sample_list):
+        require(r.qid == str(qid), "results not in qid order")
+        check_result(r, pixels[f"{qid}.jpg"], cfg.attack, size)
+    expected = implied(cfg, rec["victim_calls"], 0, 0, True)
+    for old_alg, extra in ((0, len(rec["mixed"])), (1, 0)):
+        res = next(r for r in results if r.old_alg == old_alg)
+        for k, v in implied(cfg, *schedule_passes(res, extra), True).items():
+            expected[k] += v
+    return summary, rec, launched, expected, seconds
+
+
+def write_ann(path: str, sample_list) -> None:
+    with open(path, "w") as f:
+        json.dump([{"image": f"{qid}.jpg", "question": q, "question_id": qid,
+                    "answer": [a] * 10} for qid, q, a, _ in sample_list], f)
+
+
+def checkpoint_path(common, v_common, tmp):
+    """Full-width synthetic checkpoints in the reference's names, from seed
+    0 (``checkpoint/synthetic.py``), written to ``tmp``; ``run.main`` with
+    them for each surrogate at ``--batch-size 8 --attn flash
+    --pipeline-depth 2``; every loaded parameter against the tensor it came
+    from; the launch counts against the schedules.  Returns ``(launches,
+    load records, seconds)`` of the two runs."""
+    from vqattack_tpu_torch.checkpoint import synthetic
+    from vqattack_tpu_torch.checkpoint.convert import resize_vlmo_rel_pos_table
+    from vqattack_tpu_torch.checkpoint.interpolate import interpolate_pos_embed
+
+    ckpt = os.path.join(tmp, "checkpoints")
+    os.makedirs(ckpt)
+    print(f"  {shutil.disk_usage(tmp).free / 2 ** 30:.1f} GiB free where the files go", flush=True)
+    flags = ["--batch-size", str(BATCH_SIZE), "--attn", "flash",
+             "--pipeline-depth", str(PIPELINE_DEPTH), "--image-root", tmp]
+    cfg = port_run.resolve_config(port_run.build_argparser().parse_args(common))
+    t0 = time.perf_counter()
+    sur = synthetic.albef_pretrain_state_dict(cfg.albef, SEED, src_image_size=224)
+    vqa = synthetic.albef_vqa_state_dict(cfg.albef, SEED + 1, src_image_size=384)
+    mlm = synthetic.hf_bert_mlm_state_dict(cfg.albef.bert, SEED + 2)
+    torch.save({"model": sur, "config": {"image_res": 224}, "epoch": 30},
+               os.path.join(ckpt, "ALBEF.pth"))
+    torch.save({"model": vqa, "config": {"image_res": 384}}, os.path.join(ckpt, "vqa.pth"))
+    synthetic.save_hf_bert_dir(os.path.join(ckpt, "bert-base-uncased"), cfg.albef.bert, mlm)
+    write_ann(os.path.join(tmp, "ann_albef.json"), BATCH_SAMPLES)
+    print(f"  wrote the ALBEF checkpoints in {time.perf_counter() - t0:.2f} s", flush=True)
+    require(tuple(sur["visual_encoder.pos_embed"].shape)[:2] == (1, 197), "a 224 px pos_embed")
+
+    argv = common + flags + [
+        "--ann", os.path.join(tmp, "ann_albef.json"), "--output", os.path.join(tmp, "out_ckpt"),
+        "--surrogate-ckpt", os.path.join(ckpt, "ALBEF.pth"),
+        "--victim-ckpt", os.path.join(ckpt, "vqa.pth"),
+        "--bert-mlm", os.path.join(ckpt, "bert-base-uncased"), "--calibrate-gate"]
+    summary, rec, a_launched, a_expected, a_s = run_main_with_checkpoints(
+        argv, BATCH_SAMPLES, 500, cfg.albef.vit.image_size, implied_launches)
+    require("attack_accuracy_note" not in summary, "a note on a run with --victim-ckpt")
+    pipe = rec["pipe"]
+    n = check_loaded(pipe.surrogate, sur, albef_source("pretrain"), {
+        "visual_encoder.pos_embed": torch.from_numpy(interpolate_pos_embed(
+            sur["visual_encoder.pos_embed"].numpy(), cfg.albef.vit.num_patches))})
+    n += check_loaded(pipe.victim, vqa, albef_source("vqa"), {
+        "visual_encoder.pos_embed": torch.from_numpy(interpolate_pos_embed(
+            vqa["visual_encoder.pos_embed"].numpy(), cfg.albef.vit.num_patches))})
+    n += check_loaded(pipe.mlm_model, mlm, mlm_source, {})
+    a_loads = rec["loads"]
+    print(f"  ALBEF: {n} loaded tensors equal their sources; {summary['samples']} samples in "
+          f"{a_s:.2f} s of run.main, loads {a_loads}", flush=True)
+    del pipe, rec, sur, vqa
+    torch.cuda.empty_cache()
+    for f in ("ALBEF.pth", "vqa.pth"):
+        os.remove(os.path.join(ckpt, f))
+
+    v_cfg = port_run.resolve_config(port_run.build_argparser().parse_args(v_common))
+    t0 = time.perf_counter()
+    v_sur = synthetic.vlmo_state_dict(v_cfg.vlmo, SEED + 3, src_image_size=224)
+    v_vic = synthetic.vlmo_state_dict(v_cfg.vlmo, SEED + 4,
+                                      heads=synthetic.VLMO_VQA_HEADS + ("nlvr2_classifier",))
+    torch.save({"module": {f"module.{k}": v for k, v in v_sur.items()}},
+               os.path.join(ckpt, "vlmo_base_patch16_224.pt"))
+    torch.save({"state_dict": v_vic}, os.path.join(ckpt, "vlmo_base_patch16_480_vqa.pt"))
+    write_ann(os.path.join(tmp, "ann_vlmo.json"), VLMO_BATCH_SAMPLES)
+    print(f"  wrote the VLMo checkpoints in {time.perf_counter() - t0:.2f} s", flush=True)
+    argv = v_common + flags + [
+        "--ann", os.path.join(tmp, "ann_vlmo.json"), "--output", os.path.join(tmp, "out_vckpt"),
+        "--surrogate-ckpt", os.path.join(ckpt, "vlmo_base_patch16_224.pt"),
+        "--victim-ckpt", os.path.join(ckpt, "vlmo_base_patch16_480_vqa.pt"),
+        "--bert-mlm", os.path.join(ckpt, "bert-base-uncased")]
+    summary, rec, v_launched, v_expected, v_s = run_main_with_checkpoints(
+        argv, VLMO_BATCH_SAMPLES, 600, v_cfg.vlmo.image_size, vlmo_implied_launches)
+    require("attack_accuracy_note" not in summary, "a note on a run with --victim-ckpt")
+    pipe = rec["pipe"]
+    require(pipe.victim is not pipe.model, "the VLMo victim is not a module of its own")
+    table = "relative_position_bias_table"
+    n = check_loaded(pipe.model, v_sur, vlmo_source, {table: torch.from_numpy(
+        resize_vlmo_rel_pos_table(v_sur[table].numpy(), 224 // 16, v_cfg.vlmo.image_size // 16))},
+        absent=("vqa_classifier",))
+    n += check_loaded(pipe.victim, v_vic, vlmo_source, {}, absent=(
+        "mlm_score", "itm_score", "itc_text_proj", "itc_image_proj", "itc_vl_text_proj",
+        "itc_vl_image_proj", "logit_scale", "logit_vl_scale"))
+    n += check_loaded(pipe.mlm_model, mlm, mlm_source, {})
+    v_loads = rec["loads"]
+    print(f"  VLMo: {n} loaded tensors equal their sources; {summary['samples']} samples in "
+          f"{v_s:.2f} s of run.main, loads {v_loads}", flush=True)
+    del pipe, rec
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt)
+    launches = {"albef": (a_launched, a_expected), "vlmo": (v_launched, v_expected)}
+    return launches, a_loads + v_loads, {"albef_s": a_s, "vlmo_s": v_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's check needs one", file=sys.stderr)
@@ -1278,10 +1603,23 @@ def main() -> int:
         require((n == 0) == k.startswith("residual_layernorm"),
                 f"VLMo batched {k}: {n} launches (K2 none, every other kernel some)")
 
-    shutil.rmtree(tmp, ignore_errors=True)
-
     with Phase("one VLMo gradient step at batch 16: --attn flash against --attn xla"):
         v_ab = vlmo_one_step_ab(v_pipe, v_cfg, tokenizer, gen)
+    del v_pipe
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ the checkpoint path
+    with Phase(f"checkpoint path: run.main with .pth files, --batch-size {BATCH_SIZE} "
+               f"--attn flash --pipeline-depth {PIPELINE_DEPTH}") as ph:
+        c_launches, c_loads, c_seconds = checkpoint_path(common, v_common, tmp)
+    c_seconds["phase_s"] = round(ph.seconds, 2)
+    for which, (launched_c, expected_c) in c_launches.items():
+        for k, n in launched_c.items():
+            require(n == expected_c[k], f"{which} with checkpoints {k}: {n} launches, the "
+                                        f"schedules imply {expected_c[k]}")
+            none = k.endswith("key_bias") if which == "albef" else k.startswith("residual")
+            require((n == 0) == none, f"{which} with checkpoints {k}: {n} launches")
+    shutil.rmtree(tmp, ignore_errors=True)
 
     for row in rows:
         row["launches"] = b_launched[row["name"]]
@@ -1291,7 +1629,11 @@ def main() -> int:
     print(f"wall: {time.perf_counter() - t_start:.1f} s since start", flush=True)
     print(json.dumps({"kernel_launches": {
         "per_sample": launched, "batched": b_launched,
-        "vlmo_per_sample": v_launched, "vlmo_batched": vb_launched}}), flush=True)
+        "vlmo_per_sample": v_launched, "vlmo_batched": vb_launched,
+        "albef_checkpoints": c_launches["albef"][0],
+        "vlmo_checkpoints": c_launches["vlmo"][0]}}), flush=True)
+    print(json.dumps({"checkpoint_loads": c_loads, "checkpoint_phase": c_seconds,
+                      "card": smi}), flush=True)
     print(json.dumps({"attn_ab_batch16": ab, "vlmo_attn_ab_batch16": v_ab}), flush=True)
     print(json.dumps({"flash_attention_batch16": flash_b16}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

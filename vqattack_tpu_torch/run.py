@@ -3,23 +3,30 @@
     python -m vqattack_tpu_torch.run --pipeline albef --vocab vocab.txt \\
         --ann vqa_val.json --image-root /data/val2014 --answer-list answers.json \\
         --right-part right.txt --surrogate-ans sur.json --target-ans tgt.json \\
-        --paraphrases para.json --all-correct allc.json --output attack_out
+        --paraphrases para.json --all-correct allc.json --output attack_out \\
+        --surrogate-ckpt ALBEF.pth --victim-ckpt vqa.pth --bert-mlm bert-base-uncased/
 
 Port of the ALBEF and VLMo paths of ``vqattack_tpu/run.py``: subset and
 alignment guards -> the attack -> black-box victim check every
 ``eval_every`` samples -> artifacts.  ``--pipeline albef`` attacks the ALBEF
 surrogate and ranks ``--answer-list`` with the ALBEF victim; ``--pipeline
-vlmo`` attacks VLMo (``vlmo_attack_config``) and checks its 3,129-way VQA
-classifier, decoded through ``--id2answer``.  ``--batch-size 1`` attacks
-one sample at a time; a larger batch buffers ``--buffer-factor`` batches of
-samples and runs them through the lockstep engine (``attacks/batched.py``),
-``--pipeline-depth`` chunks at a time.  ``--attn flash`` sends every
-attention over at least 128 queries (ALBEF's ViT, VLMo's joint trunk)
-through the flash kernel.  Runs on ``cuda`` unless ``--device
-cpu``.  Weights are random, drawn from ``--seed``: loading ``.pth``
-checkpoints (``--surrogate-ckpt``), VLMo's named configs
-(``--named-config``) and arrow tables (``--arrow``), the device mesh and the
-USE gate are not ported yet, and the flags of the first three stop the run.
+vlmo`` attacks VLMo (``vlmo_attack_config``, or the geometry of
+``--named-config``) and checks its 3,129-way VQA classifier, decoded through
+``--id2answer``.  ``--batch-size 1`` attacks one sample at a time; a larger
+batch buffers ``--buffer-factor`` batches of samples and runs them through
+the lockstep engine (``attacks/batched.py``), ``--pipeline-depth`` chunks at
+a time.  ``--attn flash`` sends every attention over at least 128 queries
+(ALBEF's ViT, VLMo's joint trunk) through the flash kernel, which takes a
+head dim of 64.  Runs on ``cuda`` unless ``--device cpu``.
+
+Weights: ``--surrogate-ckpt`` and ``--victim-ckpt`` load the reference's
+``.pth`` files (``checkpoint/io.py``; VLMo's surrogate from 224 px, its
+victim at the run's size, a separate module), ``--bert-mlm`` a Hugging Face
+BERT directory as the candidate MLM; what no flag loads is random, drawn
+from ``--seed``.  ``--calibrate-gate`` prints the similarity gate's score
+profile and a suggested ``--bert-threshold`` before the attack.  Arrow
+tables (``--arrow``), the device mesh and the USE gate are not ported yet;
+``--arrow`` stops the run.
 """
 
 from __future__ import annotations
@@ -40,9 +47,16 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--pipeline", choices=["albef", "vlmo"], default="albef")
     p.add_argument("--config", default=None, help="RunConfig json")
     p.add_argument("--named-config", nargs="*", default=[],
-                   help="VLMo named-config presets (not ported yet)")
+                   help="VLMo named-config presets composed left to right (the "
+                        "reference's `run.py with <names>`, e.g. "
+                        "task_finetune_vqa_base_image480); sets the VLMo geometry")
     p.add_argument("--surrogate-ckpt", default=None,
-                   help="surrogate .pth checkpoint (not ported yet)")
+                   help="the surrogate's .pth checkpoint (ALBEF pre-trained; VLMo at 224 px)")
+    p.add_argument("--victim-ckpt", default=None,
+                   help="the victim's .pth checkpoint (ALBEF VQA; VLMo VQA at the run's size)")
+    p.add_argument("--bert-mlm", default=None,
+                   help="Hugging Face BertForMaskedLM directory for the candidate MLM: "
+                        "config.json with model.safetensors or pytorch_model.bin")
     p.add_argument("--arrow", nargs="*", default=[], help="VLMo arrow tables (not ported yet)")
     p.add_argument("--id2answer", default=None,
                    help="VLMo classifier index -> answer (json, or the reference's "
@@ -65,6 +79,9 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="skip qids whose artifact already exists in --output")
     p.add_argument("--bert-threshold", type=float, default=None,
                    help="operating point of the BertMeanPoolGate in its own space")
+    p.add_argument("--calibrate-gate", action="store_true",
+                   help="before the attack, print the similarity gate's score profile "
+                        "over the dataset's questions and a suggested --bert-threshold")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     p.add_argument("--attn", choices=["xla", "flash"], default="xla",
                    help="attention over >= 128 queries: the explicit product + "
@@ -81,28 +98,47 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-_NOT_PORTED = (("named_config", "--named-config"), ("surrogate_ckpt", "--surrogate-ckpt"),
-               ("arrow", "--arrow"))
+_NOT_PORTED = (("arrow", "--arrow"),)
 
 
 def resolve_config(args):
-    """--config if given, else the pipeline's attack preset; then --seed,
-    --output, and the ALBEF path's kernel switch: the ViT's
-    residual+LayerNorm sites take the fused kernel (``vit.fused_ln``) on the
-    card (VLMo's blocks have plain LayerNorms, as in the JAX package)."""
+    """--config if given, else the pipeline's attack preset; then VLMo's
+    --named-config geometry, --seed, --output, and the ALBEF path's kernel
+    switch: the ViT's residual+LayerNorm sites take the fused kernel
+    (``vit.fused_ln``) on the card (VLMo's blocks have plain LayerNorms, as
+    in the JAX package).  Refuses ``--attn flash`` on the card for a head
+    dim the flash kernel does not take."""
     from vqattack_tpu_torch import config as cfg_mod
+    from vqattack_tpu_torch.ops.attention import HEAD_DIM
 
     given = [flag for attr, flag in _NOT_PORTED if getattr(args, attr)]
     if given:
-        raise SystemExit(f"{', '.join(given)}: not ported yet (the port runs random "
-                         f"weights from --seed on the presets and --config, over --ann)")
+        raise SystemExit(f"{', '.join(given)}: not ported yet (the port reads the VQA "
+                         f"json annotations of --ann)")
     if args.config:
         cfg = cfg_mod.load_config(args.config)
     elif args.pipeline == "vlmo":
         cfg = cfg_mod.vlmo_attack_config()
     else:
         cfg = cfg_mod.albef_attack_config()
+    if args.named_config:
+        if args.pipeline != "vlmo":
+            raise SystemExit("--named-config presets are the VLMo pipeline's sacred surface; "
+                             "use --config for the ALBEF pipeline")
+        from vqattack_tpu_torch.named_configs import vlmo_config_from_named, vlmo_named_config
+
+        vlmo = vlmo_config_from_named(vlmo_named_config(*args.named_config))
+        cfg = dataclasses.replace(cfg, vlmo=dataclasses.replace(
+            vlmo, remat=cfg.vlmo.remat, remat_scores=cfg.vlmo.remat_scores))
     cfg = dataclasses.replace(cfg, output_dir=args.output, seed=args.seed)
+    if args.attn == "flash" and args.device == "cuda":
+        hidden, heads, what = ((cfg.vlmo.hidden_size, cfg.vlmo.num_heads, "VLMo trunk")
+                               if args.pipeline == "vlmo" else
+                               (cfg.albef.vit.hidden_size, cfg.albef.vit.num_heads, "ALBEF ViT"))
+        if hidden // heads != HEAD_DIM:
+            raise SystemExit(f"--attn flash: the flash-attention kernel takes head dim "
+                             f"{HEAD_DIM}; the {what} has head dim {hidden // heads} ({hidden} "
+                             f"over {heads} heads): run it with --attn xla")
     if args.device == "cuda" and args.pipeline == "albef":
         vit = dataclasses.replace(cfg.albef.vit, fused_ln=True)
         cfg = dataclasses.replace(cfg, albef=dataclasses.replace(cfg.albef, vit=vit))
@@ -111,11 +147,22 @@ def resolve_config(args):
     return cfg
 
 
+def _load_checkpoint(what: str, loader, path: str, *args, **kw):
+    """``loader(path, *args, **kw)``, its seconds printed on one line."""
+    t0 = time.perf_counter()
+    out = loader(path, *args, **kw)
+    print(f"{what} checkpoint {path}: loaded in {time.perf_counter() - t0:.2f} s", flush=True)
+    return out
+
+
 def _build_pipeline(args, cfg, tokenizer):
-    """Random-weight surrogate, victim and candidate MLM on ``args.device``,
-    the BertMeanPoolGate over the surrogate's text tower, and the pipeline.
-    VLMo's victim is its surrogate module, with the VQA head (the JAX CLI's
-    victim without ``--victim-ckpt``)."""
+    """Surrogate, victim and candidate MLM on ``args.device``, random from
+    ``--seed`` and then loaded from whichever of ``--surrogate-ckpt``,
+    ``--victim-ckpt`` and ``--bert-mlm`` are given; the BertMeanPoolGate
+    over the surrogate's text tower; the pipeline.  Without
+    ``--victim-ckpt`` VLMo's victim is its surrogate module, with the VQA
+    head (the JAX CLI's victim without it)."""
+    from vqattack_tpu_torch.checkpoint import io as ckpt_io
     from vqattack_tpu_torch.device import resolve_device
     from vqattack_tpu_torch.models.albef import init_weights
     from vqattack_tpu_torch.models.bert import FusionBert
@@ -133,7 +180,17 @@ def _build_pipeline(args, cfg, tokenizer):
 
         with torch.device(device):
             model = init_vlmo_weights(VLMo(cfg.vlmo), seed=args.seed)
+            victim = (init_vlmo_weights(VLMo(cfg.vlmo), seed=args.seed + 3)
+                      if args.victim_ckpt else None)
             mlm = init_weights(FusionBert(mlm_cfg, with_mlm_head=True), seed=args.seed + 1)
+        if args.surrogate_ckpt:  # the pre-trained surrogate is a 224 px checkpoint
+            _load_checkpoint("surrogate", ckpt_io.load_vlmo, args.surrogate_ckpt, cfg.vlmo,
+                             src_image_size=224, into=model)
+        if args.victim_ckpt:
+            _load_checkpoint("victim", ckpt_io.load_vlmo, args.victim_ckpt, cfg.vlmo,
+                             into=victim)
+        if args.bert_mlm:
+            _load_checkpoint("candidate MLM", ckpt_io.load_hf_bert_mlm, args.bert_mlm, into=mlm)
 
         @torch.no_grad()
         def vlmo_text(ids, mask):
@@ -142,7 +199,7 @@ def _build_pipeline(args, cfg, tokenizer):
         gate = make_gate("bert", embed_fn=vlmo_text, tokenizer=tokenizer,
                          max_length=cfg.vlmo.max_text_len, device=device, **kw)
         id2answer = load_id2answer(args.id2answer) if args.id2answer else {}
-        return VlmoAttackPipeline(cfg, model, tokenizer, gate, mlm_model=mlm,
+        return VlmoAttackPipeline(cfg, model, tokenizer, gate, victim=victim, mlm_model=mlm,
                                   id2answer=id2answer, device=device)
 
     from vqattack_tpu_torch.attacks.orchestrator import AlbefAttackPipeline
@@ -152,6 +209,14 @@ def _build_pipeline(args, cfg, tokenizer):
         surrogate = init_weights(AlbefPretrain(cfg.albef), seed=args.seed)
         victim = init_weights(AlbefVQA(cfg.albef), seed=args.seed + 3)
         mlm = init_weights(FusionBert(mlm_cfg, with_mlm_head=True), seed=args.seed + 1)
+    if args.surrogate_ckpt:
+        _load_checkpoint("surrogate", ckpt_io.load_albef_pretrain, args.surrogate_ckpt,
+                         cfg.albef, into=surrogate)
+    if args.victim_ckpt:
+        _load_checkpoint("victim", ckpt_io.load_albef_vqa, args.victim_ckpt, cfg.albef,
+                         into=victim)
+    if args.bert_mlm:
+        _load_checkpoint("candidate MLM", ckpt_io.load_hf_bert_mlm, args.bert_mlm, into=mlm)
 
     @torch.no_grad()
     def embed_fn(ids, mask):
@@ -192,6 +257,16 @@ def _main(args) -> dict:
     size = cfg.vlmo.image_size if vlmo else cfg.albef.vit.image_size
     dataset = VQADataset(args.ann, args.image_root, test_transform(size),
                          answer_list=args.answer_list)
+    if args.calibrate_gate:
+        from vqattack_tpu_torch.text.calibrate import gate_score_profile, suggest_threshold
+
+        questions = [dataset[i]["question"] for i in range(min(len(dataset), 64))]
+        profile = gate_score_profile(pipeline.gate, questions)
+        print(profile.table())
+        try:
+            print(f"suggested threshold: {suggest_threshold(profile):.4f}")
+        except ValueError:
+            print("suggested threshold: n/a (not enough probe data)")
     if not vlmo:
         if not dataset.answer_list:
             raise SystemExit("--answer-list is required for --pipeline albef: the ALBEF "
@@ -288,15 +363,16 @@ def _main(args) -> dict:
         flush_buffer()
     eval_pending()
     save_artifacts(results, args.output)
-    summary = {
-        "samples": len(results),
-        "attack_accuracy": flip.value,
-        "attack_accuracy_note": "random-weight victim: flips are no evidence of attack success",
+    summary = {"samples": len(results), "attack_accuracy": flip.value}
+    if not args.victim_ckpt:
+        summary["attack_accuracy_note"] = ("random-weight victim (no --victim-ckpt): flips are "
+                                           "no evidence of attack success")
+    summary.update({
         "mean_attack_s": float(np.mean(attack_s)) if attack_s else 0.0,
         "device": str(pipeline.device),
         "pipeline": args.pipeline,
         "output": args.output,
-    }
+    })
     if occupancy:
         # real rows over padded rows of every chunk the engine ran
         summary["bucket_occupancy"] = float(np.mean(occupancy))
