@@ -11,7 +11,8 @@ Phases (each prints a line on entry and its seconds on exit):
    shapes both paths give it (batch 1, the batched chunks of 4 and 8, the
    victim's 16), with the stated tolerances: K1 (PGD update), K2 (residual +
    LayerNorm, forward and backward) and K3 (flash attention on the tensor
-   cores in three TF32 passes, forward and backward, ragged and bias cases);
+   cores in three TF32 passes, forward and backward, ragged and bias cases;
+   and its bf16 instance, one bf16 pass a product);
    times and bounds at the batched chunk of 8, and K3's also at 16, beside
    ``scaled_dot_product_attention``;
 4. model: the full-width surrogate with the fused kernels against the same
@@ -55,9 +56,21 @@ Phases (each prints a line on entry and its seconds on exit):
     the reference's names, the resized ``pos_embed`` and relative table
     against the port's resize on the CPU; then the files are deleted.
 
-Before phases 5, 6, 10, 11 and each run of 13 the kernels' launch counts
-are reset, and after each they must equal what the samples' schedules
-imply.  Prints the kernel table as one JSON line, the checkpoint loads'
+The bf16 trunk (``--dtype bfloat16``) adds, after the float32 phases of each
+surrogate: K2 on a bf16 stream (phase 3, beside float32) and K3's bf16
+instance against its plain versions and the float32 computation (ALBEF's
+shapes without terms in phase 3, VLMo's with both terms after phase 12),
+timed beside ``scaled_dot_product_attention`` in bf16; a full-width drift
+check, one MAR and one feature-only sample in float32 and in bf16 from the
+same rand-init, held to the JAX package's trajectory budget; one per-sample
+bf16 sample, the batched bf16 path (11 samples, ``--batch-size 8 --attn
+flash --pipeline-depth 2``) through the engine and again through
+``run.main``, whose launch counts, bf16 and float32 instances apart, must
+equal the schedules'; and the batch-16 flash/xla step in bf16.
+
+Before phases 5, 6, 10, 11, each run of 13 and each bf16 path the kernels'
+launch counts are reset, and after each they must equal what the samples'
+schedules imply.  Prints the kernel table as one JSON line, the checkpoint loads'
 seconds beside the card's name and power limit, the card's name and power
 limit, then, as the last line, ``{"ok": true, "device": {...}}``.  Exits
 non-zero, without those lines, when there is no CUDA device or any check
@@ -85,7 +98,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from vqattack_tpu_torch import run as port_run  # noqa: E402
 from vqattack_tpu_torch.attacks import batched  # noqa: E402
 from vqattack_tpu_torch.attacks.orchestrator import save_artifacts  # noqa: E402
-from vqattack_tpu_torch.attacks.pgd import pgd_feature  # noqa: E402
+from vqattack_tpu_torch.attacks.mar_labels import build_mar_labels  # noqa: E402
+from vqattack_tpu_torch.attacks.pgd import pgd_alternating, pgd_feature  # noqa: E402
 from vqattack_tpu_torch.data.side_tables import SideTables  # noqa: E402
 from vqattack_tpu_torch.models.albef import AlbefPretrain  # noqa: E402
 from vqattack_tpu_torch.models.layers import mask_to_key_bias  # noqa: E402
@@ -96,6 +110,8 @@ from vqattack_tpu_torch.text.tokenizer import WordPieceTokenizer  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 TF32_FLOPS = 495e12         # H100 SXM dense TF32 on the tensor cores
+BF16_FLOPS = 989e12         # H100 SXM dense bf16 on the tensor cores
+BF16 = torch.bfloat16
 SEED = 0
 D = 768
 
@@ -232,7 +248,10 @@ LN_ROWS = (901, 1000, 4 * 901, TIMED_BATCH * 901, 16 * 901)
 
 
 def check_fused_ln(gen):
-    fwd_row = bwd_row = None
+    """K2 on a float32 and on a bf16 stream against its plain versions;
+    the rows of both timed at the batched chunk of 8 (float32 forward and
+    backward, then bf16)."""
+    timed = []
     for rows in LN_ROWS:
         for dtype in (torch.float32, torch.bfloat16):
             x, delta, gamma, beta, gs, gh = _ln_case(gen, rows, dtype)
@@ -263,19 +282,30 @@ def check_fused_ln(gen):
             print(f"  residual_layernorm rows={rows} {str(dtype)[6:]}: s bit-exact, "
                   f"h err {h_err:.3g}, dx err {dx_err:.3g}, "
                   f"dgamma err {float((dg - dg_r).abs().max()):.3g}, deterministic", flush=True)
-            if rows == TIMED_BATCH * 901 and dtype == torch.float32:
-                fwd_row = _time_fwd(x, delta, gamma, beta, rows, max(h_err, 0.0))
-                bwd_row = _time_bwd(x, delta, gamma, beta, s, gs, gh, rows, dx_err)
+            if rows == TIMED_BATCH * 901:
+                timed.append(_time_fwd(x, delta, gamma, beta, rows, max(h_err, 0.0)))
+                timed.append(_time_bwd(x, delta, gamma, beta, s, gs, gh, rows, dx_err))
     for rows in (901, TIMED_BATCH * 901):
-        _check_autograd(gen, rows)
-    return fwd_row, bwd_row
+        for dtype in (torch.float32, BF16):
+            for param_grads in (True, False):
+                _check_autograd(gen, rows, dtype, param_grads)
+    return timed
+
+
+def _ln_name(direction, dtype):
+    return f"residual_layernorm{'_bf16' if dtype == BF16 else ''}_{direction}"
 
 
 def _time_fwd(x, delta, gamma, beta, rows, err):
-    n = rows * D
-    b, by = bound_ms(4 * n * 4 + 2 * D * 4, 8 * n)  # read x, delta; write s, h
+    """Times of K2's forward; the library call is ``layer_norm(x + delta)``
+    in the stream's dtype (on a bf16 stream with gamma and beta cast to
+    bf16, outside the timing: one PyTorch call does not take float32
+    parameters beside a bf16 input on every build)."""
+    n, size = rows * D, x.element_size()
+    b, by = bound_ms(4 * n * size + 2 * D * 4, 8 * n)  # read x, delta; write s, h
+    g_lib, b_lib = gamma.to(x.dtype), beta.to(x.dtype)
     row = {
-        "name": "residual_layernorm_fwd", "route": "cuda",
+        "name": _ln_name("fwd", x.dtype), "route": "cuda",
         "source": "vqattack_tpu_torch/csrc/fused_ln.cu",
         "replaces": "vqattack_tpu/ops/fused_ln.py:135",
         "shape": [rows, D],
@@ -285,9 +315,9 @@ def _time_fwd(x, delta, gamma, beta, rows, err):
             lambda: fused_ln.residual_layernorm_reference(x, delta, gamma, beta, 1e-6)),
         "bound_ms": b, "bound_by": by,
         "library_ms": time_ms(
-            lambda: torch.nn.functional.layer_norm(x + delta, (D,), gamma, beta, 1e-6)),
+            lambda: torch.nn.functional.layer_norm(x + delta, (D,), g_lib, b_lib, 1e-6)),
     }
-    print(f"  residual_layernorm_fwd [{rows}, {D}] f32: {row['ms'] * 1e3:.1f} us (plain "
+    print(f"  {row['name']} [{rows}, {D}] {str(x.dtype)[6:]}: {row['ms'] * 1e3:.1f} us (plain "
           f"{row['plain_ms'] * 1e3:.1f} us, layer_norm(x + delta) "
           f"{row['library_ms'] * 1e3:.1f} us, bound {b * 1e3:.2f} us)", flush=True)
     return row
@@ -298,13 +328,13 @@ def _time_bwd(x, delta, gamma, beta, s, gs, gh, rows, err):
     # library's: autograd through s = x + delta, h = layer_norm(s), the same
     # dx = gs + LayerNorm's backward of gh (its host enqueue can outlast the
     # default hold of the stream, so the hold is longer)
-    n = rows * D
-    b, by = bound_ms(4 * n * 4 + D * 4, 12 * n)  # read s, gs, gh; write dx
+    n, size = rows * D, x.element_size()
+    b, by = bound_ms(4 * n * size + D * 4, 12 * n)  # read s, gs, gh; write dx
     x_leaf = x.detach().clone().requires_grad_(True)
     s_l = x_leaf + delta
-    h_l = torch.nn.functional.layer_norm(s_l, (D,), gamma, beta, 1e-6)
+    h_l = torch.nn.functional.layer_norm(s_l, (D,), gamma.to(x.dtype), beta.to(x.dtype), 1e-6)
     row = {
-        "name": "residual_layernorm_bwd", "route": "cuda",
+        "name": _ln_name("bwd", x.dtype), "route": "cuda",
         "source": "vqattack_tpu_torch/csrc/fused_ln.cu",
         "replaces": "vqattack_tpu/ops/fused_ln.py:159",
         "shape": [rows, D],
@@ -317,29 +347,40 @@ def _time_bwd(x, delta, gamma, beta, s, gs, gh, rows, err):
         "library_ms": time_ms(lambda: torch.autograd.grad(
             (s_l, h_l), x_leaf, (gs, gh), retain_graph=True), sleep_cycles=20_000_000),
     }
-    print(f"  residual_layernorm_bwd [{rows}, {D}] f32: {row['ms'] * 1e3:.1f} us (plain "
+    print(f"  {row['name']} [{rows}, {D}] {str(x.dtype)[6:]}: {row['ms'] * 1e3:.1f} us (plain "
           f"{row['plain_ms'] * 1e3:.1f} us, autograd of layer_norm(x + delta) "
           f"{row['library_ms'] * 1e3:.1f} us, bound {b * 1e3:.2f} us)", flush=True)
     return row
 
 
-def _check_autograd(gen, rows):
-    """The autograd Function against autograd through the plain version."""
-    x, delta, gamma, beta, _, _ = _ln_case(gen, rows, torch.float32)
-    w_s = torch.randn(rows, D, generator=gen, device="cuda")
-    w_h = torch.randn(rows, D, generator=gen, device="cuda")
+def _check_autograd(gen, rows, dtype, param_grads):
+    """The autograd Function against autograd through the plain version, on
+    a float32 or a bf16 stream (gamma and beta float32), with and without
+    parameter gradients (the attack's frozen LayerNorms take none).
+    Tolerance: float32 reassociation, 1e-4 of the largest magnitude (at
+    least 1); on a bf16 stream dx and ddelta within two bf16 ulps (2^-6) of
+    the largest magnitude: autograd through the plain version rounds the
+    LayerNorm's gradient to bf16 before it adds the gradient of s, the
+    kernel adds in float32 and rounds once."""
+    x, delta, gamma, beta, _, _ = _ln_case(gen, rows, dtype)
+    w_s = torch.randn(rows, D, generator=gen, device="cuda").to(dtype)
+    w_h = torch.randn(rows, D, generator=gen, device="cuda").to(dtype)
+    names = ("dx", "ddelta") + (("dgamma", "dbeta") if param_grads else ())
     grads = []
     for fn in (fused_ln.residual_layernorm, fused_ln.residual_layernorm_reference):
-        xs = [t.clone().requires_grad_(True) for t in (x, delta, gamma, beta)]
-        s, h = fn(*xs, 1e-6)
-        grads.append(torch.autograd.grad((s * w_s).sum() + (h * w_h).sum(), xs))
-    for name, a, b in zip(("dx", "ddelta", "dgamma", "dbeta"), *grads):
-        # float32 reassociation: 1e-4 of the largest magnitude (at least 1)
-        err = float((a - b).abs().max())
-        require(err <= 1e-4 * max(1.0, float(b.abs().max())),
-                f"autograd {name}: max abs err {err}")
+        xs = [t.clone().requires_grad_(True) for t in (x, delta)]
+        ps = [t.clone().requires_grad_(param_grads) for t in (gamma, beta)]
+        s, h = fn(*xs, *ps, 1e-6)
+        loss = (s.float() * w_s.float()).sum() + (h.float() * w_h.float()).sum()
+        grads.append(torch.autograd.grad(loss, xs + (ps if param_grads else [])))
+    for name, a, b in zip(names, *grads):
+        require(a.dtype == b.dtype, f"autograd {name}: {a.dtype} against {b.dtype}")
+        err = float((a.float() - b.float()).abs().max())
+        rel = 2 ** -6 if dtype == BF16 and name in ("dx", "ddelta") else 1e-4
+        require(err <= rel * max(1.0, float(b.float().abs().max())),
+                f"autograd {name} {dtype}: max abs err {err}")
     print(f"  residual_layernorm autograd Function matches autograd of the plain version "
-          f"at rows={rows}", flush=True)
+          f"at rows={rows} {str(dtype)[6:]}, parameter gradients {param_grads}", flush=True)
 
 
 HEADS, HEAD_DIM = 12, 64
@@ -481,6 +522,150 @@ def time_flash_attention(gen, errs, b):
     return fwd, bwd
 
 
+# K3's bf16 instance (csrc/flash_attention_bf16.cu): ALBEF's bf16 trunk hands
+# it [B, 901, 12, 64] without terms, VLMo's [B, 941, 12, 64] with both
+
+
+def _bf16_attn_err(what, got, plain, truth):
+    """Tolerance of K3-bf16: the kernel and its plain version are both held
+    against ``truth``, the float32 computation from the same bf16 inputs;
+    the kernel's error may be at most twice the plain version's plus one
+    bf16 ulp (2^-7) of the largest value (at least 1).  The plain version
+    rounds P and dS to bf16 where the library kernel does, so its error is
+    the bf16 arithmetic's own; the kernel rounds at the same places, P
+    against a running maximum tile by tile, and sums in another order: an
+    error of the same size, and an output may round to the other side by
+    one ulp.  Returns the kernel's error."""
+    got, plain, truth = got.float(), plain.float(), truth.float()
+    err = float((got - truth).abs().max())
+    err_plain = float((plain - truth).abs().max())
+    tol = 2 * err_plain + 2 ** -7 * max(1.0, float(truth.abs().max()))
+    require(err <= tol, f"{what}: max abs err {err} > {tol} (plain version's {err_plain})")
+    return err
+
+
+def _check_bf16_attention(q, k, v, table, key_bias, what):
+    """K3-bf16 forward and backward against its plain versions and the
+    float32 truth (:func:`_bf16_attn_err`), the log-sum-exp within the
+    float32 tolerance (float32 sums of exact bf16 products); the backward
+    repeats bit for bit.  ``q, k, v`` bf16, the terms float32 or None."""
+    do = torch.randn(q.shape, generator=torch.Generator("cuda").manual_seed(2),
+                     device="cuda").to(BF16)
+    o, lse = attention.flash_attention_fwd(q, k, v, table, SCALE, key_bias)
+    o_p, lse_p = attention.flash_attention_reference(q, k, v, table, SCALE, return_lse=True,
+                                                     key_bias=key_bias)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    o_t, lse_t = attention.flash_attention_reference(qf, kf, vf, table, SCALE, return_lse=True,
+                                                     key_bias=key_bias)
+    grads = attention.flash_attention_bwd(q, k, v, table, SCALE, o, lse, do, key_bias)
+    again = attention.flash_attention_bwd(q, k, v, table, SCALE, o, lse, do, key_bias)
+    plain = attention.flash_attention_bwd_reference(q, k, v, table, SCALE, o, lse, do, key_bias)
+    truth = attention.flash_attention_bwd_reference(qf, kf, vf, table, SCALE, o_t, lse_t,
+                                                    do.float(), key_bias)
+    torch.cuda.synchronize()
+    require(o.dtype == BF16 and all(g.dtype == BF16 for g in grads), "K3-bf16 output dtypes")
+    errs = {"o": _bf16_attn_err(f"{what} o", o, o_p, o_t), "lse": _attn_err("lse", lse, lse_p)}
+    for name, g, g2, p, t in zip(("dq", "dk", "dv"), grads, again, plain, truth):
+        require(torch.equal(g, g2), f"{what}: bf16 backward {name} differs between two runs")
+        errs[name] = _bf16_attn_err(f"{what} {name}", g, p, t)
+    print(f"  flash_attention bf16 {list(q.shape)} {what}: "
+          + ", ".join(f"{k} err {v:.3g}" for k, v in errs.items())
+          + ", backward deterministic", flush=True)
+    return errs
+
+
+def check_flash_attention_bf16(gen):
+    """K3-bf16 without terms at the shapes ALBEF's bf16 trunk gives it
+    (batch 1, the batched chunk of 8, the victim's 16 at 901 tokens; the
+    float32 victim itself takes K3-float32), ragged lengths, and the
+    autograd Function; then its times at the chunk of 8."""
+    errs = None
+    for b in (1, TIMED_BATCH, 16):
+        q, k, v = (t.to(BF16) for t in _qkv(gen, b, 901))
+        e = _check_bf16_attention(q, k, v, None, None, "no terms")
+        errs = e if b == TIMED_BATCH else errs
+    for s in (1, 37, 130):
+        q, k, v = (t.to(BF16) for t in _qkv(gen, 2, s))
+        _check_bf16_attention(q, k, v, None, None, "ragged")
+    q, k, v = (t.to(BF16) for t in _qkv(gen, 2, 901))
+    w = torch.randn(q.shape, generator=gen, device="cuda")
+    outs = []
+    for fn in (attention.flash_attention, attention.flash_attention_reference):
+        xs = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*xs, None, SCALE)
+        outs.append((out.detach(), *torch.autograd.grad((out.float() * w).sum(), xs)))
+    # autograd through the plain forward differentiates its bf16 rounding of
+    # P as the identity: two bf16 ulps (2^-6) of each tensor's largest value
+    for name, a, r in zip(("o", "dq", "dk", "dv"), *outs):
+        err = float((a.float() - r.float()).abs().max())
+        require(err <= 2 ** -6 * float(r.float().abs().max()), f"bf16 autograd {name}: {err}")
+    print("  flash_attention bf16 autograd Function matches autograd of the plain version",
+          flush=True)
+    q, k, v = (t.to(BF16) for t in _qkv(gen, TIMED_BATCH, 901))
+    return time_flash_attention_bf16(q, k, v, None, None, errs)
+
+
+def time_flash_attention_bf16(q, k, v, table, key_bias, errs):
+    """Device times of K3-bf16 (without terms, or with the table and the key
+    bias: the ``_key_bias`` rows), its plain versions and
+    ``scaled_dot_product_attention`` on the same bf16 inputs (with the two
+    terms summed into one bf16 mask).  The bound: the larger of 4 and 10 x
+    B*H*S^2*Dh at the dense bf16 rate, one pass, and the bytes of bf16 q, k,
+    v, o (and dO, dq, dk, dv) with the float32 log-sum-exp and terms."""
+    b, s = q.shape[:2]
+    o, lse = attention.flash_attention_fwd(q, k, v, table, SCALE, key_bias)
+    do = torch.randn(o.shape, generator=torch.Generator("cuda").manual_seed(3),
+                     device="cuda").to(BF16)
+    dense = None if table is None else (table + key_bias[:, None, None, :]).to(BF16)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_out = sdpa(qt, kt, vt, attn_mask=dense, scale=SCALE)
+    do_t = do.transpose(1, 2)
+    unit = b * HEADS * s * s * HEAD_DIM
+    row = b * s * HEADS * HEAD_DIM * 2  # bytes of one [B, S, H, 64] bf16 tensor
+    lse_bytes = b * HEADS * s * 4
+    terms = 0 if table is None else (table.numel() + key_bias.numel()) * 4
+    long_sleep = 20_000_000
+    fwd_b, fwd_by = bound_ms(4 * row + lse_bytes + terms, 4 * unit, BF16_FLOPS)
+    bwd_b, bwd_by = bound_ms(8 * row + lse_bytes + terms, 10 * unit, BF16_FLOPS)
+    suffix = "" if table is None else "_key_bias"
+    common = {"route": "cuda", "source": "vqattack_tpu_torch/csrc/flash_attention_bf16.cu",
+              "replaces": "vqattack_tpu/ops/attention.py:134", "shape": [b, s, HEADS, HEAD_DIM],
+              "dtype": "bfloat16"}
+    fwd = dict(common, **{
+        "name": "flash_attention_bf16_fwd" + suffix,
+        "max_abs_err": errs["o"],
+        "ms": time_ms(lambda: attention.flash_attention_fwd(q, k, v, table, SCALE, key_bias), 20),
+        "plain_ms": time_ms(lambda: attention.flash_attention_reference(
+            q, k, v, table, SCALE, key_bias=key_bias), 20, long_sleep),
+        "bound_ms": fwd_b, "bound_by": fwd_by,
+        "library_ms": time_ms(lambda: sdpa(qt, kt, vt, attn_mask=dense, scale=SCALE), 20),
+    })
+    bwd = dict(common, **{
+        "name": "flash_attention_bf16_bwd" + suffix,
+        "max_abs_err": max(errs["dq"], errs["dk"], errs["dv"]),
+        "ms": time_ms(lambda: attention.flash_attention_bwd(
+            q, k, v, table, SCALE, o, lse, do, key_bias), 20),
+        "plain_ms": time_ms(lambda: attention.flash_attention_bwd_reference(
+            q, k, v, table, SCALE, o, lse, do, key_bias), 20, long_sleep),
+        "bound_ms": bwd_b, "bound_by": bwd_by,
+        "library_ms": time_ms(lambda: torch.autograd.grad(
+            sdpa_out, (qt, kt, vt), do_t, retain_graph=True), 20),
+    })
+    for r, executed in ((fwd, 4 * unit), (bwd, 14 * unit)):
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        r["executed_tflops"] = executed / r["ms"] / 1e9
+        require(r["bound_share"] <= 1.0, f"{r['name']}: {r['ms']} ms is under its bound "
+                                         f"{r['bound_ms']} ms: the timing or the bound is wrong")
+        print(f"  {r['name']} {r['shape']} bf16: {r['ms']:.3f} ms (plain "
+              f"{r['plain_ms']:.3f} ms, scaled_dot_product_attention bf16 "
+              f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}: "
+              f"{100 * r['bound_share']:.1f}%; executed {r['executed_tflops']:.1f} TFLOP/s)",
+              flush=True)
+    del dense, sdpa_out
+    return fwd, bwd
+
+
 # ---------------------------------------------------------------------------
 # phase 4: model with kernels against plain LayerNorms
 # ---------------------------------------------------------------------------
@@ -613,17 +798,20 @@ def write_assets(tmp: str) -> dict:
     return paths
 
 
-# each kernel's row name -> (wrapper, its count); the two key-bias rows
-# count K3's launches with a key bias, VLMo's two-term form
-KERNELS = {
-    "pgd_linf_update": (pgd_update.pgd_linf_update, "launches"),
-    "residual_layernorm_fwd": (fused_ln.residual_layernorm_fwd, "launches"),
-    "residual_layernorm_bwd": (fused_ln.residual_layernorm_bwd, "launches"),
-    "flash_attention_fwd": (attention.flash_attention_fwd, "launches"),
-    "flash_attention_bwd": (attention.flash_attention_bwd, "launches"),
-    "flash_attention_fwd_key_bias": (attention.flash_attention_fwd, "key_bias_launches"),
-    "flash_attention_bwd_key_bias": (attention.flash_attention_bwd, "key_bias_launches"),
-}
+# each kernel's row name -> (wrapper, its count): K2 and K3 count their
+# float32 and bf16 instances apart (the ``_bf16`` rows), and K3 its launches
+# with a key bias, VLMo's two-term form, apart again
+KERNELS = {"pgd_linf_update": (pgd_update.pgd_linf_update, "launches")}
+for _b, _prefix in (("", ""), ("_bf16", "bf16_")):
+    for _d in ("fwd", "bwd"):
+        KERNELS[f"residual_layernorm{_b}_{_d}"] = (
+            getattr(fused_ln, f"residual_layernorm_{_d}"), _prefix + "launches")
+    for _d in ("fwd", "bwd"):
+        KERNELS[f"flash_attention{_b}_{_d}"] = (
+            getattr(attention, f"flash_attention_{_d}"), _prefix + "launches")
+    for _d in ("fwd", "bwd"):
+        KERNELS[f"flash_attention{_b}_{_d}_key_bias"] = (
+            getattr(attention, f"flash_attention_{_d}"), _prefix + "key_bias_launches")
 
 
 def counts() -> dict:
@@ -635,40 +823,50 @@ def reset_counts() -> None:
         setattr(fn, attr, 0)
 
 
-def implied_launches(cfg, vit_fwd: int, vit_bwd: int, k1: int, flash: bool) -> dict:
+def implied_launches(cfg, vit_fwd: int, vit_bwd: int, k1: int, flash: bool,
+                     dtype: str = "float32") -> dict:
     """Launches that ``vit_fwd`` ViT forwards, ``vit_bwd`` ViT backwards and
     ``k1`` L-inf updates imply: each forward runs 2 x depth fused
     residual+LayerNorm sites (K2) and, with ``--attn flash``, depth
-    attentions (K3, no key bias); each backward as many backward kernels."""
+    attentions (K3, no key bias); each backward as many backward kernels;
+    all of them the instances of the trunk's ``dtype``."""
     depth = cfg.albef.vit.depth
     attn = depth if flash else 0
-    return {
+    b = "_bf16" if dtype == "bfloat16" else ""
+    out = dict.fromkeys(KERNELS, 0)
+    out.update({
         "pgd_linf_update": k1,
-        "residual_layernorm_fwd": 2 * depth * vit_fwd,
-        "residual_layernorm_bwd": 2 * depth * vit_bwd,
-        "flash_attention_fwd": attn * vit_fwd,
-        "flash_attention_bwd": attn * vit_bwd,
-        "flash_attention_fwd_key_bias": 0,
-        "flash_attention_bwd_key_bias": 0,
-    }
+        f"residual_layernorm{b}_fwd": 2 * depth * vit_fwd,
+        f"residual_layernorm{b}_bwd": 2 * depth * vit_bwd,
+        f"flash_attention{b}_fwd": attn * vit_fwd,
+        f"flash_attention{b}_bwd": attn * vit_bwd,
+    })
+    return out
 
 
-def vlmo_implied_launches(cfg, fwd: int, bwd: int, k1: int, flash: bool) -> dict:
+def vlmo_implied_launches(cfg, fwd: int, bwd: int, k1: int, flash: bool,
+                          dtype: str = "float32") -> dict:
     """Launches that ``fwd`` joint VLMo forwards, ``bwd`` backwards and
     ``k1`` L-inf updates imply: with ``--attn flash`` each forward runs
     depth attentions over 941 tokens, each with the relative-position table
-    and the text mask (K3 with a key bias), each backward as many; VLMo's
-    LayerNorms are plain (no K2)."""
+    and the text mask (K3 with a key bias, the instance of ``dtype``), each
+    backward as many; VLMo's LayerNorms are plain (no K2)."""
     attn = cfg.vlmo.depth if flash else 0
-    return {
+    b = "_bf16" if dtype == "bfloat16" else ""
+    out = dict.fromkeys(KERNELS, 0)
+    out.update({
         "pgd_linf_update": k1,
-        "residual_layernorm_fwd": 0,
-        "residual_layernorm_bwd": 0,
-        "flash_attention_fwd": attn * fwd,
-        "flash_attention_bwd": attn * bwd,
-        "flash_attention_fwd_key_bias": attn * fwd,
-        "flash_attention_bwd_key_bias": attn * bwd,
-    }
+        f"flash_attention{b}_fwd": attn * fwd,
+        f"flash_attention{b}_bwd": attn * bwd,
+        f"flash_attention{b}_fwd_key_bias": attn * fwd,
+        f"flash_attention{b}_bwd_key_bias": attn * bwd,
+    })
+    return out
+
+
+def add_launches(total: dict, more: dict) -> None:
+    for k, v in more.items():
+        total[k] += v
 
 
 def schedule_passes(res, extra_grads: int = 0):
@@ -707,10 +905,11 @@ def sample_pixels(i: int, size: int) -> np.ndarray:
     return np.random.default_rng(SEED + i).uniform(-1, 1, (1, 3, size, size)).astype(np.float32)
 
 
-def run_main_path(pipe, cfg, tokenizer, paths, answer_max_len):
-    """Attack every sample of SAMPLES one at a time and check the victim on
-    the result; returns ``(results, launches, expected launches)`` with the
-    launch counts reset just before and read just after."""
+def run_main_path(pipe, cfg, tokenizer, paths, answer_max_len, samples=SAMPLES):
+    """Attack every sample of ``samples`` one at a time and check the victim
+    on the result; returns ``(results, launches, expected launches)`` with
+    the launch counts reset just before and read just after.  The surrogate
+    runs the kernels of ``cfg.compute_dtype``, the victim float32 ones."""
     side = SideTables.load([paths["right"]], [paths["sur"]], [paths["tgt"]],
                            [paths["para"]], [paths["allc"]])
     answer_list, answer_ids, answer_mask = load_answers(paths, tokenizer, answer_max_len,
@@ -718,9 +917,9 @@ def run_main_path(pipe, cfg, tokenizer, paths, answer_max_len):
     atk = cfg.attack
     size = cfg.albef.vit.image_size
     flash = attention.get_impl() == "flash"
-    results, expected = [], {k: 0 for k in KERNELS}
+    results, expected = [], dict.fromkeys(KERNELS, 0)
     reset_counts()
-    for i, (qid, question, _, _) in enumerate(SAMPLES):
+    for i, (qid, question, _, _) in enumerate(samples):
         info = side.attack_inputs(qid)
         px = sample_pixels(i, size)
         torch.cuda.synchronize()
@@ -735,8 +934,8 @@ def run_main_path(pipe, cfg, tokenizer, paths, answer_max_len):
         require(topk_ids.shape == (1, min(cfg.k_test, len(answer_list)))
                 and np.isfinite(topk_probs).all(), "victim rank_answer output")
         fwd, bwd, k1 = schedule_passes(res)
-        for k, v in implied_launches(cfg, fwd + 1, bwd, k1, flash).items():  # + victim
-            expected[k] += v
+        add_launches(expected, implied_launches(cfg, fwd, bwd, k1, flash, cfg.compute_dtype))
+        add_launches(expected, implied_launches(cfg, 1, 0, 0, flash))  # the victim
         results.append(res)
         n_grads = len(res.feat_losses) + (0 if res.mlm_losses is None else len(res.mlm_losses))
         print(f"  sample {qid}: old_alg={res.old_alg} blocks={res.num_blocks} "
@@ -747,14 +946,15 @@ def run_main_path(pipe, cfg, tokenizer, paths, answer_max_len):
 
 
 def run_batched_path(engine, cfg, paths, args, sample_list, pixel_base, size, victim,
-                     implied):
+                     implied, victim_dtype="float32"):
     """The lockstep sweep over ``sample_list`` as ``run.py`` flushes a
     buffer (``engine.run``, then ``victim(results) -> top-1 answers`` in
     chunks of 16), with the phase timer on (the engine prints its
     breakdown); returns ``(results, launches, expected launches, seconds)``
     with the launch counts reset just before and read just after.
-    ``implied(cfg, fwd, bwd, k1, flash)`` gives the launches a schedule
-    implies."""
+    ``implied(cfg, fwd, bwd, k1, flash, dtype)`` gives the launches a
+    schedule implies: the surrogate's in ``cfg.compute_dtype``, the
+    victim's in ``victim_dtype``."""
     side = SideTables.load([paths["right"]], [paths["sur"]], [paths["tgt"]],
                            [paths["para"]], [paths["allc"]])
     samples = []
@@ -787,12 +987,12 @@ def run_batched_path(engine, cfg, paths, args, sample_list, pixel_base, size, vi
     require([r.qid for r in results] == [str(q) for q, *_ in sample_list],
             "results not in qid order")
     require(engine.last_chunk_sizes == [8, 4], f"chunks {engine.last_chunk_sizes}")
-    expected = implied(cfg, n_victim, 0, 0, True)
+    expected = implied(cfg, n_victim, 0, 0, True, victim_dtype)
     for old_alg, extra in ((0, len(mixed_calls)), (1, 0)):
         # one chunk per bucket: its real rows share one schedule
         res = next(r for r in results if r.old_alg == old_alg)
-        for k, v in implied(cfg, *schedule_passes(res, extra), True).items():
-            expected[k] += v
+        add_launches(expected, implied(cfg, *schedule_passes(res, extra), True,
+                                       cfg.compute_dtype))
     for smp, r in zip(samples, results):
         check_result(r, smp["pixels"], cfg.attack, size)
     n_iters = sum(len(r.feat_losses) + (0 if r.mlm_losses is None else len(r.mlm_losses))
@@ -1046,6 +1246,24 @@ def time_flash_attention_key_bias(pipe, tokenizer, gen, errs):
     return fwd, bwd
 
 
+def check_flash_attention_bf16_key_bias(pipe, tokenizer, gen):
+    """K3-bf16 with both terms at the shapes VLMo's bf16 trunk gives it
+    (batch 1, 8 and 16 at 941 tokens; the table is ``pipe``'s, rounded to
+    bf16 and held in float32 as the bf16 model makes it) and with a -inf
+    first key tile; then its times at the victim batch of 16."""
+    errs = {}
+    for b in (1, TIMED_BATCH, 16):
+        q, k, v, table, key_bias = _vlmo_qkv_terms(pipe, tokenizer, gen, b)
+        errs[b] = _check_bf16_attention(*(t.to(BF16) for t in (q, k, v)), table, key_bias,
+                                        "table + key bias (padded text keys)")
+    q, k, v, table, key_bias = _vlmo_qkv_terms(pipe, tokenizer, gen, 2, layer=5)
+    _check_bf16_attention(*(t.to(BF16) for t in (q, k, v)), table,
+                          key_bias.index_fill(1, torch.arange(70, device="cuda"), -torch.inf),
+                          "table + the first key tile at -inf")
+    q, k, v, table, key_bias = _vlmo_qkv_terms(pipe, tokenizer, gen, 16)
+    return time_flash_attention_bf16(*(t.to(BF16) for t in (q, k, v)), table, key_bias, errs[16])
+
+
 def check_vlmo_model_flash(pipe, tokenizer, gen):
     """One feature-loss gradient step of the full-width VLMo surrogate at
     batch 2: its features and d/dpixels under ``attention_impl("flash")``
@@ -1085,17 +1303,18 @@ def check_vlmo_model_flash(pipe, tokenizer, gen):
               f"(scale {scale:.3g})", flush=True)
 
 
-def run_vlmo_main_path(pipe, cfg, paths):
-    """The per-sample VLMo attack over VLMO_SAMPLES and the victim's
+def run_vlmo_main_path(pipe, cfg, paths, samples=VLMO_SAMPLES):
+    """The per-sample VLMo attack over ``samples`` and the victim's
     classifier on each result; returns ``(results, launches, expected
-    launches)`` with the counts reset just before and read just after."""
+    launches)`` with the counts reset just before and read just after.  The
+    victim runs in the surrogate's dtype."""
     side = SideTables.load([paths["right"]], [paths["sur"]], [paths["tgt"]],
                            [paths["para"]], [paths["allc"]])
     size = cfg.vlmo.image_size
     flash = attention.get_impl() == "flash"
-    results, expected = [], {k: 0 for k in KERNELS}
+    results, expected = [], dict.fromkeys(KERNELS, 0)
     reset_counts()
-    for i, (qid, question, _, _) in enumerate(VLMO_SAMPLES):
+    for i, (qid, question, _, _) in enumerate(samples):
         info = side.attack_inputs(qid)
         px = sample_pixels(200 + i, size)
         torch.cuda.synchronize()
@@ -1109,8 +1328,8 @@ def run_vlmo_main_path(pipe, cfg, paths):
         require(0 <= pred < cfg.vlmo.vqa_label_size and answer == pipe.id2answer[pred],
                 "VLMo victim output")
         fwd, bwd, k1 = schedule_passes(res)
-        for k, v in vlmo_implied_launches(cfg, fwd + 1, bwd, k1, flash).items():  # + victim
-            expected[k] += v
+        add_launches(expected, vlmo_implied_launches(cfg, fwd + 1, bwd, k1, flash,  # + victim
+                                                     cfg.compute_dtype))
         results.append(res)
         print(f"  sample {qid}: old_alg={res.old_alg} blocks={res.num_blocks} "
               f"vl_steps={res.vl_steps} adv_text={res.adv_text!r} victim {answer!r} "
@@ -1132,7 +1351,7 @@ def run_vlmo_batched_path(pipe, cfg, paths, args):
 
     res = run_batched_path(batched.BatchedVlmoAttack(pipe), cfg, paths, args,
                            VLMO_BATCH_SAMPLES, 300, cfg.vlmo.image_size, victim,
-                           vlmo_implied_launches)
+                           vlmo_implied_launches, victim_dtype=cfg.compute_dtype)
     for r in res[0]:
         require(r.adv_text.endswith("?"), f"{r.qid}: the VLMo question lost its '?'")
     return res
@@ -1158,6 +1377,96 @@ def vlmo_one_step_ab(pipe, cfg, tokenizer, gen):
     seq = pipe.max_text_len + cfg.vlmo.image_seq_len
     return step_ab(step, (b, cfg.vlmo.num_heads, seq, seq),
                    "one VLMo gradient step at batch 16")
+
+
+# ---------------------------------------------------------------------------
+# the bf16 trunk: float32 against bf16 at full width
+# ---------------------------------------------------------------------------
+
+
+def _drift_run(pipe, cfg, question, paraphrase, answer, vlmo):
+    """One sample's first PGD block without the text attack, as the
+    pipeline's first block runs it: clean targets from the pipeline's own
+    surrogate, the feature loss (feature-only sample) or the feature and MAR
+    losses in turn (MAR sample), the rand-init drawn from ``TorchKey(SEED)``:
+    the same noise for every dtype.  Returns ``(adv, [loss trajectories])``."""
+    atk, dev = cfg.attack, pipe.device
+    px = torch.as_tensor(sample_pixels(900, cfg.vlmo.image_size if vlmo else
+                                       cfg.albef.vit.image_size), device=dev)
+    ids, mask = pipe.encode(question)
+    aux = {"text_ids": ids, "text_mask": mask, "ori_ids": ids, "ori_mask": mask}
+    if vlmo:
+        aux["rel_biases"] = pipe._rel_biases
+    else:
+        aux.update({"txt_token_mask": mask.float(), "special_ids": pipe._special})
+    aux.update(pipe._targets_fn(px, TorchKey(SEED + 1, dev), aux))
+    kw = dict(eps=atk.eps, eps_iter=atk.step_size, clip_min=atk.clip_min,
+              clip_max=atk.clip_max, rand_init=True)
+    if paraphrase is None:
+        adv, fl = pgd_feature(pipe._feature_loss, px, px, TorchKey(SEED, dev), aux,
+                              nb_iter=atk.num_iters, **kw)
+        return px, adv, [fl]
+    suffix = "." if vlmo else ""
+    mar = build_mar_labels(paraphrase, answer, [answer], pipe.tokenizer, ids.shape[1],
+                           atk.max_answers, sentence_suffix=suffix)
+    require(mar.old_alg == 0, "the MAR sample must take the alternating path")
+    m_ids, m_mask = pipe.tokenizer.encode(" ".join(mar.paraphrase_words) + suffix, ids.shape[1])
+    aux.update({"mlm_ids": pipe._ids(m_ids[None]), "mlm_mask": pipe._ids(m_mask[None]),
+                "mlm_labels": pipe._ids(mar.labels[None])})
+    adv, fl, ml = pgd_alternating(pipe._feature_loss, pipe._mlm_loss, px, px,
+                                  TorchKey(SEED, dev), aux, nb_iter=atk.num_iters // 2, **kw)
+    return px, adv, [fl, ml]
+
+
+def drift_check(pipes, cfgs, samples, vlmo, what):
+    """The JAX package's trajectory budget for its bf16 trunk
+    (``tests/test_remat.py``), at full width: for one MAR and one
+    feature-only sample, every loss trajectory of the bf16 surrogate ends
+    within 10% of the float32 one's final value, deviates from it by under
+    20% on average, and the adversarial images differ by under eps/2 on
+    average; both stay inside the ball."""
+    out = []
+    for qid, question, answer, paraphrase in samples:
+        runs = [_drift_run(p, c, question, paraphrase, answer, vlmo) for p, c in zip(pipes, cfgs)]
+        (px, a32, l32), (_, a16, l16) = runs
+        eps = cfgs[0].attack.eps
+        row = {"qid": qid, "path": "feature" if paraphrase is None else "MAR"}
+        for name, t32, t16 in zip(("feature", "mlm"), l32, l16):
+            t32, t16 = t32[:, 0].cpu().numpy(), t16[:, 0].cpu().numpy()
+            rel_final = abs(t16[-1] - t32[-1]) / abs(t32[-1])
+            rel_traj = float(np.mean(np.abs(t16 - t32) / np.maximum(np.abs(t32), 1e-6)))
+            require(rel_final < 0.10 and rel_traj < 0.20,
+                    f"{what} {qid} {name} loss drift: final {rel_final:.4f}, mean {rel_traj:.4f}")
+            row[name] = {"final_f32": float(t32[-1]), "final_bf16": float(t16[-1]),
+                         "rel_final": float(rel_final), "rel_traj": rel_traj}
+        d = float((a16 - a32).abs().mean())
+        require(d < 0.5 * eps, f"{what} {qid}: mean pixel difference {d}")
+        for adv in (a32, a16):
+            require(float((adv - px).abs().max()) <= eps + 1e-6, f"{what} {qid}: outside the ball")
+        row["mean_pixel_diff"] = d
+        print(f"  {what} drift {qid} ({row['path']}): " + ", ".join(
+            f"{n} final {row[n]['final_f32']:.4f} -> {row[n]['final_bf16']:.4f} "
+            f"({100 * row[n]['rel_final']:.2f}%), mean deviation {100 * row[n]['rel_traj']:.2f}%"
+            for n in ("feature", "mlm") if n in row) + f"; mean pixel difference {d:.5f}",
+            flush=True)
+        out.append(row)
+    return out
+
+
+def build_pipelines(argv, tokenizer):
+    """``run.py``'s pipeline for ``argv``: its parsed args, config and
+    pipeline (random full-width weights from ``--seed``)."""
+    args = port_run.build_argparser().parse_args(argv)
+    cfg = port_run.resolve_config(args)
+    return args, cfg, port_run._build_pipeline(args, cfg, tokenizer)
+
+
+def check_launches(launched, expected, positive, what):
+    """Every count equals the schedules', and exactly the kernels in
+    ``positive`` were launched."""
+    for k, n in launched.items():
+        require(n == expected[k], f"{what} {k}: {n} launches, the schedules imply {expected[k]}")
+        require((n > 0) == (k in positive), f"{what} {k}: {n} launches")
 
 
 # ---------------------------------------------------------------------------
@@ -1335,12 +1644,13 @@ def record_main():
             setattr(batched, name, cls)
 
 
-def run_main_with_checkpoints(argv, sample_list, pixel_base, size, implied):
+def run_main_recorded(argv, sample_list, pixel_base, size, implied, victim_dtype="float32"):
     """``run.main(argv)`` over ``sample_list`` (its images served by name:
     the card's machine has no PIL to decode JPEGs), the launch counts reset
     just before and read just after; returns ``(summary, record, launches,
     expected launches, seconds)``.  The schedules imply the launches as in
-    the batched phases: one chunk per bucket, plus the victim's calls."""
+    the batched phases: one chunk per bucket in the surrogate's dtype, plus
+    the victim's calls in ``victim_dtype``."""
     from vqattack_tpu_torch.data.vqa import VQADataset
 
     pixels = {f"{qid}.jpg": sample_pixels(pixel_base + i, size)
@@ -1365,12 +1675,33 @@ def run_main_with_checkpoints(argv, sample_list, pixel_base, size, implied):
     for r, (qid, *_) in zip(results, sample_list):
         require(r.qid == str(qid), "results not in qid order")
         check_result(r, pixels[f"{qid}.jpg"], cfg.attack, size)
-    expected = implied(cfg, rec["victim_calls"], 0, 0, True)
+    expected = implied(cfg, rec["victim_calls"], 0, 0, True, victim_dtype)
     for old_alg, extra in ((0, len(rec["mixed"])), (1, 0)):
         res = next(r for r in results if r.old_alg == old_alg)
-        for k, v in implied(cfg, *schedule_passes(res, extra), True).items():
-            expected[k] += v
+        add_launches(expected, implied(cfg, *schedule_passes(res, extra), True,
+                                       cfg.compute_dtype))
     return summary, rec, launched, expected, seconds
+
+
+def run_main_bf16(base, flags, sample_list, pixel_base, size, implied, victim_dtype, name,
+                  tmp):
+    """``run.main`` as a user runs the bf16 sweep (``base`` + ``flags``) over
+    ``sample_list``, its annotations written to ``tmp``: the results inside
+    the ball, the launch counts against the schedules (the surrogate's bf16
+    instances, the victim's in ``victim_dtype``).  Returns ``(launches,
+    expected launches, seconds)``."""
+    ann = os.path.join(tmp, f"ann_{name}_bf16.json")
+    write_ann(ann, sample_list)
+    argv = base + flags + ["--image-root", tmp, "--ann", ann,
+                           "--output", os.path.join(tmp, f"out_{name}_bf16")]
+    summary, rec, launched, expected, seconds = run_main_recorded(
+        argv, sample_list, pixel_base, size, implied, victim_dtype)
+    require(rec["pipe"].cfg.compute_dtype == "bfloat16", "run.main did not take --dtype")
+    print(f"  {name} bf16 through run.main: {summary['samples']} samples in {seconds:.2f} s",
+          flush=True)
+    del rec
+    torch.cuda.empty_cache()
+    return launched, expected, seconds
 
 
 def write_ann(path: str, sample_list) -> None:
@@ -1413,7 +1744,7 @@ def checkpoint_path(common, v_common, tmp):
         "--surrogate-ckpt", os.path.join(ckpt, "ALBEF.pth"),
         "--victim-ckpt", os.path.join(ckpt, "vqa.pth"),
         "--bert-mlm", os.path.join(ckpt, "bert-base-uncased"), "--calibrate-gate"]
-    summary, rec, a_launched, a_expected, a_s = run_main_with_checkpoints(
+    summary, rec, a_launched, a_expected, a_s = run_main_recorded(
         argv, BATCH_SAMPLES, 500, cfg.albef.vit.image_size, implied_launches)
     require("attack_accuracy_note" not in summary, "a note on a run with --victim-ckpt")
     pipe = rec["pipe"]
@@ -1447,7 +1778,7 @@ def checkpoint_path(common, v_common, tmp):
         "--surrogate-ckpt", os.path.join(ckpt, "vlmo_base_patch16_224.pt"),
         "--victim-ckpt", os.path.join(ckpt, "vlmo_base_patch16_480_vqa.pt"),
         "--bert-mlm", os.path.join(ckpt, "bert-base-uncased")]
-    summary, rec, v_launched, v_expected, v_s = run_main_with_checkpoints(
+    summary, rec, v_launched, v_expected, v_s = run_main_recorded(
         argv, VLMO_BATCH_SAMPLES, 600, v_cfg.vlmo.image_size, vlmo_implied_launches)
     require("attack_accuracy_note" not in summary, "a note on a run with --victim-ckpt")
     pipe = rec["pipe"]
@@ -1495,6 +1826,7 @@ def main() -> int:
     with Phase("kernels against their plain versions"):
         flash_rows, flash_b16 = check_flash_attention(gen)
         rows = [check_pgd_update(gen), *check_fused_ln(gen), *flash_rows]
+        bf16_rows = check_flash_attention_bf16(gen)
 
     tmp = tempfile.mkdtemp(prefix="vqattack_chip_smoke_")
     paths = write_assets(tmp)
@@ -1529,7 +1861,8 @@ def main() -> int:
     for k, n in launched.items():
         require(n == expected[k], f"per-sample {k}: {n} launches, the schedules imply "
                                   f"{expected[k]}")
-        require(n > 0 or k.startswith("flash"), f"{k} was not launched on the per-sample path")
+        require(n > 0 or k.startswith("flash") or "_bf16" in k,
+                f"{k} was not launched on the per-sample path")
     save_artifacts(results, out_dir)
     for r in results:
         for ext in (".pt", ".npy"):
@@ -1543,13 +1876,50 @@ def main() -> int:
                 pipe, cfg, tokenizer, paths, batch_args)
     require(sorted({r.old_alg for r in b_results}) == [0, 1], "both PGD paths must run")
     for k, n in b_launched.items():
-        require(n > 0 or k.endswith("key_bias"), f"{k} was not launched on the batched path")
+        require(n > 0 or k.endswith("key_bias") or "_bf16" in k,
+                f"{k} was not launched on the batched path")
         require(n == b_expected[k], f"batched {k}: {n} launches, the schedules imply "
                                     f"{b_expected[k]}")
 
     with Phase("one gradient step at batch 16: --attn flash against --attn xla"):
         ab = one_step_ab(pipe, cfg, tokenizer, gen)
+
+    # ----------------------------------------------- ALBEF, --dtype bfloat16
+    bf16_flags = ["--dtype", "bfloat16"]
+    batch_flags = ["--batch-size", str(BATCH_SIZE), "--attn", "flash",
+                   "--pipeline-depth", str(PIPELINE_DEPTH)]
+    with Phase("ALBEF bf16 pipeline (the same random full-width weights)"):
+        _, cfg16, pipe16 = build_pipelines(common + bf16_flags, tokenizer)
+    require(cfg16.compute_dtype == "bfloat16" and cfg16.albef.vit.fused_ln, "the bf16 config")
+    with Phase("ALBEF drift at full width: float32 against bf16, a MAR and a feature sample"):
+        drift = drift_check((pipe, pipe16), (cfg, cfg16), SAMPLES, False, "ALBEF")
     del pipe
+    torch.cuda.empty_cache()
+    # the bf16 surrogate's K2 and K3 instances; the float32 victim's forward ones
+    albef16 = {"pgd_linf_update", "residual_layernorm_bf16_fwd", "residual_layernorm_bf16_bwd",
+               "flash_attention_bf16_fwd", "flash_attention_bf16_bwd", "residual_layernorm_fwd",
+               "flash_attention_fwd"}
+    with Phase("ALBEF bf16 per-sample path: 1 sample, --dtype bfloat16 --attn flash"):
+        with attention.attention_impl("flash"):
+            _, s16_launched, s16_expected = run_main_path(
+                pipe16, cfg16, tokenizer, paths, args.answer_max_len, SAMPLES[:1])
+    check_launches(s16_launched, s16_expected, albef16, "ALBEF bf16 per-sample")
+    with Phase(f"ALBEF bf16 batched path: {len(BATCH_SAMPLES)} samples, --dtype bfloat16 "
+               f"--batch-size {BATCH_SIZE} --attn flash --pipeline-depth {PIPELINE_DEPTH}"):
+        with attention.attention_impl("flash"):
+            _, b16_launched, b16_expected, _ = run_albef_batched_path(
+                pipe16, cfg16, tokenizer, paths,
+                port_run.build_argparser().parse_args(common + bf16_flags + batch_flags))
+    check_launches(b16_launched, b16_expected, albef16, "ALBEF bf16 batched")
+    with Phase(f"ALBEF bf16 through run.main: {len(BATCH_SAMPLES)} samples, --dtype bfloat16 "
+               f"--batch-size {BATCH_SIZE} --attn flash --pipeline-depth {PIPELINE_DEPTH}"):
+        m16_launched, m16_expected, _ = run_main_bf16(
+            common, bf16_flags + batch_flags, BATCH_SAMPLES, 700, cfg16.albef.vit.image_size,
+            implied_launches, "float32", "albef", tmp)
+    check_launches(m16_launched, m16_expected, albef16, "ALBEF bf16 run.main")
+    with Phase("one bf16 gradient step at batch 16: --attn flash against --attn xla"):
+        ab16 = one_step_ab(pipe16, cfg16, tokenizer, gen)
+    del pipe16
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------- VLMo
@@ -1600,12 +1970,49 @@ def main() -> int:
     for k, n in vb_launched.items():
         require(n == vb_expected[k], f"VLMo batched {k}: {n} launches, the schedules imply "
                                      f"{vb_expected[k]}")
-        require((n == 0) == k.startswith("residual_layernorm"),
-                f"VLMo batched {k}: {n} launches (K2 none, every other kernel some)")
+        require((n == 0) == (k.startswith("residual_layernorm") or "_bf16" in k),
+                f"VLMo batched {k}: {n} launches (K2 and bf16 instances none, every other "
+                f"kernel some)")
 
     with Phase("one VLMo gradient step at batch 16: --attn flash against --attn xla"):
         v_ab = vlmo_one_step_ab(v_pipe, v_cfg, tokenizer, gen)
+
+    # ------------------------------------------------ VLMo, --dtype bfloat16
+    with Phase("VLMo bf16 pipeline (the same random full-width weights)"):
+        _, v_cfg16, v_pipe16 = build_pipelines(v_common + bf16_flags, tokenizer)
+    require(v_cfg16.compute_dtype == "bfloat16" and v_pipe16._rel_biases.dtype == torch.float32,
+            "the VLMo bf16 config and its float32 bias terms")
+    with Phase("K3-bf16 with both terms against its plain versions (VLMo shapes)"):
+        kb16_rows = check_flash_attention_bf16_key_bias(v_pipe16, tokenizer, gen)
+    with Phase("VLMo drift at full width: float32 against bf16, a MAR and a feature sample"):
+        v_drift = drift_check((v_pipe, v_pipe16), (v_cfg, v_cfg16), VLMO_SAMPLES, True, "VLMo")
     del v_pipe
+    torch.cuda.empty_cache()
+    # the victim is a bf16 module too: every K3 launch is the bf16 two-term one
+    vlmo16 = {"pgd_linf_update", "flash_attention_bf16_fwd", "flash_attention_bf16_bwd",
+              "flash_attention_bf16_fwd_key_bias", "flash_attention_bf16_bwd_key_bias"}
+    with Phase("VLMo bf16 per-sample path: 1 sample, --dtype bfloat16 --attn flash"):
+        with attention.attention_impl("flash"):
+            _, vs16_launched, vs16_expected = run_vlmo_main_path(v_pipe16, v_cfg16, paths,
+                                                                 VLMO_SAMPLES[:1])
+    check_launches(vs16_launched, vs16_expected, vlmo16, "VLMo bf16 per-sample")
+    with Phase(f"VLMo bf16 batched path: {len(VLMO_BATCH_SAMPLES)} samples, --dtype bfloat16 "
+               f"--batch-size {BATCH_SIZE} --attn flash --pipeline-depth {PIPELINE_DEPTH}"):
+        with attention.attention_impl("flash"):
+            _, vb16_launched, vb16_expected, _ = run_vlmo_batched_path(
+                v_pipe16, v_cfg16, paths,
+                port_run.build_argparser().parse_args(v_common + bf16_flags + batch_flags))
+    check_launches(vb16_launched, vb16_expected, vlmo16, "VLMo bf16 batched")
+    with Phase(f"VLMo bf16 through run.main: {len(VLMO_BATCH_SAMPLES)} samples, --dtype "
+               f"bfloat16 --batch-size {BATCH_SIZE} --attn flash --pipeline-depth "
+               f"{PIPELINE_DEPTH}"):
+        vm16_launched, vm16_expected, _ = run_main_bf16(
+            v_common, bf16_flags + batch_flags, VLMO_BATCH_SAMPLES, 800, v_cfg16.vlmo.image_size,
+            vlmo_implied_launches, "bfloat16", "vlmo", tmp)
+    check_launches(vm16_launched, vm16_expected, vlmo16, "VLMo bf16 run.main")
+    with Phase("one VLMo bf16 gradient step at batch 16: --attn flash against --attn xla"):
+        v_ab16 = vlmo_one_step_ab(v_pipe16, v_cfg16, tokenizer, gen)
+    del v_pipe16
     torch.cuda.empty_cache()
 
     # ------------------------------------------------ the checkpoint path
@@ -1617,24 +2024,34 @@ def main() -> int:
         for k, n in launched_c.items():
             require(n == expected_c[k], f"{which} with checkpoints {k}: {n} launches, the "
                                         f"schedules imply {expected_c[k]}")
-            none = k.endswith("key_bias") if which == "albef" else k.startswith("residual")
+            none = "_bf16" in k or (k.endswith("key_bias") if which == "albef"
+                                    else k.startswith("residual"))
             require((n == 0) == none, f"{which} with checkpoints {k}: {n} launches")
     shutil.rmtree(tmp, ignore_errors=True)
 
+    # each row's launches: ALBEF's batched runs (K1, K2, K3 without terms;
+    # the bf16 rows from the --dtype bfloat16 run), VLMo's for the key-bias rows
+    rows += list(bf16_rows) + list(kb_rows) + list(kb16_rows)
     for row in rows:
-        row["launches"] = b_launched[row["name"]]
-    for row in kb_rows:
-        row["launches"] = vb_launched[row["name"]]
-    rows += list(kb_rows)
+        vlmo = row["name"].endswith("key_bias")
+        bf16 = "_bf16" in row["name"]
+        row["launches"] = ((vb16_launched if bf16 else vb_launched) if vlmo else
+                           (b16_launched if bf16 else b_launched))[row["name"]]
     print(f"wall: {time.perf_counter() - t_start:.1f} s since start", flush=True)
     print(json.dumps({"kernel_launches": {
         "per_sample": launched, "batched": b_launched,
+        "bf16_per_sample": s16_launched, "bf16_batched": b16_launched,
+        "bf16_run_main": m16_launched, "vlmo_bf16_run_main": vm16_launched,
         "vlmo_per_sample": v_launched, "vlmo_batched": vb_launched,
+        "vlmo_bf16_per_sample": vs16_launched, "vlmo_bf16_batched": vb16_launched,
         "albef_checkpoints": c_launches["albef"][0],
         "vlmo_checkpoints": c_launches["vlmo"][0]}}), flush=True)
     print(json.dumps({"checkpoint_loads": c_loads, "checkpoint_phase": c_seconds,
                       "card": smi}), flush=True)
-    print(json.dumps({"attn_ab_batch16": ab, "vlmo_attn_ab_batch16": v_ab}), flush=True)
+    print(json.dumps({"bf16_drift": {"albef": drift, "vlmo": v_drift}, "card": smi}), flush=True)
+    print(json.dumps({"attn_ab_batch16": ab, "vlmo_attn_ab_batch16": v_ab,
+                      "bf16_attn_ab_batch16": ab16, "vlmo_bf16_attn_ab_batch16": v_ab16,
+                      "card": smi}), flush=True)
     print(json.dumps({"flash_attention_batch16": flash_b16}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

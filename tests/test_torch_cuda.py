@@ -79,6 +79,40 @@ def test_residual_layernorm_kernels(gen, rows, dtype):
     torch.testing.assert_close(dxn.float(), dxn_r.float(), **tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("param_grads", [True, False])
+def test_residual_layernorm_autograd_function(gen, dtype, param_grads):
+    """K2's autograd Function against autograd through the plain version on
+    a float32 or bf16 stream, gamma and beta float32, with and without their
+    gradients (the attack's frozen LayerNorms take none): float32 within 1e-4
+    of each tensor's largest magnitude (at least 1); on a bf16 stream dx and
+    ddelta within two bf16 ulps (2^-6) of it, since autograd through the
+    plain version rounds the LayerNorm's gradient to bf16 before it adds the
+    gradient of s, the kernel adds in float32 and rounds once."""
+    rows, d = 901, 768
+    x = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
+    delta = (torch.randn(rows, d, generator=gen, device="cuda") * 0.3).to(dtype)
+    gamma = torch.randn(d, generator=gen, device="cuda") * 0.1 + 1
+    beta = torch.randn(d, generator=gen, device="cuda") * 0.1
+    w_s, w_h = (torch.randn(rows, d, generator=gen, device="cuda").to(dtype) for _ in range(2))
+    grads = []
+    for fn in (fused_ln.residual_layernorm, fused_ln.residual_layernorm_reference):
+        xs = [t.clone().requires_grad_(True) for t in (x, delta)]
+        ps = [t.clone().requires_grad_(param_grads) for t in (gamma, beta)]
+        counts = fused_ln.residual_layernorm_fwd.bf16_launches
+        s, h = fn(*xs, *ps, 1e-6)
+        assert s.dtype == h.dtype == dtype
+        if fn is fused_ln.residual_layernorm:
+            assert fused_ln.residual_layernorm_fwd.bf16_launches == counts + (dtype == torch.bfloat16)
+        loss = (s.float() * w_s.float()).sum() + (h.float() * w_h.float()).sum()
+        grads.append(torch.autograd.grad(loss, xs + (ps if param_grads else [])))
+    for name, a, b in zip(("dx", "ddelta", "dgamma", "dbeta"), *grads):
+        assert a.dtype == b.dtype, name
+        rel = 2 ** -6 if dtype == torch.bfloat16 and name in ("dx", "ddelta") else 1e-4
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= rel * max(1.0, float(b.float().abs().max())), f"{name}: {err}"
+
+
 def _attention_case(gen, b, sq, sk, kind, h=4):
     """q, k, v as [B, S, H, 64] views of packed projections (strided, as the
     model hands them over), and a bias of the given broadcast form."""
@@ -154,8 +188,10 @@ def test_flash_attention_autograd_and_refusals(gen):
         _close(a, r, name)
     with pytest.raises(ValueError, match="64"):
         attention.flash_attention(q[..., :32], k[..., :32], v[..., :32], None, 0.125)
-    with pytest.raises(TypeError):
-        attention.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), None, 0.125)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        attention.flash_attention(q.half(), k.half(), v.half(), None, 0.125)
+    with pytest.raises(TypeError, match="q torch.float32"):
+        attention.flash_attention(q, k.bfloat16(), v.bfloat16(), None, 0.125)
     with pytest.raises(ValueError, match="no gradient"):
         attention.flash_attention(q, k, v, bias.clone().requires_grad_(True), 0.125)
 
@@ -275,3 +311,121 @@ def test_flash_attention_two_term_backward_bit_identical_at_the_victims_batch(ge
     second = attention.flash_attention_bwd(q, k, v, table, scale, o, lse, do, kb)
     for name, a, b in zip(("dq", "dk", "dv"), first, second):
         assert torch.equal(a, b), f"{name} differs between two runs"
+
+
+# ---------------------------------------------------------------------------
+# the bfloat16 instance (csrc/flash_attention_bf16.cu)
+# ---------------------------------------------------------------------------
+
+
+def _bf16_close(got, plain, truth, what):
+    """The bf16 kernel and its plain version both against ``truth``, the
+    float32 computation from the same bf16 inputs: the kernel's error is at
+    most twice the plain version's, plus one bf16 ulp of the largest value
+    (2^-7 of it).  The plain version rounds where the library kernel rounds
+    (P before P V, dS before dS K), so its error is the bf16 arithmetic's own;
+    the kernel rounds at the same places but P against a running maximum,
+    tile by tile, and sums in another order, an error of the same size; an
+    output rounded to bf16 the other way differs by one ulp.  The ulp is
+    taken of at least 1, as the float32 check takes its scale: with one key
+    dq and dk are exactly 0, and what is computed is the rounding residue of
+    P * (dO V^T - D), whose terms are of order 1."""
+    got, plain, truth = got.float(), plain.float(), truth.float()
+    err, err_plain = float((got - truth).abs().max()), float((plain - truth).abs().max())
+    tol = 2 * err_plain + 2 ** -7 * max(1.0, float(truth.abs().max()))
+    assert err <= tol, f"{what}: max abs err {err} > {tol} (plain version's {err_plain})"
+
+
+def _bf16_truth(q, k, v, bias, scale, do, key_bias=None):
+    """``(o, dq, dk, dv)`` in float32 from the bf16 inputs: the float32 plain
+    versions, nothing rounded to bf16."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    o, lse = attention.flash_attention_reference(qf, kf, vf, bias, scale, return_lse=True,
+                                                 key_bias=key_bias)
+    return (o, *attention.flash_attention_bwd_reference(qf, kf, vf, bias, scale, o, lse,
+                                                        do.float(), key_bias))
+
+
+def _check_bf16_case(q, k, v, bias, key_bias, do):
+    scale = 64 ** -0.5
+    o, lse = attention.flash_attention_fwd(q, k, v, bias, scale, key_bias)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    o_p, lse_p = attention.flash_attention_reference(q, k, v, bias, scale, return_lse=True,
+                                                     key_bias=key_bias)
+    truth = _bf16_truth(q, k, v, bias, scale, do, key_bias)
+    _bf16_close(o, o_p, truth[0], "o")
+    _close(lse, lse_p, "lse")  # float32 from exact bf16 products
+    grads = attention.flash_attention_bwd(q, k, v, bias, scale, o, lse, do, key_bias)
+    again = attention.flash_attention_bwd(q, k, v, bias, scale, o, lse, do, key_bias)
+    plain = attention.flash_attention_bwd_reference(q, k, v, bias, scale, o, lse, do, key_bias)
+    for name, g, g2, p, t in zip(("dq", "dk", "dv"), grads, again, plain, truth[1:]):
+        assert g.dtype == torch.bfloat16 and g.shape == t.shape
+        assert torch.equal(g, g2), f"{name} differs between two runs"
+        _bf16_close(g, p, t, name)
+
+
+@pytest.mark.parametrize("b,s,kind", [
+    (2, 1, "none"), (2, 37, "none"), (2, 130, "none"), (1, 901, "none"), (8, 901, "none"),
+    (2, 130, "text_pad"), (1, 941, "text_pad"), (3, 941, "text_pad"), (2, 130, "left_pad"),
+])
+def test_flash_attention_bf16_kernels(gen, b, s, kind):
+    """K3's bf16 instance, forward and backward, against its plain version
+    and the float32 computation (:func:`_bf16_close`) at ragged lengths,
+    ALBEF's 901 tokens without terms (batch 1 and the batched chunk of 8)
+    and VLMo's 941 with the table and the padded-text key bias, and a -inf
+    first key tile; the backward the same bit for bit."""
+    if kind == "none":
+        q, k, v, _ = _attention_case(gen, b, s, s, "none")
+        table = key_bias = None
+    else:
+        q, k, v, table, key_bias = _two_terms(gen, b, s, kind)
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    do = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    _check_bf16_case(q, k, v, table, key_bias, do)
+
+
+def test_flash_attention_bf16_backward_bit_identical_at_the_victims_batch(gen):
+    """At [16, 941, 12, 64] with both terms (VLMo's victim batch in bf16),
+    two backward runs give the same bits, and everything is held as in
+    :func:`test_flash_attention_bf16_kernels`."""
+    q, k, v, table, kb = _two_terms(gen, 16, 941, "text_pad", h=12)
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    do = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    _check_bf16_case(q, k, v, table, kb, do)
+
+
+def test_flash_attention_bf16_autograd_counts_and_key_bias_guard(gen):
+    """The autograd Function on bf16 q/k/v with both terms against autograd
+    through the plain version, counted as bf16 key-bias launches and not as
+    float32 ones; the terms must stay float32: a bf16 key bias or table is
+    refused, not cast."""
+    q, k, v, table, kb = _two_terms(gen, 2, 150, "text_pad")
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    w = torch.randn(2, 150, 4, 64, generator=gen, device="cuda")
+    outs, grads = [], []
+    for fn in (attention.flash_attention, attention.flash_attention_reference):
+        xs = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        before = {n: getattr(attention.flash_attention_fwd, n) for n in (
+            "launches", "key_bias_launches", "bf16_launches", "bf16_key_bias_launches")}
+        bwd = attention.flash_attention_bwd.bf16_key_bias_launches
+        out = fn(*xs, table, 0.125, key_bias=kb)
+        assert out.dtype == torch.bfloat16
+        outs.append(out.detach())
+        grads.append(torch.autograd.grad((out.float() * w).sum(), xs))
+        if fn is attention.flash_attention:
+            after = {n: getattr(attention.flash_attention_fwd, n) for n in before}
+            assert {n: after[n] - before[n] for n in before} == {
+                "launches": 0, "key_bias_launches": 0, "bf16_launches": 1,
+                "bf16_key_bias_launches": 1}
+            assert attention.flash_attention_bwd.bf16_key_bias_launches == bwd + 1
+    # autograd through the plain forward rounds its P where the kernels do,
+    # but differentiates the bf16 output's division by l itself: one bf16
+    # ulp of each tensor's largest value apart at most twice over
+    pairs = [("o", *outs)] + list(zip(("dq", "dk", "dv"), *grads))
+    for name, a, r in pairs:
+        err = float((a.float() - r.float()).abs().max())
+        assert err <= 2 ** -6 * float(r.float().abs().max()), f"{name}: {err}"
+    with pytest.raises(TypeError, match="key_bias"):
+        attention.flash_attention(q, k, v, table, 0.125, key_bias=kb.bfloat16())
+    with pytest.raises(TypeError, match="bias"):
+        attention.flash_attention(q, k, v, table.bfloat16(), 0.125, key_bias=kb)

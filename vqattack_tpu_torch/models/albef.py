@@ -24,7 +24,7 @@ from torch import nn
 
 from vqattack_tpu_torch.config import ALBEFConfig
 from vqattack_tpu_torch.models.bert import FusionBert
-from vqattack_tpu_torch.models.layers import ResidualLayerNorm
+from vqattack_tpu_torch.models.layers import Linear, ResidualLayerNorm
 from vqattack_tpu_torch.models.vit import VisionTransformer
 
 IGNORE_INDEX = -100
@@ -57,17 +57,19 @@ def mlm_random_mask(
 
 
 class AlbefPretrain(nn.Module):
-    """The pre-trained ALBEF surrogate, the white-box model of the attack."""
+    """The pre-trained ALBEF surrogate, the white-box model of the attack.
+    ``dtype`` is the compute dtype of the whole trunk and its heads
+    (``--dtype``); the parameters stay float32."""
 
-    def __init__(self, cfg: ALBEFConfig):
+    def __init__(self, cfg: ALBEFConfig, dtype="float32"):
         super().__init__()
         self.cfg = cfg
-        self.visual_encoder = VisionTransformer(cfg.vit)
-        self.text_encoder = FusionBert(cfg.bert, with_mlm_head=True)
+        self.visual_encoder = VisionTransformer(cfg.vit, dtype)
+        self.text_encoder = FusionBert(cfg.bert, with_mlm_head=True, dtype=dtype)
         # ITA/ITM heads: unused by the attack, part of the checkpoint surface
-        self.vision_proj = nn.Linear(cfg.vit.hidden_size, cfg.embed_dim)
-        self.text_proj = nn.Linear(cfg.bert.hidden_size, cfg.embed_dim)
-        self.itm_head = nn.Linear(cfg.bert.hidden_size, 2)
+        self.vision_proj = Linear(cfg.vit.hidden_size, cfg.embed_dim, compute_dtype=dtype)
+        self.text_proj = Linear(cfg.bert.hidden_size, cfg.embed_dim, compute_dtype=dtype)
+        self.itm_head = Linear(cfg.bert.hidden_size, 2, compute_dtype=dtype)
         self.temp = nn.Parameter(torch.tensor(cfg.temp))
 
     def gen_feats(self, pixels, text_ids, text_mask):
@@ -108,7 +110,8 @@ class AlbefPretrain(nn.Module):
 
 
 class AlbefVQA(nn.Module):
-    """The fine-tuned ALBEF VQA victim, the black-box model of the attack."""
+    """The fine-tuned ALBEF VQA victim, the black-box model of the attack;
+    float32 whatever the surrogate's compute dtype, as in the JAX CLI."""
 
     def __init__(self, cfg: ALBEFConfig):
         super().__init__()

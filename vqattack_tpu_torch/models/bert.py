@@ -7,6 +7,8 @@ modes ``"text"`` (layers ``[0, fusion_layer)``), ``"fusion"``
 (``[fusion_layer, L)``) and ``"multi_modal"`` (all); every forward returns
 the stacked per-layer states ``[B, n_run+1, S, D]``.  With ``is_decoder``
 and ``fusion_layer=0`` the same module is the causal answer decoder.
+``dtype`` is the compute dtype of every layer (``models/layers.py``); the
+mask biases are built in it, as the JAX module builds them.
 """
 
 from __future__ import annotations
@@ -18,22 +20,27 @@ from torch import nn
 
 from vqattack_tpu_torch.config import BertConfig
 from vqattack_tpu_torch.models.layers import (
+    Embedding,
+    LayerNorm,
+    Linear,
     MultiHeadAttention,
     causal_bias,
     gelu,
     mask_to_bias,
+    resolve_dtype,
 )
 
 
 class BertEmbeddings(nn.Module):
     """word + position + token-type embeddings -> LayerNorm."""
 
-    def __init__(self, cfg: BertConfig):
+    def __init__(self, cfg: BertConfig, dtype="float32"):
         super().__init__()
-        self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
-        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size)
-        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, cfg.hidden_size)
-        self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        d = cfg.hidden_size
+        self.word_embeddings = Embedding(cfg.vocab_size, d, dtype)
+        self.position_embeddings = Embedding(cfg.max_position_embeddings, d, dtype)
+        self.token_type_embeddings = Embedding(cfg.type_vocab_size, d, dtype)
+        self.LayerNorm = LayerNorm(d, cfg.layer_norm_eps, dtype)
 
     def forward(self, input_ids: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -48,10 +55,10 @@ class BertEmbeddings(nn.Module):
 class _AttentionOutput(nn.Module):
     """HF BertSelfOutput: dense -> residual add -> LayerNorm."""
 
-    def __init__(self, cfg: BertConfig):
+    def __init__(self, cfg: BertConfig, dtype="float32"):
         super().__init__()
-        self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size)
-        self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.dense = Linear(cfg.hidden_size, cfg.hidden_size, compute_dtype=dtype)
+        self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype)
 
     def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
         return self.LayerNorm(self.dense(x) + residual)
@@ -60,21 +67,21 @@ class _AttentionOutput(nn.Module):
 class BertLayer(nn.Module):
     """One post-LN BERT layer with optional cross-attention (``xbert.py:442-520``)."""
 
-    def __init__(self, cfg: BertConfig, has_cross_attention: bool):
+    def __init__(self, cfg: BertConfig, has_cross_attention: bool, dtype="float32"):
         super().__init__()
         d = cfg.hidden_size
         self.has_cross_attention = has_cross_attention
         self.attention_self = MultiHeadAttention(
-            d, cfg.num_heads, use_out_proj=False, softmax_dtype=cfg.softmax_dtype)
-        self.attention_output = _AttentionOutput(cfg)
+            d, cfg.num_heads, use_out_proj=False, softmax_dtype=cfg.softmax_dtype, dtype=dtype)
+        self.attention_output = _AttentionOutput(cfg, dtype)
         if has_cross_attention:
             self.crossattention_self = MultiHeadAttention(
                 d, cfg.num_heads, kv_dim=cfg.encoder_width, use_out_proj=False,
-                softmax_dtype=cfg.softmax_dtype)
-            self.crossattention_output = _AttentionOutput(cfg)
-        self.intermediate_dense = nn.Linear(d, cfg.intermediate_size)
-        self.output_dense = nn.Linear(cfg.intermediate_size, d)
-        self.output_LayerNorm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+                softmax_dtype=cfg.softmax_dtype, dtype=dtype)
+            self.crossattention_output = _AttentionOutput(cfg, dtype)
+        self.intermediate_dense = Linear(d, cfg.intermediate_size, compute_dtype=dtype)
+        self.output_dense = Linear(cfg.intermediate_size, d, compute_dtype=dtype)
+        self.output_LayerNorm = LayerNorm(d, cfg.layer_norm_eps, dtype)
 
     def forward(self, x, self_bias, encoder_states=None, cross_bias=None):
         x = self.attention_output(self.attention_self(x, bias=self_bias), x)
@@ -90,26 +97,28 @@ class BertLayer(nn.Module):
 class BertPredictionHead(nn.Module):
     """MLM/LM head: dense -> GELU -> LayerNorm -> vocab decoder."""
 
-    def __init__(self, cfg: BertConfig):
+    def __init__(self, cfg: BertConfig, dtype="float32"):
         super().__init__()
-        self.transform_dense = nn.Linear(cfg.hidden_size, cfg.hidden_size)
-        self.transform_LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
-        self.decoder = nn.Linear(cfg.hidden_size, cfg.vocab_size)
+        d = cfg.hidden_size
+        self.transform_dense = Linear(d, d, compute_dtype=dtype)
+        self.transform_LayerNorm = LayerNorm(d, cfg.layer_norm_eps, dtype)
+        self.decoder = Linear(d, cfg.vocab_size, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.decoder(self.transform_LayerNorm(gelu(self.transform_dense(x))))
 
 
 class FusionBert(nn.Module):
-    def __init__(self, cfg: BertConfig, with_mlm_head: bool = False):
+    def __init__(self, cfg: BertConfig, with_mlm_head: bool = False, dtype="float32"):
         super().__init__()
         self.cfg = cfg
-        self.embeddings = BertEmbeddings(cfg)
+        self.compute_dtype = resolve_dtype(dtype)
+        self.embeddings = BertEmbeddings(cfg, dtype)
         self.layer = nn.ModuleList(
-            BertLayer(cfg, has_cross_attention=i >= cfg.fusion_layer)
+            BertLayer(cfg, has_cross_attention=i >= cfg.fusion_layer, dtype=dtype)
             for i in range(cfg.num_layers)
         )
-        self.mlm_head = BertPredictionHead(cfg) if with_mlm_head else None
+        self.mlm_head = BertPredictionHead(cfg, dtype) if with_mlm_head else None
 
     def embed(self, input_ids, token_type_ids=None) -> torch.Tensor:
         return self.embeddings(input_ids, token_type_ids)
@@ -130,7 +139,7 @@ class FusionBert(nn.Module):
         if mode not in ranges:
             raise ValueError(f"unknown mode: {mode}")
         start, stop = ranges[mode]
-        dtype = hidden_states.dtype
+        dtype = self.compute_dtype
         self_bias = None if attention_mask is None else mask_to_bias(attention_mask, dtype)
         if cfg.is_decoder:
             cb = causal_bias(hidden_states.shape[1], hidden_states.device, dtype)

@@ -9,6 +9,14 @@ flash kernel K3 for sequences of at least 128 queries (``ops/attention.py``).
 It adds up to two terms to the scaled scores: ``bias``, broadcast
 ``[1|B, 1|H, 1|Sq, Sk]`` (VLMo's relative-position table, a causal mask),
 and ``key_bias``, one value a key ``[B, Sk]`` (a key mask).
+
+Every layer to which flax gives a ``dtype`` takes a compute dtype, with
+flax's semantics rather than ``torch.autocast``'s: parameters stay float32
+(what ``checkpoint/convert.py`` loads); :class:`Linear`, :class:`Conv2d` and
+:class:`Embedding` compute in the compute dtype from their parameters cast
+to it; :class:`LayerNorm` takes its statistics and affine map in float32 and
+returns the compute dtype; GELU runs in the compute dtype and the softmax in
+``softmax_dtype``, cast back.
 """
 
 from __future__ import annotations
@@ -30,6 +38,59 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def resolve_dtype(d) -> torch.dtype:
     """Config string or torch dtype -> torch dtype."""
     return _DTYPES[d] if isinstance(d, str) else d
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in ``compute_dtype`` (flax ``Dense(dtype=)``):
+    the input, the float32 weight and bias cast to it."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 compute_dtype="float32"):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = resolve_dtype(compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in ``compute_dtype``, as :class:`Linear`."""
+
+    def __init__(self, *args, compute_dtype="float32", **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = resolve_dtype(compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt),
+                                  None if self.bias is None else self.bias.to(dt))
+
+
+class Embedding(nn.Embedding):
+    """``nn.Embedding`` whose rows come out in ``compute_dtype``, the values
+    of flax ``Embed(dtype=)``, which casts the table before the lookup."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int, compute_dtype="float32"):
+        super().__init__(num_embeddings, embedding_dim)
+        self.compute_dtype = resolve_dtype(compute_dtype)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return super().forward(ids).to(self.compute_dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``LayerNorm(dtype=)``: statistics, normalisation and the float32
+    affine map in float32, the result in ``compute_dtype``."""
+
+    def __init__(self, dim: int, eps: float, compute_dtype="float32"):
+        super().__init__(dim, eps=eps)
+        self.compute_dtype = resolve_dtype(compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+        return y.to(self.compute_dtype)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -59,10 +120,10 @@ def causal_bias(seq_len: int, device, dtype: torch.dtype = torch.float32) -> tor
 class Mlp(nn.Module):
     """fc1 -> GELU -> fc2 (reference ``vit.py:11-29``)."""
 
-    def __init__(self, dim: int, hidden_dim: int, out_dim: int):
+    def __init__(self, dim: int, hidden_dim: int, out_dim: int, dtype="float32"):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden_dim)
-        self.fc2 = nn.Linear(hidden_dim, out_dim)
+        self.fc1 = Linear(dim, hidden_dim, compute_dtype=dtype)
+        self.fc2 = Linear(hidden_dim, out_dim, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(gelu(self.fc1(x)))
@@ -73,21 +134,24 @@ class MultiHeadAttention(nn.Module):
     cross-attention (``kv``), additive ``bias`` and ``key_bias``;
     ``use_out_proj=False`` is the HF BERT layout, whose output dense lives in
     the next block.  ``q_bias``/``k_bias``/``v_bias`` give each projection a
-    bias or none (VLMo's decomposed qkv bias: q and v, not k)."""
+    bias or none (VLMo's decomposed qkv bias: q and v, not k).  q, k and v
+    come out in ``dtype``; the product + softmax path casts both terms to the
+    scores' dtype (as the JAX einsum path does), the flash kernel takes them
+    in float32 (as the JAX wrapper's ``_prepare`` makes its bias)."""
 
     def __init__(self, dim: int, num_heads: int, kv_dim: Optional[int] = None,
                  out_dim: Optional[int] = None, use_out_proj: bool = True,
                  softmax_dtype="float32", q_bias: bool = True, k_bias: bool = True,
-                 v_bias: bool = True):
+                 v_bias: bool = True, dtype="float32"):
         super().__init__()
         kv_dim = dim if kv_dim is None else kv_dim
         self.num_heads = num_heads
         self.head_dim = dim // num_heads
         self.softmax_dtype = resolve_dtype(softmax_dtype)
-        self.query = nn.Linear(dim, dim, bias=q_bias)
-        self.key = nn.Linear(kv_dim, dim, bias=k_bias)
-        self.value = nn.Linear(kv_dim, dim, bias=v_bias)
-        self.proj = nn.Linear(dim, out_dim or dim) if use_out_proj else None
+        self.query = Linear(dim, dim, bias=q_bias, compute_dtype=dtype)
+        self.key = Linear(kv_dim, dim, bias=k_bias, compute_dtype=dtype)
+        self.value = Linear(kv_dim, dim, bias=v_bias, compute_dtype=dtype)
+        self.proj = Linear(dim, out_dim or dim, compute_dtype=dtype) if use_out_proj else None
 
     def forward(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None,
                 bias: Optional[torch.Tensor] = None,
@@ -123,7 +187,9 @@ class MultiHeadAttention(nn.Module):
 class ResidualLayerNorm(nn.Module):
     """``(x + delta, LayerNorm(x + delta))`` with a LayerNorm's parameters.
     Runs the fused kernel on the card (``ops/fused_ln.py``) and its plain
-    version on the CPU; ``delta=None`` is a plain LayerNorm."""
+    version on the CPU; ``delta=None`` is a plain LayerNorm.  Both outputs
+    keep the stream's dtype, the trunk's compute dtype; the statistics are
+    float32 either way."""
 
     def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__()
@@ -147,15 +213,15 @@ class ViTBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  layer_norm_eps: float = 1e-6, fused_ln: bool = False,
-                 softmax_dtype="float32"):
+                 softmax_dtype="float32", dtype="float32"):
         super().__init__()
         self.fused_ln = fused_ln
         norm = (lambda: ResidualLayerNorm(dim, layer_norm_eps)) if fused_ln else (
-            lambda: nn.LayerNorm(dim, eps=layer_norm_eps))
+            lambda: LayerNorm(dim, layer_norm_eps, dtype))
         self.norm1 = norm()
-        self.attn = MultiHeadAttention(dim, num_heads, softmax_dtype=softmax_dtype)
+        self.attn = MultiHeadAttention(dim, num_heads, softmax_dtype=softmax_dtype, dtype=dtype)
         self.norm2 = norm()
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype)
 
     def forward(self, x: torch.Tensor, delta: Optional[torch.Tensor] = None):
         if self.fused_ln:
@@ -171,10 +237,11 @@ class ViTBlock(nn.Module):
 class PatchEmbed(nn.Module):
     """Patchify + project (timm ``PatchEmbed``): NCHW pixels -> [B, N, D]."""
 
-    def __init__(self, patch_size: int, in_chans: int, hidden_size: int):
+    def __init__(self, patch_size: int, in_chans: int, hidden_size: int, dtype="float32"):
         super().__init__()
         self.patch_size = patch_size
-        self.proj = nn.Conv2d(in_chans, hidden_size, patch_size, stride=patch_size)
+        self.proj = Conv2d(in_chans, hidden_size, patch_size, stride=patch_size,
+                           compute_dtype=dtype)
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
         h, w = pixels.shape[-2:]

@@ -15,31 +15,43 @@ import torch
 from torch import nn
 
 from vqattack_tpu_torch.config import ViTConfig
-from vqattack_tpu_torch.models.layers import PatchEmbed, ResidualLayerNorm, ViTBlock
+from vqattack_tpu_torch.models.layers import (
+    LayerNorm,
+    PatchEmbed,
+    ResidualLayerNorm,
+    ViTBlock,
+    resolve_dtype,
+)
 
 
 class VisionTransformer(nn.Module):
-    def __init__(self, cfg: ViTConfig):
+    """``dtype`` is the compute dtype of every layer (``models/layers.py``);
+    the [CLS] token and the position table are cast to it, as the JAX
+    encoder casts them, and the feature taps come out in it."""
+
+    def __init__(self, cfg: ViTConfig, dtype="float32"):
         super().__init__()
         self.cfg = cfg
+        self.compute_dtype = resolve_dtype(dtype)
         d = cfg.hidden_size
-        self.patch_embed = PatchEmbed(cfg.patch_size, 3, d)
+        self.patch_embed = PatchEmbed(cfg.patch_size, 3, d, dtype)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
         self.pos_embed = nn.Parameter(torch.zeros(1, cfg.seq_len, d))
         self.blocks = nn.ModuleList(
             ViTBlock(d, cfg.num_heads, cfg.mlp_ratio, cfg.layer_norm_eps,
-                     fused_ln=cfg.fused_ln, softmax_dtype=cfg.softmax_dtype)
+                     fused_ln=cfg.fused_ln, softmax_dtype=cfg.softmax_dtype, dtype=dtype)
             for _ in range(cfg.depth)
         )
         self.norm = (ResidualLayerNorm(d, cfg.layer_norm_eps) if cfg.fused_ln
-                     else nn.LayerNorm(d, eps=cfg.layer_norm_eps))
+                     else LayerNorm(d, cfg.layer_norm_eps, dtype))
 
     def forward(self, pixels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """pixels ``[B, 3, H, W]`` in [-1, 1] -> ``(normed output, feats)``."""
+        dt = self.compute_dtype
         x = self.patch_embed(pixels)
         b = x.shape[0]
-        x = torch.cat([self.cls_token.expand(b, -1, -1), x], dim=1)
-        x = x + self.pos_embed[:, : x.shape[1]]
+        x = torch.cat([self.cls_token.to(dt).expand(b, -1, -1), x], dim=1)
+        x = x + self.pos_embed[:, : x.shape[1]].to(dt)
         feats = [x]
         if self.cfg.fused_ln:
             # pending-residual carry (vit.py:89-103 of the JAX package): each

@@ -18,6 +18,12 @@ In the joint ``"vl"`` mode the sequence is split statically at
 terms to the scores: the layer's ``[1, H, S, S]`` relative-position table
 as ``bias`` and the padded-text mask as ``key_bias`` (``[B, S]``), so under
 ``--attn flash`` kernel K3 reads both without a ``[B, H, S, S]`` sum.
+``dtype`` is the compute dtype of every layer (``models/layers.py``),
+layer scale and the heads included.  Both attention terms are float32: the
+table holds its values rounded to the compute dtype, as the JAX module
+casts it, and the key mask is exact; the flash kernel reads them as they
+are (the JAX wrapper casts its bias to float32), the product + softmax path
+casts them to the scores' dtype (as the JAX einsum path does).
 Pixels are NCHW.  Sub-module names follow the flax names, so
 ``checkpoint/convert.py::load_jax_params`` carries a JAX VLMo across.
 """
@@ -35,11 +41,15 @@ from vqattack_tpu_torch.config import BertConfig, VLMoConfig
 from vqattack_tpu_torch.models.albef import init_weights
 from vqattack_tpu_torch.models.bert import BertEmbeddings, BertPredictionHead
 from vqattack_tpu_torch.models.layers import (
+    Embedding,
+    LayerNorm,
+    Linear,
     Mlp,
     MultiHeadAttention,
     PatchEmbed,
     gelu,
     mask_to_key_bias,
+    resolve_dtype,
 )
 
 
@@ -100,31 +110,32 @@ class MultiWayBlock(nn.Module):
     from ``vlffn_start_layer``, else the text expert on the first
     ``max_text_len`` tokens and the image expert on the rest)."""
 
-    def __init__(self, cfg: VLMoConfig, with_vlffn: bool):
+    def __init__(self, cfg: VLMoConfig, with_vlffn: bool, dtype="float32"):
         super().__init__()
         self.cfg = cfg
         self.with_vlffn = with_vlffn
+        self.compute_dtype = resolve_dtype(dtype)
         d, eps = cfg.hidden_size, cfg.layer_norm_eps
         hidden = int(d * cfg.mlp_ratio)
-        self.norm1 = nn.LayerNorm(d, eps=eps)
+        self.norm1 = LayerNorm(d, eps, dtype)
         self.attn = MultiHeadAttention(d, cfg.num_heads, softmax_dtype=cfg.softmax_dtype,
-                                       q_bias=True, k_bias=False, v_bias=True)
+                                       q_bias=True, k_bias=False, v_bias=True, dtype=dtype)
         if cfg.layer_scale_init is not None:
             self.gamma_1 = nn.Parameter(torch.full((d,), float(cfg.layer_scale_init)))
             self.gamma_2 = nn.Parameter(torch.full((d,), float(cfg.layer_scale_init)))
         else:
             self.gamma_1 = self.gamma_2 = None
-        self.norm2_text = nn.LayerNorm(d, eps=eps)
-        self.mlp_text = Mlp(d, hidden, d)
-        self.norm2_imag = nn.LayerNorm(d, eps=eps)
-        self.mlp_imag = Mlp(d, hidden, d)
+        self.norm2_text = LayerNorm(d, eps, dtype)
+        self.mlp_text = Mlp(d, hidden, d, dtype)
+        self.norm2_imag = LayerNorm(d, eps, dtype)
+        self.mlp_imag = Mlp(d, hidden, d, dtype)
         if with_vlffn:
-            self.norm2_vl = nn.LayerNorm(d, eps=eps)
-            self.mlp_vl = Mlp(d, hidden, d)
+            self.norm2_vl = LayerNorm(d, eps, dtype)
+            self.mlp_vl = Mlp(d, hidden, d, dtype)
 
-    @staticmethod
-    def _scaled(gamma, x):
-        return x if gamma is None else gamma * x
+    def _scaled(self, gamma, x):
+        """Layer scale, ``gamma`` cast to the compute dtype as in the JAX block."""
+        return x if gamma is None else gamma.to(self.compute_dtype) * x
 
     def forward(self, x: torch.Tensor, modality: str, bias: Optional[torch.Tensor] = None,
                 key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -149,9 +160,9 @@ class MultiWayBlock(nn.Module):
 class Pooler(nn.Module):
     """cls -> dense -> tanh (``heads.py:8``)."""
 
-    def __init__(self, hidden_size: int):
+    def __init__(self, hidden_size: int, dtype="float32"):
         super().__init__()
-        self.dense = nn.Linear(hidden_size, hidden_size)
+        self.dense = Linear(hidden_size, hidden_size, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.tanh(self.dense(x[:, 0]))
@@ -160,11 +171,11 @@ class Pooler(nn.Module):
 class VQAClassifier(nn.Module):
     """dense(2D) -> LayerNorm -> GELU -> dense(labels) (``vlmo_module.py:274-280``)."""
 
-    def __init__(self, hidden_size: int, num_labels: int):
+    def __init__(self, hidden_size: int, num_labels: int, dtype="float32"):
         super().__init__()
-        self.fc1 = nn.Linear(hidden_size, 2 * hidden_size)
-        self.norm = nn.LayerNorm(2 * hidden_size, eps=1e-5)
-        self.fc2 = nn.Linear(2 * hidden_size, num_labels)
+        self.fc1 = Linear(hidden_size, 2 * hidden_size, compute_dtype=dtype)
+        self.norm = LayerNorm(2 * hidden_size, 1e-5, dtype)
+        self.fc2 = Linear(2 * hidden_size, num_labels, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(gelu(self.norm(self.fc1(x))))
@@ -190,35 +201,38 @@ class VLMo(nn.Module):
     """The VLMo surrogate (and, with its VQA head, the victim).  Holds every
     parameter of the JAX module's ``init_all``."""
 
-    def __init__(self, cfg: VLMoConfig, with_vqa_head: bool = True):
+    def __init__(self, cfg: VLMoConfig, with_vqa_head: bool = True, dtype="float32"):
         super().__init__()
         if not cfg.moe:
             raise NotImplementedError("VLMo with moe=False (one shared FFN) is not ported yet")
         self.cfg = cfg
+        self.compute_dtype = resolve_dtype(dtype)
         d = cfg.hidden_size
         bert_cfg = BertConfig(vocab_size=cfg.vocab_size, hidden_size=d,
                               max_position_embeddings=cfg.max_position_embeddings,
                               type_vocab_size=cfg.type_vocab_size, layer_norm_eps=1e-12)
-        self.text_embeddings = BertEmbeddings(bert_cfg)
-        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, d)
-        self.patch_embed = PatchEmbed(cfg.patch_size, 3, d)
+        self.text_embeddings = BertEmbeddings(bert_cfg, dtype)
+        self.token_type_embeddings = Embedding(cfg.type_vocab_size, d, dtype)
+        self.patch_embed = PatchEmbed(cfg.patch_size, 3, d, dtype)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
         self.pos_embed = (nn.Parameter(torch.zeros(1, cfg.image_seq_len, d))
                           if cfg.use_abs_pos_emb else None)
         self.blocks = nn.ModuleList(
-            MultiWayBlock(cfg, with_vlffn=i >= cfg.vlffn_start_layer) for i in range(cfg.depth))
-        self.norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
-        self.pooler = Pooler(d)
-        self.mlm_score = BertPredictionHead(bert_cfg)
-        self.itm_score = nn.Linear(d, 2)
-        self.itc_text_proj = nn.Linear(d, d, bias=False)
-        self.itc_image_proj = nn.Linear(d, d, bias=False)
+            MultiWayBlock(cfg, with_vlffn=i >= cfg.vlffn_start_layer, dtype=dtype)
+            for i in range(cfg.depth))
+        self.norm = LayerNorm(d, cfg.layer_norm_eps, dtype)
+        self.pooler = Pooler(d, dtype)
+        self.mlm_score = BertPredictionHead(bert_cfg, dtype)
+        self.itm_score = Linear(d, 2, compute_dtype=dtype)
+        self.itc_text_proj = Linear(d, d, bias=False, compute_dtype=dtype)
+        self.itc_image_proj = Linear(d, d, bias=False, compute_dtype=dtype)
         self.logit_scale = LogitScale()
         if self._has_vlffn:
-            self.itc_vl_text_proj = nn.Linear(d, d, bias=False)
-            self.itc_vl_image_proj = nn.Linear(d, d, bias=False)
+            self.itc_vl_text_proj = Linear(d, d, bias=False, compute_dtype=dtype)
+            self.itc_vl_image_proj = Linear(d, d, bias=False, compute_dtype=dtype)
             self.logit_vl_scale = LogitScale()
-        self.vqa_classifier = VQAClassifier(d, cfg.vqa_label_size) if with_vqa_head else None
+        self.vqa_classifier = (VQAClassifier(d, cfg.vqa_label_size, dtype) if with_vqa_head
+                               else None)
         if cfg.need_relative_position_embed:
             tables = build_relative_position_index(cfg.window_size, cfg.max_text_len)
             for kind in ("image", "text", "joint"):
@@ -238,20 +252,24 @@ class VLMo(nn.Module):
 
     def _rel_bias(self, layer: int, kind: str) -> Optional[torch.Tensor]:
         """Layer ``layer``'s ``[1, H, S, S]`` bias from the fused table
-        (``get_rel_pos_bias``, ``vlmo_module.py:807-816``); None without one."""
+        (``get_rel_pos_bias``, ``vlmo_module.py:807-816``), rounded to the
+        compute dtype as the JAX module casts it and held in float32, the
+        type the flash kernel reads; None without one."""
         if self.relative_position_bias_table is None:
             return None
         h = self.cfg.num_heads
         tbl = self.relative_position_bias_table[:, layer * h : (layer + 1) * h]
         idx = getattr(self, f"_rel_index_{kind}")
-        return tbl[idx].permute(2, 0, 1)[None]  # [S, S, H] -> [1, H, S, S]
+        bias = tbl[idx].permute(2, 0, 1)[None]  # [S, S, H] -> [1, H, S, S]
+        return bias.to(self.compute_dtype).float()
 
     def visual_embed(self, pixels: torch.Tensor) -> torch.Tensor:
         """patchify + cls + (optional) absolute position (``multiway_transformer.py:366-380``)."""
+        dt = self.compute_dtype
         x = self.patch_embed(pixels)
-        x = torch.cat([self.cls_token.expand(x.shape[0], -1, -1), x], dim=1)
+        x = torch.cat([self.cls_token.to(dt).expand(x.shape[0], -1, -1), x], dim=1)
         if self.pos_embed is not None:
-            x = x + self.pos_embed
+            x = x + self.pos_embed.to(dt)
         return x
 
     @torch.no_grad()
@@ -284,7 +302,7 @@ class VLMo(nn.Module):
             torch.full_like(image_masks, image_token_type_idx))
         x = torch.cat([text_embeds, image_embeds], dim=1)
         co_masks = torch.cat([text_masks, image_masks], dim=1)
-        key_bias = mask_to_key_bias(co_masks, x.dtype)
+        key_bias = mask_to_key_bias(co_masks)
         feats = [x]
         for i, blk in enumerate(self.blocks):
             bias = rel_biases[i][None] if rel_biases is not None else self._rel_bias(i, "joint")
@@ -307,7 +325,7 @@ class VLMo(nn.Module):
         ``cls_vlffn_feats``."""
         x = self.text_embeddings(text_ids) + self.token_type_embeddings(
             torch.zeros_like(text_masks))
-        key_bias = mask_to_key_bias(text_masks, x.dtype)
+        key_bias = mask_to_key_bias(text_masks)
         feats = [x]
         for i, blk in enumerate(self.blocks):
             x = blk(x, "text", self._rel_bias(i, "text"), key_bias)

@@ -28,7 +28,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("pgd_update.cu", "fused_ln.cu", "flash_attention.cu")
+SOURCES = ("pgd_update.cu", "fused_ln.cu", "flash_attention.cu", "flash_attention_bf16.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -48,6 +48,10 @@ SIGNATURES = {
     # q, k, v, bias, key bias, o, lse, dout, dq, dk, dv, delta; then as the
     # forward
     "vq_flash_attention_bwd": (_P,) * 12 + (_I,) * 4 + (_LL,) * 14 + (_F, _P),
+    # the bfloat16 instances (flash_attention_bf16.cu): the same arguments,
+    # q/k/v, o, dout, dq, dk, dv bfloat16, the rest as above
+    "vq_flash_attention_bf16_fwd": (_P,) * 7 + (_I,) * 4 + (_LL,) * 14 + (_F, _P),
+    "vq_flash_attention_bf16_bwd": (_P,) * 12 + (_I,) * 4 + (_LL,) * 14 + (_F, _P),
 }
 
 
@@ -154,14 +158,16 @@ def load() -> ctypes.CDLL:
 _LAUNCH_LOCK = threading.Lock()
 
 
-def count_launch(wrapper, key_bias: bool = False) -> None:
-    """Add one to ``wrapper.launches`` and, for a flash-attention launch with
-    a key bias, to ``wrapper.key_bias_launches``; buckets pipelined over
-    threads launch concurrently, so the count is taken under a lock."""
+def count_launch(wrapper, *counts: str) -> None:
+    """Add one to each of ``wrapper``'s counts named in ``counts`` (by
+    default ``launches``): a wrapper that launches one of several kernel
+    instances counts each instance apart (``bf16_launches``, and a
+    flash-attention launch with a key bias also ``key_bias_launches``);
+    buckets pipelined over threads launch concurrently, so the count is
+    taken under a lock."""
     with _LAUNCH_LOCK:
-        wrapper.launches += 1
-        if key_bias:
-            wrapper.key_bias_launches += 1
+        for name in counts or ("launches",):
+            setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def check(status: int, what: str) -> None:

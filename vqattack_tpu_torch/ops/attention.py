@@ -21,6 +21,14 @@ is the backward written from the log-sum-exp exactly as the kernel computes
 it.  The kernel runs its products
 on the tensor cores in three TF32 passes; :func:`mm_3xtf32` emulates that
 arithmetic on the CPU for the tests.
+
+q/k/v may be float32 or bfloat16 (the three alike; the surrogate trunk's
+compute dtype).  The bfloat16 instance (``csrc/flash_attention_bf16.cu``)
+multiplies bf16 operands once with float32 accumulation and returns O and
+the gradients in bf16; ``bias`` and ``key_bias`` stay float32, as the JAX
+wrapper's ``_prepare`` makes its bias.  Its plain version rounds where the
+library kernel rounds (P before P V and P^T dO, dS before dS K and dS^T Q)
+and computes everything else in float32 from the bf16 inputs.
 """
 
 from __future__ import annotations
@@ -83,11 +91,37 @@ def _scores(q, k, bias, scale, key_bias=None):
     return s if key_bias is None else s + key_bias.to(s.dtype)[:, None, None, :]
 
 
+def _round(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to ``like``'s dtype and read back as float32:
+    where the bf16 kernel casts a float32 product to an operand (nothing for
+    float32)."""
+    return x.to(like.dtype).float()
+
+
+def _reference_bf16(q, k, v, bias, scale, return_lse, key_bias):
+    """The bfloat16 kernel's forward in plain PyTorch: scores and row sums in
+    float32 from the bf16 inputs, ``P = exp(S - max)`` rounded to bf16 before
+    P V (the library's ``p.astype(v.dtype)``), the output divided by the
+    float32 row sum and rounded to bf16."""
+    s = _scores(q.float(), k.float(), bias, scale, key_bias)
+    m = s.amax(-1, keepdim=True).detach()
+    p = torch.exp(s - m)
+    l = p.sum(-1)  # [B, H, Sq]
+    out = torch.einsum("bhqk,bkhd->bqhd", _round(p, v), v.float())
+    out = (out / l.transpose(1, 2)[..., None]).to(q.dtype)
+    if return_lse:
+        return out, m[..., 0] + torch.log(l)
+    return out
+
+
 def flash_attention_reference(q, k, v, bias, scale, return_lse: bool = False,
                               key_bias=None):
     """``softmax((q * scale) k^T + bias + key_bias) v`` by the explicit
     product, in the ``[B, S, H, Dh]`` layout; with ``return_lse`` also the
-    rows' log-sum-exp ``[B, H, Sq]`` that the kernel saves."""
+    rows' log-sum-exp ``[B, H, Sq]`` that the kernel saves.  bf16 q/k/v
+    take the bf16 kernel's arithmetic (:func:`_reference_bf16`)."""
+    if q.dtype == torch.bfloat16:
+        return _reference_bf16(q, k, v, bias, scale, return_lse, key_bias)
     s = _scores(q, k, bias, scale, key_bias)
     out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
     if return_lse:
@@ -99,15 +133,20 @@ def flash_attention_bwd_reference(q, k, v, bias, scale, o, lse, do, key_bias=Non
     """The kernel's backward in plain PyTorch: ``(dq, dk, dv)`` from the
     forward output ``o``, its log-sum-exp ``lse`` and the output gradient
     ``do``, with ``P = exp(S - lse)`` recomputed (both additive terms) and
-    ``D = rowsum(do * o)``."""
-    p = torch.exp(_scores(q, k, bias, scale, key_bias) - lse[..., None])
-    d = (do * o).sum(-1).transpose(1, 2)  # [B, H, Sq]
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
-    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
-    ds = p * (dp - d[..., None])
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale
-    return dq, dk, dv
+    ``D = rowsum(do * o)``.  For bf16 q/k/v everything is float32 from the
+    bf16 inputs but P and dS, rounded to bf16 as the kernel (and the library
+    kernel) hands them to the next product, and the gradients come back
+    bf16; scale is applied after dS's rounding, as the kernel applies it
+    (the same bits as before it for a power of two, 1/8 at head dim 64)."""
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
+    p = torch.exp(_scores(qf, kf, bias, scale, key_bias) - lse[..., None])
+    d = (dof * of).sum(-1).transpose(1, 2)  # [B, H, Sq]
+    dv = torch.einsum("bhqk,bqhd->bkhd", _round(p, q), dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = _round(p * (dp - d[..., None]), q)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -146,18 +185,23 @@ def _check_inputs(q, k, v, bias, key_bias=None) -> Tuple[int, int, int, int]:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"flash_attention kernel: {name} on {t.device}, expected cuda")
-        if t.dtype != torch.float32:
-            raise TypeError(f"flash_attention kernel: {name} is {t.dtype}; takes float32")
+        if t.dtype not in _ENTRY_POINTS:
+            raise TypeError(f"flash_attention kernel: {name} is {t.dtype}; takes float32 "
+                            f"or bfloat16")
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash_attention kernel: {name} is {t.dtype}, q {q.dtype}")
         if t.dim() != 4 or t.shape[-1] != HEAD_DIM:
             raise ValueError(f"flash_attention kernel: {name} {tuple(t.shape)}; "
                              f"takes [B, S, H, {HEAD_DIM}]")
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention kernel: {name}'s head dim is not contiguous")
         # the kernel copies rows in 16-byte chunks
-        if t.data_ptr() % 16 or any(st % 4 for st, n in zip(t.stride()[:3], t.shape) if n > 1):
+        chunk = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(st % chunk for st, n in zip(t.stride()[:3], t.shape)
+                                    if n > 1):
             raise ValueError(f"flash_attention kernel: {name}'s rows do not start on 16 bytes "
                              f"(data pointer {t.data_ptr()}, strides {t.stride()}); the b, s "
-                             f"and h strides must be multiples of 4")
+                             f"and h strides must be multiples of {chunk}")
     b, sq, h, _ = q.shape
     sk = k.shape[1]
     if k.shape != v.shape or k.shape[0] != b or k.shape[2] != h or k.device != q.device:
@@ -211,57 +255,74 @@ def _common_args(q, k, v, bias, key_bias, b, h, sq, sk):
 
 
 def flash_attention_fwd(q, k, v, bias, scale: float, key_bias=None):
-    """Forward kernel: ``(o [B, Sq, H, 64], lse [B, H, Sq])``."""
+    """Forward kernel: ``(o [B, Sq, H, 64] in q's dtype, lse [B, H, Sq]
+    float32)``."""
     b, h, sq, sk = _check_inputs(q, k, v, bias, key_bias)
     ptrs, sizes = _common_args(q, k, v, bias, key_bias, b, h, sq, sk)
-    out = torch.empty((b, sq, h, HEAD_DIM), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, sq, h, HEAD_DIM), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = _build.load()
     with torch.cuda.device(q.device):
-        status = lib.vq_flash_attention_fwd(
+        status = getattr(lib, _ENTRY_POINTS[q.dtype] + "fwd")(
             *ptrs, out.data_ptr(), lse.data_ptr(), *sizes, scale,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(status, "flash_attention_fwd")
-    _build.count_launch(flash_attention_fwd, key_bias is not None)
+    _build.count_launch(flash_attention_fwd, *_counts(q.dtype, key_bias))
     return out, lse
 
 
 def flash_attention_bwd(q, k, v, bias, scale: float, o, lse, do, key_bias=None):
     """Backward kernels (the D pass, dK/dV over key tiles, dQ over query
-    tiles): ``(dq, dk, dv)``, contiguous, in the shapes of ``q``, ``k``, ``v``.
-    The same bit for bit on every run: no atomics."""
+    tiles): ``(dq, dk, dv)``, contiguous, in the shapes and dtype of ``q``,
+    ``k``, ``v``; ``o`` and ``do`` in that dtype, ``lse`` float32.  The same
+    bit for bit on every run: no atomics."""
     b, h, sq, sk = _check_inputs(q, k, v, bias, key_bias)
     do = do.contiguous()
     if do.data_ptr() % 16:  # the kernel copies rows in 16-byte chunks
         do = do.clone()
-    for name, t, shape in (("o", o, (b, sq, h, HEAD_DIM)), ("grad of o", do, (b, sq, h, HEAD_DIM)),
-                           ("lse", lse, (b, h, sq))):
-        if tuple(t.shape) != shape or t.dtype != torch.float32 or not t.is_contiguous():
+    for name, t, shape, dtype in (("o", o, (b, sq, h, HEAD_DIM), q.dtype),
+                                  ("grad of o", do, (b, sq, h, HEAD_DIM), q.dtype),
+                                  ("lse", lse, (b, h, sq), torch.float32)):
+        if tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"flash_attention_bwd: {name} {tuple(t.shape)} {t.dtype}; "
-                             f"takes contiguous float32 {shape}")
+                             f"takes contiguous {dtype} {shape}")
     ptrs, sizes = _common_args(q, k, v, bias, key_bias, b, h, sq, sk)
-    dq = torch.empty((b, sq, h, HEAD_DIM), dtype=torch.float32, device=q.device)
-    dk = torch.empty((b, sk, h, HEAD_DIM), dtype=torch.float32, device=q.device)
+    dq = torch.empty((b, sq, h, HEAD_DIM), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, h, HEAD_DIM), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = _build.load()
     with torch.cuda.device(q.device):
-        status = lib.vq_flash_attention_bwd(
+        status = getattr(lib, _ENTRY_POINTS[q.dtype] + "bwd")(
             *ptrs, o.data_ptr(), lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), *sizes, scale,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(status, "flash_attention_bwd")
-    _build.count_launch(flash_attention_bwd, key_bias is not None)
+    _build.count_launch(flash_attention_bwd, *_counts(q.dtype, key_bias))
     return dq, dk, dv
 
 
-# calls of each entry point in this process, and those of them with a key
-# bias (plain counts for chip_smoke.py)
+# the C entry points (``<prefix>fwd``, ``<prefix>bwd``) of each q/k/v dtype
+_ENTRY_POINTS = {torch.float32: "vq_flash_attention_",
+                 torch.bfloat16: "vq_flash_attention_bf16_"}
+
+
+def _counts(dtype, key_bias):
+    """The counts a launch adds one to: each dtype's instances apart, and
+    those with a key bias (VLMo's two-term form) also apart."""
+    prefix = "bf16_" if dtype == torch.bfloat16 else ""
+    return (prefix + "launches",) + ((prefix + "key_bias_launches",) if key_bias is not None
+                                     else ())
+
+
+# calls of each entry point in this process: float32 (``launches``) and
+# bfloat16 (``bf16_launches``) instances, and those of each with a key bias
+# (plain counts for chip_smoke.py)
 for _fn in (flash_attention_fwd, flash_attention_bwd):
-    _fn.launches = 0
-    _fn.key_bias_launches = 0
+    for _name in ("launches", "key_bias_launches", "bf16_launches", "bf16_key_bias_launches"):
+        setattr(_fn, _name, 0)
 
 
 class _FlashAttentionFn(torch.autograd.Function):
@@ -291,9 +352,9 @@ def flash_attention(
 ) -> torch.Tensor:
     """``softmax((q k^T) * scale + bias + key_bias) v`` as ``[B, Sq, H, Dh]``.
 
-    A CUDA tensor runs the kernels (float32, ``Dh = 64``, bias and key bias
-    without gradient; anything else raises); a CPU tensor runs the plain
-    version."""
+    A CUDA tensor runs the kernels (float32 or bfloat16 q/k/v, ``Dh = 64``,
+    float32 bias and key bias without gradient; anything else raises); a
+    CPU tensor runs the plain version."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, bias, scale, key_bias=key_bias)
     if q.device.type != "cuda":

@@ -135,7 +135,7 @@ def residual_layernorm_fwd(x, delta, gamma, beta, eps: float = 1e-6):
             rows, d, eps, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(status, "residual_layernorm_fwd")
-    _build.count_launch(residual_layernorm_fwd)
+    _build.count_launch(residual_layernorm_fwd, _COUNTS[x.dtype])
     return s, h
 
 
@@ -166,15 +166,18 @@ def residual_layernorm_bwd(s, gs, gh, gamma, eps: float = 1e-6, param_grads: boo
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(status, "residual_layernorm_bwd")
-    _build.count_launch(residual_layernorm_bwd)
+    _build.count_launch(residual_layernorm_bwd, _COUNTS[s.dtype])
     if dgdb is None:
         return dx, None, None
     return dx, dgdb[0], dgdb[1]
 
 
-# launches of each kernel in this process (plain counts for chip_smoke.py)
-residual_layernorm_fwd.launches = 0
-residual_layernorm_bwd.launches = 0
+# launches of each kernel in this process, on a float32 and on a bfloat16
+# stream (plain counts for chip_smoke.py)
+_COUNTS = {torch.float32: "launches", torch.bfloat16: "bf16_launches"}
+for _fn in (residual_layernorm_fwd, residual_layernorm_bwd):
+    _fn.launches = 0
+    _fn.bf16_launches = 0
 
 
 class _ResidualLayerNormFn(torch.autograd.Function):

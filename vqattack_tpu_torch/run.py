@@ -17,7 +17,13 @@ batch buffers ``--buffer-factor`` batches of samples and runs them through
 the lockstep engine (``attacks/batched.py``), ``--pipeline-depth`` chunks at
 a time.  ``--attn flash`` sends every attention over at least 128 queries
 (ALBEF's ViT, VLMo's joint trunk) through the flash kernel, which takes a
-head dim of 64.  Runs on ``cuda`` unless ``--device cpu``.
+head dim of 64.  ``--dtype bfloat16`` computes the surrogate trunk in bf16
+(the JAX package's mixed policy: the image, its gradient, the L-inf update,
+the losses, the ALBEF victim and the candidate MLM stay float32; VLMo's
+victim runs in the surrogate's dtype, as the JAX CLI runs it);
+``--softmax-dtype`` and ``--tap-dtype`` set the attention softmax's dtype
+and that of the stored clean feature targets.  Runs on ``cuda`` unless
+``--device cpu``.
 
 Weights: ``--surrogate-ckpt`` and ``--victim-ckpt`` load the reference's
 ``.pth`` files (``checkpoint/io.py``; VLMo's surrogate from 224 px, its
@@ -83,6 +89,16 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="before the attack, print the similarity gate's score profile "
                         "over the dataset's questions and a suggested --bert-threshold")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    p.add_argument("--dtype", choices=["float32", "bfloat16"], default=None,
+                   help="surrogate trunk compute dtype (default: the config's "
+                        "compute_dtype, float32); the image, its gradient, the L-inf "
+                        "update and the losses stay float32 either way")
+    p.add_argument("--softmax-dtype", choices=["float32", "bfloat16"], default=None,
+                   help="dtype of the attention softmax over the scores on the product "
+                        "+ softmax path (default: the config's, float32)")
+    p.add_argument("--tap-dtype", choices=["float32", "bfloat16"], default=None,
+                   help="storage dtype of the clean feature-target stacks the loss "
+                        "reads every iteration (default: the config's, float32)")
     p.add_argument("--attn", choices=["xla", "flash"], default="xla",
                    help="attention over >= 128 queries: the explicit product + "
                         "softmax (xla) or the flash kernel (flash)")
@@ -103,7 +119,10 @@ _NOT_PORTED = (("arrow", "--arrow"),)
 
 def resolve_config(args):
     """--config if given, else the pipeline's attack preset; then VLMo's
-    --named-config geometry, --seed, --output, and the ALBEF path's kernel
+    --named-config geometry, --seed, --output, the precision flags as the
+    JAX ``resolve_config`` applies them (``--dtype`` -> ``compute_dtype``,
+    ``--softmax-dtype`` -> the ViT's, BERT's and VLMo's ``softmax_dtype``,
+    ``--tap-dtype`` -> ``attack.tap_dtype``), and the ALBEF path's kernel
     switch: the ViT's residual+LayerNorm sites take the fused kernel
     (``vit.fused_ln``) on the card (VLMo's blocks have plain LayerNorms, as
     in the JAX package).  Refuses ``--attn flash`` on the card for a head
@@ -131,6 +150,17 @@ def resolve_config(args):
         cfg = dataclasses.replace(cfg, vlmo=dataclasses.replace(
             vlmo, remat=cfg.vlmo.remat, remat_scores=cfg.vlmo.remat_scores))
     cfg = dataclasses.replace(cfg, output_dir=args.output, seed=args.seed)
+    if args.dtype:
+        cfg = dataclasses.replace(cfg, compute_dtype=args.dtype)
+    if args.softmax_dtype:
+        sm = args.softmax_dtype
+        cfg = dataclasses.replace(cfg, albef=dataclasses.replace(
+            cfg.albef, vit=dataclasses.replace(cfg.albef.vit, softmax_dtype=sm),
+            bert=dataclasses.replace(cfg.albef.bert, softmax_dtype=sm)),
+            vlmo=dataclasses.replace(cfg.vlmo, softmax_dtype=sm))
+    if args.tap_dtype:
+        cfg = dataclasses.replace(cfg, attack=dataclasses.replace(
+            cfg.attack, tap_dtype=args.tap_dtype))
     if args.attn == "flash" and args.device == "cuda":
         hidden, heads, what = ((cfg.vlmo.hidden_size, cfg.vlmo.num_heads, "VLMo trunk")
                                if args.pipeline == "vlmo" else
@@ -142,8 +172,6 @@ def resolve_config(args):
     if args.device == "cuda" and args.pipeline == "albef":
         vit = dataclasses.replace(cfg.albef.vit, fused_ln=True)
         cfg = dataclasses.replace(cfg, albef=dataclasses.replace(cfg.albef, vit=vit))
-    if cfg.compute_dtype != "float32":
-        raise SystemExit("the port runs compute_dtype float32 only so far")
     return cfg
 
 
@@ -161,7 +189,10 @@ def _build_pipeline(args, cfg, tokenizer):
     ``--victim-ckpt`` and ``--bert-mlm`` are given; the BertMeanPoolGate
     over the surrogate's text tower; the pipeline.  Without
     ``--victim-ckpt`` VLMo's victim is its surrogate module, with the VQA
-    head (the JAX CLI's victim without it)."""
+    head (the JAX CLI's victim without it).  The surrogate computes in
+    ``cfg.compute_dtype``, and so does VLMo's victim (the JAX CLI applies
+    the victim's parameters to the surrogate's module); the ALBEF victim
+    and the candidate MLM stay float32."""
     from vqattack_tpu_torch.checkpoint import io as ckpt_io
     from vqattack_tpu_torch.device import resolve_device
     from vqattack_tpu_torch.models.albef import init_weights
@@ -179,8 +210,9 @@ def _build_pipeline(args, cfg, tokenizer):
         from vqattack_tpu_torch.models.vlmo import VLMo, init_vlmo_weights
 
         with torch.device(device):
-            model = init_vlmo_weights(VLMo(cfg.vlmo), seed=args.seed)
-            victim = (init_vlmo_weights(VLMo(cfg.vlmo), seed=args.seed + 3)
+            model = init_vlmo_weights(VLMo(cfg.vlmo, dtype=cfg.compute_dtype), seed=args.seed)
+            victim = (init_vlmo_weights(VLMo(cfg.vlmo, dtype=cfg.compute_dtype),
+                                        seed=args.seed + 3)
                       if args.victim_ckpt else None)
             mlm = init_weights(FusionBert(mlm_cfg, with_mlm_head=True), seed=args.seed + 1)
         if args.surrogate_ckpt:  # the pre-trained surrogate is a 224 px checkpoint
@@ -206,7 +238,8 @@ def _build_pipeline(args, cfg, tokenizer):
     from vqattack_tpu_torch.models.albef import AlbefPretrain, AlbefVQA
 
     with torch.device(device):
-        surrogate = init_weights(AlbefPretrain(cfg.albef), seed=args.seed)
+        surrogate = init_weights(AlbefPretrain(cfg.albef, dtype=cfg.compute_dtype),
+                                 seed=args.seed)
         victim = init_weights(AlbefVQA(cfg.albef), seed=args.seed + 3)
         mlm = init_weights(FusionBert(mlm_cfg, with_mlm_head=True), seed=args.seed + 1)
     if args.surrogate_ckpt:
