@@ -6,7 +6,8 @@
 Phases (each prints a line on entry and its seconds on exit):
 
 1. device: the card, and ``nvidia-smi``'s name and power limit;
-2. build: the CUDA kernels, one ``nvcc`` call (``vqattack_tpu_torch/ops/_build.py``);
+2. build: the CUDA kernels, one ``nvcc`` call (``vqattack_tpu_torch/ops/_build.py``),
+   and ptxas's registers and spills of each of K3-bf16's kernels;
 3. kernels: each kernel against its plain PyTorch version on the card, at the
    shapes both paths give it (batch 1, the batched chunks of 4 and 8, the
    victim's 16), with the stated tolerances: K1 (PGD update), K2 (residual +
@@ -611,7 +612,9 @@ def time_flash_attention_bf16(q, k, v, table, key_bias, errs):
     ``scaled_dot_product_attention`` on the same bf16 inputs (with the two
     terms summed into one bf16 mask).  The bound: the larger of 4 and 10 x
     B*H*S^2*Dh at the dense bf16 rate, one pass, and the bytes of bf16 q, k,
-    v, o (and dO, dq, dk, dv) with the float32 log-sum-exp and terms."""
+    v, o (and dO, dq, dk, dv) with the float32 log-sum-exp and terms.  Timed
+    in the order kernel, plain, SDPA, kernel (``ms_again``): the two kernel
+    times show the spread inside one call."""
     b, s = q.shape[:2]
     o, lse = attention.flash_attention_fwd(q, k, v, table, SCALE, key_bias)
     do = torch.randn(o.shape, generator=torch.Generator("cuda").manual_seed(3),
@@ -640,6 +643,9 @@ def time_flash_attention_bf16(q, k, v, table, key_bias, errs):
             q, k, v, table, SCALE, key_bias=key_bias), 20, long_sleep),
         "bound_ms": fwd_b, "bound_by": fwd_by,
         "library_ms": time_ms(lambda: sdpa(qt, kt, vt, attn_mask=dense, scale=SCALE), 20),
+        # the kernel again after the library call: the spread inside one call
+        "ms_again": time_ms(lambda: attention.flash_attention_fwd(q, k, v, table, SCALE,
+                                                                  key_bias), 20),
     })
     bwd = dict(common, **{
         "name": "flash_attention_bf16_bwd" + suffix,
@@ -651,13 +657,16 @@ def time_flash_attention_bf16(q, k, v, table, key_bias, errs):
         "bound_ms": bwd_b, "bound_by": bwd_by,
         "library_ms": time_ms(lambda: torch.autograd.grad(
             sdpa_out, (qt, kt, vt), do_t, retain_graph=True), 20),
+        "ms_again": time_ms(lambda: attention.flash_attention_bwd(
+            q, k, v, table, SCALE, o, lse, do, key_bias), 20),
     })
     for r, executed in ((fwd, 4 * unit), (bwd, 14 * unit)):
         r["bound_share"] = r["bound_ms"] / r["ms"]
         r["executed_tflops"] = executed / r["ms"] / 1e9
         require(r["bound_share"] <= 1.0, f"{r['name']}: {r['ms']} ms is under its bound "
                                          f"{r['bound_ms']} ms: the timing or the bound is wrong")
-        print(f"  {r['name']} {r['shape']} bf16: {r['ms']:.3f} ms (plain "
+        print(f"  {r['name']} {r['shape']} bf16: {r['ms']:.4f} ms, {r['ms_again']:.4f} ms after "
+              f"the library call (plain "
               f"{r['plain_ms']:.3f} ms, scaled_dot_product_attention bf16 "
               f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}: "
               f"{100 * r['bound_share']:.1f}%; executed {r['executed_tflops']:.1f} TFLOP/s)",
@@ -1801,6 +1810,39 @@ def checkpoint_path(common, v_common, tmp):
     return launches, a_loads + v_loads, {"albef_s": a_s, "vlmo_s": v_s}
 
 
+def ptxas_summary(report):
+    """One line a kernel of ptxas's report of a source (``-Xptxas -v``):
+    registers at launch, spill stores and loads, and whether ptxas
+    serialized its wgmma instructions (C7515)."""
+    if report is None:
+        return ["  ptxas: no report (the library was built before this process)"]
+    found, name, spills, serialized = [], None, "", set()
+
+    def short(mangled):
+        m = re.search(r"(?<=\d)([A-Za-z][A-Za-z_]*?_kernel)(?:I((?:Lb[01]E)+))?", mangled)
+        if m is None:
+            return mangled
+        flags = ",".join(re.findall(r"Lb([01])E", m.group(2) or ""))
+        return m.group(1) + (f"<{flags}>" if flags else "")
+
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = short(m.group(1))
+        m = re.search(r"C7515.*in the function '([^']+)'", line)
+        if m:
+            serialized.add(short(m.group(1)))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills = f"spill stores {m.group(1)} B, spill loads {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            found.append((name, f"{m.group(1)} registers at launch, {spills}"))
+            name = None
+    return [f"  ptxas {k}: {v}" + (", wgmma serialized (C7515)" if k in serialized else "")
+            for k, v in found]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's check needs one", file=sys.stderr)
@@ -1818,6 +1860,8 @@ def main() -> int:
     with Phase("build") as ph:
         _build.load()
     print(f"build: {ph.seconds:.2f} s -> {_build.library_path()}", flush=True)
+    for line in ptxas_summary(_build.PTXAS_REPORTS.get("flash_attention_bf16.cu")):
+        print(line, flush=True)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)

@@ -1,0 +1,121 @@
+#!/usr/bin/env python3
+"""One bf16 gradient step at batch 16 of each surrogate, for an A/B of two
+checkouts on one card.
+
+    python3 scripts/bf16_step_ab.py
+
+Runs, from the checkout it lives in, ``chip_smoke.py``'s batch-16 step
+(feature loss, forward + backward + K1, ``--dtype bfloat16``, ``--attn
+flash`` against ``--attn xla`` in turns) for ALBEF and for VLMo, on the
+same random full-width weights from seed 0; then profiles three more
+flash steps of each (``torch.profiler``, CUDA activity): the device time
+of all kernels a step, that of the flash-attention kernels, and the
+step's wall time under the profiler, whose difference from the device
+time is the card's idle share.  Prints one JSON line with these and the
+card's name and power limit.  Step times include the host's enqueueing and
+vary from call to call, so two versions are compared in one call, each in
+its own process from its own checkout, in turns: parent, change, change,
+parent.  A parent checkout that lacks
+this script gets a copy of it in its ``scripts/``: it imports the
+checkout's own ``chip_smoke.py`` and ``vqattack_tpu_torch``.  Needs one
+CUDA device; builds the checkout's kernels at first use.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402
+from vqattack_tpu_torch.text.tokenizer import WordPieceTokenizer  # noqa: E402
+
+
+def device_times(step, steps: int = 3) -> dict:
+    """``step`` under ``--attn flash``, once to warm up, then ``steps`` times
+    under the profiler: per step, the summed device time of every kernel and
+    of the flash-attention kernels (ms), and the wall time (ms)."""
+    with cs.attention.attention_impl("flash"):
+        step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    total = flash = 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "device_time", None)
+        us = e.cuda_time if us is None else us
+        total += us
+        flash += us if "flash_" in e.name else 0.0
+    return {"device_ms": total / steps / 1e3, "flash_ms": flash / steps / 1e3,
+            "wall_ms": wall / steps * 1e3}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("bf16_step_ab: no CUDA device", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = tempfile.mkdtemp(prefix="vqattack_step_ab_")
+    try:
+        paths = cs.write_assets(tmp)
+        common = [
+            "--vocab", paths["vocab"], "--answer-list", paths["answers"],
+            "--right-part", paths["right"], "--surrogate-ans", paths["sur"],
+            "--target-ans", paths["tgt"], "--paraphrases", paths["para"],
+            "--all-correct", paths["allc"], "--output", os.path.join(tmp, "out"),
+            "--seed", str(cs.SEED), "--device", "cuda", "--dtype", "bfloat16",
+        ]
+        v_common = [a for a in common if a not in ("--answer-list", paths["answers"])]
+        v_common += ["--pipeline", "vlmo", "--id2answer", paths["id2answer"]]
+        tokenizer = WordPieceTokenizer.from_file(paths["vocab"])
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(cs.SEED)
+        steps = {}
+        step_ab = cs.step_ab
+
+        def keep_step(step, square, what):  # chip_smoke's A/B, keeping its step
+            steps[what] = step
+            return step_ab(step, square, what)
+
+        cs.step_ab = keep_step
+        _, cfg, pipe = cs.build_pipelines(common, tokenizer)
+        albef = cs.one_step_ab(pipe, cfg, tokenizer, gen)
+        albef_dev = device_times(steps.pop(next(iter(steps))))
+        del pipe
+        torch.cuda.empty_cache()
+        _, v_cfg, v_pipe = cs.build_pipelines(v_common, tokenizer)
+        vlmo = cs.vlmo_one_step_ab(v_pipe, v_cfg, tokenizer, gen)
+        vlmo_dev = device_times(steps.pop(next(iter(steps))))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"checkout": ROOT, "card": card, **{
+        f"{name}_bf16_{impl}_median_s": ab[impl]["median_s"]
+        for name, ab in (("albef", albef), ("vlmo", vlmo)) for impl in ("flash", "xla")},
+        **{f"{name}_bf16_flash_{k}": v for name, dev in (("albef", albef_dev), ("vlmo", vlmo_dev))
+           for k, v in dev.items()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -9,6 +9,7 @@ the CPU.
 
 from __future__ import annotations
 
+import re
 import stat
 import threading
 import types
@@ -90,3 +91,46 @@ def test_concurrent_first_loads_build_and_load_once(tmp_path, monkeypatch):
     assert len(log.read_text().splitlines()) == len(_build.SOURCES) + 1
     fn = getattr(libs[0], next(iter(_build.SIGNATURES)))
     assert fn.restype is _build.ctypes.c_int
+
+
+def test_build_targets_sm90a_and_links_no_driver_library(tmp_path, monkeypatch):
+    """K3-bf16 runs wgmma and setmaxnreg, which exist only for ``sm_90a``, so
+    every compile and the link name that target; ptxas's report is asked
+    for; and nothing links the driver library: the TMA map encoder
+    (``cuTensorMapEncodeTiled``) is reached through the runtime's
+    ``cudaGetDriverEntryPoint``, not called by its symbol."""
+    stub, log = _stub_nvcc(tmp_path)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(stub))
+    monkeypatch.setattr(_build, "library_path", lambda: tmp_path / "libvqattack_kernels.so")
+    _build.build()
+    runs = [r.split() for r in log.read_text().splitlines()]
+    assert sorted(r[-1].rsplit("/", 1)[-1] for r in runs if "-c" in r) == sorted(_build.SOURCES)
+    for args in runs:
+        assert "arch=compute_90a,code=sm_90a" in args
+        assert args[args.index("-Xptxas") + 1] == "-v"
+        assert not [a for a in args if a.startswith("-l") or a.endswith("libcuda.so")], args
+    src = (_build.CSRC / "flash_attention_bf16.cu").read_text()
+    assert "cudaGetDriverEntryPoint" in src
+    assert re.search(r"\bcuTensorMapEncodeTiled\s*\(", src) is None
+    # the report of every source is kept for the smoke run's summary
+    assert set(_build.PTXAS_REPORTS) >= set(_build.SOURCES)
+
+
+def test_ptxas_summary_reads_registers_spills_and_serialization():
+    """chip_smoke.py's summary of ptxas's report: one line a kernel with its
+    template flags, registers, spills and a C7515 serialization."""
+    import chip_smoke
+
+    name = "_ZN56_GLOBAL__N__fd226401_23_flash_attention_bf16_cu_05493f2a19flash_bwd_dq_kernelILb1ELb0EEEvNS_6ParamsENS_4MapsE"
+    report = "\n".join([
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {name}",
+        "    16 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 16 barriers",
+        "ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions are "
+        f"serialized due to non wgmma instructions in the function '{name}'",
+    ])
+    assert chip_smoke.ptxas_summary(report) == [
+        "  ptxas flash_bwd_dq_kernel<1,0>: 168 registers at launch, spill stores 8 B, "
+        "spill loads 12 B, wgmma serialized (C7515)"]
+    assert "no report" in chip_smoke.ptxas_summary(None)[0]

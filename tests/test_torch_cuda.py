@@ -429,3 +429,63 @@ def test_flash_attention_bf16_autograd_counts_and_key_bias_guard(gen):
         attention.flash_attention(q, k, v, table, 0.125, key_bias=kb.bfloat16())
     with pytest.raises(TypeError, match="bias"):
         attention.flash_attention(q, k, v, table.bfloat16(), 0.125, key_bias=kb)
+
+
+# The wgmma kernels' tile edges: the forward walks 128-key tiles (the ragged
+# one, 16, 64 or 128 wide, first), dQ 64-key and dK/dV 64-query tiles (the
+# last 16 or 64 wide); a block holds 128 rows in two warpgroups of 64.
+_EDGES = (1, 5, 63, 64, 65, 127, 128, 129, 901, 941)
+
+
+@pytest.mark.parametrize("sq,sk", [(s, s) for s in _EDGES] + [
+    (1, 941), (941, 1), (5, 128), (128, 5), (64, 129), (129, 64), (65, 901), (901, 127)])
+def test_flash_attention_bf16_tile_edges(gen, sq, sk):
+    """K3-bf16 forward and backward at every tile edge of its walks, Sq = Sk
+    and Sq != Sk, held as in :func:`test_flash_attention_bf16_kernels`."""
+    q, k, v, _ = _attention_case(gen, 2, sq, sk, "none", h=2)
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    do = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    _check_bf16_case(q, k, v, None, None, do)
+
+
+@pytest.mark.parametrize("s,form", [
+    (130, "bias"), (941, "bias"), (130, "key_bias"), (941, "key_bias"), (901, "both")])
+def test_flash_attention_bf16_broadcast_terms(gen, s, form):
+    """A bias broadcast over batch, heads and query rows ([1, 1, 1, Sk]) and
+    a key bias broadcast over the batch ([1, Sk], a fifth of the keys at
+    -1e9), alone and together."""
+    q, k, v, _ = _attention_case(gen, 3, s, s, "none", h=2)
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    bias = key_bias = None
+    if form in ("bias", "both"):
+        bias = torch.randn(1, 1, 1, s, generator=gen, device="cuda")
+    if form in ("key_bias", "both"):
+        keep = torch.rand(1, s, generator=gen, device="cuda") > 0.2
+        keep[:, 0] = True
+        key_bias = torch.where(keep, 0.0, -1e9)
+    do = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    _check_bf16_case(q, k, v, bias, key_bias, do)
+
+
+@pytest.mark.parametrize("s,lo,hi", [
+    (130, 0, 64), (130, 128, 130), (901, 0, 128), (901, 896, 901), (941, 896, 941)])
+def test_flash_attention_bf16_inf_key_bias_over_a_tile(gen, s, lo, hi):
+    """A -inf key bias over keys [lo, hi) of every row, with the table: over
+    the first 128-key tile, or over the ragged last one, which the forward
+    walks first, so that a row's first tile is all -inf."""
+    q, k, v, table, _ = _two_terms(gen, 2, s, "zero", h=2)
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    key_bias = torch.zeros(2, s, device="cuda")
+    key_bias[:, lo:hi] = -torch.inf
+    do = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    _check_bf16_case(q, k, v, table, key_bias, do)
+
+
+def test_flash_attention_bf16_backward_bit_identical_at_the_batched_chunk(gen):
+    """At [8, 901, 12, 64] without terms (ALBEF's batched chunk in bf16), two
+    backward runs give the same bits, and everything is held as in
+    :func:`test_flash_attention_bf16_kernels`."""
+    q, k, v, _ = _attention_case(gen, 8, 901, 901, "none", h=12)
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    do = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    _check_bf16_case(q, k, v, None, None, do)

@@ -1,5 +1,7 @@
-// Flash attention, forward and backward, bfloat16 q/k/v, head dim 64, on the
-// tensor cores: one bf16 mma.sync pass per product, float32 accumulation.
+// Flash attention, forward and backward, bfloat16 q/k/v, head dim 64, on
+// Hopper's warpgroup tensor-core instructions (wgmma) with tiles brought in
+// by the Tensor Memory Accelerator (TMA): one bf16 pass a product, float32
+// accumulation.
 //
 // Replaces the TPU kernel behind vqattack_tpu/ops/attention.py::flash_attention
 // when the surrogate trunk computes in bfloat16 (--dtype bfloat16): the JAX
@@ -8,7 +10,7 @@
 // bias, and the library multiplies bf16 operands with float32 accumulation.
 // This kernel computes the same function, rounding where the library rounds:
 //
-//   forward   S = Q K^T * scale + bias + key_bias  (float32 from bf16 Q, K),
+//   forward   S = Q K^T * scale + (bias + key_bias)  (float32 from bf16 Q, K),
 //             L = logsumexp_rows(S),  O = bf16( (bf16(P~) V) / l )
 //             with P~ = exp(S - running max), l its float32 row sum
 //   backward  D_i = sum_d dO_id O_id  (float32 from bf16 dO, O),
@@ -19,39 +21,81 @@
 // (P cast before P V and P^T dO, dS before dS K and dS^T Q, as the library's
 // forward, dkv and dq kernels cast them; scale is 1/8 for head dim 64, a
 // power of two, so scaling dS before or after its rounding gives the same
-// bits.)  O, dQ, dK, dV come back bf16, L float32.  The layout contract is
-// that of flash_attention.cu: q/k/v through their [B, S, H, 64] element
-// strides, O/dQ/dK/dV contiguous [B, S, H, 64], L and D [B, H, Sq], the bias
-// through broadcast strides and the key bias ([1|B, Sk]) as a vector, both
-// float32 and both optional; ragged lengths masked inside the kernel.
+// bits.  The two terms are summed before they join the scores, as the JAX
+// caller sums them into its one bias.)  O, dQ, dK, dV come back bf16, L
+// float32.  The layout contract is that of flash_attention.cu: q/k/v through
+// their [B, S, H, 64] element strides (multiples of 8, rows on 16 bytes: the
+// wrapper checks), O/dQ/dK/dV contiguous [B, S, H, 64], L and D [B, H, Sq],
+// the bias through broadcast strides and the key bias ([1|B, Sk]) as a
+// vector, both float32 and both optional; ragged lengths masked inside;
+// scale > 0.
 //
 // Bound on the H100: operations.  At ALBEF's batched chunk [8, 901, 12, 64]
 // the forward needs 4 B*H*S^2*Dh = 20.0 GFLOP, 20 us at the dense bf16 rate
 // (989 TFLOP/s), against 44 MB of bf16 q, k, v and o (13 us at 3.35 TB/s);
-// the backward, recomputing P from L, 10x (50 GFLOP, 50 us).
+// the backward, recomputing P from L, 10x (49.9 GFLOP, 50 us).
 //
-// Design (simple first; wgmma and TMA are a later step):
-// - every product is mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32; one block
-//   of 4 warps per 64-row query tile (forward, dQ) or key tile (dK/dV), 16
-//   rows a warp; the block's own 64 rows of Q (forward, dQ: and dO) or of K
-//   and V (dK/dV) are read into A fragments once and held in registers;
-// - fragments come from shared memory by ldmatrix, with .trans for the
-//   operands whose depth runs down the tile's rows (V in P V, dO in P^T dO,
-//   Q in dS^T Q, K in dS K), which bf16 allows and TF32 did not;
-// - the m16n8k16 accumulator of two neighbouring 8-column tiles is, element
-//   for element, the A fragment of a 16-deep step: P and dS go from the
-//   score accumulators to the next product's A operand in registers, by one
-//   float -> bf16x2 conversion a pair (the rounding above);
-// - 64 x 64 tiles with rows padded to 72 bf16 (144 bytes): the 8 rows an
-//   ldmatrix phase reads start 4 banks apart, 32 distinct banks;
-// - tiles arrive by 16-byte cp.async (zero-filled past Sq or Sk), double
-//   buffered; the bias, read from device memory, and the key bias, 64
-//   float32 a key tile in shared memory, are template parameters as in the
-//   float32 kernel;
-// - the backward has the float32 kernel's structure (a D pass, dK/dV over
-//   key tiles, dQ over query tiles, no atomics): every sum runs in a fixed
-//   order, so the result is the same bit for bit on every run.
+// Design (what held the mma.sync version back, and the answer to each):
+// - tensor-core instructions: every product is wgmma.mma_async m64nNk16
+//   bf16 -> f32, issued by a warpgroup (4 warps, 64 rows), its A operand in
+//   registers and its B operand read from shared memory through a
+//   descriptor.  The operand a warpgroup keeps for the whole walk (Q in the
+//   forward; K and V in dK/dV; Q and dO in dQ) is read once from its TMA
+//   tile by ldmatrix; P and dS are packed from the float32 accumulator by
+//   cvt.rn.bf16x2.f32 (the wgmma accumulator and register-A layouts are,
+//   warp by warp, those of mma.m16n8k16).  B is read K-major for the
+//   products over the head dim (K, Q, V, dO tiles) and transposed (MN-major)
+//   for the products over keys or queries (V, dO, Q, K), which bf16 allows;
+// - block size and latency hiding: a block is three warpgroups, two that
+//   compute (64 rows each: a 128-row query tile in the forward and dQ, a
+//   128-row key tile in dK/dV) and one that loads; setmaxnreg moves
+//   registers from the loader (40) to the two computing ones (232).  One
+//   block an SM (384 threads at 168 registers at launch; 113 KB of shared
+//   memory in the forward and dQ, 99 KB in dK/dV), in a persistent
+//   grid: block i walks tiles i, i + 132, ... (head-major, the batch
+//   inside), and the loader fetches a tile's fixed operands (Q; K and V; Q,
+//   dO and O) as soon as the computing warpgroups hold the last tile's in
+//   registers, so that a tile's start (the first tiles' TMA latency)
+//   overlaps the previous tile's end.  At [8, 901, 12, 64] each kernel
+//   walks 8 x 96 = 768 tiles, 6 on 108 blocks and 5 on 24.  Each
+//   warpgroup issues the next products before it waits for the last ones
+//   (forward: S_j with P_{j-1} V_{j-1}; dK/dV: dV while dS is computed, dK
+//   across steps; dQ: dQ across steps), and the two warpgroups take turns
+//   to issue (named barriers), so that one's softmax (exp on the
+//   multi-function units) runs under the other's products;
+// - a copy warp: one warp of the loading warpgroup keeps TMA loads of the
+//   streamed tiles (K/V in the forward and dQ, Q/dO in dK/dV) in flight
+//   through a ring of 3 (forward, 32 KB) or 4 (backward, 16 KB) stages, each
+//   with a "full" mbarrier (the TMA's bytes) and an "empty" one (every
+//   computing thread arrives when its wgmmas have read the stage); in dK/dV
+//   it also stages each query tile's L and D in shared memory.  No thread
+//   that multiplies issues a copy;
+// - layout: tiles of 64-element (128-byte) rows in the 128-byte swizzle that
+//   both TMA and the wgmma descriptors take (8-row groups 1024 bytes apart);
+//   the TMA maps are 4-D (64, S, H, B) over the tensors' own strides with
+//   64-row boxes, so rows past Sq or Sk of each (batch, head) arrive as
+//   zeros, and scores of keys past Sk are masked to -inf;
+// - ragged lengths: the forward walks 128-key tiles, the ragged one first
+//   (128, 64 or 16 wide: 901 = 7 x 128 + 5 takes a 16-wide tile, 941 = 7 x
+//   128 + 45 a 64-wide one), so that only its step masks; dQ walks 64-key
+//   and dK/dV 64-query tiles, the last 64 or 16 wide.  Both warpgroups walk
+//   every tile: rows past Sq (Sk) are computed from the zeros TMA fills in
+//   and are not written.  A row whose first key tile is all -inf
+//   exponentiates against 0;
+// - the two terms: read from device memory (L2) into registers, in the
+//   forward and dQ before the tile's full barrier is waited on, so that the
+//   loads overlap the wait and the other warpgroup's products (in dK/dV,
+//   whose registers are fuller, once S^T is done); the tiles are numbered
+//   head-major with the batch inside, so one head's slice of a [1, H, S, S]
+//   table is reused from L2 by the batch;
+// - backward, deterministic: dQ over query tiles (S, dP; it also computes D
+//   = rowsum(dO o O) from its O tile and writes it), then dK/dV over key
+//   tiles (S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T come out as its A
+//   operands), no atomics: every sum runs in a fixed order, so the result
+//   is the same bit for bit on every run.  dQ recomputes S and dP: 7
+//   products where the bound counts 5 (14 units of B*H*S^2*Dh against 10).
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -61,14 +105,12 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kD = 64;          // head dim
-constexpr int kTile = 64;       // rows of a query or key tile
-constexpr int kLd = kD + 8;     // shared-memory row, in bf16 (144 bytes)
-constexpr int kWarps = 4;       // 16 rows of a tile each
-constexpr int kThreads = 32 * kWarps;
-constexpr int kTileElems = kTile * kLd;
-constexpr int kKSteps = kD / 16;  // 16-deep mma steps over 64 columns (or keys)
-constexpr int kNTiles = kD / 8;   // 8-wide accumulator tiles over 64 columns
+constexpr int kD = 64;                         // head dim: one 128-byte row
+constexpr int kBox = 64;                       // rows of a TMA box and of a warpgroup
+constexpr uint32_t kBoxBytes = kBox * kD * 2;  // 8 KB
+constexpr int kThreads = 3 * 128;              // two computing warpgroups and a loader
+constexpr int kFwdStages = 3;                  // the forward's ring (32 KB a stage)
+constexpr int kBwdStages = 4;                  // the backward's rings (16 KB a stage)
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
@@ -94,97 +136,277 @@ struct Params {
   float scale;
 };
 
+// TMA maps of the [B, S, H, 64] tensors the tiles come from, passed to the
+// kernels by value (__grid_constant__), where TMA reads them.
+struct Maps {
+  CUtensorMap q, k, v, o, dout;
+};
+
 // ---------------------------------------------------------------------------
-// shared-memory tiles and asynchronous copies
+// barriers, TMA and shared memory
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
+__device__ __forceinline__ void bar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
+// One arrival that also adds ``bytes`` of TMA transfers to the phase.
+__device__ __forceinline__ void bar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
-// Wait until at most one group (the one just committed) is in flight.
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+__device__ __forceinline__ uint64_t now_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
 }
 
-// Rows [row0, row0 + 64) of one (batch, head) slice into a tile by 16-byte
-// copies (8 bf16); rows past ``nrows`` are zero-filled.  ``base`` points at
-// row 0, 16-byte aligned, as is every row (the wrapper checks).
-__device__ __forceinline__ void load_tile(bf16* sm, const bf16* base, long long row_stride,
-                                          int row0, int nrows) {
-  for (int idx = threadIdx.x; idx < kTile * kD / 8; idx += kThreads) {
-    const int r = idx >> 3, c = (idx & 7) << 3;
-    const int row = row0 + r;
-    const bool ok = row < nrows;
-    cp_async16(sm + r * kLd + c, ok ? base + row * row_stride + c : base, ok);
+// Wait until the phase of parity ``parity`` has completed.  A phase that
+// has not completed after four seconds (a copy that never arrives) stops
+// the kernel with a trap, which the next CUDA call reports, instead of
+// holding the card.
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done, tries = 0;
+  uint64_t t0 = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (++tries % 1024 == 0) {
+      if (t0 == 0) {
+        t0 = now_ns();
+      } else if (now_ns() - t0 > 4000000000ull) {
+        __trap();
+      }
+    }
   }
 }
 
-// Key-bias values of keys [k0, k0 + 64) (0 past Sk, where the keys are
-// masked) into ``dst``; ``kb`` is (b)'s key 0.
-__device__ __forceinline__ void load_key_bias(float* dst, const float* kb, int k0, int Sk) {
-  if (threadIdx.x < kTile) {
-    const int key = k0 + threadIdx.x;
-    const bool ok = key < Sk;
-    cp_async4(dst + threadIdx.x, ok ? kb + key : kb, ok);
-  }
+// Rows [row, row + 64) of (batch b, head h) from a (64, S, H, B) map into a
+// 128-byte-swizzled 8 KB tile at ``dst``; rows past S arrive as zeros.  The
+// bytes count toward ``bar``'s phase.
+__device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int row, int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row), "r"(h), "r"(b)
+      : "memory");
 }
 
-// L and D of query rows [q0, q0 + 64) (0 past Sq); ``off`` is (b, h)'s row 0.
-__device__ __forceinline__ void load_rows(const Params& p, float* Ls, float* Ds,
-                                          long long off, int q0) {
-  if (threadIdx.x < kTile) {
-    const int row = q0 + threadIdx.x;
-    const bool ok = row < p.Sq;
-    cp_async4(Ls + threadIdx.x, ok ? p.lse + off + row : p.lse, ok);
-    cp_async4(Ds + threadIdx.x, ok ? p.delta + off + row : p.delta, ok);
+__device__ __forceinline__ void st_shared(uint32_t addr, float x) {
+  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(x) : "memory");
+}
+
+__device__ __forceinline__ float2 ld_shared2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
+// The loader's ring of kS stages: tile j sits in stage j % kS, whose "full"
+// barrier completes its (j / kS)-th phase when the tile has arrived and
+// whose "empty" barrier completes it when every computing thread is done
+// with it.
+template <int kS>
+struct Ring {
+  uint32_t full0, empty0;
+  __device__ __forceinline__ uint32_t full(int j) const { return full0 + 8 * (j % kS); }
+  __device__ __forceinline__ uint32_t empty(int j) const { return empty0 + 8 * (j % kS); }
+  __device__ __forceinline__ void wait_full(int j) const { bar_wait(full(j), (j / kS) & 1); }
+  // the loader's wait before it reloads tile j's stage
+  __device__ __forceinline__ void wait_empty(int j) const {
+    if (j >= kS) bar_wait(empty(j), ((j / kS) - 1) & 1);
   }
+  __device__ __forceinline__ void init(uint32_t full_count, uint32_t empty_count) const {
+    for (int s = 0; s < kS; ++s) {
+      bar_init(full(s), full_count);
+      bar_init(empty(s), empty_count);
+    }
+  }
+};
+
+// Shared memory: ``n_tiles`` 8 KB tiles from a 1024-byte boundary, then
+// ``extra`` bytes and the barriers (two for a tile's fixed operands, two a
+// stage); the launch asks for 1 KB more to align.
+constexpr size_t smem_bytes(int n_tiles, int extra, int stages) {
+  return 1024 + (size_t)n_tiles * kBoxBytes + extra + 8 * (2 * stages + 2);
+}
+
+__device__ __forceinline__ uint32_t smem_base() {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  return (smem_u32(smem_raw) + 1023) & ~1023u;
+}
+
+__device__ __forceinline__ void loader_regs() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+}
+__device__ __forceinline__ void compute_regs() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
-// bf16 fragments and products
+// wgmma
 //
-// A thread (lane) holds, with g = lane / 4 and t = lane % 4 (two bf16 a
-// register, the lower column in the low half):
-//   A (16 x 16): a0 (g, 2t..2t+1), a1 (g + 8, 2t..), a2 (g, 2t+8..), a3 (g + 8, 2t+8..);
-//   B (16 x 8):  b0 (2t..2t+1, g), b1 (2t+8..2t+9, g)   (rows are the depth);
-//   C (16 x 8):  c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1).
-// ldmatrix.x4 takes one row address from each lane: lanes 8m..8m+7 give the
-// 8 rows of matrix m, and register m of every lane receives matrix m.
+// The accumulator of an m64nN product: thread t of the warpgroup (warp w =
+// t / 32, g = lane / 4, c = lane % 4) holds d[i], i < N / 2, at row 16 w + g
+// + 8 ((i / 2) % 2) and column 8 (i / 4) + 2 c + i % 2.  The register A
+// operand of a 16-deep step holds, in four registers of two bf16 (the lower
+// column low), rows 16 w + g and + 8 at depth 2 c, 2 c + 1 and 2 c + 8, 2 c
+// + 9: the accumulator's columns 16 kk .. 16 kk + 15 packed in order.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+// Descriptor of a tile of 128-byte rows in the 128-byte swizzle (layout type
+// 1), whose 8-row groups lie 1024 bytes apart (stride byte offset 64 x 16).
+// Read K-major (depth along a row: a 16-deep step is 32 bytes further) or
+// MN-major (depth down the rows: a step is 16 rows, 2048 bytes, further;
+// the 64 columns are one swizzle atom wide, so the leading offset is unused).
+// Every tile starts on 1024 bytes.
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most ``kPending`` of the committed groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
 }
 
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-               : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Registers that an asynchronous wgmma reads or writes: touch them only
+// after the wg_wait that completes it, and keep them live until then.
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N, int M>
+__device__ __forceinline__ void keep(uint32_t (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// The first M elements of a register array, as an array of M.
+template <int M, int N>
+__device__ __forceinline__ float (&head(float (&a)[N]))[M] {
+  static_assert(M <= N, "head longer than the array");
+  return *reinterpret_cast<float(*)[M]>(&a[0]);
+}
+
+#define VQ_F8(i)                                                                      \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),         \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (=|+=) A X, A a 64 x 16 bf16 register operand and X a 16 x N slice of
+// shared memory, read MN-major (``kTrans`` 1: X stored [depth][N]) or K-major
+// (``kTrans`` 0: X stored [N][depth]); ``acc`` 0 overwrites d.
+template <int N, int kTrans>
+struct Rs;
+
+template <int kTrans>
+struct Rs<128, kTrans> {
+  static __device__ __forceinline__ void run(float (&d)[64], const uint32_t (&a)[4], uint64_t x,
+                                             int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : VQ_F8(0), VQ_F8(8), VQ_F8(16), VQ_F8(24), VQ_F8(32), VQ_F8(40), VQ_F8(48), VQ_F8(56)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(x), "r"(acc), "n"(kTrans));
+  }
+};
+
+template <int kTrans>
+struct Rs<64, kTrans> {
+  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4], uint64_t x,
+                                             int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : VQ_F8(0), VQ_F8(8), VQ_F8(16), VQ_F8(24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(x), "r"(acc), "n"(kTrans));
+  }
+};
+
+template <int kTrans>
+struct Rs<16, kTrans> {
+  static __device__ __forceinline__ void run(float (&d)[8], const uint32_t (&a)[4], uint64_t x,
+                                             int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : VQ_F8(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(x), "r"(acc), "n"(kTrans));
+  }
+};
+
+#undef VQ_F8
+
+// Issue d += C X as one group: C a 64 x N operand in registers (N deep, its
+// first N / 16 steps), X the tile at ``x`` (its first N rows, MN-major).
+template <int N, int R>
+__device__ __forceinline__ void issue_rs(float (&d)[32], const uint32_t (&c)[R][4], uint32_t x) {
+  static_assert(N / 16 <= R, "operand too short");
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) Rs<64, 1>::run(d, c[kk], desc(x + 2048 * kk), 1);
+  wg_commit();
+}
+
+// Issue d = A B^T over the 64 columns as one group: A 64 rows held as
+// register operands (``a``, four 16-deep steps), B the tile at ``b`` (its
+// first N rows, K-major).
+template <int N>
+__device__ __forceinline__ void issue_rs_k(float (&d)[N / 2], const uint32_t (&a)[4][4],
+                                           uint32_t b) {
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) Rs<N, 0>::run(d, a[kk], desc(b + 32 * kk), kk);
+  wg_commit();
+}
+
+// The register A operand of this warp's 16 rows of a 64-row tile at ``tile``
+// over its 64 columns (four 16-deep steps), by ldmatrix from the 128-byte
+// swizzle: lanes 0-15 give rows 0-15 at the step's first 8 columns, lanes
+// 16-31 at its second 8; 16-byte chunk k of row r sits at chunk k ^ (r % 8).
+__device__ __forceinline__ void load_a(uint32_t (&a)[4][4], uint32_t tile) {
+  const int lane = threadIdx.x & 31, row = 16 * ((threadIdx.x >> 5) & 3) + (lane & 15);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t addr = tile + row * 128 + (((2 * kk + (lane >> 4)) ^ (row & 7)) << 4);
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(a[kk][0]), "=r"(a[kk][1]), "=r"(a[kk][2]), "=r"(a[kk][3])
+                 : "r"(addr));
+  }
 }
 
 // Two floats rounded to bf16 (to nearest even), ``lo`` in the low half.
@@ -192,6 +414,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   uint32_t r;
   asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
   return r;
+}
+
+__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t x) {
+  return make_float2(__uint_as_float(x << 16), __uint_as_float(x & 0xffff0000u));
+}
+
+// The register A operand of a 64 x N float32 accumulator, rounded to bf16.
+template <int N, int R>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[R][4], const float (&c)[N / 2]) {
+  static_assert(N / 16 <= R, "operand too short");
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(c[8 * kk + 2 * r], c[8 * kk + 2 * r + 1]);
 }
 
 // 2^x in one instruction (denormal results flush to 0, a weight that does
@@ -202,73 +438,6 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// Per-lane element offsets of the ldmatrix row addresses:
-// - A from a row-major tile (rows r.., columns k..): matrices (rows 0-7,
-//   cols 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15) = a0..a3;
-// - B = X^T from X stored [n][k] (no transpose): matrices (n 0-7, k 0-7),
-//   (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15) = b0, b1 of the
-//   8-column tile n0 and b0, b1 of the tile n0 + 8;
-// - B = X from X stored [k][n] (.trans): matrices (k 0-7, n 0-7), (k 8-15,
-//   n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15), the same four registers.
-struct LaneOffsets {
-  int a, b, bt;
-  __device__ __forceinline__ LaneOffsets(int lane)
-      : a((lane & 15) * kLd + (lane >> 4) * 8),
-        b(((lane & 7) + ((lane >> 4) << 3)) * kLd + ((lane >> 3) & 1) * 8),
-        bt(((lane & 7) + (((lane >> 3) & 1) << 3)) * kLd + ((lane >> 4) << 3)) {}
-};
-
-// The A fragments of rows [r0, r0 + 16) of a tile over its 64 columns.
-__device__ __forceinline__ void load_a_rows(uint32_t a[kKSteps][4], const bf16* tile, int r0,
-                                            const LaneOffsets& lo) {
-#pragma unroll
-  for (int kk = 0; kk < kKSteps; ++kk) ldsm_x4(a[kk], tile + r0 * kLd + lo.a + 16 * kk);
-}
-
-// acc = A X^T: A held as fragments (16 rows x 64), X a 64 x 64 tile stored
-// [n][k]; a 16 x 64 product over 64 columns.
-__device__ __forceinline__ void product_abt(float acc[kNTiles][4], const uint32_t a[kKSteps][4],
-                                            const bf16* x, const LaneOffsets& lo) {
-#pragma unroll
-  for (int n = 0; n < kNTiles; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < kKSteps; ++kk)
-#pragma unroll
-    for (int np = 0; np < kNTiles / 2; ++np) {
-      uint32_t b[4];
-      ldsm_x4(b, x + lo.b + 16 * np * kLd + 16 * kk);
-      mma_bf16(acc[2 * np], a[kk], b[0], b[1]);
-      mma_bf16(acc[2 * np + 1], a[kk], b[2], b[3]);
-    }
-}
-
-// acc += bf16(C) X, C a 16 x 64 float32 accumulator tile (c[j] its columns
-// 8j..8j+7), rounded to bf16 as it becomes the A operand, and X a 64 x 64
-// tile stored [k][n].
-__device__ __forceinline__ void product_cx(float acc[kNTiles][4], const float c[kNTiles][4],
-                                           const bf16* x, const LaneOffsets& lo) {
-#pragma unroll
-  for (int kk = 0; kk < kKSteps; ++kk) {
-    const uint32_t a[4] = {pack_bf16(c[2 * kk][0], c[2 * kk][1]),
-                           pack_bf16(c[2 * kk][2], c[2 * kk][3]),
-                           pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]),
-                           pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3])};
-#pragma unroll
-    for (int np = 0; np < kNTiles / 2; ++np) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, x + lo.bt + 16 * kk * kLd + 16 * np);
-      mma_bf16(acc[2 * np], a, b[0], b[1]);
-      mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// scores
-// ---------------------------------------------------------------------------
-
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -278,356 +447,720 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// s = (s * scale + bias) + key_bias over a 16 x 64 accumulator tile whose
-// element (n, e) sits at row r + 8 (e / 2) and column c + 8 n + (e % 2)
-// (r = its first row + g, c = its first column + 2t).  Rows are queries and
-// columns keys, or the other way round (``kKeyRows``).  The bias index is
-// clamped, so that rows and columns past Sq and Sk (masked or never written)
-// read in bounds.  ``kbs`` is the key-bias tile in shared memory, offset to
-// this thread's first key: + 2t for key columns, + the warp's first row + g
-// for key rows.
-template <bool kBias, bool kKeyBias, bool kKeyRows>
-__device__ __forceinline__ void scale_bias(float s[kNTiles][4], const Params& p,
-                                           const float* bias_bh, const float* kbs, int r,
+// ---------------------------------------------------------------------------
+// scores
+//
+// A thread's elements of a 64 x N accumulator tile: d[i] at row r + 8 ((i /
+// 2) % 2) and column c + 8 (i / 4) + i % 2, with r the warp's first row + g
+// and c the tile's first column + 2 (lane % 4).  Rows are queries and columns
+// keys, or the other way round (``kKeyRows``, dK/dV).
+// ---------------------------------------------------------------------------
+
+// bias + key_bias at this thread's elements.  Rows are clamped (rows past Sq
+// or Sk are never written), and with ``kClamp`` columns too (the ragged
+// tile, whose columns past Sq or Sk are masked), so that every read is in
+// bounds.
+template <int N, bool kBias, bool kKeyBias, bool kKeyRows, bool kClamp>
+__device__ __forceinline__ void load_terms(float (&t)[N / 2], const Params& p,
+                                           const float* bias_bh, const float* kbb, int r, int c) {
+  const float* row_ptr[2];
+  float row_kb[2] = {0.f, 0.f};
+  const long long col_stride = kKeyRows ? p.bsq : p.bsk;
+  const int n_cols = kKeyRows ? p.Sq : p.Sk;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = min(r + 8 * h, (kKeyRows ? p.Sk : p.Sq) - 1);
+    row_ptr[h] = kBias ? bias_bh + row * (kKeyRows ? p.bsk : p.bsq) : nullptr;
+    if (kKeyBias && kKeyRows) row_kb[h] = __ldg(kbb + row);
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    int col = c + 8 * (i >> 2) + (i & 1);
+    if (kClamp) col = min(col, n_cols - 1);
+    float x = kBias ? __ldg(row_ptr[(i >> 1) & 1] + col * col_stride) : 0.f;
+    if (kKeyBias) x += kKeyRows ? row_kb[(i >> 1) & 1] : __ldg(kbb + col);
+    t[i] = x;
+  }
+}
+
+// s = s * scale + t (with ``kTerms``), and -inf in the columns at or past
+// ``n_valid`` (with ``kMask``).
+template <int N, bool kTerms, bool kMask>
+__device__ __forceinline__ void prep(float (&s)[N / 2], const float (&t)[N / 2], float scale,
+                                     int c, int n_valid) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    float x = s[i] * scale;
+    if (kTerms) x += t[i];
+    if (kMask && c + 8 * (i >> 2) + (i & 1) >= n_valid) x = -INFINITY;
+    s[i] = x;
+  }
+}
+
+// Store rows r and r + 8 of a 64 x 64 accumulator tile (this thread's part)
+// times ``mul0`` / ``mul1``, as bf16, to a contiguous [B, S, H, 64] tensor
+// (``base`` at row 0 of this batch and head); rows at or past ``nrows`` are
+// not written.
+__device__ __forceinline__ void store_rows(bf16* base, long long row_stride, int r, int nrows,
+                                           const float (&acc)[32], float mul0, float mul1,
                                            int c) {
 #pragma unroll
-  for (int n = 0; n < kNTiles; ++n)
+  for (int i = 0; i < 2; ++i) {
+    const int rr = r + 8 * i;
+    if (rr >= nrows) continue;
+    const float mul = i == 0 ? mul0 : mul1;
+    bf16* dst = base + rr * row_stride + 2 * c;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float x = s[n][e] * p.scale;
-      if (kBias) {
-        const int row = r + 8 * (e >> 1), col = c + 8 * n + (e & 1);
-        const int qi = min(kKeyRows ? col : row, p.Sq - 1);
-        const int kj = min(kKeyRows ? row : col, p.Sk - 1);
-        x += bias_bh[qi * p.bsq + kj * p.bsk];
-      }
-      if (kKeyBias) x += kKeyRows ? kbs[8 * (e >> 1)] : kbs[8 * n + (e & 1)];
-      s[n][e] = x;
-    }
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+          pack_bf16(acc[4 * j + 2 * i] * mul, acc[4 * j + 2 * i + 1] * mul);
+  }
 }
 
-// s = -inf in the columns c + 8 n + (e % 2) at or past ``n_valid``.
-__device__ __forceinline__ void mask_cols(float s[kNTiles][4], int c, int n_valid) {
+// The width of the last tile of a walk over ``n`` rows in tiles of ``w``:
+// 16, 64 or w, whichever is the narrowest that holds what is left.
+__device__ __forceinline__ int last_width(int n, int w) {
+  const int left = n - (n - 1) / w * w;
+  return left > 64 ? w : left > 16 ? 64 : 16;
+}
+
+// The two computing warpgroups of a block take turns to issue their products
+// (named barriers 1 and 2), so that one's softmax runs on the multi-function
+// and floating-point units while the other's products run on the tensor
+// cores.  Every step of a warpgroup issues its products between wait() and
+// pass(); warpgroup 0 goes first.
+struct Turns {
+  int wg;
+  __device__ __forceinline__ void wait() const {
+    asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+  }
+  __device__ __forceinline__ void pass() const {
+    asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
+  }
+  __device__ __forceinline__ void start() const {
+    if (wg == 1) pass();
+  }
+  // warpgroup 0 takes warpgroup 1's last pass, so that both barriers end
+  // with every arrival matched
+  __device__ __forceinline__ void finish() const {
+    if (wg == 0) wait();
+  }
+};
+
+// The work of a kernel: 128-row tiles of ``n_rows`` rows (queries, or keys in
+// dK/dV) of every (batch, head), numbered head-major with the batch inside
+// and the tiles innermost.  The grid is persistent, one block an SM: block i
+// takes tiles i, i + gridDim.x, ..., so that the blocks running together
+// share heads, and the loader fetches a tile's fixed operands while the
+// previous tile is still computing.
+struct Work {
+  int row0, b, h;
+  __device__ __forceinline__ Work(int t, int n_row_tiles, int B)
+      : row0((t % n_row_tiles) * 128), b((t / n_row_tiles) % B), h(t / n_row_tiles / B) {}
+};
+
+// ---------------------------------------------------------------------------
+// forward
+//
+// A warpgroup walks the key tiles with the ragged one first (masked, 16, 64
+// or 128 wide), then the 128-key tiles in order.  In step j it issues S_j =
+// Q K_j^T (Q held as register operands), then O += P_{j-1} V_{j-1}, and
+// computes the softmax of S_j while the second product runs; O is rescaled
+// once that product is done.
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdTiles = 2 + 4 * kFwdStages;  // Q (128 rows); K and V (128 rows) a stage
+
+struct FwdRows {  // one warpgroup's running softmax state and output
+  float o[32];
+  float m[2], l[2];  // l: this thread's part of the row sums
+};
+
+// Row maxima of S (raw, or already scaled: ``kScaled``), the new running
+// maxima, alpha = exp(m_old - m_new), and S replaced by exp(S - m_new) with
+// its row sums in ``rs``.
+template <int N, bool kScaled>
+__device__ __forceinline__ void online_softmax(float (&s)[N / 2], float (&m)[2],
+                                               float (&alpha)[2], float (&rs)[2], float scale) {
+  float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int n = 0; n < kNTiles; ++n)
+  for (int i = 0; i < N / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  float ref2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // scale > 0, so the maximum of the raw scores, scaled, is the maximum
+    const float m_new = fmaxf(m[r], kScaled ? quad_max(mx[r]) : quad_max(mx[r]) * scale);
+    // -inf while every key so far is masked (a -inf term): exponentiate
+    // against 0 instead, so that alpha and every p come out 0, not NaN
+    const float ref = m_new == -INFINITY ? 0.f : m_new;
+    alpha[r] = exp2_approx((m[r] - ref) * kLog2e);  // 0 on the first tile
+    ref2[r] = ref * kLog2e;
+    m[r] = m_new;
+    rs[r] = 0.f;
+  }
+  const float mul = kScaled ? kLog2e : scale * kLog2e;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    s[i] = exp2_approx(fmaf(s[i], mul, -ref2[(i >> 1) & 1]));  // 0 for a masked key
+    rs[(i >> 1) & 1] += s[i];
+  }
+}
+
+// Step j of a warpgroup: S_j of key tile j's N keys at k0, issued with the
+// previous tile's P V (``issue_prev``, none in step 0), through the softmax.
+// Returns with P_j packed into ``pa`` and the state rescaled.
+template <int N, bool kBias, bool kKeyBias, bool kMask, typename IssuePrev>
+__device__ __forceinline__ void fwd_step(const Params& p, FwdRows& st, float (&s)[N / 2],
+                                         uint32_t (&pa)[8][4], const uint32_t (&qa)[4][4],
+                                         uint32_t k_tile, const Ring<kFwdStages>& ring, const Turns& turns,
+                                         int j, const float* bias_bh, const float* kbb, int row,
+                                         int k0, int c, IssuePrev issue_prev, bool has_prev) {
+  constexpr bool kTerms = kBias || kKeyBias;
+  float t[N / 2];
+  if (kTerms) load_terms<N, kBias, kKeyBias, false, kMask>(t, p, bias_bh, kbb, row, k0 + 2 * c);
+  ring.wait_full(j);
+  turns.wait();
+  issue_rs_k<N>(s, qa, k_tile);
+  if (has_prev) issue_prev();
+  turns.pass();
+  if (has_prev) {
+    wg_wait<1>();  // S_j done; the previous P V runs on
+  } else {
+    wg_wait<0>();
+  }
+  keep(s);
+  if (kTerms || kMask) prep<N, kTerms, kMask>(s, t, p.scale, k0 + 2 * c, p.Sk);
+  float alpha[2], rs[2];
+  online_softmax<N, kTerms || kMask>(s, st.m, alpha, rs, p.scale);
+  wg_wait<0>();
+  keep(st.o);
+  keep(pa);
+  if (has_prev) bar_arrive(ring.empty(j - 1));
+#pragma unroll
+  for (int i = 0; i < 32; ++i) st.o[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) st.l[r] = st.l[r] * alpha[r] + rs[r];
+  pack_a<N>(pa, s);
+}
+
+// O += P V for a key tile of width w (128, 64 or 16) as one group.
+__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&pa)[8][4], uint32_t v,
+                                         int w) {
+  if (w == 128)
+    issue_rs<128>(o, pa, v);
+  else if (w == 64)
+    issue_rs<64>(o, pa, v);
+  else
+    issue_rs<16>(o, pa, v);
+}
+
+template <bool kBias, bool kKeyBias>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_kernel(const Params p, const __grid_constant__ Maps maps) {
+  const uint32_t base = smem_base();
+  const uint32_t q_s = base, k_s = q_s + 2 * kBoxBytes, v_s = k_s + 2 * kFwdStages * kBoxBytes;
+  // Q's barriers: full when it has arrived, empty when every computing
+  // thread holds it as register operands
+  const uint32_t q_full = base + kFwdTiles * kBoxBytes, q_empty = q_full + 8;
+  const Ring<kFwdStages> ring = {q_full + 16, q_full + 16 + 8 * kFwdStages};
+  const int n_qt = (p.Sq + 127) / 128, n_work = n_qt * p.B * p.H;
+  const int wg = threadIdx.x / 128;
+  const int n_steps = (p.Sk + 127) / 128;
+  // step s of a tile reads key tile kt(s): the ragged last one first, then the others
+  const auto kt = [n_steps](int s) { return s == 0 ? n_steps - 1 : s - 1; };
+  const auto stage = [](int j) { return (uint32_t)(j % kFwdStages) * 2 * kBoxBytes; };
+  if (threadIdx.x == 0) {
+    bar_init(q_full, 1);
+    bar_init(q_empty, 256);
+    ring.init(1, 256);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    loader_regs();
+    if (threadIdx.x == 256) {
+      int j = 0, it = 0;  // ring steps and tiles so far
+      for (int t = blockIdx.x; t < n_work; t += gridDim.x, ++it) {
+        const Work w(t, n_qt, p.B);
+        if (it > 0) bar_wait(q_empty, (it - 1) & 1);
+        bar_expect(q_full, 2 * kBoxBytes);
+        tma_rows(q_s, &maps.q, q_full, w.row0, w.h, w.b);
+        tma_rows(q_s + kBoxBytes, &maps.q, q_full, w.row0 + kBox, w.h, w.b);
+        for (int s = 0; s < n_steps; ++s, ++j) {
+          const uint32_t st = stage(j), full = ring.full(j);
+          const int k0 = 128 * kt(s);
+          ring.wait_empty(j);
+          bar_expect(full, 4 * kBoxBytes);
+          tma_rows(k_s + st, &maps.k, full, k0, w.h, w.b);
+          tma_rows(k_s + st + kBoxBytes, &maps.k, full, k0 + kBox, w.h, w.b);
+          tma_rows(v_s + st, &maps.v, full, k0, w.h, w.b);
+          tma_rows(v_s + st + kBoxBytes, &maps.v, full, k0 + kBox, w.h, w.b);
+        }
+      }
+    }
+  } else {
+    compute_regs();
+    const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+    const Turns turns = {wg};
+    turns.start();
+    const int w0 = last_width(p.Sk, 128), k_last = 128 * (n_steps - 1);
+    const auto none = [] {};
+    int j = 0, it = 0;
+    for (int t = blockIdx.x; t < n_work; t += gridDim.x, ++it, j += n_steps) {
+      const Work w(t, n_qt, p.B);
+      // d[0]'s row; rows past Sq are computed from zero rows and not written
+      const int row = w.row0 + kBox * wg + 16 * ((threadIdx.x >> 5) & 3) + g;
+      const float* bias_bh = kBias ? p.bias + w.b * p.bsb + w.h * p.bsh : nullptr;
+      const float* kbb = kKeyBias ? p.key_bias + w.b * p.kbsb : nullptr;
+      FwdRows st;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st.o[i] = 0.f;
+      st.m[0] = st.m[1] = -INFINITY;
+      st.l[0] = st.l[1] = 0.f;
+      float s[64];
+      uint32_t pa[8][4], qa[4][4];
+      bar_wait(q_full, it & 1);
+      load_a(qa, q_s + wg * kBoxBytes);
+      bar_arrive(q_empty);
+      if (w0 == 128)
+        fwd_step<128, kBias, kKeyBias, true>(p, st, head<64>(s), pa, qa, k_s + stage(j), ring,
+                                             turns, j, bias_bh, kbb, row, k_last, c, none, false);
+      else if (w0 == 64)
+        fwd_step<64, kBias, kKeyBias, true>(p, st, head<32>(s), pa, qa, k_s + stage(j), ring,
+                                            turns, j, bias_bh, kbb, row, k_last, c, none, false);
+      else
+        fwd_step<16, kBias, kKeyBias, true>(p, st, head<8>(s), pa, qa, k_s + stage(j), ring,
+                                            turns, j, bias_bh, kbb, row, k_last, c, none, false);
+      for (int i = 1; i < n_steps; ++i) {
+        const uint32_t v_prev = v_s + stage(j + i - 1);
+        const int w_prev = i > 1 ? 128 : w0;
+        const auto prev = [&] { issue_pv(st.o, pa, v_prev, w_prev); };
+        fwd_step<128, kBias, kKeyBias, false>(p, st, s, pa, qa, k_s + stage(j + i), ring, turns,
+                                              j + i, bias_bh, kbb, row, 128 * (i - 1), c, prev,
+                                              true);
+      }
+      turns.wait();
+      issue_pv(st.o, pa, v_s + stage(j + n_steps - 1), n_steps > 1 ? 128 : w0);
+      turns.pass();
+      wg_wait<0>();
+      keep(st.o);
+      keep(pa);
+      bar_arrive(ring.empty(j + n_steps - 1));
+
+      const long long oss = (long long)p.H * kD, osb = (long long)p.Sq * oss;
+      const float l0 = quad_sum(st.l[0]), l1 = quad_sum(st.l[1]);
+      store_rows(p.out + w.b * osb + (long long)w.h * kD, oss, row, p.Sq, st.o, 1.f / l0,
+                 1.f / l1, c);
+      if (c == 0) {
+        const float l[2] = {l0, l1};
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          if (row + 8 * r < p.Sq)
+            p.out_lse[((long long)w.b * p.H + w.h) * p.Sq + row + 8 * r] = st.m[r] + logf(l[r]);
+      }
+    }
+    turns.finish();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+// dK/dV: K and V (128 rows); Q and dO (64 rows) a stage; then a stage's 64
+// values of L (times log2 e) and of D
+constexpr int kDkvTiles = 4 + 2 * kBwdStages;
+constexpr int kDkvExtra = 2 * kBwdStages * kBox * 4;
+// dQ: Q, dO and O (128 rows); K and V (64 rows) a stage
+constexpr int kDqTiles = 6 + 2 * kBwdStages;
+using BwdRing = Ring<kBwdStages>;
+
+// Register operands of the products still in flight from the previous step.
+struct Pending {
+  uint32_t a[4][4], b[4][4];
+};
+
+// Step i of a dK/dV warpgroup (64 keys) over query tile i (N queries), ring
+// step j: S^T = K Q^T and dP^T = V dO^T, P^T = exp(S^T - L), then dV +=
+// bf16(P^T) dO is issued while dS^T = P^T o (dP^T - D) is computed, and dK
+// += bf16(dS^T) Q is left in flight: the next step (or the caller) waits
+// for both and releases this step's stage.
+template <int N, bool kBias, bool kKeyBias, bool kMask>
+__device__ __forceinline__ void dkv_step(const Params& p, float (&dk)[32], float (&dv)[32],
+                                         Pending& pend, const uint32_t (&ka)[4][4],
+                                         const uint32_t (&va)[4][4], uint32_t q_s, uint32_t do_s,
+                                         uint32_t ld_s, const BwdRing& ring, const Turns& turns,
+                                         int i, int j, const float* bias_bh, const float* kbb,
+                                         int key, int c) {
+  constexpr bool kTerms = kBias || kKeyBias;
+  const int q0 = kBox * i;
+  const uint32_t stage = (j % kBwdStages) * kBoxBytes;
+  const uint32_t q_tile = q_s + stage, do_tile = do_s + stage;
+  const uint32_t l_tile = ld_s + (j % kBwdStages) * 2 * kBox * 4;
+  float st[N / 2], dpt[N / 2];
+  ring.wait_full(j);
+  turns.wait();
+  issue_rs_k<N>(st, ka, q_tile);
+  issue_rs_k<N>(dpt, va, do_tile);
+  turns.pass();
+  wg_wait<2>();  // the previous step's dV and dK
+  keep(dk);
+  keep(dv);
+  keep(pend.a);
+  keep(pend.b);
+  if (i > 0) bar_arrive(ring.empty(j - 1));
+  wg_wait<1>();  // S^T
+  keep(st);
+  // the terms are read here, not before the wait as in the forward and dQ:
+  // held across the four products in flight they cost registers, and ptxas
+  // then serializes the wgmmas (C7515)
+  float t[N / 2];
+  if (kTerms) load_terms<N, kBias, kKeyBias, true, kMask>(t, p, bias_bh, kbb, key, q0 + 2 * c);
+  if (kTerms || kMask) prep<N, kTerms, kMask>(st, t, p.scale, q0 + 2 * c, p.Sq);
+  const float mul = kTerms || kMask ? kLog2e : p.scale * kLog2e;
+  // P^T = exp(S^T - L): 0 for a masked query; L of this thread's query
+  // columns q0 + 8 jj + 2 c + e, times log2 e
+#pragma unroll
+  for (int jj = 0; jj < N / 8; ++jj) {
+    const float2 l = ld_shared2(l_tile + 4 * (8 * jj + 2 * c));
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      if (c + 8 * n + (e & 1) >= n_valid) s[n][e] = -INFINITY;
+      st[4 * jj + e] = exp2_approx(fmaf(st[4 * jj + e], mul, -(e & 1 ? l.y : l.x)));
+  }
+  pack_a<N>(pend.a, st);
+  issue_rs<N>(dv, pend.a, do_tile);  // dV += bf16(P^T) dO
+  wg_wait<1>();                      // dP^T
+  keep(dpt);
+  // dS^T = P^T o (dP^T - D)
+#pragma unroll
+  for (int jj = 0; jj < N / 8; ++jj) {
+    const float2 d = ld_shared2(l_tile + 4 * (kBox + 8 * jj + 2 * c));
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dpt[4 * jj + e] = st[4 * jj + e] * (dpt[4 * jj + e] - (e & 1 ? d.y : d.x));
+  }
+  pack_a<N>(pend.b, dpt);
+  issue_rs<N>(dk, pend.b, q_tile);  // dK += bf16(dS^T) Q
 }
 
-// Store rows r and r + 8 of a 16 x 64 accumulator tile times ``mul``, as
-// bf16, to two rows of a contiguous [B, S, H, 64] tensor; rows at or past
-// ``nrows`` are not written.
-__device__ __forceinline__ void store_rows(bf16* base, long long row_stride, int row, int nrows,
-                                           const float acc[kNTiles][4], float mul0, float mul1,
-                                           int t) {
+template <bool kBias, bool kKeyBias>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_kernel(const Params p, const __grid_constant__ Maps maps) {
+  const uint32_t base = smem_base();
+  const uint32_t k_s = base, v_s = k_s + 2 * kBoxBytes, q_s = v_s + 2 * kBoxBytes,
+                 do_s = q_s + kBwdStages * kBoxBytes;
+  const uint32_t ld_s = base + kDkvTiles * kBoxBytes;  // a stage: 64 L, then 64 D
+  // K and V's barriers: full when they have arrived, empty when every
+  // computing thread holds them as register operands
+  const uint32_t kv_full = ld_s + kDkvExtra, kv_empty = kv_full + 8;
+  const BwdRing ring = {kv_full + 16, kv_full + 16 + 8 * kBwdStages};
+  const int n_kt = (p.Sk + 127) / 128, n_work = n_kt * p.B * p.H;
+  const int wg = threadIdx.x / 128;
+  const int n_steps = (p.Sq + kBox - 1) / kBox;
+  const auto stage_ld = [ld_s](int j) { return ld_s + (uint32_t)(j % kBwdStages) * 2 * kBox * 4; };
+  if (threadIdx.x == 0) {
+    bar_init(kv_full, 1);
+    bar_init(kv_empty, 256);
+    ring.init(1 + 32, 256);  // the TMA's arrival, and the loader warp's L and D
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    loader_regs();
+    if (threadIdx.x < 256 + 32) {  // the loader warp
+      const int lane = threadIdx.x & 31;
+      int j = 0, it = 0;  // ring steps and tiles so far
+      for (int t = blockIdx.x; t < n_work; t += gridDim.x, ++it) {
+        const Work w(t, n_kt, p.B);
+        const long long rows_bh = ((long long)w.b * p.H + w.h) * p.Sq;
+        if (lane == 0) {
+          if (it > 0) bar_wait(kv_empty, (it - 1) & 1);
+          bar_expect(kv_full, 4 * kBoxBytes);
+          tma_rows(k_s, &maps.k, kv_full, w.row0, w.h, w.b);
+          tma_rows(k_s + kBoxBytes, &maps.k, kv_full, w.row0 + kBox, w.h, w.b);
+          tma_rows(v_s, &maps.v, kv_full, w.row0, w.h, w.b);
+          tma_rows(v_s + kBoxBytes, &maps.v, kv_full, w.row0 + kBox, w.h, w.b);
+        }
+        for (int i = 0; i < n_steps; ++i, ++j) {
+          const uint32_t st = (j % kBwdStages) * kBoxBytes, full = ring.full(j);
+          ring.wait_empty(j);
+          if (lane == 0) {
+            bar_expect(full, 2 * kBoxBytes);
+            tma_rows(q_s + st, &maps.q, full, kBox * i, w.h, w.b);
+            tma_rows(do_s + st, &maps.dout, full, kBox * i, w.h, w.b);
+          }
+          for (int r = lane; r < kBox; r += 32) {
+            const int qi = kBox * i + r;
+            const bool ok = qi < p.Sq;
+            st_shared(stage_ld(j) + 4 * r, ok ? p.lse[rows_bh + qi] * kLog2e : 0.f);
+            st_shared(stage_ld(j) + 4 * (kBox + r), ok ? p.delta[rows_bh + qi] : 0.f);
+          }
+          bar_arrive(full);
+        }
+      }
+    }
+  } else {
+    compute_regs();
+    const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+    const Turns turns = {wg};
+    turns.start();
+    const bool full_last = last_width(p.Sq, kBox) == kBox;
+    int j = 0, it = 0;
+    for (int t = blockIdx.x; t < n_work; t += gridDim.x, ++it, j += n_steps) {
+      const Work w(t, n_kt, p.B);
+      // d[0]'s key; keys past Sk are computed from zero rows and not written
+      const int key = w.row0 + kBox * wg + 16 * ((threadIdx.x >> 5) & 3) + g;
+      const float* bias_bh = kBias ? p.bias + w.b * p.bsb + w.h * p.bsh : nullptr;
+      const float* kbb = kKeyBias ? p.key_bias + w.b * p.kbsb : nullptr;
+      float dk[32], dv[32];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = row + 8 * i;
-    if (r >= nrows) continue;
-    const float mul = i == 0 ? mul0 : mul1;
-    bf16* dst = base + r * row_stride + 2 * t;
+      for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+      Pending pend;
+      uint32_t ka[4][4], va[4][4];
+      bar_wait(kv_full, it & 1);
+      load_a(ka, k_s + wg * kBoxBytes);
+      load_a(va, v_s + wg * kBoxBytes);
+      bar_arrive(kv_empty);
+      for (int i = 0; i < n_steps - 1; ++i)
+        dkv_step<kBox, kBias, kKeyBias, false>(p, dk, dv, pend, ka, va, q_s, do_s, ld_s,
+                                               ring, turns, i, j + i, bias_bh, kbb, key, c);
+      const int i = n_steps - 1;
+      if (full_last)
+        dkv_step<kBox, kBias, kKeyBias, true>(p, dk, dv, pend, ka, va, q_s, do_s, ld_s,
+                                              ring, turns, i, j + i, bias_bh, kbb, key, c);
+      else
+        dkv_step<16, kBias, kKeyBias, true>(p, dk, dv, pend, ka, va, q_s, do_s, ld_s,
+                                            ring, turns, i, j + i, bias_bh, kbb, key, c);
+      wg_wait<0>();
+      keep(dk);
+      keep(dv);
+      keep(pend.a);
+      keep(pend.b);
+      bar_arrive(ring.empty(j + i));
+      const long long kss = (long long)p.H * kD, ksb = (long long)p.Sk * kss;
+      const long long off = w.b * ksb + (long long)w.h * kD;
+      store_rows(p.dk + off, kss, key, p.Sk, dk, p.scale, p.scale, c);
+      store_rows(p.dv + off, kss, key, p.Sk, dv, 1.f, 1.f, c);
+    }
+    turns.finish();
+  }
+}
+
+// Step i of a dQ warpgroup (64 queries, Q and dO held as register operands)
+// over key tile i (N keys), ring step j: S = Q K^T and dP = dO V^T, dS =
+// exp(S - L) o (dP - D), then dQ += bf16(dS) K, left in flight: the next
+// step (or the caller) waits for it and releases this step's stage.
+template <int N, bool kBias, bool kKeyBias, bool kMask>
+__device__ __forceinline__ void dq_step(const Params& p, float (&dq)[32], Pending& pend,
+                                        const uint32_t (&qa)[4][4], const uint32_t (&doa)[4][4],
+                                        uint32_t k_s, uint32_t v_s, const BwdRing& ring,
+                                        const Turns& turns, int i, int j, const float* bias_bh,
+                                        const float* kbb, const float (&lse)[2],
+                                        const float (&dlt)[2], int row, int c) {
+  constexpr bool kTerms = kBias || kKeyBias;
+  const int k0 = kBox * i;
+  const uint32_t stage = (j % kBwdStages) * kBoxBytes;
+  const uint32_t k_tile = k_s + stage, v_tile = v_s + stage;
+  float t[N / 2];
+  if (kTerms) load_terms<N, kBias, kKeyBias, false, kMask>(t, p, bias_bh, kbb, row, k0 + 2 * c);
+  float s[N / 2], dp[N / 2];
+  ring.wait_full(j);
+  turns.wait();
+  issue_rs_k<N>(s, qa, k_tile);
+  issue_rs_k<N>(dp, doa, v_tile);
+  turns.pass();
+  wg_wait<2>();  // the previous step's dQ
+  keep(dq);
+  keep(pend.a);
+  if (i > 0) bar_arrive(ring.empty(j - 1));
+  wg_wait<1>();  // S
+  keep(s);
+  if (kTerms || kMask) prep<N, kTerms, kMask>(s, t, p.scale, k0 + 2 * c, p.Sk);
+  const float mul = kTerms || kMask ? kLog2e : p.scale * kLog2e;
 #pragma unroll
-    for (int n = 0; n < kNTiles; ++n)
-      *reinterpret_cast<uint32_t*>(dst + 8 * n) =
-          pack_bf16(acc[n][2 * i] * mul, acc[n][2 * i + 1] * mul);
+  for (int i = 0; i < N / 2; ++i) s[i] = exp2_approx(fmaf(s[i], mul, -lse[(i >> 1) & 1]));
+  wg_wait<0>();  // dP
+  keep(dp);
+  // dS = P o (dP - D): 0 for a masked key
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) s[i] *= dp[i] - dlt[(i >> 1) & 1];
+  pack_a<N>(pend.a, s);
+  issue_rs<N>(dq, pend.a, k_tile);  // dQ += bf16(dS) K
+}
+
+template <bool kBias, bool kKeyBias>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_kernel(const Params p, const __grid_constant__ Maps maps) {
+  const uint32_t base = smem_base();
+  const uint32_t q_s = base, do_s = q_s + 2 * kBoxBytes, o_s = do_s + 2 * kBoxBytes,
+                 k_s = o_s + 2 * kBoxBytes, v_s = k_s + kBwdStages * kBoxBytes;
+  // Q, dO and O's barriers: full when they have arrived, empty when every
+  // computing thread holds them as register operands
+  const uint32_t q_full = base + kDqTiles * kBoxBytes, q_empty = q_full + 8;
+  const BwdRing ring = {q_full + 16, q_full + 16 + 8 * kBwdStages};
+  const int n_qt = (p.Sq + 127) / 128, n_work = n_qt * p.B * p.H;
+  const int wg = threadIdx.x / 128;
+  const int n_steps = (p.Sk + kBox - 1) / kBox;
+  const auto stage = [](int j) { return (uint32_t)(j % kBwdStages) * kBoxBytes; };
+  if (threadIdx.x == 0) {
+    bar_init(q_full, 1);
+    bar_init(q_empty, 256);
+    ring.init(1, 256);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    loader_regs();
+    if (threadIdx.x == 256) {
+      int j = 0, it = 0;  // ring steps and tiles so far
+      for (int t = blockIdx.x; t < n_work; t += gridDim.x, ++it) {
+        const Work w(t, n_qt, p.B);
+        if (it > 0) bar_wait(q_empty, (it - 1) & 1);
+        bar_expect(q_full, 6 * kBoxBytes);
+        tma_rows(q_s, &maps.q, q_full, w.row0, w.h, w.b);
+        tma_rows(q_s + kBoxBytes, &maps.q, q_full, w.row0 + kBox, w.h, w.b);
+        tma_rows(do_s, &maps.dout, q_full, w.row0, w.h, w.b);
+        tma_rows(do_s + kBoxBytes, &maps.dout, q_full, w.row0 + kBox, w.h, w.b);
+        tma_rows(o_s, &maps.o, q_full, w.row0, w.h, w.b);
+        tma_rows(o_s + kBoxBytes, &maps.o, q_full, w.row0 + kBox, w.h, w.b);
+        for (int i = 0; i < n_steps; ++i, ++j) {
+          const uint32_t full = ring.full(j);
+          ring.wait_empty(j);
+          bar_expect(full, 2 * kBoxBytes);
+          tma_rows(k_s + stage(j), &maps.k, full, kBox * i, w.h, w.b);
+          tma_rows(v_s + stage(j), &maps.v, full, kBox * i, w.h, w.b);
+        }
+      }
+    }
+  } else {
+    compute_regs();
+    const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+    const Turns turns = {wg};
+    turns.start();
+    const bool full_last = last_width(p.Sk, kBox) == kBox;
+    int j = 0, it = 0;
+    for (int t = blockIdx.x; t < n_work; t += gridDim.x, ++it, j += n_steps) {
+      const Work w(t, n_qt, p.B);
+      // d[0]'s row; rows past Sq are computed from zero rows and not written
+      const int row = w.row0 + kBox * wg + 16 * ((threadIdx.x >> 5) & 3) + g;
+      const float* bias_bh = kBias ? p.bias + w.b * p.bsb + w.h * p.bsh : nullptr;
+      const float* kbb = kKeyBias ? p.key_bias + w.b * p.kbsb : nullptr;
+      const long long rows_bh = ((long long)w.b * p.H + w.h) * p.Sq;
+      float lse[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        lse[r] = row + 8 * r < p.Sq ? p.lse[rows_bh + row + 8 * r] * kLog2e : 0.f;
+      float dq[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+      Pending pend;
+      uint32_t qa[4][4], doa[4][4], oa[4][4];
+      bar_wait(q_full, it & 1);
+      load_a(qa, q_s + wg * kBoxBytes);
+      load_a(doa, do_s + wg * kBoxBytes);
+      load_a(oa, o_s + wg * kBoxBytes);
+      bar_arrive(q_empty);
+      // D = rowsum(dO o O) in float32, from this thread's 16 columns of rows
+      // row and row + 8 (the register operands' layout) summed over the
+      // quad; written for the dK/dV kernel, which runs next
+      float dlt[2] = {0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float2 d = bf16x2_to_float2(doa[kk][r]), o = bf16x2_to_float2(oa[kk][r]);
+          dlt[r & 1] += d.x * o.x + d.y * o.y;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        dlt[r] = quad_sum(dlt[r]);
+        if (c == 0 && row + 8 * r < p.Sq) p.delta[rows_bh + row + 8 * r] = dlt[r];
+      }
+      for (int i = 0; i < n_steps - 1; ++i)
+        dq_step<kBox, kBias, kKeyBias, false>(p, dq, pend, qa, doa, k_s, v_s, ring, turns, i,
+                                              j + i, bias_bh, kbb, lse, dlt, row, c);
+      const int i = n_steps - 1;
+      if (full_last)
+        dq_step<kBox, kBias, kKeyBias, true>(p, dq, pend, qa, doa, k_s, v_s, ring, turns, i,
+                                             j + i, bias_bh, kbb, lse, dlt, row, c);
+      else
+        dq_step<16, kBias, kKeyBias, true>(p, dq, pend, qa, doa, k_s, v_s, ring, turns, i, j + i,
+                                           bias_bh, kbb, lse, dlt, row, c);
+      wg_wait<0>();
+      keep(dq);
+      keep(pend.a);
+      bar_arrive(ring.empty(j + i));
+      const long long oss = (long long)p.H * kD, osb = (long long)p.Sq * oss;
+      store_rows(p.out + w.b * osb + (long long)w.h * kD, oss, row, p.Sq, dq, p.scale, p.scale,
+                 c);
+    }
+    turns.finish();
   }
 }
 
 // ---------------------------------------------------------------------------
-// kernels
+// host side
 // ---------------------------------------------------------------------------
 
-template <bool kBias, bool kKeyBias>
-__global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + kTileElems;      // two buffers
-  bf16* Vs = Ks + 2 * kTileElems;  // two buffers
-  float* KBs = reinterpret_cast<float*>(Vs + 2 * kTileElems);  // two buffers of 64
+constexpr size_t kFwdSmem = smem_bytes(kFwdTiles, 0, kFwdStages);
+constexpr size_t kDkvSmem = smem_bytes(kDkvTiles, kDkvExtra, kBwdStages);
+constexpr size_t kDqSmem = smem_bytes(kDqTiles, 0, kBwdStages);
 
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16;  // this warp's rows of the tile
-  const LaneOffsets lo(lane);
-  const bf16* kb = p.k + b * p.ksb + h * p.ksh;
-  const bf16* vb = p.v + b * p.vsb + h * p.vsh;
-  const float* bias_bh = kBias ? p.bias + b * p.bsb + h * p.bsh : nullptr;
-  const float* kbb = kKeyBias ? p.key_bias + b * p.kbsb : nullptr;
-  const int n_tiles = (p.Sk + kTile - 1) / kTile;
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-  load_tile(Qs, p.q + b * p.qsb + h * p.qsh, p.qss, q0, p.Sq);
-  load_tile(Ks, kb, p.kss, 0, p.Sk);
-  load_tile(Vs, vb, p.vss, 0, p.Sk);
-  if (kKeyBias) load_key_bias(KBs, kbb, 0, p.Sk);
-  cp_async_commit();
-
-  // rows q0 + r0 + g (i = 0: c0, c1) and q0 + r0 + g + 8 (i = 1: c2, c3)
-  const int row = q0 + r0 + g;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float acc[kNTiles][4];
-#pragma unroll
-  for (int n = 0; n < kNTiles; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  uint32_t qa[kKSteps][4];
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kTile;
-    const bf16* Kt = Ks + (j & 1) * kTileElems;
-    const bf16* Vt = Vs + (j & 1) * kTileElems;
-    if (j + 1 < n_tiles) {  // into the buffers that tile j - 1 used
-      load_tile(Ks + ((j + 1) & 1) * kTileElems, kb, p.kss, k0 + kTile, p.Sk);
-      load_tile(Vs + ((j + 1) & 1) * kTileElems, vb, p.vss, k0 + kTile, p.Sk);
-      if (kKeyBias) load_key_bias(KBs + ((j + 1) & 1) * kTile, kbb, k0 + kTile, p.Sk);
-    }
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();
-    if (j == 0) load_a_rows(qa, Qs, r0, lo);
-
-    float s[kNTiles][4];
-    product_abt(s, qa, Kt, lo);
-    scale_bias<kBias, kKeyBias, false>(s, p, bias_bh, KBs + (j & 1) * kTile + 2 * t, row,
-                                       k0 + 2 * t);
-    if (k0 + kTile > p.Sk) mask_cols(s, k0 + 2 * t, p.Sk);
-
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < kNTiles; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-    float m_ref[2], alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m[i], quad_max(mx[i]));
-      // -inf while every key so far is masked (a -inf bias): exponentiate
-      // against 0 instead, so that alpha and every p come out 0, not NaN
-      m_ref[i] = m_new == -INFINITY ? 0.f : m_new;
-      alpha[i] = exp2_approx((m[i] - m_ref[i]) * kLog2e);  // 0 on the first tile
-      m[i] = m_new;
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < kNTiles; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = exp2_approx((s[n][e] - m_ref[e >> 1]) * kLog2e);  // 0 for a masked key
-        rs[e >> 1] += s[n][e];
-        acc[n][e] *= alpha[e >> 1];
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(rs[i]);
-
-    product_cx(acc, s, Vt, lo);  // O += bf16(P) V
-    __syncthreads();  // every warp is done with tile j's buffers
-  }
-
-  const long long oss = (long long)p.H * kD, osb = (long long)p.Sq * oss;
-  store_rows(p.out + b * osb + (long long)h * kD, oss, row, p.Sq, acc, 1.f / l[0], 1.f / l[1], t);
-  if (t == 0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      if (row + 8 * i < p.Sq)
-        p.out_lse[((long long)b * p.H + h) * p.Sq + row + 8 * i] = m[i] + logf(l[i]);
-  }
+// The driver's cuTensorMapEncodeTiled through the runtime, so that the
+// library needs no link against the driver library.
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return (EncodeTiled) nullptr;
+    return reinterpret_cast<EncodeTiled>(ptr);
+  }();
+  return fn;
 }
 
-// D[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d] in float32: one warp per
-// row, two bf16 a lane.
-__global__ void flash_bwd_delta_kernel(const Params p) {
-  const long long n_rows = (long long)p.B * p.H * p.Sq;
-  const int lane = threadIdx.x & 31;
-  const long long n_warps = ((long long)gridDim.x * blockDim.x) >> 5;
-  for (long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5; w < n_rows;
-       w += n_warps) {
-    const int i = (int)(w % p.Sq);
-    const long long bh = w / p.Sq;
-    const int h = (int)(bh % p.H), b = (int)(bh / p.H);
-    const long long off = (((long long)b * p.Sq + i) * p.H + h) * kD + 2 * lane;
-    const float2 d = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.dout + off));
-    const float2 o = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.o + off));
-    float s = d.x * o.x + d.y * o.y;
-    for (int sh = 16; sh > 0; sh >>= 1) s += __shfl_xor_sync(0xffffffffu, s, sh);
-    if (lane == 0) p.delta[w] = s;
-  }
+// A (64, S, H, B) map over a [B, S, H, 64] bf16 tensor with element strides
+// (sb, ss, sh), 64-row boxes in the 128-byte swizzle, zeros out of bounds.
+// A dimension of extent 1 is never stepped, so its stride is set to one any
+// encoding accepts.
+cudaError_t encode_rows(CUtensorMap* map, const void* ptr, int B, int S, int H, long long sb,
+                        long long ss, long long sh) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {S > 1 ? (cuuint64_t)ss * 2 : 128u,
+                                 H > 1 ? (cuuint64_t)sh * 2 : 128u,
+                                 B > 1 ? (cuuint64_t)sb * 2 : 128u};
+  const cuuint32_t box[4] = {(cuuint32_t)kD, (cuuint32_t)kBox, 1u, 1u};
+  const cuuint32_t unit[4] = {1u, 1u, 1u, 1u};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <bool kBias, bool kKeyBias>
-__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + kTileElems;
-  bf16* Qs = Vs + kTileElems;        // two buffers
-  bf16* dOs = Qs + 2 * kTileElems;   // two buffers
-  float* Ls = reinterpret_cast<float*>(dOs + 2 * kTileElems);  // two buffers of 64
-  float* Ds = Ls + 2 * kTile;        // two buffers of 64
-  float* KBs = Ds + 2 * kTile;       // 64, the block's keys (with a key bias)
-
-  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16;  // this warp's keys of the tile
-  const LaneOffsets lo(lane);
-  const long long oss = (long long)p.H * kD, osb = (long long)p.Sq * oss;
-  const bf16* qb = p.q + b * p.qsb + h * p.qsh;
-  const bf16* dob = p.dout + b * osb + (long long)h * kD;
-  const long long rows_bh = ((long long)b * p.H + h) * p.Sq;
-  const float* bias_bh = kBias ? p.bias + b * p.bsb + h * p.bsh : nullptr;
-  const int n_tiles = (p.Sq + kTile - 1) / kTile;
-
-  load_tile(Ks, p.k + b * p.ksb + h * p.ksh, p.kss, k0, p.Sk);
-  load_tile(Vs, p.v + b * p.vsb + h * p.vsh, p.vss, k0, p.Sk);
-  if (kKeyBias) load_key_bias(KBs, p.key_bias + b * p.kbsb, k0, p.Sk);
-  load_tile(Qs, qb, p.qss, 0, p.Sq);
-  load_tile(dOs, dob, oss, 0, p.Sq);
-  load_rows(p, Ls, Ds, rows_bh, 0);
-  cp_async_commit();
-
-  // keys k0 + r0 + g (c0, c1) and k0 + r0 + g + 8 (c2, c3); columns are
-  // queries.  Keys past Sk are never written, so only queries are masked.
-  const int key = k0 + r0 + g;
-  float dk[kNTiles][4], dv[kNTiles][4];
-#pragma unroll
-  for (int n = 0; n < kNTiles; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-  uint32_t ka[kKSteps][4], va[kKSteps][4];
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int q0 = j * kTile, buf = j & 1, nxt = (j + 1) & 1;
-    const bf16* Qt = Qs + buf * kTileElems;
-    const bf16* dOt = dOs + buf * kTileElems;
-    const float* Lt = Ls + buf * kTile + 2 * t;
-    const float* Dt = Ds + buf * kTile + 2 * t;
-    if (j + 1 < n_tiles) {  // into the buffers that tile j - 1 used
-      load_tile(Qs + nxt * kTileElems, qb, p.qss, q0 + kTile, p.Sq);
-      load_tile(dOs + nxt * kTileElems, dob, oss, q0 + kTile, p.Sq);
-      load_rows(p, Ls + nxt * kTile, Ds + nxt * kTile, rows_bh, q0 + kTile);
-    }
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();
-    if (j == 0) {
-      load_a_rows(ka, Ks, r0, lo);
-      load_a_rows(va, Vs, r0, lo);
-    }
-
-    // S^T = K Q^T and dP^T = V dO^T over this warp's 16 keys
-    float pt[kNTiles][4], dst[kNTiles][4];
-    product_abt(pt, ka, Qt, lo);
-    product_abt(dst, va, dOt, lo);
-    scale_bias<kBias, kKeyBias, true>(pt, p, bias_bh, KBs + r0 + g, key, q0 + 2 * t);
-    if (q0 + kTile > p.Sq) mask_cols(pt, q0 + 2 * t, p.Sq);
-    // P^T = exp(S^T - L) and dS^T = P^T o (dP^T - D): 0 for a masked query
-#pragma unroll
-    for (int n = 0; n < kNTiles; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = 8 * n + (e & 1);
-        pt[n][e] = exp2_approx((pt[n][e] - Lt[i]) * kLog2e);
-        dst[n][e] = pt[n][e] * (dst[n][e] - Dt[i]);
-      }
-    product_cx(dv, pt, dOt, lo);  // dV += bf16(P^T) dO
-    product_cx(dk, dst, Qt, lo);  // dK += bf16(dS^T) Q
-    __syncthreads();  // every warp is done with tile j's buffers
+cudaError_t make_maps(const Params& p, Maps* m, bool backward) {
+  cudaError_t err = encode_rows(&m->q, p.q, p.B, p.Sq, p.H, p.qsb, p.qss, p.qsh);
+  if (err == cudaSuccess) err = encode_rows(&m->k, p.k, p.B, p.Sk, p.H, p.ksb, p.kss, p.ksh);
+  if (err == cudaSuccess) err = encode_rows(&m->v, p.v, p.B, p.Sk, p.H, p.vsb, p.vss, p.vsh);
+  if (err == cudaSuccess && backward) {
+    const long long oss = (long long)p.H * kD;
+    err = encode_rows(&m->dout, p.dout, p.B, p.Sq, p.H, p.Sq * oss, oss, kD);
+    if (err == cudaSuccess) err = encode_rows(&m->o, p.o, p.B, p.Sq, p.H, p.Sq * oss, oss, kD);
   }
-
-  const long long kss = (long long)p.H * kD, ksb = (long long)p.Sk * kss;
-  const long long off = b * ksb + (long long)h * kD;
-  store_rows(p.dk + off, kss, key, p.Sk, dk, p.scale, p.scale, t);
-  store_rows(p.dv + off, kss, key, p.Sk, dv, 1.f, 1.f, t);
+  return err;
 }
-
-template <bool kBias, bool kKeyBias>
-__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + kTileElems;
-  bf16* Ks = dOs + kTileElems;     // two buffers
-  bf16* Vs = Ks + 2 * kTileElems;  // two buffers
-  float* KBs = reinterpret_cast<float*>(Vs + 2 * kTileElems);  // two buffers of 64
-
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16;  // this warp's rows of the tile
-  const LaneOffsets lo(lane);
-  const long long oss = (long long)p.H * kD, osb = (long long)p.Sq * oss;
-  const bf16* kb = p.k + b * p.ksb + h * p.ksh;
-  const bf16* vb = p.v + b * p.vsb + h * p.vsh;
-  const float* bias_bh = kBias ? p.bias + b * p.bsb + h * p.bsh : nullptr;
-  const float* kbb = kKeyBias ? p.key_bias + b * p.kbsb : nullptr;
-  const int n_tiles = (p.Sk + kTile - 1) / kTile;
-
-  load_tile(Qs, p.q + b * p.qsb + h * p.qsh, p.qss, q0, p.Sq);
-  load_tile(dOs, p.dout + b * osb + (long long)h * kD, oss, q0, p.Sq);
-  load_tile(Ks, kb, p.kss, 0, p.Sk);
-  load_tile(Vs, vb, p.vss, 0, p.Sk);
-  if (kKeyBias) load_key_bias(KBs, kbb, 0, p.Sk);
-  cp_async_commit();
-
-  // rows q0 + r0 + g (c0, c1) and q0 + r0 + g + 8 (c2, c3); rows past Sq
-  // are never written, so only keys are masked
-  const int row = q0 + r0 + g;
-  float lse[2], dlt[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const bool ok = row + 8 * i < p.Sq;
-    const long long idx = ((long long)b * p.H + h) * p.Sq + row + 8 * i;
-    lse[i] = ok ? p.lse[idx] : 0.f;
-    dlt[i] = ok ? p.delta[idx] : 0.f;
-  }
-  float dq[kNTiles][4];
-#pragma unroll
-  for (int n = 0; n < kNTiles; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
-  uint32_t qa[kKSteps][4], doa[kKSteps][4];
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kTile;
-    const bf16* Kt = Ks + (j & 1) * kTileElems;
-    const bf16* Vt = Vs + (j & 1) * kTileElems;
-    if (j + 1 < n_tiles) {  // into the buffers that tile j - 1 used
-      load_tile(Ks + ((j + 1) & 1) * kTileElems, kb, p.kss, k0 + kTile, p.Sk);
-      load_tile(Vs + ((j + 1) & 1) * kTileElems, vb, p.vss, k0 + kTile, p.Sk);
-      if (kKeyBias) load_key_bias(KBs + ((j + 1) & 1) * kTile, kbb, k0 + kTile, p.Sk);
-    }
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();
-    if (j == 0) {
-      load_a_rows(qa, Qs, r0, lo);
-      load_a_rows(doa, dOs, r0, lo);
-    }
-
-    // S = Q K^T and dP = dO V^T over this warp's 16 rows
-    float s[kNTiles][4], dp[kNTiles][4];
-    product_abt(s, qa, Kt, lo);
-    product_abt(dp, doa, Vt, lo);
-    scale_bias<kBias, kKeyBias, false>(s, p, bias_bh, KBs + (j & 1) * kTile + 2 * t, row,
-                                       k0 + 2 * t);
-    if (k0 + kTile > p.Sk) mask_cols(s, k0 + 2 * t, p.Sk);
-    // dS = P o (dP - D), P = exp(S - L): 0 for a masked key
-#pragma unroll
-    for (int n = 0; n < kNTiles; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[n][e] = exp2_approx((s[n][e] - lse[e >> 1]) * kLog2e) * (dp[n][e] - dlt[e >> 1]);
-    product_cx(dq, s, Kt, lo);  // dQ += bf16(dS) K
-    __syncthreads();  // every warp is done with tile j's buffers
-  }
-
-  store_rows(p.out + b * osb + (long long)h * kD, oss, row, p.Sq, dq, p.scale, p.scale, t);
-}
-
-// dynamic shared memory of each kernel, without and with a key bias
-constexpr size_t kTileBytes = kTileElems * sizeof(bf16);
-constexpr size_t kFwdSmem = 5 * kTileBytes;
-constexpr size_t kDkvSmem = 6 * kTileBytes + 4 * kTile * sizeof(float);
-constexpr size_t kDqSmem = 6 * kTileBytes;
-constexpr size_t kFwdSmemKb = kFwdSmem + 2 * kTile * sizeof(float);
-constexpr size_t kDkvSmemKb = kDkvSmem + kTile * sizeof(float);
-constexpr size_t kDqSmemKb = kDqSmem + 2 * kTile * sizeof(float);
 
 Params make_params(const void* q, const void* k, const void* v, const void* bias,
                    const void* key_bias, int B, int H, int Sq, int Sk, long long qsb,
@@ -652,48 +1185,60 @@ Params make_params(const void* q, const void* k, const void* v, const void* bias
 
 // Launch ``kernel`` with ``smem`` bytes of dynamic shared memory.
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, const Params& p) {
+cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, const Params& p,
+                   const Maps& maps) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<grid, kThreads, smem, stream>>>(p, maps);
   return cudaGetLastError();
 }
 
 // The instance of a kernel for the terms present: ``L::run<kBias, kKeyBias>``.
 template <typename L>
-cudaError_t dispatch(const Params& p, dim3 grid, cudaStream_t stream) {
+cudaError_t dispatch(const Params& p, const Maps& maps, dim3 grid, cudaStream_t stream) {
   if (p.bias != nullptr)
-    return p.key_bias != nullptr ? L::template run<true, true>(p, grid, stream)
-                                 : L::template run<true, false>(p, grid, stream);
-  return p.key_bias != nullptr ? L::template run<false, true>(p, grid, stream)
-                               : L::template run<false, false>(p, grid, stream);
+    return p.key_bias != nullptr ? L::template run<true, true>(p, maps, grid, stream)
+                                 : L::template run<true, false>(p, maps, grid, stream);
+  return p.key_bias != nullptr ? L::template run<false, true>(p, maps, grid, stream)
+                               : L::template run<false, false>(p, maps, grid, stream);
 }
 
 struct Fwd {
   template <bool kB, bool kKB>
-  static cudaError_t run(const Params& p, dim3 grid, cudaStream_t s) {
-    return launch(flash_fwd_kernel<kB, kKB>, grid, kKB ? kFwdSmemKb : kFwdSmem, s, p);
+  static cudaError_t run(const Params& p, const Maps& m, dim3 grid, cudaStream_t s) {
+    return launch(flash_fwd_kernel<kB, kKB>, grid, kFwdSmem, s, p, m);
   }
 };
 struct Dkv {
   template <bool kB, bool kKB>
-  static cudaError_t run(const Params& p, dim3 grid, cudaStream_t s) {
-    return launch(flash_bwd_dkv_kernel<kB, kKB>, grid, kKB ? kDkvSmemKb : kDkvSmem, s, p);
+  static cudaError_t run(const Params& p, const Maps& m, dim3 grid, cudaStream_t s) {
+    return launch(flash_bwd_dkv_kernel<kB, kKB>, grid, kDkvSmem, s, p, m);
   }
 };
 struct Dq {
   template <bool kB, bool kKB>
-  static cudaError_t run(const Params& p, dim3 grid, cudaStream_t s) {
-    return launch(flash_bwd_dq_kernel<kB, kKB>, grid, kKB ? kDqSmemKb : kDqSmem, s, p);
+  static cudaError_t run(const Params& p, const Maps& m, dim3 grid, cudaStream_t s) {
+    return launch(flash_bwd_dq_kernel<kB, kKB>, grid, kDqSmem, s, p, m);
   }
 };
+
+// The persistent grid of a kernel over 128-row tiles of ``n`` rows of every
+// (batch, head): one block an SM, or one a tile when there are fewer tiles.
+dim3 grid_of(int n, const Params& p) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long tiles = (long long)((n + 127) / 128) * p.B * p.H;
+  return dim3((unsigned)(tiles < sms ? tiles : sms));
+}
 
 }  // namespace
 
 // O [B, Sq, H, 64] bf16 and L [B, H, Sq] float32, both contiguous.  q, k and
-// v (bf16) start every row on 16 bytes (the wrapper checks).  bias and
-// key_bias (float32) may be null.
+// v (bf16) start every row on 16 bytes, with b, s, h strides that are
+// multiples of 8 (the wrapper checks).  bias and key_bias (float32) may be
+// null.
 extern "C" int vq_flash_attention_bf16_fwd(
     const void* q, const void* k, const void* v, const void* bias, const void* key_bias,
     void* out, void* lse, int B, int H, int Sq, int Sk, long long qsb, long long qss,
@@ -705,13 +1250,16 @@ extern "C" int vq_flash_attention_bf16_fwd(
                          ksh, vsb, vss, vsh, bsb, bsh, bsq, bsk, kbsb, scale);
   p.out = (bf16*)out;
   p.out_lse = (float*)lse;
-  const dim3 grid((Sq + kTile - 1) / kTile, H, B);
-  return (int)dispatch<Fwd>(p, grid, (cudaStream_t)stream);
+  Maps maps;
+  cudaError_t err = make_maps(p, &maps, false);
+  if (err != cudaSuccess) return (int)err;
+  return (int)dispatch<Fwd>(p, maps, grid_of(Sq, p), (cudaStream_t)stream);
 }
 
 // dQ [B, Sq, H, 64], dK and dV [B, Sk, H, 64], all bf16 and contiguous; o and
-// dout contiguous bf16 [B, Sq, H, 64], dout 16-byte aligned; delta a float32
-// [B, H, Sq] scratch.
+// dout contiguous bf16 [B, Sq, H, 64] on 16 bytes (TMA reads both: a map
+// over a tensor off 16 bytes does not encode, and the call returns its
+// error); delta a float32 [B, H, Sq] scratch.
 extern "C" int vq_flash_attention_bf16_bwd(
     const void* q, const void* k, const void* v, const void* bias, const void* key_bias,
     const void* o, const void* lse, const void* dout, void* dq, void* dk,
@@ -730,15 +1278,12 @@ extern "C" int vq_flash_attention_bf16_bwd(
   p.dv = (bf16*)dv;
   p.delta = (float*)delta;
   cudaStream_t s = (cudaStream_t)stream;
+  Maps maps;
+  cudaError_t err = make_maps(p, &maps, true);
+  if (err != cudaSuccess) return (int)err;
 
-  const long long rows = (long long)B * H * Sq;
-  long long blocks = (rows + 7) / 8;  // 8 warps of 256 threads, a row each
-  if (blocks > 65535) blocks = 65535;
-  flash_bwd_delta_kernel<<<(unsigned)blocks, 256, 0, s>>>(p);
-  cudaError_t err = cudaGetLastError();
+  // dQ first: it computes D and writes it for dK/dV
+  err = dispatch<Dq>(p, maps, grid_of(Sq, p), s);
   if (err != cudaSuccess) return (int)err;
-  const dim3 kv_grid((Sk + kTile - 1) / kTile, H, B), q_grid((Sq + kTile - 1) / kTile, H, B);
-  err = dispatch<Dkv>(p, kv_grid, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)dispatch<Dq>(p, q_grid, s);
+  return (int)dispatch<Dkv>(p, maps, grid_of(Sk, p), s);
 }

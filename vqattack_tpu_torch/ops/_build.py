@@ -89,6 +89,9 @@ def library_path() -> Path:
 
 _BUILD_LOCK = threading.RLock()
 _LIB = None
+# ptxas's report (registers, shared memory, spills) of each source compiled
+# by this process, by source name
+PTXAS_REPORTS: dict = {}
 
 
 def build() -> Path:
@@ -113,9 +116,10 @@ def build() -> Path:
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
                  for cmd in compiles]
         try:
-            for cmd, proc in zip(compiles, procs):
+            for name, cmd, proc in zip(SOURCES, compiles, procs):
                 stdout, stderr = proc.communicate()
                 _check_run(cmd, proc, stdout, stderr)
+                PTXAS_REPORTS[name] = stderr
                 print(stderr, end="", file=sys.stderr, flush=True)  # ptxas's report
             link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
             proc = subprocess.Popen(link, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
