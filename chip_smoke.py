@@ -7,15 +7,19 @@ Phases (each prints a line on entry and its seconds on exit):
 
 1. device: the card, and ``nvidia-smi``'s name and power limit;
 2. build: the CUDA kernels, one ``nvcc`` call (``vqattack_tpu_torch/ops/_build.py``),
-   and ptxas's registers and spills of each of K3-bf16's kernels;
+   and ptxas's registers and spills of each of K3-bf16's kernels and of
+   each instance of K2's backward;
 3. kernels: each kernel against its plain PyTorch version on the card, at the
    shapes both paths give it (batch 1, the batched chunks of 4 and 8, the
    victim's 16), with the stated tolerances: K1 (PGD update), K2 (residual +
-   LayerNorm, forward and backward) and K3 (flash attention on the tensor
+   LayerNorm, forward and backward; the backward also at 1 and 7 rows, at
+   widths 1024, 544 and 100 and on a misaligned view, with and without gs
+   and parameter gradients) and K3 (flash attention on the tensor
    cores in three TF32 passes, forward and backward, ragged and bias cases;
    and its bf16 instance, one bf16 pass a product);
    times and bounds at the batched chunk of 8, and K3's also at 16, beside
-   ``scaled_dot_product_attention``;
+   ``scaled_dot_product_attention``; K2's backward also timed at 901 and
+   14416 rows and with parameter gradients, printed beside the table;
 4. model: the full-width surrogate with the fused kernels against the same
    weights through plain LayerNorms, and with the flash kernel against the
    product + softmax attention: forward features and d/dpixels;
@@ -244,8 +248,63 @@ def _close(name, got, ref, dtype):
 
 # K2's row counts: one 901-token image (the per-sample path), the batched
 # chunks of 4 and 8 and the victim's padded 16, and 1000 (not a multiple of
-# the kernel's row tile)
+# the forward's row tile)
 LN_ROWS = (901, 1000, 4 * 901, TIMED_BATCH * 901, 16 * 901)
+# K2's backward at the other rows, widths and layouts its wrapper takes:
+# (rows, D, storage offset in elements).  One row and 7 (fewer rows than
+# SMs); the widest row (1024) and 544 in 16-byte vectors; 100, which on a
+# bf16 stream is no whole number of 16-byte vectors, and a contiguous view
+# 2 elements past a 16-byte boundary: both take the scalar instance.
+K2_BWD_CASES = ((1, D, 0), (7, D, 0), (7, 1024, 0), (901, 1024, 0), (901, 544, 0),
+                (901, 100, 0), (901, D, 2))
+
+
+def _bwd_case(gen, rows, d, dtype, offset=0):
+    """s = x + delta of the plain forward, gs, gh of ``rows`` x ``d`` in the
+    stream dtype, each a contiguous view ``offset`` elements into its
+    storage; gamma float32."""
+    def view(t):
+        out = torch.empty(rows * d + offset, dtype=dtype, device="cuda")[offset:].view(rows, d)
+        return out.copy_(t)
+    x = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
+    delta = (torch.randn(rows, d, generator=gen, device="cuda") * 0.3).to(dtype)
+    gamma = torch.randn(d, generator=gen, device="cuda") * 0.1 + 1.0
+    beta = torch.randn(d, generator=gen, device="cuda") * 0.1
+    s, _ = fused_ln.residual_layernorm_reference(x, delta, gamma, beta, 1e-6)
+    gs = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
+    gh = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
+    return view(s), view(gs), view(gh), gamma
+
+
+def _check_bwd(s, gs, gh, gamma, param_grads, what):
+    """K2's backward, called three times, against its plain version: dx
+    within ``_close``'s bounds; dgamma/dbeta (sums over rows taken in
+    another order than torch.sum) within 1e-5 of the sum of the terms'
+    magnitudes; dx, dgamma and dbeta the same bit for bit on every call.
+    Returns dx's largest error."""
+    runs = [fused_ln.residual_layernorm_bwd(s, gs, gh, gamma, 1e-6, param_grads=param_grads)
+            for _ in range(3)]
+    dx_r, dg_r, db_r = fused_ln.residual_layernorm_bwd_reference(
+        s, gs, gh, gamma, 1e-6, param_grads=param_grads)
+    torch.cuda.synchronize()
+    dx, dg, db = runs[0]
+    dx_err = _close(f"dx {what}", dx, dx_r, s.dtype)
+    require(all(torch.equal(r[0], dx) for r in runs), f"dx not deterministic at {what}")
+    if param_grads:
+        require(all(torch.equal(r[1], dg) and torch.equal(r[2], db) for r in runs),
+                f"dgamma/dbeta not deterministic at {what}")
+        sf = s.float()
+        xhat = (sf - sf.mean(-1, keepdim=True)) * torch.rsqrt(
+            sf.var(-1, unbiased=False, keepdim=True) + 1e-6)
+        mag_g = (gh.float() * xhat).abs().sum(0)
+        mag_b = gh.float().abs().sum(0)
+        require(bool(((dg - dg_r).abs() <= 1e-5 * mag_g + 1e-6).all()),
+                f"dgamma outside tolerance at {what}")
+        require(bool(((db - db_r).abs() <= 1e-5 * mag_b + 1e-6).all()),
+                f"dbeta outside tolerance at {what}")
+    else:
+        require(dg is None and db is None, f"parameter gradients without param_grads at {what}")
+    return dx_err
 
 
 def check_fused_ln(gen):
@@ -262,34 +321,32 @@ def check_fused_ln(gen):
             require(torch.equal(s, s_r), f"residual sum differs at rows={rows} {dtype}")
             h_err = _close(f"h rows={rows} {dtype}", h, h_r, dtype)
 
-            dx, dg, db = fused_ln.residual_layernorm_bwd(s, gs, gh, gamma, 1e-6)
-            dx2, dg2, db2 = fused_ln.residual_layernorm_bwd(s, gs, gh, gamma, 1e-6)
-            dx_r, dg_r, db_r = fused_ln.residual_layernorm_bwd_reference(s, gs, gh, gamma, 1e-6)
-            torch.cuda.synchronize()
-            dx_err = _close(f"dx rows={rows} {dtype}", dx, dx_r, dtype)
-            require(torch.equal(dg, dg2) and torch.equal(db, db2) and torch.equal(dx, dx2),
-                    f"backward not deterministic at rows={rows} {dtype}")
-            # dgamma/dbeta: sums over rows taken in another order than
-            # torch.sum; bound 1e-5 x the sum of the terms' magnitudes
-            sf = s.float()
-            xhat = (sf - sf.mean(-1, keepdim=True)) * torch.rsqrt(
-                sf.var(-1, unbiased=False, keepdim=True) + 1e-6)
-            mag_g = (gh.float() * xhat).abs().sum(0)
-            mag_b = gh.float().abs().sum(0)
-            require(bool(((dg - dg_r).abs() <= 1e-5 * mag_g + 1e-6).all()),
-                    f"dgamma outside tolerance at rows={rows} {dtype}")
-            require(bool(((db - db_r).abs() <= 1e-5 * mag_b + 1e-6).all()),
-                    f"dbeta outside tolerance at rows={rows} {dtype}")
+            what = f"rows={rows} {dtype}"
+            dx_err = _check_bwd(s, gs, gh, gamma, True, what)
+            dx_err = max(dx_err, _check_bwd(s, gs, gh, gamma, False, what))
             print(f"  residual_layernorm rows={rows} {str(dtype)[6:]}: s bit-exact, "
-                  f"h err {h_err:.3g}, dx err {dx_err:.3g}, "
-                  f"dgamma err {float((dg - dg_r).abs().max()):.3g}, deterministic", flush=True)
+                  f"h err {h_err:.3g}, dx err {dx_err:.3g}, dgamma/dbeta within bounds, "
+                  f"deterministic", flush=True)
             if rows == TIMED_BATCH * 901:
                 timed.append(_time_fwd(x, delta, gamma, beta, rows, max(h_err, 0.0)))
                 timed.append(_time_bwd(x, delta, gamma, beta, s, gs, gh, rows, dx_err))
+    for rows, d, offset in K2_BWD_CASES:
+        for dtype in (torch.float32, BF16):
+            s, gs, gh, gamma = _bwd_case(gen, rows, d, dtype, offset)
+            instance = "16-byte" if fused_ln.bwd_vectorised(d, s, gs, gh) else "scalar"
+            err = max(_check_bwd(s, g_s, gh, gamma, param_grads,
+                                 f"rows={rows} D={d} offset={offset} {dtype}")
+                      for g_s in (gs, None) for param_grads in (True, False))
+            print(f"  residual_layernorm_bwd rows={rows} D={d} offset={offset} "
+                  f"{str(dtype)[6:]} ({instance} instance): dx err {err:.3g} with and without "
+                  f"gs and parameter gradients, deterministic", flush=True)
     for rows in (901, TIMED_BATCH * 901):
         for dtype in (torch.float32, BF16):
             for param_grads in (True, False):
                 _check_autograd(gen, rows, dtype, param_grads)
+    for rows in (901, 16 * 901):
+        for dtype in (torch.float32, BF16):
+            _time_bwd_shape(gen, rows, dtype)
     return timed
 
 
@@ -351,7 +408,35 @@ def _time_bwd(x, delta, gamma, beta, s, gs, gh, rows, err):
     print(f"  {row['name']} [{rows}, {D}] {str(x.dtype)[6:]}: {row['ms'] * 1e3:.1f} us (plain "
           f"{row['plain_ms'] * 1e3:.1f} us, autograd of layer_norm(x + delta) "
           f"{row['library_ms'] * 1e3:.1f} us, bound {b * 1e3:.2f} us)", flush=True)
+    _print_bwd_param_grads(s, gs, gh, gamma, rows)
     return row
+
+
+def _print_bwd_param_grads(s, gs, gh, gamma, rows):
+    """K2's backward with dgamma/dbeta, as a LayerNorm that trains calls it."""
+    ms = time_ms(lambda: fused_ln.residual_layernorm_bwd(s, gs, gh, gamma, 1e-6))
+    print(f"  {_ln_name('bwd', s.dtype)} [{rows}, {D}] {str(s.dtype)[6:]}, param_grads=True: "
+          f"{ms * 1e3:.1f} us", flush=True)
+
+
+def _time_bwd_shape(gen, rows, dtype):
+    """K2's backward at a shape beside the table's (one image's 901 rows,
+    the batch-16 step's 14416), printed, not in the kernel line: without
+    and with parameter gradients, beside autograd of layer_norm(x + delta)
+    and the byte bound."""
+    x, delta, gamma, beta, gs, gh = _ln_case(gen, rows, dtype)
+    s, _ = fused_ln.residual_layernorm_fwd(x, delta, gamma, beta, 1e-6)
+    b, _ = bound_ms(4 * rows * D * x.element_size() + D * 4, 12 * rows * D)
+    ms = time_ms(lambda: fused_ln.residual_layernorm_bwd(s, gs, gh, gamma, 1e-6, param_grads=False))
+    x_leaf = x.detach().clone().requires_grad_(True)
+    s_l = x_leaf + delta
+    h_l = torch.nn.functional.layer_norm(s_l, (D,), gamma.to(dtype), beta.to(dtype), 1e-6)
+    lib = time_ms(lambda: torch.autograd.grad((s_l, h_l), x_leaf, (gs, gh), retain_graph=True),
+                  sleep_cycles=20_000_000)
+    print(f"  {_ln_name('bwd', dtype)} [{rows}, {D}] {str(dtype)[6:]}: {ms * 1e3:.1f} us "
+          f"(autograd of layer_norm(x + delta) {lib * 1e3:.1f} us, bound {b * 1e3:.2f} us)",
+          flush=True)
+    _print_bwd_param_grads(s, gs, gh, gamma, rows)
 
 
 def _check_autograd(gen, rows, dtype, param_grads):
@@ -1819,11 +1904,15 @@ def ptxas_summary(report):
     found, name, spills, serialized = [], None, "", set()
 
     def short(mangled):
-        m = re.search(r"(?<=\d)([A-Za-z][A-Za-z_]*?_kernel)(?:I((?:Lb[01]E)+))?", mangled)
+        # the kernel's name and its template arguments: bools and ints as
+        # numbers, float and __nv_bfloat16 as f32 and bf16
+        m = re.search(r"(?<=\d)([A-Za-z][A-Za-z_]*?_kernel)(?:I((?:f|13__nv_bfloat16|L[ib]\d+E)+)E)?",
+                      mangled)
         if m is None:
             return mangled
-        flags = ",".join(re.findall(r"Lb([01])E", m.group(2) or ""))
-        return m.group(1) + (f"<{flags}>" if flags else "")
+        args = [{"f": "f32", "13__nv_bfloat16": "bf16"}.get(a) or a[2:-1]
+                for a in re.findall(r"f|13__nv_bfloat16|L[ib]\d+E", m.group(2) or "")]
+        return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -1862,6 +1951,10 @@ def main() -> int:
     print(f"build: {ph.seconds:.2f} s -> {_build.library_path()}", flush=True)
     for line in ptxas_summary(_build.PTXAS_REPORTS.get("flash_attention_bf16.cu")):
         print(line, flush=True)
+    # K2's backward: <stream dtype, values a chunk, chunks a lane, parameter sums>
+    for line in ptxas_summary(_build.PTXAS_REPORTS.get("fused_ln.cu")):
+        if "residual_ln_bwd_kernel" in line or "no report" in line:
+            print(line, flush=True)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)

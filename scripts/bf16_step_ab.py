@@ -9,13 +9,14 @@ Runs, from the checkout it lives in, ``chip_smoke.py``'s batch-16 step
 flash`` against ``--attn xla`` in turns) for ALBEF and for VLMo, on the
 same random full-width weights from seed 0; then profiles three more
 flash steps of each (``torch.profiler``, CUDA activity): the device time
-of all kernels a step, that of the flash-attention kernels, and the
-step's wall time under the profiler, whose difference from the device
-time is the card's idle share.  Prints one JSON line with these and the
-card's name and power limit.  Step times include the host's enqueueing and
-vary from call to call, so two versions are compared in one call, each in
-its own process from its own checkout, in turns: parent, change, change,
-parent.  A parent checkout that lacks
+of all kernels a step, that of the flash-attention kernels, that of K2's
+forward and backward kernels (``residual_ln_fwd_kernel``,
+``residual_ln_bwd_kernel``), and the step's wall time under the profiler,
+whose difference from the device time is the card's idle share.  Prints
+one JSON line with these and the card's name and power limit.  Step times
+include the host's enqueueing and vary from call to call, so two versions
+are compared in one call, each in its own process from its own checkout,
+in turns: parent, change, change, parent.  A parent checkout that lacks
 this script gets a copy of it in its ``scripts/``: it imports the
 checkout's own ``chip_smoke.py`` and ``vqattack_tpu_torch``.  Needs one
 CUDA device; builds the checkout's kernels at first use.
@@ -43,8 +44,9 @@ from vqattack_tpu_torch.text.tokenizer import WordPieceTokenizer  # noqa: E402
 
 def device_times(step, steps: int = 3) -> dict:
     """``step`` under ``--attn flash``, once to warm up, then ``steps`` times
-    under the profiler: per step, the summed device time of every kernel and
-    of the flash-attention kernels (ms), and the wall time (ms)."""
+    under the profiler: per step, the summed device time of every kernel, of
+    the flash-attention kernels and of K2's forward and backward kernels
+    (ms), and the wall time (ms)."""
     with cs.attention.attention_impl("flash"):
         step()
         torch.cuda.synchronize()
@@ -54,7 +56,7 @@ def device_times(step, steps: int = 3) -> dict:
                 step()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    total = flash = 0.0
+    total = flash = k2_fwd = k2_bwd = 0.0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -62,7 +64,10 @@ def device_times(step, steps: int = 3) -> dict:
         us = e.cuda_time if us is None else us
         total += us
         flash += us if "flash_" in e.name else 0.0
+        k2_fwd += us if "residual_ln_fwd_kernel" in e.name else 0.0
+        k2_bwd += us if "residual_ln_bwd_kernel" in e.name else 0.0
     return {"device_ms": total / steps / 1e3, "flash_ms": flash / steps / 1e3,
+            "k2_fwd_ms": k2_fwd / steps / 1e3, "k2_bwd_ms": k2_bwd / steps / 1e3,
             "wall_ms": wall / steps * 1e3}
 
 

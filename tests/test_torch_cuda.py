@@ -79,6 +79,65 @@ def test_residual_layernorm_kernels(gen, rows, dtype):
     torch.testing.assert_close(dxn.float(), dxn_r.float(), **tol)
 
 
+# (rows, D, storage offset in elements): the main path's width at one row,
+# 7 (fewer rows than SMs), one image's 901 and the batch-16 step's 14416;
+# the widest row, 544 and 100 (the scalar instance on a bf16 stream); and
+# contiguous views 2 elements past a 16-byte boundary (the scalar instance)
+K2_BWD_CASES = [(1, 768, 0), (7, 768, 0), (901, 768, 0), (14416, 768, 0), (7, 1024, 0),
+                (901, 1024, 0), (901, 544, 0), (7, 100, 0), (901, 100, 0), (901, 768, 2),
+                (7, 1024, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d,offset", K2_BWD_CASES)
+def test_residual_layernorm_bwd_kernel_cases(gen, rows, d, offset, dtype):
+    """K2's backward at every width, row count and alignment its wrapper
+    takes, with and without gs and parameter gradients: dx within 1e-5
+    (float32) or one bf16 ulp (rtol 2^-7, atol 2^-9) of the plain version;
+    dgamma/dbeta within 1e-5 of the terms' magnitudes; all three the same
+    bit for bit over three calls; one launch a call; the 16-byte instance
+    exactly where D is a whole number of 16-byte vectors and the storage
+    is aligned."""
+    def view(t):
+        out = torch.empty(rows * d + offset, dtype=dtype, device="cuda")[offset:].view(rows, d)
+        return out.copy_(t)
+
+    x = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
+    delta = (torch.randn(rows, d, generator=gen, device="cuda") * 0.3).to(dtype)
+    gamma = torch.randn(d, generator=gen, device="cuda") * 0.1 + 1
+    beta = torch.randn(d, generator=gen, device="cuda") * 0.1
+    s = view(fused_ln.residual_layernorm_reference(x, delta, gamma, beta)[0])
+    gs, gh = (view(torch.randn(rows, d, generator=gen, device="cuda").to(dtype))
+              for _ in range(2))
+    assert s.is_contiguous() and s.data_ptr() % 16 == (2 * s.element_size() if offset else 0)
+    vectorised = offset == 0 and d * s.element_size() % 16 == 0
+    assert fused_ln.bwd_vectorised(d, s, gs, gh) == vectorised
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=2 ** -7,
+                                                                          atol=2 ** -9)
+    sf = s.float()
+    xhat = (sf - sf.mean(-1, keepdim=True)) * torch.rsqrt(
+        sf.var(-1, unbiased=False, keepdim=True) + 1e-6)
+    for g_s in (gs, None):
+        for param_grads in (True, False):
+            counts = fused_ln.residual_layernorm_bwd.launches + \
+                fused_ln.residual_layernorm_bwd.bf16_launches
+            runs = [fused_ln.residual_layernorm_bwd(s, g_s, gh, gamma, param_grads=param_grads)
+                    for _ in range(3)]
+            assert (fused_ln.residual_layernorm_bwd.launches
+                    + fused_ln.residual_layernorm_bwd.bf16_launches) == counts + 3
+            dx_r, dg_r, db_r = fused_ln.residual_layernorm_bwd_reference(
+                s, g_s, gh, gamma, param_grads=param_grads)
+            dx, dg, db = runs[0]
+            torch.testing.assert_close(dx.float(), dx_r.float(), **tol)
+            assert all(torch.equal(r[0], dx) for r in runs)
+            if not param_grads:
+                assert dg is None and db is None
+                continue
+            assert all(torch.equal(r[1], dg) and torch.equal(r[2], db) for r in runs)
+            assert ((dg - dg_r).abs() <= 1e-5 * (gh.float() * xhat).abs().sum(0) + 1e-6).all()
+            assert ((db - db_r).abs() <= 1e-5 * gh.float().abs().sum(0) + 1e-6).all()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("param_grads", [True, False])
 def test_residual_layernorm_autograd_function(gen, dtype, param_grads):

@@ -140,6 +140,57 @@ def test_residual_layernorm_grads_match_jax_vjp(rows, interpret):
     np.testing.assert_allclose(dxn.numpy() + gs, dx, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("rows", [1, 37, 901, 7208, 14416])
+def test_residual_layernorm_bwd_partition(rows, monkeypatch):
+    """The backward kernel's grid: every row falls to exactly one warp, in
+    ascending runs (warp w of the grid takes [w * rows_a_warp, (w + 1) *
+    rows_a_warp)); at most 8 warps a block and one block an SM, which bounds
+    the dgamma/dbeta scratch; and the result depends on rows and D alone:
+    the device is never asked."""
+    def no_device(*a, **k):
+        raise AssertionError("the partition asked the device")
+
+    for name in ("is_available", "device_count", "get_device_properties", "current_device"):
+        monkeypatch.setattr(torch.cuda, name, no_device)
+    parts = {d: fused_ln.bwd_partition(rows, d) for d in (100, 544, 768, 1024)}
+    assert len(set(parts.values())) == 1
+    assert fused_ln.bwd_partition(rows, 768) == parts[768]
+    rows_per_warp, warps_per_block, blocks = parts[768]
+    # the kernel's 256 threads; at most one block an SM, so at most 132 rows
+    # in the dgamma/dbeta scratch [2, blocks, D]
+    assert 1 <= warps_per_block <= 8 and 1 <= blocks <= fused_ln.H100_SMS
+    runs = [range(w * rows_per_warp, min((w + 1) * rows_per_warp, rows))
+            for w in range(blocks * warps_per_block)]
+    assert [r for run in runs for r in run] == list(range(rows))
+    # one wave: no more warps than the H100's SMs hold at BWD_WARPS_PER_SM,
+    # and no block without a row
+    assert blocks * warps_per_block <= fused_ln.H100_SMS * fused_ln.BWD_WARPS_PER_SM
+    assert (blocks - 1) * warps_per_block * rows_per_warp < rows
+    if rows <= fused_ln.H100_SMS * fused_ln.BWD_WARPS_PER_SM:
+        assert rows_per_warp == 1  # one warp a row, spread over the SMs
+    with pytest.raises(ValueError):
+        fused_ln.bwd_partition(rows, fused_ln.MAX_D + 1)
+
+
+@pytest.mark.parametrize("d,dtype,offset,vectorised", [
+    (768, torch.float32, 0, True), (768, torch.bfloat16, 0, True),
+    (100, torch.float32, 0, True), (100, torch.bfloat16, 0, False),
+    (544, torch.bfloat16, 0, True), (768, torch.float32, 2, False),
+    (768, torch.bfloat16, 2, False), (768, torch.bfloat16, 8, True)])
+def test_residual_layernorm_bwd_picks_its_instance(d, dtype, offset, vectorised):
+    """The 16-byte instance where a row is a whole number of 16-byte vectors
+    and every tensor starts on a 16-byte boundary, else the scalar one; a
+    missing gs does not count."""
+    def view():
+        return torch.zeros(3 * d + offset + 64, dtype=dtype)[offset:offset + 3 * d].view(3, d)
+
+    s, gs, gh = view(), view(), view()
+    # the CPU allocator aligns storage to 64 bytes
+    assert s.is_contiguous() and s.data_ptr() % 16 == offset * s.element_size() % 16
+    assert fused_ln.bwd_vectorised(d, s, gs, gh) == vectorised
+    assert fused_ln.bwd_vectorised(d, s, None, gh) == vectorised
+
+
 def test_residual_layernorm_routes_by_device():
     """CPU tensors take the plain version (no launch); delta=None is a plain
     LayerNorm everywhere; other devices are refused."""

@@ -40,8 +40,9 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 SIGNATURES = {
     "vq_pgd_linf_update": (_P, _P, _P, _P, _LL, _F, _F, _F, _F, _P),
     "vq_residual_layernorm_fwd": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
-    "vq_residual_layernorm_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                  _F, _P),
+    # dtype, vec; s, gs, gh, gamma, dx, part, dgdb; rows, D, rows a warp,
+    # warps a block; eps; stream
+    "vq_residual_layernorm_bwd": (_I, _I) + (_P,) * 7 + (_I,) * 4 + (_F, _P),
     # q, k, v, bias, key bias, out, lse; B, H, Sq, Sk; q/k/v (b, s, h),
     # bias (b, h, q, k) and key bias (b) element strides; scale; stream
     "vq_flash_attention_fwd": (_P,) * 7 + (_I,) * 4 + (_LL,) * 14 + (_F, _P),

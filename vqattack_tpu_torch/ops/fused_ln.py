@@ -21,11 +21,15 @@ import torch
 from vqattack_tpu_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# widest row the kernel keeps in registers (256 threads x 4 values)
+# widest row the kernels keep in registers (the forward: 256 threads x 4
+# values; the backward: 32 lanes x 32)
 MAX_D = 1024
-# rows per block of the backward kernel: each block writes one row of the
-# [n_row_blocks, D] dgamma/dbeta scratch
-BWD_ROWS_PER_BLOCK = 4
+# The backward's grid is one wave over an H100: at most BWD_WARPS_PER_SM
+# warps (one block) on each of its 132 SMs.  The SM count is a constant,
+# never read from the device, so that the partition, and with it the order
+# in which dgamma/dbeta add up, is the same on every card.
+H100_SMS = 132
+BWD_WARPS_PER_SM = 8
 
 
 # ---------------------------------------------------------------------------
@@ -139,6 +143,34 @@ def residual_layernorm_fwd(x, delta, gamma, beta, eps: float = 1e-6):
     return s, h
 
 
+def bwd_partition(rows: int, d: int) -> Tuple[int, int, int]:
+    """``(rows a warp, warps a block, blocks)`` of the backward kernel for
+    ``rows`` rows of width ``d``.  Warp ``w`` of the grid takes rows ``[w *
+    rows_a_warp, (w + 1) * rows_a_warp)``.  The fewest rows a warp that fit
+    ``BWD_WARPS_PER_SM`` warps on each of the H100's SMs, then the fewest
+    warps a block that spread those warps over every SM: one wave, one warp
+    a row up to 1056 rows, and at most one block an SM, so the dgamma/dbeta
+    scratch ``[2, blocks, d]`` has at most 132 rows.  Depends on ``rows``
+    and ``d`` alone."""
+    if rows < 1 or not 0 < d <= MAX_D:
+        raise ValueError(f"residual_layernorm_bwd: no partition of {rows} rows of width {d}")
+    rows_per_warp = -(-rows // (H100_SMS * BWD_WARPS_PER_SM))
+    warps = -(-rows // rows_per_warp)
+    warps_per_block = -(-warps // H100_SMS)
+    return rows_per_warp, warps_per_block, -(-warps // warps_per_block)
+
+
+def bwd_vectorised(d: int, *tensors: Optional[torch.Tensor]) -> bool:
+    """Whether the backward's 16-byte instance takes these rows: a row of
+    ``d`` values is a whole number of 16-byte vectors and every tensor given
+    starts on a 16-byte boundary.  Otherwise the scalar instance runs (a
+    contiguous view at an odd storage offset, or a width such as 100 on a
+    bf16 stream)."""
+    present = [t for t in tensors if t is not None]
+    return (d * present[0].element_size() % 16 == 0
+            and all(t.data_ptr() % 16 == 0 for t in present))
+
+
 def residual_layernorm_bwd(s, gs, gh, gamma, eps: float = 1e-6, param_grads: bool = True):
     """Backward kernel: ``(dx, dgamma, dbeta)``.  ``gs`` may be ``None`` (no
     gradient reached ``s``).  With ``param_grads=False`` the parameter sums
@@ -149,20 +181,24 @@ def residual_layernorm_bwd(s, gs, gh, gamma, eps: float = 1e-6, param_grads: boo
         _check_rows("grad of s", gs, s)
     _check_params(gamma, d, s.device)
     dx = torch.empty_like(s)
+    if rows == 0:  # nothing to launch
+        if not param_grads:
+            return dx, None, None
+        return dx, gamma.new_zeros(d), gamma.new_zeros(d)
+    rows_per_warp, warps_per_block, n_blocks = bwd_partition(rows, d)
     part = dgdb = None
     if param_grads:
-        n_row_blocks = -(-rows // BWD_ROWS_PER_BLOCK)
-        part = torch.empty((2, n_row_blocks, d), dtype=torch.float32, device=s.device)
+        part = torch.empty((2, n_blocks, d), dtype=torch.float32, device=s.device)
         dgdb = torch.empty((2, d), dtype=torch.float32, device=s.device)
     lib = _build.load()
     with torch.cuda.device(s.device):
         status = lib.vq_residual_layernorm_bwd(
-            _DTYPE_CODES[s.dtype], s.data_ptr(),
+            _DTYPE_CODES[s.dtype], int(bwd_vectorised(d, s, gs, gh, dx)), s.data_ptr(),
             None if gs is None else gs.data_ptr(), gh.data_ptr(),
             gamma.data_ptr(), dx.data_ptr(),
             None if part is None else part.data_ptr(),
             None if dgdb is None else dgdb.data_ptr(),
-            rows, d, BWD_ROWS_PER_BLOCK, eps,
+            rows, d, rows_per_warp, warps_per_block, eps,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(status, "residual_layernorm_bwd")
