@@ -61,6 +61,20 @@ Phases (each prints a line on entry and its seconds on exit):
     the reference's names, the resized ``pos_embed`` and relative table
     against the port's resize on the CPU; then the files are deleted.
 
+VLMo-base+ (``--named-config task_finetune_vqa_base_plus_image480``: 24
+MoME blocks of width 544 over 16 heads, head dim 34, absolute position
+embeddings, no relative-position table, no layer scale, 941 joint tokens)
+runs after the VLMo phases: K3 at head dim 34 in float32 and bf16,
+forward and backward, against its plain versions at [B, 941, 16, 34] for
+B = 1, 8 and 16 (strided views of [B, 941, 544] projections, the
+padded-text key bias), ragged lengths, a -inf first key tile and the
+autograd Function, timed at B = 16 beside the bf16 copies into 40-wide rows
+and ``scaled_dot_product_attention`` (its backend named); the full-width
+model, flash against xla; the per-sample path (2 samples, ``--attn
+flash``); the batched path (11 samples, ``--batch-size 8 --attn flash
+--pipeline-depth 2``) in float32 and ``--dtype bfloat16``; the batch-16
+flash/xla step in both dtypes.
+
 The bf16 trunk (``--dtype bfloat16``) adds, after the float32 phases of each
 surrogate: K2 on a bf16 stream (phase 3, beside float32) and K3's bf16
 instance against its plain versions and the float32 computation (ALBEF's
@@ -73,9 +87,10 @@ flash --pipeline-depth 2``) through the engine and again through
 ``run.main``, whose launch counts, bf16 and float32 instances apart, must
 equal the schedules'; and the batch-16 flash/xla step in bf16.
 
-Before phases 5, 6, 10, 11, each run of 13 and each bf16 path the kernels'
-launch counts are reset, and after each they must equal what the samples'
-schedules imply.  Prints the kernel table as one JSON line, the checkpoint loads'
+Before phases 5, 6, 10, 11, each run of 13, each bf16 path and each base+
+path the kernels' launch counts are reset, and after each they must equal
+what the samples' schedules imply (K3's head-dim-34 launches counted
+apart).  Prints the kernel table as one JSON line, the checkpoint loads'
 seconds beside the card's name and power limit, the card's name and power
 limit, then, as the last line, ``{"ok": true, "device": {...}}``.  Exits
 non-zero, without those lines, when there is no CUDA device or any check
@@ -630,26 +645,28 @@ def _bf16_attn_err(what, got, plain, truth):
     return err
 
 
-def _check_bf16_attention(q, k, v, table, key_bias, what):
+def _check_bf16_attention(q, k, v, table, key_bias, what, scale=SCALE):
     """K3-bf16 forward and backward against its plain versions and the
     float32 truth (:func:`_bf16_attn_err`), the log-sum-exp within the
     float32 tolerance (float32 sums of exact bf16 products); the backward
     repeats bit for bit.  ``q, k, v`` bf16, the terms float32 or None."""
     do = torch.randn(q.shape, generator=torch.Generator("cuda").manual_seed(2),
                      device="cuda").to(BF16)
-    o, lse = attention.flash_attention_fwd(q, k, v, table, SCALE, key_bias)
-    o_p, lse_p = attention.flash_attention_reference(q, k, v, table, SCALE, return_lse=True,
+    o, lse = attention.flash_attention_fwd(q, k, v, table, scale, key_bias)
+    o_p, lse_p = attention.flash_attention_reference(q, k, v, table, scale, return_lse=True,
                                                      key_bias=key_bias)
     qf, kf, vf = q.float(), k.float(), v.float()
-    o_t, lse_t = attention.flash_attention_reference(qf, kf, vf, table, SCALE, return_lse=True,
+    o_t, lse_t = attention.flash_attention_reference(qf, kf, vf, table, scale, return_lse=True,
                                                      key_bias=key_bias)
-    grads = attention.flash_attention_bwd(q, k, v, table, SCALE, o, lse, do, key_bias)
-    again = attention.flash_attention_bwd(q, k, v, table, SCALE, o, lse, do, key_bias)
-    plain = attention.flash_attention_bwd_reference(q, k, v, table, SCALE, o, lse, do, key_bias)
-    truth = attention.flash_attention_bwd_reference(qf, kf, vf, table, SCALE, o_t, lse_t,
+    grads = attention.flash_attention_bwd(q, k, v, table, scale, o, lse, do, key_bias)
+    again = attention.flash_attention_bwd(q, k, v, table, scale, o, lse, do, key_bias)
+    plain = attention.flash_attention_bwd_reference(q, k, v, table, scale, o, lse, do, key_bias)
+    truth = attention.flash_attention_bwd_reference(qf, kf, vf, table, scale, o_t, lse_t,
                                                     do.float(), key_bias)
     torch.cuda.synchronize()
     require(o.dtype == BF16 and all(g.dtype == BF16 for g in grads), "K3-bf16 output dtypes")
+    require(o.shape == q.shape and all(g.shape == t.shape for g, t in zip(grads, (q, k, v))),
+            f"{what}: K3-bf16 output shapes")
     errs = {"o": _bf16_attn_err(f"{what} o", o, o_p, o_t), "lse": _attn_err("lse", lse, lse_p)}
     for name, g, g2, p, t in zip(("dq", "dk", "dv"), grads, again, plain, truth):
         require(torch.equal(g, g2), f"{what}: bf16 backward {name} differs between two runs")
@@ -906,6 +923,9 @@ for _b, _prefix in (("", ""), ("_bf16", "bf16_")):
     for _d in ("fwd", "bwd"):
         KERNELS[f"flash_attention{_b}_{_d}_key_bias"] = (
             getattr(attention, f"flash_attention_{_d}"), _prefix + "key_bias_launches")
+    for _d in ("fwd", "bwd"):  # VLMo-base+'s head dim 34
+        KERNELS[f"flash_attention{_b}_{_d}_hd34"] = (
+            getattr(attention, f"flash_attention_{_d}"), _prefix + "hd34_launches")
 
 
 def counts() -> dict:
@@ -942,8 +962,9 @@ def vlmo_implied_launches(cfg, fwd: int, bwd: int, k1: int, flash: bool,
                           dtype: str = "float32") -> dict:
     """Launches that ``fwd`` joint VLMo forwards, ``bwd`` backwards and
     ``k1`` L-inf updates imply: with ``--attn flash`` each forward runs
-    depth attentions over 941 tokens, each with the relative-position table
-    and the text mask (K3 with a key bias, the instance of ``dtype``), each
+    depth attentions over 941 tokens, each with the text mask (K3 with a
+    key bias, the instance of ``dtype``; VLMo-base adds its
+    relative-position table, base+ has none and runs head dim 34), each
     backward as many; VLMo's LayerNorms are plain (no K2)."""
     attn = cfg.vlmo.depth if flash else 0
     b = "_bf16" if dtype == "bfloat16" else ""
@@ -955,6 +976,9 @@ def vlmo_implied_launches(cfg, fwd: int, bwd: int, k1: int, flash: bool,
         f"flash_attention{b}_fwd_key_bias": attn * fwd,
         f"flash_attention{b}_bwd_key_bias": attn * bwd,
     })
+    if cfg.vlmo.hidden_size // cfg.vlmo.num_heads == 34:
+        out.update({f"flash_attention{b}_fwd_hd34": attn * fwd,
+                    f"flash_attention{b}_bwd_hd34": attn * bwd})
     return out
 
 
@@ -1209,29 +1233,26 @@ def _vlmo_qkv_terms(pipe, tokenizer, gen, b, layer=0):
     the sequence), as the joint trunk hands them to K3."""
     seq = pipe.max_text_len + pipe.model.cfg.image_seq_len
     q, k, v = _qkv(gen, b, seq)
-    questions = [q for _, q, _, _ in VLMO_BATCH_SAMPLES]
-    _, mask = tokenizer.encode_batch([questions[i % len(questions)] for i in range(b)],
-                                     pipe.max_text_len)
-    co = torch.cat([torch.as_tensor(mask, device="cuda"),
-                    torch.ones(b, seq - pipe.max_text_len, dtype=torch.int32, device="cuda")], 1)
-    key_bias = mask_to_key_bias(co)
-    return q, k, v, pipe._rel_biases[layer][None], key_bias
+    return q, k, v, pipe._rel_biases[layer][None], _text_key_bias(pipe, tokenizer, b, seq)
 
 
-def _check_two_term_case(q, k, v, table, key_bias, what):
-    o, lse = attention.flash_attention_fwd(q, k, v, table, SCALE, key_bias)
-    o_r, lse_r = attention.flash_attention_reference(q, k, v, table, SCALE, return_lse=True,
+def _check_two_term_case(q, k, v, table, key_bias, what, scale=SCALE):
+    o, lse = attention.flash_attention_fwd(q, k, v, table, scale, key_bias)
+    o_r, lse_r = attention.flash_attention_reference(q, k, v, table, scale, return_lse=True,
                                                      key_bias=key_bias)
     do = torch.randn(o.shape, generator=torch.Generator("cuda").manual_seed(1), device="cuda")
-    grads = attention.flash_attention_bwd(q, k, v, table, SCALE, o, lse, do, key_bias)
-    again = attention.flash_attention_bwd(q, k, v, table, SCALE, o, lse, do, key_bias)
-    refs = attention.flash_attention_bwd_reference(q, k, v, table, SCALE, o, lse, do, key_bias)
+    grads = attention.flash_attention_bwd(q, k, v, table, scale, o, lse, do, key_bias)
+    again = attention.flash_attention_bwd(q, k, v, table, scale, o, lse, do, key_bias)
+    refs = attention.flash_attention_bwd_reference(q, k, v, table, scale, o, lse, do, key_bias)
     torch.cuda.synchronize()
+    require(o.shape == q.shape and all(g.shape == t.shape for g, t in zip(grads, (q, k, v))),
+            f"{what}: K3 output shapes")
     errs = {"o": _attn_err("o", o, o_r), "lse": _attn_err("lse", lse, lse_r)}
     for name, g, g2, r in zip(("dq", "dk", "dv"), grads, again, refs):
         require(torch.equal(g, g2), f"two-term flash backward {name} differs between two runs")
         errs[name] = _attn_err(name, g, r)
-    print(f"  flash_attention {list(q.shape)} table + key bias ({what}): "
+    terms = "key bias" if table is None else "table + key bias"
+    print(f"  flash_attention {list(q.shape)} {terms} ({what}): "
           + ", ".join(f"{k} err {v:.3g}" for k, v in errs.items())
           + ", backward deterministic", flush=True)
     return errs
@@ -1361,9 +1382,10 @@ def check_flash_attention_bf16_key_bias(pipe, tokenizer, gen):
 def check_vlmo_model_flash(pipe, tokenizer, gen):
     """One feature-loss gradient step of the full-width VLMo surrogate at
     batch 2: its features and d/dpixels under ``attention_impl("flash")``
-    (all 12 joint attentions through K3 with both terms) against the
-    product + softmax path.  Tolerance: 1e-4 of each tensor's largest
-    magnitude (float32 reassociation over 12 blocks)."""
+    (every joint attention through K3: with both terms for VLMo-base, with
+    the key bias at head dim 34 for base+) against the product + softmax
+    path.  Tolerance: 1e-4 of each tensor's largest magnitude (float32
+    reassociation over 12 or 24 blocks)."""
     size, dev = pipe.model.cfg.image_size, pipe.device
     px = torch.rand((2, 3, size, size), generator=gen, device=dev) * 2 - 1
     ids, mask = tokenizer.encode_batch(["what color is the dog?", "what is the man holding?"],
@@ -1383,7 +1405,10 @@ def check_vlmo_model_flash(pipe, tokenizer, gen):
             (g,) = torch.autograd.grad(loss, p)
         after = counts()
         depth = pipe.model.cfg.depth if impl == "flash" else 0
-        for name in ("flash_attention_fwd_key_bias", "flash_attention_bwd_key_bias"):
+        names = ("flash_attention_fwd_key_bias", "flash_attention_bwd_key_bias")
+        if pipe.model.cfg.hidden_size // pipe.model.cfg.num_heads == 34:
+            names += ("flash_attention_fwd_hd34", "flash_attention_bwd_hd34")
+        for name in names:
             want = 2 * depth if name.startswith("flash_attention_fwd") else depth
             require(after[name] - before[name] == want,
                     f"{impl}: {after[name] - before[name]} {name} launches, expected {want}")
@@ -1471,6 +1496,203 @@ def vlmo_one_step_ab(pipe, cfg, tokenizer, gen):
     seq = pipe.max_text_len + cfg.vlmo.image_seq_len
     return step_ab(step, (b, cfg.vlmo.num_heads, seq, seq),
                    "one VLMo gradient step at batch 16")
+
+
+# ---------------------------------------------------------------------------
+# the VLMo-base+ phases (--named-config task_finetune_vqa_base_plus_image480):
+# 24 MoME blocks of width 544 over 16 heads, head dim 34, absolute position
+# embeddings and no relative-position table, so K3 takes the padded-text key
+# bias alone
+# ---------------------------------------------------------------------------
+
+BASE_PLUS = "task_finetune_vqa_base_plus_image480"
+PLUS_HEADS, PLUS_HEAD_DIM = 16, 34
+PLUS_SCALE = PLUS_HEAD_DIM ** -0.5
+
+
+def _text_key_bias(pipe, tokenizer, b, seq):
+    """The ``[b, seq]`` key bias of ``b`` real questions padded to the text
+    length (their padded text keys at -1e9, inside the joint sequence)."""
+    questions = [q for _, q, _, _ in VLMO_BATCH_SAMPLES]
+    _, mask = tokenizer.encode_batch([questions[i % len(questions)] for i in range(b)],
+                                     pipe.max_text_len)
+    co = torch.cat([torch.as_tensor(mask, device="cuda"),
+                    torch.ones(b, seq - pipe.max_text_len, dtype=torch.int32, device="cuda")], 1)
+    return mask_to_key_bias(co)
+
+
+def _plus_qkv(gen, b, sq, sk=None, dtype=torch.float32):
+    """q, k, v at [b, S, 16, 34] as views of three [b, S, 544] projections,
+    as the base+ trunk hands them to K3: a head starts 136 bytes (68 in
+    bf16) after the last."""
+    sk = sq if sk is None else sk
+    width = PLUS_HEADS * PLUS_HEAD_DIM
+    return [torch.randn(b, s, width, generator=gen, device="cuda").to(dtype).view(
+        b, s, PLUS_HEADS, PLUS_HEAD_DIM) for s in (sq, sk, sk)]
+
+
+def check_flash_attention_hd34(pipe, tokenizer, gen):
+    """K3 at head dim 34, float32 and bf16, forward and backward, against
+    the plain versions at the float32 (2e-5) and bf16 (:func:`_bf16_attn_err`)
+    tolerances: at [B, 941, 16, 34] for B = 1, 8 (the batched chunk) and 16
+    (the victim), strided views of [B, 941, 544] projections with the
+    padded-text key bias of real questions; ragged lengths (1, 63, 130 and
+    200 queries over 77 keys); a -inf first key tile; the autograd Function.
+    Then each dtype's times at [16, 941, 16, 34]
+    (:func:`time_flash_attention_hd34`)."""
+    seq = pipe.max_text_len + pipe.model.cfg.image_seq_len
+    rows, errs = [], {}
+    for dtype in (torch.float32, BF16):
+        name = "bf16" if dtype == BF16 else "f32"
+
+        def check(q, k, v, kb, what):
+            if dtype == BF16:
+                return _check_bf16_attention(q, k, v, None, kb, what, PLUS_SCALE)
+            return _check_two_term_case(q, k, v, None, kb, what, PLUS_SCALE)
+
+        for b in (1, TIMED_BATCH, 16):
+            errs[name, b] = check(*_plus_qkv(gen, b, seq, dtype=dtype),
+                                  _text_key_bias(pipe, tokenizer, b, seq), "padded text keys")
+        for sq, sk in ((1, 1), (63, 63), (130, 130), (200, 77)):
+            # five keys of row 1 masked, as padded text is: never a row's every key
+            kb = torch.zeros(2, sk, device="cuda")
+            kb[1, sk // 3 : sk // 3 + 5] = -1e9 if sk > 8 else 0.0
+            check(*_plus_qkv(gen, 2, sq, sk, dtype), kb, f"ragged, {sq} queries over {sk} keys")
+        kb = _text_key_bias(pipe, tokenizer, 2, seq).index_fill(
+            1, torch.arange(70, device="cuda"), -torch.inf)
+        check(*_plus_qkv(gen, 2, seq, dtype=dtype), kb, "the first key tile at -inf")
+        q, k, v = _plus_qkv(gen, 2, seq, dtype=dtype)
+        kb = _text_key_bias(pipe, tokenizer, 2, seq)
+        w = torch.randn(q.shape, generator=gen, device="cuda")
+        outs = []
+        for fn in (attention.flash_attention, attention.flash_attention_reference):
+            xs = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+            out = fn(*xs, None, PLUS_SCALE, key_bias=kb)
+            outs.append((out.detach(), *torch.autograd.grad((out.float() * w).sum(), xs)))
+        for what, a, r in zip(("o", "dq", "dk", "dv"), *outs):
+            require(a.shape == r.shape, f"head dim 34 autograd {what} shape")
+            if dtype == BF16:  # as check_flash_attention_bf16 holds it
+                err = float((a.float() - r.float()).abs().max())
+                require(err <= 2 ** -6 * float(r.float().abs().max()),
+                        f"head dim 34 bf16 autograd {what}: {err}")
+            else:
+                _attn_err(f"head dim 34 autograd {what}", a, r)
+        print(f"  flash_attention {name} head dim 34 autograd Function matches autograd of the "
+              f"plain version", flush=True)
+        rows += time_flash_attention_hd34(*_plus_qkv(gen, 16, seq, dtype=dtype),
+                                          _text_key_bias(pipe, tokenizer, 16, seq),
+                                          errs[name, 16])
+    return rows
+
+
+def sdpa_backend(fn) -> str:
+    """The backend whose kernels one call of ``fn`` runs, by the names the
+    profiler records on the card: flash, efficient (memory-efficient),
+    cudnn or math (plain products)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = " ".join(e.key.lower() for e in prof.key_averages())
+    for backend, marks in (("flash", ("flash",)), ("cudnn", ("cudnn",)),
+                           ("efficient", ("fmha", "efficient", "mem_eff"))):
+        if any(m in names for m in marks):
+            return backend
+    return "math" if names else "not measured (no device events)"
+
+
+def time_flash_attention_hd34(q, k, v, key_bias, errs):
+    """Device times at [16, 941, 16, 34] with the padded-text key bias, in
+    q's dtype: the kernels alone (``ms``; bf16 on the padded 40-wide
+    copies), the copies the main path adds (``copy_ms``: bf16 q, k, v into
+    40-wide rows before the forward, dO before the backward; float32 reads
+    the projections in place), the plain versions, and
+    ``scaled_dot_product_attention`` on the same inputs with the key bias as
+    a [16, 1, 1, 941] mask (forward; backward through autograd), whose
+    backend is named.  The bound counts what the function needs: 4 and 10
+    x B*H*S^2*Dh at Dh = 34 (float32: three TF32 passes), each input and
+    output once; ``executed_tflops`` counts what the kernels execute (40
+    columns in float32, 64 in bf16; 14 in the backward)."""
+    b, s, h, dh = q.shape
+    dtype = q.dtype
+    width = attention.kernel_width(dtype, dh)
+    dims = (b, h, s, s)
+    o, lse = attention.flash_attention_fwd(q, k, v, None, PLUS_SCALE, key_bias)
+    do = torch.randn(o.shape, generator=torch.Generator("cuda").manual_seed(4),
+                     device="cuda").to(dtype)
+    qp, kp, vp, op, dop = (attention.pad_heads(t, width) for t in (q, k, v, o, do))
+    executed_dh = 64 if dtype == BF16 else 40  # the columns the kernels' products run over
+    mask = key_bias[:, None, None, :].to(dtype)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_out = sdpa(qt, kt, vt, attn_mask=mask, scale=PLUS_SCALE)
+    do_t = do.transpose(1, 2)
+    unit = b * h * s * s * dh
+    row = b * s * h * dh * q.element_size()
+    small = b * h * s * 4 + key_bias.numel() * 4  # lse, key bias
+    if dtype == BF16:
+        fwd_b, fwd_by = bound_ms(4 * row + small, 4 * unit, BF16_FLOPS)
+        bwd_b, bwd_by = bound_ms(8 * row + small, 10 * unit, BF16_FLOPS)
+        copies = (lambda: [attention.pad_heads(t, width) for t in (q, k, v)],
+                  lambda: attention.pad_heads(do, width))
+    else:
+        fwd_b, fwd_by = tensor_core_bound_ms(4 * row + small, 4 * unit)
+        bwd_b, bwd_by = tensor_core_bound_ms(8 * row + small, 10 * unit)
+        copies = (None, None)
+    long_sleep = 20_000_000
+    tag = "_bf16" if dtype == BF16 else ""
+    source = "flash_attention_bf16.cu" if dtype == BF16 else "flash_attention.cu"
+    common = {"route": "cuda", "source": f"vqattack_tpu_torch/csrc/{source}",
+              "replaces": "vqattack_tpu/ops/attention.py:134", "shape": [b, s, h, dh],
+              "dtype": "bfloat16" if dtype == BF16 else "float32", "kernel_width": width}
+    fwd = dict(common, **{
+        "name": f"flash_attention{tag}_fwd_hd34",
+        "max_abs_err": errs["o"],
+        "ms": time_ms(lambda: attention._launch_fwd(qp, kp, vp, None, PLUS_SCALE, key_bias,
+                                                    dims, dh), 20),
+        "copy_ms": 0.0 if copies[0] is None else time_ms(copies[0], 20),
+        "plain_ms": time_ms(lambda: attention.flash_attention_reference(
+            q, k, v, None, PLUS_SCALE, key_bias=key_bias), 20, long_sleep),
+        "bound_ms": fwd_b, "bound_by": fwd_by,
+        "library_ms": time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, scale=PLUS_SCALE), 20),
+        "library_backend": sdpa_backend(lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                                     scale=PLUS_SCALE)),
+    })
+    bwd = dict(common, **{
+        "name": f"flash_attention{tag}_bwd_hd34",
+        "max_abs_err": max(errs["dq"], errs["dk"], errs["dv"]),
+        "ms": time_ms(lambda: attention._launch_bwd(qp, kp, vp, None, PLUS_SCALE, op, lse, dop,
+                                                    key_bias, dims, dh), 20),
+        "copy_ms": 0.0 if copies[1] is None else time_ms(copies[1], 20),
+        "plain_ms": time_ms(lambda: attention.flash_attention_bwd_reference(
+            q, k, v, None, PLUS_SCALE, o, lse, do, key_bias), 20, long_sleep),
+        "bound_ms": bwd_b, "bound_by": bwd_by,
+        "library_ms": time_ms(lambda: torch.autograd.grad(
+            sdpa_out, (qt, kt, vt), do_t, retain_graph=True), 20),
+        "library_backend": sdpa_backend(lambda: torch.autograd.grad(
+            sdpa_out, (qt, kt, vt), do_t, retain_graph=True)),
+    })
+    for r, executed in ((fwd, 4), (bwd, 14)):
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        r["executed_tflops"] = executed * b * h * s * s * executed_dh / r["ms"] / 1e9
+        require(r["bound_share"] <= 1.0, f"{r['name']}: {r['ms']} ms is under its bound "
+                                         f"{r['bound_ms']} ms: the timing or the bound is wrong")
+        print(f"  {r['name']} {r['shape']} {r['dtype']}: {r['ms']:.4f} ms, copies "
+              f"{r['copy_ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
+              f"scaled_dot_product_attention ({r['library_backend']}) {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}: "
+              f"{100 * r['bound_share']:.1f}%; executed {r['executed_tflops']:.1f} TFLOP/s)",
+              flush=True)
+    del sdpa_out
+    return [fwd, bwd]
+
+
+def check_plus_launches(launched, expected, dtype, what):
+    """The base+ path's counts: the schedules', and exactly K1 and K3 with a
+    key bias at head dim 34 in the trunk's dtype (the victim runs in it too)."""
+    b = "_bf16" if dtype == "bfloat16" else ""
+    positive = {"pgd_linf_update"} | {f"flash_attention{b}_{d}{suffix}" for d in ("fwd", "bwd")
+                                      for suffix in ("", "_key_bias", "_hd34")}
+    check_launches(launched, expected, positive, what)
 
 
 # ---------------------------------------------------------------------------
@@ -2013,7 +2235,7 @@ def main() -> int:
                 pipe, cfg, tokenizer, paths, batch_args)
     require(sorted({r.old_alg for r in b_results}) == [0, 1], "both PGD paths must run")
     for k, n in b_launched.items():
-        require(n > 0 or k.endswith("key_bias") or "_bf16" in k,
+        require(n > 0 or k.endswith(("key_bias", "hd34")) or "_bf16" in k,
                 f"{k} was not launched on the batched path")
         require(n == b_expected[k], f"batched {k}: {n} launches, the schedules imply "
                                     f"{b_expected[k]}")
@@ -2107,9 +2329,10 @@ def main() -> int:
     for k, n in vb_launched.items():
         require(n == vb_expected[k], f"VLMo batched {k}: {n} launches, the schedules imply "
                                      f"{vb_expected[k]}")
-        require((n == 0) == (k.startswith("residual_layernorm") or "_bf16" in k),
-                f"VLMo batched {k}: {n} launches (K2 and bf16 instances none, every other "
-                f"kernel some)")
+        require((n == 0) == (k.startswith("residual_layernorm") or "_bf16" in k
+                             or k.endswith("hd34")),
+                f"VLMo batched {k}: {n} launches (K2, bf16 and head-dim-34 instances none, "
+                f"every other kernel some)")
 
     with Phase("one VLMo gradient step at batch 16: --attn flash against --attn xla"):
         v_ab = vlmo_one_step_ab(v_pipe, v_cfg, tokenizer, gen)
@@ -2152,6 +2375,53 @@ def main() -> int:
     del v_pipe16
     torch.cuda.empty_cache()
 
+    # --------------------------------- VLMo-base+, head dim 34, --attn flash
+    plus = ["--named-config", BASE_PLUS]
+    with Phase("VLMo-base+ pipeline (random full-width weights)"):
+        _, p_cfg, p_pipe = build_pipelines(v_common + plus, tokenizer)
+    pc = p_cfg.vlmo
+    require(pc.image_size == 480 and pc.depth == 24 and pc.num_heads == PLUS_HEADS
+            and pc.hidden_size == PLUS_HEADS * PLUS_HEAD_DIM and pc.vlffn_start_layer == 21
+            and pc.use_abs_pos_emb and not pc.need_relative_position_embed
+            and pc.layer_scale_init is None and pc.max_text_len + pc.image_seq_len == 941
+            and p_cfg.attack == v_cfg.attack and p_pipe._rel_biases is None,
+            "not the full-width VLMo-base+ attack config")
+    with Phase("K3 at head dim 34 against its plain versions (VLMo-base+ shapes)"):
+        hd34_rows = check_flash_attention_hd34(p_pipe, tokenizer, gen)
+    with Phase("VLMo-base+ model: flash (K3 at head dim 34) against product + softmax"):
+        check_vlmo_model_flash(p_pipe, tokenizer, gen)
+    with Phase("VLMo-base+ per-sample path: 2 samples, --attn flash"):
+        with attention.attention_impl("flash"):
+            p_results, p_launched, p_expected = run_vlmo_main_path(p_pipe, p_cfg, paths)
+    require(sorted(r.old_alg for r in p_results) == [0, 1], "both base+ PGD paths must run")
+    check_plus_launches(p_launched, p_expected, "float32", "VLMo-base+ per-sample")
+    with Phase(f"VLMo-base+ batched path: {len(VLMO_BATCH_SAMPLES)} samples, --batch-size "
+               f"{BATCH_SIZE} --attn flash --pipeline-depth {PIPELINE_DEPTH}"):
+        with attention.attention_impl("flash"):
+            _, pb_launched, pb_expected, _ = run_vlmo_batched_path(
+                p_pipe, p_cfg, paths,
+                port_run.build_argparser().parse_args(v_common + plus + batch_flags))
+    check_plus_launches(pb_launched, pb_expected, "float32", "VLMo-base+ batched")
+    with Phase("one VLMo-base+ gradient step at batch 16: --attn flash against --attn xla"):
+        p_ab = vlmo_one_step_ab(p_pipe, p_cfg, tokenizer, gen)
+    del p_pipe
+    torch.cuda.empty_cache()
+    with Phase("VLMo-base+ bf16 pipeline (the same random full-width weights)"):
+        _, p_cfg16, p_pipe16 = build_pipelines(v_common + plus + bf16_flags, tokenizer)
+    require(p_cfg16.compute_dtype == "bfloat16", "the VLMo-base+ bf16 config")
+    with Phase(f"VLMo-base+ bf16 batched path: {len(VLMO_BATCH_SAMPLES)} samples, --dtype "
+               f"bfloat16 --batch-size {BATCH_SIZE} --attn flash --pipeline-depth "
+               f"{PIPELINE_DEPTH}"):
+        with attention.attention_impl("flash"):
+            _, pb16_launched, pb16_expected, _ = run_vlmo_batched_path(
+                p_pipe16, p_cfg16, paths,
+                port_run.build_argparser().parse_args(v_common + plus + bf16_flags + batch_flags))
+    check_plus_launches(pb16_launched, pb16_expected, "bfloat16", "VLMo-base+ bf16 batched")
+    with Phase("one VLMo-base+ bf16 gradient step at batch 16: --attn flash against --attn xla"):
+        p_ab16 = vlmo_one_step_ab(p_pipe16, p_cfg16, tokenizer, gen)
+    del p_pipe16
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------ the checkpoint path
     with Phase(f"checkpoint path: run.main with .pth files, --batch-size {BATCH_SIZE} "
                f"--attn flash --pipeline-depth {PIPELINE_DEPTH}") as ph:
@@ -2161,19 +2431,24 @@ def main() -> int:
         for k, n in launched_c.items():
             require(n == expected_c[k], f"{which} with checkpoints {k}: {n} launches, the "
                                         f"schedules imply {expected_c[k]}")
-            none = "_bf16" in k or (k.endswith("key_bias") if which == "albef"
-                                    else k.startswith("residual"))
+            none = "_bf16" in k or k.endswith("hd34") or (
+                k.endswith("key_bias") if which == "albef" else k.startswith("residual"))
             require((n == 0) == none, f"{which} with checkpoints {k}: {n} launches")
     shutil.rmtree(tmp, ignore_errors=True)
 
     # each row's launches: ALBEF's batched runs (K1, K2, K3 without terms;
-    # the bf16 rows from the --dtype bfloat16 run), VLMo's for the key-bias rows
-    rows += list(bf16_rows) + list(kb_rows) + list(kb16_rows)
+    # the bf16 rows from the --dtype bfloat16 run), VLMo's for the key-bias
+    # rows, VLMo-base+'s for the head-dim-34 rows
+    rows += list(bf16_rows) + list(kb_rows) + list(kb16_rows) + hd34_rows
     for row in rows:
-        vlmo = row["name"].endswith("key_bias")
         bf16 = "_bf16" in row["name"]
-        row["launches"] = ((vb16_launched if bf16 else vb_launched) if vlmo else
-                           (b16_launched if bf16 else b_launched))[row["name"]]
+        if row["name"].endswith("hd34"):
+            runs = (pb_launched, pb16_launched)
+        elif row["name"].endswith("key_bias"):
+            runs = (vb_launched, vb16_launched)
+        else:
+            runs = (b_launched, b16_launched)
+        row["launches"] = runs[bf16][row["name"]]
     print(f"wall: {time.perf_counter() - t_start:.1f} s since start", flush=True)
     print(json.dumps({"kernel_launches": {
         "per_sample": launched, "batched": b_launched,
@@ -2181,6 +2456,8 @@ def main() -> int:
         "bf16_run_main": m16_launched, "vlmo_bf16_run_main": vm16_launched,
         "vlmo_per_sample": v_launched, "vlmo_batched": vb_launched,
         "vlmo_bf16_per_sample": vs16_launched, "vlmo_bf16_batched": vb16_launched,
+        "vlmo_base_plus_per_sample": p_launched, "vlmo_base_plus_batched": pb_launched,
+        "vlmo_base_plus_bf16_batched": pb16_launched,
         "albef_checkpoints": c_launches["albef"][0],
         "vlmo_checkpoints": c_launches["vlmo"][0]}}), flush=True)
     print(json.dumps({"checkpoint_loads": c_loads, "checkpoint_phase": c_seconds,
@@ -2188,7 +2465,8 @@ def main() -> int:
     print(json.dumps({"bf16_drift": {"albef": drift, "vlmo": v_drift}, "card": smi}), flush=True)
     print(json.dumps({"attn_ab_batch16": ab, "vlmo_attn_ab_batch16": v_ab,
                       "bf16_attn_ab_batch16": ab16, "vlmo_bf16_attn_ab_batch16": v_ab16,
-                      "card": smi}), flush=True)
+                      "vlmo_base_plus_attn_ab_batch16": p_ab,
+                      "vlmo_base_plus_bf16_attn_ab_batch16": p_ab16, "card": smi}), flush=True)
     print(json.dumps({"flash_attention_batch16": flash_b16}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

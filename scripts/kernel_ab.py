@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Device times of K3's bf16 instance and K2's forward, for an A/B of two
-checkouts on one card.
+"""Device times of K3's bf16 and float32 instances and K2's forward, for
+an A/B of two checkouts on one card.
 
     python3 scripts/kernel_ab.py
 
 Runs, from the checkout it lives in, ``chip_smoke.py``'s K3-bf16 phase
 (``check_flash_attention_bf16``: every check, then the times at [8, 901,
-12, 64] without terms) and its K2 forward timing (``_time_fwd``) at
+12, 64] without terms), its K3-float32 timing at the same shape
+(``time_flash_attention``) and its K2 forward timing (``_time_fwd``) at
 [7208, 768] on a float32 and a bf16 stream, and prints one line: ``AB``
 and a JSON object of each kernel row's time in us, with the card's name
 and power limit.  Kernel times move a few percent between calls, so two
@@ -45,6 +46,9 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(cs.SEED)
     times = {row["name"]: row["ms"] * 1e3 for row in cs.check_flash_attention_bf16(gen)}
+    no_errs = dict.fromkeys(("o", "dq", "dk", "dv"), 0.0)
+    times.update({row["name"]: row["ms"] * 1e3
+                  for row in cs.time_flash_attention(gen, no_errs, cs.TIMED_BATCH)})
     for dtype in (torch.float32, torch.bfloat16):
         x, delta, gamma, beta, _, _ = cs._ln_case(gen, cs.TIMED_BATCH * 901, dtype)
         row = cs._time_fwd(x, delta, gamma, beta, cs.TIMED_BATCH * 901, 0.0)

@@ -456,8 +456,9 @@ def _args(*extra):
 
 def test_named_config_sets_the_vlmo_geometry_and_refuses_what_it_cannot_run():
     """``--named-config`` sets VLMo's geometry (the attack preset's remat
-    kept), is VLMo's only, and ``--attn flash`` on the card refuses a head
-    dim the kernel does not take (base_plus: 544 over 16 heads)."""
+    kept) and is VLMo's only; ``--attn flash`` on the card takes base_plus
+    (544 over 16 heads: head dim 34) and refuses a head dim the kernels do
+    not take; ``--arrow`` is VLMo's data."""
     large = port_run.resolve_config(_args("--pipeline", "vlmo", "--attn", "flash",
                                           "--named-config", "task_finetune_vqa_large_image480"))
     assert (large.vlmo.depth, large.vlmo.hidden_size, large.vlmo.num_heads) == (24, 1024, 16)
@@ -465,14 +466,16 @@ def test_named_config_sets_the_vlmo_geometry_and_refuses_what_it_cannot_run():
     plus = ["--pipeline", "vlmo", "--named-config", "task_finetune_vqa_base_plus_image480"]
     assert port_run.resolve_config(_args(*plus)).vlmo.use_abs_pos_emb
     assert port_run.resolve_config(_args(*plus, "--attn", "flash", "--device", "cpu"))
-    with pytest.raises(SystemExit, match="head dim 34 \\(544 over 16 heads\\)"):
-        port_run.resolve_config(_args(*plus, "--attn", "flash"))
+    card = port_run.resolve_config(_args(*plus, "--attn", "flash")).vlmo
+    assert (card.depth, card.hidden_size, card.num_heads) == (24, 544, 16)
+    assert card.hidden_size // card.num_heads == 34 and not card.need_relative_position_embed
     with pytest.raises(SystemExit, match="--named-config presets are the VLMo pipeline's"):
         port_run.resolve_config(_args("--named-config", "task_finetune_vqa_base_image480"))
     with pytest.raises(KeyError, match="unknown named config"):
         port_run.resolve_config(_args("--pipeline", "vlmo", "--named-config", "no_such"))
-    with pytest.raises(SystemExit, match="--arrow: not ported yet"):
-        port_run.resolve_config(_args("--pipeline", "vlmo", "--arrow", "vqav2_val.arrow"))
+    assert port_run.resolve_config(_args("--pipeline", "vlmo", "--arrow", "vqav2_val.arrow"))
+    with pytest.raises(SystemExit, match="--arrow: the arrow tables are the VLMo pipeline's"):
+        port_run.resolve_config(_args("--arrow", "vqav2_val.arrow"))
 
 
 def test_load_jax_params_leaves_out_only_the_named_optional_heads():

@@ -405,10 +405,9 @@ def _bf16_truth(q, k, v, bias, scale, do, key_bias=None):
                                                         do.float(), key_bias))
 
 
-def _check_bf16_case(q, k, v, bias, key_bias, do):
-    scale = 64 ** -0.5
+def _check_bf16_case(q, k, v, bias, key_bias, do, scale=64 ** -0.5):
     o, lse = attention.flash_attention_fwd(q, k, v, bias, scale, key_bias)
-    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32 and o.shape == q.shape
     o_p, lse_p = attention.flash_attention_reference(q, k, v, bias, scale, return_lse=True,
                                                      key_bias=key_bias)
     truth = _bf16_truth(q, k, v, bias, scale, do, key_bias)
@@ -548,3 +547,137 @@ def test_flash_attention_bf16_backward_bit_identical_at_the_batched_chunk(gen):
     q, k, v = (t.bfloat16() for t in (q, k, v))
     do = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
     _check_bf16_case(q, k, v, None, None, do)
+
+
+# ---------------------------------------------------------------------------
+# head dim 34 (VLMo-base+: 544 over 16 heads), both instances
+# ---------------------------------------------------------------------------
+
+
+def _hd34_case(gen, b, sq, sk, kind, dtype, h=16):
+    """q, k, v at [B, S, H, 34] as views of [B, S, H * 34] projections (a
+    head starts 136 bytes, 68 in bf16, after the last, as the model hands
+    them over) and a key bias: ``"text_pad"`` masks (-1e9) keys 28..39 of
+    row 1 (VLMo's padded text inside the joint sequence), ``"left_pad"``
+    the first 70 keys of every row at -inf, ``"none"`` gives none."""
+    q, k, v = (torch.randn(b, s, h * 34, generator=gen, device="cuda").to(dtype).view(
+        b, s, h, 34) for s in (sq, sk, sk))
+    key_bias = None
+    if kind == "text_pad":
+        key_bias = torch.zeros(b, sk, device="cuda")
+        key_bias[min(1, b - 1), max(0, min(40, sk) - 12) : min(40, sk)] = -1e9
+    elif kind == "left_pad":
+        key_bias = torch.zeros(b, sk, device="cuda")
+        key_bias[:, :70] = -torch.inf
+    return q, k, v, key_bias
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,kind", [
+    (2, 1, 1, "none"), (2, 63, 63, "text_pad"), (2, 130, 130, "text_pad"),
+    (2, 200, 77, "text_pad"), (2, 77, 200, "none"), (1, 941, 941, "text_pad"),
+    (8, 941, 941, "text_pad"), (16, 941, 941, "text_pad"), (2, 941, 941, "left_pad"),
+])
+def test_flash_attention_hd34_kernels(gen, b, sq, sk, kind, dtype):
+    """K3 at head dim 34 in both dtypes, forward and backward, against the
+    plain versions (float32: :func:`_close`; bf16: :func:`_bf16_close`
+    against the float32 computation) at ragged lengths, Sq != Sk, VLMo-base+'s
+    941 tokens at batch 1, 8 and 16 with the padded-text key bias and a -inf
+    first key tile; outputs of the inputs' shapes; the backward the same bit
+    for bit."""
+    q, k, v, key_bias = _hd34_case(gen, b, sq, sk, kind, dtype)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    scale = 34 ** -0.5
+    if dtype == torch.bfloat16:
+        _check_bf16_case(q, k, v, None, key_bias, do, scale)
+        return
+    o, lse = attention.flash_attention_fwd(q, k, v, None, scale, key_bias)
+    o_r, lse_r = attention.flash_attention_reference(q, k, v, None, scale, return_lse=True,
+                                                     key_bias=key_bias)
+    assert o.shape == q.shape and o.is_contiguous()
+    _close(o, o_r, "o")
+    _close(lse, lse_r, "lse")
+    grads = attention.flash_attention_bwd(q, k, v, None, scale, o, lse, do, key_bias)
+    again = attention.flash_attention_bwd(q, k, v, None, scale, o, lse, do, key_bias)
+    refs = attention.flash_attention_bwd_reference(q, k, v, None, scale, o, lse, do, key_bias)
+    for name, g, g2, r in zip(("dq", "dk", "dv"), grads, again, refs):
+        assert g.shape == r.shape
+        assert torch.equal(g, g2), f"{name} differs between two runs"
+        _close(g, r, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_hd34_with_a_table_and_packed_views(gen, dtype):
+    """Head dim 34 with both terms (a [1, H, S, S] table and the key bias)
+    and q/k/v as views of one packed [B, S, 3, H, 34] buffer."""
+    b, s, h = 2, 130, 4
+    qkv = torch.randn(b, s, 3, h, 34, generator=gen, device="cuda").to(dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    table = torch.randn(1, h, s, s, generator=gen, device="cuda") * 0.5
+    key_bias = torch.zeros(b, s, device="cuda")
+    key_bias[1, 28:40] = -1e9
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    scale = 34 ** -0.5
+    if dtype == torch.bfloat16:
+        _check_bf16_case(q, k, v, table, key_bias, do, scale)
+        return
+    o, lse = attention.flash_attention_fwd(q, k, v, table, scale, key_bias)
+    _close(o, attention.flash_attention_reference(q, k, v, table, scale, key_bias=key_bias), "o")
+    grads = attention.flash_attention_bwd(q, k, v, table, scale, o, lse, do, key_bias)
+    refs = attention.flash_attention_bwd_reference(q, k, v, table, scale, o, lse, do, key_bias)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        _close(g, r, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_hd34_autograd_counts_and_refusals(gen, dtype):
+    """The autograd Function at head dim 34 against autograd through the
+    plain version, counted as a head-dim-34 launch of the dtype's instance
+    (and as a key-bias launch); the gradients come back in the inputs'
+    shapes.  The float32 kernel reads rows in 8-byte copies: a view whose
+    rows start off 8 bytes is refused; a head dim of neither 34 nor 64 is
+    refused in both dtypes."""
+    q, k, v, key_bias = _hd34_case(gen, 2, 150, 150, "text_pad", dtype)
+    w = torch.randn(q.shape, generator=gen, device="cuda")
+    prefix = "bf16_" if dtype == torch.bfloat16 else ""
+    names = [prefix + n for n in ("launches", "key_bias_launches", "hd34_launches")]
+    outs, grads = [], []
+    for fn in (attention.flash_attention, attention.flash_attention_reference):
+        xs = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        before = [getattr(attention.flash_attention_fwd, n) for n in names]
+        bwd = getattr(attention.flash_attention_bwd, prefix + "hd34_launches")
+        out = fn(*xs, None, 34 ** -0.5, key_bias=key_bias)
+        outs.append(out.detach())
+        grads.append(torch.autograd.grad((out.float() * w).sum(), xs))
+        if fn is attention.flash_attention:
+            after = [getattr(attention.flash_attention_fwd, n) for n in names]
+            assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+            assert getattr(attention.flash_attention_bwd, prefix + "hd34_launches") == bwd + 1
+    for name, a, r in [("o", *outs)] + list(zip(("dq", "dk", "dv"), *grads)):
+        assert a.shape == r.shape == q.shape, name
+        if dtype == torch.float32:
+            _close(a, r, name)
+        else:  # as test_flash_attention_bf16_autograd_counts_and_key_bias_guard holds it
+            err = float((a.float() - r.float()).abs().max())
+            assert err <= 2 ** -6 * float(r.float().abs().max()), f"{name}: {err}"
+    with pytest.raises(ValueError, match="34, 64"):
+        attention.flash_attention(q[..., :32], k[..., :32], v[..., :32], None, 0.125)
+    if dtype == torch.float32:
+        buf = torch.randn(2, 130, 4 * 34 + 1, generator=gen, device="cuda")
+        off = buf[..., 1:].view(2, 130, 4, 34)  # rows start 4 bytes off 8
+        with pytest.raises(ValueError, match="8 bytes"):
+            attention.flash_attention_fwd(off, off, off, None, 0.125)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_hd34_backward_bit_identical_at_the_victims_batch(gen, dtype):
+    """At [16, 941, 16, 34] with the padded-text key bias, VLMo-base+'s
+    victim batch: two backward runs give the same bits."""
+    q, k, v, key_bias = _hd34_case(gen, 16, 941, 941, "text_pad", dtype)
+    scale = 34 ** -0.5
+    o, lse = attention.flash_attention_fwd(q, k, v, None, scale, key_bias)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    first = attention.flash_attention_bwd(q, k, v, None, scale, o, lse, do, key_bias)
+    second = attention.flash_attention_bwd(q, k, v, None, scale, o, lse, do, key_bias)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), f"{name} differs between two runs"

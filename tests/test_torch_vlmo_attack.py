@@ -247,7 +247,8 @@ def _vlmo_argv(tmp_path):
 
 def test_cli_vlmo_runs_on_cpu(tmp_path, capsys):
     """Per-sample and batched (``--batch-size 2 --attn flash``): the
-    artifacts of both samples; the flag not ported yet (--arrow) stops the run."""
+    artifacts of both samples; ``--arrow`` reads the tables it names (a
+    missing one stops the run)."""
     argv = _vlmo_argv(tmp_path)
     for extra, out in (([], "out"), (["--batch-size", "2", "--attn", "flash"], "out_b")):
         summary = port_run.main(argv + extra + ["--output", str(tmp_path / out)])
@@ -258,8 +259,9 @@ def test_cli_vlmo_runs_on_cpu(tmp_path, capsys):
             assert img.shape == (1, 3, 32, 32) and float(img.abs().max()) <= 1.0
         texts = json.loads((tmp_path / out / "adv_txt_dict.json").read_text())
         assert set(texts) == {"1001", "1002"}
-    with pytest.raises(SystemExit, match="--arrow: not ported yet"):
-        port_run.main(argv + ["--arrow", "vqav2_val.arrow"])
+    pytest.importorskip("pyarrow")
+    with pytest.raises(FileNotFoundError):
+        port_run.main(argv + ["--arrow", str(tmp_path / "vqav2_val.arrow")])
 
 
 def test_vlmo_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch, tmp_path, pipelines):

@@ -1,5 +1,5 @@
-// Flash attention, forward and backward, float32, head dim 64, on the
-// tensor cores with a 3xTF32 split.
+// Flash attention, forward and backward, float32, head dim 64 or 34, on
+// the tensor cores with a 3xTF32 split.
 //
 // Replaces the TPU kernel behind vqattack_tpu/ops/attention.py::flash_attention,
 // which wraps jax.experimental.pallas.ops.tpu.flash_attention (its forward,
@@ -14,8 +14,8 @@
 //             dV = P^T dO,  dS = P o (dO V^T - D),
 //             dQ = scale * dS K,  dK = scale * dS^T Q
 //
-// for every (batch, head), with q/k/v read through their [B, S, H, 64]
-// strides, O/dQ/dK/dV written as contiguous [B, S, H, 64] and L, D as
+// for every (batch, head), with q/k/v read through their [B, S, H, Dh]
+// strides, O/dQ/dK/dV written as contiguous [B, S, H, Dh] and L, D as
 // [B, H, Sq].  Two additive terms, each optional, follow the scale: the bias,
 // read through broadcast strides (0 along a broadcast dimension), so a
 // [1, H, S, S] table or a [B, 1, 1, Sk] key mask is never materialized at
@@ -75,6 +75,16 @@
 //   third 16 x 64 accumulator there, where dK, dV, P^T and dS^T already
 //   take 208 registers (255 with a bias, with or without a key bias).
 //
+// Head dim 34 (VLMo-base+: 544 over 16 heads) is a template instance of the
+// same kernels.  m16n8k8 steps 8 columns at a time, so a tile holds 40
+// columns, the last 6 zero-filled by the copies; zero columns add nothing to
+// a product over the head dim, and the product whose outputs are head-dim
+// columns computes 40 and stores 34.  q, k and v are read in place from the
+// model's [B, S, 544] projections: a head starts 136 bytes after the last,
+// which is 8-byte but not 16-byte aligned, so rows arrive in 8-byte cp.async
+// chunks (the wrapper checks 8-byte alignment).  Rows of 44 floats keep the
+// fragment reads free of bank conflicts, as 68 do at head dim 64.
+//
 // With both terms, at VLMo's [16, 941, 12, 64] (a [1, 12, 941, 941] table,
 // 42.5 MB, and the padded-text mask), each (batch, head) reads its head's
 // 3.5 MB slice of the table, 680 MB in all when L2 keeps none of it; the
@@ -95,14 +105,22 @@
 
 namespace {
 
-constexpr int kD = 64;          // head dim
 constexpr int kTile = 64;       // rows of a query or key tile
-constexpr int kLd = kD + 4;     // shared-memory row, in floats (16-byte aligned)
 constexpr int kWarps = 4;       // 16 rows of a tile each
 constexpr int kThreads = 32 * kWarps;
-constexpr int kTileFloats = kTile * kLd;
-constexpr int kSteps = kD / 8;  // m16n8k8 steps over 64 columns (or keys)
+constexpr int kKeySteps = kTile / 8;  // m16n8k8 steps over a tile's 64 keys (or queries)
 constexpr float kLog2e = 1.4426950408889634f;
+
+// The layout of head dim kDh (64 or 34) in shared memory.
+template <int kDh>
+struct Width {
+  static constexpr int kD = (kDh + 7) / 8 * 8;  // columns of a tile: m16n8k8 steps of 8
+  static constexpr int kLd = kD + 4;            // shared-memory row, in floats (16-byte aligned)
+  static constexpr int kTileFloats = kTile * kLd;
+  static constexpr int kSteps = kD / 8;         // m16n8k8 steps over the columns
+  // floats a cp.async copies: 16 bytes, or 8 where a row starts off 16 bytes
+  static constexpr int kChunk = kDh % 4 == 0 ? 4 : 2;
+};
 
 struct Params {
   const float* q;
@@ -110,13 +128,13 @@ struct Params {
   const float* v;
   const float* bias;  // nullptr: no bias
   const float* key_bias;  // nullptr: no key bias; [1|B, Sk]
-  const float* o;     // backward: forward output, contiguous [B, Sq, H, 64]
+  const float* o;     // backward: forward output, contiguous [B, Sq, H, Dh]
   const float* lse;   // backward: [B, H, Sq]
-  const float* dout;  // backward: contiguous [B, Sq, H, 64]
-  float* out;         // forward: O; backward: dQ   (contiguous [B, Sq, H, 64])
+  const float* dout;  // backward: contiguous [B, Sq, H, Dh]
+  float* out;         // forward: O; backward: dQ   (contiguous [B, Sq, H, Dh])
   float* out_lse;     // forward: L [B, H, Sq]
-  float* dk;          // contiguous [B, Sk, H, 64]
-  float* dv;          // contiguous [B, Sk, H, 64]
+  float* dk;          // contiguous [B, Sk, H, Dh]
+  float* dv;          // contiguous [B, Sk, H, Dh]
   float* delta;       // backward: D [B, H, Sq]
   long long qsb, qss, qsh;
   long long ksb, kss, ksh;
@@ -137,6 +155,12 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool va
                "r"(valid ? 16 : 0));
 }
 
+__device__ __forceinline__ void cp_async8(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 8 : 0));
+}
+
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
@@ -153,15 +177,23 @@ __device__ __forceinline__ void cp_async_wait_prev() {
 }
 
 // Rows [row0, row0 + 64) of one (batch, head) slice into a tile by 16-byte
-// copies; rows past ``nrows`` are zero-filled.  ``base`` points at row 0,
-// 16-byte aligned, as is every row (the wrapper checks).
+// (or, at head dim 34, 8-byte) copies; rows past ``nrows`` and columns past
+// kDh are zero-filled.  ``base`` points at row 0, aligned to the copy, as is
+// every row (the wrapper checks).
+template <int kDh>
 __device__ __forceinline__ void load_tile(float* sm, const float* base, long long row_stride,
                                           int row0, int nrows) {
-  for (int idx = threadIdx.x; idx < kTile * kD / 4; idx += kThreads) {
-    const int r = idx >> 4, c = (idx & 15) << 2;
+  using W = Width<kDh>;
+  constexpr int kPerRow = W::kD / W::kChunk;
+  for (unsigned idx = threadIdx.x; idx < kTile * kPerRow; idx += kThreads) {
+    const int r = idx / kPerRow, c = idx % kPerRow * W::kChunk;  // a shift and a mask at 64
     const int row = row0 + r;
-    const bool ok = row < nrows;
-    cp_async16(sm + r * kLd + c, ok ? base + row * row_stride + c : base, ok);
+    const bool ok = row < nrows && (kDh == W::kD || c < kDh);
+    const float* src = ok ? base + row * row_stride + c : base;
+    if (W::kChunk == 4)
+      cp_async16(sm + r * W::kLd + c, src, ok);
+    else
+      cp_async8(sm + r * W::kLd + c, src, ok);
   }
 }
 
@@ -241,7 +273,8 @@ __device__ __forceinline__ void mma_3xtf32(float c[4], const FragA& a, const Fra
   mma_tf32(c, a.hi, b.hi);
 }
 
-// A = rows [r0, r0 + 16), columns [k0, k0 + 8) of a tile.
+// A = rows [r0, r0 + 16), columns [k0, k0 + 8) of a tile of kLd-float rows.
+template <int kLd>
 __device__ __forceinline__ void load_a(FragA& f, const float* rows, int r0, int k0) {
   split(rows[r0 * kLd + k0], f.hi[0], f.lo[0]);
   split(rows[(r0 + 8) * kLd + k0], f.hi[1], f.lo[1]);
@@ -250,6 +283,7 @@ __device__ __forceinline__ void load_a(FragA& f, const float* rows, int r0, int 
 }
 
 // B = X^T for X's rows [n0, n0 + 8) and columns [k0, k0 + 8).
+template <int kLd>
 __device__ __forceinline__ void load_bt(FragB& f, const float* rows, int n0, int k0) {
   split(rows[n0 * kLd + k0], f.hi[0], f.lo[0]);
   split(rows[n0 * kLd + k0 + 4], f.hi[1], f.lo[1]);
@@ -257,6 +291,7 @@ __device__ __forceinline__ void load_bt(FragB& f, const float* rows, int n0, int
 
 // B = X for X's rows [k0, k0 + 8) in the permuted depth order (t -> 2t,
 // t + 4 -> 2t + 1) and columns [n0, n0 + 8).
+template <int kLd>
 __device__ __forceinline__ void load_b_perm(FragB& f, const float* cols, int k0, int n0) {
   split(cols[k0 * kLd + n0], f.hi[0], f.lo[0]);
   split(cols[(k0 + 1) * kLd + n0], f.hi[1], f.lo[1]);
@@ -271,40 +306,45 @@ __device__ __forceinline__ void acc_to_a(FragA& f, const float c[4]) {
   split(c[3], f.hi[3], f.lo[3]);
 }
 
-// acc[n] (16 x 8 each, n < 8) = rows [r0, r0 + 16) of A times X^T, X a
-// 64 x 64 tile: a 16 x 64 product over 64 columns.  ``a_rows`` and
-// ``x_rows`` are the tiles' per-thread row bases.
-__device__ __forceinline__ void product_abt(float acc[kSteps][4], const float* a_rows, int r0,
+// acc[n] (16 x 8 each, n < 8) = rows [r0, r0 + 16) of A times X^T, A and X
+// tiles of head dim kDh: a 16 x 64 product over the tiles' kD columns.
+// ``a_rows`` and ``x_rows`` are the tiles' per-thread row bases.
+template <int kDh>
+__device__ __forceinline__ void product_abt(float acc[kKeySteps][4], const float* a_rows, int r0,
                                             const float* x_rows) {
+  using W = Width<kDh>;
 #pragma unroll
-  for (int n = 0; n < kSteps; ++n)
+  for (int n = 0; n < kKeySteps; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < kD; kk += 8) {
+  for (int kk = 0; kk < W::kD; kk += 8) {
     FragA a;
-    load_a(a, a_rows, r0, kk);
+    load_a<W::kLd>(a, a_rows, r0, kk);
 #pragma unroll
-    for (int n = 0; n < kSteps; ++n) {
+    for (int n = 0; n < kKeySteps; ++n) {
       FragB b;
-      load_bt(b, x_rows, 8 * n, kk);
+      load_bt<W::kLd>(b, x_rows, 8 * n, kk);
       mma_3xtf32(acc[n], a, b);
     }
   }
 }
 
 // acc[n] += C X, C a 16 x 64 accumulator tile (c[j] its columns 8j..8j+7)
-// and X a 64 x 64 tile given by its per-thread column base.
-__device__ __forceinline__ void product_cx(float acc[kSteps][4], const float c[kSteps][4],
-                                           const float* x_cols) {
+// and X a 64-row tile of head dim kDh given by its per-thread column base:
+// a 16 x kD product.
+template <int kDh>
+__device__ __forceinline__ void product_cx(float acc[Width<kDh>::kSteps][4],
+                                           const float c[kKeySteps][4], const float* x_cols) {
+  using W = Width<kDh>;
 #pragma unroll
-  for (int j = 0; j < kSteps; ++j) {
+  for (int j = 0; j < kKeySteps; ++j) {
     FragA a;
     acc_to_a(a, c[j]);
 #pragma unroll
-    for (int n = 0; n < kSteps; ++n) {
+    for (int n = 0; n < W::kSteps; ++n) {
       FragB b;
-      load_b_perm(b, x_cols, 8 * j, 8 * n);
+      load_b_perm<W::kLd>(b, x_cols, 8 * j, 8 * n);
       mma_3xtf32(acc[n], a, b);
     }
   }
@@ -332,11 +372,11 @@ __device__ __forceinline__ float quad_sum(float v) {
 // this thread's first key: + 2t for key columns, + the warp's first row + g
 // for key rows.
 template <bool kBias, bool kKeyBias, bool kKeyRows>
-__device__ __forceinline__ void scale_bias(float s[kSteps][4], const Params& p,
+__device__ __forceinline__ void scale_bias(float s[kKeySteps][4], const Params& p,
                                            const float* bias_bh, const float* kbs, int r,
                                            int c) {
 #pragma unroll
-  for (int n = 0; n < kSteps; ++n)
+  for (int n = 0; n < kKeySteps; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float x = s[n][e] * p.scale;
@@ -352,20 +392,23 @@ __device__ __forceinline__ void scale_bias(float s[kSteps][4], const Params& p,
 }
 
 // s = -inf in the columns c + 8 n + (e % 2) at or past ``n_valid``.
-__device__ __forceinline__ void mask_cols(float s[kSteps][4], int c, int n_valid) {
+__device__ __forceinline__ void mask_cols(float s[kKeySteps][4], int c, int n_valid) {
 #pragma unroll
-  for (int n = 0; n < kSteps; ++n)
+  for (int n = 0; n < kKeySteps; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       if (c + 8 * n + (e & 1) >= n_valid) s[n][e] = -INFINITY;
 }
 
-// Store rows r and r + 8 of a 16 x 64 accumulator tile times ``mul`` as two
-// rows of a contiguous [B, S, H, 64] tensor; rows at or past ``nrows`` are
-// not written.
+// Store rows r and r + 8 of a 16 x kD accumulator tile times ``mul`` as two
+// rows of a contiguous [B, S, H, kDh] tensor; rows at or past ``nrows``, and
+// columns past kDh, are not written.  kDh is even, so a thread's column
+// pair is written whole or not at all.
+template <int kDh>
 __device__ __forceinline__ void store_rows(float* base, long long row_stride, int row, int nrows,
-                                           const float acc[kSteps][4], float mul0, float mul1,
-                                           int t) {
+                                           const float acc[Width<kDh>::kSteps][4], float mul0,
+                                           float mul1, int t) {
+  using W = Width<kDh>;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = row + 8 * i;
@@ -373,9 +416,10 @@ __device__ __forceinline__ void store_rows(float* base, long long row_stride, in
     const float mul = i == 0 ? mul0 : mul1;
     float* dst = base + r * row_stride + 2 * t;
 #pragma unroll
-    for (int n = 0; n < kSteps; ++n)
-      *reinterpret_cast<float2*>(dst + 8 * n) =
-          make_float2(acc[n][2 * i] * mul, acc[n][2 * i + 1] * mul);
+    for (int n = 0; n < W::kSteps; ++n)
+      if (kDh == W::kD || 8 * n + 2 * t < kDh)
+        *reinterpret_cast<float2*>(dst + 8 * n) =
+            make_float2(acc[n][2 * i] * mul, acc[n][2 * i + 1] * mul);
   }
 }
 
@@ -383,8 +427,10 @@ __device__ __forceinline__ void store_rows(float* base, long long row_stride, in
 // kernels
 // ---------------------------------------------------------------------------
 
-template <bool kBias, bool kKeyBias>
+template <int kDh, bool kBias, bool kKeyBias>
 __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(const Params p) {
+  using W = Width<kDh>;
+  constexpr int kTileFloats = W::kTileFloats;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* Ks = Qs + kTileFloats;      // two buffers
@@ -394,25 +440,25 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(const Params p) 
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = (threadIdx.x >> 5) * 16;  // this warp's rows of the tile
-  const int rows_off = g * kLd + t, cols_off = 2 * t * kLd + g;
+  const int rows_off = g * W::kLd + t, cols_off = 2 * t * W::kLd + g;
   const float* kb = p.k + b * p.ksb + h * p.ksh;
   const float* vb = p.v + b * p.vsb + h * p.vsh;
   const float* bias_bh = kBias ? p.bias + b * p.bsb + h * p.bsh : nullptr;
   const float* kbb = kKeyBias ? p.key_bias + b * p.kbsb : nullptr;
   const int n_tiles = (p.Sk + kTile - 1) / kTile;
 
-  load_tile(Qs, p.q + b * p.qsb + h * p.qsh, p.qss, q0, p.Sq);
-  load_tile(Ks, kb, p.kss, 0, p.Sk);
-  load_tile(Vs, vb, p.vss, 0, p.Sk);
+  load_tile<kDh>(Qs, p.q + b * p.qsb + h * p.qsh, p.qss, q0, p.Sq);
+  load_tile<kDh>(Ks, kb, p.kss, 0, p.Sk);
+  load_tile<kDh>(Vs, vb, p.vss, 0, p.Sk);
   if (kKeyBias) load_key_bias(KBs, kbb, 0, p.Sk);
   cp_async_commit();
 
   // rows q0 + r0 + g (i = 0: c0, c1) and q0 + r0 + g + 8 (i = 1: c2, c3)
   const int row = q0 + r0 + g;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float acc[kSteps][4];
+  float acc[W::kSteps][4];
 #pragma unroll
-  for (int n = 0; n < kSteps; ++n)
+  for (int n = 0; n < W::kSteps; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
@@ -421,23 +467,23 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(const Params p) 
     const float* Kt = Ks + (j & 1) * kTileFloats;
     const float* Vt = Vs + (j & 1) * kTileFloats;
     if (j + 1 < n_tiles) {  // into the buffers that tile j - 1 used
-      load_tile(Ks + ((j + 1) & 1) * kTileFloats, kb, p.kss, k0 + kTile, p.Sk);
-      load_tile(Vs + ((j + 1) & 1) * kTileFloats, vb, p.vss, k0 + kTile, p.Sk);
+      load_tile<kDh>(Ks + ((j + 1) & 1) * kTileFloats, kb, p.kss, k0 + kTile, p.Sk);
+      load_tile<kDh>(Vs + ((j + 1) & 1) * kTileFloats, vb, p.vss, k0 + kTile, p.Sk);
       if (kKeyBias) load_key_bias(KBs + ((j + 1) & 1) * kTile, kbb, k0 + kTile, p.Sk);
     }
     cp_async_commit();
     cp_async_wait_prev();
     __syncthreads();
 
-    float s[kSteps][4];
-    product_abt(s, Qs + rows_off, r0, Kt + rows_off);
+    float s[kKeySteps][4];
+    product_abt<kDh>(s, Qs + rows_off, r0, Kt + rows_off);
     scale_bias<kBias, kKeyBias, false>(s, p, bias_bh, KBs + (j & 1) * kTile + 2 * t, row,
                                        k0 + 2 * t);
     if (k0 + kTile > p.Sk) mask_cols(s, k0 + 2 * t, p.Sk);
 
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int n = 0; n < kSteps; ++n)
+    for (int n = 0; n < kKeySteps; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
     float m_ref[2], alpha[2];
@@ -452,22 +498,23 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(const Params p) 
     }
     float rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int n = 0; n < kSteps; ++n)
+    for (int n = 0; n < kKeySteps; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         s[n][e] = exp2_approx((s[n][e] - m_ref[e >> 1]) * kLog2e);  // 0 for a masked key
         rs[e >> 1] += s[n][e];
-        acc[n][e] *= alpha[e >> 1];
+        if (n < W::kSteps) acc[n][e] *= alpha[e >> 1];
       }
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(rs[i]);
 
-    product_cx(acc, s, Vt + cols_off);  // O += P V
+    product_cx<kDh>(acc, s, Vt + cols_off);  // O += P V
     __syncthreads();  // every warp is done with tile j's buffers
   }
 
-  const long long oss = (long long)p.H * kD, osb = (long long)p.Sq * oss;
-  store_rows(p.out + b * osb + (long long)h * kD, oss, row, p.Sq, acc, 1.f / l[0], 1.f / l[1], t);
+  const long long oss = (long long)p.H * kDh, osb = (long long)p.Sq * oss;
+  store_rows<kDh>(p.out + b * osb + (long long)h * kDh, oss, row, p.Sq, acc, 1.f / l[0],
+                  1.f / l[1], t);
   if (t == 0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -477,6 +524,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(const Params p) 
 }
 
 // D[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d]: one warp per row.
+template <int kDh>
 __global__ void flash_bwd_delta_kernel(const Params p) {
   const long long n_rows = (long long)p.B * p.H * p.Sq;
   const int lane = threadIdx.x & 31;
@@ -486,16 +534,19 @@ __global__ void flash_bwd_delta_kernel(const Params p) {
     const int i = (int)(w % p.Sq);
     const long long bh = w / p.Sq;
     const int h = (int)(bh % p.H), b = (int)(bh / p.H);
-    const long long off = (((long long)b * p.Sq + i) * p.H + h) * kD;
-    float s = p.dout[off + lane] * p.o[off + lane] +
-              p.dout[off + lane + 32] * p.o[off + lane + 32];
+    const long long off = (((long long)b * p.Sq + i) * p.H + h) * kDh;
+    float s = 0.f;
+#pragma unroll
+    for (int d = lane; d < kDh; d += 32) s += p.dout[off + d] * p.o[off + d];
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
     if (lane == 0) p.delta[w] = s;
   }
 }
 
-template <bool kBias, bool kKeyBias>
+template <int kDh, bool kBias, bool kKeyBias>
 __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_kernel(const Params p) {
+  using W = Width<kDh>;
+  constexpr int kTileFloats = W::kTileFloats;
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
   float* Vs = Ks + kTileFloats;
@@ -508,28 +559,28 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_kernel(const Params
   const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = (threadIdx.x >> 5) * 16;  // this warp's keys of the tile
-  const int rows_off = g * kLd + t, cols_off = 2 * t * kLd + g;
-  const long long oss = (long long)p.H * kD, osb = (long long)p.Sq * oss;
+  const int rows_off = g * W::kLd + t, cols_off = 2 * t * W::kLd + g;
+  const long long oss = (long long)p.H * kDh, osb = (long long)p.Sq * oss;
   const float* qb = p.q + b * p.qsb + h * p.qsh;
-  const float* dob = p.dout + b * osb + (long long)h * kD;
+  const float* dob = p.dout + b * osb + (long long)h * kDh;
   const long long rows_bh = ((long long)b * p.H + h) * p.Sq;
   const float* bias_bh = kBias ? p.bias + b * p.bsb + h * p.bsh : nullptr;
   const int n_tiles = (p.Sq + kTile - 1) / kTile;
 
-  load_tile(Ks, p.k + b * p.ksb + h * p.ksh, p.kss, k0, p.Sk);
-  load_tile(Vs, p.v + b * p.vsb + h * p.vsh, p.vss, k0, p.Sk);
+  load_tile<kDh>(Ks, p.k + b * p.ksb + h * p.ksh, p.kss, k0, p.Sk);
+  load_tile<kDh>(Vs, p.v + b * p.vsb + h * p.vsh, p.vss, k0, p.Sk);
   if (kKeyBias) load_key_bias(KBs, p.key_bias + b * p.kbsb, k0, p.Sk);
-  load_tile(Qs, qb, p.qss, 0, p.Sq);
-  load_tile(dOs, dob, oss, 0, p.Sq);
+  load_tile<kDh>(Qs, qb, p.qss, 0, p.Sq);
+  load_tile<kDh>(dOs, dob, oss, 0, p.Sq);
   load_rows(p, Ls, Ds, rows_bh, 0);
   cp_async_commit();
 
   // keys k0 + r0 + g (c0, c1) and k0 + r0 + g + 8 (c2, c3); columns are
   // queries.  Keys past Sk are never written, so only queries are masked.
   const int key = k0 + r0 + g;
-  float dk[kSteps][4], dv[kSteps][4];
+  float dk[W::kSteps][4], dv[W::kSteps][4];
 #pragma unroll
-  for (int n = 0; n < kSteps; ++n)
+  for (int n = 0; n < W::kSteps; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
 
@@ -540,8 +591,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_kernel(const Params
     const float* Lt = Ls + buf * kTile + 2 * t;
     const float* Dt = Ds + buf * kTile + 2 * t;
     if (j + 1 < n_tiles) {  // into the buffers that tile j - 1 used
-      load_tile(Qs + nxt * kTileFloats, qb, p.qss, q0 + kTile, p.Sq);
-      load_tile(dOs + nxt * kTileFloats, dob, oss, q0 + kTile, p.Sq);
+      load_tile<kDh>(Qs + nxt * kTileFloats, qb, p.qss, q0 + kTile, p.Sq);
+      load_tile<kDh>(dOs + nxt * kTileFloats, dob, oss, q0 + kTile, p.Sq);
       load_rows(p, Ls + nxt * kTile, Ds + nxt * kTile, rows_bh, q0 + kTile);
     }
     cp_async_commit();
@@ -549,33 +600,35 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_kernel(const Params
     __syncthreads();
 
     // S^T = K Q^T and dP^T = V dO^T over this warp's 16 keys
-    float pt[kSteps][4], dst[kSteps][4];
-    product_abt(pt, Ks + rows_off, r0, Qt + rows_off);
-    product_abt(dst, Vs + rows_off, r0, dOt + rows_off);
+    float pt[kKeySteps][4], dst[kKeySteps][4];
+    product_abt<kDh>(pt, Ks + rows_off, r0, Qt + rows_off);
+    product_abt<kDh>(dst, Vs + rows_off, r0, dOt + rows_off);
     scale_bias<kBias, kKeyBias, true>(pt, p, bias_bh, KBs + r0 + g, key, q0 + 2 * t);
     if (q0 + kTile > p.Sq) mask_cols(pt, q0 + 2 * t, p.Sq);
     // P^T = exp(S^T - L) and dS^T = P^T o (dP^T - D): 0 for a masked query
 #pragma unroll
-    for (int n = 0; n < kSteps; ++n)
+    for (int n = 0; n < kKeySteps; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = 8 * n + (e & 1);
         pt[n][e] = exp2_approx((pt[n][e] - Lt[i]) * kLog2e);
         dst[n][e] = pt[n][e] * (dst[n][e] - Dt[i]);
       }
-    product_cx(dv, pt, dOt + cols_off);  // dV += P^T dO
-    product_cx(dk, dst, Qt + cols_off);  // dK += dS^T Q
+    product_cx<kDh>(dv, pt, dOt + cols_off);  // dV += P^T dO
+    product_cx<kDh>(dk, dst, Qt + cols_off);  // dK += dS^T Q
     __syncthreads();  // every warp is done with tile j's buffers
   }
 
-  const long long kss = (long long)p.H * kD, ksb = (long long)p.Sk * kss;
-  const long long off = b * ksb + (long long)h * kD;
-  store_rows(p.dk + off, kss, key, p.Sk, dk, p.scale, p.scale, t);
-  store_rows(p.dv + off, kss, key, p.Sk, dv, 1.f, 1.f, t);
+  const long long kss = (long long)p.H * kDh, ksb = (long long)p.Sk * kss;
+  const long long off = b * ksb + (long long)h * kDh;
+  store_rows<kDh>(p.dk + off, kss, key, p.Sk, dk, p.scale, p.scale, t);
+  store_rows<kDh>(p.dv + off, kss, key, p.Sk, dv, 1.f, 1.f, t);
 }
 
-template <bool kBias, bool kKeyBias>
+template <int kDh, bool kBias, bool kKeyBias>
 __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Params p) {
+  using W = Width<kDh>;
+  constexpr int kTileFloats = W::kTileFloats;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* dOs = Qs + kTileFloats;
@@ -586,18 +639,18 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Params 
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = (threadIdx.x >> 5) * 16;  // this warp's rows of the tile
-  const int rows_off = g * kLd + t, cols_off = 2 * t * kLd + g;
-  const long long oss = (long long)p.H * kD, osb = (long long)p.Sq * oss;
+  const int rows_off = g * W::kLd + t, cols_off = 2 * t * W::kLd + g;
+  const long long oss = (long long)p.H * kDh, osb = (long long)p.Sq * oss;
   const float* kb = p.k + b * p.ksb + h * p.ksh;
   const float* vb = p.v + b * p.vsb + h * p.vsh;
   const float* bias_bh = kBias ? p.bias + b * p.bsb + h * p.bsh : nullptr;
   const float* kbb = kKeyBias ? p.key_bias + b * p.kbsb : nullptr;
   const int n_tiles = (p.Sk + kTile - 1) / kTile;
 
-  load_tile(Qs, p.q + b * p.qsb + h * p.qsh, p.qss, q0, p.Sq);
-  load_tile(dOs, p.dout + b * osb + (long long)h * kD, oss, q0, p.Sq);
-  load_tile(Ks, kb, p.kss, 0, p.Sk);
-  load_tile(Vs, vb, p.vss, 0, p.Sk);
+  load_tile<kDh>(Qs, p.q + b * p.qsb + h * p.qsh, p.qss, q0, p.Sq);
+  load_tile<kDh>(dOs, p.dout + b * osb + (long long)h * kDh, oss, q0, p.Sq);
+  load_tile<kDh>(Ks, kb, p.kss, 0, p.Sk);
+  load_tile<kDh>(Vs, vb, p.vss, 0, p.Sk);
   if (kKeyBias) load_key_bias(KBs, kbb, 0, p.Sk);
   cp_async_commit();
 
@@ -612,9 +665,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Params 
     lse[i] = ok ? p.lse[idx] : 0.f;
     dlt[i] = ok ? p.delta[idx] : 0.f;
   }
-  float dq[kSteps][4];
+  float dq[W::kSteps][4];
 #pragma unroll
-  for (int n = 0; n < kSteps; ++n)
+  for (int n = 0; n < W::kSteps; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
 
@@ -623,8 +676,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Params 
     const float* Kt = Ks + (j & 1) * kTileFloats;
     const float* Vt = Vs + (j & 1) * kTileFloats;
     if (j + 1 < n_tiles) {  // into the buffers that tile j - 1 used
-      load_tile(Ks + ((j + 1) & 1) * kTileFloats, kb, p.kss, k0 + kTile, p.Sk);
-      load_tile(Vs + ((j + 1) & 1) * kTileFloats, vb, p.vss, k0 + kTile, p.Sk);
+      load_tile<kDh>(Ks + ((j + 1) & 1) * kTileFloats, kb, p.kss, k0 + kTile, p.Sk);
+      load_tile<kDh>(Vs + ((j + 1) & 1) * kTileFloats, vb, p.vss, k0 + kTile, p.Sk);
       if (kKeyBias) load_key_bias(KBs + ((j + 1) & 1) * kTile, kbb, k0 + kTile, p.Sk);
     }
     cp_async_commit();
@@ -632,32 +685,37 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Params 
     __syncthreads();
 
     // S = Q K^T and dP = dO V^T over this warp's 16 rows
-    float s[kSteps][4], dp[kSteps][4];
-    product_abt(s, Qs + rows_off, r0, Kt + rows_off);
-    product_abt(dp, dOs + rows_off, r0, Vt + rows_off);
+    float s[kKeySteps][4], dp[kKeySteps][4];
+    product_abt<kDh>(s, Qs + rows_off, r0, Kt + rows_off);
+    product_abt<kDh>(dp, dOs + rows_off, r0, Vt + rows_off);
     scale_bias<kBias, kKeyBias, false>(s, p, bias_bh, KBs + (j & 1) * kTile + 2 * t, row,
                                        k0 + 2 * t);
     if (k0 + kTile > p.Sk) mask_cols(s, k0 + 2 * t, p.Sk);
     // dS = P o (dP - D), P = exp(S - L): 0 for a masked key
 #pragma unroll
-    for (int n = 0; n < kSteps; ++n)
+    for (int n = 0; n < kKeySteps; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         s[n][e] = exp2_approx((s[n][e] - lse[e >> 1]) * kLog2e) * (dp[n][e] - dlt[e >> 1]);
-    product_cx(dq, s, Kt + cols_off);  // dQ += dS K
+    product_cx<kDh>(dq, s, Kt + cols_off);  // dQ += dS K
     __syncthreads();  // every warp is done with tile j's buffers
   }
 
-  store_rows(p.out + b * osb + (long long)h * kD, oss, row, p.Sq, dq, p.scale, p.scale, t);
+  store_rows<kDh>(p.out + b * osb + (long long)h * kDh, oss, row, p.Sq, dq, p.scale, p.scale,
+                  t);
 }
 
 // dynamic shared memory of each kernel, without and with a key bias
-constexpr size_t kFwdSmem = 5 * kTileFloats * sizeof(float);
-constexpr size_t kDkvSmem = (6 * kTileFloats + 4 * kTile) * sizeof(float);
-constexpr size_t kDqSmem = 6 * kTileFloats * sizeof(float);
-constexpr size_t kFwdSmemKb = kFwdSmem + 2 * kTile * sizeof(float);
-constexpr size_t kDkvSmemKb = kDkvSmem + kTile * sizeof(float);
-constexpr size_t kDqSmemKb = kDqSmem + 2 * kTile * sizeof(float);
+template <int kDh>
+struct Smem {
+  static constexpr size_t kTileBytes = Width<kDh>::kTileFloats * sizeof(float);
+  static constexpr size_t kFwd = 5 * kTileBytes;
+  static constexpr size_t kDkv = 6 * kTileBytes + 4 * kTile * sizeof(float);
+  static constexpr size_t kDq = 6 * kTileBytes;
+  static constexpr size_t kFwdKb = kFwd + 2 * kTile * sizeof(float);
+  static constexpr size_t kDkvKb = kDkv + kTile * sizeof(float);
+  static constexpr size_t kDqKb = kDq + 2 * kTile * sizeof(float);
+};
 
 Params make_params(const void* q, const void* k, const void* v, const void* bias,
                    const void* key_bias, int B, int H, int Sq, int Sk, long long qsb,
@@ -690,42 +748,58 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, c
   return cudaGetLastError();
 }
 
-// The instance of a kernel for the terms present: ``L::run<kBias, kKeyBias>``.
+// The instance of a kernel for the head dim and the terms present:
+// ``L::run<kDh, kBias, kKeyBias>``; an error for a head dim without one.
 template <typename L>
-cudaError_t dispatch(const Params& p, dim3 grid, cudaStream_t stream) {
-  if (p.bias != nullptr)
-    return p.key_bias != nullptr ? L::template run<true, true>(p, grid, stream)
-                                 : L::template run<true, false>(p, grid, stream);
-  return p.key_bias != nullptr ? L::template run<false, true>(p, grid, stream)
-                               : L::template run<false, false>(p, grid, stream);
+cudaError_t dispatch(const Params& p, int Dh, dim3 grid, cudaStream_t stream) {
+  const bool kb = p.key_bias != nullptr;
+  if (Dh == 64) {
+    if (p.bias != nullptr)
+      return kb ? L::template run<64, true, true>(p, grid, stream)
+                : L::template run<64, true, false>(p, grid, stream);
+    return kb ? L::template run<64, false, true>(p, grid, stream)
+              : L::template run<64, false, false>(p, grid, stream);
+  }
+  if (Dh == 34) {
+    if (p.bias != nullptr)
+      return kb ? L::template run<34, true, true>(p, grid, stream)
+                : L::template run<34, true, false>(p, grid, stream);
+    return kb ? L::template run<34, false, true>(p, grid, stream)
+              : L::template run<34, false, false>(p, grid, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 struct Fwd {
-  template <bool kB, bool kKB>
+  template <int kDh, bool kB, bool kKB>
   static cudaError_t run(const Params& p, dim3 grid, cudaStream_t s) {
-    return launch(flash_fwd_kernel<kB, kKB>, grid, kKB ? kFwdSmemKb : kFwdSmem, s, p);
+    return launch(flash_fwd_kernel<kDh, kB, kKB>, grid,
+                  kKB ? Smem<kDh>::kFwdKb : Smem<kDh>::kFwd, s, p);
   }
 };
 struct Dkv {
-  template <bool kB, bool kKB>
+  template <int kDh, bool kB, bool kKB>
   static cudaError_t run(const Params& p, dim3 grid, cudaStream_t s) {
-    return launch(flash_bwd_dkv_kernel<kB, kKB>, grid, kKB ? kDkvSmemKb : kDkvSmem, s, p);
+    return launch(flash_bwd_dkv_kernel<kDh, kB, kKB>, grid,
+                  kKB ? Smem<kDh>::kDkvKb : Smem<kDh>::kDkv, s, p);
   }
 };
 struct Dq {
-  template <bool kB, bool kKB>
+  template <int kDh, bool kB, bool kKB>
   static cudaError_t run(const Params& p, dim3 grid, cudaStream_t s) {
-    return launch(flash_bwd_dq_kernel<kB, kKB>, grid, kKB ? kDqSmemKb : kDqSmem, s, p);
+    return launch(flash_bwd_dq_kernel<kDh, kB, kKB>, grid,
+                  kKB ? Smem<kDh>::kDqKb : Smem<kDh>::kDq, s, p);
   }
 };
 
 }  // namespace
 
-// O [B, Sq, H, 64] and L [B, H, Sq], both contiguous.  q, k and v start
-// every row on 16 bytes (the wrapper checks).  bias and key_bias may be null.
+// O [B, Sq, H, Dh] and L [B, H, Sq], both contiguous; Dh is 64 or 34.  q,
+// k and v start every row on 16 bytes (8 at head dim 34; the wrapper
+// checks).  bias and key_bias may be null.
 extern "C" int vq_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* bias, const void* key_bias,
-    void* out, void* lse, int B, int H, int Sq, int Sk, long long qsb, long long qss,
+    void* out, void* lse, int B, int H, int Sq, int Sk, int Dh, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
     long long vss, long long vsh, long long bsb, long long bsh, long long bsq,
     long long bsk, long long kbsb, float scale, void* stream) {
@@ -735,19 +809,20 @@ extern "C" int vq_flash_attention_fwd(
   p.out = (float*)out;
   p.out_lse = (float*)lse;
   const dim3 grid((Sq + kTile - 1) / kTile, H, B);
-  return (int)dispatch<Fwd>(p, grid, (cudaStream_t)stream);
+  return (int)dispatch<Fwd>(p, Dh, grid, (cudaStream_t)stream);
 }
 
-// dQ [B, Sq, H, 64], dK and dV [B, Sk, H, 64], all contiguous; o and dout
-// contiguous [B, Sq, H, 64], dout 16-byte aligned; delta a [B, H, Sq] scratch.
+// dQ [B, Sq, H, Dh], dK and dV [B, Sk, H, Dh], all contiguous; o and dout
+// contiguous [B, Sq, H, Dh], dout aligned as q; delta a [B, H, Sq] scratch.
 extern "C" int vq_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* bias, const void* key_bias,
     const void* o, const void* lse, const void* dout, void* dq, void* dk,
-    void* dv, void* delta, int B, int H, int Sq, int Sk, long long qsb,
+    void* dv, void* delta, int B, int H, int Sq, int Sk, int Dh, long long qsb,
     long long qss, long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, long long bsb, long long bsh,
     long long bsq, long long bsk, long long kbsb, float scale, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return 0;
+  if (Dh != 64 && Dh != 34) return (int)cudaErrorInvalidValue;
   Params p = make_params(q, k, v, bias, key_bias, B, H, Sq, Sk, qsb, qss, qsh, ksb, kss,
                          ksh, vsb, vss, vsh, bsb, bsh, bsq, bsk, kbsb, scale);
   p.o = (const float*)o;
@@ -762,11 +837,14 @@ extern "C" int vq_flash_attention_bwd(
   const long long rows = (long long)B * H * Sq;
   long long blocks = (rows + 7) / 8;  // 8 warps of 256 threads, a row each
   if (blocks > 65535) blocks = 65535;
-  flash_bwd_delta_kernel<<<(unsigned)blocks, 256, 0, s>>>(p);
+  if (Dh == 64)
+    flash_bwd_delta_kernel<64><<<(unsigned)blocks, 256, 0, s>>>(p);
+  else
+    flash_bwd_delta_kernel<34><<<(unsigned)blocks, 256, 0, s>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 kv_grid((Sk + kTile - 1) / kTile, H, B), q_grid((Sq + kTile - 1) / kTile, H, B);
-  err = dispatch<Dkv>(p, kv_grid, s);
+  err = dispatch<Dkv>(p, Dh, kv_grid, s);
   if (err != cudaSuccess) return (int)err;
-  return (int)dispatch<Dq>(p, q_grid, s);
+  return (int)dispatch<Dq>(p, Dh, q_grid, s);
 }

@@ -1,4 +1,5 @@
-// Flash attention, forward and backward, bfloat16 q/k/v, head dim 64, on
+// Flash attention, forward and backward, bfloat16 q/k/v, head dim 64 (or
+// 34, padded to 40 columns by the wrapper), on
 // Hopper's warpgroup tensor-core instructions (wgmma) with tiles brought in
 // by the Tensor Memory Accelerator (TMA): one bf16 pass a product, float32
 // accumulation.
@@ -24,8 +25,8 @@
 // bits.  The two terms are summed before they join the scores, as the JAX
 // caller sums them into its one bias.)  O, dQ, dK, dV come back bf16, L
 // float32.  The layout contract is that of flash_attention.cu: q/k/v through
-// their [B, S, H, 64] element strides (multiples of 8, rows on 16 bytes: the
-// wrapper checks), O/dQ/dK/dV contiguous [B, S, H, 64], L and D [B, H, Sq],
+// their [B, S, H, D] element strides (multiples of 8, rows on 16 bytes: the
+// wrapper checks), O/dQ/dK/dV contiguous [B, S, H, D], L and D [B, H, Sq],
 // the bias through broadcast strides and the key bias ([1|B, Sk]) as a
 // vector, both float32 and both optional; ragged lengths masked inside;
 // scale > 0.
@@ -34,6 +35,17 @@
 // the forward needs 4 B*H*S^2*Dh = 20.0 GFLOP, 20 us at the dense bf16 rate
 // (989 TFLOP/s), against 44 MB of bf16 q, k, v and o (13 us at 3.35 TB/s);
 // the backward, recomputing P from L, 10x (49.9 GFLOP, 50 us).
+//
+// Head dim 34 (VLMo-base+: 544 over 16 heads): a head of a [B, S, 544]
+// projection starts 68 bytes after the last, and a TMA map's strides must be
+// multiples of 16 bytes, so the wrapper copies q, k and v into zero-padded
+// [B, S, H, 40] tensors (80-byte rows) and hands the kernels D = 40 (their
+// template instances of width 40).  The
+// maps then span 40 columns with 64-column boxes: TMA fills the columns past
+// 40 with zeros, so the tiles, the swizzle and every product are those of
+// head dim 64, and the zero columns add nothing.  O, dQ, dK and dV are
+// written D columns wide (the wrapper slices them back to 34), and the
+// backward reads O and dO D columns wide too.
 //
 // Design (what held the mma.sync version back, and the answer to each):
 // - tensor-core instructions: every product is wgmma.mma_async m64nNk16
@@ -105,7 +117,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kD = 64;                         // head dim: one 128-byte row
+constexpr int kD = 64;                         // columns of a tile: one 128-byte row
 constexpr int kBox = 64;                       // rows of a TMA box and of a warpgroup
 constexpr uint32_t kBoxBytes = kBox * kD * 2;  // 8 KB
 constexpr int kThreads = 3 * 128;              // two computing warpgroups and a loader
@@ -119,13 +131,13 @@ struct Params {
   const bf16* v;
   const float* bias;      // nullptr: no bias
   const float* key_bias;  // nullptr: no key bias; [1|B, Sk]
-  const bf16* o;          // backward: forward output, contiguous [B, Sq, H, 64]
+  const bf16* o;          // backward: forward output, contiguous [B, Sq, H, D]
   const float* lse;       // backward: [B, H, Sq]
-  const bf16* dout;       // backward: contiguous [B, Sq, H, 64]
-  bf16* out;              // forward: O; backward: dQ   (contiguous [B, Sq, H, 64])
+  const bf16* dout;       // backward: contiguous [B, Sq, H, D]
+  bf16* out;              // forward: O; backward: dQ   (contiguous [B, Sq, H, D])
   float* out_lse;         // forward: L [B, H, Sq]
-  bf16* dk;               // contiguous [B, Sk, H, 64]
-  bf16* dv;               // contiguous [B, Sk, H, 64]
+  bf16* dk;               // contiguous [B, Sk, H, D]
+  bf16* dv;               // contiguous [B, Sk, H, D]
   float* delta;           // backward: D [B, H, Sq]
   long long qsb, qss, qsh;
   long long ksb, kss, ksh;
@@ -136,7 +148,7 @@ struct Params {
   float scale;
 };
 
-// TMA maps of the [B, S, H, 64] tensors the tiles come from, passed to the
+// TMA maps of the [B, S, H, D] tensors the tiles come from, passed to the
 // kernels by value (__grid_constant__), where TMA reads them.
 struct Maps {
   CUtensorMap q, k, v, o, dout;
@@ -498,9 +510,10 @@ __device__ __forceinline__ void prep(float (&s)[N / 2], const float (&t)[N / 2],
 }
 
 // Store rows r and r + 8 of a 64 x 64 accumulator tile (this thread's part)
-// times ``mul0`` / ``mul1``, as bf16, to a contiguous [B, S, H, 64] tensor
-// (``base`` at row 0 of this batch and head); rows at or past ``nrows`` are
-// not written.
+// times ``mul0`` / ``mul1``, as bf16, to a contiguous [B, S, H, kW] tensor
+// (``base`` at row 0 of this batch and head; kW 64 or 40); rows at or past
+// ``nrows``, and columns past kW, are not written.
+template <int kW>
 __device__ __forceinline__ void store_rows(bf16* base, long long row_stride, int r, int nrows,
                                            const float (&acc)[32], float mul0, float mul1,
                                            int c) {
@@ -512,8 +525,9 @@ __device__ __forceinline__ void store_rows(bf16* base, long long row_stride, int
     bf16* dst = base + rr * row_stride + 2 * c;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
-          pack_bf16(acc[4 * j + 2 * i] * mul, acc[4 * j + 2 * i + 1] * mul);
+      if (8 * j < kW)
+        *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+            pack_bf16(acc[4 * j + 2 * i] * mul, acc[4 * j + 2 * i + 1] * mul);
   }
 }
 
@@ -654,7 +668,7 @@ __device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&pa)[8]
     issue_rs<16>(o, pa, v);
 }
 
-template <bool kBias, bool kKeyBias>
+template <int kW, bool kBias, bool kKeyBias>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const Params p, const __grid_constant__ Maps maps) {
   const uint32_t base = smem_base();
@@ -748,10 +762,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       keep(pa);
       bar_arrive(ring.empty(j + n_steps - 1));
 
-      const long long oss = (long long)p.H * kD, osb = (long long)p.Sq * oss;
+      const long long oss = (long long)p.H * kW, osb = (long long)p.Sq * oss;
       const float l0 = quad_sum(st.l[0]), l1 = quad_sum(st.l[1]);
-      store_rows(p.out + w.b * osb + (long long)w.h * kD, oss, row, p.Sq, st.o, 1.f / l0,
-                 1.f / l1, c);
+      store_rows<kW>(p.out + w.b * osb + (long long)w.h * kW, oss, row, p.Sq, st.o, 1.f / l0,
+                     1.f / l1, c);
       if (c == 0) {
         const float l[2] = {l0, l1};
 #pragma unroll
@@ -844,7 +858,7 @@ __device__ __forceinline__ void dkv_step(const Params& p, float (&dk)[32], float
   issue_rs<N>(dk, pend.b, q_tile);  // dK += bf16(dS^T) Q
 }
 
-template <bool kBias, bool kKeyBias>
+template <int kW, bool kBias, bool kKeyBias>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_kernel(const Params p, const __grid_constant__ Maps maps) {
   const uint32_t base = smem_base();
@@ -939,10 +953,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       keep(pend.a);
       keep(pend.b);
       bar_arrive(ring.empty(j + i));
-      const long long kss = (long long)p.H * kD, ksb = (long long)p.Sk * kss;
-      const long long off = w.b * ksb + (long long)w.h * kD;
-      store_rows(p.dk + off, kss, key, p.Sk, dk, p.scale, p.scale, c);
-      store_rows(p.dv + off, kss, key, p.Sk, dv, 1.f, 1.f, c);
+      const long long kss = (long long)p.H * kW, ksb = (long long)p.Sk * kss;
+      const long long off = w.b * ksb + (long long)w.h * kW;
+      store_rows<kW>(p.dk + off, kss, key, p.Sk, dk, p.scale, p.scale, c);
+      store_rows<kW>(p.dv + off, kss, key, p.Sk, dv, 1.f, 1.f, c);
     }
     turns.finish();
   }
@@ -990,7 +1004,7 @@ __device__ __forceinline__ void dq_step(const Params& p, float (&dq)[32], Pendin
   issue_rs<N>(dq, pend.a, k_tile);  // dQ += bf16(dS) K
 }
 
-template <bool kBias, bool kKeyBias>
+template <int kW, bool kBias, bool kKeyBias>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_kernel(const Params p, const __grid_constant__ Maps maps) {
   const uint32_t base = smem_base();
@@ -1093,9 +1107,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       keep(dq);
       keep(pend.a);
       bar_arrive(ring.empty(j + i));
-      const long long oss = (long long)p.H * kD, osb = (long long)p.Sq * oss;
-      store_rows(p.out + w.b * osb + (long long)w.h * kD, oss, row, p.Sq, dq, p.scale, p.scale,
-                 c);
+      const long long oss = (long long)p.H * kW, osb = (long long)p.Sq * oss;
+      store_rows<kW>(p.out + w.b * osb + (long long)w.h * kW, oss, row, p.Sq, dq, p.scale,
+                     p.scale, c);
     }
     turns.finish();
   }
@@ -1129,15 +1143,16 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A (64, S, H, B) map over a [B, S, H, 64] bf16 tensor with element strides
-// (sb, ss, sh), 64-row boxes in the 128-byte swizzle, zeros out of bounds.
-// A dimension of extent 1 is never stepped, so its stride is set to one any
+// A (D, S, H, B) map over a [B, S, H, D] bf16 tensor with element strides
+// (sb, ss, sh), 64 x 64 boxes in the 128-byte swizzle, zeros out of bounds
+// (the columns past D of a box, with D = 40, and the rows past S).  A
+// dimension of extent 1 is never stepped, so its stride is set to one any
 // encoding accepts.
-cudaError_t encode_rows(CUtensorMap* map, const void* ptr, int B, int S, int H, long long sb,
-                        long long ss, long long sh) {
+cudaError_t encode_rows(CUtensorMap* map, const void* ptr, int D, int B, int S, int H,
+                        long long sb, long long ss, long long sh) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {S > 1 ? (cuuint64_t)ss * 2 : 128u,
                                  H > 1 ? (cuuint64_t)sh * 2 : 128u,
                                  B > 1 ? (cuuint64_t)sb * 2 : 128u};
@@ -1150,14 +1165,15 @@ cudaError_t encode_rows(CUtensorMap* map, const void* ptr, int B, int S, int H, 
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-cudaError_t make_maps(const Params& p, Maps* m, bool backward) {
-  cudaError_t err = encode_rows(&m->q, p.q, p.B, p.Sq, p.H, p.qsb, p.qss, p.qsh);
-  if (err == cudaSuccess) err = encode_rows(&m->k, p.k, p.B, p.Sk, p.H, p.ksb, p.kss, p.ksh);
-  if (err == cudaSuccess) err = encode_rows(&m->v, p.v, p.B, p.Sk, p.H, p.vsb, p.vss, p.vsh);
+// The maps of a call whose tensors have rows of D columns.
+cudaError_t make_maps(const Params& p, int D, Maps* m, bool backward) {
+  cudaError_t err = encode_rows(&m->q, p.q, D, p.B, p.Sq, p.H, p.qsb, p.qss, p.qsh);
+  if (err == cudaSuccess) err = encode_rows(&m->k, p.k, D, p.B, p.Sk, p.H, p.ksb, p.kss, p.ksh);
+  if (err == cudaSuccess) err = encode_rows(&m->v, p.v, D, p.B, p.Sk, p.H, p.vsb, p.vss, p.vsh);
   if (err == cudaSuccess && backward) {
-    const long long oss = (long long)p.H * kD;
-    err = encode_rows(&m->dout, p.dout, p.B, p.Sq, p.H, p.Sq * oss, oss, kD);
-    if (err == cudaSuccess) err = encode_rows(&m->o, p.o, p.B, p.Sq, p.H, p.Sq * oss, oss, kD);
+    const long long oss = (long long)p.H * D;
+    err = encode_rows(&m->dout, p.dout, D, p.B, p.Sq, p.H, p.Sq * oss, oss, D);
+    if (err == cudaSuccess) err = encode_rows(&m->o, p.o, D, p.B, p.Sq, p.H, p.Sq * oss, oss, D);
   }
   return err;
 }
@@ -1194,32 +1210,41 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, c
   return cudaGetLastError();
 }
 
-// The instance of a kernel for the terms present: ``L::run<kBias, kKeyBias>``.
-template <typename L>
-cudaError_t dispatch(const Params& p, const Maps& maps, dim3 grid, cudaStream_t stream) {
+// The instance of a kernel for the row width D (64, or 40: head dim 34
+// padded) and the terms present: ``L::run<kW, kBias, kKeyBias>``; an error
+// for another width.
+template <int kW, typename L>
+cudaError_t dispatch_terms(const Params& p, const Maps& maps, dim3 grid, cudaStream_t stream) {
   if (p.bias != nullptr)
-    return p.key_bias != nullptr ? L::template run<true, true>(p, maps, grid, stream)
-                                 : L::template run<true, false>(p, maps, grid, stream);
-  return p.key_bias != nullptr ? L::template run<false, true>(p, maps, grid, stream)
-                               : L::template run<false, false>(p, maps, grid, stream);
+    return p.key_bias != nullptr ? L::template run<kW, true, true>(p, maps, grid, stream)
+                                 : L::template run<kW, true, false>(p, maps, grid, stream);
+  return p.key_bias != nullptr ? L::template run<kW, false, true>(p, maps, grid, stream)
+                               : L::template run<kW, false, false>(p, maps, grid, stream);
+}
+
+template <typename L>
+cudaError_t dispatch(const Params& p, const Maps& maps, int D, dim3 grid, cudaStream_t stream) {
+  if (D == 64) return dispatch_terms<64, L>(p, maps, grid, stream);
+  if (D == 40) return dispatch_terms<40, L>(p, maps, grid, stream);
+  return cudaErrorInvalidValue;
 }
 
 struct Fwd {
-  template <bool kB, bool kKB>
+  template <int kW, bool kB, bool kKB>
   static cudaError_t run(const Params& p, const Maps& m, dim3 grid, cudaStream_t s) {
-    return launch(flash_fwd_kernel<kB, kKB>, grid, kFwdSmem, s, p, m);
+    return launch(flash_fwd_kernel<kW, kB, kKB>, grid, kFwdSmem, s, p, m);
   }
 };
 struct Dkv {
-  template <bool kB, bool kKB>
+  template <int kW, bool kB, bool kKB>
   static cudaError_t run(const Params& p, const Maps& m, dim3 grid, cudaStream_t s) {
-    return launch(flash_bwd_dkv_kernel<kB, kKB>, grid, kDkvSmem, s, p, m);
+    return launch(flash_bwd_dkv_kernel<kW, kB, kKB>, grid, kDkvSmem, s, p, m);
   }
 };
 struct Dq {
-  template <bool kB, bool kKB>
+  template <int kW, bool kB, bool kKB>
   static cudaError_t run(const Params& p, const Maps& m, dim3 grid, cudaStream_t s) {
-    return launch(flash_bwd_dq_kernel<kB, kKB>, grid, kDqSmem, s, p, m);
+    return launch(flash_bwd_dq_kernel<kW, kB, kKB>, grid, kDqSmem, s, p, m);
   }
 };
 
@@ -1235,39 +1260,42 @@ dim3 grid_of(int n, const Params& p) {
 
 }  // namespace
 
-// O [B, Sq, H, 64] bf16 and L [B, H, Sq] float32, both contiguous.  q, k and
-// v (bf16) start every row on 16 bytes, with b, s, h strides that are
-// multiples of 8 (the wrapper checks).  bias and key_bias (float32) may be
-// null.
+// O [B, Sq, H, D] bf16 and L [B, H, Sq] float32, both contiguous; D is 64,
+// or 40 for head dim 34 padded with zeros.  q,
+// k and v (bf16, [B, S, H, D]) start every row on 16 bytes, with b, s, h
+// strides that are multiples of 8 (the wrapper checks).  bias and key_bias
+// (float32) may be null.
 extern "C" int vq_flash_attention_bf16_fwd(
     const void* q, const void* k, const void* v, const void* bias, const void* key_bias,
-    void* out, void* lse, int B, int H, int Sq, int Sk, long long qsb, long long qss,
+    void* out, void* lse, int B, int H, int Sq, int Sk, int D, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
     long long vss, long long vsh, long long bsb, long long bsh, long long bsq,
     long long bsk, long long kbsb, float scale, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return 0;
+  if (D != 64 && D != 40) return (int)cudaErrorInvalidValue;
   Params p = make_params(q, k, v, bias, key_bias, B, H, Sq, Sk, qsb, qss, qsh, ksb, kss,
                          ksh, vsb, vss, vsh, bsb, bsh, bsq, bsk, kbsb, scale);
   p.out = (bf16*)out;
   p.out_lse = (float*)lse;
   Maps maps;
-  cudaError_t err = make_maps(p, &maps, false);
+  cudaError_t err = make_maps(p, D, &maps, false);
   if (err != cudaSuccess) return (int)err;
-  return (int)dispatch<Fwd>(p, maps, grid_of(Sq, p), (cudaStream_t)stream);
+  return (int)dispatch<Fwd>(p, maps, D, grid_of(Sq, p), (cudaStream_t)stream);
 }
 
-// dQ [B, Sq, H, 64], dK and dV [B, Sk, H, 64], all bf16 and contiguous; o and
-// dout contiguous bf16 [B, Sq, H, 64] on 16 bytes (TMA reads both: a map
+// dQ [B, Sq, H, D], dK and dV [B, Sk, H, D], all bf16 and contiguous; o and
+// dout contiguous bf16 [B, Sq, H, D] on 16 bytes (TMA reads both: a map
 // over a tensor off 16 bytes does not encode, and the call returns its
 // error); delta a float32 [B, H, Sq] scratch.
 extern "C" int vq_flash_attention_bf16_bwd(
     const void* q, const void* k, const void* v, const void* bias, const void* key_bias,
     const void* o, const void* lse, const void* dout, void* dq, void* dk,
-    void* dv, void* delta, int B, int H, int Sq, int Sk, long long qsb,
+    void* dv, void* delta, int B, int H, int Sq, int Sk, int D, long long qsb,
     long long qss, long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, long long bsb, long long bsh,
     long long bsq, long long bsk, long long kbsb, float scale, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return 0;
+  if (D != 64 && D != 40) return (int)cudaErrorInvalidValue;
   Params p = make_params(q, k, v, bias, key_bias, B, H, Sq, Sk, qsb, qss, qsh, ksb, kss,
                          ksh, vsb, vss, vsh, bsb, bsh, bsq, bsk, kbsb, scale);
   p.o = (const bf16*)o;
@@ -1279,11 +1307,11 @@ extern "C" int vq_flash_attention_bf16_bwd(
   p.delta = (float*)delta;
   cudaStream_t s = (cudaStream_t)stream;
   Maps maps;
-  cudaError_t err = make_maps(p, &maps, true);
+  cudaError_t err = make_maps(p, D, &maps, true);
   if (err != cudaSuccess) return (int)err;
 
   // dQ first: it computes D and writes it for dK/dV
-  err = dispatch<Dq>(p, maps, grid_of(Sq, p), s);
+  err = dispatch<Dq>(p, maps, D, grid_of(Sq, p), s);
   if (err != cudaSuccess) return (int)err;
-  return (int)dispatch<Dkv>(p, maps, grid_of(Sk, p), s);
+  return (int)dispatch<Dkv>(p, maps, D, grid_of(Sk, p), s);
 }

@@ -43,16 +43,18 @@ SIGNATURES = {
     # dtype, vec; s, gs, gh, gamma, dx, part, dgdb; rows, D, rows a warp,
     # warps a block; eps; stream
     "vq_residual_layernorm_bwd": (_I, _I) + (_P,) * 7 + (_I,) * 4 + (_F, _P),
-    # q, k, v, bias, key bias, out, lse; B, H, Sq, Sk; q/k/v (b, s, h),
-    # bias (b, h, q, k) and key bias (b) element strides; scale; stream
-    "vq_flash_attention_fwd": (_P,) * 7 + (_I,) * 4 + (_LL,) * 14 + (_F, _P),
+    # q, k, v, bias, key bias, out, lse; B, H, Sq, Sk, the rows' width (the
+    # head dim); q/k/v (b, s, h), bias (b, h, q, k) and key bias (b) element
+    # strides; scale; stream
+    "vq_flash_attention_fwd": (_P,) * 7 + (_I,) * 5 + (_LL,) * 14 + (_F, _P),
     # q, k, v, bias, key bias, o, lse, dout, dq, dk, dv, delta; then as the
     # forward
-    "vq_flash_attention_bwd": (_P,) * 12 + (_I,) * 4 + (_LL,) * 14 + (_F, _P),
+    "vq_flash_attention_bwd": (_P,) * 12 + (_I,) * 5 + (_LL,) * 14 + (_F, _P),
     # the bfloat16 instances (flash_attention_bf16.cu): the same arguments,
-    # q/k/v, o, dout, dq, dk, dv bfloat16, the rest as above
-    "vq_flash_attention_bf16_fwd": (_P,) * 7 + (_I,) * 4 + (_LL,) * 14 + (_F, _P),
-    "vq_flash_attention_bf16_bwd": (_P,) * 12 + (_I,) * 4 + (_LL,) * 14 + (_F, _P),
+    # q/k/v, o, dout, dq, dk, dv bfloat16 (the width 40 at head dim 34,
+    # padded), the rest as above
+    "vq_flash_attention_bf16_fwd": (_P,) * 7 + (_I,) * 5 + (_LL,) * 14 + (_F, _P),
+    "vq_flash_attention_bf16_bwd": (_P,) * 12 + (_I,) * 5 + (_LL,) * 14 + (_F, _P),
 }
 
 

@@ -12,8 +12,8 @@ choice with the JAX package's values, so the CLI's ``--attn`` carries over:
 ``[B, Sq, H, Dh]``.  On a CUDA tensor it runs the kernels of
 ``csrc/flash_attention.cu`` behind a ``torch.autograd.Function`` (forward,
 and the backward from the saved log-sum-exp); on a CPU tensor it runs the
-plain version under autograd.  There is no padding and no dense bias: the
-kernel masks ragged lengths itself, reads ``bias`` through broadcast strides
+plain version under autograd.  There is no sequence padding and no dense
+bias: the kernel masks ragged lengths itself, reads ``bias`` through broadcast strides
 and ``key_bias``, a second term with one value a key (VLMo's padded-text
 mask beside its relative-position table), as a vector.  The plain versions
 are also the kernels' oracles on the card: :func:`flash_attention_bwd_reference`
@@ -21,6 +21,12 @@ is the backward written from the log-sum-exp exactly as the kernel computes
 it.  The kernel runs its products
 on the tensor cores in three TF32 passes; :func:`mm_3xtf32` emulates that
 arithmetic on the CPU for the tests.
+
+The kernels take head dims 34 (VLMo-base+: 544 over 16 heads) and 64
+(ALBEF's ViT, VLMo-base and -large).  float32 q/k/v at head dim 34 are read
+in place, as views of the model's projections, like those at 64; bf16 ones
+are copied into zero-padded 40-wide rows first (:func:`kernel_width`), whose
+outputs come back sliced to 34: the zero columns change no product.
 
 q/k/v may be float32 or bfloat16 (the three alike; the surrogate trunk's
 compute dtype).  The bfloat16 instance (``csrc/flash_attention_bf16.cu``)
@@ -40,7 +46,8 @@ import torch
 
 from vqattack_tpu_torch.ops import _build
 
-HEAD_DIM = 64  # the only head width the kernel takes (ALBEF's and VLMo's)
+HEAD_DIMS = (34, 64)  # the head widths the kernels take: VLMo-base+'s; ALBEF's and VLMo's
+_BF16_PADDED = {34: 40}  # head dim -> the bf16 kernel's row width (TMA strides: 16 bytes)
 
 _IMPL = "xla"
 _KINDS = ("xla", "flash")
@@ -137,7 +144,8 @@ def flash_attention_bwd_reference(q, k, v, bias, scale, o, lse, do, key_bias=Non
     bf16 inputs but P and dS, rounded to bf16 as the kernel (and the library
     kernel) hands them to the next product, and the gradients come back
     bf16; scale is applied after dS's rounding, as the kernel applies it
-    (the same bits as before it for a power of two, 1/8 at head dim 64)."""
+    (the same bits as before it for a power of two, 1/8 at head dim 64; at
+    head dim 34 the two orders differ by a rounding)."""
     qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
     p = torch.exp(_scores(qf, kf, bias, scale, key_bias) - lse[..., None])
     d = (dof * of).sum(-1).transpose(1, 2)  # [B, H, Sq]
@@ -180,6 +188,20 @@ def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def kernel_width(dtype: torch.dtype, head_dim: int) -> int:
+    """The row width the kernel of ``dtype`` reads at ``head_dim``: the head
+    dim, but 40 for bf16 at 34, whose rows the wrapper copies into
+    zero-padded 40-wide ones (a head of a [B, S, 544] bf16 projection starts
+    68 bytes after the last, and TMA takes strides of 16 bytes)."""
+    return _BF16_PADDED.get(head_dim, head_dim) if dtype == torch.bfloat16 else head_dim
+
+
+def pad_heads(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``[B, S, H, Dh]`` as a contiguous ``[B, S, H, width]`` with zeros in
+    the columns past ``Dh``; ``t`` itself when ``width`` is ``Dh``."""
+    return t if t.shape[-1] == width else torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+
+
 def _check_inputs(q, k, v, bias, key_bias=None) -> Tuple[int, int, int, int]:
     """``(B, H, Sq, Sk)`` after checking what the kernel takes."""
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -190,18 +212,21 @@ def _check_inputs(q, k, v, bias, key_bias=None) -> Tuple[int, int, int, int]:
                             f"or bfloat16")
         if t.dtype != q.dtype:
             raise TypeError(f"flash_attention kernel: {name} is {t.dtype}, q {q.dtype}")
-        if t.dim() != 4 or t.shape[-1] != HEAD_DIM:
-            raise ValueError(f"flash_attention kernel: {name} {tuple(t.shape)}; "
-                             f"takes [B, S, H, {HEAD_DIM}]")
+        if t.dim() != 4 or t.shape[-1] not in HEAD_DIMS or t.shape[-1] != q.shape[-1]:
+            raise ValueError(f"flash_attention kernel: {name} {tuple(t.shape)}; takes "
+                             f"[B, S, H, Dh] with Dh one of {HEAD_DIMS}, alike for q, k, v")
+        if kernel_width(t.dtype, t.shape[-1]) != t.shape[-1]:
+            continue  # copied into padded rows, whatever its layout
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention kernel: {name}'s head dim is not contiguous")
-        # the kernel copies rows in 16-byte chunks
-        chunk = 16 // t.element_size()
-        if t.data_ptr() % 16 or any(st % chunk for st, n in zip(t.stride()[:3], t.shape)
-                                    if n > 1):
-            raise ValueError(f"flash_attention kernel: {name}'s rows do not start on 16 bytes "
-                             f"(data pointer {t.data_ptr()}, strides {t.stride()}); the b, s "
-                             f"and h strides must be multiples of {chunk}")
+        # the kernel copies rows in 16-byte chunks (8-byte ones at head dim 34)
+        align = 16 if t.shape[-1] % 4 == 0 else 8
+        chunk = align // t.element_size()
+        if t.data_ptr() % align or any(st % chunk for st, n in zip(t.stride()[:3], t.shape)
+                                       if n > 1):
+            raise ValueError(f"flash_attention kernel: {name}'s rows do not start on {align} "
+                             f"bytes (data pointer {t.data_ptr()}, strides {t.stride()}); the "
+                             f"b, s and h strides must be multiples of {chunk}")
     b, sq, h, _ = q.shape
     sk = k.shape[1]
     if k.shape != v.shape or k.shape[0] != b or k.shape[2] != h or k.device != q.device:
@@ -251,15 +276,15 @@ def _common_args(q, k, v, bias, key_bias, b, h, sq, sk):
     for t in (q, k, v):
         strides += [t.stride(0), t.stride(1), t.stride(2)]
     return ([q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, kb_ptr],
-            [b, h, sq, sk, *strides, *bias_strides, kb_stride])
+            [b, h, sq, sk, q.shape[-1], *strides, *bias_strides, kb_stride])
 
 
-def flash_attention_fwd(q, k, v, bias, scale: float, key_bias=None):
-    """Forward kernel: ``(o [B, Sq, H, 64] in q's dtype, lse [B, H, Sq]
-    float32)``."""
-    b, h, sq, sk = _check_inputs(q, k, v, bias, key_bias)
+def _launch_fwd(q, k, v, bias, scale, key_bias, dims, head_dim):
+    """The forward kernel on q/k/v of the kernel's row width (checked, and
+    padded where :func:`kernel_width` says): ``(o, lse)``, o as wide."""
+    b, h, sq, sk = dims
     ptrs, sizes = _common_args(q, k, v, bias, key_bias, b, h, sq, sk)
-    out = torch.empty((b, sq, h, HEAD_DIM), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, sq, h, q.shape[-1]), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = _build.load()
     with torch.cuda.device(q.device):
@@ -268,28 +293,27 @@ def flash_attention_fwd(q, k, v, bias, scale: float, key_bias=None):
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(status, "flash_attention_fwd")
-    _build.count_launch(flash_attention_fwd, *_counts(q.dtype, key_bias))
+    _build.count_launch(flash_attention_fwd, *_counts(q.dtype, key_bias, head_dim))
     return out, lse
 
 
-def flash_attention_bwd(q, k, v, bias, scale: float, o, lse, do, key_bias=None):
-    """Backward kernels (the D pass, dK/dV over key tiles, dQ over query
-    tiles): ``(dq, dk, dv)``, contiguous, in the shapes and dtype of ``q``,
-    ``k``, ``v``; ``o`` and ``do`` in that dtype, ``lse`` float32.  The same
-    bit for bit on every run: no atomics."""
-    b, h, sq, sk = _check_inputs(q, k, v, bias, key_bias)
+def _launch_bwd(q, k, v, bias, scale, o, lse, do, key_bias, dims, head_dim):
+    """The backward kernels on tensors of the kernel's row width, as
+    :func:`_launch_fwd` takes them: ``(dq, dk, dv)`` as wide."""
+    b, h, sq, sk = dims
+    width = q.shape[-1]
     do = do.contiguous()
     if do.data_ptr() % 16:  # the kernel copies rows in 16-byte chunks
         do = do.clone()
-    for name, t, shape, dtype in (("o", o, (b, sq, h, HEAD_DIM), q.dtype),
-                                  ("grad of o", do, (b, sq, h, HEAD_DIM), q.dtype),
+    for name, t, shape, dtype in (("o", o, (b, sq, h, width), q.dtype),
+                                  ("grad of o", do, (b, sq, h, width), q.dtype),
                                   ("lse", lse, (b, h, sq), torch.float32)):
         if tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"flash_attention_bwd: {name} {tuple(t.shape)} {t.dtype}; "
                              f"takes contiguous {dtype} {shape}")
     ptrs, sizes = _common_args(q, k, v, bias, key_bias, b, h, sq, sk)
-    dq = torch.empty((b, sq, h, HEAD_DIM), dtype=q.dtype, device=q.device)
-    dk = torch.empty((b, sk, h, HEAD_DIM), dtype=q.dtype, device=q.device)
+    dq = torch.empty((b, sq, h, width), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, h, width), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = _build.load()
@@ -300,8 +324,36 @@ def flash_attention_bwd(q, k, v, bias, scale: float, o, lse, do, key_bias=None):
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(status, "flash_attention_bwd")
-    _build.count_launch(flash_attention_bwd, *_counts(q.dtype, key_bias))
+    _build.count_launch(flash_attention_bwd, *_counts(q.dtype, key_bias, head_dim))
     return dq, dk, dv
+
+
+def _checked_and_padded(q, k, v, bias, key_bias):
+    """``(dims, head dim, row width, q, k, v as the kernel reads them)``."""
+    dims = _check_inputs(q, k, v, bias, key_bias)
+    dh = q.shape[-1]
+    width = kernel_width(q.dtype, dh)
+    return dims, dh, width, [pad_heads(t, width) for t in (q, k, v)]
+
+
+def flash_attention_fwd(q, k, v, bias, scale: float, key_bias=None):
+    """Forward kernel: ``(o [B, Sq, H, Dh] in q's dtype, lse [B, H, Sq]
+    float32)``; o is a view of the padded output where q was padded."""
+    dims, dh, _, qkv = _checked_and_padded(q, k, v, bias, key_bias)
+    o, lse = _launch_fwd(*qkv, bias, scale, key_bias, dims, dh)
+    return o[..., :dh], lse
+
+
+def flash_attention_bwd(q, k, v, bias, scale: float, o, lse, do, key_bias=None):
+    """Backward kernels (the D pass, dK/dV over key tiles, dQ over query
+    tiles): ``(dq, dk, dv)`` in the shapes and dtype of ``q``, ``k``, ``v``
+    (views of padded outputs where q was padded, else contiguous); ``o``
+    and ``do`` in that dtype, ``lse`` float32.  The same bit for bit on
+    every run: no atomics."""
+    dims, dh, width, qkv = _checked_and_padded(q, k, v, bias, key_bias)
+    grads = _launch_bwd(*qkv, bias, scale, pad_heads(o, width), lse, pad_heads(do, width),
+                        key_bias, dims, dh)
+    return tuple(g[..., :dh] for g in grads)
 
 
 # the C entry points (``<prefix>fwd``, ``<prefix>bwd``) of each q/k/v dtype
@@ -309,36 +361,45 @@ _ENTRY_POINTS = {torch.float32: "vq_flash_attention_",
                  torch.bfloat16: "vq_flash_attention_bf16_"}
 
 
-def _counts(dtype, key_bias):
-    """The counts a launch adds one to: each dtype's instances apart, and
-    those with a key bias (VLMo's two-term form) also apart."""
+def _counts(dtype, key_bias, head_dim):
+    """The counts a launch adds one to: each dtype's instances apart, those
+    with a key bias (VLMo's attention) also apart, and those at head dim 34
+    (VLMo-base+'s) also apart."""
     prefix = "bf16_" if dtype == torch.bfloat16 else ""
-    return (prefix + "launches",) + ((prefix + "key_bias_launches",) if key_bias is not None
-                                     else ())
+    return ((prefix + "launches",)
+            + ((prefix + "key_bias_launches",) if key_bias is not None else ())
+            + ((prefix + "hd34_launches",) if head_dim == 34 else ()))
 
 
 # calls of each entry point in this process: float32 (``launches``) and
 # bfloat16 (``bf16_launches``) instances, and those of each with a key bias
-# (plain counts for chip_smoke.py)
+# and at head dim 34 (plain counts for chip_smoke.py)
 for _fn in (flash_attention_fwd, flash_attention_bwd):
-    for _name in ("launches", "key_bias_launches", "bf16_launches", "bf16_key_bias_launches"):
+    for _name in ("launches", "key_bias_launches", "hd34_launches", "bf16_launches",
+                  "bf16_key_bias_launches", "bf16_hd34_launches"):
         setattr(_fn, _name, 0)
 
 
 class _FlashAttentionFn(torch.autograd.Function):
-    """The kernel pair as one differentiable op (the library kernel's VJP)."""
+    """The kernel pair as one differentiable op (the library kernel's VJP).
+    Where q is padded for its kernel (bf16 at head dim 34) the padded q, k,
+    v and o are saved, so that the backward pads only the output's
+    gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale, key_bias):
-        o, lse = flash_attention_fwd(q, k, v, bias, scale, key_bias)
-        ctx.save_for_backward(q, k, v, bias, o, lse, key_bias)
-        ctx.scale = scale
-        return o
+        dims, dh, _, qkv = _checked_and_padded(q, k, v, bias, key_bias)
+        o, lse = _launch_fwd(*qkv, bias, scale, key_bias, dims, dh)
+        ctx.save_for_backward(*qkv, bias, o, lse, key_bias)
+        ctx.scale, ctx.dims, ctx.dh = scale, dims, dh
+        return o[..., :dh]
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, bias, o, lse, key_bias = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, bias, ctx.scale, o, lse, do, key_bias)
+        grads = _launch_bwd(q, k, v, bias, ctx.scale, o, lse, pad_heads(do, q.shape[-1]),
+                            key_bias, ctx.dims, ctx.dh)
+        dq, dk, dv = (g[..., :ctx.dh] for g in grads)
         return dq, dk, dv, None, None, None
 
 
@@ -352,9 +413,9 @@ def flash_attention(
 ) -> torch.Tensor:
     """``softmax((q k^T) * scale + bias + key_bias) v`` as ``[B, Sq, H, Dh]``.
 
-    A CUDA tensor runs the kernels (float32 or bfloat16 q/k/v, ``Dh = 64``,
-    float32 bias and key bias without gradient; anything else raises); a
-    CPU tensor runs the plain version."""
+    A CUDA tensor runs the kernels (float32 or bfloat16 q/k/v, ``Dh`` 34 or
+    64, float32 bias and key bias without gradient; anything else raises);
+    a CPU tensor runs the plain version."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, bias, scale, key_bias=key_bias)
     if q.device.type != "cuda":

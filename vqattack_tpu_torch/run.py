@@ -17,7 +17,9 @@ batch buffers ``--buffer-factor`` batches of samples and runs them through
 the lockstep engine (``attacks/batched.py``), ``--pipeline-depth`` chunks at
 a time.  ``--attn flash`` sends every attention over at least 128 queries
 (ALBEF's ViT, VLMo's joint trunk) through the flash kernel, which takes a
-head dim of 64.  ``--dtype bfloat16`` computes the surrogate trunk in bf16
+head dim of 64 or 34 (VLMo-base+, ``--named-config
+task_finetune_vqa_base_plus_image480``).  ``--dtype bfloat16`` computes
+the surrogate trunk in bf16
 (the JAX package's mixed policy: the image, its gradient, the L-inf update,
 the losses, the ALBEF victim and the candidate MLM stay float32; VLMo's
 victim runs in the surrogate's dtype, as the JAX CLI runs it);
@@ -30,9 +32,13 @@ Weights: ``--surrogate-ckpt`` and ``--victim-ckpt`` load the reference's
 victim at the run's size, a separate module), ``--bert-mlm`` a Hugging Face
 BERT directory as the candidate MLM; what no flag loads is random, drawn
 from ``--seed``.  ``--calibrate-gate`` prints the similarity gate's score
-profile and a suggested ``--bert-threshold`` before the attack.  Arrow
-tables (``--arrow``), the device mesh and the USE gate are not ported yet;
-``--arrow`` stops the run.
+profile and a suggested ``--bert-threshold`` before the attack.
+
+Data: ``--ann`` VQA json annotations with ``--image-root`` JPEGs, or, with
+``--pipeline vlmo``, ``--arrow`` VQAv2 tables of the reference's schema
+(``data/arrow.py``; pyarrow and PIL needed), whose items carry the answers'
+soft scores, which the alignment guard then weighs.  The device mesh and
+the USE gate are not ported yet.
 """
 
 from __future__ import annotations
@@ -63,7 +69,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--bert-mlm", default=None,
                    help="Hugging Face BertForMaskedLM directory for the candidate MLM: "
                         "config.json with model.safetensors or pytorch_model.bin")
-    p.add_argument("--arrow", nargs="*", default=[], help="VLMo arrow tables (not ported yet)")
+    p.add_argument("--arrow", nargs="*", default=[],
+                   help="VLMo: VQAv2 arrow tables (the reference's make_arrow schema) "
+                        "instead of --ann/--image-root")
     p.add_argument("--id2answer", default=None,
                    help="VLMo classifier index -> answer (json, or the reference's "
                         "dill pickle)")
@@ -114,9 +122,6 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-_NOT_PORTED = (("arrow", "--arrow"),)
-
-
 def resolve_config(args):
     """--config if given, else the pipeline's attack preset; then VLMo's
     --named-config geometry, --seed, --output, the precision flags as the
@@ -125,15 +130,15 @@ def resolve_config(args):
     ``--tap-dtype`` -> ``attack.tap_dtype``), and the ALBEF path's kernel
     switch: the ViT's residual+LayerNorm sites take the fused kernel
     (``vit.fused_ln``) on the card (VLMo's blocks have plain LayerNorms, as
-    in the JAX package).  Refuses ``--attn flash`` on the card for a head
-    dim the flash kernel does not take."""
+    in the JAX package).  Refuses ``--arrow`` outside the VLMo pipeline, and
+    ``--attn flash`` on the card for a head dim the flash kernel does not
+    take."""
     from vqattack_tpu_torch import config as cfg_mod
-    from vqattack_tpu_torch.ops.attention import HEAD_DIM
+    from vqattack_tpu_torch.ops.attention import HEAD_DIMS
 
-    given = [flag for attr, flag in _NOT_PORTED if getattr(args, attr)]
-    if given:
-        raise SystemExit(f"{', '.join(given)}: not ported yet (the port reads the VQA "
-                         f"json annotations of --ann)")
+    if args.arrow and args.pipeline != "vlmo":
+        raise SystemExit("--arrow: the arrow tables are the VLMo pipeline's data "
+                         "(--pipeline vlmo); ALBEF reads --ann")
     if args.config:
         cfg = cfg_mod.load_config(args.config)
     elif args.pipeline == "vlmo":
@@ -165,9 +170,9 @@ def resolve_config(args):
         hidden, heads, what = ((cfg.vlmo.hidden_size, cfg.vlmo.num_heads, "VLMo trunk")
                                if args.pipeline == "vlmo" else
                                (cfg.albef.vit.hidden_size, cfg.albef.vit.num_heads, "ALBEF ViT"))
-        if hidden // heads != HEAD_DIM:
-            raise SystemExit(f"--attn flash: the flash-attention kernel takes head dim "
-                             f"{HEAD_DIM}; the {what} has head dim {hidden // heads} ({hidden} "
+        if hidden // heads not in HEAD_DIMS:
+            raise SystemExit(f"--attn flash: the flash-attention kernel takes head dims "
+                             f"{HEAD_DIMS}; the {what} has head dim {hidden // heads} ({hidden} "
                              f"over {heads} heads): run it with --attn xla")
     if args.device == "cuda" and args.pipeline == "albef":
         vit = dataclasses.replace(cfg.albef.vit, fused_ln=True)
@@ -288,8 +293,13 @@ def _main(args) -> dict:
     vlmo = args.pipeline == "vlmo"
     pipeline = _build_pipeline(args, cfg, tokenizer)
     size = cfg.vlmo.image_size if vlmo else cfg.albef.vit.image_size
-    dataset = VQADataset(args.ann, args.image_root, test_transform(size),
-                         answer_list=args.answer_list)
+    if args.arrow:
+        from vqattack_tpu_torch.data.arrow import VQAv2ArrowDataset
+
+        dataset = VQAv2ArrowDataset(args.arrow, test_transform(size))
+    else:
+        dataset = VQADataset(args.ann, args.image_root, test_transform(size),
+                             answer_list=args.answer_list)
     if args.calibrate_gate:
         from vqattack_tpu_torch.text.calibrate import gate_score_profile, suggest_threshold
 
@@ -360,11 +370,17 @@ def _main(args) -> dict:
         }
         if info is None:
             continue  # not in the attack subset
-        # alignment guard (adv_attack.py:416-427): the stored surrogate answer
-        # must be a max-weight ground-truth answer, else the sample is skipped
-        if side and item.get("answers") and not side.alignment_ok(
-                qid, item["answers"], item["weights"]):
-            continue
+        # alignment guard (adv_attack.py:416-427; VLMo's test_step,
+        # vlmo_module.py:1735-1741): the stored surrogate answer must be a
+        # max-weight ground-truth answer, else the sample is skipped.  json
+        # items carry weights, arrow items answer_scores; without either,
+        # uniform weights make the guard a membership check
+        if side and item.get("answers"):
+            answers = item["answers"]
+            weights = (item.get("weights") or item.get("answer_scores")
+                       or [1.0] * len(answers))
+            if not side.alignment_ok(qid, answers, weights):
+                continue
         if args.resume and os.path.exists(os.path.join(args.output, f"{qid}.pt")):
             continue
         if batched is not None:
