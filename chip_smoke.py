@@ -61,6 +61,26 @@ Phases (each prints a line on entry and its seconds on exit):
     the reference's names, the resized ``pos_embed`` and relative table
     against the port's resize on the CPU; then the files are deleted.
 
+The training slice (``vqattack_tpu_torch/train/``) adds: K3's bias
+gradient (the dQ kernel's dbias instance) against its plain version at
+VLMo's training shapes (batch 1 and 8 at 941 tokens with the table and the
+padded-text key bias, a [B, H, S, S] bias, 130 tokens, 200 queries over 77
+keys, a -inf first key tile, the autograd Function with a table that needs
+a gradient), repeated bit for bit and timed at batch 8 beside the backward
+without it, the sum over B, its plain version and
+``scaled_dot_product_attention`` with a mask that requires grad (its
+backend named); a row masked whole by a finite -1e9, K3 float32 and bf16
+against their plain versions (the bf16 instance's exponent order, step 0
+of the slice); ``train.cli.main --task vlmo_vqa --preset
+task_finetune_vqa_base_image480`` at batch 8 from a synthetic VLMo VQA
+file (``--init-ckpt``) under flash and under xla, the first batch's table
+gradient flash against xla, K3's launches a step (dbias counted apart),
+seconds a step and peak memory, and a ``--ckpt-dir`` resume that restarts
+at the saved step with the saved parameters; and ``--task albef_vqa`` at
+full width under flash (ViT-B/16 at 480 px with K2 at its norm sites, the
+backward with parameter sums), with K2's backward timed with and without
+its sums.
+
 VLMo-base+ (``--named-config task_finetune_vqa_base_plus_image480``: 24
 MoME blocks of width 544 over 16 heads, head dim 34, absolute position
 embeddings, no relative-position table, no layer scale, 941 joint tokens)
@@ -911,7 +931,8 @@ def write_assets(tmp: str) -> dict:
 
 # each kernel's row name -> (wrapper, its count): K2 and K3 count their
 # float32 and bf16 instances apart (the ``_bf16`` rows), and K3 its launches
-# with a key bias, VLMo's two-term form, apart again
+# with a key bias, VLMo's two-term form, apart again; the training-only
+# instances last
 KERNELS = {"pgd_linf_update": (pgd_update.pgd_linf_update, "launches")}
 for _b, _prefix in (("", ""), ("_bf16", "bf16_")):
     for _d in ("fwd", "bwd"):
@@ -926,6 +947,12 @@ for _b, _prefix in (("", ""), ("_bf16", "bf16_")):
     for _d in ("fwd", "bwd"):  # VLMo-base+'s head dim 34
         KERNELS[f"flash_attention{_b}_{_d}_hd34"] = (
             getattr(attention, f"flash_attention_{_d}"), _prefix + "hd34_launches")
+# training only: K3's backward with the bias gradient (VLMo's table) and
+# K2's backward with its parameter sums (LayerNorms that train)
+KERNELS["flash_attention_bwd_dbias"] = (attention.flash_attention_bwd, "dbias_launches")
+KERNELS["residual_layernorm_bwd_param_grads"] = (fused_ln.residual_layernorm_bwd,
+                                                 "param_grads_launches")
+TRAINING_ONLY = ("flash_attention_bwd_dbias", "residual_layernorm_bwd_param_grads")
 
 
 def counts() -> dict:
@@ -1786,6 +1813,460 @@ def check_launches(launched, expected, positive, what):
 
 
 # ---------------------------------------------------------------------------
+# the training slice: K3's bias gradient (dbias) and VQA fine-tuning
+# (vqattack_tpu_torch/train/cli.py: vlmo_vqa, albef_vqa)
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 4
+TRAIN_BATCH = 8
+# dbias against its plain version: 2e-5 of the largest |dbias|, the card
+# tests' bound for K3 (float32 sums over 941 keys in another order, the
+# 3xTF32 split's error in the kernel's dS)
+DBIAS_TOL = 2e-5
+# the table gradient of one vlmo_vqa step, flash against xla: each entry
+# within 1e-4 of its mass, the sum of the |dS| that the gather adds into it
+# over the 12 layers (the model checks' 1e-4, taken of the terms of a sum
+# that cancels: an entry adds up to 8 x 941 scores of each layer, and its
+# value is far smaller than its terms), or 1e-6 of the largest entry
+TABLE_GRAD_TOL = 1e-4
+
+
+def _dbias_err(what, got, ref):
+    err = float((got - ref).abs().max())
+    tol = DBIAS_TOL * float(ref.abs().max())
+    require(err <= tol, f"{what} dbias: max abs err {err} > {tol}")
+    return err
+
+
+def _check_dbias_case(q, k, v, bias, key_bias, what):
+    """K3's backward with dbias against the plain backward's dbias; dbias
+    and dq/dk/dv repeat bit for bit; whether dq/dk/dv are the bits of the
+    backward without dbias is printed."""
+    o, lse = attention.flash_attention_fwd(q, k, v, bias, SCALE, key_bias)
+    do = torch.randn(o.shape, generator=torch.Generator("cuda").manual_seed(3), device="cuda")
+    grads = attention.flash_attention_bwd(q, k, v, bias, SCALE, o, lse, do, key_bias, dbias=True)
+    again = attention.flash_attention_bwd(q, k, v, bias, SCALE, o, lse, do, key_bias, dbias=True)
+    without = attention.flash_attention_bwd(q, k, v, bias, SCALE, o, lse, do, key_bias)
+    refs = attention.flash_attention_bwd_reference(q, k, v, bias, SCALE, o, lse, do, key_bias,
+                                                   dbias=True)
+    torch.cuda.synchronize()
+    require(grads[3].shape == bias.shape, f"{what}: dbias {tuple(grads[3].shape)}")
+    for name, g, g2 in zip(("dq", "dk", "dv", "dbias"), grads, again):
+        require(torch.equal(g, g2), f"{what}: {name} differs between two runs")
+    errs = {n: _attn_err(f"{what} {n}", g, r) for n, g, r in zip(("dq", "dk", "dv"), grads, refs)}
+    errs["dbias"] = _dbias_err(what, grads[3], refs[3])
+    same = all(torch.equal(a, b) for a, b in zip(grads, without))
+    kb = "" if key_bias is None else " + key bias"
+    print(f"  flash_attention_bwd dbias q {list(q.shape)} k {list(k.shape)} bias "
+          f"{list(bias.shape)}{kb} ({what}): "
+          + ", ".join(f"{n} err {e:.3g}" for n, e in errs.items())
+          + f" (|dbias| max {float(refs[3].abs().max()):.3g}); repeats bit for bit; dq/dk/dv "
+          + ("the bits of" if same else "within tolerance of, not the bits of,")
+          + " the backward without dbias", flush=True)
+    return errs
+
+
+def check_flash_attention_dbias(pipe, tokenizer, gen):
+    """K3's dbias instance at the shapes VLMo's training gives it (batch 1
+    and 8, 941 tokens, the [1, 12, 941, 941] table of ``pipe`` and the
+    padded-text key bias), a [B, H, S, S] bias, ragged and cross lengths,
+    a -inf first key tile, and the autograd Function with a table that
+    needs a gradient; then its times at batch 8."""
+    errs = {}
+    for b in (1, TRAIN_BATCH):
+        errs[b] = _check_dbias_case(*_vlmo_qkv_terms(pipe, tokenizer, gen, b), "VLMo table")
+    q, k, v, table, key_bias = _vlmo_qkv_terms(pipe, tokenizer, gen, 2, layer=5)
+    dense = torch.randn(2, HEADS, q.shape[1], q.shape[1], generator=gen, device="cuda") * 0.5
+    _check_dbias_case(q, k, v, dense, key_bias, "a [B, H, S, S] bias")
+    _check_dbias_case(q, k, v, table, key_bias.index_fill(
+        1, torch.arange(70, device="cuda"), -torch.inf), "the first key tile at -inf")
+    q2, k2, v2 = _qkv(gen, 2, 130)
+    _check_dbias_case(q2, k2, v2, table[:, :, :130, :130].contiguous(), None, "130 tokens")
+    qc, kc = _qkv(gen, 2, 200)[0], _qkv(gen, 2, 77)
+    _check_dbias_case(qc, kc[1], kc[2], torch.randn(2, HEADS, 200, 77, generator=gen,
+                                                    device="cuda"), None, "200 queries, 77 keys")
+    w = torch.randn(q.shape, generator=gen, device="cuda")
+    grads = []
+    for fn in (attention.flash_attention, attention.flash_attention_reference):
+        xs = [t.detach().clone().requires_grad_(True) for t in (q, k, v, table)]
+        before = attention.flash_attention_bwd.dbias_launches
+        out = fn(*xs[:3], xs[3], SCALE, key_bias=key_bias)
+        grads.append(torch.autograd.grad((out * w).sum(), xs))
+        if fn is attention.flash_attention:
+            require(attention.flash_attention_bwd.dbias_launches == before + 1,
+                    "the autograd Function with a table that needs a gradient: one dbias launch")
+    for name, a, r in zip(("dq", "dk", "dv"), *grads):
+        _attn_err(f"dbias autograd {name}", a, r)
+    _dbias_err("dbias autograd", grads[0][3], grads[1][3])
+    print("  flash_attention autograd Function with a table that needs a gradient matches "
+          "autograd of the plain version (one dbias launch)", flush=True)
+    return time_flash_attention_dbias(pipe, tokenizer, gen, errs[TRAIN_BATCH])
+
+
+def time_flash_attention_dbias(pipe, tokenizer, gen, errs):
+    """Device times at [8, 941, 12, 64], VLMo's training batch, with the
+    table and the key bias: the backward with dbias (``ms``: the D pass,
+    dK/dV, the dQ kernel's dbias instance and the sum over B), the same
+    backward without dbias (``no_dbias_ms``), the sum alone (``sum_ms``),
+    the plain backward with dbias, and ``scaled_dot_product_attention`` with
+    the summed mask built from a table that requires grad (backward through
+    autograd, the sum over B included; its backend named).  Bound of the
+    call: the products' operations (10 B H S^2 Dh, three TF32 passes) or
+    its bytes, the dS buffer written and read back included; the dbias
+    part's own bound (``dbias_bound_ms``): the buffer written, then read
+    and reduced, and the table's gradient written."""
+    b = TRAIN_BATCH
+    q, k, v, table, key_bias = _vlmo_qkv_terms(pipe, tokenizer, gen, b)
+    s = q.shape[1]
+    o, lse = attention.flash_attention_fwd(q, k, v, table, SCALE, key_bias)
+    do = torch.randn(o.shape, generator=gen, device="cuda")
+    unit = b * HEADS * s * s * HEAD_DIM
+    row = b * s * HEADS * HEAD_DIM * 4
+    buf = b * HEADS * s * s * 4
+    terms = table.numel() * 4 + key_bias.numel() * 4
+    bnd, by = tensor_core_bound_ms(8 * row + b * HEADS * s * 4 + terms + 2 * buf
+                                   + table.numel() * 4, 10 * unit)
+    ds_bound, _ = bound_ms(2 * buf + table.numel() * 4, 0)
+    tbl = table.detach().clone().requires_grad_(True)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=tbl + key_bias[:, None, None, :], scale=SCALE)
+    do_t = do.transpose(1, 2)
+
+    def library():
+        return torch.autograd.grad(sdpa_out, (qt, kt, vt, tbl), do_t, retain_graph=True)
+
+    def library_fresh():  # forward and backward, for the backend's kernel names
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=tbl + key_bias[:, None, None, :], scale=SCALE)
+        return torch.autograd.grad(out, (qt, kt, vt, tbl), do_t)
+
+    buffer = torch.randn(b, HEADS, s, s, generator=gen, device="cuda")
+    long_sleep = 20_000_000
+    row_ = {
+        "name": "flash_attention_bwd_dbias", "route": "cuda",
+        "source": "vqattack_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "vqattack_tpu/ops/attention.py:134", "shape": [b, s, HEADS, HEAD_DIM],
+        "bias_shape": list(table.shape), "max_abs_err": errs["dbias"],
+        "ms": time_ms(lambda: attention.flash_attention_bwd(
+            q, k, v, table, SCALE, o, lse, do, key_bias, dbias=True), 20, long_sleep),
+        "no_dbias_ms": time_ms(lambda: attention.flash_attention_bwd(
+            q, k, v, table, SCALE, o, lse, do, key_bias), 20),
+        "sum_ms": time_ms(lambda: buffer.sum_to_size(table.shape), 20),
+        "plain_ms": time_ms(lambda: attention.flash_attention_bwd_reference(
+            q, k, v, table, SCALE, o, lse, do, key_bias, dbias=True), 10, long_sleep),
+        "bound_ms": bnd, "bound_by": by, "dbias_bound_ms": ds_bound,
+        "library_ms": time_ms(library, 20, long_sleep),
+        "library_backend": sdpa_backend(library_fresh),
+        "buffer_bytes": buf,
+    }
+    row_["dbias_extra_ms"] = row_["ms"] - row_["no_dbias_ms"]
+    row_["bound_share"] = bnd / row_["ms"]
+    require(row_["bound_share"] <= 1.0, f"dbias: {row_['ms']} ms is under its bound {bnd} ms")
+    print(f"  flash_attention_bwd_dbias [{b}, {s}, {HEADS}, {HEAD_DIM}] table {list(table.shape)} "
+          f"f32: {row_['ms']:.3f} ms (without dbias {row_['no_dbias_ms']:.3f} ms: dbias adds "
+          f"{row_['dbias_extra_ms']:.3f} ms against its bound {ds_bound:.3f} ms by bytes, of "
+          f"which the sum over B {row_['sum_ms']:.3f} ms; plain {row_['plain_ms']:.3f} ms; "
+          f"scaled_dot_product_attention with a mask that requires grad, backward "
+          f"{row_['library_ms']:.3f} ms ({row_['library_backend']}); bound "
+          f"{bnd:.3f} ms by {by}: {100 * row_['bound_share']:.1f}%; dS buffer "
+          f"{buf / 1e6:.1f} MB)", flush=True)
+    del sdpa_out, buffer
+    return row_
+
+
+def check_masked_rows(pipe, tokenizer, gen, dtype):
+    """Step 0's repair: row 1 of the batch has every key masked by a finite
+    -1e9 (its key bias), beside the table, at VLMo's 941 tokens; the
+    kernels of ``dtype`` against their plain versions, forward and
+    backward."""
+    q, k, v, table, key_bias = _vlmo_qkv_terms(pipe, tokenizer, gen, 2)
+    key_bias[1] = -1e9
+    what = "row 1 masked whole by -1e9"
+    if dtype == BF16:
+        return _check_bf16_attention(*(t.to(BF16) for t in (q, k, v)), table, key_bias, what)
+    return _check_two_term_case(q, k, v, table, key_bias, what)
+
+
+def write_train_ann(tmp, name, n, size, pixel_base):
+    """``n`` training questions over the batched samples' questions, each on
+    an image of its own served by name (``pixels``), with answers and
+    their weights (ALBEF) and soft targets over the 3,129 labels (VLMo)."""
+    ann, pixels = [], {}
+    for i in range(n):
+        _, question, answer, _ = VLMO_BATCH_SAMPLES[i % len(VLMO_BATCH_SAMPLES)]
+        image = f"train_{name}_{i}.jpg"
+        ann.append({"image": image, "question": question, "question_id": 9000 + i,
+                    "answer": [answer] * 7 + ["blue"] * 3,
+                    "answer_labels": [(37 * i) % 3129, (11 * i + 5) % 3129],
+                    "answer_scores": [1.0, 0.3]})
+        pixels[image] = sample_pixels(pixel_base + i, size)
+    path = os.path.join(tmp, f"ann_train_{name}.json")
+    with open(path, "w") as f:
+        json.dump(ann, f)
+    return path, pixels
+
+
+@contextlib.contextmanager
+def served_pixels(pixels):
+    """The dataset's images served by name (the card's machine has no PIL)."""
+    from vqattack_tpu_torch.data.vqa import VQADataset
+
+    load_pixels = VQADataset._load_pixels
+    VQADataset._load_pixels = lambda self, name: pixels[name]
+    try:
+        yield
+    finally:
+        VQADataset._load_pixels = load_pixels
+
+
+@contextlib.contextmanager
+def recorded_train_states():
+    """The parameters of the last state saved and of the state restored by
+    ``train.cli.main`` (``checkpoint/io.py``), by name, on the card."""
+    from vqattack_tpu_torch.checkpoint import io as ckpt_io
+    from vqattack_tpu_torch.train.optim import named_params
+
+    rec = {}
+    save, restore = ckpt_io.save_train_state, ckpt_io.restore_latest_train_state
+
+    def params(state):
+        return state.step, {n: p.detach().clone() for n, p in named_params(state.model).items()}
+
+    def save_spy(state, ckpt_dir, step, keep=3):
+        rec["saved"] = params(state)
+        return save(state, ckpt_dir, step, keep)
+
+    def restore_spy(ckpt_dir, like):
+        out = restore(ckpt_dir, like)
+        if out is not None:
+            rec["restored"] = params(out)
+        return out
+
+    ckpt_io.save_train_state, ckpt_io.restore_latest_train_state = save_spy, restore_spy
+    try:
+        yield rec
+    finally:
+        ckpt_io.save_train_state, ckpt_io.restore_latest_train_state = save, restore
+
+
+def run_train(argv, pixels):
+    """``train.cli.main(argv)`` with the counts set to 0 just before and
+    read just after: ``(summary, launches, seconds, peak GiB)``; the peak
+    counts every allocation live at that point of the smoke run."""
+    from vqattack_tpu_torch.train import cli as train_cli
+
+    with served_pixels(pixels):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        summary = train_cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = summary["losses"]
+    require(len(losses) == summary["step"] - summary["start_step"] and losses
+            and all(np.isfinite(losses + summary["grad_norms"])),
+            f"train {argv[1]}: losses {losses}, grad norms {summary['grad_norms']}")
+    return summary, launched, seconds, peak
+
+
+def step_seconds(summary):
+    """Seconds of each step after the first: the host clock between the
+    metrics of consecutive steps read back (``--log-every 1``)."""
+    t = summary["log_times"][: len(summary["losses"])]
+    return [b - a for a, b in zip(t, t[1:])]
+
+
+def train_implied_launches(task, depth, steps, flash):
+    """K3 and K2 launches ``steps`` training steps of a trunk of ``depth``
+    blocks imply.  vlmo_vqa: with
+    flash, depth joint attentions a forward and a backward, each with the
+    key bias, every backward with dbias (the table needs a gradient).
+    albef_vqa: the ViT's 2 x depth fused norm sites a forward and a
+    backward, every backward with parameter gradients, and with flash its
+    depth attentions (the text and answer attentions are under 128 queries,
+    the product + softmax path)."""
+    out = dict.fromkeys(KERNELS, 0)
+    if task == "vlmo_vqa":
+        n = depth * steps if flash else 0
+        for k in ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_fwd_key_bias",
+                  "flash_attention_bwd_key_bias", "flash_attention_bwd_dbias"):
+            out[k] = n
+        return out
+    for k in ("residual_layernorm_fwd", "residual_layernorm_bwd",
+              "residual_layernorm_bwd_param_grads"):
+        out[k] = 2 * depth * steps
+    if flash:
+        out["flash_attention_fwd"] = out["flash_attention_bwd"] = depth * steps
+    return out
+
+
+def vlmo_table_gradient(argv, tokenizer, pixels):
+    """The relative-position table's gradient of the first step's loss (the
+    CLI's model from ``--seed`` and ``--init-ckpt``, its first batch), under
+    flash (K3 with dbias) and under xla, each layer's [1, 12, 941, 941]
+    bias gradient beside it: every entry of the two within
+    :data:`TABLE_GRAD_TOL` of its mass (xla's |bias gradients| gathered
+    into the entry).  Returns ``(max abs difference, largest value, the
+    largest difference over its mass)``."""
+    from vqattack_tpu_torch.data.transforms import train_transform
+    from vqattack_tpu_torch.data.vqa import VQADataset
+    from vqattack_tpu_torch.train import cli as train_cli
+
+    parser = train_cli.build_argparser()
+    args = parser.parse_args(argv)
+    cfg = train_cli.resolve_config(args, train_cli.apply_preset(parser, args),
+                                   torch.device("cuda"))
+    model, loss_fn, collate = train_cli.build_task(args, cfg, tokenizer, torch.device("cuda"))
+    with served_pixels(pixels):
+        dataset = VQADataset(args.ann, args.image_root, train_transform(cfg.vlmo.image_size),
+                             split="train")
+        batch = collate(next(train_cli._batches(dataset, args.batch_size, args.seed)))
+    biases, rel_bias = [], model._rel_bias
+
+    def recorded(layer, kind):  # each layer's gathered table, kept for its gradient
+        biases.append(rel_bias(layer, kind))
+        return biases[-1]
+
+    model._rel_bias = recorded
+    table = model.relative_position_bias_table
+    grads, layer_grads = {}, None
+    for impl in ("flash", "xla"):
+        biases.clear()
+        before = attention.flash_attention_bwd.dbias_launches
+        with attention.attention_impl(impl):
+            loss, _ = loss_fn(model, batch, None)
+            grads[impl], *layer_grads = torch.autograd.grad(loss, [table] + biases)
+        require((attention.flash_attention_bwd.dbias_launches - before)
+                == (cfg.vlmo.depth if impl == "flash" else 0), f"dbias launches under {impl}")
+    mass = torch.zeros_like(table)
+    idx, h = model._rel_index_joint.flatten(), cfg.vlmo.num_heads
+    for layer, g in enumerate(layer_grads):  # xla's, the last computed
+        mass[:, layer * h:(layer + 1) * h].index_add_(0, idx, g[0].abs().permute(1, 2, 0)
+                                                      .reshape(-1, h))
+    diff = (grads["flash"] - grads["xla"]).abs()
+    largest, err = float(grads["xla"].abs().max()), float(diff.max())
+    of_tol = float((diff / (TABLE_GRAD_TOL * mass + 1e-6 * largest)).max())
+    require(largest > 0 and of_tol <= 1.0,
+            f"the table gradient, flash against xla: max abs err {err}, largest {largest}, "
+            f"{of_tol} of an entry's tolerance")
+    print(f"  vlmo_vqa table gradient {list(table.shape)}, flash (K3 with dbias) against xla: "
+          f"max abs err {err:.3g} of {largest:.3g} ({err / largest:.2g}); the largest error "
+          f"{of_tol:.2g} of its entry's tolerance ({TABLE_GRAD_TOL:g} of its mass, or 1e-6 "
+          f"of the largest entry)", flush=True)
+    del model, grads, layer_grads, biases
+    torch.cuda.empty_cache()
+    return err, largest, of_tol
+
+
+def train_vlmo(tmp, vocab, tokenizer, smi):
+    """``train.cli.main --task vlmo_vqa --preset task_finetune_vqa_base_image480``
+    at batch 8 from a synthetic VLMo VQA file (``--init-ckpt``): under flash
+    (with ``--ckpt-dir``) and under xla, the table gradient's check, and a
+    resume that must restart at the saved step with the saved parameters."""
+    from vqattack_tpu_torch.checkpoint import synthetic
+    from vqattack_tpu_torch.named_configs import vlmo_config_from_named, vlmo_named_config
+
+    vcfg = vlmo_config_from_named(vlmo_named_config("task_finetune_vqa_base_image480"))
+    require(vcfg.image_size == 480 and vcfg.depth == 12 and vcfg.hidden_size == 768
+            and vcfg.max_text_len + vcfg.image_seq_len == 941, "not VLMo-base at 480 px")
+    init = os.path.join(tmp, "vlmo_vqa_init.pt")
+    torch.save({"state_dict": synthetic.vlmo_state_dict(
+        vcfg, SEED + 5, heads=synthetic.VLMO_VQA_HEADS + ("nlvr2_classifier",))}, init)
+    ann, pixels = write_train_ann(tmp, "vlmo", 2 * TRAIN_BATCH * (TRAIN_STEPS + 1),
+                                  vcfg.image_size, 1000)
+    ckpt = os.path.join(tmp, "ckpt_vlmo")
+    argv = ["--task", "vlmo_vqa", "--preset", "task_finetune_vqa_base_image480",
+            "--vocab", vocab, "--ann", ann, "--image-root", tmp, "--batch-size",
+            str(TRAIN_BATCH), "--log-every", "1", "--device", "cuda", "--seed", str(SEED),
+            "--init-ckpt", init]
+    err, largest, of_tol = vlmo_table_gradient(argv + ["--steps", str(TRAIN_STEPS)], tokenizer,
+                                               pixels)
+    out = {"table_grad_err": err, "table_grad_max": largest, "table_grad_err_of_tol": of_tol,
+           "card": smi}
+    launched = {}
+    for impl in ("flash", "xla"):
+        # one save, after the last step's metrics: the steps' times hold no save
+        extra = ["--ckpt-dir", ckpt, "--ckpt-every", str(TRAIN_STEPS)] if impl == "flash" else []
+        with attention.attention_impl(impl), recorded_train_states() as rec:
+            summary, launched[impl], seconds, peak = run_train(
+                argv + ["--steps", str(TRAIN_STEPS)] + extra, pixels)
+        expected = train_implied_launches("vlmo_vqa", vcfg.depth, TRAIN_STEPS, impl == "flash")
+        check_launches(launched[impl], expected, {k for k, n in expected.items() if n},
+                       f"vlmo_vqa --attn {impl}")
+        steps = step_seconds(summary)
+        out[impl] = {"s_per_step": float(np.median(steps)), "step_s": steps, "wall_s": seconds,
+                     "peak_gib": peak, "losses": summary["losses"]}
+        print(f"  vlmo_vqa --attn {impl}: {TRAIN_STEPS} steps in {seconds:.2f} s, "
+              f"{out[impl]['s_per_step']:.4f} s a step after the first, peak {peak:.2f} GiB, "
+              f"losses {[round(x, 4) for x in summary['losses']]} ({smi})", flush=True)
+        if impl == "flash":
+            saved = rec["saved"]
+    with attention.attention_impl("flash"), recorded_train_states() as rec:
+        summary, _, _, _ = run_train(argv + ["--steps", str(TRAIN_STEPS + 1), "--ckpt-dir",
+                                             ckpt, "--ckpt-every", str(TRAIN_STEPS)], pixels)
+    step, params = rec["restored"]
+    require(summary["start_step"] == step == saved[0] == TRAIN_STEPS
+            and summary["step"] == TRAIN_STEPS + 1, f"resume: started at {summary['start_step']}"
+            f", restored step {step}, saved step {saved[0]}")
+    require(params.keys() == saved[1].keys()
+            and all(torch.equal(params[n], saved[1][n]) for n in params),
+            "resume: the restored parameters are not the saved ones")
+    print(f"  vlmo_vqa --ckpt-dir: resumed at step {step} with the {len(params)} saved "
+          f"parameters bit for bit, then step {summary['step']}", flush=True)
+    shutil.rmtree(ckpt)
+    os.remove(init)
+    out["resume"] = {"step": step, "tensors": len(params)}
+    return out, launched["flash"]
+
+
+def train_albef(tmp, vocab, gen, smi):
+    """``train.cli.main --task albef_vqa`` at full width (the ALBEF attack
+    config: ViT-B/16 at 480 px with the fused norm sites, BERT-base, the
+    6-layer answer decoder; 4 answer slots of 8 tokens) at batch 8 under
+    flash; and K2's backward at the ViT's [8 x 901, 768] with and without
+    its parameter sums."""
+    from vqattack_tpu_torch import config as cfg_mod
+
+    cfg = cfg_mod.albef_attack_config()
+    require(cfg.albef.vit.image_size == 480 and cfg.albef.vit.depth == 12
+            and cfg.albef.bert.num_layers == 12 and cfg.albef.decoder_layers == 6,
+            "not the full-width ALBEF config")
+    ann, pixels = write_train_ann(tmp, "albef", 2 * TRAIN_BATCH * TRAIN_STEPS,
+                                  cfg.albef.vit.image_size, 1100)
+    argv = ["--task", "albef_vqa", "--vocab", vocab, "--ann", ann, "--image-root", tmp,
+            "--batch-size", str(TRAIN_BATCH), "--steps", str(TRAIN_STEPS), "--log-every", "1",
+            "--max-answers", "4", "--device", "cuda", "--seed", str(SEED)]
+    with attention.attention_impl("flash"):
+        summary, launched, seconds, peak = run_train(argv, pixels)
+    expected = train_implied_launches("albef_vqa", cfg.albef.vit.depth, TRAIN_STEPS, True)
+    check_launches(launched, expected, {k for k, n in expected.items() if n},
+                   "albef_vqa --attn flash")
+    steps = step_seconds(summary)
+    rows = TRAIN_BATCH * 901
+    x, delta, gamma, beta, gs, gh = _ln_case(gen, rows, torch.float32)
+    s, _ = fused_ln.residual_layernorm_fwd(x, delta, gamma, beta, 1e-6)
+    with_sums = time_ms(lambda: fused_ln.residual_layernorm_bwd(s, gs, gh, gamma, 1e-6))
+    without = time_ms(lambda: fused_ln.residual_layernorm_bwd(s, gs, gh, gamma, 1e-6,
+                                                             param_grads=False))
+    per_step = 2 * cfg.albef.vit.depth
+    out = {"s_per_step": float(np.median(steps)), "step_s": steps, "wall_s": seconds,
+           "peak_gib": peak, "losses": summary["losses"],
+           "k2_bwd_param_grads_ms": with_sums, "k2_bwd_no_param_grads_ms": without,
+           "k2_bwd_launches_per_step": per_step, "card": smi}
+    print(f"  albef_vqa --attn flash: {TRAIN_STEPS} steps in {seconds:.2f} s, "
+          f"{out['s_per_step']:.4f} s a step after the first, peak {peak:.2f} GiB, losses "
+          f"{[round(x, 4) for x in summary['losses']]}; K2's backward at [{rows}, {D}] f32 "
+          f"{with_sums * 1e3:.1f} us with its parameter sums, {without * 1e3:.1f} us without: "
+          f"{per_step} a step, {per_step * (with_sums - without):.4f} ms of sums a step ({smi})",
+          flush=True)
+    return out, launched
+
+
+# ---------------------------------------------------------------------------
 # phase 13: the checkpoint path, run.main with the reference's .pth files
 # ---------------------------------------------------------------------------
 
@@ -1967,23 +2448,16 @@ def run_main_recorded(argv, sample_list, pixel_base, size, implied, victim_dtype
     expected launches, seconds)``.  The schedules imply the launches as in
     the batched phases: one chunk per bucket in the surrogate's dtype, plus
     the victim's calls in ``victim_dtype``."""
-    from vqattack_tpu_torch.data.vqa import VQADataset
-
     pixels = {f"{qid}.jpg": sample_pixels(pixel_base + i, size)
               for i, (qid, *_) in enumerate(sample_list)}
-    load_pixels = VQADataset._load_pixels
-    VQADataset._load_pixels = lambda self, name: pixels[name]
-    try:
-        with record_main() as rec:
-            reset_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            summary = port_run.main(argv)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            launched = counts()
-    finally:
-        VQADataset._load_pixels = load_pixels
+    with served_pixels(pixels), record_main() as rec:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = port_run.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = counts()
     results, cfg, engine = rec["results"], rec["pipe"].cfg, rec["engine"]
     require(summary["samples"] == len(sample_list) == len(results), "samples attacked")
     require(engine.last_chunk_sizes == [8, 4], f"chunks {engine.last_chunk_sizes}")
@@ -2220,7 +2694,7 @@ def main() -> int:
     for k, n in launched.items():
         require(n == expected[k], f"per-sample {k}: {n} launches, the schedules imply "
                                   f"{expected[k]}")
-        require(n > 0 or k.startswith("flash") or "_bf16" in k,
+        require(n > 0 or k.startswith("flash") or "_bf16" in k or k in TRAINING_ONLY,
                 f"{k} was not launched on the per-sample path")
     save_artifacts(results, out_dir)
     for r in results:
@@ -2235,7 +2709,8 @@ def main() -> int:
                 pipe, cfg, tokenizer, paths, batch_args)
     require(sorted({r.old_alg for r in b_results}) == [0, 1], "both PGD paths must run")
     for k, n in b_launched.items():
-        require(n > 0 or k.endswith(("key_bias", "hd34")) or "_bf16" in k,
+        require(n > 0 or k.endswith(("key_bias", "hd34")) or "_bf16" in k
+                or k in TRAINING_ONLY,
                 f"{k} was not launched on the batched path")
         require(n == b_expected[k], f"batched {k}: {n} launches, the schedules imply "
                                     f"{b_expected[k]}")
@@ -2302,6 +2777,10 @@ def main() -> int:
             "the precomputed relative-position biases")
     with Phase("K3 with a key bias against its plain versions (VLMo shapes)"):
         kb_rows = check_flash_attention_key_bias(v_pipe, tokenizer, gen)
+    with Phase("K3's bias gradient (dbias) against its plain version (VLMo training shapes)"):
+        dbias_row = check_flash_attention_dbias(v_pipe, tokenizer, gen)
+    with Phase("K3 on a row masked whole by a finite -1e9 against its plain versions"):
+        check_masked_rows(v_pipe, tokenizer, gen, torch.float32)
     with Phase("VLMo model: flash (two-term K3) against product + softmax"):
         check_vlmo_model_flash(v_pipe, tokenizer, gen)
 
@@ -2330,7 +2809,7 @@ def main() -> int:
         require(n == vb_expected[k], f"VLMo batched {k}: {n} launches, the schedules imply "
                                      f"{vb_expected[k]}")
         require((n == 0) == (k.startswith("residual_layernorm") or "_bf16" in k
-                             or k.endswith("hd34")),
+                             or k.endswith("hd34") or k in TRAINING_ONLY),
                 f"VLMo batched {k}: {n} launches (K2, bf16 and head-dim-34 instances none, "
                 f"every other kernel some)")
 
@@ -2344,6 +2823,8 @@ def main() -> int:
             "the VLMo bf16 config and its float32 bias terms")
     with Phase("K3-bf16 with both terms against its plain versions (VLMo shapes)"):
         kb16_rows = check_flash_attention_bf16_key_bias(v_pipe16, tokenizer, gen)
+    with Phase("K3-bf16 on a row masked whole by a finite -1e9 against its plain versions"):
+        masked16 = check_masked_rows(v_pipe16, tokenizer, gen, BF16)
     with Phase("VLMo drift at full width: float32 against bf16, a MAR and a feature sample"):
         v_drift = drift_check((v_pipe, v_pipe16), (v_cfg, v_cfg16), VLMO_SAMPLES, True, "VLMo")
     del v_pipe
@@ -2422,6 +2903,14 @@ def main() -> int:
     del p_pipe16
     torch.cuda.empty_cache()
 
+    # ------------------------------------------ training: VQA fine-tuning
+    with Phase(f"vlmo_vqa training at full width: batch {TRAIN_BATCH}, {TRAIN_STEPS} steps, "
+               f"--attn flash then xla, then a resume"):
+        t_vlmo, t_vlmo_launched = train_vlmo(tmp, paths["vocab"], tokenizer, smi)
+    with Phase(f"albef_vqa training at full width: batch {TRAIN_BATCH}, {TRAIN_STEPS} steps, "
+               f"--attn flash"):
+        t_albef, t_albef_launched = train_albef(tmp, paths["vocab"], gen, smi)
+
     # ------------------------------------------------ the checkpoint path
     with Phase(f"checkpoint path: run.main with .pth files, --batch-size {BATCH_SIZE} "
                f"--attn flash --pipeline-depth {PIPELINE_DEPTH}") as ph:
@@ -2431,7 +2920,7 @@ def main() -> int:
         for k, n in launched_c.items():
             require(n == expected_c[k], f"{which} with checkpoints {k}: {n} launches, the "
                                         f"schedules imply {expected_c[k]}")
-            none = "_bf16" in k or k.endswith("hd34") or (
+            none = "_bf16" in k or k.endswith("hd34") or k in TRAINING_ONLY or (
                 k.endswith("key_bias") if which == "albef" else k.startswith("residual"))
             require((n == 0) == none, f"{which} with checkpoints {k}: {n} launches")
     shutil.rmtree(tmp, ignore_errors=True)
@@ -2449,6 +2938,9 @@ def main() -> int:
         else:
             runs = (b_launched, b16_launched)
         row["launches"] = runs[bf16][row["name"]]
+    # the bias gradient's launches: the vlmo_vqa training run's under flash
+    dbias_row["launches"] = t_vlmo_launched["flash_attention_bwd_dbias"]
+    rows.append(dbias_row)
     print(f"wall: {time.perf_counter() - t_start:.1f} s since start", flush=True)
     print(json.dumps({"kernel_launches": {
         "per_sample": launched, "batched": b_launched,
@@ -2468,6 +2960,10 @@ def main() -> int:
                       "vlmo_base_plus_attn_ab_batch16": p_ab,
                       "vlmo_base_plus_bf16_attn_ab_batch16": p_ab16, "card": smi}), flush=True)
     print(json.dumps({"flash_attention_batch16": flash_b16}), flush=True)
+    print(json.dumps({"training": {"vlmo_vqa": t_vlmo, "albef_vqa": t_albef},
+                      "training_launches": {"vlmo_vqa_flash": t_vlmo_launched,
+                                            "albef_vqa_flash": t_albef_launched},
+                      "bf16_masked_row": masked16, "card": smi}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

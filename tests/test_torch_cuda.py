@@ -251,8 +251,9 @@ def test_flash_attention_autograd_and_refusals(gen):
         attention.flash_attention(q.half(), k.half(), v.half(), None, 0.125)
     with pytest.raises(TypeError, match="q torch.float32"):
         attention.flash_attention(q, k.bfloat16(), v.bfloat16(), None, 0.125)
-    with pytest.raises(ValueError, match="no gradient"):
-        attention.flash_attention(q, k, v, bias.clone().requires_grad_(True), 0.125)
+    with pytest.raises(ValueError, match="no dbias"):
+        attention.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                  bias.clone().requires_grad_(True), 0.125)
 
 
 def test_flash_attention_refuses_rows_off_16_bytes(gen):
@@ -370,6 +371,78 @@ def test_flash_attention_two_term_backward_bit_identical_at_the_victims_batch(ge
     second = attention.flash_attention_bwd(q, k, v, table, scale, o, lse, do, kb)
     for name, a, b in zip(("dq", "dk", "dv"), first, second):
         assert torch.equal(a, b), f"{name} differs between two runs"
+
+
+# ---------------------------------------------------------------------------
+# the bias gradient (dbias): the float32 dQ kernel's dbias instance
+# ---------------------------------------------------------------------------
+
+
+def _dbias_close(got, ref, what):
+    """Within 2e-5 of the largest |dbias| (at least 1e-6): dS is formed from
+    the same float32 terms as dQ's, summed over the batch by ``torch.sum``."""
+    tol = max(1e-6, 2e-5 * float(ref.abs().max()))
+    err = float((got - ref).abs().max())
+    assert err <= tol, f"{what}: max abs err {err} > {tol}"
+
+
+@pytest.mark.parametrize("b,s,form", [
+    (1, 941, "table"), (8, 941, "table"), (2, 130, "dense"), (2, 70, "table"),
+    (2, 130, "left_pad"),
+])
+def test_flash_attention_dbias_kernel(gen, b, s, form):
+    """The dbias instance against the plain backward's dbias: VLMo's table
+    ``[1, H, S, S]`` with the padded-text key bias at batch 1 and 8, a
+    ``[B, H, S, S]`` bias, ragged lengths and a -inf first key tile; dbias
+    the same bit for bit on every run, dq/dk/dv as the plain version's."""
+    kind = "left_pad" if form == "left_pad" else "text_pad"
+    q, k, v, table, kb = _two_terms(gen, b, s, kind, text=min(40, s))
+    if form == "dense":
+        table = torch.randn(b, 4, s, s, generator=gen, device="cuda") * 0.5
+    scale = 64 ** -0.5
+    o, lse = attention.flash_attention_fwd(q, k, v, table, scale, kb)
+    do = torch.randn(o.shape, generator=gen, device="cuda")
+    before = attention.flash_attention_bwd.dbias_launches
+    grads = attention.flash_attention_bwd(q, k, v, table, scale, o, lse, do, kb, dbias=True)
+    again = attention.flash_attention_bwd(q, k, v, table, scale, o, lse, do, kb, dbias=True)
+    assert attention.flash_attention_bwd.dbias_launches == before + 2
+    refs = attention.flash_attention_bwd_reference(q, k, v, table, scale, o, lse, do, kb,
+                                                   dbias=True)
+    assert grads[3].shape == table.shape
+    for name, g, g2, r in zip(("dq", "dk", "dv", "dbias"), grads, again, refs):
+        assert torch.equal(g, g2), f"{name} differs between two runs"
+        (_dbias_close if name == "dbias" else _close)(g, r, name)
+
+
+def test_flash_attention_dbias_autograd_counts_and_the_attack_backward(gen):
+    """The autograd Function with a table that needs a gradient against
+    autograd through the plain version (q, k, v and the table's gradients),
+    counted as one dbias launch; with a table that needs none, the attack's
+    case, no dbias launch, and the gradients the same bits as the plain
+    backward kernels give."""
+    q, k, v, table, kb = _two_terms(gen, 2, 150, "text_pad")
+    w = torch.randn(2, 150, 4, 64, generator=gen, device="cuda")
+    grads = []
+    for fn in (attention.flash_attention, attention.flash_attention_reference):
+        xs = [t.detach().clone().requires_grad_(True) for t in (q, k, v, table)]
+        before = attention.flash_attention_bwd.dbias_launches
+        out = fn(*xs[:3], xs[3], 0.125, key_bias=kb)
+        grads.append(torch.autograd.grad((out * w).sum(), xs))
+        if fn is attention.flash_attention:
+            assert attention.flash_attention_bwd.dbias_launches == before + 1
+    for name, a, r in zip(("dq", "dk", "dv"), *grads):
+        _close(a, r, name)
+    _dbias_close(grads[0][3], grads[1][3], "dtable")
+
+    xs = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    before = attention.flash_attention_bwd.dbias_launches
+    out = attention.flash_attention(*xs, table, 0.125, key_bias=kb)
+    got = torch.autograd.grad(out, xs, w)
+    assert attention.flash_attention_bwd.dbias_launches == before
+    o, lse = attention.flash_attention_fwd(q, k, v, table, 0.125, kb)
+    want = attention.flash_attention_bwd(q, k, v, table, 0.125, o, lse, w, kb)
+    for name, a, r in zip(("dq", "dk", "dv"), got, want):
+        assert torch.equal(a, r), name
 
 
 # ---------------------------------------------------------------------------
@@ -681,3 +754,31 @@ def test_flash_attention_hd34_backward_bit_identical_at_the_victims_batch(gen, d
     second = attention.flash_attention_bwd(q, k, v, None, scale, o, lse, do, key_bias)
     for name, a, b in zip(("dq", "dk", "dv"), first, second):
         assert torch.equal(a, b), f"{name} differs between two runs"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s", [(2, 130), (2, 941)])
+def test_flash_attention_rows_masked_whole_by_a_finite_bias(gen, b, s, dtype):
+    """A row whose every key carries -1e9 (the key bias of batch row 1),
+    beside the table: L is then about -1e9, and P is formed as exp2((S - L)
+    log2 e), subtracted first, in both instances, so the kernels agree with
+    their plain versions forward and backward (with L log2 e rounded first,
+    off by ~64 in the exponent, they did not in bf16)."""
+    q, k, v, table, kb = _two_terms(gen, b, s, "zero")
+    kb[1] = -1e9
+    if dtype == torch.float32:
+        scale = 64 ** -0.5
+        o, lse = attention.flash_attention_fwd(q, k, v, table, scale, kb)
+        o_r, lse_r = attention.flash_attention_reference(q, k, v, table, scale,
+                                                         return_lse=True, key_bias=kb)
+        _close(o, o_r, "o")
+        _close(lse, lse_r, "lse")
+        do = torch.randn(o.shape, generator=gen, device="cuda")
+        grads = attention.flash_attention_bwd(q, k, v, table, scale, o, lse, do, kb)
+        refs = attention.flash_attention_bwd_reference(q, k, v, table, scale, o, lse, do, kb)
+        for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+            _close(g, r, name)
+        return
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    do = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    _check_bf16_case(q, k, v, table, kb, do)

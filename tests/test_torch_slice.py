@@ -148,6 +148,11 @@ def test_port_imports_no_jax_and_only_torch_numpy_stdlib_at_module_level():
     only inside the function that decodes an image)."""
     files = sorted((ROOT / "vqattack_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    pkg = ROOT / "vqattack_tpu_torch"
+    for module in ("train/cli.py", "train/optim.py", "train/trainer.py", "train/objectives.py",
+                   "utils/meters.py", "data/transforms.py", "data/vqa.py", "checkpoint/io.py",
+                   "named_configs.py"):
+        assert pkg / module in files, module
     allowed = set(sys.stdlib_module_names) | {"torch", "numpy", "vqattack_tpu_torch"}
     for f in files:
         for name, top in _imports(ast.parse(f.read_text(), str(f))):

@@ -74,6 +74,17 @@ def _leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()):
             yield prefix + (k,)
 
 
+def flax_leaves(module: nn.Module):
+    """``(torch name, flax path, numpy -> torch layout transform, parameter)``
+    for every parameter of ``module``, in ``named_parameters`` order."""
+    for mod_name, sub in module.named_modules():
+        mod_path = mod_name.split(".") if mod_name else []
+        for pname, param in sub.named_parameters(recurse=False):
+            leaf, transform = _leaf_for(sub, pname, param)
+            name = f"{mod_name}.{pname}" if mod_name else pname
+            yield name, tuple(_flax_path(mod_path) + [leaf]), transform, param
+
+
 @torch.no_grad()
 def load_jax_params(module: nn.Module, tree: Dict[str, Any],
                     optional: Sequence[str] = ()) -> nn.Module:
@@ -84,30 +95,50 @@ def load_jax_params(module: nn.Module, tree: Dict[str, Any],
     if "params" in tree and isinstance(tree["params"], dict):
         tree = tree["params"]
     used = set()
-    for mod_name, sub in module.named_modules():
-        mod_path = mod_name.split(".") if mod_name else []
-        for pname, param in sub.named_parameters(recurse=False):
-            leaf, transform = _leaf_for(sub, pname, param)
-            path = tuple(_flax_path(mod_path) + [leaf])
-            if path[0] in optional and path[0] not in tree:
-                continue
-            node: Any = tree
-            for p in path:
-                if not isinstance(node, dict) or p not in node:
-                    raise KeyError(f"no flax leaf {'/'.join(path)} for "
-                                   f"{mod_name + '.' if mod_name else ''}{pname}")
-                node = node[p]
-            arr = np.array(transform(np.asarray(node)), order="C")
-            if tuple(arr.shape) != tuple(param.shape):
-                raise ValueError(f"{'/'.join(path)}: flax {arr.shape} vs torch "
-                                 f"{tuple(param.shape)}")
-            param.copy_(torch.from_numpy(arr).to(param.dtype))
-            used.add(path)
+    for name, path, transform, param in flax_leaves(module):
+        if path[0] in optional and path[0] not in tree:
+            continue
+        node: Any = tree
+        for p in path:
+            if not isinstance(node, dict) or p not in node:
+                raise KeyError(f"no flax leaf {'/'.join(path)} for {name}")
+            node = node[p]
+        arr = np.array(transform(np.asarray(node)), order="C")
+        if tuple(arr.shape) != tuple(param.shape):
+            raise ValueError(f"{'/'.join(path)}: flax {arr.shape} vs torch "
+                             f"{tuple(param.shape)}")
+        param.copy_(torch.from_numpy(arr).to(param.dtype))
+        used.add(path)
     unused = [p for p in _leaves(tree) if p not in used]
     if unused:
         raise KeyError(f"flax leaves with no torch parameter: "
                        f"{['/'.join(p) for p in unused[:8]]}")
     return module
+
+
+@torch.no_grad()
+def graft_jax_params(module: nn.Module, tree: Dict[str, Any]) -> int:
+    """Copy the parameters of ``module`` that the flax ``tree`` has a leaf
+    for and leave the others as they are: a pre-trained file's shared trunks
+    into a task model whose heads stay at their initial values (the JAX
+    training CLI's ``--init-ckpt`` merge).  Leaves with no parameter are
+    skipped; a leaf of another shape raises.  Returns the number copied."""
+    if "params" in tree and isinstance(tree["params"], dict):
+        tree = tree["params"]
+    copied = 0
+    for name, path, transform, param in flax_leaves(module):
+        node: Any = tree
+        for p in path:
+            node = node.get(p) if isinstance(node, dict) else None
+        if node is None or isinstance(node, dict):
+            continue
+        arr = np.array(transform(np.asarray(node)), order="C")
+        if tuple(arr.shape) != tuple(param.shape):
+            raise ValueError(f"{'/'.join(path)}: flax {arr.shape} vs torch "
+                             f"{tuple(param.shape)} ({name})")
+        param.copy_(torch.from_numpy(arr).to(param.dtype))
+        copied += 1
+    return copied
 
 
 # ---------------------------------------------------------------------------

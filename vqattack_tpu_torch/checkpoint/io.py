@@ -13,13 +13,22 @@ converts 12 blocks whatever the model's depth, the port ``cfg.depth``.
 ``transformers``: ``config.json`` plus ``model.safetensors`` (read by the
 small reader below) or ``pytorch_model.bin``, with the renames and the tied
 decoder of ``BertForMaskedLM.from_pretrained``.
+
+The training checkpoints (``save_train_state``, ``find_train_steps``,
+``restore_latest_train_state``) keep the JAX package's surface: one
+checkpoint a saved step under ``ckpt_dir``, the newest ``keep`` kept, the
+newest restored on resume.  Each is one ``torch.save`` file,
+``step_{N:08d}.pt``, of the step, the parameters by name and the optimizer
+state; JAX's orbax directories are not read.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
-from typing import Any, Dict, Optional
+import re
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -34,6 +43,7 @@ from vqattack_tpu_torch.checkpoint.convert import (
     load_torch_checkpoint,
 )
 from vqattack_tpu_torch.config import ALBEFConfig, VLMoConfig
+from vqattack_tpu_torch.train.optim import named_params
 
 # VLMo heads a checkpoint may lack: a pre-trained file has no VQA classifier,
 # a VQA fine-tuned one has only the pooler and the classifier
@@ -172,3 +182,83 @@ def load_hf_bert_mlm(directory: str, into: Optional[nn.Module] = None):
     tree = convert_fusion_bert(sd, prefix="bert.", num_layers=num_layers,
                                fusion_layer=num_layers, mlm_prefix="cls.")
     return _load(tree, into)
+
+
+# ---------------------------------------------------------------------------
+# training checkpoints
+# ---------------------------------------------------------------------------
+
+_STEP_FILE = re.compile(r"step_(\d+)\.pt")
+
+
+def _step_path(ckpt_dir: str, step: int) -> str:
+    return os.path.join(os.path.abspath(ckpt_dir), f"step_{step:08d}.pt")
+
+
+def _to_cpu(tree):
+    """Nested dicts of tensors (and plain values) with every tensor on the CPU."""
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+def save_train_state(state, ckpt_dir: str, step: int, keep: int = 3) -> str:
+    """Write ``state`` (a ``train/trainer.py::TrainState``) as
+    ``{ckpt_dir}/step_{step:08d}.pt`` and delete all but the newest ``keep``
+    (the ModelCheckpoint surface, ``run.py:88-94``).  The file is written
+    beside its name and renamed into place."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = _step_path(ckpt_dir, step)
+    payload = {"step": int(state.step),
+               "params": _to_cpu(named_params(state.model)),
+               "opt_state": _to_cpu(state.opt_state)}
+    tmp = f"{path}.tmp{os.getpid()}"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    for s in sorted(find_train_steps(ckpt_dir))[:-keep]:
+        os.remove(_step_path(ckpt_dir, s))
+    return path
+
+
+def find_train_steps(ckpt_dir: str) -> List[int]:
+    """The steps saved under ``ckpt_dir`` (none when it does not exist)."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return [int(m.group(1)) for m in map(_STEP_FILE.fullmatch, os.listdir(ckpt_dir)) if m]
+
+
+def restore_latest_train_state(ckpt_dir: str, like):
+    """The newest saved step loaded into ``like``'s module (in place) and
+    returned as a state like ``like``, or None when nothing is saved
+    (``resume_during_training``, ``run.py:118-124``).  Raises when the file's
+    parameters or optimizer state do not match ``like``'s names and shapes."""
+    steps = sorted(find_train_steps(ckpt_dir))
+    if not steps:
+        return None
+    path = _step_path(ckpt_dir, steps[-1])
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    params = named_params(like.model)
+    if set(saved["params"]) != set(params):
+        raise KeyError(f"{path}: parameters {sorted(set(saved['params']) ^ set(params))[:8]} "
+                       f"are in only one of the file and the model")
+    with torch.no_grad():
+        for name, p in params.items():
+            if saved["params"][name].shape != p.shape:
+                raise ValueError(f"{path}: {name} {tuple(saved['params'][name].shape)} vs "
+                                 f"{tuple(p.shape)}")
+            p.copy_(saved["params"][name])
+
+    def place(saved_t, like_t, where):
+        if isinstance(like_t, dict):
+            if not isinstance(saved_t, dict) or set(saved_t) != set(like_t):
+                raise KeyError(f"{path}: optimizer state {where} does not match the model's")
+            return {k: place(saved_t[k], like_t[k], f"{where}/{k}") for k in like_t}
+        if isinstance(like_t, torch.Tensor):
+            if saved_t.shape != like_t.shape:
+                raise ValueError(f"{path}: optimizer state {where} {tuple(saved_t.shape)} vs "
+                                 f"{tuple(like_t.shape)}")
+            return saved_t.to(device=like_t.device, dtype=like_t.dtype)
+        return saved_t
+
+    opt_state = place(saved["opt_state"], like.opt_state, "")
+    return dataclasses.replace(like, step=int(saved["step"]), opt_state=opt_state)

@@ -75,6 +75,20 @@
 //   third 16 x 64 accumulator there, where dK, dV, P^T and dS^T already
 //   take 208 registers (255 with a bias, with or without a key bias).
 //
+// The bias gradient (dbias; the library's dQ kernel returns its ds as the
+// gradient of its bias ``ab``, flash_attention.py:1287, :1477) is an
+// instance of the dQ kernel, selected only when the bias needs a gradient:
+// it writes the dS it forms anyway, the gradient of the post-scale score
+// and so of the post-scale bias, into a contiguous float32 [B, H, Sq, Sk]
+// buffer (keys past Sk and rows past Sq are not written; a masked key's P,
+// and with it dS, is 0).  The wrapper sums the buffer over the bias's
+// broadcast dimensions, as XLA sums the library's dab outside its kernel.
+// Bound on the H100: bytes.  The buffer is written once and read once by
+// the sum: 2 x 4 B*H*Sq*Sk bytes, 680 MB at VLMo's [8, 12, 941, 941], 0.20
+// ms at 3.35 TB/s, against the backward's 0.33 ms of products at that shape.
+// Plain stores, no atomics: the result repeats bit for bit.  The other way,
+// a fixed-order in-kernel sum over B that drops the buffer, is later work.
+//
 // Head dim 34 (VLMo-base+: 544 over 16 heads) is a template instance of the
 // same kernels.  m16n8k8 steps 8 columns at a time, so a tile holds 40
 // columns, the last 6 zero-filled by the copies; zero columns add nothing to
@@ -136,6 +150,7 @@ struct Params {
   float* dk;          // contiguous [B, Sk, H, Dh]
   float* dv;          // contiguous [B, Sk, H, Dh]
   float* delta;       // backward: D [B, H, Sq]
+  float* dbias;       // backward: dS, contiguous [B, H, Sq, Sk]; nullptr: not asked for
   long long qsb, qss, qsh;
   long long ksb, kss, ksh;
   long long vsb, vss, vsh;
@@ -423,6 +438,27 @@ __device__ __forceinline__ void store_rows(float* base, long long row_stride, in
   }
 }
 
+// dS of rows ``row`` (e < 2) and ``row`` + 8 (e >= 2) over the columns c +
+// 8 n + (e % 2) of a key tile into (b, h)'s [Sq, Sk] slice of the dbias
+// buffer; rows at or past Sq and keys at or past Sk are not written.
+__device__ __forceinline__ void store_ds(const Params& p, const float ds[kKeySteps][4], int b,
+                                         int h, int row, int c) {
+  float* base = p.dbias + ((long long)b * p.H + h) * p.Sq * p.Sk;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row + 8 * i;
+    if (r >= p.Sq) continue;
+    float* dst = base + (long long)r * p.Sk;
+#pragma unroll
+    for (int n = 0; n < kKeySteps; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = c + 8 * n + j;
+        if (col < p.Sk) dst[col] = ds[n][2 * i + j];
+      }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // kernels
 // ---------------------------------------------------------------------------
@@ -625,7 +661,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_kernel(const Params
   store_rows<kDh>(p.dv + off, kss, key, p.Sk, dv, 1.f, 1.f, t);
 }
 
-template <int kDh, bool kBias, bool kKeyBias>
+template <int kDh, bool kBias, bool kKeyBias, bool kDbias>
 __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Params p) {
   using W = Width<kDh>;
   constexpr int kTileFloats = W::kTileFloats;
@@ -697,6 +733,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Params 
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         s[n][e] = exp2_approx((s[n][e] - lse[e >> 1]) * kLog2e) * (dp[n][e] - dlt[e >> 1]);
+    if (kDbias) store_ds(p, s, b, h, row, k0 + 2 * t);
     product_cx<kDh>(dq, s, Kt + cols_off);  // dQ += dS K
     __syncthreads();  // every warp is done with tile j's buffers
   }
@@ -787,8 +824,20 @@ struct Dkv {
 struct Dq {
   template <int kDh, bool kB, bool kKB>
   static cudaError_t run(const Params& p, dim3 grid, cudaStream_t s) {
-    return launch(flash_bwd_dq_kernel<kDh, kB, kKB>, grid,
+    return launch(flash_bwd_dq_kernel<kDh, kB, kKB, false>, grid,
                   kKB ? Smem<kDh>::kDqKb : Smem<kDh>::kDq, s, p);
+  }
+};
+// the dQ kernel that also writes dS (a bias and its gradient only)
+struct DqDbias {
+  template <int kDh, bool kB, bool kKB>
+  static cudaError_t run(const Params& p, dim3 grid, cudaStream_t s) {
+    if constexpr (!kB) {
+      return cudaErrorInvalidValue;
+    } else {
+      return launch(flash_bwd_dq_kernel<kDh, true, kKB, true>, grid,
+                    kKB ? Smem<kDh>::kDqKb : Smem<kDh>::kDq, s, p);
+    }
   }
 };
 
@@ -814,15 +863,18 @@ extern "C" int vq_flash_attention_fwd(
 
 // dQ [B, Sq, H, Dh], dK and dV [B, Sk, H, Dh], all contiguous; o and dout
 // contiguous [B, Sq, H, Dh], dout aligned as q; delta a [B, H, Sq] scratch.
+// dbias, when not null, receives dS as a contiguous [B, H, Sq, Sk] (a bias
+// must be given).
 extern "C" int vq_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* bias, const void* key_bias,
     const void* o, const void* lse, const void* dout, void* dq, void* dk,
-    void* dv, void* delta, int B, int H, int Sq, int Sk, int Dh, long long qsb,
+    void* dv, void* delta, void* dbias, int B, int H, int Sq, int Sk, int Dh, long long qsb,
     long long qss, long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, long long bsb, long long bsh,
     long long bsq, long long bsk, long long kbsb, float scale, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return 0;
   if (Dh != 64 && Dh != 34) return (int)cudaErrorInvalidValue;
+  if (dbias != nullptr && bias == nullptr) return (int)cudaErrorInvalidValue;
   Params p = make_params(q, k, v, bias, key_bias, B, H, Sq, Sk, qsb, qss, qsh, ksb, kss,
                          ksh, vsb, vss, vsh, bsb, bsh, bsq, bsk, kbsb, scale);
   p.o = (const float*)o;
@@ -832,6 +884,7 @@ extern "C" int vq_flash_attention_bwd(
   p.dk = (float*)dk;
   p.dv = (float*)dv;
   p.delta = (float*)delta;
+  p.dbias = (float*)dbias;
   cudaStream_t s = (cudaStream_t)stream;
 
   const long long rows = (long long)B * H * Sq;
@@ -846,5 +899,6 @@ extern "C" int vq_flash_attention_bwd(
   const dim3 kv_grid((Sk + kTile - 1) / kTile, H, B), q_grid((Sq + kTile - 1) / kTile, H, B);
   err = dispatch<Dkv>(p, Dh, kv_grid, s);
   if (err != cudaSuccess) return (int)err;
-  return (int)dispatch<Dq>(p, Dh, q_grid, s);
+  return (int)(dbias != nullptr ? dispatch<DqDbias>(p, Dh, q_grid, s)
+                                 : dispatch<Dq>(p, Dh, q_grid, s));
 }

@@ -592,31 +592,38 @@ struct FwdRows {  // one warpgroup's running softmax state and output
 
 // Row maxima of S (raw, or already scaled: ``kScaled``), the new running
 // maxima, alpha = exp(m_old - m_new), and S replaced by exp(S - m_new) with
-// its row sums in ``rs``.
-template <int N, bool kScaled>
+// its row sums in ``rs``.  ``kTerms``: a bias or key bias was added, so a
+// row's maximum may be near -1e9 (every key so far masked by a finite
+// term): then S - m_new is formed first and scaled by log2 e after, as the
+// float32 kernel does, since m_new log2 e, rounded, would be off by ~64.
+// Without a term the maximum is a product's, and one fma of S with m_new
+// log2 e is exact enough (and keeps the no-terms kernels' wgmmas unserialized:
+// the two instructions cost them registers, ptxas's C7511).
+template <int N, bool kScaled, bool kTerms>
 __device__ __forceinline__ void online_softmax(float (&s)[N / 2], float (&m)[2],
                                                float (&alpha)[2], float (&rs)[2], float scale) {
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-  float ref2[2];
+  float ref[2], ref2[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     // scale > 0, so the maximum of the raw scores, scaled, is the maximum
     const float m_new = fmaxf(m[r], kScaled ? quad_max(mx[r]) : quad_max(mx[r]) * scale);
     // -inf while every key so far is masked (a -inf term): exponentiate
     // against 0 instead, so that alpha and every p come out 0, not NaN
-    const float ref = m_new == -INFINITY ? 0.f : m_new;
-    alpha[r] = exp2_approx((m[r] - ref) * kLog2e);  // 0 on the first tile
-    ref2[r] = ref * kLog2e;
+    ref[r] = m_new == -INFINITY ? 0.f : m_new;
+    ref2[r] = ref[r] * kLog2e;
+    alpha[r] = exp2_approx((m[r] - ref[r]) * kLog2e);  // 0 on the first tile
     m[r] = m_new;
     rs[r] = 0.f;
   }
   const float mul = kScaled ? kLog2e : scale * kLog2e;
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) {
-    s[i] = exp2_approx(fmaf(s[i], mul, -ref2[(i >> 1) & 1]));  // 0 for a masked key
-    rs[(i >> 1) & 1] += s[i];
+    s[i] = kTerms ? exp2_approx((s[i] - ref[(i >> 1) & 1]) * kLog2e)
+                  : exp2_approx(fmaf(s[i], mul, -ref2[(i >> 1) & 1]));
+    rs[(i >> 1) & 1] += s[i];  // 0 for a masked key
   }
 }
 
@@ -645,7 +652,7 @@ __device__ __forceinline__ void fwd_step(const Params& p, FwdRows& st, float (&s
   keep(s);
   if (kTerms || kMask) prep<N, kTerms, kMask>(s, t, p.scale, k0 + 2 * c, p.Sk);
   float alpha[2], rs[2];
-  online_softmax<N, kTerms || kMask>(s, st.m, alpha, rs, p.scale);
+  online_softmax<N, kTerms || kMask, kTerms>(s, st.m, alpha, rs, p.scale);
   wg_wait<0>();
   keep(st.o);
   keep(pa);
@@ -783,7 +790,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ---------------------------------------------------------------------------
 
 // dK/dV: K and V (128 rows); Q and dO (64 rows) a stage; then a stage's 64
-// values of L (times log2 e) and of D
+// values of L and of D
 constexpr int kDkvTiles = 4 + 2 * kBwdStages;
 constexpr int kDkvExtra = 2 * kBwdStages * kBox * 4;
 // dQ: Q, dO and O (128 rows); K and V (64 rows) a stage
@@ -834,13 +841,17 @@ __device__ __forceinline__ void dkv_step(const Params& p, float (&dk)[32], float
   if (kTerms || kMask) prep<N, kTerms, kMask>(st, t, p.scale, q0 + 2 * c, p.Sq);
   const float mul = kTerms || kMask ? kLog2e : p.scale * kLog2e;
   // P^T = exp(S^T - L): 0 for a masked query; L of this thread's query
-  // columns q0 + 8 jj + 2 c + e, times log2 e
+  // columns q0 + 8 jj + 2 c + e.  With a term L may be near -1e9: S^T - L
+  // first, then log2 e (as online_softmax, whose comment says why)
 #pragma unroll
   for (int jj = 0; jj < N / 8; ++jj) {
     const float2 l = ld_shared2(l_tile + 4 * (8 * jj + 2 * c));
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      st[4 * jj + e] = exp2_approx(fmaf(st[4 * jj + e], mul, -(e & 1 ? l.y : l.x)));
+    for (int e = 0; e < 4; ++e) {
+      const float li = e & 1 ? l.y : l.x;
+      st[4 * jj + e] = kTerms ? exp2_approx((st[4 * jj + e] - li) * kLog2e)
+                              : exp2_approx(fmaf(st[4 * jj + e], mul, -li * kLog2e));
+    }
   }
   pack_a<N>(pend.a, st);
   issue_rs<N>(dv, pend.a, do_tile);  // dV += bf16(P^T) dO
@@ -908,7 +919,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int r = lane; r < kBox; r += 32) {
             const int qi = kBox * i + r;
             const bool ok = qi < p.Sq;
-            st_shared(stage_ld(j) + 4 * r, ok ? p.lse[rows_bh + qi] * kLog2e : 0.f);
+            st_shared(stage_ld(j) + 4 * r, ok ? p.lse[rows_bh + qi] : 0.f);
             st_shared(stage_ld(j) + 4 * (kBox + r), ok ? p.delta[rows_bh + qi] : 0.f);
           }
           bar_arrive(full);
@@ -993,8 +1004,11 @@ __device__ __forceinline__ void dq_step(const Params& p, float (&dq)[32], Pendin
   keep(s);
   if (kTerms || kMask) prep<N, kTerms, kMask>(s, t, p.scale, k0 + 2 * c, p.Sk);
   const float mul = kTerms || kMask ? kLog2e : p.scale * kLog2e;
+  // P = exp(S - L); with a term S - L first, then log2 e (online_softmax)
 #pragma unroll
-  for (int i = 0; i < N / 2; ++i) s[i] = exp2_approx(fmaf(s[i], mul, -lse[(i >> 1) & 1]));
+  for (int i = 0; i < N / 2; ++i)
+    s[i] = kTerms ? exp2_approx((s[i] - lse[(i >> 1) & 1]) * kLog2e)
+                  : exp2_approx(fmaf(s[i], mul, -lse[(i >> 1) & 1] * kLog2e));
   wg_wait<0>();  // dP
   keep(dp);
   // dS = P o (dP - D): 0 for a masked key
@@ -1066,7 +1080,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       float lse[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r)
-        lse[r] = row + 8 * r < p.Sq ? p.lse[rows_bh + row + 8 * r] * kLog2e : 0.f;
+        lse[r] = row + 8 * r < p.Sq ? p.lse[rows_bh + row + 8 * r] : 0.f;
       float dq[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) dq[i] = 0.f;

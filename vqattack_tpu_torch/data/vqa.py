@@ -2,9 +2,12 @@
 
 Port of the VQA part of ``vqattack_tpu/data/vqa.py`` (reference
 ``dataset/vqa_dataset.py``): per item ``{question, qid, pixels [1, 3, H, W],
-answers, weights}`` of the test split the attack reads, with the question
-normalised by :func:`pre_question` and answer-frequency weights.  Images are decoded with PIL,
-imported only when an image is read.
+answers, weights}``, with the question normalised by :func:`pre_question`
+and answer-frequency weights, and VLMo's soft targets (``answer_labels``,
+``answer_scores``) passed through where the annotation has them.  The test
+split is what the attack reads; the train split (the VQA fine-tuning
+tasks) appends the ``[SEP]`` eos to every answer (``vqa_dataset.py:89``).
+Images are decoded with PIL, imported only when an image is read.
 """
 
 from __future__ import annotations
@@ -30,7 +33,10 @@ def pre_question(question: str, max_words: int = 50) -> str:
 
 class VQADataset:
     def __init__(self, ann_files: Sequence[str], image_root: str, transform: Callable,
-                 answer_list: Optional[str] = None, max_ques_words: int = 30):
+                 answer_list: Optional[str] = None, max_ques_words: int = 30,
+                 split: str = "test"):
+        if split not in ("test", "train"):
+            raise ValueError(f"unknown split {split!r}; use 'test' or 'train'")
         self.ann: List[dict] = []
         for f in ann_files:
             with open(f) as fh:
@@ -38,6 +44,7 @@ class VQADataset:
         self.image_root = image_root
         self.transform = transform
         self.max_ques_words = max_ques_words
+        self.split = split
         self.answer_list: List[str] = []
         if answer_list:
             with open(answer_list) as fh:
@@ -71,6 +78,9 @@ class VQADataset:
             "qid": ann.get("question_id"),
             "pixels": self._load_pixels(ann["image"]),
         }
+        for key in ("answer_labels", "answer_scores"):
+            if key in ann:
+                item[key] = ann[key]
         # answer-frequency weights (vqa_dataset.py:44-66): each occurrence
         # adds 1/len(answers), so a question's weights sum to 1
         raw = ann.get("answer", [])
@@ -82,7 +92,10 @@ class VQADataset:
             else:
                 answers.append(a)
                 weights.append(1 / len(raw))
-        if answers:
+        if self.split == "train":
+            item["answers"] = [a + "[SEP]" for a in answers]
+            item["weights"] = weights
+        elif answers:  # test answers carry no eos (vqa_dataset.py:64-67)
             item["answers"] = answers
             item["weights"] = weights
         return item

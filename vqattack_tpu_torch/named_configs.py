@@ -6,9 +6,8 @@ is configured by one base ``@ex.config`` (``VLMO_VQAttack/vlmo/config.py:21-91``
 and ~25 ``@ex.named_config`` presets composed left to right on the command
 line (``python run.py with task_finetune_vqa_base_image480``).  The key
 space is kept verbatim as dict deltas, and :func:`vlmo_config_from_named`
-bridges a resolved dict into the port's :class:`~vqattack_tpu_torch.config.VLMoConfig`.
-The training settings (``train_settings_from_named``) wait for the
-training slice.
+bridges a resolved dict into the port's :class:`~vqattack_tpu_torch.config.VLMoConfig`,
+:func:`train_settings_from_named` into the training CLI's settings.
 """
 
 from __future__ import annotations
@@ -321,3 +320,24 @@ def vlmo_config_from_named(named: Dict[str, object]):
         drop_path_rate=float(named["drop_path_rate"]),
     )
     return VLMoConfig(**kw)
+
+
+def train_settings_from_named(named: Dict[str, object]) -> Dict[str, object]:
+    """The optimizer/schedule/data knobs the training CLI consumes."""
+    return dict(
+        datasets=list(named["datasets"]),
+        loss_names=dict(named["loss_names"]),
+        batch_size=int(named["batch_size"]),
+        learning_rate=float(named["learning_rate"]),
+        weight_decay=float(named["weight_decay"]),
+        decay_power=named["decay_power"],
+        max_epoch=named["max_epoch"],
+        max_steps=named["max_steps"],
+        warmup_steps=named["warmup_steps"],
+        end_lr=float(named["end_lr"]),
+        lr_mult=float(named["lr_mult"]),
+        whole_word_masking=bool(named["whole_word_masking"]),
+        mlm_prob=float(named["mlm_prob"]),
+        get_recall_metric=bool(named["get_recall_metric"]),
+        k_test=int(named["k_test"]),
+    )

@@ -47,12 +47,12 @@ SIGNATURES = {
     # head dim); q/k/v (b, s, h), bias (b, h, q, k) and key bias (b) element
     # strides; scale; stream
     "vq_flash_attention_fwd": (_P,) * 7 + (_I,) * 5 + (_LL,) * 14 + (_F, _P),
-    # q, k, v, bias, key bias, o, lse, dout, dq, dk, dv, delta; then as the
-    # forward
-    "vq_flash_attention_bwd": (_P,) * 12 + (_I,) * 5 + (_LL,) * 14 + (_F, _P),
-    # the bfloat16 instances (flash_attention_bf16.cu): the same arguments,
-    # q/k/v, o, dout, dq, dk, dv bfloat16 (the width 40 at head dim 34,
-    # padded), the rest as above
+    # q, k, v, bias, key bias, o, lse, dout, dq, dk, dv, delta, dbias (dS,
+    # or null); then as the forward
+    "vq_flash_attention_bwd": (_P,) * 13 + (_I,) * 5 + (_LL,) * 14 + (_F, _P),
+    # the bfloat16 instances (flash_attention_bf16.cu): the same arguments
+    # but dbias, q/k/v, o, dout, dq, dk, dv bfloat16 (the width 40 at head
+    # dim 34, padded), the rest as above
     "vq_flash_attention_bf16_fwd": (_P,) * 7 + (_I,) * 5 + (_LL,) * 14 + (_F, _P),
     "vq_flash_attention_bf16_bwd": (_P,) * 12 + (_I,) * 5 + (_LL,) * 14 + (_F, _P),
 }

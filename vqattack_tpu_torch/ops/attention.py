@@ -28,6 +28,13 @@ in place, as views of the model's projections, like those at 64; bf16 ones
 are copied into zero-padded 40-wide rows first (:func:`kernel_width`), whose
 outputs come back sliced to 34: the zero columns change no product.
 
+The float32 kernels also give the bias its gradient (dbias, the library
+backward's ``dab``): where the bias needs one, as VLMo's relative-position
+table does in training, the dQ kernel writes dS, the gradient of the
+post-scale score, into a ``[B, H, Sq, Sk]`` buffer, and the wrapper sums it
+over the bias's broadcast dimensions, as XLA sums ``dab`` outside the
+library kernel.  The bfloat16 instance and the key bias take no gradient.
+
 q/k/v may be float32 or bfloat16 (the three alike; the surrogate trunk's
 compute dtype).  The bfloat16 instance (``csrc/flash_attention_bf16.cu``)
 multiplies bf16 operands once with float32 accumulation and returns O and
@@ -136,25 +143,35 @@ def flash_attention_reference(q, k, v, bias, scale, return_lse: bool = False,
     return out
 
 
-def flash_attention_bwd_reference(q, k, v, bias, scale, o, lse, do, key_bias=None):
+def flash_attention_bwd_reference(q, k, v, bias, scale, o, lse, do, key_bias=None,
+                                  dbias: bool = False):
     """The kernel's backward in plain PyTorch: ``(dq, dk, dv)`` from the
     forward output ``o``, its log-sum-exp ``lse`` and the output gradient
     ``do``, with ``P = exp(S - lse)`` recomputed (both additive terms) and
-    ``D = rowsum(do * o)``.  For bf16 q/k/v everything is float32 from the
-    bf16 inputs but P and dS, rounded to bf16 as the kernel (and the library
-    kernel) hands them to the next product, and the gradients come back
-    bf16; scale is applied after dS's rounding, as the kernel applies it
-    (the same bits as before it for a power of two, 1/8 at head dim 64; at
-    head dim 34 the two orders differ by a rounding)."""
+    ``D = rowsum(do * o)``.  With ``dbias`` also the bias's gradient, dS
+    summed over the bias's broadcast dimensions, in the bias's shape, as a
+    fourth output (for bf16 q/k/v dS before its rounding).  For bf16 q/k/v
+    everything is float32 from the bf16 inputs but P and dS, rounded to
+    bf16 as the kernel (and the library kernel) hands them to the next
+    product, and the gradients come back bf16; scale is applied after dS's
+    rounding, as the kernel applies it (the same bits as before it for a
+    power of two, 1/8 at head dim 64; at head dim 34 the two orders differ
+    by a rounding)."""
     qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
     p = torch.exp(_scores(qf, kf, bias, scale, key_bias) - lse[..., None])
     d = (dof * of).sum(-1).transpose(1, 2)  # [B, H, Sq]
     dv = torch.einsum("bhqk,bqhd->bkhd", _round(p, q), dof)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
-    ds = _round(p * (dp - d[..., None]), q)
+    ds_f = p * (dp - d[..., None])
+    ds = _round(ds_f, q)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
-    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+    grads = dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+    if dbias:
+        if bias is None:
+            raise ValueError("flash_attention_bwd_reference: dbias without a bias")
+        return grads + (ds_f.sum_to_size(bias.shape),)
+    return grads
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -202,8 +219,20 @@ def pad_heads(t: torch.Tensor, width: int) -> torch.Tensor:
     return t if t.shape[-1] == width else torch.nn.functional.pad(t, (0, width - t.shape[-1]))
 
 
+def check_gradients(dtype: torch.dtype, bias, key_bias) -> None:
+    """Raise on a term whose gradient no kernel gives: a bias that needs
+    one with other than float32 q/k/v (the bf16 instance has no dbias), or
+    a key bias that needs one."""
+    if bias is not None and bias.requires_grad and dtype != torch.float32:
+        raise ValueError(f"flash_attention kernel: a bias that needs a gradient takes float32 "
+                         f"q/k/v; the {dtype} instance has no dbias (not ported yet)")
+    if key_bias is not None and key_bias.requires_grad:
+        raise ValueError("flash_attention kernel: the key bias has no gradient")
+
+
 def _check_inputs(q, k, v, bias, key_bias=None) -> Tuple[int, int, int, int]:
     """``(B, H, Sq, Sk)`` after checking what the kernel takes."""
+    check_gradients(q.dtype, bias, key_bias)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"flash_attention kernel: {name} on {t.device}, expected cuda")
@@ -238,8 +267,6 @@ def _check_inputs(q, k, v, bias, key_bias=None) -> Tuple[int, int, int, int]:
         if bias.device != q.device or bias.dtype != torch.float32:
             raise TypeError(f"flash_attention kernel: bias {bias.dtype} on {bias.device}; "
                             f"takes float32 on {q.device}")
-        if bias.requires_grad:
-            raise ValueError("flash_attention kernel: the bias has no gradient (no dbias)")
         if bias.dim() != 4 or any(n not in (1, full) for n, full in
                                   zip(bias.shape, (b, h, sq, sk))) or bias.shape[3] != sk:
             raise ValueError(f"flash_attention kernel: bias {tuple(bias.shape)} does not "
@@ -248,8 +275,6 @@ def _check_inputs(q, k, v, bias, key_bias=None) -> Tuple[int, int, int, int]:
         if key_bias.device != q.device or key_bias.dtype != torch.float32:
             raise TypeError(f"flash_attention kernel: key_bias {key_bias.dtype} on "
                             f"{key_bias.device}; takes float32 on {q.device}")
-        if key_bias.requires_grad:
-            raise ValueError("flash_attention kernel: the key bias has no gradient")
         kb = _key_bias_2d(key_bias)
         if kb.dim() != 2 or kb.shape[0] not in (1, b) or kb.shape[1] != sk:
             raise ValueError(f"flash_attention kernel: key_bias {tuple(key_bias.shape)} is "
@@ -297,9 +322,11 @@ def _launch_fwd(q, k, v, bias, scale, key_bias, dims, head_dim):
     return out, lse
 
 
-def _launch_bwd(q, k, v, bias, scale, o, lse, do, key_bias, dims, head_dim):
+def _launch_bwd(q, k, v, bias, scale, o, lse, do, key_bias, dims, head_dim, dbias=False):
     """The backward kernels on tensors of the kernel's row width, as
-    :func:`_launch_fwd` takes them: ``(dq, dk, dv)`` as wide."""
+    :func:`_launch_fwd` takes them: ``(dq, dk, dv)`` as wide, and with
+    ``dbias`` (float32, a bias given) also dS as a ``[B, H, Sq, Sk]``
+    float32 tensor."""
     b, h, sq, sk = dims
     width = q.shape[-1]
     do = do.contiguous()
@@ -316,16 +343,23 @@ def _launch_bwd(q, k, v, bias, scale, o, lse, do, key_bias, dims, head_dim):
     dk = torch.empty((b, sk, h, width), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    if dbias and (bias is None or q.dtype != torch.float32):
+        raise ValueError(f"flash_attention_bwd: dbias takes a bias and float32 q/k/v "
+                         f"(bias {'absent' if bias is None else 'given'}, q {q.dtype})")
+    ds = torch.empty((b, h, sq, sk), dtype=torch.float32, device=q.device) if dbias else None
+    # the float32 entry point takes dS's pointer (null: no dbias), the bf16 one none
+    ds_arg = () if q.dtype == torch.bfloat16 else (None if ds is None else ds.data_ptr(),)
     lib = _build.load()
     with torch.cuda.device(q.device):
         status = getattr(lib, _ENTRY_POINTS[q.dtype] + "bwd")(
             *ptrs, o.data_ptr(), lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), *sizes, scale,
+            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), *ds_arg, *sizes, scale,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(status, "flash_attention_bwd")
-    _build.count_launch(flash_attention_bwd, *_counts(q.dtype, key_bias, head_dim))
-    return dq, dk, dv
+    _build.count_launch(flash_attention_bwd, *_counts(q.dtype, key_bias, head_dim),
+                        *(("dbias_launches",) if dbias else ()))
+    return (dq, dk, dv) if ds is None else (dq, dk, dv, ds)
 
 
 def _checked_and_padded(q, k, v, bias, key_bias):
@@ -344,16 +378,21 @@ def flash_attention_fwd(q, k, v, bias, scale: float, key_bias=None):
     return o[..., :dh], lse
 
 
-def flash_attention_bwd(q, k, v, bias, scale: float, o, lse, do, key_bias=None):
+def flash_attention_bwd(q, k, v, bias, scale: float, o, lse, do, key_bias=None,
+                        dbias: bool = False):
     """Backward kernels (the D pass, dK/dV over key tiles, dQ over query
     tiles): ``(dq, dk, dv)`` in the shapes and dtype of ``q``, ``k``, ``v``
     (views of padded outputs where q was padded, else contiguous); ``o``
-    and ``do`` in that dtype, ``lse`` float32.  The same bit for bit on
-    every run: no atomics."""
+    and ``do`` in that dtype, ``lse`` float32.  With ``dbias`` (float32
+    q/k/v and a bias) the dQ kernel's dbias instance runs and the bias's
+    gradient, dS summed over the bias's broadcast dimensions, comes back
+    fourth, in the bias's shape.  The same bit for bit on every run: no
+    atomics."""
     dims, dh, width, qkv = _checked_and_padded(q, k, v, bias, key_bias)
     grads = _launch_bwd(*qkv, bias, scale, pad_heads(o, width), lse, pad_heads(do, width),
-                        key_bias, dims, dh)
-    return tuple(g[..., :dh] for g in grads)
+                        key_bias, dims, dh, dbias)
+    out = tuple(g[..., :dh] for g in grads[:3])
+    return out + (grads[3].sum_to_size(bias.shape),) if dbias else out
 
 
 # the C entry points (``<prefix>fwd``, ``<prefix>bwd``) of each q/k/v dtype
@@ -373,18 +412,21 @@ def _counts(dtype, key_bias, head_dim):
 
 # calls of each entry point in this process: float32 (``launches``) and
 # bfloat16 (``bf16_launches``) instances, and those of each with a key bias
-# and at head dim 34 (plain counts for chip_smoke.py)
+# and at head dim 34; the backward's with dbias also apart (plain counts for
+# chip_smoke.py)
 for _fn in (flash_attention_fwd, flash_attention_bwd):
     for _name in ("launches", "key_bias_launches", "hd34_launches", "bf16_launches",
                   "bf16_key_bias_launches", "bf16_hd34_launches"):
         setattr(_fn, _name, 0)
+flash_attention_bwd.dbias_launches = 0
 
 
 class _FlashAttentionFn(torch.autograd.Function):
     """The kernel pair as one differentiable op (the library kernel's VJP).
     Where q is padded for its kernel (bf16 at head dim 34) the padded q, k,
     v and o are saved, so that the backward pads only the output's
-    gradient."""
+    gradient.  A bias that needs a gradient gets it from the dbias
+    instance; the key bias gets none."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale, key_bias):
@@ -397,10 +439,11 @@ class _FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, bias, o, lse, key_bias = ctx.saved_tensors
+        need_dbias = ctx.needs_input_grad[3]
         grads = _launch_bwd(q, k, v, bias, ctx.scale, o, lse, pad_heads(do, q.shape[-1]),
-                            key_bias, ctx.dims, ctx.dh)
-        dq, dk, dv = (g[..., :ctx.dh] for g in grads)
-        return dq, dk, dv, None, None, None
+                            key_bias, ctx.dims, ctx.dh, need_dbias)
+        dq, dk, dv = (g[..., :ctx.dh] for g in grads[:3])
+        return dq, dk, dv, grads[3].sum_to_size(bias.shape) if need_dbias else None, None, None
 
 
 def flash_attention(
@@ -414,8 +457,9 @@ def flash_attention(
     """``softmax((q k^T) * scale + bias + key_bias) v`` as ``[B, Sq, H, Dh]``.
 
     A CUDA tensor runs the kernels (float32 or bfloat16 q/k/v, ``Dh`` 34 or
-    64, float32 bias and key bias without gradient; anything else raises);
-    a CPU tensor runs the plain version."""
+    64, a float32 bias, with a gradient for float32 q/k/v only, and a
+    float32 key bias without gradient; anything else raises); a CPU tensor
+    runs the plain version."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, bias, scale, key_bias=key_bias)
     if q.device.type != "cuda":

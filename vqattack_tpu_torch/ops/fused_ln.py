@@ -202,18 +202,21 @@ def residual_layernorm_bwd(s, gs, gh, gamma, eps: float = 1e-6, param_grads: boo
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(status, "residual_layernorm_bwd")
-    _build.count_launch(residual_layernorm_bwd, _COUNTS[s.dtype])
+    _build.count_launch(residual_layernorm_bwd, _COUNTS[s.dtype],
+                        *(("param_grads_launches",) if param_grads else ()))
     if dgdb is None:
         return dx, None, None
     return dx, dgdb[0], dgdb[1]
 
 
 # launches of each kernel in this process, on a float32 and on a bfloat16
-# stream (plain counts for chip_smoke.py)
+# stream, and the backward's with parameter gradients (a LayerNorm that
+# trains) also apart (plain counts for chip_smoke.py)
 _COUNTS = {torch.float32: "launches", torch.bfloat16: "bf16_launches"}
 for _fn in (residual_layernorm_fwd, residual_layernorm_bwd):
     _fn.launches = 0
     _fn.bf16_launches = 0
+residual_layernorm_bwd.param_grads_launches = 0
 
 
 class _ResidualLayerNormFn(torch.autograd.Function):

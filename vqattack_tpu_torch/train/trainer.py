@@ -1,0 +1,59 @@
+"""The training state and one optimizer step.
+
+Port of ``vqattack_tpu/train/trainer.py``.  The JAX step is one jitted
+function of (state, batch, key) that returns a new state; here the state
+holds the module, whose parameters :func:`make_train_step`'s step updates
+in place (``train/optim.py``), the optimizer state and the step count.
+Gradients are taken with ``torch.autograd.grad`` over every parameter, as
+``jax.value_and_grad`` takes them over the whole tree: a parameter the loss
+does not reach gets a zero gradient, which still counts in ``grad_norm``
+and still moves its moments and its weight decay.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from vqattack_tpu_torch.train.optim import Optimizer, global_norm, named_params
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    model: nn.Module
+    opt_state: Dict[str, Any]
+
+
+def create_train_state(model: nn.Module, tx: Optimizer) -> TrainState:
+    return TrainState(0, model, tx.init(named_params(model)))
+
+
+LossFn = Callable[[nn.Module, Dict[str, torch.Tensor], Optional[torch.Generator]],
+                  Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+
+
+def make_train_step(loss_fn: LossFn, tx: Optimizer, needs_hessian: bool = False):
+    """``loss_fn(model, batch, generator) -> (loss, metrics)`` -> a step
+    ``(state, batch, generator) -> (state, metrics)``; ``metrics`` gains
+    ``grad_norm``, the global norm of the gradients before any clipping
+    (``optax.global_norm``)."""
+    if needs_hessian:
+        raise NotImplementedError("second-order optimizers (adahessian) are not ported yet")
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None):
+        params = named_params(state.model)
+        loss, metrics = loss_fn(state.model, batch, generator)
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        grads = {n: torch.zeros_like(p) if g is None else g
+                 for (n, p), g in zip(params.items(), grads)}
+        opt_state = tx.step(params, grads, state.opt_state)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = global_norm(grads.values())
+        return TrainState(state.step + 1, state.model, opt_state), metrics
+
+    return step
