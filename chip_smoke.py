@@ -95,6 +95,25 @@ flash``); the batched path (11 samples, ``--batch-size 8 --attn flash
 --pipeline-depth 2``) in float32 and ``--dtype bfloat16``; the batch-16
 flash/xla step in both dtypes.
 
+The transfer slice adds: in the masked-row phases, the kernels' masked row
+against autograd of the explicit float32 softmax (the forward saves the
+row maximum and the log of its sum apart wherever a term is given); after
+the VLMo-base+ phases, ViLT-B/32 (``vilt_base_config``: one shared FFN a
+block, 145 image tokens at 384 px + 40 text tokens): K3 at [B, 185, 12, 64]
+with the padded-text key bias alone, B = 4 and 16, both dtypes, forward
+and backward against the plain versions and timed at 16 beside
+``scaled_dot_product_attention`` (the ``_vilt`` rows), then the batched
+ViLT attack at ``--batch-size 16 --attn flash`` (19 samples: buckets of 16
+and 3 padded to 4) in float32 and bf16; after the checkpoint path,
+``transfer_eval`` over the batched ALBEF phase's artifacts against four
+victims from full-width synthetic files at 480 px: ALBEF-VQA, BLIP-VQA
+(``blip_vqa_config``) and VLMo-VQA through the CLI's ``--victim-ckpt``,
+ViLT through ``checkpoint/io.py::load_vilt``; each run's launches against
+its victim forwards, its answers against the same pipeline's under
+``--attn xla``; then ``Predictor.answer`` with the ALBEF and the ViLT
+victim; a ``transfer`` JSON line (seconds and flip rate a victim, the ViLT
+cells, the masked row's errors).
+
 The bf16 trunk (``--dtype bfloat16``) adds, after the float32 phases of each
 surrogate: K2 on a bf16 stream (phase 3, beside float32) and K3's bf16
 instance against its plain versions and the float32 computation (ALBEF's
@@ -601,7 +620,7 @@ def time_flash_attention(gen, errs, b):
     do_t = do.transpose(1, 2)
     unit = b * HEADS * s * s * HEAD_DIM
     row = b * s * HEADS * HEAD_DIM * 4  # bytes of one [B, S, H, 64] float32 tensor
-    lse_bytes = b * HEADS * s * 4
+    lse_bytes = 2 * b * HEADS * s * 4  # m and log l
     long_sleep = 20_000_000  # the plain versions enqueue for several ms
     fwd_b, fwd_by = tensor_core_bound_ms(4 * row + lse_bytes, 4 * unit)
     bwd_b, bwd_by = tensor_core_bound_ms(8 * row + lse_bytes, 10 * unit)
@@ -748,7 +767,7 @@ def time_flash_attention_bf16(q, k, v, table, key_bias, errs):
     do_t = do.transpose(1, 2)
     unit = b * HEADS * s * s * HEAD_DIM
     row = b * s * HEADS * HEAD_DIM * 2  # bytes of one [B, S, H, 64] bf16 tensor
-    lse_bytes = b * HEADS * s * 4
+    lse_bytes = 2 * b * HEADS * s * 4  # m and log l
     terms = 0 if table is None else (table.numel() + key_bias.numel()) * 4
     long_sleep = 20_000_000
     fwd_b, fwd_by = bound_ms(4 * row + lse_bytes + terms, 4 * unit, BF16_FLOPS)
@@ -912,7 +931,7 @@ def write_assets(tmp: str) -> dict:
         f.write("\n".join(toks[:30522]) + "\n")
     answers = ["red", "blue", "green", "frisbee", "ball", "dog", "cat", "hat", "two", "yes"]
     answers += [f"tok{i}" for i in range(1000, 1000 + 3129 - len(answers))]
-    everything = SAMPLES + BATCH_SAMPLES + VLMO_SAMPLES + VLMO_BATCH_SAMPLES
+    everything = SAMPLES + BATCH_SAMPLES + VLMO_SAMPLES + VLMO_BATCH_SAMPLES + VILT_BATCH_SAMPLES
     tables = {
         "answers": answers,
         "id2answer": {str(i): a for i, a in enumerate(answers)},
@@ -1091,7 +1110,7 @@ def run_main_path(pipe, cfg, tokenizer, paths, answer_max_len, samples=SAMPLES):
 
 
 def run_batched_path(engine, cfg, paths, args, sample_list, pixel_base, size, victim,
-                     implied, victim_dtype="float32"):
+                     implied, victim_dtype="float32", chunks=(8, 4)):
     """The lockstep sweep over ``sample_list`` as ``run.py`` flushes a
     buffer (``engine.run``, then ``victim(results) -> top-1 answers`` in
     chunks of 16), with the phase timer on (the engine prints its
@@ -1099,7 +1118,7 @@ def run_batched_path(engine, cfg, paths, args, sample_list, pixel_base, size, vi
     with the launch counts reset just before and read just after.
     ``implied(cfg, fwd, bwd, k1, flash, dtype)`` gives the launches a
     schedule implies: the surrogate's in ``cfg.compute_dtype``, the
-    victim's in ``victim_dtype``."""
+    victim's in ``victim_dtype``; the engine must cut ``chunks``."""
     side = SideTables.load([paths["right"]], [paths["sur"]], [paths["tgt"]],
                            [paths["para"]], [paths["allc"]])
     samples = []
@@ -1131,7 +1150,7 @@ def run_batched_path(engine, cfg, paths, args, sample_list, pixel_base, size, vi
 
     require([r.qid for r in results] == [str(q) for q, *_ in sample_list],
             "results not in qid order")
-    require(engine.last_chunk_sizes == [8, 4], f"chunks {engine.last_chunk_sizes}")
+    require(engine.last_chunk_sizes == list(chunks), f"chunks {engine.last_chunk_sizes}")
     expected = implied(cfg, n_victim, 0, 0, True, victim_dtype)
     for old_alg, extra in ((0, len(mixed_calls)), (1, 0)):
         # one chunk per bucket: its real rows share one schedule
@@ -1334,7 +1353,7 @@ def time_flash_attention_key_bias(pipe, tokenizer, gen, errs):
     unit = b * HEADS * s * s * HEAD_DIM
     row = b * s * HEADS * HEAD_DIM * 4
     terms = table.numel() * 4 + key_bias.numel() * 4
-    lse_bytes = b * HEADS * s * 4
+    lse_bytes = 2 * b * HEADS * s * 4  # m and log l
     long_sleep = 20_000_000
     fwd_b, fwd_by = tensor_core_bound_ms(4 * row + lse_bytes + terms, 4 * unit)
     bwd_b, bwd_by = tensor_core_bound_ms(8 * row + lse_bytes + terms, 10 * unit)
@@ -1655,7 +1674,7 @@ def time_flash_attention_hd34(q, k, v, key_bias, errs):
     do_t = do.transpose(1, 2)
     unit = b * h * s * s * dh
     row = b * s * h * dh * q.element_size()
-    small = b * h * s * 4 + key_bias.numel() * 4  # lse, key bias
+    small = 2 * b * h * s * 4 + key_bias.numel() * 4  # m and log l, key bias
     if dtype == BF16:
         fwd_b, fwd_by = bound_ms(4 * row + small, 4 * unit, BF16_FLOPS)
         bwd_b, bwd_by = bound_ms(8 * row + small, 10 * unit, BF16_FLOPS)
@@ -2591,13 +2610,405 @@ def checkpoint_path(common, v_common, tmp):
     return launches, a_loads + v_loads, {"albef_s": a_s, "vlmo_s": v_s}
 
 
+# ---------------------------------------------------------------------------
+# ViLT-B/32 (config.vilt_base_config: one shared FFN a block, 145 image
+# tokens at 384 px + 40 text tokens) and the black-box transfer evaluation
+# (transfer_eval.py, predict.py) against four victims
+# ---------------------------------------------------------------------------
+
+# the batched ViLT attack at batch 16: the 8 MAR questions twice (one
+# (old_alg, k) bucket of 16) and the 3 feature-only ones (a bucket of 3,
+# padded to 4); VLMo's raw '?' kept
+VILT_BATCH = 16
+VILT_BATCH_SAMPLES = ([(q + 12000, question + "?", a, p) for q, question, a, p in BATCH_SAMPLES[:8]]
+                      + [(q + 14000, question + "?", a, p) for q, question, a, p in BATCH_SAMPLES[:8]]
+                      + [(q + 12000, question + "?", a, p) for q, question, a, p in BATCH_SAMPLES[8:]])
+VILT_TOKENS = 185
+
+
+def write_run_config(tmp, name, **parts):
+    """A RunConfig json in ``tmp``: the VLMo attack preset with ``parts``
+    (``albef=``, ``vlmo=``) replaced; returns its path."""
+    from vqattack_tpu_torch import config as cfg_mod
+
+    path = os.path.join(tmp, f"{name}.json")
+    cfg_mod.save_config(dataclasses.replace(cfg_mod.vlmo_attack_config(), **parts), path)
+    return path
+
+
+def vilt_config_path(tmp, image_size=384):
+    from vqattack_tpu_torch import config as cfg_mod
+
+    vilt = dataclasses.replace(cfg_mod.vilt_base_config(image_size), remat=True)
+    return write_run_config(tmp, f"vilt{image_size}", vlmo=vilt)
+
+
+def time_flash_attention_vilt(q, k, v, key_bias, errs, dtype):
+    """Device times at ViLT's [16, 185, 12, 64] with the padded-text key
+    bias alone (a ragged second key tile of 57): the kernel of ``dtype``,
+    its plain versions and ``scaled_dot_product_attention`` with the key
+    bias as a [16, 1, 1, 185] mask (forward; backward through autograd).
+    The bound: the larger of q, k, v, o (and dO, dq, dk, dv) with the saved
+    m and log l and the key bias, over the card's memory rate, and 4 (10)
+    x B*H*S^2*Dh over the tensor cores (float32 in three TF32 passes)."""
+    b, s = q.shape[:2]
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    o, lse = attention.flash_attention_fwd(q, k, v, None, SCALE, key_bias)
+    do = torch.randn(o.shape, generator=torch.Generator("cuda").manual_seed(3),
+                     device="cuda").to(dtype)
+    mask = key_bias[:, None, None, :].to(dtype)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                                scale=SCALE)
+    do_t = do.transpose(1, 2)
+    unit = b * HEADS * s * s * HEAD_DIM
+    row = b * s * HEADS * HEAD_DIM * q.element_size()
+    small = 2 * b * HEADS * s * 4 + key_bias.numel() * 4  # m and log l, the key bias
+    if dtype == BF16:
+        fwd_b, fwd_by = bound_ms(4 * row + small, 4 * unit, BF16_FLOPS)
+        bwd_b, bwd_by = bound_ms(8 * row + small, 10 * unit, BF16_FLOPS)
+    else:
+        fwd_b, fwd_by = tensor_core_bound_ms(4 * row + small, 4 * unit)
+        bwd_b, bwd_by = tensor_core_bound_ms(8 * row + small, 10 * unit)
+    tag = "_bf16" if dtype == BF16 else ""
+    long_sleep = 20_000_000
+    common = {"route": "cuda", "replaces": "vqattack_tpu/ops/attention.py:134",
+              "source": f"vqattack_tpu_torch/csrc/flash_attention{tag}.cu",
+              "shape": [b, s, HEADS, HEAD_DIM], "dtype": str(dtype).split(".")[-1]}
+    fwd = dict(common, **{
+        "name": f"flash_attention{tag}_fwd_vilt", "max_abs_err": errs["o"],
+        "ms": time_ms(lambda: attention.flash_attention_fwd(q, k, v, None, SCALE, key_bias), 20),
+        "plain_ms": time_ms(lambda: attention.flash_attention_reference(
+            q, k, v, None, SCALE, key_bias=key_bias), 20, long_sleep),
+        "bound_ms": fwd_b, "bound_by": fwd_by,
+        "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=SCALE), 20),
+    })
+    bwd = dict(common, **{
+        "name": f"flash_attention{tag}_bwd_vilt",
+        "max_abs_err": max(errs["dq"], errs["dk"], errs["dv"]),
+        "ms": time_ms(lambda: attention.flash_attention_bwd(
+            q, k, v, None, SCALE, o, lse, do, key_bias), 20),
+        "plain_ms": time_ms(lambda: attention.flash_attention_bwd_reference(
+            q, k, v, None, SCALE, o, lse, do, key_bias), 20, long_sleep),
+        "bound_ms": bwd_b, "bound_by": bwd_by,
+        "library_ms": time_ms(lambda: torch.autograd.grad(
+            sdpa_out, (qt, kt, vt), do_t, retain_graph=True), 20),
+    })
+    for r in (fwd, bwd):
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        require(r["bound_share"] <= 1.0, f"{r['name']}: {r['ms']} ms is under its bound "
+                                         f"{r['bound_ms']} ms: the timing or the bound is wrong")
+        print(f"  {r['name']} {r['shape']} {r['dtype']}: {r['ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.4f} ms, scaled_dot_product_attention with the key mask "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}: "
+              f"{100 * r['bound_share']:.1f}%)", flush=True)
+    del sdpa_out
+    return fwd, bwd
+
+
+def check_flash_attention_vilt(pipe, tokenizer, gen):
+    """K3 at the shapes the ViLT path gives it, both dtypes, forward and
+    backward against the plain versions: [B, 185, 12, 64] with the padded
+    text keys of B real questions as the key bias alone, B = 4 (the bucket
+    of 3 padded to 4) and 16 (the batched chunk and the victim's batch);
+    then the times at 16."""
+    rows, errs = [], {}
+    for b in (4, VILT_BATCH):
+        q, k, v = _qkv(gen, b, VILT_TOKENS)
+        kb = _text_key_bias(pipe, tokenizer, b, VILT_TOKENS)
+        errs[torch.float32] = _check_two_term_case(q, k, v, None, kb, f"ViLT, batch {b}")
+        errs[BF16] = _check_bf16_attention(*(t.to(BF16) for t in (q, k, v)), None, kb,
+                                           f"ViLT key bias, batch {b}")
+    for dtype in (torch.float32, BF16):
+        rows += time_flash_attention_vilt(q, k, v, kb, errs[dtype], dtype)
+    return rows
+
+
+def run_vilt_batched_path(pipe, cfg, paths, args):
+    """VILT_BATCH_SAMPLES through ``BatchedVlmoAttack`` over the ViLT
+    surrogate at ``--batch-size 16``, its classifier as the victim."""
+
+    def victim(chunk):
+        out = pipe.evaluate_victim_batch([r.adv_image for r in chunk],
+                                         [r.adv_text for r in chunk])
+        require(len(out) == len(chunk) and all(a == pipe.id2answer[p] for p, a in out),
+                "ViLT victim output")
+        return [a for _, a in out]
+
+    res = run_batched_path(batched.BatchedVlmoAttack(pipe), cfg, paths, args,
+                           VILT_BATCH_SAMPLES, 700, cfg.vlmo.image_size, victim,
+                           vlmo_implied_launches, victim_dtype=cfg.compute_dtype,
+                           chunks=[VILT_BATCH, 4])
+    require(sorted({r.old_alg for r in res[0]}) == [0, 1], "both ViLT PGD paths must run")
+    return res
+
+
+@contextlib.contextmanager
+def recorded_predictions():
+    """Every (prediction, clean answer) that ``transfer_eval``'s
+    ``AttackAccuracy`` sees, in order."""
+    from vqattack_tpu_torch.eval import metrics
+
+    seen, update = [], metrics.AttackAccuracy.update
+
+    def recording(self, answer, clean):
+        seen.append(answer)
+        return update(self, answer, clean)
+
+    metrics.AttackAccuracy.update = recording
+    try:
+        yield seen
+    finally:
+        metrics.AttackAccuracy.update = update
+
+
+@contextlib.contextmanager
+def recorded_victim_outputs():
+    """What the victims compute, in call order, as float32: VLMo's and
+    ViLT's ``vqa_logits`` ([P, 3129]), and for ALBEF-VQA and BLIP-VQA the
+    first pass of ``rank_answer``, every listed answer's first-token
+    probability ([P, A]; the second pass re-ranks the top ``k`` of it)."""
+    from vqattack_tpu_torch.models import albef, vlmo
+
+    seen = []
+    rank, logits_of = albef.AlbefVQA.rank_answer, vlmo.VLMo.vqa_logits
+
+    def ranking(self, states, mask, answer_ids, answer_mask, k, pad_token_id=0):
+        first = self._decode_logits(answer_ids[:1, :1].expand(states.shape[0], 1), None,
+                                    states, mask)
+        seen.append(torch.softmax(first[:, 0].float(), -1)[:, answer_ids[:, 1]])
+        return rank(self, states, mask, answer_ids, answer_mask, k, pad_token_id)
+
+    def classifying(self, *a, **kw):
+        out = logits_of(self, *a, **kw)
+        seen.append(out.float())
+        return out
+
+    albef.AlbefVQA.rank_answer, vlmo.VLMo.vqa_logits = ranking, classifying
+    try:
+        yield seen
+    finally:
+        albef.AlbefVQA.rank_answer, vlmo.VLMo.vqa_logits = rank, logits_of
+
+
+def _victim_outputs_err(flash, xla, n, what):
+    """A victim's outputs under ``--attn flash`` against ``--attn xla`` on
+    the same pairs: within 1e-4 of the largest xla value (float32
+    reassociation over 12 blocks, as :func:`check_model_flash`), and the
+    ``n`` real pairs' rows apart by more than that tolerance, so that a
+    kernel error cannot hide behind outputs that do not depend on the
+    input.  Returns ``(err, largest, spread)``."""
+    require(len(flash) == len(xla) and len(flash) > 0
+            and all(a.shape == b.shape for a, b in zip(flash, xla)),
+            f"{what}: outputs {[tuple(a.shape) for a in flash]} under flash, "
+            f"{[tuple(b.shape) for b in xla]} under xla")
+    require(all(bool(torch.isfinite(a).all()) for a in flash), f"{what}: outputs not finite")
+    err = max(float((a - b).abs().max()) for a, b in zip(flash, xla))
+    largest = max(float(b.abs().max()) for b in xla)
+    spread = max(float((b[:n] - b[:1]).abs().max()) for b in xla)
+    tol = 1e-4 * largest
+    require(err <= tol, f"{what}: flash against xla max abs err {err} > {tol} (1e-4 of {largest})")
+    require(spread > tol, f"{what}: the pairs' outputs differ by {spread}, not more than {tol}")
+    return err, largest, spread
+
+
+@contextlib.contextmanager
+def recorded_k3_shapes():
+    """The ``(B, S)`` of every K3 forward launch that takes a key bias and
+    no table, as the path hands them to the kernel."""
+    seen, launch = set(), attention._launch_fwd
+
+    def recording(q, k, v, bias, scale, key_bias, dims, head_dim):
+        if bias is None and key_bias is not None:
+            seen.add((q.shape[0], q.shape[1]))
+        return launch(q, k, v, bias, scale, key_bias, dims, head_dim)
+
+    attention._launch_fwd = recording
+    try:
+        yield seen
+    finally:
+        attention._launch_fwd = launch
+
+
+def _transfer_victims(tmp, cfg_albef, cfg_vlmo):
+    """The four victims' synthetic full-width files in ``tmp`` (the
+    reference's names and envelopes) and their configs: ALBEF-VQA (a 384 px
+    file, its grid resized to 480), BLIP-VQA at 480 (``fusion_layer=0``, a
+    12-layer decoder; ``k_test`` the ALBEF victim's), VLMo-VQA at 480 and
+    ViLT-B/32 (a 384 px file, loaded at 480 through ``convert_vilt``, its
+    ``pos_embed`` resized from 145 to 226 positions)."""
+    from vqattack_tpu_torch import config as cfg_mod
+    from vqattack_tpu_torch.checkpoint import synthetic
+
+    blip = cfg_mod.blip_vqa_config(480)
+    vilt = cfg_mod.vilt_base_config()
+    files = {
+        "albef_vqa": ({"model": synthetic.albef_vqa_state_dict(cfg_albef, SEED + 5, 384)},
+                      "albef", None),
+        "blip_vqa": ({"model": synthetic.albef_vqa_state_dict(blip, SEED + 6, 480)}, "albef",
+                     write_run_config(tmp, "blip480", albef=blip)),
+        "vlmo_vqa": ({"state_dict": synthetic.vlmo_state_dict(
+            cfg_vlmo, SEED + 7, heads=synthetic.VLMO_VQA_HEADS)}, "vlmo", None),
+        "vilt": ({"state_dict": synthetic.vilt_state_dict(vilt, SEED + 8)}, "vlmo",
+                 vilt_config_path(tmp, 480)),
+    }
+    out = {}
+    for name, (ckpt, pipeline, config) in files.items():
+        path = os.path.join(tmp, f"{name}.pth")
+        torch.save(ckpt, path)
+        out[name] = (path, pipeline, config)
+    return out
+
+
+def transfer_path(tmp, paths, artifacts, tokenizer, cfg_albef, cfg_vlmo):
+    """``transfer_eval`` over ``artifacts`` (the ALBEF batched phase's, 480
+    px) against the four victims of :func:`_transfer_victims`, ``--attn
+    flash`` on the card: ALBEF-VQA, BLIP-VQA and VLMo-VQA through the CLI
+    with ``--victim-ckpt``, ViLT through ``checkpoint/io.py::load_vilt``
+    (no CLI flag loads a ViLT file) and the same replay.  Each run's counts
+    are reset just before and read just after and must equal what its
+    victim forwards imply; the same pipeline's replay under ``--attn xla``
+    must give the same answers and outputs within 1e-4 of their largest
+    value (:func:`_victim_outputs_err`).  K3 is held against its plain
+    versions at the ViLT victim's own shapes (key bias alone, 266 tokens
+    at 480 px).  Then ``Predictor.answer`` on the first pair with the
+    ALBEF and the ViLT victim.  Returns the ``transfer`` record."""
+    from vqattack_tpu_torch import transfer_eval
+    from vqattack_tpu_torch.checkpoint import io as ckpt_io
+    from vqattack_tpu_torch.predict import Predictor
+
+    t0 = time.perf_counter()
+    victims = _transfer_victims(tmp, cfg_albef, cfg_vlmo)
+    write_s = time.perf_counter() - t0
+    files = transfer_eval.artifact_files(artifacts)
+    n_chunks = -(-len(files) // transfer_eval.CHUNK)
+    record = {"artifacts": "the ALBEF batched path's (480 px)", "samples": len(files),
+              "write_s": round(write_s, 2), "victims": {}}
+    first = files[0]
+    first_px = np.ascontiguousarray(np.load(first).transpose(0, 3, 1, 2))
+    with open(os.path.join(artifacts, "adv_txt_dict.json")) as f:
+        first_text = json.load(f)[os.path.splitext(os.path.basename(first))[0]]
+    for name, (path, pipeline, config) in victims.items():
+        argv = ["--pipeline", pipeline, "--artifacts", artifacts, "--vocab", paths["vocab"],
+                "--surrogate-ans", paths["sur"], "--device", "cuda", "--attn", "flash"]
+        argv += (["--answer-list", paths["answers"]] if pipeline == "albef"
+                 else ["--id2answer", paths["id2answer"]])
+        argv += ["--config", config] if config else []
+        args = transfer_eval.build_argparser().parse_args(
+            argv + ([] if name == "vilt" else ["--victim-ckpt", path]))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with record_main() as rec, recorded_predictions() as preds, \
+                recorded_victim_outputs() as outs, recorded_k3_shapes() as shapes:
+            if name != "vilt":
+                reset_counts()
+                out = transfer_eval.main(argv + ["--victim-ckpt", path])
+                pipe = rec["pipe"]
+            else:
+                run_args = transfer_eval.pipeline_args(args)
+                cfg = port_run.resolve_config(run_args)
+                with attention.attention_impl("flash"):
+                    pipe = port_run._build_pipeline(run_args, cfg, tokenizer)
+                    ckpt_io.load_vilt(path, cfg.vlmo, into=pipe.victim)
+                    reset_counts()
+                    out = transfer_eval.replay(
+                        pipe, files, *transfer_eval.read_tables(args),
+                        *transfer_eval.answer_table(args, tokenizer, pipe.device))
+            torch.cuda.synchronize()
+            launched = counts()
+        seconds = time.perf_counter() - t1
+        cfg = port_run.resolve_config(transfer_eval.pipeline_args(args))
+        if pipeline == "albef":
+            require(cfg.albef.vit.fused_ln, f"{name}: the victim's ViT without K2")
+            expected = implied_launches(cfg, n_chunks, 0, 0, True)
+            positive = {"residual_layernorm_fwd", "flash_attention_fwd"}
+        else:
+            expected = vlmo_implied_launches(cfg, n_chunks, 0, 0, True)
+            positive = {"flash_attention_fwd", "flash_attention_fwd_key_bias"}
+        check_launches(launched, expected, positive, f"transfer to {name}")
+        require(out["samples"] == len(files) and len(preds) == len(files)
+                and 0.0 <= out["attack_accuracy"] <= 1.0, f"transfer to {name}: {out}")
+        answers = transfer_eval.answer_table(args, tokenizer, pipe.device)
+        with recorded_predictions() as plain, recorded_victim_outputs() as plain_outs, \
+                attention.attention_impl("xla"):
+            transfer_eval.replay(pipe, files, *transfer_eval.read_tables(args), *answers)
+        require(plain == preds, f"transfer to {name}: --attn xla answers {plain}, flash {preds}")
+        err, largest, spread = _victim_outputs_err(
+            outs, plain_outs, min(len(files), transfer_eval.CHUNK), f"transfer to {name}")
+        k3 = {}
+        if name == "vilt":
+            require(bool(shapes), "the ViLT victim launched no key-bias K3 forward")
+            gen = torch.Generator("cuda").manual_seed(14)
+            for b, seq in sorted(shapes):
+                k3[f"{b}x{seq}"] = _check_two_term_case(
+                    *_qkv(gen, b, seq), None, _text_key_bias(pipe, tokenizer, b, seq),
+                    f"the ViLT victim at 480 px, batch {b}")
+        if name in ("albef_vqa", "vilt"):
+            with attention.attention_impl("flash"):
+                ranked = Predictor(pipe, *answers).answer(first_px, first_text, topk=5)
+            probs = [p_ for _, p_ in ranked]
+            require(len(ranked) == 5 and ranked[0][0] == preds[0]
+                    and all(a >= b_ for a, b_ in zip(probs, probs[1:])) and 0 < probs[0] <= 1,
+                    f"Predictor.answer with the {name} victim: {ranked}")
+            print(f"  Predictor.answer ({name}) on {os.path.basename(first)} "
+                  f"{first_text!r}: {ranked}", flush=True)
+        record["victims"][name] = {"attack_accuracy": out["attack_accuracy"],
+                                   "distinct_answers": len(set(preds)),
+                                   "flash_xla_err": err, "largest": largest, "spread": spread,
+                                   "seconds": round(seconds, 2), "launches": {
+                                       k: n for k, n in launched.items() if n}}
+        if k3:
+            record["victims"][name]["k3_errs"] = k3
+        print(f"  transfer to {name}: {out['samples']} pairs, flip rate "
+              f"{out['attack_accuracy']:.3f}, {len(set(preds))} distinct answers, "
+              f"{seconds:.2f} s (build, load, replay), "
+              f"launches {record['victims'][name]['launches']}; --attn xla gives the same "
+              f"answers and outputs within {err:.3g} (largest {largest:.3g}, pairs apart by "
+              f"{spread:.3g})", flush=True)
+        del pipe, rec
+        torch.cuda.empty_cache()
+        os.remove(path)
+    return record
+
+
+def check_masked_row_truth(pipe, tokenizer, gen, dtype):
+    """The masked row of :func:`check_masked_rows` against autograd of the
+    explicit float32 softmax (the JAX einsum path's arithmetic, which
+    shares no statistics with the kernels): the row's output and dq, dk,
+    dv within 2e-5 (float32) or two bf16 ulps (bf16) of the largest true
+    value (at least 1).  With L = m + log l saved as one float32, the
+    kernels' gradients there were Sk times these."""
+    q, k, v, table, key_bias = _vlmo_qkv_terms(pipe, tokenizer, gen, 2)
+    key_bias[1] = -1e9
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    do = torch.randn(q.shape, generator=torch.Generator("cuda").manual_seed(4),
+                     device="cuda").to(dtype)
+    o, lse = attention.flash_attention_fwd(q, k, v, table, SCALE, key_bias)
+    grads = attention.flash_attention_bwd(q, k, v, table, SCALE, o, lse, do, key_bias)
+    xs = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    s = torch.einsum("bqhd,bkhd->bhqk", xs[0] * SCALE, xs[1]) + table
+    s = s + key_bias[:, None, None, :]
+    o_t = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), xs[2])
+    truth = (o_t.detach(), *torch.autograd.grad(o_t, xs, do.float()))
+    rel = 2e-5 if dtype == torch.float32 else 2 ** -6
+    errs = {}
+    for name, g, t in zip(("o", "dq", "dk", "dv"), (o, *grads), truth):
+        errs[name] = float((g[1].float() - t[1]).abs().max())
+        require(errs[name] <= rel * max(1.0, float(t.abs().max())),
+                f"masked row {name} against the softmax's autograd: {errs[name]}")
+    print(f"  masked row against autograd of the float32 softmax ({dtype}): "
+          + ", ".join(f"{k_} err {v_:.3g}" for k_, v_ in errs.items()), flush=True)
+    return errs
+
+
 def ptxas_summary(report):
     """One line a kernel of ptxas's report of a source (``-Xptxas -v``):
     registers at launch, spill stores and loads, and whether ptxas
-    serialized its wgmma instructions (C7515)."""
+    serialized its wgmma instructions (its warning's code, C7515 or C7511)."""
     if report is None:
         return ["  ptxas: no report (the library was built before this process)"]
-    found, name, spills, serialized = [], None, "", set()
+    found, name, spills, serialized = [], None, "", {}
 
     def short(mangled):
         # the kernel's name and its template arguments: bools and ints as
@@ -2614,9 +3025,9 @@ def ptxas_summary(report):
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = short(m.group(1))
-        m = re.search(r"C7515.*in the function '([^']+)'", line)
+        m = re.search(r"(C751\d).*in the function '([^']+)'", line)
         if m:
-            serialized.add(short(m.group(1)))
+            serialized[short(m.group(2))] = m.group(1)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
             spills = f"spill stores {m.group(1)} B, spill loads {m.group(2)} B"
@@ -2624,7 +3035,8 @@ def ptxas_summary(report):
         if m and name:
             found.append((name, f"{m.group(1)} registers at launch, {spills}"))
             name = None
-    return [f"  ptxas {k}: {v}" + (", wgmma serialized (C7515)" if k in serialized else "")
+    return [f"  ptxas {k}: {v}" + (f", wgmma serialized ({serialized[k]})" if k in serialized
+                                    else "")
             for k, v in found]
 
 
@@ -2715,6 +3127,9 @@ def main() -> int:
         require(n == b_expected[k], f"batched {k}: {n} launches, the schedules imply "
                                     f"{b_expected[k]}")
 
+    batched_out = os.path.join(tmp, "out_batched")  # the transfer phase replays these
+    save_artifacts(b_results, batched_out)
+
     with Phase("one gradient step at batch 16: --attn flash against --attn xla"):
         ab = one_step_ab(pipe, cfg, tokenizer, gen)
 
@@ -2779,8 +3194,10 @@ def main() -> int:
         kb_rows = check_flash_attention_key_bias(v_pipe, tokenizer, gen)
     with Phase("K3's bias gradient (dbias) against its plain version (VLMo training shapes)"):
         dbias_row = check_flash_attention_dbias(v_pipe, tokenizer, gen)
-    with Phase("K3 on a row masked whole by a finite -1e9 against its plain versions"):
+    with Phase("K3 on a row masked whole by a finite -1e9 against its plain versions and "
+               "autograd of the softmax"):
         check_masked_rows(v_pipe, tokenizer, gen, torch.float32)
+        masked32_truth = check_masked_row_truth(v_pipe, tokenizer, gen, torch.float32)
     with Phase("VLMo model: flash (two-term K3) against product + softmax"):
         check_vlmo_model_flash(v_pipe, tokenizer, gen)
 
@@ -2823,8 +3240,10 @@ def main() -> int:
             "the VLMo bf16 config and its float32 bias terms")
     with Phase("K3-bf16 with both terms against its plain versions (VLMo shapes)"):
         kb16_rows = check_flash_attention_bf16_key_bias(v_pipe16, tokenizer, gen)
-    with Phase("K3-bf16 on a row masked whole by a finite -1e9 against its plain versions"):
+    with Phase("K3-bf16 on a row masked whole by a finite -1e9 against its plain versions and "
+               "autograd of the softmax"):
         masked16 = check_masked_rows(v_pipe16, tokenizer, gen, BF16)
+        masked16_truth = check_masked_row_truth(v_pipe16, tokenizer, gen, BF16)
     with Phase("VLMo drift at full width: float32 against bf16, a MAR and a feature sample"):
         v_drift = drift_check((v_pipe, v_pipe16), (v_cfg, v_cfg16), VLMO_SAMPLES, True, "VLMo")
     del v_pipe
@@ -2903,6 +3322,45 @@ def main() -> int:
     del p_pipe16
     torch.cuda.empty_cache()
 
+    # ------------------------------------------ ViLT-B/32, --attn flash
+    vilt_common = v_common + ["--config", vilt_config_path(tmp)]
+    vilt_flags = ["--batch-size", str(VILT_BATCH), "--attn", "flash",
+                  "--pipeline-depth", str(PIPELINE_DEPTH)]
+    with Phase("ViLT-B/32 pipeline (random full-width weights)"):
+        _, t_cfg, t_pipe = build_pipelines(vilt_common, tokenizer)
+    tc = t_cfg.vlmo
+    require(not tc.moe and tc.image_size == 384 and tc.patch_size == 32 and tc.depth == 12
+            and tc.hidden_size == HEADS * HEAD_DIM and tc.num_heads == HEADS
+            and tc.image_seq_len + tc.max_text_len == VILT_TOKENS and tc.use_abs_pos_emb
+            and t_pipe._rel_biases is None and t_cfg.attack == v_cfg.attack
+            and not hasattr(t_pipe.model.blocks[0], "mlp_text"), "not the full-width ViLT config")
+    with Phase(f"K3 at ViLT's [B, {VILT_TOKENS}, 12, 64] with the key bias against its plain "
+               f"versions, both dtypes"):
+        vilt_rows = check_flash_attention_vilt(t_pipe, tokenizer, gen)
+    with Phase(f"ViLT batched path: {len(VILT_BATCH_SAMPLES)} samples, --batch-size "
+               f"{VILT_BATCH} --attn flash --pipeline-depth {PIPELINE_DEPTH}"):
+        with attention.attention_impl("flash"):
+            _, tb_launched, tb_expected, tb_s = run_vilt_batched_path(
+                t_pipe, t_cfg, paths, port_run.build_argparser().parse_args(
+                    vilt_common + vilt_flags))
+    vilt32 = {"pgd_linf_update", "flash_attention_fwd", "flash_attention_bwd",
+              "flash_attention_fwd_key_bias", "flash_attention_bwd_key_bias"}
+    check_launches(tb_launched, tb_expected, vilt32, "ViLT batched")
+    del t_pipe
+    torch.cuda.empty_cache()
+    with Phase("ViLT bf16 pipeline (the same random full-width weights)"):
+        _, t_cfg16, t_pipe16 = build_pipelines(vilt_common + bf16_flags, tokenizer)
+    require(t_cfg16.compute_dtype == "bfloat16", "the ViLT bf16 config")
+    with Phase(f"ViLT bf16 batched path: {len(VILT_BATCH_SAMPLES)} samples, --dtype bfloat16 "
+               f"--batch-size {VILT_BATCH} --attn flash --pipeline-depth {PIPELINE_DEPTH}"):
+        with attention.attention_impl("flash"):
+            _, tb16_launched, tb16_expected, tb16_s = run_vilt_batched_path(
+                t_pipe16, t_cfg16, paths, port_run.build_argparser().parse_args(
+                    vilt_common + bf16_flags + vilt_flags))
+    check_launches(tb16_launched, tb16_expected, vlmo16, "ViLT bf16 batched")
+    del t_pipe16
+    torch.cuda.empty_cache()
+
     # ------------------------------------------ training: VQA fine-tuning
     with Phase(f"vlmo_vqa training at full width: batch {TRAIN_BATCH}, {TRAIN_STEPS} steps, "
                f"--attn flash then xla, then a resume"):
@@ -2923,6 +3381,11 @@ def main() -> int:
             none = "_bf16" in k or k.endswith("hd34") or k in TRAINING_ONLY or (
                 k.endswith("key_bias") if which == "albef" else k.startswith("residual"))
             require((n == 0) == none, f"{which} with checkpoints {k}: {n} launches")
+
+    # ------------------------------------------ black-box transfer
+    with Phase("transfer_eval: the ALBEF batched artifacts against ALBEF-VQA, BLIP-VQA, "
+               "VLMo-VQA and ViLT, --attn flash; Predictor.answer"):
+        transfer = transfer_path(tmp, paths, batched_out, tokenizer, cfg.albef, v_cfg.vlmo)
     shutil.rmtree(tmp, ignore_errors=True)
 
     # each row's launches: ALBEF's batched runs (K1, K2, K3 without terms;
@@ -2941,6 +3404,11 @@ def main() -> int:
     # the bias gradient's launches: the vlmo_vqa training run's under flash
     dbias_row["launches"] = t_vlmo_launched["flash_attention_bwd_dbias"]
     rows.append(dbias_row)
+    # ViLT's rows: its batched runs' key-bias launches of each dtype
+    for row in vilt_rows:
+        counted = tb16_launched if "_bf16" in row["name"] else tb_launched
+        row["launches"] = counted[row["name"].replace("_vilt", "_key_bias")]
+    rows += vilt_rows
     print(f"wall: {time.perf_counter() - t_start:.1f} s since start", flush=True)
     print(json.dumps({"kernel_launches": {
         "per_sample": launched, "batched": b_launched,
@@ -2950,6 +3418,7 @@ def main() -> int:
         "vlmo_bf16_per_sample": vs16_launched, "vlmo_bf16_batched": vb16_launched,
         "vlmo_base_plus_per_sample": p_launched, "vlmo_base_plus_batched": pb_launched,
         "vlmo_base_plus_bf16_batched": pb16_launched,
+        "vilt_batched": tb_launched, "vilt_bf16_batched": tb16_launched,
         "albef_checkpoints": c_launches["albef"][0],
         "vlmo_checkpoints": c_launches["vlmo"][0]}}), flush=True)
     print(json.dumps({"checkpoint_loads": c_loads, "checkpoint_phase": c_seconds,
@@ -2964,6 +3433,13 @@ def main() -> int:
                       "training_launches": {"vlmo_vqa_flash": t_vlmo_launched,
                                             "albef_vqa_flash": t_albef_launched},
                       "bf16_masked_row": masked16, "card": smi}), flush=True)
+    print(json.dumps({"transfer": transfer, "vilt_batched": {
+        "float32_s": round(tb_s, 2), "bfloat16_s": round(tb16_s, 2),
+        "samples": len(VILT_BATCH_SAMPLES), "iterations": t_cfg.attack.num_iters,
+        "float32_sample_iters_per_s": t_cfg.attack.num_iters * len(VILT_BATCH_SAMPLES) / tb_s,
+        "bfloat16_sample_iters_per_s": t_cfg.attack.num_iters * len(VILT_BATCH_SAMPLES) / tb16_s},
+        "masked_row_truth": {"float32": masked32_truth, "bfloat16": masked16_truth},
+        "card": smi}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

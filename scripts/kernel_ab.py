@@ -7,8 +7,9 @@ A/B of two checkouts on one card.
 Times, from the checkout it lives in, K3 forward and backward in each dtype
 at PERF.md §6's shapes: without terms at the ALBEF chunk of 8 ([8, 901, 12,
 64]), with both terms (a [1, 12, 941, 941] table and a padded-text key
-bias) at VLMo's batch 16 ([16, 941, 12, 64]) and at head dim 34 with the
-key bias alone ([16, 941, 16, 34], bf16 timed with its pad copy); and K2's
+bias) at VLMo's batch 16 ([16, 941, 12, 64]), at head dim 34 with the
+key bias alone ([16, 941, 16, 34], bf16 timed with its pad copy) and at
+ViLT-B/32's joint length with the key bias alone ([16, 185, 12, 64]); and K2's
 forward at [7208, 768] on a float32 and a bf16 stream.  Inputs are drawn
 here from seed 0, so the two checkouts time the same tensors; the timer is
 the checkout's ``chip_smoke.time_ms`` (CUDA events, L2 emptied, the stream
@@ -77,6 +78,7 @@ def main() -> int:
     _time_k3(gen, "no_terms_b8", 8, 901, 12, 64, None, times)
     _time_k3(gen, "both_terms_b16", 16, 941, 12, 64, "both", times)
     _time_k3(gen, "hd34_key_bias_b16", 16, 941, 16, 34, "key_bias", times)
+    _time_k3(gen, "vilt_key_bias_b16", 16, 185, 12, 64, "key_bias", times)
     rows = 8 * 901
     for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
         x, delta = (torch.randn(rows, 768, generator=gen, device="cuda").to(dtype)

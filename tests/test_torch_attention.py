@@ -99,7 +99,7 @@ def test_flash_attention_and_its_backward_match_the_einsum_path(s, kind):
     j_grads = vjp(jnp.asarray(do))
 
     o, lse = attention.flash_attention_reference(T(q), T(k), T(v), tb, SCALE, return_lse=True)
-    assert lse.shape == (B, H, s)
+    assert lse.shape == (2, B, H, s)
     np.testing.assert_allclose(o.numpy(), np.asarray(j_out), rtol=0, atol=1e-5)
     t_grads = attention.flash_attention_bwd_reference(T(q), T(k), T(v), tb, SCALE, o, lse, T(do))
     for name, t, j in zip(("dq", "dk", "dv"), t_grads, j_grads):

@@ -760,7 +760,8 @@ def test_flash_attention_hd34_backward_bit_identical_at_the_victims_batch(gen, d
 @pytest.mark.parametrize("b,s", [(2, 130), (2, 941)])
 def test_flash_attention_rows_masked_whole_by_a_finite_bias(gen, b, s, dtype):
     """A row whose every key carries -1e9 (the key bias of batch row 1),
-    beside the table: L is then about -1e9, and P is formed as exp2((S - L)
+    beside the table: the row maximum m is then about -1e9, the forward
+    saves m and log l apart, and P is formed as exp2(((S - m) - log l)
     log2 e), subtracted first, in both instances, so the kernels agree with
     their plain versions forward and backward (with L log2 e rounded first,
     off by ~64 in the exponent, they did not in bf16)."""
@@ -782,3 +783,73 @@ def test_flash_attention_rows_masked_whole_by_a_finite_bias(gen, b, s, dtype):
     q, k, v = (t.bfloat16() for t in (q, k, v))
     do = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
     _check_bf16_case(q, k, v, table, kb, do)
+
+
+def _softmax_autograd(q, k, v, bias, key_bias, do, scale):
+    """``(o, dq, dk, dv)`` of autograd through the explicit float32 softmax
+    from the same inputs, as the JAX einsum path computes it (-1e9 swamps
+    a score in float32, so a row masked whole is uniform): independent of
+    the saved statistics."""
+    xs = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    s = torch.einsum("bqhd,bkhd->bhqk", xs[0] * scale, xs[1])
+    if bias is not None:
+        s = s + bias
+    s = s + key_bias[:, None, None, :]
+    o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), xs[2])
+    return (o.detach(), *torch.autograd.grad(o, xs, do.float()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("table", [True, False])
+def test_flash_attention_masked_row_backward_matches_softmax_autograd(gen, dtype, table):
+    """The masked row's gradients against autograd of the softmax, not the
+    plain version, which shares the kernels' saved statistics: with L = m +
+    log l saved as one float32, both gave Sk times the true dq, dk, dv on
+    that row.  Row 1 of [2, 185, 12, 64] (ViLT's joint length, the key bias
+    alone or beside a table) within 2e-5 (float32) or two bf16 ulps (2^-6)
+    of the largest true value (at least 1)."""
+    b, s, h = 2, 185, 12
+    q, k, v, _ = _attention_case(gen, b, s, s, "none", h)
+    bias = torch.randn(1, h, s, s, generator=gen, device="cuda") * 0.5 if table else None
+    kb = torch.zeros(b, s, device="cuda")
+    kb[1] = -1e9
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    o, lse = attention.flash_attention_fwd(q, k, v, bias, 0.125, kb)
+    assert lse.shape == (2, b, h, s)
+    grads = attention.flash_attention_bwd(q, k, v, bias, 0.125, o, lse, do, kb)
+    truth = _softmax_autograd(q, k, v, bias, kb, do, 0.125)
+    rel = 2e-5 if dtype == torch.float32 else 2 ** -6
+    for name, g, t in zip(("o", "dq", "dk", "dv"), (o, *grads), truth):
+        err = float((g[1].float() - t[1]).abs().max())
+        assert err <= rel * max(1.0, float(t.abs().max())), f"{name} of the masked row: {err}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 16])
+def test_flash_attention_at_the_vilt_shape(gen, dtype, b):
+    """K3 at ViLT-B/32's joint sequence, [B, 185, 12, 64] (a ragged second
+    key tile), with the key bias alone (the padded text of the first 40
+    tokens at -1e9), forward and backward against the plain versions
+    (float32: :func:`_close`; bf16: :func:`_check_bf16_case`), the
+    backward the same bit for bit."""
+    s, h = 185, 12
+    q, k, v, _ = _attention_case(gen, b, s, s, "none", h)
+    kb = torch.zeros(b, s, device="cuda")
+    kb[:, 30:40] = -1e9
+    do = torch.randn(q.shape, generator=gen, device="cuda")
+    if dtype == torch.bfloat16:
+        _check_bf16_case(*(t.bfloat16() for t in (q, k, v)), None, kb, do.bfloat16())
+        return
+    scale = 64 ** -0.5
+    o, lse = attention.flash_attention_fwd(q, k, v, None, scale, kb)
+    o_r, lse_r = attention.flash_attention_reference(q, k, v, None, scale, return_lse=True,
+                                                     key_bias=kb)
+    _close(o, o_r, "o")
+    _close(lse, lse_r, "lse")
+    grads = attention.flash_attention_bwd(q, k, v, None, scale, o, lse, do, kb)
+    again = attention.flash_attention_bwd(q, k, v, None, scale, o, lse, do, kb)
+    refs = attention.flash_attention_bwd_reference(q, k, v, None, scale, o, lse, do, kb)
+    for name, g, g2, r in zip(("dq", "dk", "dv"), grads, again, refs):
+        assert torch.equal(g, g2), f"{name} differs between two runs"
+        _close(g, r, name)

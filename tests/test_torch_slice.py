@@ -151,7 +151,8 @@ def test_port_imports_no_jax_and_only_torch_numpy_stdlib_at_module_level():
     pkg = ROOT / "vqattack_tpu_torch"
     for module in ("train/cli.py", "train/optim.py", "train/trainer.py", "train/objectives.py",
                    "utils/meters.py", "data/transforms.py", "data/vqa.py", "checkpoint/io.py",
-                   "named_configs.py"):
+                   "named_configs.py", "transfer_eval.py", "predict.py", "defenses.py",
+                   "eval/vqa_eval.py"):
         assert pkg / module in files, module
     allowed = set(sys.stdlib_module_names) | {"torch", "numpy", "vqattack_tpu_torch"}
     for f in files:

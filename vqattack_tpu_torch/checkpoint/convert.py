@@ -417,6 +417,72 @@ def convert_vlmo(sd: Dict[str, np.ndarray], depth: int = 12, new_window: Optiona
     return tree
 
 
+def convert_vilt(sd: Dict[str, np.ndarray], depth: int = 12,
+                 new_num_patches: Optional[int] = None) -> Dict[str, Any]:
+    """ViLT-B/32 checkpoint -> the single-stream (``moe=False``) ``VLMo``
+    tree (the JAX package's ``convert_vilt``).
+
+    ViLT's blocks are timm's: a fused ``attn.qkv`` with a full bias, one
+    ``norm2`` + ``mlp``.  The key's third of the bias is dropped: adding a
+    constant to every key shifts each query's logits alike, which the
+    softmax cancels (the identity VLMo's decomposed bias rests on,
+    ``multiway_transformer.py:75-93``).  ``new_num_patches``: ``pos_embed``
+    resized to that grid (:func:`interpolate_pos_embed`).
+    """
+    p = "transformer."
+    pos = sd[f"{p}pos_embed"]
+    if new_num_patches is not None:
+        from vqattack_tpu_torch.checkpoint.interpolate import interpolate_pos_embed
+
+        pos = interpolate_pos_embed(pos, new_num_patches)
+    tree: Dict[str, Any] = {
+        "cls_token": sd[f"{p}cls_token"],
+        "pos_embed": pos,
+        "patch_embed": {"proj": _conv(sd, f"{p}patch_embed.proj")},
+        "norm": _layernorm(sd, f"{p}norm"),
+        "text_embeddings": {
+            "word_embeddings": _embedding(sd, "text_embeddings.word_embeddings"),
+            "position_embeddings": _embedding(sd, "text_embeddings.position_embeddings"),
+            "token_type_embeddings": _embedding(sd, "text_embeddings.token_type_embeddings"),
+            "LayerNorm": _layernorm(sd, "text_embeddings.LayerNorm"),
+        },
+        "token_type_embeddings": _embedding(sd, "token_type_embeddings"),
+        "pooler": {"dense": _linear(sd, "pooler.dense")},
+    }
+    for i in range(depth):
+        bp = f"{p}blocks.{i}"
+        w = sd[f"{bp}.attn.qkv.weight"]
+        d = w.shape[0] // 3
+        b = sd.get(f"{bp}.attn.qkv.bias")
+        attn: Dict[str, Any] = {
+            "query": {"kernel": w[:d].T},
+            "key": {"kernel": w[d : 2 * d].T},
+            "value": {"kernel": w[2 * d :].T},
+            "proj": _linear(sd, f"{bp}.attn.proj"),
+        }
+        if b is not None:
+            attn["query"]["bias"] = b[:d]
+            attn["value"]["bias"] = b[2 * d :]
+        tree[f"blocks_{i}"] = {
+            "norm1": _layernorm(sd, f"{bp}.norm1"),
+            "attn": attn,
+            "norm2": _layernorm(sd, f"{bp}.norm2"),
+            "mlp": {"fc1": _linear(sd, f"{bp}.mlp.fc1"), "fc2": _linear(sd, f"{bp}.mlp.fc2")},
+        }
+    if "mlm_score.transform.dense.weight" in sd:
+        tree["mlm_score"] = {
+            "transform_dense": _linear(sd, "mlm_score.transform.dense"),
+            "transform_LayerNorm": _layernorm(sd, "mlm_score.transform.LayerNorm"),
+            "decoder": {"kernel": sd["mlm_score.decoder.weight"].T, "bias": sd["mlm_score.bias"]},
+        }
+    if "itm_score.fc.weight" in sd:
+        tree["itm_score"] = _linear(sd, "itm_score.fc")
+    for head in ("vqa_classifier", "nlvr2_classifier"):
+        if f"{head}.0.weight" in sd:
+            tree[head] = _classifier(sd, head)
+    return tree
+
+
 def resize_vlmo_rel_pos_table(table: np.ndarray, src_window: int,
                               dst_window: int) -> np.ndarray:
     """Resize the fused VLMo table: only the image-window block ((2w-1)^2

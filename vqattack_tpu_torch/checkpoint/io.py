@@ -38,6 +38,7 @@ from vqattack_tpu_torch.checkpoint.convert import (
     convert_albef_pretrain,
     convert_albef_vqa,
     convert_fusion_bert,
+    convert_vilt,
     convert_vlmo,
     load_jax_params,
     load_torch_checkpoint,
@@ -103,6 +104,19 @@ def load_vlmo(path: str, cfg: VLMoConfig, src_image_size: Optional[int] = None,
               f"{', '.join(absent) or 'none'}; checkpoint heads with no module, dropped: "
               f"{', '.join(dropped) or 'none'}", flush=True)
     return _load(tree, into, absent)
+
+
+def load_vilt(path: str, cfg: VLMoConfig, into: Optional[nn.Module] = None):
+    """A ViLT-B/32 checkpoint (timm trunk names) into the single-stream
+    ``VLMo`` of ``cfg`` (``moe=False``), its ``pos_embed`` resized to
+    ``cfg.image_size``.  The heads of :data:`VLMO_OPTIONAL_HEADS` the file
+    lacks keep their values; every trunk tensor is required."""
+    sd = load_torch_checkpoint(path)
+    tree = convert_vilt(sd, depth=cfg.depth, new_num_patches=cfg.num_patches)
+    if into is None:
+        return tree
+    tree.pop("nlvr2_classifier", None)
+    return _load(tree, into, [h for h in VLMO_OPTIONAL_HEADS if h not in tree])
 
 
 # ---------------------------------------------------------------------------

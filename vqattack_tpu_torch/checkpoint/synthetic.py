@@ -130,7 +130,9 @@ def albef_vqa_state_dict(cfg: ALBEFConfig, seed: int = 0,
                          src_image_size: int = 384) -> Dict[str, torch.Tensor]:
     """ALBEF's fine-tuned VQA model: the ViT at ``src_image_size``, the
     question encoder as a ``BertModel`` (``text_encoder.*``), the answer
-    decoder with its LM head, and some momentum copies."""
+    decoder with its LM head, and some momentum copies.  With
+    ``config.blip_vqa_config()`` it is a BLIP-VQA file: cross-attention in
+    every question-encoder layer and a 12-layer decoder, the same names."""
     w = _Writer(seed)
     _vit(w, "visual_encoder.", cfg.vit, src_image_size)
     _bert(w, "text_encoder.", cfg.bert, cfg.bert.num_layers, cfg.bert.fusion_layer)
@@ -230,6 +232,35 @@ def vlmo_state_dict(cfg: VLMoConfig, seed: int = 0, src_image_size: Optional[int
             w.linear(f"{kind}_image_proj.fc", d, d, bias=False)
             scale = "logit_scale" if kind == "itc" else "logit_vl_scale"
             w.sd[scale] = torch.tensor(np.float32(np.log(1 / 0.07) + 0.1 * w.rng.standard_normal()))
+    for head, (d_in, labels) in (("vqa_classifier", (d, cfg.vqa_label_size)),
+                                 ("nlvr2_classifier", (2 * d, 2))):
+        if head in heads:
+            w.linear(f"{head}.0", d_in, 2 * d)
+            w.layernorm(f"{head}.1", 2 * d)
+            w.linear(f"{head}.3", 2 * d, labels)
+    return w.sd
+
+
+def vilt_state_dict(cfg: VLMoConfig, seed: int = 0, src_image_size: Optional[int] = None,
+                    heads: Sequence[str] = VLMO_VQA_HEADS) -> Dict[str, torch.Tensor]:
+    """A ViLT checkpoint's state dict at ``src_image_size`` (default: the
+    config's): timm's ViT trunk under ``transformer.`` (a fused ``attn.qkv``
+    with a full bias, one ``norm2`` + ``mlp`` a block, ``pos_embed``), the
+    HF text embeddings, the modality ``token_type_embeddings``, the pooler
+    and the named ``heads`` (``vqa_classifier``, ``nlvr2_classifier``),
+    as ViLT's ``vilt_module.py`` saves them."""
+    w = _Writer(seed)
+    d = cfg.hidden_size
+    vit = ViTConfig(image_size=cfg.image_size, patch_size=cfg.patch_size, hidden_size=d,
+                    depth=cfg.depth, num_heads=cfg.num_heads, mlp_ratio=cfg.mlp_ratio)
+    _vit(w, "transformer.", vit, src_image_size or cfg.image_size)
+    w.normal("text_embeddings.word_embeddings.weight", (cfg.vocab_size, d))
+    w.normal("text_embeddings.position_embeddings.weight", (cfg.max_position_embeddings, d))
+    w.normal("text_embeddings.token_type_embeddings.weight", (2, d))
+    w.layernorm("text_embeddings.LayerNorm", d)
+    w.position_ids("text_embeddings.position_ids", cfg.max_position_embeddings)
+    w.normal("token_type_embeddings.weight", (cfg.type_vocab_size, d))
+    w.linear("pooler.dense", d, d)
     for head, (d_in, labels) in (("vqa_classifier", (d, cfg.vqa_label_size)),
                                  ("nlvr2_classifier", (2 * d, 2))):
         if head in heads:

@@ -125,7 +125,7 @@ class VLMoConfig:
     remat: bool = False
     remat_scores: bool = False
     softmax_dtype: str = "float32"
-    # False: one shared FFN a block (the ViLT family); not ported yet
+    # False: one shared FFN a block (the ViLT family, vilt_base_config)
     moe: bool = True
 
     @property
@@ -202,6 +202,36 @@ def vlmo_attack_config() -> RunConfig:
     base = RunConfig()
     return _replace(base, vlmo=_replace(base.vlmo, remat=True),
                     attack=_replace(base.attack, dynamic_pgd=True))
+
+
+def blip_vqa_config(image_size: int = 480) -> ALBEFConfig:
+    """BLIP-VQA, the paper's other black-box transfer victim: the ALBEF-VQA
+    structure with image-grounded cross-attention at every text layer
+    (``fusion_layer=0``) and a 12-layer answer decoder.  Its checkpoints
+    convert through ``checkpoint/convert.py::convert_albef_vqa`` with
+    ``fusion_layer=0, decoder_layers=12`` (the same HF key names)."""
+    return ALBEFConfig(
+        vit=ViTConfig(image_size=image_size),
+        bert=BertConfig(fusion_layer=0),
+        decoder_layers=12,
+    )
+
+
+def vilt_base_config(image_size: int = 384) -> VLMoConfig:
+    """ViLT-B/32, the paper's main black-box transfer victim: the
+    single-stream transformer (one shared FFN a block), absolute position
+    embeddings, no relative-position table, no layer scale, patch 32: 145
+    image tokens at 384 px and 40 text tokens."""
+    return VLMoConfig(
+        image_size=image_size,
+        patch_size=32,
+        moe=False,
+        use_abs_pos_emb=True,
+        need_relative_position_embed=False,
+        layer_scale_init=None,
+        vlffn_start_layer=12,
+        max_text_len=40,
+    )
 
 
 def tiny_test_config(image_size: int = 32, vocab_size: int = 64) -> RunConfig:

@@ -8,26 +8,30 @@
 // [B, H, Sq_p, Sk_p] bias.  This kernel computes the same function, not the
 // TPU kernel's blocks:
 //
-//   forward   S = Q K^T * scale + bias + key_bias,  L = logsumexp_rows(S),
-//             O = softmax(S) V           (L saved for the backward)
-//   backward  D_i = sum_d dO_id O_id,    P = exp(S - L),
+//   forward   S = Q K^T * scale + bias + key_bias,  m = max_rows(S),
+//             l = sum_rows(exp(S - m)),  O = softmax(S) V
+//             (m and log l saved for the backward)
+//   backward  D_i = sum_d dO_id O_id,    P = exp((S - m) - log l),
 //             dV = P^T dO,  dS = P o (dO V^T - D),
 //             dQ = scale * dS K,  dK = scale * dS^T Q
 //
 // for every (batch, head), with q/k/v read through their [B, S, H, Dh]
-// strides, O/dQ/dK/dV written as contiguous [B, S, H, Dh] and L, D as
-// [B, H, Sq].  Two additive terms, each optional, follow the scale: the bias,
-// read through broadcast strides (0 along a broadcast dimension), so a
+// strides, O/dQ/dK/dV written as contiguous [B, S, H, Dh], m and log l as
+// [2, B, H, Sq] and D as [B, H, Sq].  Two additive terms, each optional,
+// follow the scale: the bias, read through broadcast strides (0 along a
+// broadcast dimension), so a
 // [1, H, S, S] table or a [B, 1, 1, Sk] key mask is never materialized at
 // [B, H, Sq, Sk]; and the key bias, one value a key ([1|B, Sk], contiguous
 // along Sk), which carries a key mask beside a table: VLMo's relative-position
 // table plus its padded-text mask, whose sum would be [B, H, S, S].  Ragged
 // lengths need no padding: keys j >= Sk are masked inside the kernel and rows
-// i >= Sq are never written.
+// i >= Sq are never written.  m and log l stay apart: a row whose every key
+// is masked by a finite term (-1e9) has m near -1e9, where m + log l rounds
+// back to m (the float32 ulp there is 64).
 //
 // Bound on the H100: operations.  At the main path's shape (B=16, H=12,
 // S=901, Dh=64) B*H*S^2*Dh = 9.98e9; the forward needs 4x that (39.9
-// GFLOP) and the backward, recomputing P from L, 10x (99.8 GFLOP), against
+// GFLOP) and the backward, recomputing P, 10x (99.8 GFLOP), against
 // 177 MB of q, k, v and o (53 us at 3.35 TB/s).  The main path runs float32,
 // and one TF32 pass keeps 11 significant bits, too few for its tolerances,
 // so every product is three TF32 passes: x = hi + lo with hi = tf32(x) and
@@ -143,10 +147,10 @@ struct Params {
   const float* bias;  // nullptr: no bias
   const float* key_bias;  // nullptr: no key bias; [1|B, Sk]
   const float* o;     // backward: forward output, contiguous [B, Sq, H, Dh]
-  const float* lse;   // backward: [B, H, Sq]
+  const float* lse;   // backward: the forward's out_lse
   const float* dout;  // backward: contiguous [B, Sq, H, Dh]
   float* out;         // forward: O; backward: dQ   (contiguous [B, Sq, H, Dh])
-  float* out_lse;     // forward: L [B, H, Sq]
+  float* out_lse;     // forward: m, then log l ([2, B, H, Sq])
   float* dk;          // contiguous [B, Sk, H, Dh]
   float* dv;          // contiguous [B, Sk, H, Dh]
   float* delta;       // backward: D [B, H, Sq]
@@ -222,13 +226,16 @@ __device__ __forceinline__ void load_key_bias(float* dst, const float* kb, int k
   }
 }
 
-// L and D of query rows [q0, q0 + 64) (0 past Sq); ``off`` is (b, h)'s row 0.
-__device__ __forceinline__ void load_rows(const Params& p, float* Ls, float* Ds,
+// m, log l and D of query rows [q0, q0 + 64) (0 past Sq); ``off`` is
+// (b, h)'s row 0.
+__device__ __forceinline__ void load_rows(const Params& p, float* Ms, float* Gs, float* Ds,
                                           long long off, int q0) {
   if (threadIdx.x < kTile) {
     const int row = q0 + threadIdx.x;
     const bool ok = row < p.Sq;
-    cp_async4(Ls + threadIdx.x, ok ? p.lse + off + row : p.lse, ok);
+    const float* lgl = p.lse + (long long)p.B * p.H * p.Sq;
+    cp_async4(Ms + threadIdx.x, ok ? p.lse + off + row : p.lse, ok);
+    cp_async4(Gs + threadIdx.x, ok ? lgl + off + row : lgl, ok);
     cp_async4(Ds + threadIdx.x, ok ? p.delta + off + row : p.delta, ok);
   }
 }
@@ -552,10 +559,14 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(const Params p) 
   store_rows<kDh>(p.out + b * osb + (long long)h * kDh, oss, row, p.Sq, acc, 1.f / l[0],
                   1.f / l[1], t);
   if (t == 0) {
+    const long long n_rows = (long long)p.B * p.H * p.Sq;
 #pragma unroll
     for (int i = 0; i < 2; ++i)
-      if (row + 8 * i < p.Sq)
-        p.out_lse[((long long)b * p.H + h) * p.Sq + row + 8 * i] = m[i] + logf(l[i]);
+      if (row + 8 * i < p.Sq) {
+        const long long idx = ((long long)b * p.H + h) * p.Sq + row + 8 * i;
+        p.out_lse[idx] = m[i];
+        p.out_lse[n_rows + idx] = logf(l[i]);
+      }
   }
 }
 
@@ -588,8 +599,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_kernel(const Params
   float* Vs = Ks + kTileFloats;
   float* Qs = Vs + kTileFloats;       // two buffers
   float* dOs = Qs + 2 * kTileFloats;  // two buffers
-  float* Ls = dOs + 2 * kTileFloats;  // two buffers of 64
-  float* Ds = Ls + 2 * kTile;         // two buffers of 64
+  float* Ms = dOs + 2 * kTileFloats;  // two buffers of 64 m
+  float* Gs = Ms + 2 * kTile;         // two buffers of 64 log l
+  float* Ds = Gs + 2 * kTile;         // two buffers of 64
   float* KBs = Ds + 2 * kTile;        // 64, the block's keys (with a key bias)
 
   const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
@@ -608,7 +620,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_kernel(const Params
   if (kKeyBias) load_key_bias(KBs, p.key_bias + b * p.kbsb, k0, p.Sk);
   load_tile<kDh>(Qs, qb, p.qss, 0, p.Sq);
   load_tile<kDh>(dOs, dob, oss, 0, p.Sq);
-  load_rows(p, Ls, Ds, rows_bh, 0);
+  load_rows(p, Ms, Gs, Ds, rows_bh, 0);
   cp_async_commit();
 
   // keys k0 + r0 + g (c0, c1) and k0 + r0 + g + 8 (c2, c3); columns are
@@ -624,12 +636,13 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_kernel(const Params
     const int q0 = j * kTile, buf = j & 1, nxt = (j + 1) & 1;
     const float* Qt = Qs + buf * kTileFloats;
     const float* dOt = dOs + buf * kTileFloats;
-    const float* Lt = Ls + buf * kTile + 2 * t;
+    const float* Mt = Ms + buf * kTile + 2 * t;
+    const float* Gt = Gs + buf * kTile + 2 * t;
     const float* Dt = Ds + buf * kTile + 2 * t;
     if (j + 1 < n_tiles) {  // into the buffers that tile j - 1 used
       load_tile<kDh>(Qs + nxt * kTileFloats, qb, p.qss, q0 + kTile, p.Sq);
       load_tile<kDh>(dOs + nxt * kTileFloats, dob, oss, q0 + kTile, p.Sq);
-      load_rows(p, Ls + nxt * kTile, Ds + nxt * kTile, rows_bh, q0 + kTile);
+      load_rows(p, Ms + nxt * kTile, Gs + nxt * kTile, Ds + nxt * kTile, rows_bh, q0 + kTile);
     }
     cp_async_commit();
     cp_async_wait_prev();
@@ -641,13 +654,14 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_kernel(const Params
     product_abt<kDh>(dst, Vs + rows_off, r0, dOt + rows_off);
     scale_bias<kBias, kKeyBias, true>(pt, p, bias_bh, KBs + r0 + g, key, q0 + 2 * t);
     if (q0 + kTile > p.Sq) mask_cols(pt, q0 + 2 * t, p.Sq);
-    // P^T = exp(S^T - L) and dS^T = P^T o (dP^T - D): 0 for a masked query
+    // P^T = exp((S^T - m) - log l) and dS^T = P^T o (dP^T - D): 0 for a
+    // masked query
 #pragma unroll
     for (int n = 0; n < kKeySteps; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = 8 * n + (e & 1);
-        pt[n][e] = exp2_approx((pt[n][e] - Lt[i]) * kLog2e);
+        pt[n][e] = exp2_approx(((pt[n][e] - Mt[i]) - Gt[i]) * kLog2e);
         dst[n][e] = pt[n][e] * (dst[n][e] - Dt[i]);
       }
     product_cx<kDh>(dv, pt, dOt + cols_off);  // dV += P^T dO
@@ -693,12 +707,13 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Params 
   // rows q0 + r0 + g (c0, c1) and q0 + r0 + g + 8 (c2, c3); rows past Sq
   // are never written, so only keys are masked
   const int row = q0 + r0 + g;
-  float lse[2], dlt[2];
+  float mx[2], lgl[2], dlt[2];  // m, log l, D
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const bool ok = row + 8 * i < p.Sq;
     const long long idx = ((long long)b * p.H + h) * p.Sq + row + 8 * i;
-    lse[i] = ok ? p.lse[idx] : 0.f;
+    mx[i] = ok ? p.lse[idx] : 0.f;
+    lgl[i] = ok ? p.lse[(long long)p.B * p.H * p.Sq + idx] : 0.f;
     dlt[i] = ok ? p.delta[idx] : 0.f;
   }
   float dq[W::kSteps][4];
@@ -727,12 +742,13 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Params 
     scale_bias<kBias, kKeyBias, false>(s, p, bias_bh, KBs + (j & 1) * kTile + 2 * t, row,
                                        k0 + 2 * t);
     if (k0 + kTile > p.Sk) mask_cols(s, k0 + 2 * t, p.Sk);
-    // dS = P o (dP - D), P = exp(S - L): 0 for a masked key
+    // dS = P o (dP - D), P = exp((S - m) - log l): 0 for a masked key
 #pragma unroll
     for (int n = 0; n < kKeySteps; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        s[n][e] = exp2_approx((s[n][e] - lse[e >> 1]) * kLog2e) * (dp[n][e] - dlt[e >> 1]);
+        s[n][e] = exp2_approx(((s[n][e] - mx[e >> 1]) - lgl[e >> 1]) * kLog2e) *
+                  (dp[n][e] - dlt[e >> 1]);
     if (kDbias) store_ds(p, s, b, h, row, k0 + 2 * t);
     product_cx<kDh>(dq, s, Kt + cols_off);  // dQ += dS K
     __syncthreads();  // every warp is done with tile j's buffers
@@ -747,7 +763,7 @@ template <int kDh>
 struct Smem {
   static constexpr size_t kTileBytes = Width<kDh>::kTileFloats * sizeof(float);
   static constexpr size_t kFwd = 5 * kTileBytes;
-  static constexpr size_t kDkv = 6 * kTileBytes + 4 * kTile * sizeof(float);
+  static constexpr size_t kDkv = 6 * kTileBytes + 6 * kTile * sizeof(float);
   static constexpr size_t kDq = 6 * kTileBytes;
   static constexpr size_t kFwdKb = kFwd + 2 * kTile * sizeof(float);
   static constexpr size_t kDkvKb = kDkv + kTile * sizeof(float);
@@ -843,7 +859,8 @@ struct DqDbias {
 
 }  // namespace
 
-// O [B, Sq, H, Dh] and L [B, H, Sq], both contiguous; Dh is 64 or 34.  q,
+// O [B, Sq, H, Dh] and m, log l [2, B, H, Sq], both contiguous; Dh is 64
+// or 34.  q,
 // k and v start every row on 16 bytes (8 at head dim 34; the wrapper
 // checks).  bias and key_bias may be null.
 extern "C" int vq_flash_attention_fwd(

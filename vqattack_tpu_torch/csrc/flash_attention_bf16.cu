@@ -12,10 +12,11 @@
 // This kernel computes the same function, rounding where the library rounds:
 //
 //   forward   S = Q K^T * scale + (bias + key_bias)  (float32 from bf16 Q, K),
-//             L = logsumexp_rows(S),  O = bf16( (bf16(P~) V) / l )
-//             with P~ = exp(S - running max), l its float32 row sum
+//             O = bf16( (bf16(P~) V) / l )
+//             with P~ = exp(S - running max m), l its float32 row sum
+//             (m and log l saved for the backward)
 //   backward  D_i = sum_d dO_id O_id  (float32 from bf16 dO, O),
-//             P = exp(S - L),  dV = bf16(P)^T dO,  dP = dO V^T,
+//             P = exp((S - m) - log l),  dV = bf16(P)^T dO,  dP = dO V^T,
 //             dS = P o (dP - D),  dQ = scale * bf16(dS) K,
 //             dK = scale * bf16(dS)^T Q
 //
@@ -23,10 +24,11 @@
 // forward, dkv and dq kernels cast them; scale is 1/8 for head dim 64, a
 // power of two, so scaling dS before or after its rounding gives the same
 // bits.  The two terms are summed before they join the scores, as the JAX
-// caller sums them into its one bias.)  O, dQ, dK, dV come back bf16, L
-// float32.  The layout contract is that of flash_attention.cu: q/k/v through
+// caller sums them into its one bias.)  O, dQ, dK, dV come back bf16, m
+// and log l float32.  The layout contract is that of flash_attention.cu: q/k/v through
 // their [B, S, H, D] element strides (multiples of 8, rows on 16 bytes: the
-// wrapper checks), O/dQ/dK/dV contiguous [B, S, H, D], L and D [B, H, Sq],
+// wrapper checks), O/dQ/dK/dV contiguous [B, S, H, D], m and log l
+// [2, B, H, Sq], D [B, H, Sq],
 // the bias through broadcast strides and the key bias ([1|B, Sk]) as a
 // vector, both float32 and both optional; ragged lengths masked inside;
 // scale > 0.
@@ -34,7 +36,7 @@
 // Bound on the H100: operations.  At ALBEF's batched chunk [8, 901, 12, 64]
 // the forward needs 4 B*H*S^2*Dh = 20.0 GFLOP, 20 us at the dense bf16 rate
 // (989 TFLOP/s), against 44 MB of bf16 q, k, v and o (13 us at 3.35 TB/s);
-// the backward, recomputing P from L, 10x (49.9 GFLOP, 50 us).
+// the backward, recomputing P, 10x (49.9 GFLOP, 50 us).
 //
 // Head dim 34 (VLMo-base+: 544 over 16 heads): a head of a [B, S, 544]
 // projection starts 68 bytes after the last, and a TMA map's strides must be
@@ -132,10 +134,10 @@ struct Params {
   const float* bias;      // nullptr: no bias
   const float* key_bias;  // nullptr: no key bias; [1|B, Sk]
   const bf16* o;          // backward: forward output, contiguous [B, Sq, H, D]
-  const float* lse;       // backward: [B, H, Sq]
+  const float* lse;       // backward: the forward's out_lse
   const bf16* dout;       // backward: contiguous [B, Sq, H, D]
   bf16* out;              // forward: O; backward: dQ   (contiguous [B, Sq, H, D])
-  float* out_lse;         // forward: L [B, H, Sq]
+  float* out_lse;         // forward: m, then log l ([2, B, H, Sq])
   bf16* dk;               // contiguous [B, Sk, H, D]
   bf16* dv;               // contiguous [B, Sk, H, D]
   float* delta;           // backward: D [B, H, Sq]
@@ -774,11 +776,17 @@ __global__ void __launch_bounds__(kThreads, 1)
       store_rows<kW>(p.out + w.b * osb + (long long)w.h * kW, oss, row, p.Sq, st.o, 1.f / l0,
                      1.f / l1, c);
       if (c == 0) {
+        // m and log l apart: m may be near -1e9 (a row whose every key is
+        // masked by a finite term), where m + log l rounds back to m
         const float l[2] = {l0, l1};
+        const long long n_rows = (long long)p.B * p.H * p.Sq;
 #pragma unroll
         for (int r = 0; r < 2; ++r)
-          if (row + 8 * r < p.Sq)
-            p.out_lse[((long long)w.b * p.H + w.h) * p.Sq + row + 8 * r] = st.m[r] + logf(l[r]);
+          if (row + 8 * r < p.Sq) {
+            const long long idx = ((long long)w.b * p.H + w.h) * p.Sq + row + 8 * r;
+            p.out_lse[idx] = st.m[r];
+            p.out_lse[n_rows + idx] = logf(l[r]);
+          }
       }
     }
     turns.finish();
@@ -790,9 +798,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ---------------------------------------------------------------------------
 
 // dK/dV: K and V (128 rows); Q and dO (64 rows) a stage; then a stage's 64
-// values of L and of D
+// values of L = m + log l (with a term: m), of D and (with a term) of log l
 constexpr int kDkvTiles = 4 + 2 * kBwdStages;
-constexpr int kDkvExtra = 2 * kBwdStages * kBox * 4;
+constexpr uint32_t kLdStageBytes = 3 * kBox * 4;
+constexpr int kDkvExtra = kBwdStages * kLdStageBytes;
 // dQ: Q, dO and O (128 rows); K and V (64 rows) a stage
 constexpr int kDqTiles = 6 + 2 * kBwdStages;
 using BwdRing = Ring<kBwdStages>;
@@ -818,7 +827,7 @@ __device__ __forceinline__ void dkv_step(const Params& p, float (&dk)[32], float
   const int q0 = kBox * i;
   const uint32_t stage = (j % kBwdStages) * kBoxBytes;
   const uint32_t q_tile = q_s + stage, do_tile = do_s + stage;
-  const uint32_t l_tile = ld_s + (j % kBwdStages) * 2 * kBox * 4;
+  const uint32_t l_tile = ld_s + (j % kBwdStages) * kLdStageBytes;
   float st[N / 2], dpt[N / 2];
   ring.wait_full(j);
   turns.wait();
@@ -841,15 +850,19 @@ __device__ __forceinline__ void dkv_step(const Params& p, float (&dk)[32], float
   if (kTerms || kMask) prep<N, kTerms, kMask>(st, t, p.scale, q0 + 2 * c, p.Sq);
   const float mul = kTerms || kMask ? kLog2e : p.scale * kLog2e;
   // P^T = exp(S^T - L): 0 for a masked query; L of this thread's query
-  // columns q0 + 8 jj + 2 c + e.  With a term L may be near -1e9: S^T - L
-  // first, then log2 e (as online_softmax, whose comment says why)
+  // columns q0 + 8 jj + 2 c + e.  With a term the row's m and log l come
+  // apart (m may be near -1e9, where m + log l rounds to m): (S^T - m) -
+  // log l first, then log2 e (as online_softmax, whose comment says why)
 #pragma unroll
   for (int jj = 0; jj < N / 8; ++jj) {
     const float2 l = ld_shared2(l_tile + 4 * (8 * jj + 2 * c));
+    const float2 lg = kTerms ? ld_shared2(l_tile + 4 * (2 * kBox + 8 * jj + 2 * c))
+                             : make_float2(0.f, 0.f);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float li = e & 1 ? l.y : l.x;
-      st[4 * jj + e] = kTerms ? exp2_approx((st[4 * jj + e] - li) * kLog2e)
+      st[4 * jj + e] = kTerms ? exp2_approx(((st[4 * jj + e] - li) - (e & 1 ? lg.y : lg.x)) *
+                                            kLog2e)
                               : exp2_approx(fmaf(st[4 * jj + e], mul, -li * kLog2e));
     }
   }
@@ -872,10 +885,13 @@ __device__ __forceinline__ void dkv_step(const Params& p, float (&dk)[32], float
 template <int kW, bool kBias, bool kKeyBias>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_kernel(const Params p, const __grid_constant__ Maps maps) {
+  constexpr bool kTerms = kBias || kKeyBias;
   const uint32_t base = smem_base();
   const uint32_t k_s = base, v_s = k_s + 2 * kBoxBytes, q_s = v_s + 2 * kBoxBytes,
                  do_s = q_s + kBwdStages * kBoxBytes;
-  const uint32_t ld_s = base + kDkvTiles * kBoxBytes;  // a stage: 64 L, then 64 D
+  // a stage: 64 L = m + log l (with a term m), then 64 D, then (with a
+  // term) 64 log l
+  const uint32_t ld_s = base + kDkvTiles * kBoxBytes;
   // K and V's barriers: full when they have arrived, empty when every
   // computing thread holds them as register operands
   const uint32_t kv_full = ld_s + kDkvExtra, kv_empty = kv_full + 8;
@@ -883,7 +899,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int n_kt = (p.Sk + 127) / 128, n_work = n_kt * p.B * p.H;
   const int wg = threadIdx.x / 128;
   const int n_steps = (p.Sq + kBox - 1) / kBox;
-  const auto stage_ld = [ld_s](int j) { return ld_s + (uint32_t)(j % kBwdStages) * 2 * kBox * 4; };
+  const auto stage_ld = [ld_s](int j) { return ld_s + (uint32_t)(j % kBwdStages) * kLdStageBytes; };
+  const float* lgl = p.lse + (long long)p.B * p.H * p.Sq;  // log l
   if (threadIdx.x == 0) {
     bar_init(kv_full, 1);
     bar_init(kv_empty, 256);
@@ -919,8 +936,10 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int r = lane; r < kBox; r += 32) {
             const int qi = kBox * i + r;
             const bool ok = qi < p.Sq;
-            st_shared(stage_ld(j) + 4 * r, ok ? p.lse[rows_bh + qi] : 0.f);
+            const float m = ok ? p.lse[rows_bh + qi] : 0.f, lg = ok ? lgl[rows_bh + qi] : 0.f;
+            st_shared(stage_ld(j) + 4 * r, kTerms ? m : m + lg);
             st_shared(stage_ld(j) + 4 * (kBox + r), ok ? p.delta[rows_bh + qi] : 0.f);
+            if (kTerms) st_shared(stage_ld(j) + 4 * (2 * kBox + r), lg);
           }
           bar_arrive(full);
         }
@@ -983,7 +1002,8 @@ __device__ __forceinline__ void dq_step(const Params& p, float (&dq)[32], Pendin
                                         uint32_t k_s, uint32_t v_s, const BwdRing& ring,
                                         const Turns& turns, int i, int j, const float* bias_bh,
                                         const float* kbb, const float (&lse)[2],
-                                        const float (&dlt)[2], int row, int c) {
+                                        const float (&lgl)[2], const float (&dlt)[2], int row,
+                                        int c) {
   constexpr bool kTerms = kBias || kKeyBias;
   const int k0 = kBox * i;
   const uint32_t stage = (j % kBwdStages) * kBoxBytes;
@@ -1004,10 +1024,11 @@ __device__ __forceinline__ void dq_step(const Params& p, float (&dq)[32], Pendin
   keep(s);
   if (kTerms || kMask) prep<N, kTerms, kMask>(s, t, p.scale, k0 + 2 * c, p.Sk);
   const float mul = kTerms || kMask ? kLog2e : p.scale * kLog2e;
-  // P = exp(S - L); with a term S - L first, then log2 e (online_softmax)
+  // P = exp(S - L); with a term exp((S - m) - log l), subtracting first,
+  // then log2 e (online_softmax)
 #pragma unroll
   for (int i = 0; i < N / 2; ++i)
-    s[i] = kTerms ? exp2_approx((s[i] - lse[(i >> 1) & 1]) * kLog2e)
+    s[i] = kTerms ? exp2_approx(((s[i] - lse[(i >> 1) & 1]) - lgl[(i >> 1) & 1]) * kLog2e)
                   : exp2_approx(fmaf(s[i], mul, -lse[(i >> 1) & 1] * kLog2e));
   wg_wait<0>();  // dP
   keep(dp);
@@ -1077,10 +1098,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float* bias_bh = kBias ? p.bias + w.b * p.bsb + w.h * p.bsh : nullptr;
       const float* kbb = kKeyBias ? p.key_bias + w.b * p.kbsb : nullptr;
       const long long rows_bh = ((long long)w.b * p.H + w.h) * p.Sq;
-      float lse[2];
+      // L = m + log l for the fused exponent, or with a term m and log l
+      // (``lgl``) apart
+      float lse[2], lgl[2];
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
-        lse[r] = row + 8 * r < p.Sq ? p.lse[rows_bh + row + 8 * r] : 0.f;
+      for (int r = 0; r < 2; ++r) {
+        const bool ok = row + 8 * r < p.Sq;
+        const float m = ok ? p.lse[rows_bh + row + 8 * r] : 0.f;
+        lgl[r] = ok ? p.lse[(long long)p.B * p.H * p.Sq + rows_bh + row + 8 * r] : 0.f;
+        lse[r] = kBias || kKeyBias ? m : m + lgl[r];
+      }
       float dq[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) dq[i] = 0.f;
@@ -1109,14 +1136,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       for (int i = 0; i < n_steps - 1; ++i)
         dq_step<kBox, kBias, kKeyBias, false>(p, dq, pend, qa, doa, k_s, v_s, ring, turns, i,
-                                              j + i, bias_bh, kbb, lse, dlt, row, c);
+                                              j + i, bias_bh, kbb, lse, lgl, dlt, row, c);
       const int i = n_steps - 1;
       if (full_last)
         dq_step<kBox, kBias, kKeyBias, true>(p, dq, pend, qa, doa, k_s, v_s, ring, turns, i,
-                                             j + i, bias_bh, kbb, lse, dlt, row, c);
+                                             j + i, bias_bh, kbb, lse, lgl, dlt, row, c);
       else
         dq_step<16, kBias, kKeyBias, true>(p, dq, pend, qa, doa, k_s, v_s, ring, turns, i, j + i,
-                                           bias_bh, kbb, lse, dlt, row, c);
+                                           bias_bh, kbb, lse, lgl, dlt, row, c);
       wg_wait<0>();
       keep(dq);
       keep(pend.a);
@@ -1274,7 +1301,8 @@ dim3 grid_of(int n, const Params& p) {
 
 }  // namespace
 
-// O [B, Sq, H, D] bf16 and L [B, H, Sq] float32, both contiguous; D is 64,
+// O [B, Sq, H, D] bf16 and m, log l [2, B, H, Sq] float32, both
+// contiguous; D is 64,
 // or 40 for head dim 34 padded with zeros.  q,
 // k and v (bf16, [B, S, H, D]) start every row on 16 bytes, with b, s, h
 // strides that are multiples of 8 (the wrapper checks).  bias and key_bias

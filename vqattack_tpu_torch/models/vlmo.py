@@ -5,6 +5,8 @@ Port of ``vqattack_tpu/models/vlmo.py`` (reference
 
 - blocks with one shared self-attention and per-modality FFN experts
   (``mlp_text``/``mlp_imag``, and ``mlp_vl`` from ``vlffn_start_layer``),
+  or, with ``moe=False`` (ViLT, ``config.vilt_base_config``), one shared
+  ``norm2`` + ``mlp`` for every modality,
   the decomposed qkv bias (q and v biased, k not), layer scale
   ``gamma_1``/``gamma_2``, and the relative-position bias;
 - one fused relative-position table ``[all_num_relative_distance, H * L]``,
@@ -108,7 +110,9 @@ class MultiWayBlock(nn.Module):
     """Shared attention, modality-expert FFNs (``multiway_transformer.py:121-201``).
     ``modality``: ``"text"``, ``"image"`` or ``"vl"`` (joint: the VL expert
     from ``vlffn_start_layer``, else the text expert on the first
-    ``max_text_len`` tokens and the image expert on the rest)."""
+    ``max_text_len`` tokens and the image expert on the rest).  With
+    ``cfg.moe`` False (the single-stream ViLT block) one ``norm2`` + ``mlp``
+    serves every modality."""
 
     def __init__(self, cfg: VLMoConfig, with_vlffn: bool, dtype="float32"):
         super().__init__()
@@ -125,6 +129,10 @@ class MultiWayBlock(nn.Module):
             self.gamma_2 = nn.Parameter(torch.full((d,), float(cfg.layer_scale_init)))
         else:
             self.gamma_1 = self.gamma_2 = None
+        if not cfg.moe:
+            self.norm2 = LayerNorm(d, eps, dtype)
+            self.mlp = Mlp(d, hidden, d, dtype)
+            return
         self.norm2_text = LayerNorm(d, eps, dtype)
         self.mlp_text = Mlp(d, hidden, d, dtype)
         self.norm2_imag = LayerNorm(d, eps, dtype)
@@ -142,6 +150,8 @@ class MultiWayBlock(nn.Module):
         x = x + self._scaled(self.gamma_1, self.attn(self.norm1(x), bias=bias,
                                                      key_bias=key_bias))
         g2 = self.gamma_2
+        if not self.cfg.moe:  # single-stream: one FFN whatever the modality
+            return x + self._scaled(g2, self.mlp(self.norm2(x)))
         if modality == "image":
             return x + self._scaled(g2, self.mlp_imag(self.norm2_imag(x)))
         if modality == "text":
@@ -198,13 +208,12 @@ def _layer_cls(feats) -> torch.Tensor:
 
 
 class VLMo(nn.Module):
-    """The VLMo surrogate (and, with its VQA head, the victim).  Holds every
-    parameter of the JAX module's ``init_all``."""
+    """The VLMo surrogate (and, with its VQA head, the victim); with
+    ``cfg.moe`` False the ViLT model.  Holds every parameter of the JAX
+    module's ``init_all``."""
 
     def __init__(self, cfg: VLMoConfig, with_vqa_head: bool = True, dtype="float32"):
         super().__init__()
-        if not cfg.moe:
-            raise NotImplementedError("VLMo with moe=False (one shared FFN) is not ported yet")
         self.cfg = cfg
         self.compute_dtype = resolve_dtype(dtype)
         d = cfg.hidden_size

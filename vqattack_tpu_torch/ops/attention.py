@@ -11,14 +11,14 @@ choice with the JAX package's values, so the CLI's ``--attn`` carries over:
 :func:`flash_attention` takes the JAX layout ``[B, S, H, Dh]`` and returns
 ``[B, Sq, H, Dh]``.  On a CUDA tensor it runs the kernels of
 ``csrc/flash_attention.cu`` behind a ``torch.autograd.Function`` (forward,
-and the backward from the saved log-sum-exp); on a CPU tensor it runs the
+and the backward from the saved row statistics); on a CPU tensor it runs the
 plain version under autograd.  There is no sequence padding and no dense
 bias: the kernel masks ragged lengths itself, reads ``bias`` through broadcast strides
 and ``key_bias``, a second term with one value a key (VLMo's padded-text
 mask beside its relative-position table), as a vector.  The plain versions
 are also the kernels' oracles on the card: :func:`flash_attention_bwd_reference`
-is the backward written from the log-sum-exp exactly as the kernel computes
-it.  The kernel runs its products
+is the backward written from the saved statistics exactly as the kernel
+computes it.  The kernel runs its products
 on the tensor cores in three TF32 passes; :func:`mm_3xtf32` emulates that
 arithmetic on the CPU for the tests.
 
@@ -27,6 +27,16 @@ The kernels take head dims 34 (VLMo-base+: 544 over 16 heads) and 64
 in place, as views of the model's projections, like those at 64; bf16 ones
 are copied into zero-padded 40-wide rows first (:func:`kernel_width`), whose
 outputs come back sliced to 34: the zero columns change no product.
+
+The forward saves each query row's softmax statistics for the backward,
+the row maximum ``m`` and ``log l`` apart (``[2, B, H, Sq]`` float32), as
+the library kernel saves m and l, and the backward forms ``P = exp((S - m)
+- log l)``.  A row whose every key carries a finite -1e9 has ``m`` near
+-1e9, where ``m + log l`` rounds back to ``m`` (the float32 ulp there is
+64), so a single saved ``L = m + log l`` would give ``exp(S - L) = 1`` for
+every key, not ``1 / Sk``.  The bf16 instances without a term form ``L``
+once as they load the row and keep their fused exponent ``S log2 e - L
+log2 e``: their maximum is a product's and never nears -1e9.
 
 The float32 kernels also give the bias its gradient (dbias, the library
 backward's ``dab``): where the bias needs one, as VLMo's relative-position
@@ -124,7 +134,7 @@ def _reference_bf16(q, k, v, bias, scale, return_lse, key_bias):
     out = torch.einsum("bhqk,bkhd->bqhd", _round(p, v), v.float())
     out = (out / l.transpose(1, 2)[..., None]).to(q.dtype)
     if return_lse:
-        return out, m[..., 0] + torch.log(l)
+        return out, torch.stack([m[..., 0], torch.log(l)])
     return out
 
 
@@ -132,33 +142,36 @@ def flash_attention_reference(q, k, v, bias, scale, return_lse: bool = False,
                               key_bias=None):
     """``softmax((q * scale) k^T + bias + key_bias) v`` by the explicit
     product, in the ``[B, S, H, Dh]`` layout; with ``return_lse`` also the
-    rows' log-sum-exp ``[B, H, Sq]`` that the kernel saves.  bf16 q/k/v
-    take the bf16 kernel's arithmetic (:func:`_reference_bf16`)."""
+    rows' statistics that the kernel saves: their maxima and the logs of
+    their sums, ``[2, B, H, Sq]``.  bf16 q/k/v take the bf16 kernel's
+    arithmetic (:func:`_reference_bf16`)."""
     if q.dtype == torch.bfloat16:
         return _reference_bf16(q, k, v, bias, scale, return_lse, key_bias)
     s = _scores(q, k, bias, scale, key_bias)
     out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
-    if return_lse:
-        return out, torch.logsumexp(s, dim=-1)
-    return out
+    if not return_lse:
+        return out
+    m = s.amax(-1)
+    return out, torch.stack([m, torch.log(torch.exp(s - m[..., None]).sum(-1))])
 
 
 def flash_attention_bwd_reference(q, k, v, bias, scale, o, lse, do, key_bias=None,
                                   dbias: bool = False):
     """The kernel's backward in plain PyTorch: ``(dq, dk, dv)`` from the
-    forward output ``o``, its log-sum-exp ``lse`` and the output gradient
-    ``do``, with ``P = exp(S - lse)`` recomputed (both additive terms) and
-    ``D = rowsum(do * o)``.  With ``dbias`` also the bias's gradient, dS
-    summed over the bias's broadcast dimensions, in the bias's shape, as a
-    fourth output (for bf16 q/k/v dS before its rounding).  For bf16 q/k/v
-    everything is float32 from the bf16 inputs but P and dS, rounded to
-    bf16 as the kernel (and the library kernel) hands them to the next
-    product, and the gradients come back bf16; scale is applied after dS's
+    forward output ``o``, its row statistics ``lse`` (m and log l) and the
+    output gradient ``do``, with ``P = exp((S - m) - log l)`` recomputed
+    (both additive terms) and ``D = rowsum(do * o)``.  With ``dbias`` also
+    the bias's gradient, dS summed over the bias's broadcast dimensions, in
+    the bias's shape, as a fourth output (for bf16 q/k/v dS before its
+    rounding).  For bf16 q/k/v everything is float32 from the bf16 inputs
+    but P and dS, rounded to bf16 as the kernel (and the library kernel)
+    hands them to the next product, and the gradients come back bf16; scale is applied after dS's
     rounding, as the kernel applies it (the same bits as before it for a
     power of two, 1/8 at head dim 64; at head dim 34 the two orders differ
     by a rounding)."""
     qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
-    p = torch.exp(_scores(qf, kf, bias, scale, key_bias) - lse[..., None])
+    s = _scores(qf, kf, bias, scale, key_bias)
+    p = torch.exp((s - lse[0][..., None]) - lse[1][..., None])
     d = (dof * of).sum(-1).transpose(1, 2)  # [B, H, Sq]
     dv = torch.einsum("bhqk,bqhd->bkhd", _round(p, q), dof)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
@@ -306,11 +319,12 @@ def _common_args(q, k, v, bias, key_bias, b, h, sq, sk):
 
 def _launch_fwd(q, k, v, bias, scale, key_bias, dims, head_dim):
     """The forward kernel on q/k/v of the kernel's row width (checked, and
-    padded where :func:`kernel_width` says): ``(o, lse)``, o as wide."""
+    padded where :func:`kernel_width` says): ``(o, lse)``, o as wide, lse
+    the row statistics ``[2, B, H, Sq]``."""
     b, h, sq, sk = dims
     ptrs, sizes = _common_args(q, k, v, bias, key_bias, b, h, sq, sk)
     out = torch.empty((b, sq, h, q.shape[-1]), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    lse = torch.empty((2, b, h, sq), dtype=torch.float32, device=q.device)
     lib = _build.load()
     with torch.cuda.device(q.device):
         status = getattr(lib, _ENTRY_POINTS[q.dtype] + "fwd")(
@@ -334,7 +348,7 @@ def _launch_bwd(q, k, v, bias, scale, o, lse, do, key_bias, dims, head_dim, dbia
         do = do.clone()
     for name, t, shape, dtype in (("o", o, (b, sq, h, width), q.dtype),
                                   ("grad of o", do, (b, sq, h, width), q.dtype),
-                                  ("lse", lse, (b, h, sq), torch.float32)):
+                                  ("lse", lse, (2, b, h, sq), torch.float32)):
         if tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"flash_attention_bwd: {name} {tuple(t.shape)} {t.dtype}; "
                              f"takes contiguous {dtype} {shape}")
@@ -371,8 +385,9 @@ def _checked_and_padded(q, k, v, bias, key_bias):
 
 
 def flash_attention_fwd(q, k, v, bias, scale: float, key_bias=None):
-    """Forward kernel: ``(o [B, Sq, H, Dh] in q's dtype, lse [B, H, Sq]
-    float32)``; o is a view of the padded output where q was padded."""
+    """Forward kernel: ``(o [B, Sq, H, Dh] in q's dtype, lse [2, B, H, Sq]
+    float32)``, lse the rows' maxima and the logs of their sums; o is a view
+    of the padded output where q was padded."""
     dims, dh, _, qkv = _checked_and_padded(q, k, v, bias, key_bias)
     o, lse = _launch_fwd(*qkv, bias, scale, key_bias, dims, dh)
     return o[..., :dh], lse
@@ -383,11 +398,11 @@ def flash_attention_bwd(q, k, v, bias, scale: float, o, lse, do, key_bias=None,
     """Backward kernels (the D pass, dK/dV over key tiles, dQ over query
     tiles): ``(dq, dk, dv)`` in the shapes and dtype of ``q``, ``k``, ``v``
     (views of padded outputs where q was padded, else contiguous); ``o``
-    and ``do`` in that dtype, ``lse`` float32.  With ``dbias`` (float32
-    q/k/v and a bias) the dQ kernel's dbias instance runs and the bias's
-    gradient, dS summed over the bias's broadcast dimensions, comes back
-    fourth, in the bias's shape.  The same bit for bit on every run: no
-    atomics."""
+    and ``do`` in that dtype, ``lse`` the forward's statistics.  With
+    ``dbias`` (float32 q/k/v and a bias) the dQ kernel's dbias instance
+    runs and the bias's gradient, dS summed over the bias's broadcast
+    dimensions, comes back fourth, in the bias's shape.  The same bit for
+    bit on every run: no atomics."""
     dims, dh, width, qkv = _checked_and_padded(q, k, v, bias, key_bias)
     grads = _launch_bwd(*qkv, bias, scale, pad_heads(o, width), lse, pad_heads(do, width),
                         key_bias, dims, dh, dbias)

@@ -12,7 +12,9 @@ alignment guards -> the attack -> black-box victim check every
 surrogate and ranks ``--answer-list`` with the ALBEF victim; ``--pipeline
 vlmo`` attacks VLMo (``vlmo_attack_config``, or the geometry of
 ``--named-config``) and checks its 3,129-way VQA classifier, decoded through
-``--id2answer``.  ``--batch-size 1`` attacks one sample at a time; a larger
+``--id2answer``; a ``--config`` whose ``vlmo`` is ``config.vilt_base_config()``
+attacks ViLT-B/32 (one shared FFN a block, 185 joint tokens at 384 px) the
+same way.  ``--batch-size 1`` attacks one sample at a time; a larger
 batch buffers ``--buffer-factor`` batches of samples and runs them through
 the lockstep engine (``attacks/batched.py``), ``--pipeline-depth`` chunks at
 a time.  ``--attn flash`` sends every attention over at least 128 queries
