@@ -114,6 +114,23 @@ its victim forwards, its answers against the same pipeline's under
 victim; a ``transfer`` JSON line (seconds and flip rate a victim, the ViLT
 cells, the masked row's errors).
 
+The analysis slice adds, after the ALBEF batch-16 A/B, ``pgd_multi_restart``
+over the surrogate (the feature loss, B 2, R 4, 10 steps a restart), the
+pick recomputed by running each restart alone from the same key and
+evaluating its final iterate again; ``albef_question_gradcam`` at layer 8
+under flash and xla, against grad x attention taken directly from the
+probabilities, with the last LayerNorm's affine map drawn from the seed
+(random weights leave it the identity, which makes the summed [CLS] score
+constant); ``grounding_accuracy`` over a synthetic RefCOCO layout, its
+resize against float64 numpy; and, after the VLMo batch-16 A/B, the seven
+attacks of ``attacks/extra.py`` against the VLMo-VQA victim on one question
+(B 2; PGD and MIM 10 steps, SPSA 4 steps of 32 draws in chunks of 8, CW-L2
+20 steps x 3 search steps), each result in the box (and the ball), CW-L2's
+its start or a success with its L2, the victim's logits at each under
+flash against xla, and K3 with both terms against its plain versions at
+the attacks' shapes (B 2 and SPSA's stacked [32, 941]).  Each of the three prints a JSON line with its seconds
+and launches, which must equal the schedule's.
+
 The bf16 trunk (``--dtype bfloat16``) adds, after the float32 phases of each
 surrogate: K2 on a bf16 stream (phase 3, beside float32) and K3's bf16
 instance against its plain versions and the float32 computation (ALBEF's
@@ -155,16 +172,20 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from vqattack_tpu_torch import run as port_run  # noqa: E402
-from vqattack_tpu_torch.attacks import batched  # noqa: E402
+from vqattack_tpu_torch.attacks import batched, extra  # noqa: E402
 from vqattack_tpu_torch.attacks.orchestrator import save_artifacts  # noqa: E402
 from vqattack_tpu_torch.attacks.mar_labels import build_mar_labels  # noqa: E402
-from vqattack_tpu_torch.attacks.pgd import pgd_alternating, pgd_feature  # noqa: E402
+from vqattack_tpu_torch.attacks.norms import get_or_guess_labels  # noqa: E402
+from vqattack_tpu_torch.attacks.pgd import (  # noqa: E402
+    pgd_alternating, pgd_feature, pgd_multi_restart)
 from vqattack_tpu_torch.data.side_tables import SideTables  # noqa: E402
+from vqattack_tpu_torch.eval import grounding  # noqa: E402
 from vqattack_tpu_torch.models.albef import AlbefPretrain  # noqa: E402
 from vqattack_tpu_torch.models.layers import mask_to_key_bias  # noqa: E402
 from vqattack_tpu_torch.ops import _build, attention, fused_ln, pgd_update  # noqa: E402
 from vqattack_tpu_torch.rng import TorchKey  # noqa: E402
 from vqattack_tpu_torch.text.tokenizer import WordPieceTokenizer  # noqa: E402
+from vqattack_tpu_torch.utils.gradcam import albef_question_gradcam  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
@@ -2814,13 +2835,14 @@ def _victim_outputs_err(flash, xla, n, what):
 
 
 @contextlib.contextmanager
-def recorded_k3_shapes():
-    """The ``(B, S)`` of every K3 forward launch that takes a key bias and
-    no table, as the path hands them to the kernel."""
+def recorded_k3_shapes(table=False):
+    """The ``(B, S)`` of every K3 forward launch that takes a key bias, and
+    a table too where ``table``, else none, as the path hands them to the
+    kernel."""
     seen, launch = set(), attention._launch_fwd
 
     def recording(q, k, v, bias, scale, key_bias, dims, head_dim):
-        if bias is None and key_bias is not None:
+        if key_bias is not None and (bias is not None) == table:
             seen.add((q.shape[0], q.shape[1]))
         return launch(q, k, v, bias, scale, key_bias, dims, head_dim)
 
@@ -3002,6 +3024,344 @@ def check_masked_row_truth(pipe, tokenizer, gen, dtype):
     return errs
 
 
+# ---------------------------------------------------------------------------
+# the analysis slice: multi-restart PGD, Grad-CAM and grounding, the attack
+# zoo (attacks/extra.py) against the VLMo-VQA victim
+# ---------------------------------------------------------------------------
+
+RESTART_B, RESTARTS, RESTART_ITERS = 2, 4, 10
+RESTART_QUESTIONS = ["what color is the dog", "what is the man holding"]
+GRADCAM_LAYER = 8
+# the grounding layout: image sizes (h, w) of the reference's range
+GROUNDING_IMAGES = [(333, 500), (480, 640), (640, 427)]
+ZOO_B, ZOO_ITERS, SPSA_ITERS, SPSA_SAMPLES = 2, 10, 4, 32
+CW_ITERS, CW_STEPS = 20, 3
+
+
+def restarts_phase(pipe, cfg, tokenizer):
+    """``pgd_multi_restart`` over the ALBEF surrogate: the feature loss,
+    B = 2, R = 4, 10 steps a restart.  The restarts are run again one by
+    one from the same seed (the same draws in the same order) and their
+    final iterates evaluated again: the pick must be each sample's argmax,
+    its trajectory the one returned.  Returns (the phase's numbers,
+    launches, the schedule's launches)."""
+    atk, dev = cfg.attack, pipe.device
+    size = cfg.albef.vit.image_size
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    ori = torch.rand((RESTART_B, 3, size, size), generator=gen, device=dev) * 2 - 1
+    ids, mask = tokenizer.encode_batch(RESTART_QUESTIONS, atk.max_text_len)
+    ids = torch.as_tensor(ids, dtype=torch.long, device=dev)
+    mask = torch.as_tensor(mask, dtype=torch.long, device=dev)
+    aux = {"text_ids": ids, "text_mask": mask, "ori_ids": ids, "ori_mask": mask,
+           "txt_token_mask": mask.float(), "special_ids": pipe._special}
+    aux.update(pipe._targets_fn(ori, TorchKey(SEED + 22, dev), aux))
+    kw = dict(eps=atk.eps, eps_iter=atk.step_size, nb_iter=RESTART_ITERS)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    adv, best = pgd_multi_restart(pipe._feature_loss, ori, ori, TorchKey(SEED + 23, dev), aux,
+                                  n_restarts=RESTARTS, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = counts()
+    expected = implied_launches(cfg, RESTARTS * (RESTART_ITERS + 1), RESTARTS * RESTART_ITERS,
+                                RESTARTS * RESTART_ITERS, True)
+    require(tuple(best.shape) == (RESTART_ITERS, RESTART_B) and bool(torch.isfinite(best).all()),
+            "multi-restart losses")
+    require(float((adv - ori).abs().max()) <= atk.eps + 1e-6, "a restart left the eps ball")
+    require(float(adv.min()) >= -1 and float(adv.max()) <= 1, "a restart left the box")
+    # the pick, recomputed: each restart alone from the same key stream
+    key = TorchKey(SEED + 23, dev)
+    keys = key.split(RESTARTS + 1)
+    runs = [pgd_feature(pipe._feature_loss, ori, ori, k, aux, rand_init=True, **kw)
+            for k in keys[:-1]]
+    with torch.no_grad():
+        final = torch.stack([pipe._feature_loss(a, k, aux)[1]
+                             for (a, _), k in zip(runs, keys[-1].split(RESTARTS))])
+    pick = torch.argmax(final, dim=0)
+    top2 = torch.topk(final, 2, dim=0).values
+    for i, r in enumerate(pick.tolist()):
+        require(torch.allclose(runs[r][1][:, i], best[:, i], rtol=1e-5, atol=0),
+                f"sample {i}: the returned trajectory is not restart {r}'s, the argmax of the "
+                f"re-evaluated losses {final[:, i].tolist()}")
+        require(torch.allclose(runs[r][0][i], adv[i], rtol=0, atol=1e-6),
+                f"sample {i}: the returned image is not restart {r}'s")
+    out = {"seconds": round(seconds, 3), "batch": RESTART_B, "restarts": RESTARTS,
+           "iterations": RESTART_ITERS, "pick": pick.tolist(),
+           "final_losses": final.t().tolist(),
+           "margin_to_second": (top2[0] - top2[1]).tolist()}
+    print(f"  multi-restart: {seconds:.3f} s, picks {out['pick']}, re-evaluated losses "
+          f"{out['final_losses']}", flush=True)
+    return out, launched, expected
+
+
+class _ExplicitCrossAttention(torch.nn.Module):
+    """A cross-attention layer's product + softmax written out, its
+    probabilities kept with their gradient (Grad-CAM's grad x attention,
+    computed directly)."""
+
+    def __init__(self, mha):
+        super().__init__()
+        self.mha, self.probs = mha, None
+
+    def forward(self, x, kv=None, bias=None, key_bias=None, attn_scale=None):
+        m = self.mha
+        b, sq, _ = x.shape
+        h, dh = m.num_heads, m.head_dim
+        q = m.query(x).view(b, sq, h, dh).transpose(1, 2)
+        k = m.key(kv).view(b, -1, h, dh).transpose(1, 2)
+        v = m.value(kv).view(b, -1, h, dh).transpose(1, 2)
+        s = torch.matmul(q * dh ** -0.5, k.transpose(-1, -2))
+        if bias is not None:
+            s = s + bias
+        self.probs = torch.softmax(s, dim=-1).detach().requires_grad_(True)
+        return torch.matmul(self.probs, v).transpose(1, 2).reshape(b, sq, h * dh)
+
+
+def gradcam_direct(model, px, ids, mask, layer):
+    """relu(d score / d attention x attention) at ``layer``'s
+    cross-attention, from the probabilities themselves: the mean over the
+    heads at the [CLS] query, the image [CLS] key dropped."""
+    blk = model.text_encoder.layer[layer]
+    explicit = _ExplicitCrossAttention(blk.crossattention_self)
+    blk.crossattention_self = explicit
+    try:
+        with torch.no_grad():
+            image_embeds, _ = model.visual_encoder(px)
+            embeds = model.text_encoder.embed(ids)
+        image_mask = torch.ones(image_embeds.shape[:2], dtype=torch.long, device=px.device)
+        with torch.enable_grad():
+            last, _ = model.text_encoder.encode(embeds, mask, image_embeds, image_mask,
+                                                mode="multi_modal")
+            torch.sum(last[:, 0]).backward()
+    finally:
+        blk.crossattention_self = explicit.mha
+    p = explicit.probs
+    cam = torch.mean(torch.clamp(p.grad * p, min=0.0), dim=1)[:, 0, 1:]
+    return cam.detach()
+
+
+def write_refer(tmp, grid):
+    """A RefCOCO layout under ``tmp/refcoco+`` (``refs(unc).json``,
+    ``instances.json``): one ref an image, fractional detection boxes."""
+    rng = np.random.default_rng(SEED + 31)
+    images, anns, refs, dets = [], [], [], {}
+    for i, (h, w) in enumerate(GROUNDING_IMAGES):
+        images.append({"id": i, "height": h, "width": w})
+        box = [float(rng.uniform(0, w / 2)), float(rng.uniform(0, h / 2)),
+               float(rng.uniform(w / 6, w / 2)), float(rng.uniform(h / 6, h / 2))]
+        anns.append({"id": 10 + i, "image_id": i, "bbox": box, "category_id": 1})
+        refs.append({"ref_id": 20 + i, "ann_id": 10 + i, "image_id": i,
+                     "split": ("val", "testA", "testB")[i]})
+        dets[str(i)] = [[c + 0.37 for c in box]] + [
+            [float(rng.uniform(0, w / 2)) + 0.5, float(rng.uniform(0, h / 2)) + 0.25,
+             float(rng.uniform(20, w / 2)) + 0.75, float(rng.uniform(20, h / 2)) + 0.5, 0.9]
+            for _ in range(3)]
+    root = os.path.join(tmp, "refcoco+")
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "refs(unc).json"), "w") as f:
+        json.dump(refs, f)
+    with open(os.path.join(root, "instances.json"), "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": 1, "name": "dog"}]}, f)
+    return dets
+
+
+@contextlib.contextmanager
+def drawn_last_layernorm(model, seed):
+    """The text encoder's last LayerNorm with its affine map drawn from
+    ``seed`` (gamma 1 + N(0, 0.1), beta N(0, 0.1)) for the block, restored
+    after.  Random weights from ``init_weights`` leave every LayerNorm at
+    gamma 1, beta 0, and with those the sum of its outputs is 0 whatever
+    its input: Grad-CAM's score, the summed [CLS] state, would be constant
+    and its gradient 0."""
+    ln = model.text_encoder.layer[-1].output_LayerNorm
+    saved = (ln.weight.detach().clone(), ln.bias.detach().clone())
+    g = torch.Generator(device=ln.weight.device).manual_seed(seed)
+    with torch.no_grad():
+        ln.weight.copy_(1 + 0.1 * torch.randn(ln.weight.shape, generator=g,
+                                              device=ln.weight.device))
+        ln.bias.copy_(0.1 * torch.randn(ln.bias.shape, generator=g, device=ln.bias.device))
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            ln.weight.copy_(saved[0])
+            ln.bias.copy_(saved[1])
+
+
+def gradcam_phase(pipe, cfg, tokenizer, tmp):
+    """``albef_question_gradcam`` on the ALBEF surrogate at layer 8 (a [1,
+    30, 30] CAM) under ``--attn flash`` and ``--attn xla`` and against
+    grad x attention taken directly, then ``grounding_accuracy`` over a
+    synthetic RefCOCO layout from the normalised CAM, its resize held
+    against a float64 numpy evaluation of the same weights.  The last
+    LayerNorm's affine map is drawn for the phase
+    (:func:`drawn_last_layernorm`).  Returns (the phase's numbers,
+    launches, the schedule's launches)."""
+    with drawn_last_layernorm(pipe.surrogate, SEED + 33):
+        return _gradcam_phase(pipe, cfg, tokenizer, tmp)
+
+
+def _gradcam_phase(pipe, cfg, tokenizer, tmp):
+    dev, size = pipe.device, cfg.albef.vit.image_size
+    model = pipe.surrogate
+    grid = size // cfg.albef.vit.patch_size
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    px = torch.rand((1, 3, size, size), generator=gen, device=dev) * 2 - 1
+    ids, mask = tokenizer.encode("what color is the dog", cfg.attack.max_text_len)
+    ids = torch.as_tensor(ids[None], dtype=torch.long, device=dev)
+    mask = torch.as_tensor(mask[None], dtype=torch.long, device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with attention.attention_impl("flash"):
+        cam = albef_question_gradcam(model, px, ids, mask, layer=GRADCAM_LAYER)
+    seconds = time.perf_counter() - t0
+    launched = counts()
+    # the ViT's forward alone: the probe's gradient needs no image-tower graph
+    expected = implied_launches(cfg, 1, 0, 0, True)
+    with attention.attention_impl("xla"):
+        cam_xla = albef_question_gradcam(model, px, ids, mask, layer=GRADCAM_LAYER)
+        direct = gradcam_direct(model, px, ids, mask, GRADCAM_LAYER).reshape(1, grid, grid)
+    top = float(np.abs(cam_xla).max())
+    require(cam.shape == (1, grid, grid) and np.isfinite(cam).all(), "the CAM's shape")
+    require(cam.min() >= 0 and top > 0, "the CAM is negative or all zero")
+    err_flash = float(np.abs(cam - cam_xla).max())
+    err_direct = float(np.abs(cam_xla - direct.cpu().numpy()).max())
+    require(err_flash <= 1e-4 * top, f"the CAM under flash: {err_flash} from xla's (max {top})")
+    require(err_direct <= 1e-5 * top, f"the CAM against grad x attention taken directly: "
+                                      f"{err_direct} (max {top})")
+
+    dets = write_refer(tmp, grid)
+    refer = grounding.Refer(tmp)
+    heat = torch.as_tensor(cam[0] / cam.max(), device=dev)
+    resize_err = 0.0
+    for h, w in GROUNDING_IMAGES:
+        got = grounding._upsample_bicubic(heat, h, w).cpu().numpy().astype(np.float64)
+        m64 = heat.cpu().numpy().astype(np.float64)
+        want = grounding.bicubic_weights(grid, h) @ m64 @ grounding.bicubic_weights(grid, w).T
+        resize_err = max(resize_err, float(np.abs(got - want).max()))
+    require(resize_err <= 1e-5, f"the grounding resize against float64 numpy: {resize_err}")
+    t1 = time.perf_counter()
+    acc = grounding.grounding_accuracy(
+        [{"ref_id": rid, "pred": heat} for rid in refer.getRefIds()], dets, refer,
+        mask_size=grid)
+    g_seconds = time.perf_counter() - t1
+    require(set(acc) == {"val_d", "testA_d", "testB_d"}, f"grounding splits {acc}")
+    out = {"gradcam_seconds": round(seconds, 3), "grounding_seconds": round(g_seconds, 3),
+           "cam_max": top, "flash_vs_xla": err_flash, "direct_vs_probe": err_direct,
+           "resize_vs_float64": resize_err, "accuracy": acc}
+    print(f"  Grad-CAM at layer {GRADCAM_LAYER}: {seconds:.3f} s, max {top:.4g}, flash-xla "
+          f"{err_flash:.3g}, direct {err_direct:.3g}; resize {resize_err:.3g}; grounding "
+          f"{acc} in {g_seconds:.3f} s", flush=True)
+    return out, launched, expected
+
+
+def zoo_phase(pipe, cfg, tokenizer):
+    """The seven attacks of ``attacks/extra.py`` against the VLMo-VQA victim
+    (941 joint tokens, 3,129 answers) on a fixed question, B = 2, ``--attn
+    flash``: PGD and MIM 10 steps, SPSA 4 steps of 32 draws in chunks of 8,
+    CW-L2 20 steps x 3 search steps.  Each result is checked (finite, the
+    box, the ball; CW-L2 its start or a success with its L2), and the
+    victim's logits at it under flash against xla.  K3 with both terms is
+    held against its plain versions at each (B, S) the attacks launched it
+    at: B 2 and SPSA's stacked 32.  Returns (the phase's numbers,
+    launches, the schedule's launches)."""
+    dev, size, atk = pipe.device, cfg.vlmo.image_size, cfg.attack
+    victim, rel = pipe.victim, pipe._victim_rel_biases
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    x = torch.rand((ZOO_B, 3, size, size), generator=gen, device=dev) * 2 - 1
+    ids, mask = tokenizer.encode("what color is the dog?", pipe.max_text_len)
+    ids = torch.as_tensor(ids[None], dtype=torch.long, device=dev)
+    mask = torch.as_tensor(mask[None], dtype=torch.long, device=dev)
+
+    def logits_fn(px):
+        n = px.shape[0]
+        return victim.vqa_logits(px, ids.expand(n, -1), mask.expand(n, -1), rel)
+
+    with torch.no_grad(), attention.attention_impl("flash"):
+        y = get_or_guess_labels(logits_fn, x)
+    eps, step = atk.eps, atk.step_size
+    key = TorchKey(SEED + 42, dev)
+    runs = {
+        "fgm": lambda: extra.fgm_classifier(logits_fn, x, y, eps=eps),
+        "pgd": lambda: extra.pgd_classifier(logits_fn, x, y, key, eps=eps, eps_iter=step,
+                                            nb_iter=ZOO_ITERS),
+        "mim": lambda: extra.momentum_iterative_method(logits_fn, x, y, eps=eps,
+                                                       eps_iter=step, nb_iter=ZOO_ITERS),
+        "spsa": lambda: extra.spsa(logits_fn, x, y, key, eps=eps, nb_iter=SPSA_ITERS,
+                                   spsa_samples=SPSA_SAMPLES, lr=step),
+        "semantic": lambda: extra.semantic(x),
+        "noise": lambda: extra.noise(x, key, eps=eps),
+        "cw_l2": lambda: extra.cw_l2_search(logits_fn, x, y, cfg.vlmo.vqa_label_size,
+                                            max_iterations=CW_ITERS,
+                                            binary_search_steps=CW_STEPS, lr=0.01),
+    }
+    reset_counts()
+    advs, seconds, peak_gib = {}, {}, {}
+    with attention.attention_impl("flash"), recorded_k3_shapes(table=True) as shapes:
+        for name, run in runs.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            advs[name] = run()
+            torch.cuda.synchronize()
+            seconds[name] = round(time.perf_counter() - t0, 3)
+            peak_gib[name] = round(torch.cuda.max_memory_allocated() / 2 ** 30, 2)
+    launched = counts()
+    # K3 with both terms at every (B, S) the attacks gave it, SPSA's stacked
+    # draws (2 * SPSA_CHUNK * B rows) included, against its plain versions
+    seq = rel[0].shape[-1]  # the joint sequence, 941 tokens
+    spsa_rows = 2 * extra.SPSA_CHUNK * ZOO_B
+    require(shapes == {(ZOO_B, seq), (spsa_rows, seq)}, f"the zoo's two-term K3 shapes {shapes}")
+    k3 = {f"{b}x{s}": _check_two_term_case(
+        *_qkv(gen, b, s), rel[0][None], _text_key_bias(pipe, tokenizer, b, s),
+        f"the zoo's VLMo-VQA victim, batch {b}") for b, s in sorted(shapes)}
+    chunks = -(-SPSA_SAMPLES // extra.SPSA_CHUNK)
+    fwd = 1 + 2 * ZOO_ITERS + SPSA_ITERS * chunks + CW_STEPS * (CW_ITERS + 1)
+    bwd = 1 + 2 * ZOO_ITERS + CW_STEPS * CW_ITERS
+    expected = vlmo_implied_launches(cfg, fwd, bwd, 0, True)
+    best, best_l2, margins = advs.pop("cw_l2")
+    advs["cw_l2"] = best
+    for name, adv in advs.items():
+        require(tuple(adv.shape) == tuple(x.shape) and bool(torch.isfinite(adv).all()),
+                f"{name}: shape or non-finite values")
+        require(float(adv.min()) >= -1 and float(adv.max()) <= 1, f"{name}: outside the box")
+        if name not in ("semantic", "cw_l2"):
+            require(float((adv - x).abs().max()) <= eps + 1e-6, f"{name}: outside the ball")
+    cw = []
+    for i in range(ZOO_B):
+        l2 = float(best_l2[i])
+        if np.isfinite(l2):
+            got = float(((best[i] - x[i]) ** 2).sum())
+            require(abs(got - l2) <= 1e-4 * max(l2, 1e-6), f"CW-L2 sample {i}: recorded L2 "
+                                                            f"{l2}, its image's {got}")
+            require(bool((margins[:, i] <= 0).any()), f"CW-L2 sample {i}: an L2 and no success")
+        else:
+            require(torch.equal(best[i], x[i].clamp(-1, 1)), f"CW-L2 sample {i}: no success "
+                                                             f"and not its start")
+        cw.append({"l2": l2 if np.isfinite(l2) else None,
+                   "margins": margins[:, i].tolist()})
+    errs, largest, flips = {}, {}, {}
+    with torch.no_grad():
+        for name, adv in advs.items():
+            with attention.attention_impl("flash"):
+                lf = logits_fn(adv)
+            with attention.attention_impl("xla"):
+                lx = logits_fn(adv)
+            errs[name] = float((lf - lx).abs().max())
+            largest[name] = float(lx.abs().max())
+            require(errs[name] <= 1e-4 * largest[name], f"{name}: victim logits flash against "
+                                                        f"xla {errs[name]} (max {largest[name]})")
+            flips[name] = int((lf.argmax(-1) != y).sum())
+    out = {"seconds": seconds, "logits_flash_vs_xla": errs, "logits_largest": largest, "cw_l2": cw,
+           "answers_changed": flips, "k3_errs": k3, "peak_gib": peak_gib}
+    print(f"  zoo: {seconds}; peak GiB {peak_gib}; answers changed of {ZOO_B}: {flips}",
+          flush=True)
+    return out, launched, expected
+
+
 def ptxas_summary(report):
     """One line a kernel of ptxas's report of a source (``-Xptxas -v``):
     registers at launch, spill stores and loads, and whether ptxas
@@ -3133,6 +3493,26 @@ def main() -> int:
     with Phase("one gradient step at batch 16: --attn flash against --attn xla"):
         ab = one_step_ab(pipe, cfg, tokenizer, gen)
 
+    # ------------------------- the analysis slice: restarts, Grad-CAM, zoo
+    vit32 = {"residual_layernorm_fwd", "residual_layernorm_bwd", "flash_attention_fwd",
+             "flash_attention_bwd"}
+    with Phase(f"multi-restart PGD: ALBEF, B {RESTART_B}, R {RESTARTS}, {RESTART_ITERS} steps, "
+               f"--attn flash") as ph:
+        with attention.attention_impl("flash"):
+            restarts, r_launched, r_expected = restarts_phase(pipe, cfg, tokenizer)
+    check_launches(r_launched, r_expected, vit32 | {"pgd_linf_update"}, "multi-restart")
+    restarts["phase_s"] = round(ph.seconds, 2)
+    print(json.dumps({"multi_restart": restarts, "launches": r_launched, "card": smi}),
+          flush=True)
+    with Phase(f"Grad-CAM at layer {GRADCAM_LAYER} (--attn flash and xla) and grounding: "
+               f"ALBEF") as ph:
+        gradcam, g_launched, g_expected = gradcam_phase(pipe, cfg, tokenizer, tmp)
+    check_launches(g_launched, g_expected, {"residual_layernorm_fwd", "flash_attention_fwd"},
+                   "Grad-CAM")
+    gradcam["phase_s"] = round(ph.seconds, 2)
+    print(json.dumps({"gradcam_grounding": gradcam, "launches": g_launched, "card": smi}),
+          flush=True)
+
     # ----------------------------------------------- ALBEF, --dtype bfloat16
     bf16_flags = ["--dtype", "bfloat16"]
     batch_flags = ["--batch-size", str(BATCH_SIZE), "--attn", "flash",
@@ -3232,6 +3612,14 @@ def main() -> int:
 
     with Phase("one VLMo gradient step at batch 16: --attn flash against --attn xla"):
         v_ab = vlmo_one_step_ab(v_pipe, v_cfg, tokenizer, gen)
+    with Phase(f"attack zoo: seven attacks against the VLMo-VQA victim, B {ZOO_B}, "
+               f"--attn flash") as ph:
+        zoo, z_launched, z_expected = zoo_phase(v_pipe, v_cfg, tokenizer)
+    check_launches(z_launched, z_expected, {"flash_attention_fwd", "flash_attention_bwd",
+                                            "flash_attention_fwd_key_bias",
+                                            "flash_attention_bwd_key_bias"}, "zoo")
+    zoo["phase_s"] = round(ph.seconds, 2)
+    print(json.dumps({"zoo": zoo, "launches": z_launched, "card": smi}), flush=True)
 
     # ------------------------------------------------ VLMo, --dtype bfloat16
     with Phase("VLMo bf16 pipeline (the same random full-width weights)"):

@@ -11,8 +11,12 @@ from __future__ import annotations
 import pytest
 import torch
 
+from vqattack_tpu_torch.attacks import extra
+from vqattack_tpu_torch.attacks import pgd as tpgd
 from vqattack_tpu_torch.attacks.pgd import _update
+from vqattack_tpu_torch.models.layers import MultiHeadAttention
 from vqattack_tpu_torch.ops import attention, fused_ln, pgd_update
+from vqattack_tpu_torch.rng import TorchKey
 
 pytestmark = pytest.mark.cuda
 
@@ -853,3 +857,102 @@ def test_flash_attention_at_the_vilt_shape(gen, dtype, b):
     for name, g, g2, r in zip(("dq", "dk", "dv"), grads, again, refs):
         assert torch.equal(g, g2), f"{name} differs between two runs"
         _close(g, r, name)
+
+
+# ---------------------------------------------------------------------------
+# the attack zoo and multi-restart PGD on the card against the same calls on
+# the CPU
+# ---------------------------------------------------------------------------
+
+
+class _DrawnOnCpu(TorchKey):
+    """A key that draws on the CPU and hands the draws to ``device``: a CPU
+    run and a card run see the same noise."""
+
+    def __init__(self, seed, device):
+        super().__init__(seed, "cpu")
+        self.target = torch.device(device)
+
+    def uniform(self, *a, **kw):
+        return super().uniform(*a, **kw).to(self.target)
+
+    def rademacher(self, *a, **kw):
+        return super().rademacher(*a, **kw).to(self.target)
+
+    def randint(self, *a, **kw):
+        return super().randint(*a, **kw).to(self.target)
+
+
+def _zoo(device):
+    g = torch.Generator().manual_seed(3)
+    w = torch.randn(24, 5, generator=g).to(device)
+    bias = (torch.randn(5, generator=g) * 0.1).to(device)
+    x = (torch.rand(4, 24, generator=g) * 1.2 - 0.6).to(device)
+
+    def logits(px):
+        return px @ w + bias
+
+    y = torch.argmax(logits(x), dim=1)  # the classifier's own answers
+
+    def key():
+        return _DrawnOnCpu(7, device)
+
+    best, best_l2, _ = extra.cw_l2_search(logits, x, y, 5, max_iterations=40,
+                                          binary_search_steps=4, lr=0.05, initial_const=0.05)
+    return {
+        "fgm": extra.fgm_classifier(logits, x, y, eps=0.1),
+        "pgd": extra.pgd_classifier(logits, x, y, key(), eps=0.3, eps_iter=0.05, nb_iter=5),
+        "mim": extra.momentum_iterative_method(logits, x, y, eps=0.3, eps_iter=0.05, nb_iter=5),
+        "spsa": extra.spsa(logits, x, y, key(), eps=0.3, nb_iter=3, spsa_samples=12),
+        "semantic": extra.semantic(x),
+        "noise": extra.noise(x, key(), eps=0.3),
+        "cw_l2": best, "cw_l2_success": torch.isfinite(best_l2),
+    }
+
+
+def test_zoo_on_the_card_matches_the_cpu(gen):
+    """The seven attacks on a linear classifier, on the card and on the CPU
+    from the same draws: the same CW-L2 successes, every image within 1e-5
+    (CW-L2's 40 Adam steps, 1e-4)."""
+    card, cpu = _zoo("cuda"), _zoo("cpu")
+    assert torch.equal(card.pop("cw_l2_success").cpu(), cpu.pop("cw_l2_success"))
+    for name, adv in card.items():
+        assert adv.is_cuda
+        tol = 1e-4 if name == "cw_l2" else 1e-5
+        torch.testing.assert_close(adv.cpu(), cpu[name], rtol=0, atol=tol, msg=name)
+
+
+def test_multi_restart_on_the_card_matches_the_cpu(gen):
+    """``pgd_multi_restart`` (R = 3, 4 steps) over one attention layer at
+    [2, 130, 2, 64] under ``attention_impl("flash")``: on the card K1 ends
+    every step and K3 runs every forward and backward; against the CPU run
+    from the same draws the same restart per sample, the losses within rtol
+    1e-4 and the images within the PGD drift budget."""
+    torch.manual_seed(0)
+    mha = MultiHeadAttention(128, 2).requires_grad_(False)
+    w = torch.randn(2, 130, 128)
+    x = torch.rand(2, 130, 128) * 2 - 1
+    kw = dict(eps=0.125, eps_iter=0.01, nb_iter=4)
+
+    def run(device):
+        m, wd = mha.to(device), w.to(device)
+
+        def loss_fn(adv, key, aux):
+            ps = (m(adv) * wd).flatten(1).sum(1)
+            return ps.sum(), ps
+
+        with attention.attention_impl("flash"):
+            return tpgd.pgd_multi_restart(loss_fn, x.to(device), x.to(device),
+                                          _DrawnOnCpu(5, device), None, n_restarts=3, **kw)
+
+    k1, fwd, bwd = (pgd_update.pgd_linf_update.launches, attention.flash_attention_fwd.launches,
+                    attention.flash_attention_bwd.launches)
+    adv_c, l_c = run("cuda")
+    assert pgd_update.pgd_linf_update.launches - k1 == 12
+    assert attention.flash_attention_fwd.launches - fwd == 12 + 3
+    assert attention.flash_attention_bwd.launches - bwd == 12
+    adv, l = run("cpu")
+    torch.testing.assert_close(l_c.cpu(), l, rtol=1e-4, atol=0)
+    d = (adv_c.cpu() - adv).abs()
+    assert float(d.max()) <= 2 * 0.01 * 4 + 1e-6 and float(d.mean()) < 1e-4
+    assert float((adv_c.cpu() - x).abs().max()) <= 0.125 + 1e-6

@@ -191,7 +191,7 @@ def test_tiny_vlmo_table_gradient_under_flash_matches_xla_and_jax(monkeypatch):
         return jnp.sum(j_model.apply(p, px, ids, mask, method=JVLMo.vqa_logits) * w)
 
     with jattention_impl("flash"):
-        j_grad = jax.grad(jloss)(params)["params"]["relative_position_bias_table"]
+        j_grad = jax.jit(jax.grad(jloss))(params)["params"]["relative_position_bias_table"]
     assert calls  # the JAX side took its flash path
 
     flash_calls, real = [], attention.flash_attention

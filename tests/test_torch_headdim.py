@@ -320,9 +320,10 @@ def test_tiny_base_plus_model_under_flash_matches_jax(jax_flash):
         out = j_model.apply(p, x, ids, mask, None, method=JVLMo.attack_feats)
         return jnp.sum(out[1] * w_cls) + jnp.sum(out[2] * w_tok) + jnp.sum(out[0]), out
 
-    (_, j_out), j_g = jax.value_and_grad(jloss, argnums=1, has_aux=True)(params,
-                                                                         jnp.asarray(px))
-    j_logits = j_model.apply(params, px, ids, mask, method=JVLMo.vqa_logits)
+    # one compiled program (eager, every primitive compiles on its own)
+    (_, j_out), j_g, j_logits = jax.jit(lambda p, x: (
+        *jax.value_and_grad(jloss, argnums=1, has_aux=True)(p, x),
+        j_model.apply(p, x, ids, mask, method=JVLMo.vqa_logits)))(params, jnp.asarray(px))
     assert jax_flash  # the JAX side took its flash path
     calls, real = [], attention.flash_attention
 

@@ -115,11 +115,16 @@ def test_optimizers_match_optax_on_identical_gradients(vlmo, opt, kw):
     t_params = optim.named_params(model)
     t_state = t_tx.init(t_params)
     rng = np.random.default_rng(1)
+
+    @jax.jit  # one program; eager, optax dispatches every leaf's update on its own
+    def j_step(grads, state, p):
+        updates, state = tx.update(grads, state, p)
+        return jax.tree_util.tree_map(lambda a, u: a + u, p, updates), state
+
     for step in range(3):
         grads = jax.tree_util.tree_map(
             lambda x: np.asarray(rng.normal(size=np.shape(x)) * 0.1, np.float32), p_j)
-        updates, state = tx.update(grads, state, p_j)
-        p_j = jax.tree_util.tree_map(lambda p, u: p + u, p_j, updates)
+        p_j, state = j_step(grads, state, p_j)
         t_grads = {n: T(np.array(g, order="C")) for n, g in _port_layout(model, grads).items()}
         t_state = t_tx.step(t_params, t_grads, t_state)
         want = _port_layout(model, p_j)
@@ -245,9 +250,11 @@ def test_train_step_matches_jax(task):
     lr = 1e-3
     tx = joptim.create_optimizer(params, "adamw", lr, weight_decay=0.02)
     j_step = jtrainer.make_train_step(jloss, tx, donate=False)
-    j_grads = jax.grad(lambda p: jloss(p, batch, None)[0])(params)
-    j_state, j_metrics = j_step(jtrainer.create_train_state(params, tx), batch,
-                                jax.random.key(0))
+    # the gradients and the step in one compiled program (an eager jax.grad
+    # dispatches, and compiles, every primitive on its own)
+    j_grads, (j_state, j_metrics) = jax.jit(lambda p: (
+        jax.grad(lambda q: jloss(q, batch, None)[0])(p),
+        j_step(jtrainer.create_train_state(p, tx), batch, jax.random.key(0))))(params)
 
     t_batch = {k: T(nchw(v) if k == "pixels" else v) for k, v in batch.items()}
     for k in ("text_ids", "text_mask", "answer_ids", "answer_mask"):

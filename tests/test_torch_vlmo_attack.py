@@ -107,8 +107,8 @@ def test_vlmo_losses_match_jax(pipelines):
         j_fn, t_fn = j_make(jp.model), t_make(tp.model)
         x = T(nchw(px)).requires_grad_(True)
         if vl:
-            (j_l, j_ps), j_g = jax.value_and_grad(
-                lambda a, e: j_fn(a, e, None, j_aux), argnums=(0, 1), has_aux=True)(
+            (j_l, j_ps), j_g = jax.jit(jax.value_and_grad(
+                lambda a, e: j_fn(a, e, None, j_aux), argnums=(0, 1), has_aux=True))(
                 jnp.asarray(px), jnp.asarray(embeds))
             e = T(embeds).requires_grad_(True)
             t_l, t_ps = t_fn(x, e, None, t_aux)
@@ -117,8 +117,8 @@ def test_vlmo_losses_match_jax(pipelines):
                                        atol=1e-6 * np.abs(j_g[1]).max())
             j_gx = j_g[0]
         else:
-            (j_l, j_ps), j_gx = jax.value_and_grad(
-                lambda a: j_fn(a, None, j_aux), has_aux=True)(jnp.asarray(px))
+            (j_l, j_ps), j_gx = jax.jit(jax.value_and_grad(
+                lambda a: j_fn(a, None, j_aux), has_aux=True))(jnp.asarray(px))
             t_l, t_ps = t_fn(x, None, t_aux)
             (g_x,) = torch.autograd.grad(t_l, x)
         np.testing.assert_allclose(t_ps.detach().numpy(), np.asarray(j_ps), rtol=1e-4)

@@ -11,6 +11,7 @@
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib.util
 import json
 from pathlib import Path
@@ -31,16 +32,23 @@ from vqattack_tpu_torch.models.albef import AlbefPretrain, AlbefVQA
 from vqattack_tpu_torch.models.bert import FusionBert
 from vqattack_tpu_torch.models.vlmo import VLMo
 
+# One intra-op thread for torch: the tests' tensors are tiny, and torch's
+# OpenMP team, sharing the cores with JAX's threads (and under xdist with
+# the other workers), can cost a millisecond an op, a hundred times the op:
+# test_torch_dtype.py's drift budget took 1.3 s in one serial run and 256 s
+# in another with the default team.
+torch.set_num_threads(1)
+
 WORDS = ["what", "color", "is", "the", "dog", "cat", "red", "blue", "hat",
          "a", "frisbee", "park"]
 
 
 class JaxKey:
     """A port key whose draws are the JAX package's: ``split``/``fold_in``
-    are ``jax.random``'s and ``uniform``/``randint`` call ``jax.random`` with
-    the same arguments as the JAX code.  The port asks for image-shaped
-    draws in NCHW; JAX draws them NHWC, so a 4-D request is drawn NHWC and
-    transposed."""
+    are ``jax.random``'s and ``uniform``/``randint``/``rademacher`` call
+    ``jax.random`` with the same arguments as the JAX code.  The port asks
+    for image-shaped draws in NCHW; JAX draws them NHWC, so a 4-D request
+    is drawn NHWC and transposed."""
 
     def __init__(self, key):
         self.key = key
@@ -51,14 +59,21 @@ class JaxKey:
     def fold_in(self, data: int):
         return JaxKey(jax.random.fold_in(self.key, data))
 
-    def uniform(self, shape, lo=0.0, hi=1.0, dtype=torch.float32):
+    def _draw(self, shape, draw):
+        """``draw(key, shape)``; a 4-D (NCHW) request drawn NHWC."""
         shape = tuple(shape)
         if len(shape) == 4:
             b, c, h, w = shape
-            u = jax.random.uniform(self.key, (b, h, w, c), jnp.float32, minval=lo, maxval=hi)
-            return torch.from_numpy(np.asarray(u).transpose(0, 3, 1, 2).copy())
-        u = jax.random.uniform(self.key, shape, jnp.float32, minval=lo, maxval=hi)
-        return torch.from_numpy(np.array(u))
+            return torch.from_numpy(
+                np.asarray(draw(self.key, (b, h, w, c))).transpose(0, 3, 1, 2).copy())
+        return torch.from_numpy(np.array(draw(self.key, shape)))
+
+    def uniform(self, shape, lo=0.0, hi=1.0, dtype=torch.float32):
+        return self._draw(shape, lambda k, s: jax.random.uniform(k, s, jnp.float32,
+                                                                 minval=lo, maxval=hi))
+
+    def rademacher(self, shape, dtype=torch.float32):
+        return self._draw(shape, lambda k, s: jax.random.rademacher(k, s, dtype=jnp.float32))
 
     def randint(self, shape, lo, hi):
         return torch.from_numpy(np.array(jax.random.randint(self.key, tuple(shape), lo, hi))).long()
@@ -108,6 +123,20 @@ def _host(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
+@functools.lru_cache(maxsize=None)
+def _jitted_init(module, method, static_argnums):
+    return jax.jit(lambda key, *a: module.init(key, *a, method=method),
+                   static_argnums=static_argnums)
+
+
+def _init(module, seed: int, *args, method=None):
+    """``module.init(jax.random.key(seed), *args, method=method)``, compiled
+    once per module, method and argument shapes (ints are static): the
+    test files build equal tiny models, and each compile costs seconds."""
+    static = tuple(i + 1 for i, a in enumerate(args) if isinstance(a, int))
+    return _jitted_init(module, method, static)(jax.random.key(seed), *args)
+
+
 def tiny_models(jc, tc, seed: int = 0, victim: bool = True, mlm: bool = True):
     """(JAX modules, JAX params, port modules) for the surrogate and, when
     asked, the victim and the candidate MLM (``None`` otherwise), with the
@@ -117,15 +146,13 @@ def tiny_models(jc, tc, seed: int = 0, victim: bool = True, mlm: bool = True):
     ids = jnp.ones((1, jc.attack.max_text_len), jnp.int32)
     mask = jnp.ones_like(ids)
     j_sur = JAlbefPretrain(jc.albef)
-    p_sur = jax.jit(lambda k: j_sur.init(k, px, ids, mask, method=JAlbefPretrain.init_all))(
-        jax.random.key(seed))
+    p_sur = _init(j_sur, seed, px, ids, mask, method=JAlbefPretrain.init_all)
     t_sur = load_jax_params(AlbefPretrain(tc.albef), _host(p_sur)).eval()
     j_vic = p_vic = t_vic = j_mlm = p_mlm = t_mlm = None
     if victim:
         a_ids = jnp.ones((2, 4), jnp.int32)
         j_vic = JAlbefVQA(jc.albef)
-        p_vic = jax.jit(lambda k: j_vic.init(k, px, ids, mask, a_ids, jnp.ones_like(a_ids), 2))(
-            jax.random.key(seed + 3))
+        p_vic = _init(j_vic, seed + 3, px, ids, mask, a_ids, jnp.ones_like(a_ids), 2)
         t_vic = load_jax_params(AlbefVQA(tc.albef), _host(p_vic)).eval()
     if mlm:
         j_mlm, p_mlm, t_mlm = tiny_mlm(jc, tc, seed + 1)
@@ -138,7 +165,7 @@ def tiny_mlm(jc, tc, seed: int):
     ids = jnp.ones((1, jc.attack.max_text_len), jnp.int32)
     j_mlm = JFusionBert(dataclasses.replace(jc.albef.bert, fusion_layer=jc.albef.bert.num_layers),
                         with_mlm_head=True)
-    p_mlm = jax.jit(lambda k: j_mlm.init(k, ids, jnp.ones_like(ids)))(jax.random.key(seed))
+    p_mlm = _init(j_mlm, seed, ids, jnp.ones_like(ids))
     t_mlm_cfg = dataclasses.replace(tc.albef.bert, fusion_layer=tc.albef.bert.num_layers)
     t_mlm = load_jax_params(FusionBert(t_mlm_cfg, with_mlm_head=True), _host(p_mlm)).eval()
     return j_mlm, p_mlm, t_mlm
@@ -162,8 +189,7 @@ def tiny_vlmo(jc, tc, seed: int = 0):
     px = jnp.zeros((1, cfg.image_size, cfg.image_size, 3))
     ids = jnp.ones((1, cfg.max_text_len), jnp.int32)
     j_model = JVLMo(cfg)
-    params = _host(jax.jit(lambda k: j_model.init(k, ids, jnp.ones_like(ids), px,
-                                                  method=JVLMo.init_all))(jax.random.key(seed)))
+    params = _host(_init(j_model, seed, ids, jnp.ones_like(ids), px, method=JVLMo.init_all))
     table = params["params"]["relative_position_bias_table"]
     params["params"]["relative_position_bias_table"] = (
         np.random.default_rng(seed).normal(size=table.shape) * 0.5).astype(np.float32)
@@ -174,16 +200,22 @@ def tiny_vlmo(jc, tc, seed: int = 0):
 ROOT = Path(__file__).resolve().parent.parent
 
 
+def synth_assets_module():
+    """``scripts/make_synth_assets.py`` (its vocab and image writers)."""
+    spec = importlib.util.spec_from_file_location("make_synth_assets",
+                                                  ROOT / "scripts" / "make_synth_assets.py")
+    synth = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(synth)
+    return synth
+
+
 def synth_cli_assets(tmp: Path, samples, image_size: int = 32) -> list:
     """The assets of scripts/make_synth_assets.py (its vocab and JPEG
     writers) for a CLI run over ``samples`` = ``[(qid, question, answer,
     paraphrase or None), ...]``, all on one image, plus a tiny RunConfig json
     at ``image_size``.  Returns the CLI arguments, ``--device cpu``
     included."""
-    spec = importlib.util.spec_from_file_location("make_synth_assets",
-                                                  ROOT / "scripts" / "make_synth_assets.py")
-    synth = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(synth)
+    synth = synth_assets_module()
     synth.make_vocab(str(tmp / "vocab.txt"))
     synth.make_image(str(tmp / "img0.jpg"), size=image_size + 8)
     files = {

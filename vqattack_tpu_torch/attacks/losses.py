@@ -46,6 +46,14 @@ def per_sample_feature_loss(adv_txt, adv_img, tgt_txt, tgt_img,
             + _neg_cos_sum(adv_img, tgt_img, img_token_mask))
 
 
+def feature_loss(adv_txt, adv_img, tgt_txt, tgt_img, txt_token_mask=None,
+                 img_token_mask=None) -> torch.Tensor:
+    """The whole batch's feature loss: :func:`per_sample_feature_loss`
+    summed over the batch, a scalar."""
+    return torch.sum(per_sample_feature_loss(adv_txt, adv_img, tgt_txt, tgt_img,
+                                             txt_token_mask, img_token_mask))
+
+
 def _ce_per_sample(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean CE with ignore_index -100 per label row.  ``logits [B, S, V]``,
     ``labels [B, S]`` or ``[B, A, S]`` -> ``[B]`` or ``[B, A]``; a row with no
@@ -65,3 +73,10 @@ def per_sample_mlm_loss(mlm_logits: torch.Tensor, mlm_labels: torch.Tensor) -> t
     stacked variants whose CE terms add (padded all -100 variants add 0)."""
     ce = _ce_per_sample(mlm_logits, mlm_labels)
     return ce if mlm_labels.dim() == 2 else ce.sum(-1)
+
+
+def mlm_loss(mlm_logits: torch.Tensor, mlm_labels: torch.Tensor) -> torch.Tensor:
+    """The whole batch's masked-answer CE: :func:`per_sample_mlm_loss`
+    summed over the batch (and the answer variants of ``[B, A, S]``
+    labels), a scalar."""
+    return torch.sum(per_sample_mlm_loss(mlm_logits, mlm_labels))

@@ -9,6 +9,8 @@ step semantics are the reference's (``projected_gradient_descent.py:106-189``):
   followed by the eps-ball projection and clamp;
 - :func:`pgd_alternating` (``ls==0``): a feature step that only clamps, then
   an MLM step, then projection and clamp;
+- :func:`pgd_multi_restart`: R random-start :func:`pgd_feature` runs, the
+  best per sample kept;
 - :func:`pgd_vl_step`: one joint image + text-embedding step that updates the
   image and returns the text-embedding gradient at ``positions``;
 - :func:`pgd_feature_block` / :func:`pgd_alternating_block`: one block of
@@ -123,6 +125,39 @@ def pgd_alternating(
         feat_l.append(feat_ps)
         mlm_l.append(mlm_ps)
     return adv, _stack(feat_l, x), _stack(mlm_l, x)
+
+
+def pgd_multi_restart(
+    loss_fn: LossFn,
+    x: torch.Tensor,
+    ori_x: torch.Tensor,
+    key,
+    aux: Any = None,
+    n_restarts: int = 4,
+    **kw,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Random-restart PGD: ``n_restarts`` rand-init :func:`pgd_feature`
+    trajectories, and per sample the restart with the highest final loss.
+
+    ``key.split(n_restarts + 1)``: restart r draws its start and its step
+    keys from key r; the restarts run in turn over the batch, so each step
+    is one K1 launch over ``[B, ...]``.  Ranking is the JAX package's
+    (``tests/test_pgd.py::test_multi_restart_ranking``): each restart's final
+    iterate is evaluated again under ``keys[-1].split(n_restarts)`` (the
+    recorded loss of step t is taken before that step's update, one
+    iterate stale).  Returns ``(adv, best_losses [T, B])``, the trajectory
+    of the restart picked for each sample."""
+    keys = key.split(n_restarts + 1)
+    runs = [pgd_feature(loss_fn, x, ori_x, k, aux, rand_init=True, **kw)
+            for k in keys[:-1]]
+    advs = torch.stack([a for a, _ in runs])      # [R, B, ...]
+    losses = torch.stack([l for _, l in runs])    # [R, T, B]
+    with torch.no_grad():
+        final = torch.stack([loss_fn(a, k, aux)[1]
+                             for a, k in zip(advs, keys[-1].split(n_restarts))])  # [R, B]
+    best = torch.argmax(final, dim=0)  # [B]; the first restart of a tie, as jnp.argmax
+    idx = torch.arange(x.shape[0], device=best.device)
+    return advs[best, idx], losses[best, :, idx].transpose(0, 1)
 
 
 def _stack(rows, x):

@@ -83,13 +83,17 @@ class BertLayer(nn.Module):
         self.output_dense = Linear(cfg.intermediate_size, d, compute_dtype=dtype)
         self.output_LayerNorm = LayerNorm(d, cfg.layer_norm_eps, dtype)
 
-    def forward(self, x, self_bias, encoder_states=None, cross_bias=None):
+    def forward(self, x, self_bias, encoder_states=None, cross_bias=None,
+                cross_attn_scale=None):
+        """``cross_attn_scale``: the Grad-CAM probe on the cross-attention's
+        probabilities (``MultiHeadAttention``'s ``attn_scale``)."""
         x = self.attention_output(self.attention_self(x, bias=self_bias), x)
         if self.has_cross_attention:
             if encoder_states is None:
                 raise ValueError("a cross-attention layer needs image states")
             x = self.crossattention_output(
-                self.crossattention_self(x, kv=encoder_states, bias=cross_bias), x)
+                self.crossattention_self(x, kv=encoder_states, bias=cross_bias,
+                                         attn_scale=cross_attn_scale), x)
         h = self.output_dense(gelu(self.intermediate_dense(x)))
         return self.output_LayerNorm(h + x)
 
@@ -130,8 +134,14 @@ class FusionBert(nn.Module):
         encoder_states: Optional[torch.Tensor] = None,
         encoder_mask: Optional[torch.Tensor] = None,
         mode: str = "multi_modal",
+        cross_attn_scale: Optional[torch.Tensor] = None,
+        cross_attn_scale_layer: Optional[int] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Run the layer range of ``mode``; returns ``(last, feats)``."""
+        """Run the layer range of ``mode``; returns ``(last, feats)``.
+
+        ``cross_attn_scale`` multiplies the cross-attention probabilities of
+        layer ``cross_attn_scale_layer`` (the Grad-CAM probe,
+        ``utils/gradcam.py``)."""
         cfg = self.cfg
         ranges = {"text": (0, cfg.fusion_layer),
                   "fusion": (cfg.fusion_layer, cfg.num_layers),
@@ -148,7 +158,8 @@ class FusionBert(nn.Module):
         x = hidden_states
         feats = [x]
         for i in range(start, stop):
-            x = self.layer[i](x, self_bias, encoder_states, cross_bias)
+            probe = cross_attn_scale if i == cross_attn_scale_layer else None
+            x = self.layer[i](x, self_bias, encoder_states, cross_bias, probe)
             feats.append(x)
         return x, torch.stack(feats, dim=1)
 

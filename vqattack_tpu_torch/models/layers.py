@@ -155,11 +155,19 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None,
                 bias: Optional[torch.Tensor] = None,
-                key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                key_bias: Optional[torch.Tensor] = None,
+                attn_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``(s * scale + bias) + key_bias``, softmax, times v.  For a 0 /
         -1e9 ``key_bias`` this is the JAX sum ``s * scale + (bias +
         mask)`` after the softmax: the two differ only in masked columns,
-        whose weights are 0 either way."""
+        whose weights are 0 either way.
+
+        ``attn_scale`` ``[B, H, Sq, Sk]``, the Grad-CAM probe, multiplies the
+        probabilities after their cast back to the compute dtype: the
+        gradient of a score with respect to it, at ones, is grad x
+        attention (``utils/gradcam.py``).  A probe takes the product +
+        softmax path under ``--attn flash`` too: the flash kernel forms no
+        probabilities, so a probe there would get no gradient."""
         kv = x if kv is None else kv
         b, sq, _ = x.shape
         sk = kv.shape[1]
@@ -168,7 +176,7 @@ class MultiHeadAttention(nn.Module):
         q = self.query(x).view(b, sq, h, dh)
         k = self.key(kv).view(b, sk, h, dh)
         v = self.value(kv).view(b, sk, h, dh)
-        if attention.get_impl() == "flash" and sq >= 128:
+        if attention.get_impl() == "flash" and sq >= 128 and attn_scale is None:
             out = attention.flash_attention(q, k, v, bias, dh ** -0.5, key_bias)
         else:
             # [B, H, S, Dh]
@@ -179,6 +187,8 @@ class MultiHeadAttention(nn.Module):
             if key_bias is not None:
                 attn = attn + key_bias.to(attn.dtype)[:, None, None, :]
             attn = torch.softmax(attn.to(self.softmax_dtype), dim=-1).to(q.dtype)
+            if attn_scale is not None:
+                attn = attn * attn_scale
             out = torch.matmul(attn, v).transpose(1, 2)
         out = out.reshape(b, sq, h * dh)
         return out if self.proj is None else self.proj(out)

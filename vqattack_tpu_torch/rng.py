@@ -7,8 +7,8 @@ call site reads like its JAX counterpart, but the default key draws from a
 replays the JAX package's own draws, which makes the two packages'
 trajectories comparable.
 
-A key provides ``split(n)``, ``fold_in(data)``, ``uniform(shape, lo, hi)``
-and ``randint(shape, lo, hi)``.  Image-shaped draws are requested in the
+A key provides ``split(n)``, ``fold_in(data)``, ``uniform(shape, lo, hi)``,
+``randint(shape, lo, hi)`` and ``rademacher(shape)``.  Image-shaped draws are requested in the
 port's NCHW layout.
 """
 
@@ -48,3 +48,8 @@ class TorchKey:
     def randint(self, shape: Sequence[int], lo: int, hi: int) -> torch.Tensor:
         return torch.randint(lo, hi, tuple(shape), generator=self.generator,
                              device=self.device)
+
+    def rademacher(self, shape: Sequence[int], dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """+1 or -1, each with probability 1/2."""
+        r = torch.randint(0, 2, tuple(shape), generator=self.generator, device=self.device)
+        return (2 * r - 1).to(dtype)
