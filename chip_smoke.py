@@ -131,6 +131,27 @@ flash against xla, and K3 with both terms against its plain versions at
 the attacks' shapes (B 2 and SPSA's stacked [32, 941]).  Each of the three prints a JSON line with its seconds
 and launches, which must equal the schedule's.
 
+The pretraining slice adds, after the VQA training phases: K2 and K3
+against their plain versions at the shapes pretraining gives them, timed
+beside their bounds and ``scaled_dot_product_attention`` (ALBEF at 256 px:
+K3 without terms at [8, 257, 12, 64], the ``_albef257`` rows, and K2 at
+[8 x 257, 768]; VLMo-base+ at head dim 34: the image tower [8, 197]
+without terms, ITM's joint trunk [24, 237], the ``_itm237`` rows, MLM's
+[8, 237] and the text tower [8, 196] with the padded-text key bias; K3's
+bias gradient at those head-dim-34 shapes on synthetic tables, which runs
+on no path: base+ has no relative table, and at VLMo-base's joint [8, 237]
+and text [8, 196] tables, the ``_joint237`` and ``_text196`` rows); then
+``train.cli.main`` at batch 8 for 4 steps: ``--task albef_pretrain
+--image-size 256`` (ALBEF's public Pretrain.yaml resolution) under flash,
+``--task vlmo_pretrain --preset task_mlm_itm_itc_base_plus`` under flash
+and xla, ``--task vlmo_textmlm --preset task_textmlm_base_plus`` under
+flash, and the VLMo-base presets of both (``task_mlm_itm_itc_base``: MLM
+alone; ``task_textmlm_base``) under flash, each run's launches by shape
+against its schedule, the first step's loss terms, s/step and peak memory
+printed; then the first step's table gradient, flash against xla, of the
+two VLMo-base presets, with the same hard negatives in both; a
+``pretraining`` JSON line.
+
 The bf16 trunk (``--dtype bfloat16``) adds, after the float32 phases of each
 surrogate: K2 on a bf16 stream (phase 3, beside float32) and K3's bf16
 instance against its plain versions and the float32 computation (ALBEF's
@@ -622,16 +643,16 @@ def check_flash_attention(gen):
     return time_flash_attention(gen, errs, TIMED_BATCH), time_flash_attention(gen, errs, 16)
 
 
-def time_flash_attention(gen, errs, b):
-    """Device times at ``[b, 901, 12, 64]``, float32, no bias: the kernels,
+def time_flash_attention(gen, errs, b, s=901, suffix=""):
+    """Device times at ``[b, s, 12, 64]``, float32, no bias: the kernels,
     the plain versions and ``scaled_dot_product_attention`` (forward;
     backward through autograd).  The forward is also held against its plain
     version at this shape.  The bound is the tensor cores' in three TF32
     passes (``tensor_core_bound_ms``) over the operations the function needs
     (4 and 10 x B*H*S^2*Dh); ``executed_tflops`` counts what the kernels
     execute (the dQ pass recomputes S and dO V^T: 14x in the backward), to
-    hold against the 67 TFLOP/s of float32 outside the tensor cores."""
-    s = 901
+    hold against the 67 TFLOP/s of float32 outside the tensor cores.  The
+    rows are named ``flash_attention_{fwd,bwd}`` with ``suffix``."""
     q, k, v = _qkv(gen, b, s)
     o, lse = attention.flash_attention_fwd(q, k, v, None, SCALE)
     _attn_err(f"o at batch {b}", o, attention.flash_attention_reference(q, k, v, None, SCALE))
@@ -646,7 +667,7 @@ def time_flash_attention(gen, errs, b):
     fwd_b, fwd_by = tensor_core_bound_ms(4 * row + lse_bytes, 4 * unit)
     bwd_b, bwd_by = tensor_core_bound_ms(8 * row + lse_bytes, 10 * unit)
     fwd = {
-        "name": "flash_attention_fwd", "route": "cuda",
+        "name": "flash_attention_fwd" + suffix, "route": "cuda",
         "source": "vqattack_tpu_torch/csrc/flash_attention.cu",
         "replaces": "vqattack_tpu/ops/attention.py:134",
         "shape": [b, s, HEADS, HEAD_DIM],
@@ -659,7 +680,7 @@ def time_flash_attention(gen, errs, b):
             qt, kt, vt, scale=SCALE), 20),
     }
     bwd = {
-        "name": "flash_attention_bwd", "route": "cuda",
+        "name": "flash_attention_bwd" + suffix, "route": "cuda",
         "source": "vqattack_tpu_torch/csrc/flash_attention.cu",
         "replaces": "vqattack_tpu/ops/attention.py:134",
         "shape": [b, s, HEADS, HEAD_DIM],
@@ -1318,7 +1339,8 @@ def _check_two_term_case(q, k, v, table, key_bias, what, scale=SCALE):
     for name, g, g2, r in zip(("dq", "dk", "dv"), grads, again, refs):
         require(torch.equal(g, g2), f"two-term flash backward {name} differs between two runs")
         errs[name] = _attn_err(name, g, r)
-    terms = "key bias" if table is None else "table + key bias"
+    terms = {(False, False): "no terms", (False, True): "key bias", (True, False): "table",
+             (True, True): "table + key bias"}[table is not None, key_bias is not None]
     print(f"  flash_attention {list(q.shape)} {terms} ({what}): "
           + ", ".join(f"{k} err {v:.3g}" for k, v in errs.items())
           + ", backward deterministic", flush=True)
@@ -1667,7 +1689,7 @@ def sdpa_backend(fn) -> str:
     return "math" if names else "not measured (no device events)"
 
 
-def time_flash_attention_hd34(q, k, v, key_bias, errs):
+def time_flash_attention_hd34(q, k, v, key_bias, errs, suffix=""):
     """Device times at [16, 941, 16, 34] with the padded-text key bias, in
     q's dtype: the kernels alone (``ms``; bf16 on the padded 40-wide
     copies), the copies the main path adds (``copy_ms``: bf16 q, k, v into
@@ -1678,7 +1700,8 @@ def time_flash_attention_hd34(q, k, v, key_bias, errs):
     backend is named.  The bound counts what the function needs: 4 and 10
     x B*H*S^2*Dh at Dh = 34 (float32: three TF32 passes), each input and
     output once; ``executed_tflops`` counts what the kernels execute (40
-    columns in float32, 64 in bf16; 14 in the backward)."""
+    columns in float32, 64 in bf16; 14 in the backward).  The rows' names
+    end in ``_hd34`` and ``suffix``."""
     b, s, h, dh = q.shape
     dtype = q.dtype
     width = attention.kernel_width(dtype, dh)
@@ -1712,7 +1735,7 @@ def time_flash_attention_hd34(q, k, v, key_bias, errs):
               "replaces": "vqattack_tpu/ops/attention.py:134", "shape": [b, s, h, dh],
               "dtype": "bfloat16" if dtype == BF16 else "float32", "kernel_width": width}
     fwd = dict(common, **{
-        "name": f"flash_attention{tag}_fwd_hd34",
+        "name": f"flash_attention{tag}_fwd_hd34{suffix}",
         "max_abs_err": errs["o"],
         "ms": time_ms(lambda: attention._launch_fwd(qp, kp, vp, None, PLUS_SCALE, key_bias,
                                                     dims, dh), 20),
@@ -1725,7 +1748,7 @@ def time_flash_attention_hd34(q, k, v, key_bias, errs):
                                                      scale=PLUS_SCALE)),
     })
     bwd = dict(common, **{
-        "name": f"flash_attention{tag}_bwd_hd34",
+        "name": f"flash_attention{tag}_bwd_hd34{suffix}",
         "max_abs_err": max(errs["dq"], errs["dk"], errs["dv"]),
         "ms": time_ms(lambda: attention._launch_bwd(qp, kp, vp, None, PLUS_SCALE, op, lse, dop,
                                                     key_bias, dims, dh), 20),
@@ -1878,16 +1901,16 @@ def _dbias_err(what, got, ref):
     return err
 
 
-def _check_dbias_case(q, k, v, bias, key_bias, what):
+def _check_dbias_case(q, k, v, bias, key_bias, what, scale=SCALE):
     """K3's backward with dbias against the plain backward's dbias; dbias
     and dq/dk/dv repeat bit for bit; whether dq/dk/dv are the bits of the
     backward without dbias is printed."""
-    o, lse = attention.flash_attention_fwd(q, k, v, bias, SCALE, key_bias)
+    o, lse = attention.flash_attention_fwd(q, k, v, bias, scale, key_bias)
     do = torch.randn(o.shape, generator=torch.Generator("cuda").manual_seed(3), device="cuda")
-    grads = attention.flash_attention_bwd(q, k, v, bias, SCALE, o, lse, do, key_bias, dbias=True)
-    again = attention.flash_attention_bwd(q, k, v, bias, SCALE, o, lse, do, key_bias, dbias=True)
-    without = attention.flash_attention_bwd(q, k, v, bias, SCALE, o, lse, do, key_bias)
-    refs = attention.flash_attention_bwd_reference(q, k, v, bias, SCALE, o, lse, do, key_bias,
+    grads = attention.flash_attention_bwd(q, k, v, bias, scale, o, lse, do, key_bias, dbias=True)
+    again = attention.flash_attention_bwd(q, k, v, bias, scale, o, lse, do, key_bias, dbias=True)
+    without = attention.flash_attention_bwd(q, k, v, bias, scale, o, lse, do, key_bias)
+    refs = attention.flash_attention_bwd_reference(q, k, v, bias, scale, o, lse, do, key_bias,
                                                    dbias=True)
     torch.cuda.synchronize()
     require(grads[3].shape == bias.shape, f"{what}: dbias {tuple(grads[3].shape)}")
@@ -1945,56 +1968,67 @@ def check_flash_attention_dbias(pipe, tokenizer, gen):
 
 def time_flash_attention_dbias(pipe, tokenizer, gen, errs):
     """Device times at [8, 941, 12, 64], VLMo's training batch, with the
-    table and the key bias: the backward with dbias (``ms``: the D pass,
-    dK/dV, the dQ kernel's dbias instance and the sum over B), the same
-    backward without dbias (``no_dbias_ms``), the sum alone (``sum_ms``),
-    the plain backward with dbias, and ``scaled_dot_product_attention`` with
-    the summed mask built from a table that requires grad (backward through
-    autograd, the sum over B included; its backend named).  Bound of the
-    call: the products' operations (10 B H S^2 Dh, three TF32 passes) or
-    its bytes, the dS buffer written and read back included; the dbias
-    part's own bound (``dbias_bound_ms``): the buffer written, then read
-    and reduced, and the table's gradient written."""
-    b = TRAIN_BATCH
-    q, k, v, table, key_bias = _vlmo_qkv_terms(pipe, tokenizer, gen, b)
-    s = q.shape[1]
-    o, lse = attention.flash_attention_fwd(q, k, v, table, SCALE, key_bias)
+    table and the key bias (:func:`time_dbias`)."""
+    q, k, v, table, key_bias = _vlmo_qkv_terms(pipe, tokenizer, gen, TRAIN_BATCH)
+    return time_dbias(q, k, v, table, key_bias, SCALE, errs, "flash_attention_bwd_dbias", gen)
+
+
+def time_dbias(q, k, v, table, key_bias, scale, errs, name, gen):
+    """Device times of K3's backward with dbias on ``q, k, v [B, S, H, Dh]``
+    (float32), a ``[1, H, S, S]`` table and ``key_bias`` (or None): the
+    backward with dbias (``ms``: the D pass, dK/dV, the dQ kernel's dbias
+    instance and the sum over B), the same backward without dbias
+    (``no_dbias_ms``), the sum alone (``sum_ms``), the plain backward with
+    dbias, and ``scaled_dot_product_attention`` with the summed mask built
+    from a table that requires grad (backward through autograd, the sum over
+    B included; its backend named).  Bound of the call: the products'
+    operations (10 B H S^2 Dh, three TF32 passes) or its bytes, the dS
+    buffer written and read back included; the dbias part's own bound
+    (``dbias_bound_ms``): the buffer written, then read and reduced, and
+    the table's gradient written."""
+    b, s, h, dh = q.shape
+    o, lse = attention.flash_attention_fwd(q, k, v, table, scale, key_bias)
     do = torch.randn(o.shape, generator=gen, device="cuda")
-    unit = b * HEADS * s * s * HEAD_DIM
-    row = b * s * HEADS * HEAD_DIM * 4
-    buf = b * HEADS * s * s * 4
-    terms = table.numel() * 4 + key_bias.numel() * 4
-    bnd, by = tensor_core_bound_ms(8 * row + b * HEADS * s * 4 + terms + 2 * buf
+    unit = b * h * s * s * dh
+    row = b * s * h * dh * 4
+    buf = b * h * s * s * 4
+    terms = table.numel() * 4 + (0 if key_bias is None else key_bias.numel() * 4)
+    bnd, by = tensor_core_bound_ms(8 * row + b * h * s * 4 + terms + 2 * buf
                                    + table.numel() * 4, 10 * unit)
     ds_bound, _ = bound_ms(2 * buf + table.numel() * 4, 0)
     tbl = table.detach().clone().requires_grad_(True)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
-    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=tbl + key_bias[:, None, None, :], scale=SCALE)
+
+    def mask():
+        return tbl if key_bias is None else tbl + key_bias[:, None, None, :]
+
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask(),
+                                                                scale=scale)
     do_t = do.transpose(1, 2)
 
     def library():
         return torch.autograd.grad(sdpa_out, (qt, kt, vt, tbl), do_t, retain_graph=True)
 
     def library_fresh():  # forward and backward, for the backend's kernel names
-        out = torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=tbl + key_bias[:, None, None, :], scale=SCALE)
+        out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask(),
+                                                               scale=scale)
         return torch.autograd.grad(out, (qt, kt, vt, tbl), do_t)
 
-    buffer = torch.randn(b, HEADS, s, s, generator=gen, device="cuda")
+    buffer = torch.randn(b, h, s, s, generator=gen, device="cuda")
     long_sleep = 20_000_000
     row_ = {
-        "name": "flash_attention_bwd_dbias", "route": "cuda",
+        "name": name, "route": "cuda",
         "source": "vqattack_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "vqattack_tpu/ops/attention.py:134", "shape": [b, s, HEADS, HEAD_DIM],
-        "bias_shape": list(table.shape), "max_abs_err": errs["dbias"],
+        "replaces": "vqattack_tpu/ops/attention.py:134", "shape": [b, s, h, dh],
+        "bias_shape": list(table.shape), "key_bias": key_bias is not None,
+        "max_abs_err": errs["dbias"],
         "ms": time_ms(lambda: attention.flash_attention_bwd(
-            q, k, v, table, SCALE, o, lse, do, key_bias, dbias=True), 20, long_sleep),
+            q, k, v, table, scale, o, lse, do, key_bias, dbias=True), 20, long_sleep),
         "no_dbias_ms": time_ms(lambda: attention.flash_attention_bwd(
-            q, k, v, table, SCALE, o, lse, do, key_bias), 20),
+            q, k, v, table, scale, o, lse, do, key_bias), 20),
         "sum_ms": time_ms(lambda: buffer.sum_to_size(table.shape), 20),
         "plain_ms": time_ms(lambda: attention.flash_attention_bwd_reference(
-            q, k, v, table, SCALE, o, lse, do, key_bias, dbias=True), 10, long_sleep),
+            q, k, v, table, scale, o, lse, do, key_bias, dbias=True), 10, long_sleep),
         "bound_ms": bnd, "bound_by": by, "dbias_bound_ms": ds_bound,
         "library_ms": time_ms(library, 20, long_sleep),
         "library_backend": sdpa_backend(library_fresh),
@@ -2002,9 +2036,10 @@ def time_flash_attention_dbias(pipe, tokenizer, gen, errs):
     }
     row_["dbias_extra_ms"] = row_["ms"] - row_["no_dbias_ms"]
     row_["bound_share"] = bnd / row_["ms"]
-    require(row_["bound_share"] <= 1.0, f"dbias: {row_['ms']} ms is under its bound {bnd} ms")
-    print(f"  flash_attention_bwd_dbias [{b}, {s}, {HEADS}, {HEAD_DIM}] table {list(table.shape)} "
-          f"f32: {row_['ms']:.3f} ms (without dbias {row_['no_dbias_ms']:.3f} ms: dbias adds "
+    require(row_["bound_share"] <= 1.0, f"{name}: {row_['ms']} ms is under its bound {bnd} ms")
+    kb = "" if key_bias is None else " + key bias"
+    print(f"  {name} {[b, s, h, dh]} table {list(table.shape)}{kb} f32: {row_['ms']:.3f} ms "
+          f"(without dbias {row_['no_dbias_ms']:.3f} ms: dbias adds "
           f"{row_['dbias_extra_ms']:.3f} ms against its bound {ds_bound:.3f} ms by bytes, of "
           f"which the sum over B {row_['sum_ms']:.3f} ms; plain {row_['plain_ms']:.3f} ms; "
           f"scaled_dot_product_attention with a mask that requires grad, backward "
@@ -2125,10 +2160,10 @@ def train_implied_launches(task, depth, steps, flash):
     blocks imply.  vlmo_vqa: with
     flash, depth joint attentions a forward and a backward, each with the
     key bias, every backward with dbias (the table needs a gradient).
-    albef_vqa: the ViT's 2 x depth fused norm sites a forward and a
-    backward, every backward with parameter gradients, and with flash its
-    depth attentions (the text and answer attentions are under 128 queries,
-    the product + softmax path)."""
+    albef_vqa and albef_pretrain: the ViT's 2 x depth fused norm sites a
+    forward and a backward, every backward with parameter gradients, and
+    with flash its depth attentions (the text, fusion and answer attentions
+    are under 128 queries, the product + softmax path)."""
     out = dict.fromkeys(KERNELS, 0)
     if task == "vlmo_vqa":
         n = depth * steps if flash else 0
@@ -2144,47 +2179,75 @@ def train_implied_launches(task, depth, steps, flash):
     return out
 
 
-def vlmo_table_gradient(argv, tokenizer, pixels):
+class ReplayKey:
+    """A key (``rng.py``) whose ``categorical`` draws are recorded on the
+    first pass and handed back in the same order after :meth:`replay`: two
+    passes over the same batch sample the same hard negatives, whatever an
+    ulp of difference in a similarity does to a draw."""
+
+    def __init__(self, key):
+        self.key, self.draws, self.replaying = key, [], None
+
+    def split(self, n: int = 2):
+        return [self] * n
+
+    def categorical(self, logits):
+        if self.replaying is not None:
+            return self.replaying.pop(0)
+        self.draws.append(self.key.categorical(logits))
+        return self.draws[-1]
+
+    def replay(self):
+        self.replaying = list(self.draws)
+
+
+def vlmo_table_gradient(argv, tokenizer, pixels, expected_dbias=None):
     """The relative-position table's gradient of the first step's loss (the
-    CLI's model from ``--seed`` and ``--init-ckpt``, its first batch), under
-    flash (K3 with dbias) and under xla, each layer's [1, 12, 941, 941]
+    CLI's task, model from ``--seed`` and ``--init-ckpt``, its first batch),
+    under flash (K3 with dbias) and under xla, with the same hard
+    negatives (:class:`ReplayKey`), each attention's gathered [1, H, S, S]
     bias gradient beside it: every entry of the two within
     :data:`TABLE_GRAD_TOL` of its mass (xla's |bias gradients| gathered
-    into the entry).  Returns ``(max abs difference, largest value, the
-    largest difference over its mass)``."""
-    from vqattack_tpu_torch.data.transforms import train_transform
-    from vqattack_tpu_torch.data.vqa import VQADataset
+    into the entry).  ``expected_dbias``: the dbias launches of one flash
+    pass (default: one a block).  Returns ``(max abs difference, largest
+    value, the largest difference over its mass)``."""
     from vqattack_tpu_torch.train import cli as train_cli
 
     parser = train_cli.build_argparser()
     args = parser.parse_args(argv)
-    cfg = train_cli.resolve_config(args, train_cli.apply_preset(parser, args),
-                                   torch.device("cuda"))
-    model, loss_fn, collate = train_cli.build_task(args, cfg, tokenizer, torch.device("cuda"))
+    preset = train_cli.apply_preset(parser, args)
+    cfg = train_cli.resolve_config(args, preset, torch.device("cuda"))
+    model, loss_fn, collate = train_cli.build_task(args, cfg, tokenizer, torch.device("cuda"),
+                                                   preset)
     with served_pixels(pixels):
-        dataset = VQADataset(args.ann, args.image_root, train_transform(cfg.vlmo.image_size),
-                             split="train")
+        dataset = train_cli.build_dataset(args, cfg.vlmo.image_size)
         batch = collate(next(train_cli._batches(dataset, args.batch_size, args.seed)))
-    biases, rel_bias = [], model._rel_bias
+    biases, kinds, rel_bias = [], [], model._rel_bias
 
-    def recorded(layer, kind):  # each layer's gathered table, kept for its gradient
+    def recorded(layer, kind):  # each attention's gathered table, kept for its gradient
         biases.append(rel_bias(layer, kind))
+        kinds.append((layer, kind))
         return biases[-1]
 
     model._rel_bias = recorded
     table = model.relative_position_bias_table
     grads, layer_grads = {}, None
+    key = ReplayKey(TorchKey(SEED, torch.device("cuda")))
+    expected = cfg.vlmo.depth if expected_dbias is None else expected_dbias
     for impl in ("flash", "xla"):
         biases.clear()
+        kinds.clear()
         before = attention.flash_attention_bwd.dbias_launches
         with attention.attention_impl(impl):
-            loss, _ = loss_fn(model, batch, None)
+            loss, _ = loss_fn(model, batch, key)
             grads[impl], *layer_grads = torch.autograd.grad(loss, [table] + biases)
+        key.replay()
         require((attention.flash_attention_bwd.dbias_launches - before)
-                == (cfg.vlmo.depth if impl == "flash" else 0), f"dbias launches under {impl}")
+                == (expected if impl == "flash" else 0), f"dbias launches under {impl}")
     mass = torch.zeros_like(table)
-    idx, h = model._rel_index_joint.flatten(), cfg.vlmo.num_heads
-    for layer, g in enumerate(layer_grads):  # xla's, the last computed
+    h = cfg.vlmo.num_heads
+    for (layer, kind), g in zip(kinds, layer_grads):  # xla's, the last computed
+        idx = getattr(model, f"_rel_index_{kind}").flatten()
         mass[:, layer * h:(layer + 1) * h].index_add_(0, idx, g[0].abs().permute(1, 2, 0)
                                                       .reshape(-1, h))
     diff = (grads["flash"] - grads["xla"]).abs()
@@ -2193,10 +2256,10 @@ def vlmo_table_gradient(argv, tokenizer, pixels):
     require(largest > 0 and of_tol <= 1.0,
             f"the table gradient, flash against xla: max abs err {err}, largest {largest}, "
             f"{of_tol} of an entry's tolerance")
-    print(f"  vlmo_vqa table gradient {list(table.shape)}, flash (K3 with dbias) against xla: "
-          f"max abs err {err:.3g} of {largest:.3g} ({err / largest:.2g}); the largest error "
-          f"{of_tol:.2g} of its entry's tolerance ({TABLE_GRAD_TOL:g} of its mass, or 1e-6 "
-          f"of the largest entry)", flush=True)
+    print(f"  {args.task} table gradient {list(table.shape)}, flash (K3 with dbias, "
+          f"{expected} launches) against xla: max abs err {err:.3g} of {largest:.3g} "
+          f"({err / largest:.2g}); the largest error {of_tol:.2g} of its entry's tolerance "
+          f"({TABLE_GRAD_TOL:g} of its mass, or 1e-6 of the largest entry)", flush=True)
     del model, grads, layer_grads, biases
     torch.cuda.empty_cache()
     return err, largest, of_tol
@@ -2304,6 +2367,282 @@ def train_albef(tmp, vocab, gen, smi):
           f"{per_step} a step, {per_step * (with_sums - without):.4f} ms of sums a step ({smi})",
           flush=True)
     return out, launched
+
+
+# ---------------------------------------------------------------------------
+# the pretraining slice: albef_pretrain, vlmo_pretrain, vlmo_textmlm
+# (vqattack_tpu_torch/train/cli.py, train/objectives.py)
+# ---------------------------------------------------------------------------
+
+# ALBEF's public configs/Pretrain.yaml trains at 256 px: 257 tokens, two
+# full 128-row tiles and one row
+ALBEF_PRETRAIN_SIZE = 256
+PRETRAIN_PLUS = "task_mlm_itm_itc_base_plus"
+TEXTMLM_PLUS = "task_textmlm_base_plus"
+# VLMo-base+ has no relative-position table (absolute positions): the
+# bias gradient runs on the VLMo-base presets of the two tasks
+PRETRAIN_BASE = "task_mlm_itm_itc_base"
+TEXTMLM_BASE = "task_textmlm_base"
+
+
+@contextlib.contextmanager
+def recorded_step_metrics():
+    """The metrics of every step ``train.cli.main`` takes (the loss's
+    terms), read after the run."""
+    from vqattack_tpu_torch.train import trainer
+
+    make, rec = trainer.make_train_step, []
+
+    def recording(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(state, batch, key=None):
+            state, metrics = step(state, batch, key)
+            rec.append(metrics)
+            return state, metrics
+
+        return run
+
+    trainer.make_train_step = recording
+    try:
+        yield rec
+    finally:
+        trainer.make_train_step = make
+
+
+@contextlib.contextmanager
+def recorded_k3_launches():
+    """K3's launches by ``(direction, B, S, head dim, table, key bias,
+    dbias)``, as the path hands them to the kernels."""
+    from collections import Counter
+
+    seen, fwd, bwd = Counter(), attention._launch_fwd, attention._launch_bwd
+
+    def rec_fwd(q, k, v, bias, scale, key_bias, dims, head_dim):
+        seen["fwd", q.shape[0], q.shape[1], head_dim, bias is not None, key_bias is not None,
+             False] += 1
+        return fwd(q, k, v, bias, scale, key_bias, dims, head_dim)
+
+    def rec_bwd(q, k, v, bias, scale, o, lse, do, key_bias, dims, head_dim, dbias=False):
+        seen["bwd", q.shape[0], q.shape[1], head_dim, bias is not None, key_bias is not None,
+             dbias] += 1
+        return bwd(q, k, v, bias, scale, o, lse, do, key_bias, dims, head_dim, dbias)
+
+    attention._launch_fwd, attention._launch_bwd = rec_fwd, rec_bwd
+    try:
+        yield seen
+    finally:
+        attention._launch_fwd, attention._launch_bwd = fwd, bwd
+
+
+def pretrain_attentions(task, vc, weights, b):
+    """The attentions of one VLMo pretraining step that take K3 (at least
+    128 queries): ``{(B, S, head dim, table, key bias): calls}``.
+    ``vlmo_textmlm``: the text tower.  ``vlmo_pretrain``: the image tower
+    and the text tower with their VL-expert branches (ITC, ITM's
+    similarities), the joint trunk on 3B pairs (ITM) and on B (MLM), each
+    where its weight is not 0."""
+    dh, table = vc.hidden_size // vc.num_heads, vc.need_relative_position_embed
+    text, image, joint = vc.max_text_len, vc.image_seq_len, vc.max_text_len + vc.image_seq_len
+    calls = []
+    if task == "vlmo_textmlm":
+        calls.append((b, text, True, vc.depth))
+    else:
+        w = {"mlm": 1.0, "itc": 1.0, "itm": 1.0, **(weights or {})}
+        if w["itc"] > 0 or w["itm"] > 0:
+            towers = vc.depth + vc.depth - vc.vlffn_start_layer
+            calls += [(b, text, True, towers), (b, image, False, towers)]
+        if w["itm"] > 0:
+            calls.append((3 * b, joint, True, vc.depth))
+        if w["mlm"] > 0:
+            calls.append((b, joint, True, vc.depth))
+    out = {}
+    for batch, seq, key_bias, n in calls:
+        if seq >= 128:
+            k = (batch, seq, dh, table, key_bias)
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def pretrain_implied_launches(attentions, steps, flash):
+    """The counts :func:`pretrain_attentions`' calls imply over ``steps``
+    steps: a forward and a backward each, every backward with dbias where
+    the attention takes the table (its gradient is asked for)."""
+    out = dict.fromkeys(KERNELS, 0)
+    if not flash:
+        return out
+    for (_, _, dh, table, key_bias), n in attentions.items():
+        for d in ("fwd", "bwd"):
+            out[f"flash_attention_{d}"] += n * steps
+            if key_bias:
+                out[f"flash_attention_{d}_key_bias"] += n * steps
+            if dh == 34:
+                out[f"flash_attention_{d}_hd34"] += n * steps
+        if table:
+            out["flash_attention_bwd_dbias"] += n * steps
+    return out
+
+
+def _check_shapes(seen, attentions, steps, what):
+    """The recorded launches by shape against :func:`pretrain_attentions`'."""
+    want = {}
+    for (b, s, dh, table, kb), n in attentions.items():
+        want["fwd", b, s, dh, table, kb, False] = n * steps
+        want["bwd", b, s, dh, table, kb, table] = n * steps
+    require(dict(seen) == want, f"{what}: K3 launches by shape {dict(seen)}, the schedule "
+                                f"implies {want}")
+
+
+def _pretrain_key_bias(tokenizer, b, text_len, seq):
+    """The ``[b, seq]`` key bias of ``b`` real captions padded to
+    ``text_len`` tokens inside a sequence of ``seq``."""
+    questions = [q for _, q, _, _ in VLMO_BATCH_SAMPLES]
+    _, mask = tokenizer.encode_batch([questions[i % len(questions)] for i in range(b)], text_len)
+    co = torch.cat([torch.as_tensor(mask, device="cuda"),
+                    torch.ones(b, seq - text_len, dtype=torch.int32, device="cuda")], 1)
+    return mask_to_key_bias(co)
+
+
+def check_pretrain_kernels(gen, tokenizer):
+    """K2 and K3 against their plain versions at the shapes the pretraining
+    path gives them, and timed there: ALBEF at 256 px (K3 without terms at
+    [8, 257, 12, 64], K2 at [8 x 257, 768] with parameter sums); VLMo-base+
+    (head dim 34: the image tower [8, 197] without terms, ITM's joint
+    [24, 237] and MLM's [8, 237] and the text tower [8, 196] with the
+    padded-text key bias); K3's dbias at head dim 34 on synthetic tables
+    (base+ has none: the table alone at [8, 197], table and key bias at
+    [24, 237] and [8, 196]) and at VLMo-base's pretraining shapes (joint
+    [8, 237] and text [8, 196], head dim 64, table and key bias), and at
+    257 tokens.  Returns ``(kernel rows, dbias rows at head dim 34)``."""
+    b = TRAIN_BATCH
+    rows257 = time_flash_attention(gen, _check_attention_case(gen, b, 257, "none"), b, 257,
+                                   "_albef257")
+    q, k, v = _qkv(gen, 2, 257)
+    _check_dbias_case(q, k, v, torch.randn(1, HEADS, 257, 257, generator=gen, device="cuda"),
+                      None, "257 tokens")
+    rows = 8 * 257
+    x, delta, gamma, beta, gs, gh = _ln_case(gen, rows, torch.float32)
+    s_, h_ = fused_ln.residual_layernorm_fwd(x, delta, gamma, beta, 1e-6)
+    s_r, h_r = fused_ln.residual_layernorm_reference(x, delta, gamma, beta, 1e-6)
+    torch.cuda.synchronize()
+    require(torch.equal(s_, s_r), f"residual sum differs at rows={rows}")
+    h_err = _close(f"h rows={rows}", h_, h_r, torch.float32)
+    dx_err = max(_check_bwd(s_, gs, gh, gamma, pg, f"rows={rows}") for pg in (True, False))
+    print(f"  residual_layernorm rows={rows} float32 (ALBEF's ViT at 256 px, batch 8): s "
+          f"bit-exact, h err {h_err:.3g}, dx err {dx_err:.3g}, dgamma/dbeta within bounds",
+          flush=True)
+
+    plus_rows, hd34_dbias = [], []
+    for bb, seq, text_len, what in ((b, 197, None, "image tower, no terms"),
+                                    (3 * b, 237, 40, "ITM's joint trunk"),
+                                    (b, 237, 40, "MLM's joint trunk"),
+                                    (b, 196, 196, "the text tower")):
+        kb = None if text_len is None else _pretrain_key_bias(tokenizer, bb, text_len, seq)
+        q, k, v = _plus_qkv(gen, bb, seq)
+        errs = _check_two_term_case(q, k, v, None, kb, what, PLUS_SCALE)
+        if (bb, seq) == (3 * b, 237):
+            plus_rows = time_flash_attention_hd34(q, k, v, kb, errs, "_itm237")
+        table = torch.randn(1, PLUS_HEADS, seq, seq, generator=gen, device="cuda") * 0.5
+        errs = _check_dbias_case(q, k, v, table, kb, f"head dim 34, {what}", PLUS_SCALE)
+        hd34_dbias.append(time_dbias(q, k, v, table, kb, PLUS_SCALE, errs,
+                                     f"flash_attention_bwd_dbias_hd34_{bb}x{seq}", gen))
+    base_rows = []
+    for seq, text_len, what in ((237, 40, "joint237"), (196, 196, "text196")):
+        q, k, v = _qkv(gen, b, seq)
+        kb = _pretrain_key_bias(tokenizer, b, text_len, seq)
+        table = torch.randn(1, HEADS, seq, seq, generator=gen, device="cuda") * 0.5
+        errs = _check_dbias_case(q, k, v, table, kb, f"VLMo-base {what}")
+        base_rows.append(time_dbias(q, k, v, table, kb, SCALE, errs,
+                                    f"flash_attention_bwd_dbias_{what}", gen))
+    return list(rows257) + plus_rows + base_rows, hd34_dbias
+
+
+def train_pretrain(tmp, vocab, tokenizer, smi):
+    """``train.cli.main`` on the three pretraining tasks at full width,
+    batch 8, ``TRAIN_STEPS`` steps: ``albef_pretrain --image-size 256`` and
+    ``vlmo_pretrain --preset task_mlm_itm_itc_base_plus`` under flash (the
+    latter also under xla), ``vlmo_textmlm --preset task_textmlm_base_plus``
+    under flash, and the VLMo-base presets of the two VLMo tasks (the table
+    and its gradient) under flash; each run's launches against its
+    schedule, by shape.  Then the first step's table gradient, flash
+    against xla, of the VLMo-base presets.  Returns ``(summary, the K3
+    launches by shape of each run)``."""
+    from vqattack_tpu_torch import config as cfg_mod
+    from vqattack_tpu_torch.named_configs import vlmo_config_from_named, vlmo_named_config
+    from vqattack_tpu_torch.train.cli import pretrain_loss_weights
+
+    out, seen_all = {"card": smi}, {}
+    common = ["--vocab", vocab, "--image-root", tmp, "--batch-size", str(TRAIN_BATCH),
+              "--steps", str(TRAIN_STEPS), "--log-every", "1", "--device", "cuda",
+              "--seed", str(SEED)]
+
+    def run(name, argv, pixels, impl, expected, positive, attentions=None):
+        with attention.attention_impl(impl), recorded_step_metrics() as rec, \
+                recorded_k3_launches() as seen:
+            summary, launched, seconds, peak = run_train(argv + common, pixels)
+        check_launches(launched, expected, positive, f"{name} --attn {impl}")
+        if attentions is not None:
+            _check_shapes(seen, attentions, TRAIN_STEPS, name)
+        steps = step_seconds(summary)
+        terms = [{k: float(v) for k, v in m.items() if "loss" in k and v.numel() == 1}
+                 for m in rec]
+        out[f"{name}_{impl}"] = {"s_per_step": float(np.median(steps)), "step_s": steps,
+                                 "wall_s": seconds, "peak_gib": peak,
+                                 "losses": summary["losses"],
+                                 "grad_norms": summary["grad_norms"], "terms": terms}
+        print(f"  {name} --attn {impl}: {TRAIN_STEPS} steps in {seconds:.2f} s, "
+              f"{out[f'{name}_{impl}']['s_per_step']:.4f} s a step after the first, peak "
+              f"{peak:.2f} GiB, losses {[round(x, 4) for x in summary['losses']]}, first step's "
+              f"terms {({k: round(x, 4) for k, x in terms[0].items()})} ({smi})", flush=True)
+        seen_all[f"{name}_{impl}"] = dict(seen)
+        return launched
+
+    # ALBEF: ViT-B/16 at 256 px, BERT-base fused from layer 6, embed_dim 256
+    cfg = cfg_mod.albef_attack_config()
+    require(cfg.albef.vit.depth == 12 and cfg.albef.vit.hidden_size == D
+            and cfg.albef.bert.num_layers == 12 and cfg.albef.bert.fusion_layer == 6
+            and cfg.albef.embed_dim == 256, "not the full-width ALBEF config")
+    ann, pixels = write_train_ann(tmp, "albef_pretrain", 2 * TRAIN_BATCH * TRAIN_STEPS,
+                                     ALBEF_PRETRAIN_SIZE, 1400)
+    expected = train_implied_launches("albef_pretrain", cfg.albef.vit.depth, TRAIN_STEPS, True)
+    launched = {"albef_pretrain": run(
+        "albef_pretrain", ["--task", "albef_pretrain", "--ann", ann, "--image-size",
+                           str(ALBEF_PRETRAIN_SIZE)], pixels, "flash", expected,
+        {k for k, n in expected.items() if n})}
+    require(seen_all["albef_pretrain_flash"] == {
+        ("fwd", 8, 257, 64, False, False, False): 12 * TRAIN_STEPS,
+        ("bwd", 8, 257, 64, False, False, False): 12 * TRAIN_STEPS},
+        f"albef_pretrain K3 shapes {seen_all['albef_pretrain_flash']}")
+
+    for task, preset, impls in (("vlmo_pretrain", PRETRAIN_PLUS, ("flash", "xla")),
+                                ("vlmo_textmlm", TEXTMLM_PLUS, ("flash",)),
+                                ("vlmo_pretrain", PRETRAIN_BASE, ("flash",)),
+                                ("vlmo_textmlm", TEXTMLM_BASE, ("flash",))):
+        named = vlmo_named_config(preset)
+        vc = vlmo_config_from_named(named)
+        plus = preset.endswith("base_plus")
+        require(vc.image_size == 224 and vc.patch_size == 16
+                and (vc.depth, vc.hidden_size, vc.num_heads) == ((24, 544, 16) if plus
+                                                                 else (12, 768, 12))
+                and vc.need_relative_position_embed != plus
+                and vc.max_text_len == (196 if task == "vlmo_textmlm" else 40),
+                f"not the full-width {preset}")
+        weights = pretrain_loss_weights(named) if task == "vlmo_pretrain" else None
+        attentions = pretrain_attentions(task, vc, weights, TRAIN_BATCH)
+        ann, pixels = write_train_ann(tmp, preset, 2 * TRAIN_BATCH * TRAIN_STEPS,
+                                         vc.image_size, 1500)
+        argv = ["--task", task, "--preset", preset, "--ann", ann]
+        for impl in impls:
+            expected = pretrain_implied_launches(attentions, TRAIN_STEPS, impl == "flash")
+            launched[f"{preset}_{impl}"] = run(preset, argv, pixels, impl, expected,
+                                               {k for k, n in expected.items() if n},
+                                               attentions if impl == "flash" else None)
+        if not plus:  # the table's gradient, flash against xla
+            err, largest, of_tol = vlmo_table_gradient(
+                argv + common, tokenizer, pixels,
+                pretrain_implied_launches(attentions, 1, True)["flash_attention_bwd_dbias"])
+            out[f"{preset}_table_grad"] = {"err": err, "max": largest, "err_of_tol": of_tol}
+    return out, launched, seen_all
 
 
 # ---------------------------------------------------------------------------
@@ -2834,23 +3173,11 @@ def _victim_outputs_err(flash, xla, n, what):
     return err, largest, spread
 
 
-@contextlib.contextmanager
-def recorded_k3_shapes(table=False):
-    """The ``(B, S)`` of every K3 forward launch that takes a key bias, and
-    a table too where ``table``, else none, as the path hands them to the
-    kernel."""
-    seen, launch = set(), attention._launch_fwd
-
-    def recording(q, k, v, bias, scale, key_bias, dims, head_dim):
-        if key_bias is not None and (bias is not None) == table:
-            seen.add((q.shape[0], q.shape[1]))
-        return launch(q, k, v, bias, scale, key_bias, dims, head_dim)
-
-    attention._launch_fwd = recording
-    try:
-        yield seen
-    finally:
-        attention._launch_fwd = launch
+def k3_key_bias_shapes(seen, table=False):
+    """The ``(B, S)`` of every K3 forward in ``seen``
+    (:func:`recorded_k3_launches`) that takes a key bias, and a table too
+    where ``table``, else none."""
+    return {(b, s) for (d, b, s, _, t, kb, _) in seen if d == "fwd" and kb and t == table}
 
 
 def _transfer_victims(tmp, cfg_albef, cfg_vlmo):
@@ -2922,7 +3249,7 @@ def transfer_path(tmp, paths, artifacts, tokenizer, cfg_albef, cfg_vlmo):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         with record_main() as rec, recorded_predictions() as preds, \
-                recorded_victim_outputs() as outs, recorded_k3_shapes() as shapes:
+                recorded_victim_outputs() as outs, recorded_k3_launches() as seen:
             if name != "vilt":
                 reset_counts()
                 out = transfer_eval.main(argv + ["--victim-ckpt", path])
@@ -2960,6 +3287,7 @@ def transfer_path(tmp, paths, artifacts, tokenizer, cfg_albef, cfg_vlmo):
             outs, plain_outs, min(len(files), transfer_eval.CHUNK), f"transfer to {name}")
         k3 = {}
         if name == "vilt":
+            shapes = k3_key_bias_shapes(seen)
             require(bool(shapes), "the ViLT victim launched no key-bias K3 forward")
             gen = torch.Generator("cuda").manual_seed(14)
             for b, seq in sorted(shapes):
@@ -3300,7 +3628,7 @@ def zoo_phase(pipe, cfg, tokenizer):
     }
     reset_counts()
     advs, seconds, peak_gib = {}, {}, {}
-    with attention.attention_impl("flash"), recorded_k3_shapes(table=True) as shapes:
+    with attention.attention_impl("flash"), recorded_k3_launches() as seen:
         for name, run in runs.items():
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -3314,6 +3642,7 @@ def zoo_phase(pipe, cfg, tokenizer):
     # draws (2 * SPSA_CHUNK * B rows) included, against its plain versions
     seq = rel[0].shape[-1]  # the joint sequence, 941 tokens
     spsa_rows = 2 * extra.SPSA_CHUNK * ZOO_B
+    shapes = k3_key_bias_shapes(seen, table=True)
     require(shapes == {(ZOO_B, seq), (spsa_rows, seq)}, f"the zoo's two-term K3 shapes {shapes}")
     k3 = {f"{b}x{s}": _check_two_term_case(
         *_qkv(gen, b, s), rel[0][None], _text_key_bias(pipe, tokenizer, b, s),
@@ -3757,6 +4086,14 @@ def main() -> int:
                f"--attn flash"):
         t_albef, t_albef_launched = train_albef(tmp, paths["vocab"], gen, smi)
 
+    # ------------------------------------------ pretraining: ALBEF and VLMo
+    with Phase("K2 and K3 against their plain versions at the pretraining shapes (ALBEF at "
+               "256 px, VLMo-base+ at head dim 34, dbias at head dim 34 and 64), timed"):
+        pre_rows, hd34_dbias_rows = check_pretrain_kernels(gen, tokenizer)
+    with Phase(f"pretraining at full width: albef_pretrain (256 px), vlmo_pretrain and "
+               f"vlmo_textmlm (base+ and base), batch {TRAIN_BATCH}, {TRAIN_STEPS} steps"):
+        t_pre, pre_launched, pre_seen = train_pretrain(tmp, paths["vocab"], tokenizer, smi)
+
     # ------------------------------------------------ the checkpoint path
     with Phase(f"checkpoint path: run.main with .pth files, --batch-size {BATCH_SIZE} "
                f"--attn flash --pipeline-depth {PIPELINE_DEPTH}") as ph:
@@ -3797,6 +4134,30 @@ def main() -> int:
         counted = tb16_launched if "_bf16" in row["name"] else tb_launched
         row["launches"] = counted[row["name"].replace("_vilt", "_key_bias")]
     rows += vilt_rows
+    # the pretraining rows: each shape's launches in the run that gives it
+    by_shape = {
+        "flash_attention_fwd_albef257": pre_launched["albef_pretrain"]["flash_attention_fwd"],
+        "flash_attention_bwd_albef257": pre_launched["albef_pretrain"]["flash_attention_bwd"],
+        "flash_attention_fwd_hd34_itm237": pre_seen[f"{PRETRAIN_PLUS}_flash"].get(
+            ("fwd", 3 * TRAIN_BATCH, 237, 34, False, True, False), 0),
+        "flash_attention_bwd_hd34_itm237": pre_seen[f"{PRETRAIN_PLUS}_flash"].get(
+            ("bwd", 3 * TRAIN_BATCH, 237, 34, False, True, False), 0),
+        "flash_attention_bwd_dbias_joint237": pre_seen[f"{PRETRAIN_BASE}_flash"].get(
+            ("bwd", TRAIN_BATCH, 237, 64, True, True, True), 0),
+        "flash_attention_bwd_dbias_text196": pre_seen[f"{TEXTMLM_BASE}_flash"].get(
+            ("bwd", TRAIN_BATCH, 196, 64, True, True, True), 0),
+    }
+    for row in pre_rows:
+        row["launches"] = by_shape[row["name"]]
+        require(row["launches"] > 0, f"{row['name']}: no launch on the pretraining path")
+    rows += pre_rows
+    # K3's dbias at head dim 34 runs on no path (VLMo-base+ has no table)
+    for row in hd34_dbias_rows:
+        row["launches"] = 0
+    print(json.dumps({"pretraining": t_pre, "pretraining_launches": pre_launched,
+                      "k3_launches_by_shape": {
+        run: {"/".join(map(str, k)): n for k, n in seen.items()} for run, seen in pre_seen.items()},
+        "dbias_hd34_not_on_a_path": hd34_dbias_rows, "card": smi}), flush=True)
     print(f"wall: {time.perf_counter() - t_start:.1f} s since start", flush=True)
     print(json.dumps({"kernel_launches": {
         "per_sample": launched, "batched": b_launched,

@@ -129,15 +129,19 @@ def test_cli_vlmo_arrow_path_matches_the_jax_cli(tmp_path, tables, capsys):
             "allc.json": {"500": ["red"], "501": ["red", "blue"]}}
     for name, obj in side.items():
         (tmp_path / name).write_text(obj if isinstance(obj, str) else json.dumps(obj))
+    # two VLMo blocks (a split block, then the VL expert): the JAX attack
+    # programs' compiles scale with depth
     base = jcfg.tiny_test_config()
     j_cfg = dataclasses.replace(
-        base, vlmo=dataclasses.replace(base.vlmo, vocab_size=vocab_size),
+        base, vlmo=dataclasses.replace(base.vlmo, vocab_size=vocab_size, depth=2,
+                                       vlffn_start_layer=1),
         albef=dataclasses.replace(base.albef, bert=dataclasses.replace(
             base.albef.bert, vocab_size=vocab_size)),
         data=dataclasses.replace(base.data, image_size=32), eval_every=1)
     jcfg.save_config(j_cfg, str(tmp_path / "jcfg.json"))
     t_cfg = tcfg.tiny_test_config(vocab_size=vocab_size)
-    t_cfg = dataclasses.replace(t_cfg, eval_every=1)
+    t_cfg = dataclasses.replace(t_cfg, eval_every=1, vlmo=dataclasses.replace(
+        t_cfg.vlmo, depth=2, vlffn_start_layer=1))
     tcfg.save_config(t_cfg, str(tmp_path / "tcfg.json"))
     common = ["--pipeline", "vlmo", "--vocab", str(tmp_path / "vocab.txt"),
               "--arrow", tables[0], "--right-part", str(tmp_path / "right.txt"),

@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import WORDS, JaxKey, nchw, nhwc, tiny_configs, tiny_models
+from torch_port_util import (WORDS, JaxKey, jit_apply, nchw, nhwc, shallow_albef, tiny_configs,
+                             tiny_models)
 from vqattack_tpu.attacks import albef as jalbef
 from vqattack_tpu.attacks import losses as jlosses
 from vqattack_tpu.attacks import mar_labels as jmar
@@ -82,7 +83,7 @@ def test_norms_match_jax():
 
 @pytest.fixture(scope="module")
 def surrogate():
-    jc, tc = tiny_configs(64)
+    jc, tc = (shallow_albef(c) for c in tiny_configs(64))
     (j_sur, _, _), (p_sur, _, _), (t_sur, _, _) = tiny_models(jc, tc, victim=False, mlm=False)
     rng = np.random.default_rng(2)
     ori = rng.uniform(-1, 1, (1, 32, 32, 3)).astype(np.float32)
@@ -91,7 +92,7 @@ def surrogate():
     mlm_ids = np.array([[2, 14, 4, 15, 16, 3, 0, 0]], np.int32)
     labels = np.full((1, 2, 8), -100, np.int64)
     labels[0, 0, 2] = 20
-    img_t, txt_t, _ = j_sur.apply(p_sur, ori, ids, mask, method=JAlbefPretrain.gen_feats)
+    img_t, txt_t, _ = jit_apply(j_sur, p_sur, ori, ids, mask, method=JAlbefPretrain.gen_feats)
     j_aux = {"variables": p_sur, "text_ids": jnp.asarray(ids), "text_mask": jnp.asarray(mask),
              "tgt_img": img_t, "tgt_txt": txt_t,
              "txt_token_mask": jnp.ones((1, 8), jnp.float32), "special_ids": (4, 0, 2),

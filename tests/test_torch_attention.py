@@ -17,13 +17,14 @@ import pytest
 import torch
 from jax.experimental.pallas.ops.tpu.flash_attention import SegmentIds, mha_reference
 
-from torch_port_util import nchw
+from torch_port_util import assert_same_tree, init_tree_shapes, jax_params_of, jit_apply, nchw
 from vqattack_tpu import config as jcfg
 from vqattack_tpu.models.layers import MultiHeadAttention as JMultiHeadAttention
 from vqattack_tpu.models.vit import VisionTransformer as JVisionTransformer
 from vqattack_tpu.ops.attention import _prepare
 from vqattack_tpu_torch import config as tcfg
 from vqattack_tpu_torch.checkpoint.convert import load_jax_params
+from vqattack_tpu_torch.models.albef import init_weights
 from vqattack_tpu_torch.models.layers import MultiHeadAttention
 from vqattack_tpu_torch.models.vit import VisionTransformer
 from vqattack_tpu_torch.ops import attention
@@ -228,10 +229,11 @@ def test_tiny_vit_flash_equals_xla_and_matches_jax():
     tvit = dataclasses.replace(tcfg.tiny_test_config().albef.vit, image_size=192)
     px = np.random.default_rng(4).uniform(-1, 1, (1, 192, 192, 3)).astype(np.float32)
     j_model = JVisionTransformer(jvit)
-    params = jax.jit(j_model.init)(jax.random.key(1), px)
-    _, j_feats = j_model.apply(params, px)
-    model = load_jax_params(VisionTransformer(tvit), jax.device_get(params)).eval()
-    model.requires_grad_(False)
+    # the port's random weights as flax variables: no flax init compiles
+    model = init_weights(VisionTransformer(tvit), seed=1).eval().requires_grad_(False)
+    params = jax_params_of(model)
+    assert_same_tree(params, init_tree_shapes(j_model, px))
+    _, j_feats = jit_apply(j_model, params, px)
     outs = {}
     for impl in ("xla", "flash"):
         p = T(nchw(px)).requires_grad_(True)

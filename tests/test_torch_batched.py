@@ -8,7 +8,6 @@ branch on."""
 
 from __future__ import annotations
 
-import dataclasses
 import json
 
 import jax
@@ -17,8 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import (JaxKey, fixed_topk, nchw, nhwc, synth_cli_assets, tiny_configs,
-                             tiny_models)
+from torch_port_util import (JaxKey, fixed_topk, nchw, nhwc, shallow_albef, synth_cli_assets,
+                             tiny_configs, tiny_models)
 from vqattack_tpu.attacks import text_attack as jtext
 from vqattack_tpu.attacks.batched import BatchedAlbefAttack as JBatched
 from vqattack_tpu.attacks.orchestrator import AlbefAttackPipeline as JPipeline
@@ -55,21 +54,16 @@ SAMPLES = [
 ATK = dict(eps=0.125, eps_iter=0.01)
 
 
-def _shallow_text(cfg):
-    bert = dataclasses.replace(cfg.albef.bert, num_layers=2, fusion_layer=1)
-    return dataclasses.replace(cfg, albef=dataclasses.replace(cfg.albef, bert=bert,
-                                                              decoder_layers=1))
-
-
 @pytest.fixture(scope="module")
 def engines():
     j_tok, t_tok = JTokenizer.toy(WORDS), WordPieceTokenizer.toy(WORDS)
     # 12 iterations: 3 blocks of 4; the JAX side runs its production
-    # execution (fused per-block programs).  The text side is cut to one
-    # text and one fusion layer and a one-layer answer decoder (the ViT keeps
-    # its 2 layers): the file's time is the JAX engine's four block-program
-    # compiles, which scale with depth, not with the iteration count.
-    jc, tc = (_shallow_text(c) for c in tiny_configs(
+    # execution (fused per-block programs).  ALBEF is cut to one ViT block,
+    # one text and one fusion layer and a one-layer answer decoder
+    # (``shallow_albef``): the file's time is the JAX engine's four
+    # block-program compiles, which scale with depth, not with the
+    # iteration count.
+    jc, tc = (shallow_albef(c) for c in tiny_configs(
         t_tok.vocab_size, num_iters=12, dynamic_pgd=True, fused_block=True))
     (j_sur, j_vic, j_mlm), (p_sur, p_vic, p_mlm), (t_sur, t_vic, t_mlm) = tiny_models(jc, tc)
     jp = JPipeline(jc, j_sur, p_sur, j_tok, JNullGate(), victim=j_vic, victim_params=p_vic,

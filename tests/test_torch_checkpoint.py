@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import nchw
+from torch_port_util import jit_apply, nchw
 from vqattack_tpu import config as jcfg
 from vqattack_tpu import named_configs as jnamed
 from vqattack_tpu.checkpoint import convert as jconvert
@@ -202,7 +202,8 @@ def _check_mlm(directory, jc, tc, sd_source=None):
     assert_modules_match(port, load_jax_params(_mlm_module(tc.albef.bert), j_tree))
     _, ids, mask = _inputs(32, seed=5)
     j_cfg = dataclasses.replace(jc.albef.bert, fusion_layer=jc.albef.bert.num_layers)
-    _, _, j_logits = JFusionBert(j_cfg, with_mlm_head=True).apply(j_tree, ids, mask, mode="text")
+    _, _, j_logits = jit_apply(JFusionBert(j_cfg, with_mlm_head=True), j_tree, ids, mask,
+                               mode="text")
     with torch.no_grad():
         _, _, logits = port(_long(ids), _long(mask), mode="text")
     _close(logits, j_logits, 1e-4, 1e-5)

@@ -48,7 +48,8 @@ def test_pgd_linf_update_kernel_bit_exact(gen):
 
 
 @pytest.mark.parametrize("rows,dtype", [(901, torch.float32), (1000, torch.float32),
-                                        (901, torch.bfloat16), (37, torch.bfloat16)])
+                                        (901, torch.bfloat16), (37, torch.bfloat16),
+                                        (8 * 257, torch.float32)])
 def test_residual_layernorm_kernels(gen, rows, dtype):
     """s bit-exact; h and dx within 1e-5 (float32) or one bf16 ulp (rtol
     2^-7, atol 2^-9); dgamma/dbeta within 1e-5 of the terms' magnitudes and
@@ -447,6 +448,71 @@ def test_flash_attention_dbias_autograd_counts_and_the_attack_backward(gen):
     want = attention.flash_attention_bwd(q, k, v, table, 0.125, o, lse, w, kb)
     for name, a, r in zip(("dq", "dk", "dv"), got, want):
         assert torch.equal(a, r), name
+
+
+# the pretraining path's shapes: (B, S, heads, head dim, key bias, table).
+# ALBEF's ViT at 256 px (257 tokens: two 128-row tiles and one row);
+# VLMo-base+ (head dim 34): the image tower at 224 px, ITM's joint trunk on
+# 3 x 8 pairs and MLM's on 8 (40 text tokens and 197 image ones), the text
+# tower at 196 tokens; VLMo-base's joint and text tables (head dim 64)
+PRETRAIN_SHAPES = [(8, 257, 12, 64, False), (8, 197, 16, 34, False), (24, 237, 16, 34, True),
+                   (8, 237, 16, 34, True), (8, 196, 16, 34, True)]
+PRETRAIN_DBIAS_SHAPES = [(2, 257, 12, 64, False), (8, 197, 16, 34, False),
+                         (24, 237, 16, 34, True), (8, 196, 16, 34, True),
+                         (8, 237, 12, 64, True), (8, 196, 12, 64, True)]
+
+
+def _pretrain_case(gen, b, s, h, dh, key_bias):
+    """q, k, v at [B, S, H, Dh] as views of [B, S, H * Dh] projections, and
+    the padded text's key bias (-1e9 on keys 28..39 of row 1) or none."""
+    q, k, v = (torch.randn(b, s, h * dh, generator=gen, device="cuda").view(b, s, h, dh)
+               for _ in range(3))
+    kb = None
+    if key_bias:
+        kb = torch.zeros(b, s, device="cuda")
+        kb[1, 28:40] = -1e9
+    return q, k, v, kb
+
+
+@pytest.mark.parametrize("b,s,h,dh,key_bias", PRETRAIN_SHAPES)
+def test_flash_attention_at_the_pretraining_shapes(gen, b, s, h, dh, key_bias):
+    """K3 forward and backward against the plain versions at each shape
+    the pretraining path gives it, the backward the same bit for bit."""
+    q, k, v, kb = _pretrain_case(gen, b, s, h, dh, key_bias)
+    scale = dh ** -0.5
+    o, lse = attention.flash_attention_fwd(q, k, v, None, scale, kb)
+    o_r, lse_r = attention.flash_attention_reference(q, k, v, None, scale, return_lse=True,
+                                                     key_bias=kb)
+    _close(o, o_r, "o")
+    _close(lse, lse_r, "lse")
+    do = torch.randn(q.shape, generator=gen, device="cuda")
+    grads = attention.flash_attention_bwd(q, k, v, None, scale, o, lse, do, kb)
+    again = attention.flash_attention_bwd(q, k, v, None, scale, o, lse, do, kb)
+    refs = attention.flash_attention_bwd_reference(q, k, v, None, scale, o, lse, do, kb)
+    for name, g, g2, r in zip(("dq", "dk", "dv"), grads, again, refs):
+        assert torch.equal(g, g2), f"{name} differs between two runs"
+        _close(g, r, name)
+
+
+@pytest.mark.parametrize("b,s,h,dh,key_bias", PRETRAIN_DBIAS_SHAPES)
+def test_flash_attention_dbias_at_the_pretraining_shapes(gen, b, s, h, dh, key_bias):
+    """The dbias instance with a [1, H, S, S] table at the pretraining
+    shapes: head dim 34 (the dQ kernel's 40-column tiles writing dS; the
+    table alone at 197 tokens), VLMo-base's joint and text tables and 257
+    tokens; against the plain backward, the same bit for bit."""
+    q, k, v, kb = _pretrain_case(gen, b, s, h, dh, key_bias)
+    table = torch.randn(1, h, s, s, generator=gen, device="cuda") * 0.5
+    scale = dh ** -0.5
+    o, lse = attention.flash_attention_fwd(q, k, v, table, scale, kb)
+    do = torch.randn(q.shape, generator=gen, device="cuda")
+    grads = attention.flash_attention_bwd(q, k, v, table, scale, o, lse, do, kb, dbias=True)
+    again = attention.flash_attention_bwd(q, k, v, table, scale, o, lse, do, kb, dbias=True)
+    refs = attention.flash_attention_bwd_reference(q, k, v, table, scale, o, lse, do, kb,
+                                                   dbias=True)
+    assert grads[3].shape == table.shape
+    for name, g, g2, r in zip(("dq", "dk", "dv", "dbias"), grads, again, refs):
+        assert torch.equal(g, g2), f"{name} differs between two runs"
+        (_dbias_close if name == "dbias" else _close)(g, r, name)
 
 
 # ---------------------------------------------------------------------------

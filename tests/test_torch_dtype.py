@@ -33,8 +33,8 @@ import pytest
 import torch
 from jax.experimental.pallas.ops.tpu.flash_attention import SegmentIds, mha_reference
 
-from torch_port_util import (JaxKey, _host, nchw, synth_cli_assets, tiny_configs, tiny_models,
-                             tiny_vlmo, tiny_vlmo_configs)
+from torch_port_util import (JaxKey, _host, nchw, shallow_albef, synth_cli_assets, tiny_configs,
+                             tiny_models, tiny_vlmo, tiny_vlmo_configs)
 from vqattack_tpu import run as jax_run
 from vqattack_tpu.attacks import albef as jalbef_losses
 from vqattack_tpu.attacks import vlmo as jvlmo_losses
@@ -147,7 +147,7 @@ def _sign_agreement(a, b) -> float:
 def albef():
     """The tiny ALBEF in both packages at bf16, on the JAX weights; masking
     off (mlm_probability 0) so that both see the same ids."""
-    jc, tc = tiny_configs(VOCAB)
+    jc, tc = (shallow_albef(c) for c in tiny_configs(VOCAB))
     jc = dataclasses.replace(jc, albef=dataclasses.replace(jc.albef, mlm_probability=0.0))
     tc = dataclasses.replace(tc, albef=dataclasses.replace(tc.albef, mlm_probability=0.0))
     (j32, _, _), (params, _, _), (t32, _, _) = tiny_models(jc, tc, victim=False, mlm=False)
@@ -208,7 +208,7 @@ def test_albef_bf16_surrogate_against_jax(albef):
 
 @pytest.fixture(scope="module")
 def vlmo():
-    jc, tc = tiny_vlmo_configs(VOCAB)
+    jc, tc = tiny_vlmo_configs(VOCAB, depth=2)
     j32, params, t32 = tiny_vlmo(jc, tc)
     t16 = load_jax_params(VLMo(tc.vlmo, dtype="bfloat16"), params)
     rng = np.random.default_rng(1)

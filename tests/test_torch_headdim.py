@@ -42,7 +42,8 @@ import torch
 from jax.experimental.pallas.ops.tpu import flash_attention as pallas_flash
 from jax.experimental.pallas.ops.tpu.flash_attention import SegmentIds, mha_reference
 
-from torch_port_util import JaxKey, fixed_topk, nchw, nhwc, tiny_mlm, tiny_vlmo_configs
+from torch_port_util import (JaxKey, assert_same_tree, fixed_topk, init_tree_shapes, nchw, nhwc,
+                             tiny_mlm, tiny_vlmo, tiny_vlmo_configs)
 from vqattack_tpu.attacks.batched import BatchedVlmoAttack as JBatched
 from vqattack_tpu.attacks.vlmo_orchestrator import VlmoAttackPipeline as JPipeline
 from vqattack_tpu.models.vlmo import VLMo as JVLMo
@@ -52,8 +53,6 @@ from vqattack_tpu.text.similarity import NullGate as JNullGate
 from vqattack_tpu.text.tokenizer import WordPieceTokenizer as JTokenizer
 from vqattack_tpu_torch.attacks.batched import BatchedVlmoAttack
 from vqattack_tpu_torch.attacks.vlmo_orchestrator import VlmoAttackPipeline
-from vqattack_tpu_torch.checkpoint.convert import load_jax_params
-from vqattack_tpu_torch.models.vlmo import VLMo
 from vqattack_tpu_torch.ops import attention
 from vqattack_tpu_torch.text.similarity import NullGate
 from vqattack_tpu_torch.text.tokenizer import WordPieceTokenizer
@@ -268,12 +267,12 @@ def jax_flash(monkeypatch):
         yield calls
 
 
-def _base_plus_configs(depth: int = 2, **attack_kw):
+def _base_plus_configs(**attack_kw):
     """The tiny RunConfig of both packages with VLMo-base+'s form: 68 wide
     over 2 heads (head dim 34), absolute position embeddings, no
     relative-position table, no layer scale, 176 px."""
     out = []
-    for c in tiny_vlmo_configs(VOCAB, depth=depth, **attack_kw):
+    for c in tiny_vlmo_configs(VOCAB, depth=1, **attack_kw):
         vlmo = dataclasses.replace(c.vlmo, image_size=IMAGE, hidden_size=68, num_heads=2,
                                    use_abs_pos_emb=True, need_relative_position_embed=False,
                                    layer_scale_init=None)
@@ -282,14 +281,9 @@ def _base_plus_configs(depth: int = 2, **attack_kw):
 
 
 def _base_plus_models(jc, tc, seed: int):
-    cfg = jc.vlmo
-    px = jnp.zeros((1, cfg.image_size, cfg.image_size, 3))
-    ids = jnp.ones((1, cfg.max_text_len), jnp.int32)
-    j_model = JVLMo(cfg)
-    params = jax.tree_util.tree_map(np.asarray, jax.jit(
-        lambda k: j_model.init(k, ids, jnp.ones_like(ids), px, method=JVLMo.init_all))(
-            jax.random.key(seed)))
-    return j_model, params, load_jax_params(VLMo(tc.vlmo), params).eval()
+    """(JAX module, JAX params, port module), the port's random weights from
+    ``seed`` as flax variables (``tiny_vlmo``)."""
+    return tiny_vlmo(jc, tc, seed)
 
 
 def _close(got, want, rtol, atol):
@@ -306,6 +300,10 @@ def test_tiny_base_plus_model_under_flash_matches_jax(jax_flash):
     JAX module under its flash path on the same weights."""
     jc, tc = _base_plus_configs()
     j_model, params, model = _base_plus_models(jc, tc, seed=0)
+    ids0 = jnp.ones((1, jc.vlmo.max_text_len), jnp.int32)
+    assert_same_tree(params, init_tree_shapes(j_model, ids0, ids0,
+                                              jnp.zeros((1, IMAGE, IMAGE, 3)),
+                                              method=JVLMo.init_all))
     assert model.precompute_joint_biases() is None
     assert model.blocks[0].attn.head_dim == 34 and model.pos_embed is not None
     rng = np.random.default_rng(5)
@@ -313,8 +311,8 @@ def test_tiny_base_plus_model_under_flash_matches_jax(jax_flash):
     ids = rng.integers(5, VOCAB, (2, 8)).astype(np.int32)
     mask = np.ones_like(ids)
     mask[1, 5:] = 0
-    w_tok = rng.normal(size=(2, 3, 130, 68)).astype(np.float32)
-    w_cls = rng.normal(size=(2, 3, 68)).astype(np.float32)
+    w_tok = rng.normal(size=(2, 2, 130, 68)).astype(np.float32)
+    w_cls = rng.normal(size=(2, 2, 68)).astype(np.float32)
 
     def jloss(p, x):
         out = j_model.apply(p, x, ids, mask, None, method=JVLMo.attack_feats)
@@ -343,7 +341,7 @@ def test_tiny_base_plus_model_under_flash_matches_jax(jax_flash):
                 logits = model.vqa_logits(T(nchw(px)), T(ids).long(), T(mask).long())
     finally:
         attention.flash_attention = real
-    assert calls == [(2, 130, 2, 34)] * 4
+    assert calls == [(2, 130, 2, 34)] * 2
     for a, b in zip(out, j_out):
         _close(a.detach().numpy(), b, 1e-4, 1e-5)
     _close(g.numpy(), nchw(j_g), 1e-3, 1e-6)
@@ -360,7 +358,7 @@ def test_one_batched_base_plus_block_under_flash_matches_jax(jax_flash):
     ``attention_impl("flash")`` with the same draws: the same schedule and
     text, losses within 1e-3, the image within the PGD drift budget."""
     j_tok, t_tok = JTokenizer.toy(WORDS), WordPieceTokenizer.toy(WORDS)
-    jc, tc = _base_plus_configs(depth=2, num_iters=4, dynamic_pgd=True, fused_block=True)
+    jc, tc = _base_plus_configs(num_iters=4, dynamic_pgd=True, fused_block=True)
     jc = dataclasses.replace(jc, vlmo=dataclasses.replace(jc.vlmo, vocab_size=t_tok.vocab_size))
     tc = dataclasses.replace(tc, vlmo=dataclasses.replace(tc.vlmo, vocab_size=t_tok.vocab_size))
     j_model, j_params, t_model = _base_plus_models(jc, tc, seed=0)

@@ -21,7 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import JaxKey, nchw, nhwc, tiny_configs, tiny_models
+from torch_port_util import (JaxKey, assert_same_tree, init_tree_shapes, jit_apply, nchw, nhwc,
+                             shallow_albef, tiny_configs, tiny_models)
 from vqattack_tpu.models.albef import AlbefPretrain as JAlbefPretrain
 from vqattack_tpu.models.albef import mlm_random_mask as jax_mlm_random_mask
 from vqattack_tpu_torch.checkpoint.convert import load_jax_params
@@ -40,7 +41,7 @@ def _close(got, want, rtol, atol):
 
 @pytest.fixture(scope="module")
 def models():
-    jc, tc = tiny_configs(VOCAB)
+    jc, tc = (shallow_albef(c) for c in tiny_configs(VOCAB))
     (j_sur, j_vic, j_mlm), params, (t_sur, t_vic, t_mlm) = tiny_models(jc, tc)
     return jc, tc, (j_sur, j_vic, j_mlm), params, (t_sur, t_vic, t_mlm)
 
@@ -69,7 +70,7 @@ def test_albef_pretrain_matches_jax(models, fused_ln):
     px, ids, mask = _inputs()
     rng = np.random.default_rng(1)
     w_img = rng.normal(size=(2, 3, 5, 32)).astype(np.float32)
-    w_txt = rng.normal(size=(2, 5, 8, 32)).astype(np.float32)
+    w_txt = rng.normal(size=(2, 3, 8, 32)).astype(np.float32)
 
     def jloss(p, x):
         img, txt, logits = j_sur.apply(p, x, ids, mask, method=JAlbefPretrain.gen_feats)
@@ -80,7 +81,7 @@ def test_albef_pretrain_matches_jax(models, fused_ln):
 
     x = torch.from_numpy(nchw(px)).requires_grad_(True)
     img, txt, logits = port.gen_feats(x, torch.from_numpy(ids).long(), torch.from_numpy(mask).long())
-    assert img.shape == (2, 3, 5, 32) and txt.shape == (2, 5, 8, 32)
+    assert img.shape == (2, 3, 5, 32) and txt.shape == (2, 3, 8, 32)
     loss = (img * torch.from_numpy(w_img)).sum() + (txt * torch.from_numpy(w_txt)).sum()
     (g,) = torch.autograd.grad(loss, x)
     _close(img.detach(), j_img, 1e-4, 1e-5)
@@ -110,7 +111,7 @@ def test_albef_pretrain_matches_jax(models, fused_ln):
 def test_candidate_mlm_text_mode_matches_jax(models):
     _, _, (_, _, j_mlm), (_, _, p_mlm), (_, _, t_mlm) = models
     _, ids, mask = _inputs(2)
-    j_last, j_feats, j_logits = j_mlm.apply(p_mlm, ids, mask, mode="text")
+    j_last, j_feats, j_logits = jit_apply(j_mlm, p_mlm, ids, mask, mode="text")
     last, feats, logits = t_mlm(torch.from_numpy(ids).long(), torch.from_numpy(mask).long(),
                                 mode="text")
     _close(last.detach(), j_last, 1e-4, 1e-5)
@@ -182,6 +183,22 @@ def test_load_jax_params_rejects_mismatches(models):
                                "bias": np.zeros((2,), np.float32)})
     with pytest.raises(ValueError, match="itm_head"):
         load_jax_params(port, bad)
+
+
+def test_the_port_weights_cover_each_flax_init(models):
+    """The tiny models' weights are the port's (``tests/torch_port_util.py``):
+    each tree is the flax module's ``init`` tree leaf for leaf (the
+    surrogate's ``init_all``, the victim's, the candidate MLM's), so that
+    no flax parameter is left at an initialiser the port does not have."""
+    jc, _, (j_sur, j_vic, j_mlm), (p_sur, p_vic, p_mlm), _ = models
+    size = jc.albef.vit.image_size
+    px = jnp.zeros((1, size, size, 3))
+    ids = jnp.ones((1, jc.attack.max_text_len), jnp.int32)
+    a_ids = jnp.ones((2, 4), jnp.int32)
+    assert_same_tree(p_sur, init_tree_shapes(j_sur, px, ids, ids,
+                                             method=JAlbefPretrain.init_all))
+    assert_same_tree(p_vic, init_tree_shapes(j_vic, px, ids, ids, a_ids, a_ids, 2))
+    assert_same_tree(p_mlm, init_tree_shapes(j_mlm, ids, ids))
 
 
 def test_patch_embed_rejects_indivisible_images():

@@ -33,7 +33,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import nchw, tiny_configs, tiny_models, tiny_vlmo, tiny_vlmo_configs
+from torch_port_util import (nchw, shallow_albef, tiny_configs, tiny_models, tiny_vlmo,
+                             tiny_vlmo_configs)
 from vqattack_tpu.data import transforms as jtransforms
 from vqattack_tpu.models.vlmo import VLMo as JVLMo
 from vqattack_tpu.text.tokenizer import SPECIAL_TOKENS
@@ -186,7 +187,7 @@ def test_classification_losses_match_jax():
 
 
 def _albef_task(rng):
-    jc, tc = tiny_configs(VOCAB)
+    jc, tc = (shallow_albef(c) for c in tiny_configs(VOCAB))
     (_, j_vic, _), (_, params, _), (_, model, _) = tiny_models(jc, tc, victim=True, mlm=False)
     size = jc.albef.vit.image_size
     b, a, l = 2, 3, 6
@@ -418,10 +419,12 @@ def test_init_ckpt_grafts_the_files_trunk(tmp_path, task, capsys):
 
 def test_cli_refuses_tasks_not_ported(tmp_path):
     assets = _cli_assets(tmp_path)
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(["--task", "retrieval", *assets])
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(["--task", "vlmo_vqa", *assets, "--arrow-root", "x"])
+    for task in ("retrieval", "ve", "nlvr2", "vlmo_irtr", "vlmo_nlvr2"):
+        assert task not in cli.PORTED_TASKS
+        with pytest.raises(SystemExit, match="not ported yet"):
+            cli.main(["--task", task, *assets])
+    assert set(cli.PORTED_TASKS) | {"retrieval", "ve", "nlvr2", "vlmo_irtr",
+                                    "vlmo_nlvr2"} == set(cli.TASKS)
 
 
 def test_preset_fills_defaults_but_flags_win():

@@ -4,8 +4,8 @@ sample and one batched block, the JAX draws injected), ``eval/vqa_eval.py``,
 the three defenses, and the ``transfer_eval`` and ``predict`` CLIs of both
 packages on the same artifacts and weights.
 
-The models are tiny (``tiny_test_config`` widths, 2 blocks, 32 px): the
-JAX side's compiles dominate the time.  Tolerances: model outputs within
+The models are tiny (``tiny_test_config`` widths, 32 px; ViLT at 1 block,
+VLMo at 2, a split block and the VL expert; ALBEF ``shallow_albef``): the JAX side's compiles dominate the time.  Tolerances: model outputs within
 1e-5 of their largest magnitude (float32 sums in another order), the
 attack's losses within 1e-3 relative and its image within the PGD drift
 budget, as in ``tests/test_torch_vlmo_attack.py``; the converter bit for
@@ -25,7 +25,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import JaxKey, fixed_topk, nchw, nhwc, tiny_configs, tiny_mlm
+from torch_port_util import (JaxKey, assert_same_tree, fixed_topk, init_tree_shapes, jit_apply,
+                             nchw, nhwc, shallow_albef, tiny_configs, tiny_mlm, tiny_vlmo)
 from vqattack_tpu import config as jcfg
 from vqattack_tpu import defenses as jdefenses
 from vqattack_tpu import predict as jpredict
@@ -76,24 +77,18 @@ def _close(got, want, what, rel=1e-5):
     assert err <= tol, f"{what}: max abs err {err} > {tol}"
 
 
-def _vilt_configs(vocab_size, depth=2, **attack_kw):
+def _vilt_configs(vocab_size, **attack_kw):
     """The tiny RunConfig of both packages with a single-stream ViLT as the
     VLMo geometry (``vilt_base_config``'s switches at tiny widths)."""
     return [dataclasses.replace(c, vlmo=dataclasses.replace(
-                c.vlmo, vocab_size=vocab_size, depth=depth, vlffn_start_layer=depth, **VILT))
+                c.vlmo, vocab_size=vocab_size, depth=1, vlffn_start_layer=1, **VILT))
             for c in tiny_configs(vocab_size, **attack_kw)]
 
 
 def _tiny_vilt(jc, tc, seed):
-    """(JAX module, JAX params, port module) of the tiny ViLT."""
-    cfg = jc.vlmo
-    px = jnp.zeros((1, cfg.image_size, cfg.image_size, 3))
-    ids = jnp.ones((1, cfg.max_text_len), jnp.int32)
-    j_model = JVLMo(cfg)
-    params = jax.tree_util.tree_map(np.asarray, jax.jit(
-        lambda k: j_model.init(k, ids, jnp.ones_like(ids), px, method=JVLMo.init_all))(
-            jax.random.key(seed)))
-    return j_model, params, load_jax_params(VLMo(tc.vlmo), params).eval()
+    """(JAX module, JAX params, port module) of the tiny ViLT, the port's
+    random weights from ``seed`` as flax variables (``tiny_vlmo``)."""
+    return tiny_vlmo(jc, tc, seed)
 
 
 # ------------------------------------------------------------------ configs
@@ -119,6 +114,9 @@ def test_vilt_model_matches_jax_vlmo_without_moe():
     ``mlp`` and no expert, and the model no VL-expert heads."""
     jc, tc = _vilt_configs(64)
     j_model, params, t_model = _tiny_vilt(jc, tc, seed=0)
+    ids0 = jnp.ones((1, jc.vlmo.max_text_len), jnp.int32)
+    assert_same_tree(params, init_tree_shapes(j_model, ids0, ids0, jnp.zeros((1, 32, 32, 3)),
+                                              method=JVLMo.init_all))
     blk = params["params"]["blocks_0"]
     assert "mlp" in blk and "norm2" in blk and "mlp_text" not in blk
     assert not hasattr(t_model.blocks[0], "mlp_text") and not t_model._has_vlffn
@@ -127,8 +125,8 @@ def test_vilt_model_matches_jax_vlmo_without_moe():
     ids = rng.integers(1, 64, (2, jc.vlmo.max_text_len)).astype(np.int32)
     mask = np.ones_like(ids)
     mask[1, 5:] = 0
-    j_logits = j_model.apply(params, px, ids, mask, method=JVLMo.vqa_logits)
-    j_out = j_model.apply(params, ids, mask, px)
+    j_logits = jit_apply(j_model, params, px, ids, mask, method=JVLMo.vqa_logits)
+    j_out = jit_apply(j_model, params, ids, mask, px)
     with torch.no_grad():
         t_logits = t_model.vqa_logits(T(nchw(px)), T(ids).long(), T(mask).long())
         t_out = t_model.infer(T(ids).long(), T(mask).long(), T(nchw(px)))
@@ -148,8 +146,8 @@ def test_convert_vilt_matches_jax_and_loads():
     sd = synthetic.vilt_state_dict(tc.vlmo, seed=3, src_image_size=64)
     np_sd = {k: v.numpy() for k, v in sd.items()}
     for new in (None, tc.vlmo.num_patches):
-        j_tree = jconvert_vilt(np_sd, depth=2, new_num_patches=new)
-        t_tree = convert_vilt(np_sd, depth=2, new_num_patches=new)
+        j_tree = jconvert_vilt(np_sd, depth=tc.vlmo.depth, new_num_patches=new)
+        t_tree = convert_vilt(np_sd, depth=tc.vlmo.depth, new_num_patches=new)
         j_flat = jax.tree_util.tree_flatten_with_path(j_tree)[0]
         t_flat = dict(jax.tree_util.tree_flatten_with_path(t_tree)[0])
         assert len(j_flat) == len(t_flat)
@@ -164,7 +162,8 @@ def test_convert_vilt_matches_jax_and_loads():
                                             if h not in t_tree])
     px = np.random.default_rng(4).uniform(-1, 1, (1, 32, 32, 3)).astype(np.float32)
     ids = np.ones((1, tc.vlmo.max_text_len), np.int32)
-    j_logits = JVLMo(jc.vlmo).apply({"params": j_tree}, px, ids, ids, method=JVLMo.vqa_logits)
+    j_logits = jit_apply(JVLMo(jc.vlmo), {"params": j_tree}, px, ids, ids,
+                         method=JVLMo.vqa_logits)
     with torch.no_grad():
         t_logits = model.vqa_logits(T(nchw(px)), T(ids).long(), T(ids).long())
     _close(t_logits.numpy(), j_logits, "logits of the converted weights")
@@ -176,9 +175,9 @@ def test_load_vilt_reads_a_file_into_the_port_vilt(tmp_path):
     torch.save(sd, tmp_path / "vilt.pth")
     model = VLMo(tc.vlmo)
     ckpt_io.load_vilt(str(tmp_path / "vilt.pth"), tc.vlmo, into=model)
-    w = sd["transformer.blocks.1.attn.qkv.weight"]
-    assert torch.equal(model.blocks[1].attn.value.weight, w[64:])
-    assert torch.equal(model.blocks[1].mlp.fc2.weight, sd["transformer.blocks.1.mlp.fc2.weight"])
+    w = sd["transformer.blocks.0.attn.qkv.weight"]
+    assert torch.equal(model.blocks[0].attn.value.weight, w[64:])
+    assert torch.equal(model.blocks[0].mlp.fc2.weight, sd["transformer.blocks.0.mlp.fc2.weight"])
     assert torch.equal(model.vqa_classifier.fc2.bias, sd["vqa_classifier.3.bias"])
     assert model.pos_embed.shape == (1, tc.vlmo.image_seq_len, 32)
 
@@ -400,7 +399,7 @@ def _configs(kind):
     BLIP-VQA (``fusion_layer=0``), VLMo and ViLT; vocab 30,522."""
     if kind == "vilt":
         return _vilt_configs(30522)
-    jc, tc = tiny_configs(30522)
+    jc, tc = (shallow_albef(c) for c in tiny_configs(30522))
     if kind == "blip":
         jc, tc = (dataclasses.replace(c, albef=dataclasses.replace(
             c.albef, bert=dataclasses.replace(c.albef.bert, fusion_layer=0)))

@@ -1,9 +1,9 @@
 """The port's VLMo against the JAX package's, on the same weights, and the
 two-term attention it hands to kernel K3.
 
-The flax parameters of the tiny VLMo (``tiny_test_config``: 4 blocks of
-width 32, the VL expert in the last, 13 joint tokens) are loaded into the
-port with ``load_jax_params``, which must leave no leaf unused; inputs come
+The flax parameters of the tiny VLMo (``tiny_test_config`` at 2 blocks of
+width 32, the VL expert in the last, 13 joint tokens) are the port's random
+weights, which ``load_jax_params`` must load back leaving no leaf unused; inputs come
 from a seeded numpy generator.  The tiny joint sequence is under the flash
 threshold of 128 queries, so the two-term attention (the relative-position
 table as ``bias``, the padded-text mask as ``key_bias``) is held to the JAX
@@ -23,7 +23,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import nchw, tiny_vlmo, tiny_vlmo_configs
+from torch_port_util import (assert_same_tree, init_tree_shapes, jit_apply, nchw, tiny_vlmo,
+                             tiny_vlmo_configs)
 from vqattack_tpu.models.layers import MultiHeadAttention as JMultiHeadAttention
 from vqattack_tpu.models.layers import mask_to_bias as jmask_to_bias
 from vqattack_tpu.models.vlmo import VLMo as JVLMo
@@ -56,7 +57,7 @@ def test_relative_position_index_equals_jax(window, text_len):
 
 @pytest.fixture(scope="module")
 def vlmo():
-    jc, tc = tiny_vlmo_configs(VOCAB)
+    jc, tc = tiny_vlmo_configs(VOCAB, depth=2)
     return tiny_vlmo(jc, tc)
 
 
@@ -78,10 +79,17 @@ def _long(a):
 def test_load_jax_params_takes_every_leaf_of_init_all(vlmo):
     """Both experts of the VL layer, the ITC projections, both logit scales,
     ``itm_score``, the bare layer scales and the relative-position table:
-    every leaf has its parameter (``load_jax_params`` raises on a leftover)."""
-    _, params, model = vlmo
+    every leaf has its parameter (``load_jax_params`` raises on a leftover),
+    and the port's tree is flax's ``init_all`` tree, leaf for leaf."""
+    j_model, params, model = vlmo
+    cfg = j_model.cfg
+    ids = jnp.ones((1, cfg.max_text_len), jnp.int32)
+    assert_same_tree(params, init_tree_shapes(
+        j_model, ids, ids, jnp.zeros((1, cfg.image_size, cfg.image_size, 3)),
+        method=JVLMo.init_all))
+    load_jax_params(VLMo(model.cfg), params)
     p = params["params"]
-    assert set(p["blocks_3"]) >= {"mlp_text", "mlp_imag", "mlp_vl", "norm2_vl", "gamma_1"}
+    assert set(p["blocks_1"]) >= {"mlp_text", "mlp_imag", "mlp_vl", "norm2_vl", "gamma_1"}
     assert p["logit_vl_scale"]["scale"].shape == ()
     n_leaves = len(jax.tree_util.tree_leaves(p))
     assert n_leaves == len(list(model.parameters()))
@@ -92,19 +100,19 @@ def test_load_jax_params_takes_every_leaf_of_init_all(vlmo):
 def test_infer_infer_text_and_biases_match_jax(vlmo):
     j_model, params, model = vlmo
     px, ids, mask = _inputs()
-    j = j_model.apply(params, ids, mask, px, method=JVLMo.infer)
+    j = jit_apply(j_model, params, ids, mask, px, method=JVLMo.infer)
     with torch.no_grad():
         t = model.infer(_long(ids), _long(mask), T(nchw(px)))
     for k in ("text_feats", "image_feats", "cls_feats", "raw_cls_feats", "feats"):
         _close(t[k].numpy(), j[k], 1e-4, 1e-5)
-    j = j_model.apply(params, ids, mask, vlffn=True, method=JVLMo.infer_text)
+    j = jit_apply(j_model, params, ids, mask, vlffn=True, method=JVLMo.infer_text)
     with torch.no_grad():
         t = model.infer_text(_long(ids), _long(mask), vlffn=True)
     for k in ("text_feats", "cls_feats", "mlm_logits", "feats", "cls_vlffn_feats"):
         _close(t[k].numpy(), j[k], 1e-4, 1e-5)
     j_b = j_model.apply(params, method=JVLMo.precompute_joint_biases)
     t_b = model.precompute_joint_biases()
-    assert t_b.shape == (4, 2, 13, 13) and not t_b.requires_grad and t_b.is_contiguous()
+    assert t_b.shape == (2, 2, 13, 13) and not t_b.requires_grad and t_b.is_contiguous()
     np.testing.assert_array_equal(t_b.numpy(), np.asarray(j_b))
 
 
@@ -115,8 +123,8 @@ def test_attack_closures_and_their_gradients_match_jax(vlmo):
     j_model, params, model = vlmo
     px, ids, mask = _inputs(1)
     rng = np.random.default_rng(2)
-    w_tok = rng.normal(size=(2, 5, 13, 32)).astype(np.float32)
-    w_cls = rng.normal(size=(2, 5, 32)).astype(np.float32)
+    w_tok = rng.normal(size=(2, 3, 13, 32)).astype(np.float32)
+    w_cls = rng.normal(size=(2, 3, 32)).astype(np.float32)
     rel = model.precompute_joint_biases()
     j_rel = j_model.apply(params, method=JVLMo.precompute_joint_biases)
     embeds = np.array(j_model.apply(params, ids, method=JVLMo.embed_text))
@@ -155,7 +163,7 @@ def test_attack_closures_and_their_gradients_match_jax(vlmo):
         b = model.attack_feats(T(nchw(px)), _long(ids), _long(mask), rel)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
-    j_logits = j_model.apply(params, px, ids, mask, method=JVLMo.vqa_logits)
+    j_logits = jit_apply(j_model, params, px, ids, mask, method=JVLMo.vqa_logits)
     with torch.no_grad():
         t_logits = model.vqa_logits(T(nchw(px)), _long(ids), _long(mask))
     assert t_logits.shape == (2, 16)

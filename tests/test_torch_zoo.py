@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import JaxKey, nchw, nhwc, tiny_configs
+from torch_port_util import JaxKey, nchw, nhwc, shallow_albef, tiny_configs
 from vqattack_tpu.attacks import albef as jalbef
 from vqattack_tpu.attacks import extra as jextra
 from vqattack_tpu.attacks import losses as jlosses
@@ -282,7 +282,7 @@ def test_pgd_classifier_on_the_vlmo_victim_matches_jax(vlmo_victim):
 def surrogate():
     """The tiny ALBEF surrogate in both packages, its clean targets and
     the two packages' loss auxiliaries, batch 2."""
-    jc, tc = tiny_configs(64)
+    jc, tc = (shallow_albef(c) for c in tiny_configs(64))
     a = tc.albef
     sd = synthetic.albef_pretrain_state_dict(a, seed=1, src_image_size=a.vit.image_size)
     tree = {"params": jconvert_albef({k: v.numpy() for k, v in sd.items()}, depth=a.vit.depth,

@@ -3,7 +3,7 @@
 - :class:`JaxKey`: an ``rng.py`` key of the port that replays the JAX
   package's ``jax.random`` draws, so both packages see the same noise;
 - tiny ALBEF and VLMo geometries and models built in both packages with
-  the same weights (flax init -> ``load_jax_params``);
+  the same weights (the port's random weights -> flax variables);
 - layout helpers: the port's pixels are NCHW, the JAX package's NHWC;
 - :func:`synth_cli_assets`: synthetic data and side tables for a CLI run.
 """
@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import importlib.util
+import itertools
 import json
 from pathlib import Path
 
@@ -27,10 +28,10 @@ from vqattack_tpu.models.albef import AlbefVQA as JAlbefVQA
 from vqattack_tpu.models.bert import FusionBert as JFusionBert
 from vqattack_tpu.models.vlmo import VLMo as JVLMo
 from vqattack_tpu_torch import config as tcfg
-from vqattack_tpu_torch.checkpoint.convert import load_jax_params
-from vqattack_tpu_torch.models.albef import AlbefPretrain, AlbefVQA
+from vqattack_tpu_torch.checkpoint.convert import flax_leaves
+from vqattack_tpu_torch.models.albef import AlbefPretrain, AlbefVQA, init_weights
 from vqattack_tpu_torch.models.bert import FusionBert
-from vqattack_tpu_torch.models.vlmo import VLMo
+from vqattack_tpu_torch.models.vlmo import VLMo, init_vlmo_weights
 
 # One intra-op thread for torch: the tests' tensors are tiny, and torch's
 # OpenMP team, sharing the cores with JAX's threads (and under xdist with
@@ -48,7 +49,8 @@ class JaxKey:
     are ``jax.random``'s and ``uniform``/``randint``/``rademacher`` call
     ``jax.random`` with the same arguments as the JAX code.  The port asks
     for image-shaped draws in NCHW; JAX draws them NHWC, so a 4-D request
-    is drawn NHWC and transposed."""
+    is drawn NHWC and transposed; ``categorical`` draws from the logits it
+    is given, as the JAX loss draws from its own."""
 
     def __init__(self, key):
         self.key = key
@@ -77,6 +79,11 @@ class JaxKey:
 
     def randint(self, shape, lo, hi):
         return torch.from_numpy(np.array(jax.random.randint(self.key, tuple(shape), lo, hi))).long()
+
+    def categorical(self, logits):
+        """``jax.random.categorical`` over the last axis of ``logits``."""
+        out = jax.random.categorical(self.key, jnp.asarray(logits.detach().cpu().numpy()), axis=-1)
+        return torch.from_numpy(np.array(out)).long().to(logits.device)
 
 
 def fixed_topk(tok, candidates):
@@ -119,41 +126,108 @@ def tiny_configs(vocab_size: int, fused_ln: bool = False, **attack_kw):
     return out
 
 
+def shallow_albef(cfg):
+    """``cfg`` with ALBEF's text side cut to one text and one fusion layer
+    and a one-layer answer decoder: the JAX programs' compiles scale with
+    depth.  The ViT keeps its two blocks, so that the fused residual that
+    one block hands the next (``models/vit.py``) is still compared."""
+    bert = dataclasses.replace(cfg.albef.bert, num_layers=2, fusion_layer=1)
+    return dataclasses.replace(cfg, albef=dataclasses.replace(cfg.albef, bert=bert,
+                                                              decoder_layers=1))
+
+
 def _host(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
+def jit_apply(module, variables, *args, method=None, **kw):
+    """``module.apply(variables, *args, method=method, **kw)`` compiled as
+    one program: eager, flax dispatches and compiles every primitive on its
+    own, seconds for a tiny model.  Array arguments are traced; the others
+    (``None``, ints such as a top-k) and ``kw`` are fixed.  The program is
+    kept for the next call with the same module, method and fixed values."""
+    traced = tuple(isinstance(a, (np.ndarray, jax.Array)) for a in args)
+    fixed = tuple(None if t else a for t, a in zip(traced, args))
+    fn = _jitted_apply(module, method, traced, fixed, tuple(sorted(kw.items())))
+    return fn(variables, *[a for t, a in zip(traced, args) if t])
+
+
 @functools.lru_cache(maxsize=None)
-def _jitted_init(module, method, static_argnums):
-    return jax.jit(lambda key, *a: module.init(key, *a, method=method),
-                   static_argnums=static_argnums)
+def _jitted_apply(module, method, traced, fixed, kw):
+    def apply(v, *xs):
+        xs = iter(xs)
+        full = [next(xs) if t else a for t, a in zip(traced, fixed)]
+        return module.apply(v, *full, method=method, **dict(kw))
+
+    return jax.jit(apply)
 
 
-def _init(module, seed: int, *args, method=None):
-    """``module.init(jax.random.key(seed), *args, method=method)``, compiled
-    once per module, method and argument shapes (ints are static): the
-    test files build equal tiny models, and each compile costs seconds."""
-    static = tuple(i + 1 for i, a in enumerate(args) if isinstance(a, int))
-    return _jitted_init(module, method, static)(jax.random.key(seed), *args)
+def _untransform(transform, value: np.ndarray) -> np.ndarray:
+    """The flax leaf whose ``transform`` (a transpose, ``flax_leaves``) is
+    ``value``: the leaf's shape is the permutation of ``value``'s that the
+    transform maps onto it, and each element goes back to the place the
+    transform took it from."""
+    if value.ndim < 2:
+        return value.copy()
+    shapes = {s for s in itertools.permutations(value.shape)
+              if transform(np.empty(s)).shape == value.shape}
+    assert len(shapes) == 1, (value.shape, shapes)
+    (shape,) = shapes
+    index = transform(np.arange(value.size).reshape(shape))
+    leaf = np.empty(value.size, value.dtype)
+    leaf[index.ravel()] = value.ravel()
+    return leaf.reshape(shape)
+
+
+def jax_params_of(module) -> dict:
+    """The flax ``variables`` (numpy leaves) that ``load_jax_params`` would
+    load into ``module`` as its current parameters: the port's weights for
+    the JAX module, so that no flax initialisation compiles (a tiny
+    model's ``init`` costs seconds of XLA compile, in every test process)."""
+    tree: dict = {}
+    for _, path, transform, param in flax_leaves(module):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = _untransform(transform, param.detach().cpu().numpy())
+    return {"params": tree}
+
+
+def init_tree_shapes(j_module, *args, method=None) -> dict:
+    """``{path: shape}`` of every leaf of ``j_module.init(key, *args,
+    method=method)``, traced by ``jax.eval_shape`` (nothing compiles)."""
+    tree = jax.eval_shape(lambda k: j_module.init(k, *args, method=method), jax.random.key(0))
+    return {tuple(getattr(p, "key", p) for p in path): tuple(leaf.shape)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def assert_same_tree(variables, shapes: dict) -> None:
+    """``variables`` holds exactly the leaves of ``shapes`` (an
+    :func:`init_tree_shapes`), each of its shape: the port's weights cover
+    the flax module's ``init``, leaf for leaf."""
+    got = {tuple(getattr(p, "key", p) for p in path): tuple(np.shape(leaf))
+           for path, leaf in jax.tree_util.tree_flatten_with_path(variables)[0]}
+    assert got.keys() == shapes.keys(), (sorted(got.keys() ^ shapes.keys()))
+    assert got == shapes, [k for k in got if got[k] != shapes[k]]
+
+
+def _drawn(module, seed: int):
+    """(flax variables, the port module) with the port's random weights
+    from ``seed`` (``init_weights``: the JAX package's initialiser scales)."""
+    module = init_weights(module, seed).eval()
+    return jax_params_of(module), module
 
 
 def tiny_models(jc, tc, seed: int = 0, victim: bool = True, mlm: bool = True):
     """(JAX modules, JAX params, port modules) for the surrogate and, when
     asked, the victim and the candidate MLM (``None`` otherwise), with the
-    port's weights loaded from the JAX params."""
-    size = jc.albef.vit.image_size
-    px = jnp.zeros((1, size, size, 3))
-    ids = jnp.ones((1, jc.attack.max_text_len), jnp.int32)
-    mask = jnp.ones_like(ids)
+    same weights: the port's, drawn from ``seed``, as flax variables."""
     j_sur = JAlbefPretrain(jc.albef)
-    p_sur = _init(j_sur, seed, px, ids, mask, method=JAlbefPretrain.init_all)
-    t_sur = load_jax_params(AlbefPretrain(tc.albef), _host(p_sur)).eval()
+    p_sur, t_sur = _drawn(AlbefPretrain(tc.albef), seed)
     j_vic = p_vic = t_vic = j_mlm = p_mlm = t_mlm = None
     if victim:
-        a_ids = jnp.ones((2, 4), jnp.int32)
         j_vic = JAlbefVQA(jc.albef)
-        p_vic = _init(j_vic, seed + 3, px, ids, mask, a_ids, jnp.ones_like(a_ids), 2)
-        t_vic = load_jax_params(AlbefVQA(tc.albef), _host(p_vic)).eval()
+        p_vic, t_vic = _drawn(AlbefVQA(tc.albef), seed + 3)
     if mlm:
         j_mlm, p_mlm, t_mlm = tiny_mlm(jc, tc, seed + 1)
     return (j_sur, j_vic, j_mlm), (p_sur, p_vic, p_mlm), (t_sur, t_vic, t_mlm)
@@ -162,12 +236,10 @@ def tiny_models(jc, tc, seed: int = 0, victim: bool = True, mlm: bool = True):
 def tiny_mlm(jc, tc, seed: int):
     """(JAX module, JAX params, port module) of the candidate-generation MLM:
     the tiny BERT as a text-only encoder with its MLM head."""
-    ids = jnp.ones((1, jc.attack.max_text_len), jnp.int32)
     j_mlm = JFusionBert(dataclasses.replace(jc.albef.bert, fusion_layer=jc.albef.bert.num_layers),
                         with_mlm_head=True)
-    p_mlm = _init(j_mlm, seed, ids, jnp.ones_like(ids))
     t_mlm_cfg = dataclasses.replace(tc.albef.bert, fusion_layer=tc.albef.bert.num_layers)
-    t_mlm = load_jax_params(FusionBert(t_mlm_cfg, with_mlm_head=True), _host(p_mlm)).eval()
+    p_mlm, t_mlm = _drawn(FusionBert(t_mlm_cfg, with_mlm_head=True), seed)
     return j_mlm, p_mlm, t_mlm
 
 
@@ -182,19 +254,11 @@ def tiny_vlmo_configs(vocab_size: int, depth: int = 4, **attack_kw):
 
 def tiny_vlmo(jc, tc, seed: int = 0):
     """(JAX module, JAX params, port module) of the tiny VLMo with the VQA
-    head.  ``init_all`` leaves the relative-position table at zeros; it is
-    redrawn normal(0, 0.5) from ``seed`` so that the bias path adds
-    something."""
-    cfg = jc.vlmo
-    px = jnp.zeros((1, cfg.image_size, cfg.image_size, 3))
-    ids = jnp.ones((1, cfg.max_text_len), jnp.int32)
-    j_model = JVLMo(cfg)
-    params = _host(_init(j_model, seed, ids, jnp.ones_like(ids), px, method=JVLMo.init_all))
-    table = params["params"]["relative_position_bias_table"]
-    params["params"]["relative_position_bias_table"] = (
-        np.random.default_rng(seed).normal(size=table.shape) * 0.5).astype(np.float32)
-    t_model = load_jax_params(VLMo(tc.vlmo), params).eval()
-    return j_model, params, t_model
+    head, with the port's random weights from ``seed``
+    (``init_vlmo_weights``: the relative-position table normal(0, 0.5), so
+    that the bias path adds something)."""
+    t_model = init_vlmo_weights(VLMo(tc.vlmo), seed).eval()
+    return JVLMo(jc.vlmo), jax_params_of(t_model), t_model
 
 
 ROOT = Path(__file__).resolve().parent.parent

@@ -8,8 +8,8 @@ replays the JAX package's own draws, which makes the two packages'
 trajectories comparable.
 
 A key provides ``split(n)``, ``fold_in(data)``, ``uniform(shape, lo, hi)``,
-``randint(shape, lo, hi)`` and ``rademacher(shape)``.  Image-shaped draws are requested in the
-port's NCHW layout.
+``randint(shape, lo, hi)``, ``rademacher(shape)`` and ``categorical(logits)``.
+Image-shaped draws are requested in the port's NCHW layout.
 """
 
 from __future__ import annotations
@@ -53,3 +53,14 @@ class TorchKey:
         """+1 or -1, each with probability 1/2."""
         r = torch.randint(0, 2, tuple(shape), generator=self.generator, device=self.device)
         return (2 * r - 1).to(dtype)
+
+    def categorical(self, logits: torch.Tensor) -> torch.Tensor:
+        """One index a row of ``logits``, drawn over the last axis with
+        probability ``softmax(logits)``: the argmax of the logits plus Gumbel
+        noise, as ``jax.random.categorical`` draws.  An entry at ``-inf`` is
+        never drawn (unless its whole row is)."""
+        u = torch.rand(tuple(logits.shape), generator=self.generator, device=self.device,
+                       dtype=torch.float32)
+        tiny = torch.finfo(torch.float32).tiny
+        gumbel = -torch.log(-torch.log(u.clamp(min=tiny)))
+        return torch.argmax(logits.float() + gumbel.to(logits.device), dim=-1)

@@ -1,30 +1,42 @@
-"""Training CLI: VQA fine-tuning of the two victims.
+"""Training CLI: vision-language pretraining and VQA fine-tuning.
 
-Port of ``vqattack_tpu/train/cli.py`` for its two VQA tasks::
+Port of ``vqattack_tpu/train/cli.py`` for five of its tasks::
 
-    python -m vqattack_tpu_torch.train.cli --task vlmo_vqa \\
-        --preset task_finetune_vqa_base_image480 --vocab vocab.txt \\
-        --ann train.json --image-root images/ --steps 1000 --batch-size 8 \\
-        [--ckpt-dir ckpts] [--init-ckpt vlmo.pt] [--device cpu]
+    python -m vqattack_tpu_torch.train.cli --task vlmo_pretrain \\
+        --preset task_mlm_itm_itc_base_plus --vocab vocab.txt \\
+        (--ann train.json --image-root images/ | --arrow-root arrows/) \\
+        --steps 1000 --batch-size 8 [--ckpt-dir ckpts] [--init-ckpt vlmo.pt] \\
+        [--device cpu]
 
-- ``albef_vqa``: ALBEF ViT-B/16 + BERT + answer decoder, the weighted
-  answer NLL (``train/objectives.py::albef_vqa_train_loss``); on the card
-  the ViT takes the fused residual + LayerNorm kernel (``vit.fused_ln``),
-  as the attack CLI does;
+- ``albef_pretrain``: ALBEF ViT-B/16 + fusion BERT, ITA + hard-negative
+  ITM + MLM (``train/objectives.py::albef_pretrain_loss``) on token-level
+  masked captions;
+- ``albef_vqa``: ALBEF + answer decoder, the weighted answer NLL
+  (``albef_vqa_train_loss``);
+- ``vlmo_pretrain``: VLMo's MLM + ITC + ITM (``vlmo_pretrain_loss``), the
+  weights of the preset's ``loss_names`` and its whole-word masking;
+- ``vlmo_textmlm``: the text-only tower's MLM, whole-word masked;
 - ``vlmo_vqa``: VLMo with its VQA head, BCE over the 3,129 labels.
 
+On the card ALBEF's ViT takes the fused residual + LayerNorm kernel
+(``vit.fused_ln``), as the attack CLI does.  A caption is the item's
+``question`` (an annotation's question, or an arrow table's caption).
+``--arrow-root`` reads the pretraining corpora of
+``data/pretrain_datasets.py`` (pyarrow and PIL; the defaults: wikibk for
+``vlmo_textmlm``, else coco, f30k, gcc, sbu and vg; corpora missing from the
+directory are skipped) in place of ``--ann``.
+
 The loop: batches drawn in a seeded random order, collated on the host and
-moved to the device, one step (``train/trainer.py``), the metrics read one
-log step late so that the device is not waited for between steps, a
-checkpoint every ``--ckpt-every`` steps and at the end (``--ckpt-dir``),
-resumed from the newest one.  Like the JAX CLI it has no ``--attn``:
-attention follows the process-wide backend, so ``with
-attention_impl("flash"): main([...])`` trains through the flash kernels
-(with VLMo's relative-position table, their bias gradient).  Entry points
-run on ``cuda`` unless ``--device cpu`` is given.  The JAX CLI's other
-tasks (ALBEF pretraining, retrieval, VE, NLVR2, the VLMo pretraining,
-retrieval and NLVR2 tasks) and its arrow pretraining data are not ported
-yet and exit with a message.
+moved to the device, one step (``train/trainer.py``) with a key split off
+the run's key each step, the metrics read one log step late so that the
+device is not waited for between steps, a checkpoint every
+``--ckpt-every`` steps and at the end (``--ckpt-dir``), resumed from the
+newest one.  Like the JAX CLI it has no ``--attn``: attention follows the
+process-wide backend, so ``with attention_impl("flash"): main([...])``
+trains through the flash kernels (with VLMo's relative-position table,
+their bias gradient).  Entry points run on ``cuda`` unless ``--device cpu``
+is given.  The JAX CLI's other tasks (retrieval, VE, NLVR2, VLMo's
+retrieval and NLVR2) are not ported yet and exit with a message.
 """
 
 from __future__ import annotations
@@ -42,12 +54,12 @@ from vqattack_tpu_torch.train.trainer import LossFn
 
 TASKS = ["albef_pretrain", "albef_vqa", "retrieval", "ve", "nlvr2", "vlmo_vqa", "vlmo_irtr",
          "vlmo_textmlm", "vlmo_pretrain", "vlmo_nlvr2"]
-PORTED_TASKS = ("albef_vqa", "vlmo_vqa")
+PORTED_TASKS = ("albef_pretrain", "albef_vqa", "vlmo_pretrain", "vlmo_textmlm", "vlmo_vqa")
 ANSWER_LEN = 8  # tokens an answer slot of albef_vqa holds
 
 
 def build_argparser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="VQA fine-tuning on an NVIDIA GPU")
+    p = argparse.ArgumentParser(description="Pretraining and VQA fine-tuning on an NVIDIA GPU")
     p.add_argument("--task", required=True, choices=TASKS,
                    help=f"ported: {', '.join(PORTED_TASKS)}")
     p.add_argument("--preset", nargs="*", default=[],
@@ -61,9 +73,11 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--ann", nargs="+", default=[])
     p.add_argument("--image-root", default="")
     p.add_argument("--arrow-root", default=None,
-                   help="pretraining arrow directory (not ported yet)")
+                   help="pretraining arrow directory (data/pretrain_writers.py outputs or "
+                        "the reference's make_arrow outputs), in place of --ann")
     p.add_argument("--arrow-datasets", nargs="+", default=None,
-                   help="corpora to concat from --arrow-root (not ported yet)")
+                   help="corpora to concat from --arrow-root: coco f30k gcc sbu vg wikibk "
+                        "nlvr2 (default picked per task)")
     p.add_argument("--answer-list", default=None)
     p.add_argument("--steps", type=int, default=1000)
     p.add_argument("--batch-size", type=int, default=8)
@@ -128,10 +142,24 @@ def apply_preset(parser: argparse.ArgumentParser, args) -> Optional[dict]:
     return preset
 
 
+def pretrain_loss_weights(preset: dict) -> dict:
+    """A preset's ``loss_names`` -> ``vlmo_pretrain_loss`` weights.  Zero
+    weights are kept, not dropped: the loss skips a term of weight 0, where
+    a dropped one would fall back to its default of 1.0.  Exits when the
+    preset enables none of mlm/itc/itm."""
+    weights = {k: float(v) for k, v in preset["loss_names"].items()
+               if k in ("mlm", "itc", "itm")}
+    if not any(weights.values()):
+        raise SystemExit("preset enables none of mlm/itc/itm "
+                         f"(loss_names={preset['loss_names']}); pick one of the "
+                         "mlm_itm_itc presets for --task vlmo_pretrain")
+    return weights
+
+
 def resolve_config(args, preset: Optional[dict], device: torch.device):
     """The run config: ``--config`` (default the ALBEF attack config), the
     preset's VLMo geometry, ``--image-size`` on both models, and on the card
-    the fused residual + LayerNorm ViT for ALBEF."""
+    the fused residual + LayerNorm ViT for the ALBEF tasks."""
     from vqattack_tpu_torch import config as cfg_mod
 
     cfg = cfg_mod.load_config(args.config) if args.config else cfg_mod.albef_attack_config()
@@ -143,7 +171,7 @@ def resolve_config(args, preset: Optional[dict], device: torch.device):
         vit = dataclasses.replace(cfg.albef.vit, image_size=args.image_size)
         cfg = dataclasses.replace(cfg, albef=dataclasses.replace(cfg.albef, vit=vit),
                                   vlmo=dataclasses.replace(cfg.vlmo, image_size=args.image_size))
-    if device.type == "cuda" and args.task == "albef_vqa":
+    if device.type == "cuda" and args.task.startswith("albef"):
         vit = dataclasses.replace(cfg.albef.vit, fused_ln=True)
         cfg = dataclasses.replace(cfg, albef=dataclasses.replace(cfg.albef, vit=vit))
     return cfg
@@ -152,34 +180,64 @@ def resolve_config(args, preset: Optional[dict], device: torch.device):
 Collate = Callable[[list], Dict[str, torch.Tensor]]
 
 
-def build_task(args, cfg, tokenizer, device: torch.device) -> Tuple[nn.Module, LossFn, Collate]:
+def build_task(args, cfg, tokenizer, device: torch.device, preset: Optional[dict] = None
+               ) -> Tuple[nn.Module, LossFn, Collate]:
     """``(model, loss_fn, collate)`` of ``args.task`` on ``device``: the
     model random from ``--seed`` (then grafted from ``--init-ckpt``), the
     loss of a collated batch, and the collate of dataset items into a batch
-    on ``device``."""
+    on ``device``.  The MLM masks draw from a numpy generator seeded with
+    ``--seed``, as the JAX CLI's do."""
     from vqattack_tpu_torch.checkpoint import io as ckpt_io
     from vqattack_tpu_torch.checkpoint.convert import graft_jax_params
+    from vqattack_tpu_torch.data.collators import mlm_collate
     from vqattack_tpu_torch.train import objectives as obj
 
+    rng_np = np.random.default_rng(args.seed)
+
+    def tensor(x):
+        x = torch.from_numpy(np.asarray(x))
+        return (x.long() if x.dtype in (torch.int32, torch.int64) else x).to(device)
+
     def pixels(items):
-        return torch.from_numpy(np.concatenate([i["pixels"] for i in items])).to(device)
+        return tensor(np.concatenate([i["pixels"] for i in items]))
 
     def text(items, max_len):
         ids, mask = tokenizer.encode_batch([i.get("question", "") for i in items], max_len)
-        return torch.from_numpy(ids).long().to(device), torch.from_numpy(mask).long().to(device)
+        return tensor(ids), tensor(mask)
+
+    def masked_text(items, max_len, whole_word):
+        c = mlm_collate([i.get("question", "") for i in items], tokenizer, max_len,
+                        args.mlm_prob, whole_word=whole_word, rng=rng_np)
+        return {"text_ids": tensor(c["text_ids"]), "text_mask": tensor(c["text_masks"]),
+                "mlm_ids": tensor(c["text_ids_mlm"]), "mlm_labels": tensor(c["text_labels_mlm"])}
+
+    def grafted(model, load):
+        if args.init_ckpt:
+            n = graft_jax_params(model, load(args.init_ckpt))
+            print(f"--init-ckpt {args.init_ckpt}: {n} tensors grafted", flush=True)
+        return model
+
+    if args.task.startswith("albef"):
+        from vqattack_tpu_torch.models.albef import AlbefPretrain, AlbefVQA, init_weights
+
+        kind = AlbefPretrain if args.task == "albef_pretrain" else AlbefVQA
+        with torch.device(device):
+            model = init_weights(kind(cfg.albef), seed=args.seed).to(device)
+        grafted(model, lambda path: ckpt_io.load_albef_pretrain(path, cfg.albef))
+        max_len = cfg.attack.max_text_len
+
+    if args.task == "albef_pretrain":
+        def loss_fn(m, batch, key):
+            return obj.albef_pretrain_loss(m, batch, key)
+
+        def collate(items):
+            return {"pixels": pixels(items), **masked_text(items, max_len, False)}
+
+        return model, loss_fn, collate
 
     if args.task == "albef_vqa":
-        from vqattack_tpu_torch.models.albef import AlbefVQA, init_weights
-
-        with torch.device(device):
-            model = init_weights(AlbefVQA(cfg.albef), seed=args.seed).to(device)
-        if args.init_ckpt:
-            tree = ckpt_io.load_albef_pretrain(args.init_ckpt, cfg.albef)
-            print(f"--init-ckpt {args.init_ckpt}: {graft_jax_params(model, tree)} tensors "
-                  f"grafted", flush=True)
-
-        def loss_fn(m, batch, generator):
-            del generator
+        def loss_fn(m, batch, key):
+            del key
             return obj.albef_vqa_train_loss(m, batch)
 
         def collate(items):
@@ -194,11 +252,10 @@ def build_task(args, cfg, tokenizer, device: torch.device) -> Tuple[nn.Module, L
                         break
                     ans_ids[b, j], ans_mask[b, j] = tokenizer.encode(ans, ANSWER_LEN)
                     weights[b, j] = w
-            ids, mask = text(items, cfg.attack.max_text_len)
+            ids, mask = text(items, max_len)
             return {"pixels": pixels(items), "text_ids": ids, "text_mask": mask,
-                    "answer_ids": torch.from_numpy(ans_ids).to(device),
-                    "answer_mask": torch.from_numpy(ans_mask).to(device),
-                    "answer_weights": torch.from_numpy(weights).to(device)}
+                    "answer_ids": tensor(ans_ids), "answer_mask": tensor(ans_mask),
+                    "answer_weights": tensor(weights)}
 
         return model, loss_fn, collate
 
@@ -207,13 +264,39 @@ def build_task(args, cfg, tokenizer, device: torch.device) -> Tuple[nn.Module, L
     with torch.device(device):
         # .to: the relative-position indices are buffers made from numpy
         model = init_vlmo_weights(VLMo(cfg.vlmo), seed=args.seed).to(device)
-    if args.init_ckpt:
-        tree = ckpt_io.load_vlmo(args.init_ckpt, cfg.vlmo)
-        print(f"--init-ckpt {args.init_ckpt}: {graft_jax_params(model, tree)} tensors grafted",
-              flush=True)
+    grafted(model, lambda path: ckpt_io.load_vlmo(path, cfg.vlmo))
+    max_len = cfg.vlmo.max_text_len
 
-    def loss_fn(m, batch, generator):
-        del generator
+    if args.task == "vlmo_pretrain":
+        # multi-loss VL pretraining (the reference's mlm_itm_itc presets)
+        weights = pretrain_loss_weights(preset) if preset is not None else None
+        whole_word = bool(preset["whole_word_masking"]) if preset is not None else False
+
+        def loss_fn(m, batch, key):
+            return obj.vlmo_pretrain_loss(m, batch, key, weights=weights)
+
+        def collate(items):
+            return {"pixels": pixels(items), **masked_text(items, max_len, whole_word)}
+
+        return model, loss_fn, collate
+
+    if args.task == "vlmo_textmlm":
+        # text-only MLM (the reference's textmlm presets: the text expert
+        # trained, objectives.compute_textonly_mlm), unscaled
+        def loss_fn(m, batch, key):
+            del key
+            out = m.infer_text(batch["mlm_ids"], batch["text_mask"])
+            loss = obj.masked_lm_loss(out["mlm_logits"], batch["mlm_labels"])
+            return loss, {"loss": loss}
+
+        def collate(items):
+            c = masked_text(items, max_len, True)
+            return {k: c[k] for k in ("text_mask", "mlm_ids", "mlm_labels")}
+
+        return model, loss_fn, collate
+
+    def loss_fn(m, batch, key):
+        del key
         logits = m.vqa_logits(batch["pixels"], batch["text_ids"], batch["text_mask"])
         loss = obj.vqa_bce_loss(logits, batch["targets"])
         return loss, {"loss": loss}
@@ -223,11 +306,42 @@ def build_task(args, cfg, tokenizer, device: torch.device) -> Tuple[nn.Module, L
         for b, item in enumerate(items):
             for label, score in zip(item.get("answer_labels", []), item.get("answer_scores", [])):
                 targets[b, int(label)] = float(score)
-        ids, mask = text(items, cfg.vlmo.max_text_len)
+        ids, mask = text(items, max_len)
         return {"pixels": pixels(items), "text_ids": ids, "text_mask": mask,
-                "targets": torch.from_numpy(targets).to(device)}
+                "targets": tensor(targets)}
 
     return model, loss_fn, collate
+
+
+DEFAULT_CORPORA = {"vlmo_textmlm": ["wikibk"]}  # every other ported task: the caption corpora
+CAPTION_CORPORA = ["coco", "f30k", "gcc", "sbu", "vg"]
+
+
+def build_dataset(args, size: int):
+    """The training items: ``--arrow-root``'s corpora concatenated (those
+    the directory lacks skipped), else the ``--ann`` annotations."""
+    from vqattack_tpu_torch.data.transforms import train_transform
+
+    if args.arrow_root:
+        from vqattack_tpu_torch.data.pretrain_datasets import ConcatDataset, make_pretrain_dataset
+
+        names = args.arrow_datasets or DEFAULT_CORPORA.get(args.task, CAPTION_CORPORA)
+        parts = []
+        for name in names:
+            try:
+                parts.append(make_pretrain_dataset(name, args.arrow_root, train_transform(size),
+                                                   split="train"))
+            except FileNotFoundError:
+                pass  # a corpus not written into this directory
+        if not parts:
+            raise SystemExit(f"no arrow corpora from {names} under {args.arrow_root}")
+        return ConcatDataset(parts) if len(parts) > 1 else parts[0]
+    if not (args.ann and args.image_root):
+        raise SystemExit("--ann and --image-root, or --arrow-root, are required")
+    from vqattack_tpu_torch.data.vqa import VQADataset
+
+    return VQADataset(args.ann, args.image_root, train_transform(size),
+                      answer_list=args.answer_list, split="train")
 
 
 def main(argv=None) -> dict:
@@ -240,16 +354,11 @@ def main(argv=None) -> dict:
     if args.task not in PORTED_TASKS:
         raise SystemExit(f"--task {args.task} is not ported yet; the port trains "
                          f"{', '.join(PORTED_TASKS)}")
-    if args.arrow_root:
-        raise SystemExit("--arrow-root: the pretraining arrow data is not ported yet")
-    if not (args.ann and args.image_root):
-        raise SystemExit("--ann and --image-root are required")
     preset = apply_preset(parser, args)
 
     from vqattack_tpu_torch.checkpoint.io import restore_latest_train_state, save_train_state
-    from vqattack_tpu_torch.data.transforms import train_transform
-    from vqattack_tpu_torch.data.vqa import VQADataset
     from vqattack_tpu_torch.device import resolve_device
+    from vqattack_tpu_torch.rng import TorchKey
     from vqattack_tpu_torch.text.tokenizer import WordPieceTokenizer
     from vqattack_tpu_torch.train.optim import create_optimizer, create_schedule
     from vqattack_tpu_torch.train.trainer import create_train_state, make_train_step
@@ -258,10 +367,9 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
     cfg = resolve_config(args, preset, device)
     tokenizer = WordPieceTokenizer.from_file(args.vocab)
-    size = cfg.albef.vit.image_size if args.task == "albef_vqa" else cfg.vlmo.image_size
-    dataset = VQADataset(args.ann, args.image_root, train_transform(size),
-                         answer_list=args.answer_list, split="train")
-    model, loss_fn, collate = build_task(args, cfg, tokenizer, device)
+    size = cfg.albef.vit.image_size if args.task.startswith("albef") else cfg.vlmo.image_size
+    dataset = build_dataset(args, size)
+    model, loss_fn, collate = build_task(args, cfg, tokenizer, device, preset)
 
     sched = create_schedule(args.schedule, args.lr, total_steps=args.steps,
                             warmup_steps=args.warmup_steps)
@@ -277,8 +385,7 @@ def main(argv=None) -> dict:
     step_fn = make_train_step(loss_fn, tx, needs_hessian=(args.opt == "adahessian"))
 
     logger = MetricLogger()
-    generator = torch.Generator(device=device)
-    generator.manual_seed(args.seed + 1)
+    key = TorchKey(args.seed + 1, device)
     data = _batches(dataset, args.batch_size, args.seed)
     start = state.step
     pending = []  # (step, metrics) whose values are still on the device
@@ -300,7 +407,8 @@ def main(argv=None) -> dict:
 
     for step in range(start, args.steps):
         batch = collate(next(data))
-        state, metrics = step_fn(state, batch, generator)
+        key, k = key.split()
+        state, metrics = step_fn(state, batch, k)
         pending.append((step, metrics))
         if step % args.log_every == 0:
             drain()

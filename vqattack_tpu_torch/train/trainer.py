@@ -32,22 +32,25 @@ def create_train_state(model: nn.Module, tx: Optimizer) -> TrainState:
     return TrainState(0, model, tx.init(named_params(model)))
 
 
-LossFn = Callable[[nn.Module, Dict[str, torch.Tensor], Optional[torch.Generator]],
+# (model, batch, key) -> (loss, metrics); the key (``rng.py``) is the step's
+# own, split off the run's key as the JAX CLI splits it, and draws what the
+# loss samples (the pretraining losses' hard negatives); None where the
+# loss draws nothing
+LossFn = Callable[[nn.Module, Dict[str, torch.Tensor], Optional[Any]],
                   Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
 
 def make_train_step(loss_fn: LossFn, tx: Optimizer, needs_hessian: bool = False):
-    """``loss_fn(model, batch, generator) -> (loss, metrics)`` -> a step
-    ``(state, batch, generator) -> (state, metrics)``; ``metrics`` gains
+    """``loss_fn(model, batch, key) -> (loss, metrics)`` -> a step
+    ``(state, batch, key) -> (state, metrics)``; ``metrics`` gains
     ``grad_norm``, the global norm of the gradients before any clipping
     (``optax.global_norm``)."""
     if needs_hessian:
         raise NotImplementedError("second-order optimizers (adahessian) are not ported yet")
 
-    def step(state: TrainState, batch: Dict[str, torch.Tensor],
-             generator: Optional[torch.Generator] = None):
+    def step(state: TrainState, batch: Dict[str, torch.Tensor], key: Optional[Any] = None):
         params = named_params(state.model)
-        loss, metrics = loss_fn(state.model, batch, generator)
+        loss, metrics = loss_fn(state.model, batch, key)
         grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
         grads = {n: torch.zeros_like(p) if g is None else g
                  for (n, p), g in zip(params.items(), grads)}
