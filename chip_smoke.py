@@ -62,14 +62,19 @@ Phases (each prints a line on entry and its seconds on exit):
     against the port's resize on the CPU; then the files are deleted.
 
 The training slice (``vqattack_tpu_torch/train/``) adds: K3's bias
-gradient (the dQ kernel's dbias instance) against its plain version at
-VLMo's training shapes (batch 1 and 8 at 941 tokens with the table and the
-padded-text key bias, a [B, H, S, S] bias, 130 tokens, 200 queries over 77
-keys, a -inf first key tile, the autograd Function with a table that needs
-a gradient), repeated bit for bit and timed at batch 8 beside the backward
-without it, the sum over B, its plain version and
-``scaled_dot_product_attention`` with a mask that requires grad (its
-backend named); a row masked whole by a finite -1e9, K3 float32 and bf16
+gradient (the dQ kernel's dbias instance, which sums dS over the batch in
+thread-block clusters) against its plain version at VLMo's training
+shapes (batch 1 and 8 at 941 tokens with the table and the padded-text key
+bias), at batch 3, 9, 16 and 24 (one cluster of 3 blocks, two of 8 with
+the second padded, two, three) at both head dims, a [B, H, S, S] bias, 130
+tokens, 200 queries over 77 keys, a -inf first key tile and the autograd
+Function with a table that needs a gradient, each shape's cluster size,
+clusters, ``cudaOccupancyMaxActiveClusters`` and scratch bytes printed,
+repeated bit for bit, one backward's peak allocation at batch 8 held under
+a [B, H, S, S] buffer, and timed at batch 8 beside the backward without
+it, its plain version and ``scaled_dot_product_attention`` with a mask
+that requires grad (its backend named); a row masked whole by a finite
+-1e9, K3 float32 and bf16
 against their plain versions (the bf16 instance's exponent order, step 0
 of the slice); ``train.cli.main --task vlmo_vqa --preset
 task_finetune_vqa_base_image480`` at batch 8 from a synthetic VLMo VQA
@@ -179,6 +184,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -1901,10 +1907,23 @@ def _dbias_err(what, got, ref):
     return err
 
 
+def dbias_plan_info(b, h, sq, sk, dh, bias_shape, key_bias) -> dict:
+    """The dbias instance's sum over B at this shape: blocks a cluster (C),
+    clusters a tile (G), cudaOccupancyMaxActiveClusters of that instance
+    and cluster size, and the bytes of the partial sums' scratch (0 where
+    the cluster writes the gradient itself)."""
+    plan = attention.dbias_plan((b, h, sq, sk), tuple(bias_shape))
+    scratch = 0 if plan.scratch_shape is None else 4 * math.prod(plan.scratch_shape)
+    return {"cluster": plan.cluster, "groups": plan.groups, "scratch_bytes": scratch,
+            "max_active_clusters": attention.dbias_max_clusters(dh, key_bias is not None,
+                                                                plan.cluster)}
+
+
 def _check_dbias_case(q, k, v, bias, key_bias, what, scale=SCALE):
-    """K3's backward with dbias against the plain backward's dbias; dbias
-    and dq/dk/dv repeat bit for bit; whether dq/dk/dv are the bits of the
-    backward without dbias is printed."""
+    """K3's backward with dbias against the plain backward's dbias (summed
+    over B in the kernel's order); dbias and dq/dk/dv repeat bit for bit;
+    whether dq/dk/dv are the bits of the backward without dbias is printed,
+    and the sum's plan (:func:`dbias_plan_info`)."""
     o, lse = attention.flash_attention_fwd(q, k, v, bias, scale, key_bias)
     do = torch.randn(o.shape, generator=torch.Generator("cuda").manual_seed(3), device="cuda")
     grads = attention.flash_attention_bwd(q, k, v, bias, scale, o, lse, do, key_bias, dbias=True)
@@ -1920,29 +1939,51 @@ def _check_dbias_case(q, k, v, bias, key_bias, what, scale=SCALE):
     errs["dbias"] = _dbias_err(what, grads[3], refs[3])
     same = all(torch.equal(a, b) for a, b in zip(grads, without))
     kb = "" if key_bias is None else " + key bias"
+    b, sq, h, dh = q.shape
+    info = dbias_plan_info(b, h, sq, k.shape[1], dh, bias.shape, key_bias)
     print(f"  flash_attention_bwd dbias q {list(q.shape)} k {list(k.shape)} bias "
           f"{list(bias.shape)}{kb} ({what}): "
           + ", ".join(f"{n} err {e:.3g}" for n, e in errs.items())
           + f" (|dbias| max {float(refs[3].abs().max()):.3g}); repeats bit for bit; dq/dk/dv "
           + ("the bits of" if same else "within tolerance of, not the bits of,")
-          + " the backward without dbias", flush=True)
+          + f" the backward without dbias; C {info['cluster']}, G {info['groups']}, "
+          f"max active clusters {info['max_active_clusters']}, scratch "
+          f"{info['scratch_bytes']} B", flush=True)
     return errs
 
 
 def check_flash_attention_dbias(pipe, tokenizer, gen):
     """K3's dbias instance at the shapes VLMo's training gives it (batch 1
     and 8, 941 tokens, the [1, 12, 941, 941] table of ``pipe`` and the
-    padded-text key bias), a [B, H, S, S] bias, ragged and cross lengths,
-    a -inf first key tile, and the autograd Function with a table that
-    needs a gradient; then its times at batch 8."""
+    padded-text key bias) and at batch 3, 9, 16 and 24 (one cluster of 3
+    blocks; two of 8, the second padded; two; three), at head dim 34 on
+    synthetic tables at the same batches, a [B, H, S, S] bias, ragged and
+    cross lengths, a -inf first key tile, and the autograd Function with a
+    table that needs a gradient; the peak allocation of one backward at
+    batch 8 (no [B, H, S, S] buffer); then its times at batch 8."""
     errs = {}
-    for b in (1, TRAIN_BATCH):
+    for b in (1, TRAIN_BATCH, 3, 9, 16, 24):
         errs[b] = _check_dbias_case(*_vlmo_qkv_terms(pipe, tokenizer, gen, b), "VLMo table")
+    for b, seq, text in ((3, 197, False), (9, 237, True), (16, 196, True), (24, 237, True)):
+        q, k, v = _plus_qkv(gen, b, seq)
+        table = torch.randn(1, PLUS_HEADS, seq, seq, generator=gen, device="cuda") * 0.5
+        kb = _text_key_bias(pipe, tokenizer, b, seq) if text else None
+        _check_dbias_case(q, k, v, table, kb, "head dim 34, a synthetic table", PLUS_SCALE)
+    q, k, v = _plus_qkv(gen, 9, 130)
+    _check_dbias_case(q, k, v, torch.randn(9, PLUS_HEADS, 130, 130, generator=gen, device="cuda"),
+                      None, "head dim 34, a [B, H, S, S] bias")
+    q, k, v = _plus_qkv(gen, 9, 200, 77)
+    _check_dbias_case(q, k, v, torch.randn(1, PLUS_HEADS, 200, 77, generator=gen, device="cuda"),
+                      None, "head dim 34, 200 queries, 77 keys")
+    dbias_peak(*_vlmo_qkv_terms(pipe, tokenizer, gen, TRAIN_BATCH))
     q, k, v, table, key_bias = _vlmo_qkv_terms(pipe, tokenizer, gen, 2, layer=5)
     dense = torch.randn(2, HEADS, q.shape[1], q.shape[1], generator=gen, device="cuda") * 0.5
     _check_dbias_case(q, k, v, dense, key_bias, "a [B, H, S, S] bias")
     _check_dbias_case(q, k, v, table, key_bias.index_fill(
         1, torch.arange(70, device="cuda"), -torch.inf), "the first key tile at -inf")
+    q9, k9, v9, _, kb9 = _vlmo_qkv_terms(pipe, tokenizer, gen, 9, layer=5)
+    _check_dbias_case(q9, k9, v9, table, kb9.index_fill(
+        1, torch.arange(70, device="cuda"), -torch.inf), "the first key tile at -inf, batch 9")
     q2, k2, v2 = _qkv(gen, 2, 130)
     _check_dbias_case(q2, k2, v2, table[:, :, :130, :130].contiguous(), None, "130 tokens")
     qc, kc = _qkv(gen, 2, 200)[0], _qkv(gen, 2, 77)
@@ -1966,6 +2007,33 @@ def check_flash_attention_dbias(pipe, tokenizer, gen):
     return time_flash_attention_dbias(pipe, tokenizer, gen, errs[TRAIN_BATCH])
 
 
+def peak_bytes(fn) -> int:
+    """The peak allocation of ``fn()`` over what was allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def dbias_peak(q, k, v, table, key_bias):
+    """The peak allocation of one backward with dbias: dq, dk, dv, D and the
+    gradient's one plane, and no [B, H, Sq, Sk] buffer."""
+    o, lse = attention.flash_attention_fwd(q, k, v, table, SCALE, key_bias)
+    do = torch.randn(o.shape, generator=torch.Generator("cuda").manual_seed(3), device="cuda")
+    peak = peak_bytes(lambda: attention.flash_attention_bwd(q, k, v, table, SCALE, o, lse, do,
+                                                            key_bias, dbias=True))
+    b, s, h, dh = q.shape
+    plane, planes = h * s * s * 4, b * h * s * s * 4
+    require(peak <= 3 * b * s * h * dh * 4 + b * h * s * 4 + plane + 16 * 2 ** 20 and peak < planes,
+            f"one backward with dbias at {[b, s, h, dh]} allocated {peak} B at its peak")
+    print(f"  flash_attention_bwd dbias {[b, s, h, dh]}: peak allocation {peak / 2 ** 20:.1f} MiB "
+          f"(dq, dk, dv, D and one {plane / 2 ** 20:.1f} MiB plane; a [B, H, S, S] buffer would "
+          f"be {planes / 2 ** 20:.1f} MiB)", flush=True)
+    return peak
+
+
 def time_flash_attention_dbias(pipe, tokenizer, gen, errs):
     """Device times at [8, 941, 12, 64], VLMo's training batch, with the
     table and the key bias (:func:`time_dbias`)."""
@@ -1976,26 +2044,27 @@ def time_flash_attention_dbias(pipe, tokenizer, gen, errs):
 def time_dbias(q, k, v, table, key_bias, scale, errs, name, gen):
     """Device times of K3's backward with dbias on ``q, k, v [B, S, H, Dh]``
     (float32), a ``[1, H, S, S]`` table and ``key_bias`` (or None): the
-    backward with dbias (``ms``: the D pass, dK/dV, the dQ kernel's dbias
-    instance and the sum over B), the same backward without dbias
-    (``no_dbias_ms``), the sum alone (``sum_ms``), the plain backward with
-    dbias, and ``scaled_dot_product_attention`` with the summed mask built
-    from a table that requires grad (backward through autograd, the sum over
-    B included; its backend named).  Bound of the call: the products'
-    operations (10 B H S^2 Dh, three TF32 passes) or its bytes, the dS
-    buffer written and read back included; the dbias part's own bound
-    (``dbias_bound_ms``): the buffer written, then read and reduced, and
-    the table's gradient written."""
+    backward with dbias (``ms``: the D pass, dK/dV and the dQ kernel's
+    dbias instance, which sums over B), the same backward without dbias
+    (``no_dbias_ms``), the plain backward with dbias, and
+    ``scaled_dot_product_attention`` with the summed mask built from a
+    table that requires grad (backward through autograd, the sum over B
+    included; its backend named).  Bound of the call: the products'
+    operations (10 B H S^2 Dh, three TF32 passes) or its bytes, each input
+    (q, k, v, o, dO, m and log l, the two terms) read once and each output
+    (dq, dk, dv, the table's gradient) written once; the dbias part's own
+    bound (``dbias_bound_ms``): the table's gradient written.  Also the
+    sum's plan (:func:`dbias_plan_info`) and the peak allocation of one
+    backward over what was allocated before it."""
     b, s, h, dh = q.shape
     o, lse = attention.flash_attention_fwd(q, k, v, table, scale, key_bias)
     do = torch.randn(o.shape, generator=gen, device="cuda")
     unit = b * h * s * s * dh
     row = b * s * h * dh * 4
-    buf = b * h * s * s * 4
     terms = table.numel() * 4 + (0 if key_bias is None else key_bias.numel() * 4)
-    bnd, by = tensor_core_bound_ms(8 * row + b * h * s * 4 + terms + 2 * buf
-                                   + table.numel() * 4, 10 * unit)
-    ds_bound, _ = bound_ms(2 * buf + table.numel() * 4, 0)
+    bnd, by = tensor_core_bound_ms(8 * row + lse.numel() * 4 + terms + table.numel() * 4,
+                                   10 * unit)
+    ds_bound, _ = bound_ms(table.numel() * 4, 0)
     tbl = table.detach().clone().requires_grad_(True)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
 
@@ -2014,7 +2083,6 @@ def time_dbias(q, k, v, table, key_bias, scale, errs, name, gen):
                                                                scale=scale)
         return torch.autograd.grad(out, (qt, kt, vt, tbl), do_t)
 
-    buffer = torch.randn(b, h, s, s, generator=gen, device="cuda")
     long_sleep = 20_000_000
     row_ = {
         "name": name, "route": "cuda",
@@ -2026,27 +2094,29 @@ def time_dbias(q, k, v, table, key_bias, scale, errs, name, gen):
             q, k, v, table, scale, o, lse, do, key_bias, dbias=True), 20, long_sleep),
         "no_dbias_ms": time_ms(lambda: attention.flash_attention_bwd(
             q, k, v, table, scale, o, lse, do, key_bias), 20),
-        "sum_ms": time_ms(lambda: buffer.sum_to_size(table.shape), 20),
         "plain_ms": time_ms(lambda: attention.flash_attention_bwd_reference(
             q, k, v, table, scale, o, lse, do, key_bias, dbias=True), 10, long_sleep),
         "bound_ms": bnd, "bound_by": by, "dbias_bound_ms": ds_bound,
         "library_ms": time_ms(library, 20, long_sleep),
         "library_backend": sdpa_backend(library_fresh),
-        "buffer_bytes": buf,
+        **dbias_plan_info(b, h, s, s, dh, table.shape, key_bias),
     }
+    row_["peak_bytes"] = peak_bytes(lambda: attention.flash_attention_bwd(
+        q, k, v, table, scale, o, lse, do, key_bias, dbias=True))
     row_["dbias_extra_ms"] = row_["ms"] - row_["no_dbias_ms"]
     row_["bound_share"] = bnd / row_["ms"]
     require(row_["bound_share"] <= 1.0, f"{name}: {row_['ms']} ms is under its bound {bnd} ms")
     kb = "" if key_bias is None else " + key bias"
     print(f"  {name} {[b, s, h, dh]} table {list(table.shape)}{kb} f32: {row_['ms']:.3f} ms "
           f"(without dbias {row_['no_dbias_ms']:.3f} ms: dbias adds "
-          f"{row_['dbias_extra_ms']:.3f} ms against its bound {ds_bound:.3f} ms by bytes, of "
-          f"which the sum over B {row_['sum_ms']:.3f} ms; plain {row_['plain_ms']:.3f} ms; "
-          f"scaled_dot_product_attention with a mask that requires grad, backward "
-          f"{row_['library_ms']:.3f} ms ({row_['library_backend']}); bound "
-          f"{bnd:.3f} ms by {by}: {100 * row_['bound_share']:.1f}%; dS buffer "
-          f"{buf / 1e6:.1f} MB)", flush=True)
-    del sdpa_out, buffer
+          f"{row_['dbias_extra_ms']:.3f} ms against its bound {ds_bound:.4f} ms by bytes; "
+          f"plain {row_['plain_ms']:.3f} ms; scaled_dot_product_attention with a mask that "
+          f"requires grad, backward {row_['library_ms']:.3f} ms ({row_['library_backend']}); "
+          f"bound {bnd:.3f} ms by {by}: {100 * row_['bound_share']:.1f}%; C {row_['cluster']}, "
+          f"G {row_['groups']}, max active clusters {row_['max_active_clusters']}, scratch "
+          f"{row_['scratch_bytes']} B; peak allocation {row_['peak_bytes'] / 2 ** 20:.1f} MiB)",
+          flush=True)
+    del sdpa_out
     return row_
 
 

@@ -385,7 +385,8 @@ def test_flash_attention_two_term_backward_bit_identical_at_the_victims_batch(ge
 
 def _dbias_close(got, ref, what):
     """Within 2e-5 of the largest |dbias| (at least 1e-6): dS is formed from
-    the same float32 terms as dQ's, summed over the batch by ``torch.sum``."""
+    the same float32 terms as dQ's, summed over the batch in the same order
+    as the plain version's (``planned_batch_sum``)."""
     tol = max(1e-6, 2e-5 * float(ref.abs().max()))
     err = float((got - ref).abs().max())
     assert err <= tol, f"{what}: max abs err {err} > {tol}"
@@ -448,6 +449,92 @@ def test_flash_attention_dbias_autograd_counts_and_the_attack_backward(gen):
     want = attention.flash_attention_bwd(q, k, v, table, 0.125, o, lse, w, kb)
     for name, a, r in zip(("dq", "dk", "dv"), got, want):
         assert torch.equal(a, r), name
+
+
+# the sum over the batch inside the kernel, beyond the training batch of 8:
+# (B, Sq, Sk, heads, head dim, form); "table" is a [1, H, Sq, Sk] table with
+# the padded-text key bias, "table_alone" without it, "left_pad" the table
+# with a -inf first key tile, "dense" a [B, H, Sq, Sk] bias (no sum over B).
+# B 3 is one cluster of 3 blocks, 9 two of 8 (the second padded past B),
+# 16 two whole ones, 24 three
+DBIAS_BATCH_CASES = [
+    (3, 941, 941, 12, 64, "table"), (9, 941, 941, 12, 64, "table"),
+    (16, 941, 941, 12, 64, "table"), (24, 237, 237, 12, 64, "table"),
+    (3, 130, 130, 4, 64, "dense"), (9, 130, 130, 4, 64, "left_pad"),
+    (9, 200, 77, 4, 64, "table_alone"), (24, 70, 70, 4, 64, "dense"),
+    (3, 197, 197, 16, 34, "table_alone"), (9, 237, 237, 16, 34, "table"),
+    (16, 196, 196, 16, 34, "table"), (24, 130, 130, 16, 34, "left_pad"),
+    (9, 130, 130, 16, 34, "dense"), (16, 200, 77, 16, 34, "table_alone"),
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,dh,form", DBIAS_BATCH_CASES)
+def test_flash_attention_dbias_cluster_sum(gen, b, sq, sk, h, dh, form):
+    """The dbias instance's sum over B (clusters of min(B, 8) blocks, the
+    clusters' partial planes added in order past 8) against the plain
+    backward's dbias, summed in the same order, at both head dims, ragged
+    and cross lengths, a -inf first key tile and a [B, H, S, S] bias; dbias
+    and dq/dk/dv the same bit for bit on a repeat."""
+    q = torch.randn(b, sq, h * dh, generator=gen, device="cuda").view(b, sq, h, dh)
+    k, v = (torch.randn(b, sk, h * dh, generator=gen, device="cuda").view(b, sk, h, dh)
+            for _ in range(2))
+    kb = None
+    if form in ("table", "left_pad"):
+        kb = torch.zeros(b, sk, device="cuda")
+        if form == "table":
+            kb[1, 28:40] = -1e9
+        else:
+            kb[:, :70] = -torch.inf
+    lead = b if form == "dense" else 1
+    bias = torch.randn(lead, h, sq, sk, generator=gen, device="cuda") * 0.5
+    plan = attention.dbias_plan((b, h, sq, sk), tuple(bias.shape))
+    assert plan.cluster == (1 if form == "dense" else min(b, 8))
+    scale = dh ** -0.5
+    o, lse = attention.flash_attention_fwd(q, k, v, bias, scale, kb)
+    do = torch.randn(o.shape, generator=gen, device="cuda")
+    before = attention.flash_attention_bwd.dbias_launches
+    grads = attention.flash_attention_bwd(q, k, v, bias, scale, o, lse, do, kb, dbias=True)
+    again = attention.flash_attention_bwd(q, k, v, bias, scale, o, lse, do, kb, dbias=True)
+    assert attention.flash_attention_bwd.dbias_launches == before + 2
+    refs = attention.flash_attention_bwd_reference(q, k, v, bias, scale, o, lse, do, kb,
+                                                   dbias=True)
+    assert grads[3].shape == bias.shape
+    for name, g, g2, r in zip(("dq", "dk", "dv", "dbias"), grads, again, refs):
+        assert torch.equal(g, g2), f"{name} differs between two runs"
+        (_dbias_close if name == "dbias" else _close)(g, r, name)
+
+
+def test_flash_attention_dbias_allocates_no_batch_of_planes(gen):
+    """One backward with dbias at VLMo's training shape, [8, 941, 12, 64]
+    with the [1, 12, 941, 941] table: its peak allocation is dq, dk, dv, D
+    and the one [1, 12, 941, 941] gradient plane, far under the [8, 12, 941,
+    941] buffer the sum over B would take outside the kernel."""
+    b, s, h = 8, 941, 12
+    q, k, v, table, kb = _two_terms(gen, b, s, "text_pad", h=h)
+    o, lse = attention.flash_attention_fwd(q, k, v, table, 0.125, kb)
+    do = torch.randn(o.shape, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads = attention.flash_attention_bwd(q, k, v, table, 0.125, o, lse, do, kb, dbias=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    plane = h * s * s * 4
+    assert grads[3].shape == table.shape
+    assert peak <= 3 * q.numel() * 4 + b * h * s * 4 + plane + 16 * 2 ** 20, peak
+    assert peak < b * plane
+
+
+@pytest.mark.parametrize("dh", [64, 34])
+def test_dbias_cluster_occupancy(gen, dh):
+    """Every cluster size the plan takes (1 to 8 blocks) fits the card with
+    and without the key bias (cudaOccupancyMaxActiveClusters > 0); 9 blocks,
+    past the portable maximum, are refused."""
+    for key_bias in (False, True):
+        for cluster in range(1, attention.DBIAS_CLUSTER + 1):
+            assert attention.dbias_max_clusters(dh, key_bias, cluster) > 0
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        attention.dbias_max_clusters(dh, False, attention.DBIAS_CLUSTER + 1)
 
 
 # the pretraining path's shapes: (B, S, heads, head dim, key bias, table).

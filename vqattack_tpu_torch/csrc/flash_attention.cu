@@ -81,18 +81,44 @@
 //
 // The bias gradient (dbias; the library's dQ kernel returns its ds as the
 // gradient of its bias ``ab``, flash_attention.py:1287, :1477) is an
-// instance of the dQ kernel, selected only when the bias needs a gradient:
-// it writes the dS it forms anyway, the gradient of the post-scale score
-// and so of the post-scale bias, into a contiguous float32 [B, H, Sq, Sk]
-// buffer (keys past Sk and rows past Sq are not written; a masked key's P,
-// and with it dS, is 0).  The wrapper sums the buffer over the bias's
-// broadcast dimensions, as XLA sums the library's dab outside its kernel.
-// Bound on the H100: bytes.  The buffer is written once and read once by
-// the sum: 2 x 4 B*H*Sq*Sk bytes, 680 MB at VLMo's [8, 12, 941, 941], 0.20
-// ms at 3.35 TB/s, against the backward's 0.33 ms of products at that shape.
-// Plain stores, no atomics: the result repeats bit for bit.  The other way,
-// a fixed-order in-kernel sum over B that drops the buffer, is later work.
-//
+// instance of the dQ kernel, selected only when the bias needs a gradient.
+// dS, which the kernel forms anyway, is the gradient of the post-scale
+// score and so of the post-scale bias; the bias's gradient is dS summed
+// over the dimensions along which the bias broadcasts.  VLMo's table is
+// [1, H, S, S], so the sum runs over the batch, and it runs inside the
+// kernel, in a fixed order, with no atomics and no [B, H, Sq, Sk] buffer:
+// - a thread-block cluster of C = min(B, 8) blocks along the grid's z (8
+//   is the portable maximum) shares a (query tile, head), rank r taking
+//   batch row b = g C + r of cluster g; the grid's z is B rounded up to a
+//   multiple of C, and a block past B loads and computes nothing, stages
+//   zeros and joins every cluster barrier;
+// - at each key tile j a block stages its 64 x 64 dS tile in its own shared
+//   memory, in one of two buffers by the parity of j: at head dim 64 in
+//   V_j's buffer, which tile j is done with once dP = dO V_j^T is formed (a
+//   seventh 17,408-byte tile would cost the second block an SM), V_{j+1}
+//   arriving in the other one only once tile j - 1's dS there is summed,
+//   behind S = Q K^T; at head dim 34, whose tiles are 44 floats wide, in two
+//   64 x 68 tiles of their own (2 blocks an SM still fit);
+// - one cluster barrier a tile: a block arrives (release) once it has
+//   staged tile j and read its peers' tile j - 1, computes dQ += dS K_j
+//   while the others arrive, and waits (acquire); then every peer's tile j
+//   is staged and every tile j - 1 read, so its buffer is free again;
+// - rank r then sums rows [64 r / C, 64 (r + 1) / C) of the tile over the
+//   C staged tiles, read through distributed shared memory (mapa,
+//   ld.shared::cluster) and added in rank order 0..C-1, and stores them
+//   with a warp's 32 lanes on 32 consecutive keys (a row of Sk = 941 floats
+//   does not start on 16 bytes); a last barrier keeps every block until no
+//   peer reads its shared memory.
+// With B <= 8 the one cluster of a tile writes the [1, H, Sq, Sk] gradient
+// itself.  With B > 8 the G = ceil(B / 8) clusters of a tile write G
+// partial planes of a [G, H, Sq, Sk] buffer, and a pass adds them in the
+// order g = 0..G-1 into plane 0.  A bias with a batch dimension (read with
+// a batch stride other than 0) takes C = 1 and writes its own [B, H, Sq,
+// Sk] gradient.  A broadcast over H or Sq is summed by the wrapper.  Bound
+// on the H100: the products (the backward's 0.33 ms at VLMo's [8, 12, 941,
+// 941]); dbias adds one [1, H, Sq, Sk] write, 42.5 MB there, 12.7 us at
+// 3.35 TB/s.  The sum's order is fixed, so the result repeats bit for bit.
+
 // Head dim 34 (VLMo-base+: 544 over 16 heads) is a template instance of the
 // same kernels.  m16n8k8 steps 8 columns at a time, so a tile holds 40
 // columns, the last 6 zero-filled by the copies; zero columns add nothing to
@@ -154,13 +180,15 @@ struct Params {
   float* dk;          // contiguous [B, Sk, H, Dh]
   float* dv;          // contiguous [B, Sk, H, Dh]
   float* delta;       // backward: D [B, H, Sq]
-  float* dbias;       // backward: dS, contiguous [B, H, Sq, Sk]; nullptr: not asked for
+  float* dbias;       // backward: the bias's gradient (dbias planes, [planes, H, Sq, Sk]);
+                      // nullptr: not asked for
   long long qsb, qss, qsh;
   long long ksb, kss, ksh;
   long long vsb, vss, vsh;
   long long bsb, bsh, bsq, bsk;
   long long kbsb;  // the key bias's batch stride (0: broadcast)
   int B, H, Sq, Sk;
+  int cluster;  // dbias: blocks a cluster, along z (batch rows summed together)
   float scale;
 };
 
@@ -193,6 +221,11 @@ __device__ __forceinline__ void cp_async_commit() {
 // Wait until at most one group (the one just committed) is in flight.
 __device__ __forceinline__ void cp_async_wait_prev() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Wait until at most the two groups committed last are in flight.
+__device__ __forceinline__ void cp_async_wait_prev2() {
+  asm volatile("cp.async.wait_group 2;\n" ::: "memory");
 }
 
 // Rows [row0, row0 + 64) of one (batch, head) slice into a tile by 16-byte
@@ -445,24 +478,97 @@ __device__ __forceinline__ void store_rows(float* base, long long row_stride, in
   }
 }
 
-// dS of rows ``row`` (e < 2) and ``row`` + 8 (e >= 2) over the columns c +
-// 8 n + (e % 2) of a key tile into (b, h)'s [Sq, Sk] slice of the dbias
-// buffer; rows at or past Sq and keys at or past Sk are not written.
-__device__ __forceinline__ void store_ds(const Params& p, const float ds[kKeySteps][4], int b,
-                                         int h, int row, int c) {
-  float* base = p.dbias + ((long long)b * p.H + h) * p.Sq * p.Sk;
+// ---------------------------------------------------------------------------
+// dbias: dS summed over a cluster's batch rows
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxCluster = 8;  // the portable maximum of blocks a cluster
+constexpr int kStageLd = 68;    // a staged dS row, in floats: V's row at head dim 64
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The two halves of a cluster barrier, which every thread of every block
+// of the cluster passes: arrive (release by default: this thread's writes
+// made visible to the cluster), then wait (acquire by default: every
+// thread's arrival, and its writes, seen).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// ``*local`` (shared memory) as it lies in the block of cluster rank
+// ``rank``, read through distributed shared memory.
+__device__ __forceinline__ float ld_peer(const float* local, unsigned rank) {
+  uint32_t addr;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(addr)
+               : "r"((uint32_t)__cvta_generic_to_shared(local)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+
+// dS of rows ``row`` (e < 2) and ``row`` + 8 (e >= 2), columns ``col`` + 8 n
+// + (e % 2), of a 64 x 64 tile into ``stage`` (rows of kStageLd floats).
+__device__ __forceinline__ void stage_ds(float* stage, const float ds[kKeySteps][4], int row,
+                                         int col) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int r = row + 8 * i;
-    if (r >= p.Sq) continue;
-    float* dst = base + (long long)r * p.Sk;
+    float* dst = stage + (row + 8 * i) * kStageLd + col;
 #pragma unroll
     for (int n = 0; n < kKeySteps; ++n)
+      *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(ds[n][2 * i], ds[n][2 * i + 1]);
+  }
+}
+
+// This block's share of its cluster's sum of the staged dS tiles of query
+// rows [q0, q0 + 64) and keys [k0, k0 + 64): rank r's rows [64 r / C,
+// 64 (r + 1) / C), each value the sum over the blocks of ranks 0..C-1 in
+// that order, stored into plane ``plane`` of the [planes, H, Sq, Sk]
+// gradient.  Warps take rows in turn, a warp's lanes 32 consecutive keys;
+// rows past Sq and keys past Sk are not written.  A row's 2 C loads are in
+// flight together: one round trip through distributed shared memory a row
+// (2 rows a warp at C = 8).
+__device__ __forceinline__ void reduce_ds(const Params& p, const float* stage, int plane, int h,
+                                          int q0, int k0) {
+  const int C = p.cluster;
+  const int rank = (int)cluster_rank(), lane = threadIdx.x & 31;
+  float* out = p.dbias + ((long long)plane * p.H + h) * p.Sq * p.Sk + k0;
+  const int end = min((rank + 1) * kTile / C, p.Sq - q0);
+  for (int r = rank * kTile / C + (int)(threadIdx.x >> 5); r < end; r += kWarps) {
+    const float* src = stage + r * kStageLd + lane;
+    float v[2][kMaxCluster];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = c + 8 * n + j;
-        if (col < p.Sk) dst[col] = ds[n][2 * i + j];
+    for (int c = 0; c < kMaxCluster; ++c)
+      if (c < C) {
+        v[0][c] = ld_peer(src, c);
+        v[1][c] = ld_peer(src + 32, c);
       }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float acc = v[half][0];
+#pragma unroll
+      for (int c = 1; c < kMaxCluster; ++c)
+        if (c < C) acc += v[half][c];
+      if (k0 + 32 * half + lane < p.Sk) out[(long long)(q0 + r) * p.Sk + 32 * half + lane] = acc;
+    }
+  }
+}
+
+// Plane 0 of ``planes`` contiguous planes of n floats = the sum of all of
+// them, in the order 0..planes-1: the clusters' partial dbias sums at B > 8.
+__global__ void dbias_plane_sum_kernel(float* buf, long long n, int planes) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    float acc = buf[i];
+    for (int g = 1; g < planes; ++g) acc += buf[g * n + i];
+    buf[i] = acc;
   }
 }
 
@@ -679,14 +785,24 @@ template <int kDh, bool kBias, bool kKeyBias, bool kDbias>
 __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Params p) {
   using W = Width<kDh>;
   constexpr int kTileFloats = W::kTileFloats;
+  // dbias stages tile j's dS in V_j's buffer where its rows are kStageLd
+  // floats (head dim 64), else in two tiles of its own, by parity of j.
+  // In V_j's buffer V_{j+1} arrives late (kLateV): the buffer holds tile
+  // j - 1's dS until every peer has summed it, and S = Q K^T is formed
+  // before V_j is waited for
+  constexpr bool kOwnStage = kDbias && W::kLd != kStageLd;
+  constexpr bool kLateV = kDbias && !kOwnStage;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* dOs = Qs + kTileFloats;
   float* Ks = dOs + kTileFloats;     // two buffers
   float* Vs = Ks + 2 * kTileFloats;  // two buffers
   float* KBs = Vs + 2 * kTileFloats; // two buffers of 64 (with a key bias)
+  float* DSs = KBs + (kKeyBias ? 2 * kTile : 0);  // two tiles of 64 rows of kStageLd (kOwnStage)
 
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  // dbias: a block of the last cluster past B only stages zeros and sums
+  const bool live = !kDbias || b < p.B;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = (threadIdx.x >> 5) * 16;  // this warp's rows of the tile
   const int rows_off = g * W::kLd + t, cols_off = 2 * t * W::kLd + g;
@@ -697,12 +813,24 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Params 
   const float* kbb = kKeyBias ? p.key_bias + b * p.kbsb : nullptr;
   const int n_tiles = (p.Sk + kTile - 1) / kTile;
 
-  load_tile<kDh>(Qs, p.q + b * p.qsb + h * p.qsh, p.qss, q0, p.Sq);
-  load_tile<kDh>(dOs, p.dout + b * osb + (long long)h * kDh, oss, q0, p.Sq);
-  load_tile<kDh>(Ks, kb, p.kss, 0, p.Sk);
-  load_tile<kDh>(Vs, vb, p.vss, 0, p.Sk);
-  if (kKeyBias) load_key_bias(KBs, kbb, 0, p.Sk);
+  if (live) {
+    load_tile<kDh>(Qs, p.q + b * p.qsb + h * p.qsh, p.qss, q0, p.Sq);
+    load_tile<kDh>(dOs, p.dout + b * osb + (long long)h * kDh, oss, q0, p.Sq);
+    load_tile<kDh>(Ks, kb, p.kss, 0, p.Sk);
+    if (!kLateV) load_tile<kDh>(Vs, vb, p.vss, 0, p.Sk);
+    if (kKeyBias) load_key_bias(KBs, kbb, 0, p.Sk);
+  }
   cp_async_commit();
+  if constexpr (kLateV) {  // V's copies in groups of their own
+    if (live) load_tile<kDh>(Vs, vb, p.vss, 0, p.Sk);
+    cp_async_commit();
+  }
+  if (kDbias && !live) {  // zeros in every buffer this block stages in
+    float* z = kOwnStage ? DSs : Vs;
+    for (int i = threadIdx.x; i < (kOwnStage ? 2 * kTile * kStageLd : 2 * kTileFloats);
+         i += kThreads)
+      z[i] = 0.f;
+  }
 
   // rows q0 + r0 + g (c0, c1) and q0 + r0 + g + 8 (c2, c3); rows past Sq
   // are never written, so only keys are masked
@@ -710,7 +838,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Params 
   float mx[2], lgl[2], dlt[2];  // m, log l, D
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const bool ok = row + 8 * i < p.Sq;
+    const bool ok = live && row + 8 * i < p.Sq;
     const long long idx = ((long long)b * p.H + h) * p.Sq + row + 8 * i;
     mx[i] = ok ? p.lse[idx] : 0.f;
     lgl[i] = ok ? p.lse[(long long)p.B * p.H * p.Sq + idx] : 0.f;
@@ -723,39 +851,73 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Params 
     for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
 
   for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kTile;
+    const int k0 = j * kTile, nxt = (j + 1) & 1;
     const float* Kt = Ks + (j & 1) * kTileFloats;
     const float* Vt = Vs + (j & 1) * kTileFloats;
-    if (j + 1 < n_tiles) {  // into the buffers that tile j - 1 used
-      load_tile<kDh>(Ks + ((j + 1) & 1) * kTileFloats, kb, p.kss, k0 + kTile, p.Sk);
-      load_tile<kDh>(Vs + ((j + 1) & 1) * kTileFloats, vb, p.vss, k0 + kTile, p.Sk);
-      if (kKeyBias) load_key_bias(KBs + ((j + 1) & 1) * kTile, kbb, k0 + kTile, p.Sk);
+    if (live && j + 1 < n_tiles) {  // into the buffers that tile j - 1 used
+      load_tile<kDh>(Ks + nxt * kTileFloats, kb, p.kss, k0 + kTile, p.Sk);
+      if (!kLateV) load_tile<kDh>(Vs + nxt * kTileFloats, vb, p.vss, k0 + kTile, p.Sk);
+      if (kKeyBias) load_key_bias(KBs + nxt * kTile, kbb, k0 + kTile, p.Sk);
     }
     cp_async_commit();
-    cp_async_wait_prev();
+    // tile j's copies: all groups but the one just committed (and V_j's
+    // before it, kLateV)
+    if (kLateV) cp_async_wait_prev2();
+    else cp_async_wait_prev();
     __syncthreads();
 
-    // S = Q K^T and dP = dO V^T over this warp's 16 rows
-    float s[kKeySteps][4], dp[kKeySteps][4];
-    product_abt<kDh>(s, Qs + rows_off, r0, Kt + rows_off);
-    product_abt<kDh>(dp, dOs + rows_off, r0, Vt + rows_off);
-    scale_bias<kBias, kKeyBias, false>(s, p, bias_bh, KBs + (j & 1) * kTile + 2 * t, row,
-                                       k0 + 2 * t);
-    if (k0 + kTile > p.Sk) mask_cols(s, k0 + 2 * t, p.Sk);
-    // dS = P o (dP - D), P = exp((S - m) - log l): 0 for a masked key
+    float s[kKeySteps][4];
+    if (live) {
+      // S = Q K^T and dP = dO V^T over this warp's 16 rows
+      float dp[kKeySteps][4];
+      product_abt<kDh>(s, Qs + rows_off, r0, Kt + rows_off);
+      if constexpr (kLateV) {
+        cp_async_wait_prev();  // V_j's group too
+        __syncthreads();
+      }
+      product_abt<kDh>(dp, dOs + rows_off, r0, Vt + rows_off);
+      scale_bias<kBias, kKeyBias, false>(s, p, bias_bh, KBs + (j & 1) * kTile + 2 * t, row,
+                                         k0 + 2 * t);
+      if (k0 + kTile > p.Sk) mask_cols(s, k0 + 2 * t, p.Sk);
+      // dS = P o (dP - D), P = exp((S - m) - log l): 0 for a masked key
 #pragma unroll
-    for (int n = 0; n < kKeySteps; ++n)
+      for (int n = 0; n < kKeySteps; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[n][e] = exp2_approx(((s[n][e] - mx[e >> 1]) - lgl[e >> 1]) * kLog2e) *
-                  (dp[n][e] - dlt[e >> 1]);
-    if (kDbias) store_ds(p, s, b, h, row, k0 + 2 * t);
-    product_cx<kDh>(dq, s, Kt + cols_off);  // dQ += dS K
+        for (int e = 0; e < 4; ++e)
+          s[n][e] = exp2_approx(((s[n][e] - mx[e >> 1]) - lgl[e >> 1]) * kLog2e) *
+                    (dp[n][e] - dlt[e >> 1]);
+    }
+    if constexpr (kDbias) {
+      float* stage = kOwnStage ? DSs + (j & 1) * kTile * kStageLd : Vs + (j & 1) * kTileFloats;
+      if (live) {
+        if (!kOwnStage) __syncthreads();  // every warp is past its last read of V_j
+        stage_ds(stage, s, r0 + g, 2 * t);
+      }
+      // One cluster barrier a tile: arriving, a block has staged tile j and
+      // read its peers' tile j - 1 (staged in the other buffer), so once
+      // every peer has arrived that buffer is free to stage (or refill) again
+      cluster_arrive();
+      if (live) product_cx<kDh>(dq, s, Kt + cols_off);  // dQ += dS K
+      cluster_wait();
+      if constexpr (kLateV) {  // V_{j+1} into tile j - 1's staged buffer
+        if (live && j + 1 < n_tiles)
+          load_tile<kDh>(Vs + nxt * kTileFloats, vb, p.vss, k0 + kTile, p.Sk);
+        cp_async_commit();
+      }
+      reduce_ds(p, stage, b / p.cluster, h, q0, k0);
+    } else {
+      product_cx<kDh>(dq, s, Kt + cols_off);  // dQ += dS K
+    }
     __syncthreads();  // every warp is done with tile j's buffers
   }
 
-  store_rows<kDh>(p.out + b * osb + (long long)h * kDh, oss, row, p.Sq, dq, p.scale, p.scale,
-                  t);
+  if (live)
+    store_rows<kDh>(p.out + b * osb + (long long)h * kDh, oss, row, p.Sq, dq, p.scale, p.scale,
+                    t);
+  if (kDbias) {  // no peer reads this block's staged tiles once it exits
+    cluster_arrive();
+    cluster_wait();
+  }
 }
 
 // dynamic shared memory of each kernel, without and with a key bias
@@ -768,6 +930,11 @@ struct Smem {
   static constexpr size_t kFwdKb = kFwd + 2 * kTile * sizeof(float);
   static constexpr size_t kDkvKb = kDkv + kTile * sizeof(float);
   static constexpr size_t kDqKb = kDq + 2 * kTile * sizeof(float);
+  // dbias: two staging tiles of their own where V's rows are not kStageLd floats
+  static constexpr size_t kStage =
+      Width<kDh>::kLd == kStageLd ? 0 : 2 * kTile * kStageLd * sizeof(float);
+  static constexpr size_t kDqDbias = kDq + kStage;
+  static constexpr size_t kDqDbiasKb = kDqKb + kStage;
 };
 
 Params make_params(const void* q, const void* k, const void* v, const void* bias,
@@ -844,15 +1011,64 @@ struct Dq {
                   kKB ? Smem<kDh>::kDqKb : Smem<kDh>::kDq, s, p);
   }
 };
-// the dQ kernel that also writes dS (a bias and its gradient only)
+// The dQ kernel's dbias instance (a bias and its gradient only), for the
+// occupancy query and the launch.
+template <int kDh, bool kKB>
+struct DbiasInstance {
+  static constexpr size_t smem = kKB ? Smem<kDh>::kDqDbiasKb : Smem<kDh>::kDqDbias;
+
+  // ``cfg`` launches ``grid`` in clusters of ``cluster`` blocks along z.
+  static void config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, dim3 grid, int cluster,
+                     cudaStream_t stream) {
+    attr = {};
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = 1;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = (unsigned)cluster;
+    cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+
+  // cudaOccupancyMaxActiveClusters for clusters of ``cluster`` blocks.
+  static cudaError_t max_clusters(int cluster, int* n) {
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<kDh, true, kKB, true>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return err;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    config(cfg, attr, dim3(1, 1, cluster), cluster, nullptr);
+    return cudaOccupancyMaxActiveClusters(n, flash_bwd_dq_kernel<kDh, true, kKB, true>, &cfg);
+  }
+
+  // Refused (cudaErrorInvalidConfiguration) where the card holds no such
+  // cluster at once: its blocks must run together.
+  static cudaError_t launch(const Params& p, dim3 grid, cudaStream_t stream) {
+    int n = 0;
+    cudaError_t err = max_clusters(p.cluster, &n);
+    if (err != cudaSuccess) return err;
+    if (n == 0) return cudaErrorInvalidConfiguration;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    config(cfg, attr, grid, p.cluster, stream);
+    err = cudaLaunchKernelEx(&cfg, flash_bwd_dq_kernel<kDh, true, kKB, true>, p);
+    return err != cudaSuccess ? err : cudaGetLastError();
+  }
+};
+
+// the dQ kernel that also gives the bias its gradient
 struct DqDbias {
   template <int kDh, bool kB, bool kKB>
   static cudaError_t run(const Params& p, dim3 grid, cudaStream_t s) {
     if constexpr (!kB) {
       return cudaErrorInvalidValue;
     } else {
-      return launch(flash_bwd_dq_kernel<kDh, true, kKB, true>, grid,
-                    kKB ? Smem<kDh>::kDqKb : Smem<kDh>::kDq, s, p);
+      return DbiasInstance<kDh, kKB>::launch(p, grid, s);
     }
   }
 };
@@ -880,8 +1096,12 @@ extern "C" int vq_flash_attention_fwd(
 
 // dQ [B, Sq, H, Dh], dK and dV [B, Sk, H, Dh], all contiguous; o and dout
 // contiguous [B, Sq, H, Dh], dout aligned as q; delta a [B, H, Sq] scratch.
-// dbias, when not null, receives dS as a contiguous [B, H, Sq, Sk] (a bias
-// must be given).
+// dbias, when not null, receives the bias's gradient (a bias must be given),
+// contiguous [planes, H, Sq, Sk]: for a bias read with batch stride 0 and
+// B > 1 (broadcast over B), dS summed over B by clusters of C = min(B, 8)
+// blocks, one plane at B <= 8, else G = ceil(B / 8) planes of partial sums
+// whose plane 0 then receives their sum; for any other bias dS itself, B
+// planes.
 extern "C" int vq_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* bias, const void* key_bias,
     const void* o, const void* lse, const void* dout, void* dq, void* dk,
@@ -902,6 +1122,9 @@ extern "C" int vq_flash_attention_bwd(
   p.dv = (float*)dv;
   p.delta = (float*)delta;
   p.dbias = (float*)dbias;
+  const bool over_b = dbias != nullptr && B > 1 && bsb == 0;  // dbias sums over B
+  p.cluster = over_b ? (B < kMaxCluster ? B : kMaxCluster) : 1;
+  const int groups = (B + p.cluster - 1) / p.cluster;
   cudaStream_t s = (cudaStream_t)stream;
 
   const long long rows = (long long)B * H * Sq;
@@ -916,6 +1139,31 @@ extern "C" int vq_flash_attention_bwd(
   const dim3 kv_grid((Sk + kTile - 1) / kTile, H, B), q_grid((Sq + kTile - 1) / kTile, H, B);
   err = dispatch<Dkv>(p, Dh, kv_grid, s);
   if (err != cudaSuccess) return (int)err;
-  return (int)(dbias != nullptr ? dispatch<DqDbias>(p, Dh, q_grid, s)
-                                 : dispatch<Dq>(p, Dh, q_grid, s));
+  if (dbias == nullptr) return (int)dispatch<Dq>(p, Dh, q_grid, s);
+  // B rounded up to whole clusters
+  err = dispatch<DqDbias>(p, Dh, dim3(q_grid.x, H, groups * p.cluster), s);
+  if (err != cudaSuccess || !over_b || groups == 1) return (int)err;
+  const long long n = (long long)H * Sq * Sk;
+  long long sum_blocks = (n + 255) / 256;
+  if (sum_blocks > 65535) sum_blocks = 65535;
+  dbias_plane_sum_kernel<<<(unsigned)sum_blocks, 256, 0, s>>>(p.dbias, n, groups);
+  return (int)cudaGetLastError();
+}
+
+// The most clusters of ``cluster`` blocks of the dbias instance at head dim
+// Dh, with a key bias or not, that the card holds at once
+// (cudaOccupancyMaxActiveClusters); minus the CUDA error where the query
+// fails.
+extern "C" int vq_flash_attention_dbias_clusters(int Dh, int key_bias, int cluster) {
+  if (cluster < 1 || cluster > kMaxCluster || (Dh != 64 && Dh != 34))
+    return -(int)cudaErrorInvalidValue;
+  int n = 0;
+  cudaError_t err;
+  if (Dh == 64)
+    err = key_bias ? DbiasInstance<64, true>::max_clusters(cluster, &n)
+                   : DbiasInstance<64, false>::max_clusters(cluster, &n);
+  else
+    err = key_bias ? DbiasInstance<34, true>::max_clusters(cluster, &n)
+                   : DbiasInstance<34, false>::max_clusters(cluster, &n);
+  return err == cudaSuccess ? n : -(int)err;
 }

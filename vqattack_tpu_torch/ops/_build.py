@@ -47,9 +47,12 @@ SIGNATURES = {
     # head dim); q/k/v (b, s, h), bias (b, h, q, k) and key bias (b) element
     # strides; scale; stream
     "vq_flash_attention_fwd": (_P,) * 7 + (_I,) * 5 + (_LL,) * 14 + (_F, _P),
-    # q, k, v, bias, key bias, o, lse, dout, dq, dk, dv, delta, dbias (dS,
-    # or null); then as the forward
+    # q, k, v, bias, key bias, o, lse, dout, dq, dk, dv, delta, dbias (the
+    # bias's gradient, or null); then as the forward
     "vq_flash_attention_bwd": (_P,) * 13 + (_I,) * 5 + (_LL,) * 14 + (_F, _P),
+    # head dim, key bias (0 or 1), blocks a cluster -> the dbias instance's
+    # cudaOccupancyMaxActiveClusters (or minus a CUDA error)
+    "vq_flash_attention_dbias_clusters": (_I, _I, _I),
     # the bfloat16 instances (flash_attention_bf16.cu): the same arguments
     # but dbias, q/k/v, o, dout, dq, dk, dv bfloat16 (the width 40 at head
     # dim 34, padded), the rest as above

@@ -40,10 +40,14 @@ log2 e``: their maximum is a product's and never nears -1e9.
 
 The float32 kernels also give the bias its gradient (dbias, the library
 backward's ``dab``): where the bias needs one, as VLMo's relative-position
-table does in training, the dQ kernel writes dS, the gradient of the
-post-scale score, into a ``[B, H, Sq, Sk]`` buffer, and the wrapper sums it
-over the bias's broadcast dimensions, as XLA sums ``dab`` outside the
-library kernel.  The bfloat16 instance and the key bias take no gradient.
+table does in training, the dQ kernel's dbias instance sums dS, the
+gradient of the post-scale score, over the batch inside the kernel for a
+bias broadcast over B: a thread-block cluster of up to 8 blocks adds its
+batch rows' dS tiles in a fixed order through distributed shared memory
+(:func:`dbias_plan` says how many blocks a cluster and how many clusters a
+tile; no ``[B, H, Sq, Sk]`` buffer).  A broadcast over H or Sq is summed
+here over the kernel's output.  The bfloat16 instance and the key bias take
+no gradient.
 
 q/k/v may be float32 or bfloat16 (the three alike; the surrogate trunk's
 compute dtype).  The bfloat16 instance (``csrc/flash_attention_bf16.cu``)
@@ -57,7 +61,7 @@ and computes everything else in float32 from the bf16 inputs.
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -92,6 +96,72 @@ def attention_impl(kind: str):
         yield
     finally:
         set_impl(prev)
+
+
+# ---------------------------------------------------------------------------
+# the bias gradient's sum over the batch
+# ---------------------------------------------------------------------------
+
+DBIAS_CLUSTER = 8  # blocks a cluster at most: the portable maximum
+
+
+class DbiasPlan(NamedTuple):
+    """How the dbias instance sums dS over the batch: ``cluster`` blocks a
+    thread-block cluster (batch rows summed together, in rank order),
+    ``groups`` clusters along the batch (partial sums added in order), and
+    the ``[groups, H, Sq, Sk]`` buffer of those partial sums where there is
+    more than one (None: the kernel writes the gradient itself)."""
+
+    cluster: int
+    groups: int
+    scratch_shape: Optional[Tuple[int, int, int, int]]
+
+
+def dbias_plan(dims, bias_shape) -> DbiasPlan:
+    """The plan for ``dims = (B, H, Sq, Sk)`` and a bias of ``bias_shape``
+    (``[1|B, 1|H, 1|Sq, Sk]``), the rule ``csrc/flash_attention.cu``'s
+    ``vq_flash_attention_bwd`` applies: a bias broadcast over B > 1 is
+    summed over B by clusters of ``min(B, 8)`` blocks, ``ceil(B / 8)`` of
+    them, batch row ``g * cluster + rank`` in rank ``rank`` of cluster
+    ``g``; any other bias takes clusters of one block, one a batch row, and
+    no sum."""
+    b, h, sq, sk = dims
+    if bias_shape[0] != 1 or b == 1:
+        return DbiasPlan(1, b, None)
+    cluster = min(b, DBIAS_CLUSTER)
+    groups = -(-b // cluster)
+    return DbiasPlan(cluster, groups, (groups, h, sq, sk) if groups > 1 else None)
+
+
+def planned_batch_sum(ds: torch.Tensor, plan: DbiasPlan) -> torch.Tensor:
+    """``ds [B, H, Sq, Sk]`` summed over B in ``plan``'s order, as the kernel
+    sums it: within each cluster its batch rows in rank order, then the
+    clusters' sums in order, both left to right (the padding past B adds
+    nothing); ``ds`` itself where the plan sums nothing."""
+    if plan.cluster == 1:
+        return ds
+    total = None
+    for g in range(plan.groups):
+        part = None
+        for b in range(g * plan.cluster, min((g + 1) * plan.cluster, ds.shape[0])):
+            part = ds[b:b + 1] if part is None else part + ds[b:b + 1]
+        total = part if total is None else total + part
+    return total
+
+
+def dbias_buffers(dims, bias_shape, device):
+    """``(buffer, gradient)``: the float32 buffer the kernel writes and the
+    gradient in it, ``[1|B, H, Sq, Sk]`` (the bias's batch dimension, full H
+    and Sq): with partial sums (:func:`dbias_plan`), the ``[groups, H, Sq,
+    Sk]`` scratch and its plane 0, where the kernel's last pass adds them;
+    else one tensor, both."""
+    b, h, sq, sk = dims
+    plan = dbias_plan(dims, bias_shape)
+    if plan.scratch_shape is not None:
+        scratch = torch.empty(plan.scratch_shape, dtype=torch.float32, device=device)
+        return scratch, scratch[:1]
+    grad = torch.empty((bias_shape[0], h, sq, sk), dtype=torch.float32, device=device)
+    return grad, grad
 
 
 # ---------------------------------------------------------------------------
@@ -163,7 +233,8 @@ def flash_attention_bwd_reference(q, k, v, bias, scale, o, lse, do, key_bias=Non
     (both additive terms) and ``D = rowsum(do * o)``.  With ``dbias`` also
     the bias's gradient, dS summed over the bias's broadcast dimensions, in
     the bias's shape, as a fourth output (for bf16 q/k/v dS before its
-    rounding).  For bf16 q/k/v everything is float32 from the bf16 inputs
+    rounding), over B in the kernel's order (:func:`planned_batch_sum`).
+    For bf16 q/k/v everything is float32 from the bf16 inputs
     but P and dS, rounded to bf16 as the kernel (and the library kernel)
     hands them to the next product, and the gradients come back bf16; scale is applied after dS's
     rounding, as the kernel applies it (the same bits as before it for a
@@ -183,7 +254,8 @@ def flash_attention_bwd_reference(q, k, v, bias, scale, o, lse, do, key_bias=Non
     if dbias:
         if bias is None:
             raise ValueError("flash_attention_bwd_reference: dbias without a bias")
-        return grads + (ds_f.sum_to_size(bias.shape),)
+        plan = dbias_plan(tuple(ds_f.shape), tuple(bias.shape))
+        return grads + (planned_batch_sum(ds_f, plan).sum_to_size(bias.shape),)
     return grads
 
 
@@ -339,8 +411,9 @@ def _launch_fwd(q, k, v, bias, scale, key_bias, dims, head_dim):
 def _launch_bwd(q, k, v, bias, scale, o, lse, do, key_bias, dims, head_dim, dbias=False):
     """The backward kernels on tensors of the kernel's row width, as
     :func:`_launch_fwd` takes them: ``(dq, dk, dv)`` as wide, and with
-    ``dbias`` (float32, a bias given) also dS as a ``[B, H, Sq, Sk]``
-    float32 tensor."""
+    ``dbias`` (float32, a bias given) also the bias's gradient summed over
+    B where the bias broadcasts over it, ``[1|B, H, Sq, Sk]`` float32
+    (:func:`dbias_buffers`)."""
     b, h, sq, sk = dims
     width = q.shape[-1]
     do = do.contiguous()
@@ -352,17 +425,23 @@ def _launch_bwd(q, k, v, bias, scale, o, lse, do, key_bias, dims, head_dim, dbia
         if tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"flash_attention_bwd: {name} {tuple(t.shape)} {t.dtype}; "
                              f"takes contiguous {dtype} {shape}")
+    if dbias and (bias is None or q.dtype != torch.float32):
+        raise ValueError(f"flash_attention_bwd: dbias takes a bias and float32 q/k/v "
+                         f"(bias {'absent' if bias is None else 'given'}, q {q.dtype})")
+    if dbias and bias.shape[0] == b > 1 and bias.stride(0) == 0:
+        # one gradient a batch row: the kernel reads batch stride 0 as a
+        # broadcast over B, which it sums over
+        bias = bias.contiguous()
     ptrs, sizes = _common_args(q, k, v, bias, key_bias, b, h, sq, sk)
     dq = torch.empty((b, sq, h, width), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, h, width), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    if dbias and (bias is None or q.dtype != torch.float32):
-        raise ValueError(f"flash_attention_bwd: dbias takes a bias and float32 q/k/v "
-                         f"(bias {'absent' if bias is None else 'given'}, q {q.dtype})")
-    ds = torch.empty((b, h, sq, sk), dtype=torch.float32, device=q.device) if dbias else None
-    # the float32 entry point takes dS's pointer (null: no dbias), the bf16 one none
-    ds_arg = () if q.dtype == torch.bfloat16 else (None if ds is None else ds.data_ptr(),)
+    buf = grad = None
+    if dbias:
+        buf, grad = dbias_buffers(dims, tuple(bias.shape), q.device)
+    # the float32 entry point takes dbias's pointer (null: no dbias), the bf16 one none
+    ds_arg = () if q.dtype == torch.bfloat16 else (None if buf is None else buf.data_ptr(),)
     lib = _build.load()
     with torch.cuda.device(q.device):
         status = getattr(lib, _ENTRY_POINTS[q.dtype] + "bwd")(
@@ -373,7 +452,7 @@ def _launch_bwd(q, k, v, bias, scale, o, lse, do, key_bias, dims, head_dim, dbia
     _build.check(status, "flash_attention_bwd")
     _build.count_launch(flash_attention_bwd, *_counts(q.dtype, key_bias, head_dim),
                         *(("dbias_launches",) if dbias else ()))
-    return (dq, dk, dv) if ds is None else (dq, dk, dv, ds)
+    return (dq, dk, dv) if grad is None else (dq, dk, dv, grad)
 
 
 def _checked_and_padded(q, k, v, bias, key_bias):
@@ -401,13 +480,24 @@ def flash_attention_bwd(q, k, v, bias, scale: float, o, lse, do, key_bias=None,
     and ``do`` in that dtype, ``lse`` the forward's statistics.  With
     ``dbias`` (float32 q/k/v and a bias) the dQ kernel's dbias instance
     runs and the bias's gradient, dS summed over the bias's broadcast
-    dimensions, comes back fourth, in the bias's shape.  The same bit for
-    bit on every run: no atomics."""
+    dimensions (over B inside the kernel, :func:`dbias_plan`), comes back
+    fourth, in the bias's shape.  The same bit for bit on every run: no
+    atomics."""
     dims, dh, width, qkv = _checked_and_padded(q, k, v, bias, key_bias)
     grads = _launch_bwd(*qkv, bias, scale, pad_heads(o, width), lse, pad_heads(do, width),
                         key_bias, dims, dh, dbias)
     out = tuple(g[..., :dh] for g in grads[:3])
     return out + (grads[3].sum_to_size(bias.shape),) if dbias else out
+
+
+def dbias_max_clusters(head_dim: int, key_bias: bool, cluster: int) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the dbias instance at
+    ``head_dim`` (with a key bias or not) in clusters of ``cluster`` blocks:
+    how many the card holds at once (0: the launch is refused)."""
+    n = _build.load().vq_flash_attention_dbias_clusters(head_dim, int(key_bias), cluster)
+    if n < 0:
+        raise RuntimeError(f"dbias_max_clusters: CUDA error {-n}")
+    return n
 
 
 # the C entry points (``<prefix>fwd``, ``<prefix>bwd``) of each q/k/v dtype
