@@ -157,6 +157,28 @@ printed; then the first step's table gradient, flash against xla, of the
 two VLMo-base presets, with the same hard negatives in both; a
 ``pretraining`` JSON line.
 
+The fine-tuning slice adds, after the pretraining phases: K2, K3 and K3's
+bias gradient against their plain versions at the shapes fine-tuning gives
+them, timed beside their bounds and the library calls (ALBEF's ViT at 384
+px: K3 without terms at [8, 577, 12, 64] and nlvr2's [16, 577, 12, 64], the
+``_albef577`` and ``_nlvr577`` rows, K2 at [8 x 577, 768] and [16 x 577,
+768] with its parameter sums; VLMo-base at 384 px: dbias with the table
+and the padded-text key bias at vlmo_irtr's [24, 617] (clusters of 8, the
+plane pass over 3) and vlmo_nlvr2's [8, 617], the ``_irtr617`` and
+``_nlvr617`` rows); then ``train.cli.main`` at batch 8 for 4 steps under
+flash: ``--task retrieval``, ``ve`` and ``nlvr2 --image-size 384`` (ALBEF,
+NLVR's 18 layers on the pairs' 16 images) on synthetic annotations in each
+task's dialect (captions on shared images, VE sentences with string labels,
+NLVR pairs labelled "True"/"False"), ``--task vlmo_irtr --preset
+task_finetune_irtr_f30k_base_image384`` and ``--task vlmo_nlvr2 --preset
+task_finetune_nlvr2_base_image384 --init-ckpt`` (a full-width synthetic
+2-row VLMo-base file, the 3-row table's row 2 required to be row 1), each
+run's launches by shape against its schedule, s/step, peak memory and the
+first step's metrics printed; retrieval's first-step loss and the gradient
+of the ViT's first query weight, flash against xla (``RETRIEVAL_GRAD_TOL``,
+12 times K3's 2e-5); the two VLMo tasks' table gradient, flash against
+xla; a ``finetuning`` JSON line.
+
 The bf16 trunk (``--dtype bfloat16``) adds, after the float32 phases of each
 surrogate: K2 on a bf16 stream (phase 3, beside float32) and K3's bf16
 instance against its plain versions and the float32 computation (ALBEF's
@@ -2227,16 +2249,19 @@ def step_seconds(summary):
 
 def train_implied_launches(task, depth, steps, flash):
     """K3 and K2 launches ``steps`` training steps of a trunk of ``depth``
-    blocks imply.  vlmo_vqa: with
-    flash, depth joint attentions a forward and a backward, each with the
-    key bias, every backward with dbias (the table needs a gradient).
-    albef_vqa and albef_pretrain: the ViT's 2 x depth fused norm sites a
-    forward and a backward, every backward with parameter gradients, and
-    with flash its depth attentions (the text, fusion and answer attentions
-    are under 128 queries, the product + softmax path)."""
+    blocks imply.  vlmo_vqa and vlmo_irtr: with flash, depth joint
+    attentions a forward and a backward (vlmo_irtr's over the B x 3
+    pairs), each with the key bias, every backward with dbias (the table
+    needs a gradient); vlmo_nlvr2: two joint passes, one an image of the
+    pair, so twice as many.  albef_vqa, albef_pretrain, retrieval, ve and
+    nlvr2: the ViT's 2 x depth fused norm sites a forward and a backward,
+    every backward with parameter gradients, and with flash its depth
+    attentions (nlvr2's ViT takes the pairs' 2B images in one pass; the
+    text, fusion and answer attentions are under 128 queries, the product +
+    softmax path)."""
     out = dict.fromkeys(KERNELS, 0)
-    if task == "vlmo_vqa":
-        n = depth * steps if flash else 0
+    if task in ("vlmo_vqa", "vlmo_irtr", "vlmo_nlvr2"):
+        n = (2 if task == "vlmo_nlvr2" else 1) * depth * steps if flash else 0
         for k in ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_fwd_key_bias",
                   "flash_attention_bwd_key_bias", "flash_attention_bwd_dbias"):
             out[k] = n
@@ -2250,10 +2275,11 @@ def train_implied_launches(task, depth, steps, flash):
 
 
 class ReplayKey:
-    """A key (``rng.py``) whose ``categorical`` draws are recorded on the
-    first pass and handed back in the same order after :meth:`replay`: two
-    passes over the same batch sample the same hard negatives, whatever an
-    ulp of difference in a similarity does to a draw."""
+    """A key (``rng.py``) whose ``categorical`` and ``randint`` draws are
+    recorded on the first pass and handed back in the same order after
+    :meth:`replay`: two passes over the same batch sample the same hard
+    negatives (and IRTR's caption offsets), whatever an ulp of difference
+    in a similarity does to a draw."""
 
     def __init__(self, key):
         self.key, self.draws, self.replaying = key, [], None
@@ -2261,26 +2287,71 @@ class ReplayKey:
     def split(self, n: int = 2):
         return [self] * n
 
-    def categorical(self, logits):
+    def _draw(self, fn):
         if self.replaying is not None:
             return self.replaying.pop(0)
-        self.draws.append(self.key.categorical(logits))
+        self.draws.append(fn())
         return self.draws[-1]
+
+    def categorical(self, logits):
+        return self._draw(lambda: self.key.categorical(logits))
+
+    def randint(self, shape, lo, hi):
+        return self._draw(lambda: self.key.randint(shape, lo, hi))
 
     def replay(self):
         self.replaying = list(self.draws)
 
 
-def vlmo_table_gradient(argv, tokenizer, pixels, expected_dbias=None):
+# the table gradient of vlmo_irtr's first step, flash against xla: each
+# entry within 1e-4 of the largest entry (the model checks' tolerance).
+# Its loss starts at ln 3 (random weights score the three captions alike),
+# and the gradient reaching the [CLS] rows is a difference of near-equal
+# terms: xla's own float32 gradient is 7.56 times TABLE_GRAD_TOL of an
+# entry's mass away from the same step in float64
+# (scripts/table_grad_f64.py; PERF.md §6), so the kernel is held to
+# TABLE_GRAD_TOL attention by attention, against each attention's float64
+# gradient on the inputs the flash pass gave it (``per_call``).
+TABLE_GRAD_OF_LARGEST_TOL = 1e-4
+
+
+def _gathered(model, kinds, grads, h):
+    """Each attention's [1, H, S, S] bias gradient added into the table's
+    entries (the gather's transpose), float64."""
+    table = model.relative_position_bias_table
+    out = torch.zeros(table.shape, dtype=torch.float64, device=table.device)
+    for (layer, kind), g in zip(kinds, grads):
+        idx = getattr(model, f"_rel_index_{kind}").flatten()
+        out[:, layer * h:(layer + 1) * h].index_add_(
+            0, idx, g[0].double().permute(1, 2, 0).reshape(-1, h))
+    return out
+
+
+def _mass_ratio(a, b, mass):
+    """The largest |a - b| over its entry's tolerance: TABLE_GRAD_TOL of its
+    mass, or 1e-6 of b's largest entry."""
+    return float(((a - b).abs() / (TABLE_GRAD_TOL * mass + 1e-6 * float(b.abs().max()))).max())
+
+
+def vlmo_table_gradient(argv, tokenizer, pixels, expected_dbias=None, inspect=None,
+                        per_call=False):
     """The relative-position table's gradient of the first step's loss (the
     CLI's task, model from ``--seed`` and ``--init-ckpt``, its first batch),
     under flash (K3 with dbias) and under xla, with the same hard
-    negatives (:class:`ReplayKey`), each attention's gathered [1, H, S, S]
-    bias gradient beside it: every entry of the two within
+    negatives and offsets (:class:`ReplayKey`), each attention's gathered
+    [1, H, S, S] bias gradient beside it: every entry of the two within
     :data:`TABLE_GRAD_TOL` of its mass (xla's |bias gradients| gathered
     into the entry).  ``expected_dbias``: the dbias launches of one flash
-    pass (default: one a block).  Returns ``(max abs difference, largest
-    value, the largest difference over its mass)``."""
+    pass (default: one a block).  ``inspect(model)`` runs on the model as
+    the CLI built it.  ``per_call``: the end-to-end gradients within
+    :data:`TABLE_GRAD_OF_LARGEST_TOL` of the largest entry instead, and
+    each attention of the flash pass held on its own inputs (q, k, v, the
+    terms and the gradient that reached its output): the kernel's dbias
+    against the same attention's in float64, gathered into the table,
+    every entry within :data:`TABLE_GRAD_TOL` of its mass (the float64
+    |dS| gathered), autograd of the float32 product + softmax path printed
+    beside it.  Returns ``{"err", "max", "err_of_tol"}`` (and
+    ``"per_call_err_of_tol"``, ``"per_call_plain_err_of_tol"``)."""
     from vqattack_tpu_torch.train import cli as train_cli
 
     parser = train_cli.build_argparser()
@@ -2289,6 +2360,8 @@ def vlmo_table_gradient(argv, tokenizer, pixels, expected_dbias=None):
     cfg = train_cli.resolve_config(args, preset, torch.device("cuda"))
     model, loss_fn, collate = train_cli.build_task(args, cfg, tokenizer, torch.device("cuda"),
                                                    preset)
+    if inspect is not None:
+        inspect(model)
     with served_pixels(pixels):
         dataset = train_cli.build_dataset(args, cfg.vlmo.image_size)
         batch = collate(next(train_cli._batches(dataset, args.batch_size, args.seed)))
@@ -2300,39 +2373,88 @@ def vlmo_table_gradient(argv, tokenizer, pixels, expected_dbias=None):
         return biases[-1]
 
     model._rel_bias = recorded
+    calls, flash_attention = [], attention.flash_attention
+
+    def recording(q, k, v, bias, scale, key_bias=None):  # the flash pass's inputs
+        out = flash_attention(q, k, v, bias, scale, key_bias)
+        call = {"args": [t.detach() for t in (q, k, v, bias)] + [scale, key_bias]}
+        calls.append(call)
+        out.register_hook(lambda g: call.__setitem__("do", g.detach()))
+        return out
+
     table = model.relative_position_bias_table
-    grads, layer_grads = {}, None
+    grads, layer_grads, h = {}, None, cfg.vlmo.num_heads
     key = ReplayKey(TorchKey(SEED, torch.device("cuda")))
     expected = cfg.vlmo.depth if expected_dbias is None else expected_dbias
     for impl in ("flash", "xla"):
         biases.clear()
         kinds.clear()
         before = attention.flash_attention_bwd.dbias_launches
-        with attention.attention_impl(impl):
-            loss, _ = loss_fn(model, batch, key)
-            grads[impl], *layer_grads = torch.autograd.grad(loss, [table] + biases)
+        if per_call and impl == "flash":
+            attention.flash_attention = recording
+        try:
+            with attention.attention_impl(impl):
+                loss, _ = loss_fn(model, batch, key)
+                grads[impl], *layer_grads = torch.autograd.grad(loss, [table] + biases)
+        finally:
+            attention.flash_attention = flash_attention
         key.replay()
         require((attention.flash_attention_bwd.dbias_launches - before)
                 == (expected if impl == "flash" else 0), f"dbias launches under {impl}")
-    mass = torch.zeros_like(table)
-    h = cfg.vlmo.num_heads
-    for (layer, kind), g in zip(kinds, layer_grads):  # xla's, the last computed
-        idx = getattr(model, f"_rel_index_{kind}").flatten()
-        mass[:, layer * h:(layer + 1) * h].index_add_(0, idx, g[0].abs().permute(1, 2, 0)
-                                                      .reshape(-1, h))
+    mass = _gathered(model, kinds, [g.abs() for g in layer_grads], h)  # xla's, the last
     diff = (grads["flash"] - grads["xla"]).abs()
     largest, err = float(grads["xla"].abs().max()), float(diff.max())
-    of_tol = float((diff / (TABLE_GRAD_TOL * mass + 1e-6 * largest)).max())
-    require(largest > 0 and of_tol <= 1.0,
-            f"the table gradient, flash against xla: max abs err {err}, largest {largest}, "
-            f"{of_tol} of an entry's tolerance")
-    print(f"  {args.task} table gradient {list(table.shape)}, flash (K3 with dbias, "
-          f"{expected} launches) against xla: max abs err {err:.3g} of {largest:.3g} "
-          f"({err / largest:.2g}); the largest error {of_tol:.2g} of its entry's tolerance "
-          f"({TABLE_GRAD_TOL:g} of its mass, or 1e-6 of the largest entry)", flush=True)
+    of_tol = _mass_ratio(grads["flash"].double(), grads["xla"].double(), mass)
+    out = {"err": err, "max": largest, "err_of_tol": of_tol}
+    if per_call:
+        require(largest > 0 and err <= TABLE_GRAD_OF_LARGEST_TOL * largest,
+                f"the table gradient, flash against xla: max abs err {err}, largest {largest}")
+        kernel, plain, exact, exact_mass = [], [], [], []
+        for call in calls:
+            q, k, v, bias, scale, kb = call["args"]
+            do = call["do"]
+            o, lse = attention.flash_attention_fwd(q, k, v, bias, scale, kb)
+            kernel.append(attention.flash_attention_bwd(q, k, v, bias, scale, o, lse, do, kb,
+                                                        dbias=True)[3])
+            leaf = bias.clone().requires_grad_(True)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            s = torch.matmul(qt * scale, kt.transpose(-1, -2)) + leaf + kb[:, None, None, :]
+            plain.append(torch.autograd.grad(torch.matmul(torch.softmax(s, -1), vt), [leaf],
+                                             do.transpose(1, 2))[0])
+            qd, kd, vd, dod = (t.double().transpose(1, 2) for t in (q, k, v, do))
+            p = torch.softmax(torch.matmul(qd * scale, kd.transpose(-1, -2)) + bias.double()
+                              + kb.double()[:, None, None, :], -1)
+            dp = torch.matmul(dod, vd.transpose(-1, -2))
+            ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+            exact.append(ds.sum(0, keepdim=True))
+            exact_mass.append(ds.abs().sum(0, keepdim=True))
+            del s, qd, kd, vd, dod, p, dp, ds
+        require(len(calls) == len(kinds) == expected, f"{len(calls)} recorded attentions")
+        truth = _gathered(model, kinds, exact, h)
+        truth_mass = _gathered(model, kinds, exact_mass, h)
+        per = _mass_ratio(_gathered(model, kinds, kernel, h), truth, truth_mass)
+        per_plain = _mass_ratio(_gathered(model, kinds, plain, h), truth, truth_mass)
+        require(per <= 1.0, f"the table gradient attention by attention, K3's dbias against "
+                            f"float64: {per} of an entry's tolerance")
+        out.update(per_call_err_of_tol=per, per_call_plain_err_of_tol=per_plain)
+        print(f"  {args.task} table gradient {list(table.shape)}, flash (K3 with dbias, "
+              f"{expected} launches) against xla: max abs err {err:.3g} of {largest:.3g} "
+              f"({err / largest:.2g}; tolerance {TABLE_GRAD_OF_LARGEST_TOL:g}), {of_tol:.3g} of "
+              f"an entry's {TABLE_GRAD_TOL:g} of its mass; attention by attention on the flash "
+              f"pass's inputs, against float64: K3's dbias {per:.2g} of an entry's tolerance, "
+              f"the float32 product + softmax path {per_plain:.2g}", flush=True)
+        del calls, kernel, plain, exact, exact_mass
+    else:
+        require(largest > 0 and of_tol <= 1.0,
+                f"the table gradient, flash against xla: max abs err {err}, largest {largest}, "
+                f"{of_tol} of an entry's tolerance")
+        print(f"  {args.task} table gradient {list(table.shape)}, flash (K3 with dbias, "
+              f"{expected} launches) against xla: max abs err {err:.3g} of {largest:.3g} "
+              f"({err / largest:.2g}); the largest error {of_tol:.2g} of its entry's tolerance "
+              f"({TABLE_GRAD_TOL:g} of its mass, or 1e-6 of the largest entry)", flush=True)
     del model, grads, layer_grads, biases
     torch.cuda.empty_cache()
-    return err, largest, of_tol
+    return out
 
 
 def train_vlmo(tmp, vocab, tokenizer, smi):
@@ -2356,10 +2478,9 @@ def train_vlmo(tmp, vocab, tokenizer, smi):
             "--vocab", vocab, "--ann", ann, "--image-root", tmp, "--batch-size",
             str(TRAIN_BATCH), "--log-every", "1", "--device", "cuda", "--seed", str(SEED),
             "--init-ckpt", init]
-    err, largest, of_tol = vlmo_table_gradient(argv + ["--steps", str(TRAIN_STEPS)], tokenizer,
-                                               pixels)
-    out = {"table_grad_err": err, "table_grad_max": largest, "table_grad_err_of_tol": of_tol,
-           "card": smi}
+    grad = vlmo_table_gradient(argv + ["--steps", str(TRAIN_STEPS)], tokenizer, pixels)
+    out = {"table_grad_err": grad["err"], "table_grad_max": grad["max"],
+           "table_grad_err_of_tol": grad["err_of_tol"], "card": smi}
     launched = {}
     for impl in ("flash", "xla"):
         # one save, after the last step's metrics: the steps' times hold no save
@@ -2708,10 +2829,297 @@ def train_pretrain(tmp, vocab, tokenizer, smi):
                                                {k for k, n in expected.items() if n},
                                                attentions if impl == "flash" else None)
         if not plus:  # the table's gradient, flash against xla
-            err, largest, of_tol = vlmo_table_gradient(
+            out[f"{preset}_table_grad"] = vlmo_table_gradient(
                 argv + common, tokenizer, pixels,
                 pretrain_implied_launches(attentions, 1, True)["flash_attention_bwd_dbias"])
-            out[f"{preset}_table_grad"] = {"err": err, "max": largest, "err_of_tol": of_tol}
+    return out, launched, seen_all
+
+
+# ---------------------------------------------------------------------------
+# the fine-tuning slice: retrieval, ve, nlvr2, vlmo_irtr, vlmo_nlvr2
+# (vqattack_tpu_torch/train/cli.py, models/albef_tasks.py)
+# ---------------------------------------------------------------------------
+
+# the reference's image_res for ALBEF's Retrieval, VE and NLVR configs: 577
+# ViT tokens; VLMo's *_image384 presets: 577 image tokens + 40 text ones
+FINETUNE_SIZE = 384
+IRTR_PRESET = "task_finetune_irtr_f30k_base_image384"
+NLVR2_PRESET = "task_finetune_nlvr2_base_image384"
+VE_LABELS = ("entailment", "neutral", "contradiction")
+# retrieval's first-step loss and the gradient of the ViT's first query
+# weight, flash against xla: K3's card tolerance (2e-5 of the largest
+# magnitude, _attn_err) once for each of the ViT's 12 attentions, which
+# the loss's forward and the first block's gradient cross
+RETRIEVAL_GRAD_TOL = 12 * 2e-5
+
+
+def write_finetune_ann(tmp, task, n, size, pixel_base):
+    """``n`` annotations of ``task``'s dialect over the batched samples'
+    questions, the images served by name (``pixels``): captions on images
+    that two items share (``retrieval``, ``vlmo_irtr``: same-image items are
+    ITA positives), VE sentences with string labels on names without
+    ``.jpg``, NLVR pairs labelled "True"/"False"."""
+    ann, pixels = [], {}
+
+    def image(j, ext=".jpg"):
+        name = f"ft_{task}_{j}{ext}"
+        if name not in pixels:
+            pixels[name] = sample_pixels(pixel_base + j, size)
+        return name
+
+    for i in range(n):
+        question = VLMO_BATCH_SAMPLES[i % len(VLMO_BATCH_SAMPLES)][1]
+        if task in ("retrieval", "vlmo_irtr"):
+            ann.append({"image": image(i // 2), "caption": [question]})
+        elif task == "ve":
+            ann.append({"image": image(i, ""), "sentence": question, "label": VE_LABELS[i % 3]})
+        else:
+            ann.append({"images": [image(i), image(i + 1)], "sentence": question,
+                        "label": ("True", "False")[i % 2]})
+    path = os.path.join(tmp, f"ann_{task}.json")
+    with open(path, "w") as f:
+        json.dump(ann, f)
+    return path, pixels
+
+
+def finetune_attentions(task, depth, b, seq):
+    """The attentions of one fine-tuning step that take K3 (at least 128
+    queries): ``{(B, S, head dim, table, key bias): calls}``.  ALBEF: the
+    ViT's blocks, on the pairs' 2B images for nlvr2; vlmo_irtr: the joint
+    trunk on B x 3 pairs; vlmo_nlvr2: the joint trunk twice on B."""
+    if task in ("retrieval", "ve", "nlvr2"):
+        return {((2 if task == "nlvr2" else 1) * b, seq, HEAD_DIM, False, False): depth}
+    if task == "vlmo_irtr":
+        return {(3 * b, seq, HEAD_DIM, True, True): depth}
+    return {(b, seq, HEAD_DIM, True, True): 2 * depth}
+
+
+def _vlmo_table_617(gen, tokenizer, b):
+    """q, k, v at [b, 617, 12, 64], layer 0's [1, 12, 617, 617] bias
+    gathered from a VLMo-base table at 384 px (``build_relative_position_index``
+    over the 24 x 24 window and 40 text tokens, the table drawn normal(0,
+    0.5) as ``init_vlmo_weights`` draws it) and the key bias of ``b`` real
+    captions padded to 40 tokens."""
+    from vqattack_tpu_torch.models.vlmo import build_relative_position_index
+
+    window, text = FINETUNE_SIZE // 16, 40
+    seq = text + window ** 2 + 1
+    idx = build_relative_position_index((window, window), text)
+    table = torch.randn(idx["all_num_relative_distance"], HEADS, generator=gen,
+                        device="cuda") * 0.5  # layer 0's columns
+    joint = torch.as_tensor(idx["joint"], dtype=torch.long, device="cuda")
+    bias = table[joint].permute(2, 0, 1)[None].contiguous()
+    q, k, v = _qkv(gen, b, seq)
+    return q, k, v, bias, _pretrain_key_bias(tokenizer, b, text, seq)
+
+
+def time_k2_training(gen, rows, suffix):
+    """K2 at ``[rows, 768]`` as a trained LayerNorm calls it: the forward and
+    the backward with its parameter sums against their plain versions,
+    then timed beside their bounds and ``layer_norm(x + delta)`` (the
+    backward through autograd, to x, gamma and beta).  Rows named
+    ``residual_layernorm_{fwd,bwd_param_grads}`` with ``suffix``."""
+    x, delta, gamma, beta, gs, gh = _ln_case(gen, rows, torch.float32)
+    s_, h_ = fused_ln.residual_layernorm_fwd(x, delta, gamma, beta, 1e-6)
+    s_r, h_r = fused_ln.residual_layernorm_reference(x, delta, gamma, beta, 1e-6)
+    torch.cuda.synchronize()
+    require(torch.equal(s_, s_r), f"residual sum differs at rows={rows}")
+    h_err = _close(f"h rows={rows}", h_, h_r, torch.float32)
+    dx_err = _check_bwd(s_, gs, gh, gamma, True, f"rows={rows}")
+    fwd = _time_fwd(x, delta, gamma, beta, rows, h_err)
+    fwd["name"] += suffix
+    n = rows * D
+    # read s, gs, gh and gamma; write dx, dgamma and dbeta
+    bnd, by = bound_ms(4 * n * 4 + 3 * D * 4, 16 * n)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, gamma, beta)]
+    s_l = leaves[0] + delta
+    h_l = torch.nn.functional.layer_norm(s_l, (D,), leaves[1], leaves[2], 1e-6)
+    bwd = {
+        "name": "residual_layernorm_bwd_param_grads" + suffix, "route": "cuda",
+        "source": "vqattack_tpu_torch/csrc/fused_ln.cu",
+        "replaces": "vqattack_tpu/ops/fused_ln.py:159", "shape": [rows, D],
+        "max_abs_err": dx_err,
+        "ms": time_ms(lambda: fused_ln.residual_layernorm_bwd(s_, gs, gh, gamma, 1e-6)),
+        "plain_ms": time_ms(lambda: fused_ln.residual_layernorm_bwd_reference(
+            s_, gs, gh, gamma, 1e-6)),
+        "bound_ms": bnd, "bound_by": by,
+        "library_ms": time_ms(lambda: torch.autograd.grad(
+            (s_l, h_l), leaves, (gs, gh), retain_graph=True), sleep_cycles=20_000_000),
+    }
+    print(f"  {bwd['name']} [{rows}, {D}] f32: {bwd['ms'] * 1e3:.1f} us (plain "
+          f"{bwd['plain_ms'] * 1e3:.1f} us, autograd of layer_norm(x + delta) to x, gamma and "
+          f"beta {bwd['library_ms'] * 1e3:.1f} us, bound {bnd * 1e3:.2f} us)", flush=True)
+    return [fwd, bwd]
+
+
+def check_finetune_kernels(gen, tokenizer):
+    """K2, K3 and K3's dbias against their plain versions at the shapes the
+    fine-tuning path gives them, and timed there: ALBEF's ViT at 384 px, K3
+    without terms at [8, 577, 12, 64] (retrieval, ve: the ``_albef577``
+    rows) and [16, 577, 12, 64] (nlvr2's pairs: ``_nlvr577``), K2 at
+    [8 x 577, 768] and [16 x 577, 768] with parameter sums; VLMo-base at
+    384 px, dbias with the table and the padded-text key bias at [24, 617]
+    (vlmo_irtr's B x 3 pairs: C 8, G 3, the plane pass) and [8, 617]
+    (vlmo_nlvr2: ``_irtr617``, ``_nlvr617``)."""
+    seq = (FINETUNE_SIZE // 16) ** 2 + 1
+    rows = []
+    for b, suffix in ((TRAIN_BATCH, "_albef577"), (2 * TRAIN_BATCH, "_nlvr577")):
+        rows += time_flash_attention(gen, _check_attention_case(gen, b, seq, "none"), b, seq,
+                                     suffix)
+    for b, suffix in ((TRAIN_BATCH, "_albef577"), (2 * TRAIN_BATCH, "_nlvr577")):
+        rows += time_k2_training(gen, b * seq, suffix)
+    for b, suffix in ((3 * TRAIN_BATCH, "_irtr617"), (TRAIN_BATCH, "_nlvr617")):
+        q, k, v, table, kb = _vlmo_table_617(gen, tokenizer, b)
+        errs = _check_dbias_case(q, k, v, table, kb, f"VLMo-base at 384 px, batch {b}")
+        rows.append(time_dbias(q, k, v, table, kb, SCALE, errs,
+                               f"flash_attention_bwd_dbias{suffix}", gen))
+    return rows
+
+
+def retrieval_first_step(argv, tokenizer, pixels):
+    """``retrieval``'s first-step loss (the CLI's model from ``--seed``, its
+    first batch) and the gradient of the ViT's first query weight, under
+    flash (K3 at the ViT's 12 attentions) and under xla, the same hard
+    negatives (:class:`ReplayKey`); K2 runs in both.  Both within
+    :data:`RETRIEVAL_GRAD_TOL` of the largest magnitude (the loss's: at
+    least 1)."""
+    from vqattack_tpu_torch.train import cli as train_cli
+
+    parser = train_cli.build_argparser()
+    args = parser.parse_args(argv)
+    cfg = train_cli.resolve_config(args, None, torch.device("cuda"))
+    model, loss_fn, collate = train_cli.build_task(args, cfg, tokenizer, torch.device("cuda"))
+    with served_pixels(pixels):
+        dataset = train_cli.build_dataset(args, cfg.albef.vit.image_size)
+        batch = collate(next(train_cli._batches(dataset, args.batch_size, args.seed)))
+    weight = model.visual_encoder.blocks[0].attn.query.weight
+    key = ReplayKey(TorchKey(SEED, torch.device("cuda")))
+    out = {}
+    for impl in ("flash", "xla"):
+        before = attention.flash_attention_bwd.launches
+        with attention.attention_impl(impl):
+            loss, _ = loss_fn(model, batch, key)
+            (grad,) = torch.autograd.grad(loss, [weight])
+        key.replay()
+        require(attention.flash_attention_bwd.launches - before
+                == (cfg.albef.vit.depth if impl == "flash" else 0), f"retrieval K3 under {impl}")
+        out[impl] = (loss.item(), grad)
+    (lf, gf), (lx, gx) = out["flash"], out["xla"]
+    loss_err, grad_err, scale = abs(lf - lx), float((gf - gx).abs().max()), float(gx.abs().max())
+    require(math.isfinite(lf) and scale > 0
+            and loss_err <= RETRIEVAL_GRAD_TOL * max(1.0, abs(lx))
+            and grad_err <= RETRIEVAL_GRAD_TOL * scale,
+            f"retrieval's first step, flash against xla: loss {lf} against {lx}, the query "
+            f"gradient's max abs err {grad_err} of {scale}")
+    print(f"  retrieval first step, flash against xla (the same negatives): loss {lf:.6f} "
+          f"against {lx:.6f} (err {loss_err:.3g}); the ViT's first query gradient "
+          f"{list(gx.shape)}: max abs err {grad_err:.3g} of {scale:.3g} ({grad_err / scale:.2g}; "
+          f"tolerance {RETRIEVAL_GRAD_TOL:g})", flush=True)
+    del model, out, gf, gx
+    torch.cuda.empty_cache()
+    return {"loss_flash": lf, "loss_xla": lx, "loss_err": loss_err, "grad_err": grad_err,
+            "grad_max": scale}
+
+
+def train_finetune(tmp, vocab, tokenizer, smi):
+    """``train.cli.main`` on the five fine-tuning tasks at full width, batch
+    8, ``TRAIN_STEPS`` steps, under flash: ``retrieval``, ``ve`` and
+    ``nlvr2`` on ALBEF (ViT-B/16 at ``--image-size 384``, BERT-base fused
+    from layer 6, NLVR's 18 layers), ``vlmo_irtr --preset
+    task_finetune_irtr_f30k_base_image384`` and ``vlmo_nlvr2 --preset
+    task_finetune_nlvr2_base_image384`` (VLMo-base, the relative table),
+    the latter from a full-width synthetic 2-row VLMo-base file
+    (``--init-ckpt``: its table widened to 3 rows, row 2 a copy of row 1);
+    each run's launches against its schedule, by shape.  Also retrieval's
+    first step flash against xla and the two VLMo tasks' table gradient,
+    flash against xla.  Returns ``(summary, launches, K3 launches by
+    shape)`` of each run."""
+    from vqattack_tpu_torch import config as cfg_mod
+    from vqattack_tpu_torch.checkpoint import synthetic
+    from vqattack_tpu_torch.named_configs import vlmo_config_from_named, vlmo_named_config
+
+    out, launched, seen_all = {"card": smi}, {}, {}
+    common = ["--vocab", vocab, "--image-root", tmp, "--batch-size", str(TRAIN_BATCH),
+              "--steps", str(TRAIN_STEPS), "--log-every", "1", "--device", "cuda",
+              "--seed", str(SEED)]
+    n_items = 2 * TRAIN_BATCH * TRAIN_STEPS
+
+    def run(task, argv, pixels, depth, seq):
+        attentions = finetune_attentions(task, depth, TRAIN_BATCH, seq)
+        expected = train_implied_launches(task, depth, TRAIN_STEPS, True)
+        with attention.attention_impl("flash"), recorded_step_metrics() as rec, \
+                recorded_k3_launches() as seen:
+            summary, launched[task], seconds, peak = run_train(argv + common, pixels)
+        check_launches(launched[task], expected, {k for k, n in expected.items() if n},
+                       f"{task} --attn flash")
+        _check_shapes(seen, attentions, TRAIN_STEPS, task)
+        seen_all[task] = dict(seen)
+        steps = step_seconds(summary)
+        terms = [{k: float(v) for k, v in m.items() if v.numel() == 1} for m in rec]
+        out[task] = {"s_per_step": float(np.median(steps)), "step_s": steps, "wall_s": seconds,
+                     "peak_gib": peak, "losses": summary["losses"],
+                     "grad_norms": summary["grad_norms"], "first_step": terms[0]}
+        print(f"  {task} --attn flash: {TRAIN_STEPS} steps in {seconds:.2f} s, "
+              f"{out[task]['s_per_step']:.4f} s a step (median of steps 2-{TRAIN_STEPS}), peak "
+              f"{peak:.2f} GiB, losses {[round(x, 4) for x in summary['losses']]}, grad norms "
+              f"{[round(x, 3) for x in summary['grad_norms']]}, first step "
+              f"{({k: round(x, 4) for k, x in terms[0].items()})} ({smi})", flush=True)
+
+    # ALBEF: ViT-B/16 at 384 px (577 tokens), BERT-base fused from layer 6
+    cfg = cfg_mod.albef_attack_config()
+    require(cfg.albef.vit.depth == 12 and cfg.albef.vit.hidden_size == D
+            and cfg.albef.vit.patch_size == 16 and cfg.albef.bert.num_layers == 12
+            and cfg.albef.bert.fusion_layer == 6 and cfg.albef.embed_dim == 256,
+            "not the full-width ALBEF config")
+    seq = (FINETUNE_SIZE // 16) ** 2 + 1
+    for task in ("retrieval", "ve", "nlvr2"):
+        ann, pixels = write_finetune_ann(tmp, task, n_items, FINETUNE_SIZE, 1600)
+        argv = ["--task", task, "--ann", ann, "--image-size", str(FINETUNE_SIZE)]
+        if task == "retrieval":
+            out["retrieval_first_step"] = retrieval_first_step(argv + common, tokenizer, pixels)
+        run(task, argv, pixels, cfg.albef.vit.depth, seq)
+        del pixels
+
+    for task, preset in (("vlmo_irtr", IRTR_PRESET), ("vlmo_nlvr2", NLVR2_PRESET)):
+        vc = vlmo_config_from_named(vlmo_named_config(preset))
+        require(vc.image_size == FINETUNE_SIZE and vc.patch_size == 16 and vc.depth == 12
+                and vc.hidden_size == D and vc.num_heads == HEADS
+                and vc.need_relative_position_embed and vc.max_text_len == 40
+                and vc.type_vocab_size == 2, f"not the full-width VLMo-base {preset}")
+        seq = vc.max_text_len + vc.image_seq_len
+        ann, pixels = write_finetune_ann(tmp, task, n_items, vc.image_size, 1700)
+        argv = ["--task", task, "--preset", preset, "--ann", ann]
+        inspect = None
+        if task == "vlmo_nlvr2":
+            # a pre-trained VLMo-base file of 2 token types (the checkpoint
+            # phase's writer), grafted by the CLI into the 3-row NLVR2 model
+            sd = synthetic.vlmo_state_dict(vc, SEED + 7)
+            rows2 = sd["token_type_embeddings.weight"].float()
+            init = os.path.join(tmp, "vlmo_nlvr2_init.pt")
+            torch.save({"state_dict": sd}, init)
+            del sd
+            argv += ["--init-ckpt", init]
+
+            def inspect(model):
+                w = model.token_type_embeddings.weight.detach().cpu()
+                require(w.shape[0] == 3 and torch.equal(w[:2], rows2) and torch.equal(w[2], w[1]),
+                        "vlmo_nlvr2 --init-ckpt: the 3-row table is not the file's 2 rows with "
+                        "row 1 copied into row 2")
+                print(f"  vlmo_nlvr2 --init-ckpt from a 2-row VLMo-base file: the modality "
+                      f"table {list(w.shape)}, rows 0-1 the file's, row 2 a copy of row 1",
+                      flush=True)
+                out["nlvr2_table_widened"] = True
+
+        run(task, argv, pixels, vc.depth, seq)
+        # vlmo_irtr: the end-to-end gradient to the largest entry, and the
+        # kernel attention by attention (TABLE_GRAD_OF_LARGEST_TOL)
+        out[f"{task}_table_grad"] = vlmo_table_gradient(
+            argv + common, tokenizer, pixels, (2 if task == "vlmo_nlvr2" else 1) * vc.depth,
+            inspect, per_call=task == "vlmo_irtr")
+        if task == "vlmo_nlvr2":
+            require(out.get("nlvr2_table_widened"), "vlmo_nlvr2's table was not inspected")
+            os.remove(init)
+        del pixels
     return out, launched, seen_all
 
 
@@ -4164,6 +4572,17 @@ def main() -> int:
                f"vlmo_textmlm (base+ and base), batch {TRAIN_BATCH}, {TRAIN_STEPS} steps"):
         t_pre, pre_launched, pre_seen = train_pretrain(tmp, paths["vocab"], tokenizer, smi)
 
+    # ------------------------------- downstream fine-tuning: ALBEF and VLMo
+    with Phase("K2, K3 and dbias against their plain versions at the fine-tuning shapes "
+               "(ALBEF at 384 px: [8 and 16, 577]; VLMo-base at 384 px: dbias at [24 and 8, "
+               "617]), timed"):
+        ft_rows = check_finetune_kernels(gen, tokenizer)
+    with Phase(f"downstream fine-tuning at full width: retrieval, ve, nlvr2 (ALBEF at "
+               f"{FINETUNE_SIZE} px), vlmo_irtr and vlmo_nlvr2 (VLMo-base at {FINETUNE_SIZE} px), "
+               f"batch {TRAIN_BATCH}, {TRAIN_STEPS} steps, --attn flash") as ph:
+        t_ft, ft_launched, ft_seen = train_finetune(tmp, paths["vocab"], tokenizer, smi)
+    t_ft["phase_s"] = round(ph.seconds, 2)
+
     # ------------------------------------------------ the checkpoint path
     with Phase(f"checkpoint path: run.main with .pth files, --batch-size {BATCH_SIZE} "
                f"--attn flash --pipeline-depth {PIPELINE_DEPTH}") as ph:
@@ -4224,6 +4643,30 @@ def main() -> int:
     # K3's dbias at head dim 34 runs on no path (VLMo-base+ has no table)
     for row in hd34_dbias_rows:
         row["launches"] = 0
+    # the fine-tuning rows: each shape's launches in the runs that give it
+    ft_seq, vc_seq = (FINETUNE_SIZE // 16) ** 2 + 1, (FINETUNE_SIZE // 16) ** 2 + 41
+    k3_runs = {"_albef577": (("retrieval", "ve"), TRAIN_BATCH),
+               "_nlvr577": (("nlvr2",), 2 * TRAIN_BATCH)}
+    for row in ft_rows:
+        name = row["name"]
+        suffix = name[name.rindex("_"):]
+        if name.startswith("flash_attention_bwd_dbias"):
+            task, b = {"_irtr617": ("vlmo_irtr", 3 * TRAIN_BATCH),
+                       "_nlvr617": ("vlmo_nlvr2", TRAIN_BATCH)}[suffix]
+            row["launches"] = ft_seen[task].get(("bwd", b, vc_seq, 64, True, True, True), 0)
+        elif name.startswith("flash_attention"):
+            tasks, b = k3_runs[suffix]
+            key = ("fwd" if "_fwd" in name else "bwd", b, ft_seq, 64, False, False, False)
+            row["launches"] = sum(ft_seen[t].get(key, 0) for t in tasks)
+        else:  # K2: one ViT shape a run
+            counted = name[: -len(suffix)]
+            row["launches"] = sum(ft_launched[t][counted] for t in k3_runs[suffix][0])
+        require(row["launches"] > 0, f"{name}: no launch on the fine-tuning path")
+    rows += ft_rows
+    print(json.dumps({"finetuning": t_ft, "finetuning_launches": ft_launched,
+                      "k3_launches_by_shape": {
+        run: {"/".join(map(str, k)): n for k, n in seen.items()} for run, seen in ft_seen.items()},
+        "card": smi}), flush=True)
     print(json.dumps({"pretraining": t_pre, "pretraining_launches": pre_launched,
                       "k3_launches_by_shape": {
         run: {"/".join(map(str, k)): n for k, n in seen.items()} for run, seen in pre_seen.items()},

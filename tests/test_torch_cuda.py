@@ -1109,3 +1109,125 @@ def test_multi_restart_on_the_card_matches_the_cpu(gen):
     d = (adv_c.cpu() - adv).abs()
     assert float(d.max()) <= 2 * 0.01 * 4 + 1e-6 and float(d.mean()) < 1e-4
     assert float((adv_c.cpu() - x).abs().max()) <= 0.125 + 1e-6
+
+
+# ---------------------------------------------------------------------------
+# the fine-tuning slice's shapes: ALBEF's ViT at 384 px (577 tokens: four
+# 128-row tiles and 65 rows), nlvr2's pairs at 2 x 8; VLMo-base at 384 px
+# (617 joint tokens), vlmo_irtr's 8 x 3 pairs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b", [8, 16])
+def test_flash_attention_at_the_finetuning_shapes(gen, b):
+    """K3 without terms at [B, 577, 12, 64] (retrieval and ve at batch 8,
+    nlvr2's 16 images) against the plain versions, the backward the same
+    bit for bit."""
+    q, k, v, _ = _attention_case(gen, b, 577, 577, "none", h=12)
+    scale = 64 ** -0.5
+    o, lse = attention.flash_attention_fwd(q, k, v, None, scale)
+    o_r, lse_r = attention.flash_attention_reference(q, k, v, None, scale, return_lse=True)
+    _close(o, o_r, "o")
+    _close(lse, lse_r, "lse")
+    do = torch.randn(o.shape, generator=gen, device="cuda")
+    grads = attention.flash_attention_bwd(q, k, v, None, scale, o, lse, do)
+    again = attention.flash_attention_bwd(q, k, v, None, scale, o, lse, do)
+    refs = attention.flash_attention_bwd_reference(q, k, v, None, scale, o, lse, do)
+    for name, g, g2, r in zip(("dq", "dk", "dv"), grads, again, refs):
+        assert torch.equal(g, g2), f"{name} differs between two runs"
+        _close(g, r, name)
+
+
+def _vlmo_base_384_table(gen, h=12):
+    """One layer's [1, H, 617, 617] bias of a VLMo-base table at 384 px: the
+    index tables of a 24 x 24 window and 40 text tokens, the layer's
+    columns drawn normal(0, 0.5) as ``init_vlmo_weights`` draws them."""
+    from vqattack_tpu_torch.models.vlmo import build_relative_position_index
+
+    idx = build_relative_position_index((24, 24), 40)
+    table = torch.randn(idx["all_num_relative_distance"], h, generator=gen, device="cuda") * 0.5
+    joint = torch.as_tensor(idx["joint"], dtype=torch.long, device="cuda")
+    return table[joint].permute(2, 0, 1)[None].contiguous()
+
+
+def test_flash_attention_dbias_at_the_vlmo_irtr_shape(gen):
+    """The dbias instance at vlmo_irtr's [24, 617, 12, 64] (clusters of 8,
+    three planes added by the plane pass) with VLMo-base's table at 384 px
+    and the padded text's key bias (rows of 12 to 30 real tokens of 40):
+    against the plain backward, dbias and dq/dk/dv the same bit for bit on
+    a repeat."""
+    b, s = 24, 617
+    q, k, v, _ = _attention_case(gen, b, s, s, "none", h=12)
+    table = _vlmo_base_384_table(gen)
+    kb = torch.zeros(b, s, device="cuda")
+    for row in range(b):
+        kb[row, 12 + (row * 7) % 19: 40] = -1e9
+    plan = attention.dbias_plan((b, 12, s, s), tuple(table.shape))
+    assert (plan.cluster, plan.groups) == (8, 3)
+    scale = 64 ** -0.5
+    o, lse = attention.flash_attention_fwd(q, k, v, table, scale, kb)
+    do = torch.randn(o.shape, generator=gen, device="cuda")
+    grads = attention.flash_attention_bwd(q, k, v, table, scale, o, lse, do, kb, dbias=True)
+    again = attention.flash_attention_bwd(q, k, v, table, scale, o, lse, do, kb, dbias=True)
+    refs = attention.flash_attention_bwd_reference(q, k, v, table, scale, o, lse, do, kb,
+                                                   dbias=True)
+    assert grads[3].shape == table.shape
+    for name, g, g2, r in zip(("dq", "dk", "dv", "dbias"), grads, again, refs):
+        assert torch.equal(g, g2), f"{name} differs between two runs"
+        (_dbias_close if name == "dbias" else _close)(g, r, name)
+
+
+def test_vlmo_irtr_step_on_the_card(gen):
+    """One ``vlmo_irtr`` step (two negatives) of a two-block VLMo-base at
+    384 px, batch 2, on the card under flash and under xla from the same
+    weights and offsets: the losses within 1e-5; each entry of the
+    relative-position table's gradient within 1e-4 of its mass (the |bias
+    gradients| the gather adds into it) or 1e-6 of the largest entry, as
+    ``chip_smoke.py``'s ``TABLE_GRAD_TOL``; under flash one K3 forward and
+    one dbias backward a block, at [6, 617]."""
+    import copy
+    import dataclasses
+
+    from vqattack_tpu_torch.models.vlmo import VLMo, init_vlmo_weights
+    from vqattack_tpu_torch.named_configs import vlmo_config_from_named, vlmo_named_config
+    from vqattack_tpu_torch.train import objectives
+
+    cfg = dataclasses.replace(vlmo_config_from_named(vlmo_named_config(
+        "task_finetune_irtr_f30k_base_image384")), depth=2, vlffn_start_layer=1)
+    with torch.device("cuda"):
+        # .to: the relative-position indices are buffers made from numpy
+        model = init_vlmo_weights(VLMo(cfg), 0).to("cuda")
+    batch = {"pixels": torch.rand(2, 3, 384, 384, generator=gen, device="cuda") * 2 - 1,
+             "text_ids": torch.randint(1000, 2000, (2, 40), generator=gen, device="cuda"),
+             "text_mask": torch.ones(2, 40, dtype=torch.long, device="cuda")}
+    batch["text_mask"][1, 25:] = 0
+    out = {}
+    for impl in ("flash", "xla"):
+        m = copy.deepcopy(model)
+        biases, rel_bias = [], m._rel_bias
+
+        def recorded(layer, kind):  # each attention's gathered bias, for its gradient
+            biases.append((layer, kind, rel_bias(layer, kind)))
+            return biases[-1][2]
+
+        m._rel_bias = recorded
+        fwd = attention.flash_attention_fwd.launches
+        dbias = attention.flash_attention_bwd.dbias_launches
+        with attention.attention_impl(impl):
+            loss, _ = objectives.vlmo_irtr_train_loss(m, batch, TorchKey(3, "cuda"), num_negs=2)
+            g, *layer_grads = torch.autograd.grad(
+                loss, [m.relative_position_bias_table] + [b for *_, b in biases])
+        n = 2 if impl == "flash" else 0
+        assert attention.flash_attention_fwd.launches - fwd == n
+        assert attention.flash_attention_bwd.dbias_launches - dbias == n
+        assert torch.isfinite(loss) and bool(torch.isfinite(g).all())
+        mass = torch.zeros_like(g)
+        for (layer, kind, _), lg in zip(biases, layer_grads):
+            idx = getattr(m, f"_rel_index_{kind}").flatten()
+            mass[:, layer * 12:(layer + 1) * 12].index_add_(
+                0, idx, lg[0].abs().permute(1, 2, 0).reshape(-1, 12))
+        out[impl] = (float(loss), g, mass)
+    (lf, gf, _), (lx, gx, mass) = out["flash"], out["xla"]
+    assert abs(lf - lx) <= 1e-5 * max(1.0, abs(lx))
+    assert float(gx.abs().max()) > 0
+    assert bool(((gf - gx).abs() <= 1e-4 * mass + 1e-6 * float(gx.abs().max())).all())

@@ -30,8 +30,9 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import (JaxKey, _host, jax_params_of, nchw, shallow_albef, tiny_configs,
-                             tiny_models, tiny_vlmo, tiny_vlmo_configs)
+from torch_port_util import (JaxKey, _host, adam_mu, jax_params_of, nchw, port_layout,
+                             row_norm, shallow_albef, tiny_configs, tiny_models, tiny_vlmo,
+                             tiny_vlmo_configs)  # noqa: F401 (row_norm: a fixture)
 from vqattack_tpu.data import arrow_writer as jarrow_writer
 from vqattack_tpu.data import collators as jcollators
 from vqattack_tpu.data import pretrain_datasets as jdatasets
@@ -44,7 +45,7 @@ from vqattack_tpu.text.tokenizer import WordPieceTokenizer as JTokenizer
 from vqattack_tpu.train import objectives as jobj
 from vqattack_tpu.train import trainer as jtrainer
 from vqattack_tpu_torch import config as tcfg
-from vqattack_tpu_torch.checkpoint.convert import flax_leaves, load_jax_params
+from vqattack_tpu_torch.checkpoint.convert import load_jax_params
 from vqattack_tpu_torch.data import arrow_writer, collators, pretrain_datasets, pretrain_writers
 from vqattack_tpu_torch.data.transforms import test_transform as port_transform
 from vqattack_tpu_torch.models.albef import AlbefPretrain, init_weights
@@ -58,22 +59,9 @@ VOCAB = 64
 B = 3  # a batch of three: every row has two hard negatives to draw from
 
 
-def _leaf(tree, path):
-    node = tree["params"] if "params" in tree else tree
-    for p in path:
-        node = node[p]
-    return np.asarray(node)
-
-
-def _port_layout(model, tree):
-    """The JAX tree's leaves by the port's parameter names, in its layout."""
-    return {name: transform(_leaf(tree, path)) for name, path, transform, _ in
-            flax_leaves(model)}
-
-
 def _close_grads(model, grads, j_grads):
     """The port's gradients (by name) against the JAX tree's."""
-    want = _port_layout(model, j_grads)
+    want = port_layout(model, j_grads)
     largest = max(float(np.abs(g).max()) for g in want.values())
     assert largest > 0
     for name, p in optim.named_params(model).items():
@@ -81,25 +69,6 @@ def _close_grads(model, grads, j_grads):
         g = np.zeros(p.shape, np.float32) if g is None else g.detach().numpy()
         atol = max(1e-5 * float(np.abs(want[name]).max()), 1e-6 * largest)
         np.testing.assert_allclose(g, want[name], rtol=1e-3, atol=atol, err_msg=name)
-
-
-@pytest.fixture
-def row_norm(monkeypatch):
-    """``jnp.linalg.norm(x, -1, keepdims=True)`` taken along the last axis.
-    The JAX package's ``albef_pretrain_loss`` normalises the ITM
-    similarities' features with that call, whose second argument is
-    ``ord``: it divides by the matrix's ord -1 norm, a scalar, where the
-    reference (``F.normalize(..., dim=-1)``, ``model_pretrain.py``) and the
-    port divide each row by its own norm.  The tests hold the port against
-    the JAX function with that call taken per row."""
-    norm = jnp.linalg.norm
-
-    def per_row(x, ord=None, axis=None, keepdims=False):
-        if ord == -1 and axis is None:
-            return norm(x, axis=-1, keepdims=keepdims)
-        return norm(x, ord, axis, keepdims)
-
-    monkeypatch.setattr(jnp.linalg, "norm", per_row)
 
 
 def test_the_jax_itm_similarities_are_not_row_normalised():
@@ -311,7 +280,7 @@ def test_momentum_update_matches_jax(albef):
     want = jobj.momentum_update(params, t_params, 0.9)
     got = objectives.momentum_update(model, teacher, 0.9)
     assert got is teacher
-    want = _port_layout(teacher, _host(want))
+    want = port_layout(teacher, _host(want))
     for name, p in optim.named_params(teacher).items():
         np.testing.assert_allclose(p.detach().numpy(), want[name], rtol=1e-6, atol=1e-7,
                                    err_msg=name)
@@ -674,13 +643,6 @@ def _recording(make_step, recorded):
     return make
 
 
-def _adam_mu(opt_state):
-    """The first moment of optax's Adam state."""
-    nodes = jax.tree_util.tree_leaves(opt_state, is_leaf=lambda x: hasattr(x, "mu"))
-    (state,) = [n for n in nodes if hasattr(n, "mu")]
-    return state.mu
-
-
 @pytest.mark.parametrize("task", TASKS)
 def test_train_step_matches_jax(tmp_path, corpora, task, monkeypatch, row_norm):
     """One step of each task through both CLIs, from ``--arrow-root`` over
@@ -734,10 +696,10 @@ def test_train_step_matches_jax(tmp_path, corpora, task, monkeypatch, row_norm):
     assert summary["losses"] == [float(t_metrics["loss"])]
     model, lr = t_state.model, 1e-4
     # every gradient, as Adam's first moment after one step: 0.1 g in both
-    j_mu = _host(_adam_mu(j_state.opt_state))
+    j_mu = _host(adam_mu(j_state.opt_state))
     _close_grads(model, t_state.opt_state["mu"], j_mu)
-    want = _port_layout(model, _host(j_state.params))
-    want_g = _port_layout(model, j_mu)
+    want = port_layout(model, _host(j_state.params))
+    want_g = port_layout(model, j_mu)
     for name, p in optim.named_params(model).items():
         atol = np.where(np.abs(want_g[name]) > 1e-7, 1e-4 * lr, 2 * lr)
         np.testing.assert_array_less(np.abs(p.detach().numpy() - want[name]),

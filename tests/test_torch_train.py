@@ -33,8 +33,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import (nchw, shallow_albef, tiny_configs, tiny_models, tiny_vlmo,
-                             tiny_vlmo_configs)
+from torch_port_util import (leaf, nchw, port_layout, shallow_albef, tiny_configs,
+                             tiny_models, tiny_vlmo, tiny_vlmo_configs)
 from vqattack_tpu.data import transforms as jtransforms
 from vqattack_tpu.models.vlmo import VLMo as JVLMo
 from vqattack_tpu.text.tokenizer import SPECIAL_TOKENS
@@ -59,19 +59,6 @@ from vqattack_tpu_torch.utils import meters
 
 T = torch.from_numpy
 VOCAB = 64
-
-
-def _leaf(tree, path):
-    node = tree["params"] if "params" in tree else tree
-    for p in path:
-        node = node[p]
-    return np.asarray(node)
-
-
-def _port_layout(model, tree):
-    """The JAX tree's leaves by the port's parameter names, in its layout."""
-    return {name: transform(_leaf(tree, path)) for name, path, transform, _ in
-            flax_leaves(model)}
 
 
 # ---------------------------------------------------------------------------
@@ -126,9 +113,9 @@ def test_optimizers_match_optax_on_identical_gradients(vlmo, opt, kw):
         grads = jax.tree_util.tree_map(
             lambda x: np.asarray(rng.normal(size=np.shape(x)) * 0.1, np.float32), p_j)
         p_j, state = j_step(grads, state, p_j)
-        t_grads = {n: T(np.array(g, order="C")) for n, g in _port_layout(model, grads).items()}
+        t_grads = {n: T(np.array(g, order="C")) for n, g in port_layout(model, grads).items()}
         t_state = t_tx.step(t_params, t_grads, t_state)
-        want = _port_layout(model, p_j)
+        want = port_layout(model, p_j)
         for name, p in t_params.items():
             np.testing.assert_allclose(p.detach().numpy(), want[name], rtol=1e-5,
                                        atol=3e-5 * 1e-2 * kw.get("head_lr_mult", 1.0),
@@ -147,7 +134,7 @@ def test_decay_mask_matches_jax(vlmo):
         got = optim.decay_mask(m)
         assert len(got) == len(list(m.parameters()))
         for name, path, _, _ in flax_leaves(m):
-            assert got[name] == bool(_leaf(want, path)), name
+            assert got[name] == bool(leaf(want, path)), name
         assert any(got.values()) and not all(got.values())
 
 
@@ -264,7 +251,7 @@ def test_train_step_matches_jax(task):
     t_params = optim.named_params(model)
     loss, _ = tloss(model, t_batch, None)
     grads = torch.autograd.grad(loss, list(t_params.values()), allow_unused=True)
-    want_g = _port_layout(model, j_grads)
+    want_g = port_layout(model, j_grads)
     largest = max(float(np.abs(g).max()) for g in want_g.values())
     for (name, p), g in zip(t_params.items(), grads):
         g = torch.zeros_like(p) if g is None else g
@@ -278,7 +265,7 @@ def test_train_step_matches_jax(task):
     np.testing.assert_allclose(float(metrics["loss"]), float(j_metrics["loss"]), rtol=1e-5)
     np.testing.assert_allclose(float(metrics["grad_norm"]), float(j_metrics["grad_norm"]),
                                rtol=1e-4)
-    want = _port_layout(model, j_state.params)
+    want = port_layout(model, j_state.params)
     for name, p in t_params.items():
         atol = np.where(np.abs(want_g[name]) > 1e-6, 1e-4 * lr, 2 * lr)
         np.testing.assert_array_less(np.abs(p.detach().numpy() - want[name]),
@@ -415,16 +402,6 @@ def test_init_ckpt_grafts_the_files_trunk(tmp_path, task, capsys):
                         "--init-ckpt", path])
     assert f"{n} tensors grafted" in capsys.readouterr().out
     assert np.isfinite(summary["losses"]).all()
-
-
-def test_cli_refuses_tasks_not_ported(tmp_path):
-    assets = _cli_assets(tmp_path)
-    for task in ("retrieval", "ve", "nlvr2", "vlmo_irtr", "vlmo_nlvr2"):
-        assert task not in cli.PORTED_TASKS
-        with pytest.raises(SystemExit, match="not ported yet"):
-            cli.main(["--task", task, *assets])
-    assert set(cli.PORTED_TASKS) | {"retrieval", "ve", "nlvr2", "vlmo_irtr",
-                                    "vlmo_nlvr2"} == set(cli.TASKS)
 
 
 def test_preset_fills_defaults_but_flags_win():

@@ -4,7 +4,11 @@
   package's ``jax.random`` draws, so both packages see the same noise;
 - tiny ALBEF and VLMo geometries and models built in both packages with
   the same weights (the port's random weights -> flax variables);
-- layout helpers: the port's pixels are NCHW, the JAX package's NHWC;
+- layout helpers: the port's pixels are NCHW, the JAX package's NHWC; a
+  JAX tree's leaves by the port's parameter names (:func:`port_layout`),
+  optax Adam's first moment (:func:`adam_mu`);
+- :func:`row_norm`, the fixture that takes the JAX losses' ``ord=-1``
+  feature norm per row;
 - :func:`synth_cli_assets`: synthetic data and side tables for a CLI run.
 """
 
@@ -20,6 +24,7 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from vqattack_tpu import config as jcfg
@@ -102,6 +107,47 @@ def fixed_topk(tok, candidates):
         return scores, out
 
     return topk
+
+
+def leaf(tree, path) -> np.ndarray:
+    """The leaf at ``path`` of a flax tree (under ``params`` where it has one)."""
+    node = tree["params"] if "params" in tree else tree
+    for p in path:
+        node = node[p]
+    return np.asarray(node)
+
+
+def port_layout(model, tree) -> dict:
+    """The JAX tree's leaves by the port's parameter names, in its layout."""
+    return {name: transform(leaf(tree, path)) for name, path, transform, _ in
+            flax_leaves(model)}
+
+
+def adam_mu(opt_state):
+    """The first moment of optax's Adam state."""
+    nodes = jax.tree_util.tree_leaves(opt_state, is_leaf=lambda x: hasattr(x, "mu"))
+    (state,) = [n for n in nodes if hasattr(n, "mu")]
+    return state.mu
+
+
+@pytest.fixture
+def row_norm(monkeypatch):
+    """``jnp.linalg.norm(x, -1, keepdims=True)`` taken along the last axis.
+    The JAX package's ``albef_pretrain_loss`` (the ITM similarities'
+    features) and ``indexed_contrastive_loss`` (retrieval's ITA features)
+    normalise with that call, whose second argument is ``ord``: they divide
+    by the matrix's ord -1 norm, a scalar, where the reference
+    (``F.normalize(..., dim=-1)``) and the port divide each row by its own
+    norm.  The tests hold the port against the JAX functions with that call
+    taken per row."""
+    norm = jnp.linalg.norm
+
+    def per_row(x, ord=None, axis=None, keepdims=False):
+        if ord == -1 and axis is None:
+            return norm(x, axis=-1, keepdims=keepdims)
+        return norm(x, ord, axis, keepdims)
+
+    monkeypatch.setattr(jnp.linalg, "norm", per_row)
 
 
 def nhwc(x) -> np.ndarray:

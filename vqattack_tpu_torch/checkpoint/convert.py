@@ -3,7 +3,8 @@ converted to flax-layout trees, and any flax tree loaded into a module.
 
 The converters (``load_torch_checkpoint``, ``convert_vit``,
 ``convert_fusion_bert``, ``convert_albef_pretrain``, ``convert_albef_vqa``,
-``convert_vlmo``, ``resize_vlmo_rel_pos_table``) are a copy of
+``convert_vlmo``, ``resize_vlmo_rel_pos_table``,
+``widen_token_type_embeddings``) are a copy of
 ``vqattack_tpu/checkpoint/convert.py``: key surgery from the reference's
 torch names to the flax tree of the JAX package (timm's fused qkv split in
 thirds), numpy in and out.  :func:`load_jax_params` is the one place that
@@ -24,9 +25,11 @@ layer type:
 
 The tree is nested dicts of numpy arrays (``jax.device_get`` of a flax
 ``variables`` or ``variables["params"]``).  Works for ``AlbefPretrain``,
-``AlbefVQA``, the candidate-MLM ``FusionBert`` and ``VLMo`` (the tree of
-its ``init_all``: both experts of the VL layers, the ITC projections, both
-logit scales, ``itm_score``, with nothing left over).
+``AlbefVQA``, the task models of ``models/albef_tasks.py``, the
+candidate-MLM ``FusionBert`` and ``VLMo`` (the tree of its ``init_all``:
+both experts of the VL layers, the ITC projections, both logit scales,
+``itm_score``, NLVR2's head where the model has it, with nothing left
+over).
 """
 
 from __future__ import annotations
@@ -481,6 +484,21 @@ def convert_vilt(sd: Dict[str, np.ndarray], depth: int = 12,
         if f"{head}.0.weight" in sd:
             tree[head] = _classifier(sd, head)
     return tree
+
+
+def widen_token_type_embeddings(tree: Dict[str, Any], n_types: int = 3) -> Dict[str, Any]:
+    """NLVR2's load surgery: the modality token-type table widened to
+    ``n_types`` rows, each new row a copy of row 1 (the image row), as the
+    reference widens a 2-row checkpoint for its 3-row NLVR2 model
+    (``vlmo_module.py:291-296``).  A table of ``n_types`` rows or more is
+    left as it is.  Returns a shallow copy of ``tree``."""
+    out = dict(tree)
+    emb = np.asarray(out["token_type_embeddings"]["embedding"])
+    if emb.shape[0] >= n_types:
+        return out
+    pad = np.broadcast_to(emb[1:2], (n_types - emb.shape[0], emb.shape[1]))
+    out["token_type_embeddings"] = {"embedding": np.concatenate([emb, pad])}
+    return out
 
 
 def resize_vlmo_rel_pos_table(table: np.ndarray, src_window: int,

@@ -42,6 +42,7 @@ from vqattack_tpu_torch.checkpoint.convert import (
     convert_vlmo,
     load_jax_params,
     load_torch_checkpoint,
+    widen_token_type_embeddings,
 )
 from vqattack_tpu_torch.config import ALBEFConfig, VLMoConfig
 from vqattack_tpu_torch.train.optim import named_params
@@ -51,8 +52,9 @@ from vqattack_tpu_torch.train.optim import named_params
 # (vlmo_module.py:229-296 builds each head from its task's loss weight)
 VLMO_OPTIONAL_HEADS = ("mlm_score", "itm_score", "itc_text_proj", "itc_image_proj",
                        "itc_vl_text_proj", "itc_vl_image_proj", "logit_scale",
-                       "logit_vl_scale", "vqa_classifier")
-# checkpoint heads the port's VLMo has no module for
+                       "logit_vl_scale", "vqa_classifier", "nlvr2_classifier")
+# checkpoint heads dropped where the model has no module for them (a VLMo
+# built without ``with_nlvr2_head``)
 VLMO_DROPPED_HEADS = ("nlvr2_classifier",)
 
 
@@ -81,24 +83,35 @@ def load_albef_vqa(path: str, cfg: ALBEFConfig, into: Optional[nn.Module] = None
 
 
 def load_vlmo(path: str, cfg: VLMoConfig, src_image_size: Optional[int] = None,
-              into: Optional[nn.Module] = None):
+              into: Optional[nn.Module] = None, token_types: Optional[int] = None):
     """A VLMo checkpoint trained at ``src_image_size`` (default: the
     config's), its relative table (or abs-pos grid) resized to
-    ``cfg.image_size``.  Loading into a module, the heads of
-    :data:`VLMO_OPTIONAL_HEADS` the file lacks keep their values and the
-    heads of :data:`VLMO_DROPPED_HEADS` it has are dropped, both named on
-    one printed line; every trunk tensor is required."""
+    ``cfg.image_size``.  ``token_types=3``: for ``VLMo(with_nlvr2_head=True)``,
+    the modality table widened to 3 rows by the reference's copy of row 1
+    (:func:`~vqattack_tpu_torch.checkpoint.convert.widen_token_type_embeddings`),
+    and the text embeddings' table to ``cfg.type_vocab_size`` rows in the
+    same way (the training CLI's NLVR2 config widens both; text is always
+    type 0, so the copied rows are never read).  Loading into a module, the
+    heads of :data:`VLMO_OPTIONAL_HEADS` the file lacks keep their values
+    and the heads of :data:`VLMO_DROPPED_HEADS` it has and the module lacks
+    are dropped, both named on one printed line; every trunk tensor is
+    required."""
     sd = load_torch_checkpoint(path)
     kw = {}
     if src_image_size is not None and src_image_size != cfg.image_size:
         kw = dict(new_window=cfg.image_size // cfg.patch_size,
                   src_window=src_image_size // cfg.patch_size)
     tree = convert_vlmo(sd, depth=cfg.depth, **kw)
+    if token_types is not None:
+        tree = widen_token_type_embeddings(tree, token_types)
+        tree["text_embeddings"] = widen_token_type_embeddings(tree["text_embeddings"],
+                                                              cfg.type_vocab_size)
     if into is None:
         return tree
     absent = [h for h in VLMO_OPTIONAL_HEADS
               if h not in tree and getattr(into, h, None) is not None]
-    dropped = [h for h in VLMO_DROPPED_HEADS if tree.pop(h, None) is not None]
+    dropped = [h for h in VLMO_DROPPED_HEADS
+               if getattr(into, h, None) is None and tree.pop(h, None) is not None]
     if absent or dropped:
         print(f"{path}: heads absent from the checkpoint, kept at their initial values: "
               f"{', '.join(absent) or 'none'}; checkpoint heads with no module, dropped: "

@@ -1,13 +1,21 @@
 """VQAv2 dataset over JSON annotations + JPEGs (the ALBEF data path).
 
-Port of the VQA part of ``vqattack_tpu/data/vqa.py`` (reference
-``dataset/vqa_dataset.py``): per item ``{question, qid, pixels [1, 3, H, W],
-answers, weights}``, with the question normalised by :func:`pre_question`
-and answer-frequency weights, and VLMo's soft targets (``answer_labels``,
-``answer_scores``) passed through where the annotation has them.  The test
-split is what the attack reads; the train split (the VQA fine-tuning
-tasks) appends the ``[SEP]`` eos to every answer (``vqa_dataset.py:89``).
-Images are decoded with PIL, imported only when an image is read.
+Port of ``vqattack_tpu/data/vqa.py`` (reference ``dataset/vqa_dataset.py``
+and the task datasets beside it): per item ``{question, qid, pixels [1, 3,
+H, W], answers, weights}``, with the question normalised by
+:func:`pre_question` and answer-frequency weights.  The test split is what
+the attack reads; the train split (the fine-tuning tasks) appends the
+``[SEP]`` eos to every answer (``vqa_dataset.py:89``).
+
+The annotation dialects of the reference's task datasets are read too: the
+text from ``question``, else ``sentence`` (VE, NLVR), ``text`` (grounding)
+or ``caption`` (retrieval; the first of a list); an image name without an
+extension gets ``.jpg`` (``ve_dataset.py:24``); NLVR's ``images`` pair
+gives ``pixels0``, ``pixels1`` and ``pixels`` (the first); a single image
+gives ``img_idx``, the image's identity index (same-image items are
+retrieval's positives), kept under a lock; ``label`` (a string label mapped
+by ``_STR_LABELS``), VLMo's soft targets, ``sentence`` and ``ref_id`` pass
+through.  Images are decoded with PIL, imported only when an image is read.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ import json
 import os
 import random
 import re
+import threading
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 
@@ -49,6 +58,8 @@ class VQADataset:
         if answer_list:
             with open(answer_list) as fh:
                 self.answer_list = json.load(fh)
+        self._img_ids: Dict[str, int] = {}
+        self._img_ids_lock = threading.Lock()
 
     def __len__(self) -> int:
         return len(self.ann)
@@ -65,22 +76,45 @@ class VQADataset:
                 idx = random.Random(idx + attempt).randrange(len(self))
         raise RuntimeError("unreachable")
 
+    # the string labels of the task annotations: SNLI-VE's (ve_dataset.py:14)
+    # and NLVR's 'True'/'False' (nlvr_dataset.py:35-38)
+    _STR_LABELS = {"entailment": 2, "neutral": 1, "contradiction": 0, "True": 1, "False": 0}
+
     def _load_pixels(self, name: str):
         from PIL import Image
 
-        with Image.open(os.path.join(self.image_root, name)) as img:
+        path = os.path.join(self.image_root, name)
+        if "." not in os.path.basename(name):
+            path += ".jpg"  # ve_dataset.py:24 appends the extension
+        with Image.open(path) as img:
             return self.transform(img)[None]  # [1, 3, H, W]
 
     def _get_item(self, idx: int) -> Dict[str, Any]:
         ann = self.ann[idx]
-        item: Dict[str, Any] = {
-            "question": pre_question(ann["question"], self.max_ques_words),
-            "qid": ann.get("question_id"),
-            "pixels": self._load_pixels(ann["image"]),
-        }
-        for key in ("answer_labels", "answer_scores"):
+        text = ann.get("question")
+        if text is None:
+            text = ann.get("sentence", ann.get("text", ann.get("caption", "")))
+        if isinstance(text, list):  # a caption file may hold several
+            text = text[0] if text else ""
+        item: Dict[str, Any] = {"question": pre_question(text, self.max_ques_words),
+                                "qid": ann.get("question_id")}
+        if "images" in ann:  # NLVR's pair (nlvr_dataset.py:25-31)
+            item["pixels0"] = self._load_pixels(ann["images"][0])
+            item["pixels1"] = self._load_pixels(ann["images"][1])
+            item["pixels"] = item["pixels0"]
+        else:
+            item["pixels"] = self._load_pixels(ann["image"])
+            # the image's identity index (grounding_dataset.py:17-24); the
+            # read and the insert under one lock, so that two images read on
+            # two threads never share an index
+            img_id = str(ann["image"]).split("/")[-1]
+            with self._img_ids_lock:
+                item["img_idx"] = self._img_ids.setdefault(img_id, len(self._img_ids))
+        for key in ("label", "answer_labels", "answer_scores", "sentence", "ref_id"):
             if key in ann:
                 item[key] = ann[key]
+        if isinstance(item.get("label"), str):
+            item["label"] = self._STR_LABELS.get(item["label"], 0)
         # answer-frequency weights (vqa_dataset.py:44-66): each occurrence
         # adds 1/len(answers), so a question's weights sum to 1
         raw = ann.get("answer", [])

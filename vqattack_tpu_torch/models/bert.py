@@ -8,7 +8,9 @@ modes ``"text"`` (layers ``[0, fusion_layer)``), ``"fusion"``
 the stacked per-layer states ``[B, n_run+1, S, D]``.  With ``is_decoder``
 and ``fusion_layer=0`` the same module is the causal answer decoder.
 ``dtype`` is the compute dtype of every layer (``models/layers.py``); the
-mask biases are built in it, as the JAX module builds them.
+mask biases are built in it, as the JAX module builds them.  With tuples
+of image states and masks (NLVR's two images) layer ``i >= fusion_layer``
+cross-attends to stream ``(i - fusion_layer) % n`` (xbert's ``BertLayer``).
 """
 
 from __future__ import annotations
@@ -139,9 +141,10 @@ class FusionBert(nn.Module):
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Run the layer range of ``mode``; returns ``(last, feats)``.
 
-        ``cross_attn_scale`` multiplies the cross-attention probabilities of
-        layer ``cross_attn_scale_layer`` (the Grad-CAM probe,
-        ``utils/gradcam.py``)."""
+        ``encoder_states``/``encoder_mask`` as tuples: one stream a fusion
+        layer, in turn (NLVR).  ``cross_attn_scale`` multiplies the
+        cross-attention probabilities of layer ``cross_attn_scale_layer``
+        (the Grad-CAM probe, ``utils/gradcam.py``)."""
         cfg = self.cfg
         ranges = {"text": (0, cfg.fusion_layer),
                   "fusion": (cfg.fusion_layer, cfg.num_layers),
@@ -154,12 +157,24 @@ class FusionBert(nn.Module):
         if cfg.is_decoder:
             cb = causal_bias(hidden_states.shape[1], hidden_states.device, dtype)
             self_bias = cb if self_bias is None else self_bias + cb
-        cross_bias = None if encoder_mask is None else mask_to_bias(encoder_mask, dtype)
+        multi_stream = isinstance(encoder_states, (tuple, list))
+        if multi_stream:
+            masks = encoder_mask or [None] * len(encoder_states)
+            streams = [(s, None if m is None else mask_to_bias(m, dtype))
+                       for s, m in zip(encoder_states, masks)]
+        else:
+            cross_bias = None if encoder_mask is None else mask_to_bias(encoder_mask, dtype)
         x = hidden_states
         feats = [x]
         for i in range(start, stop):
+            if not multi_stream:
+                enc, cb = encoder_states, cross_bias
+            elif i >= cfg.fusion_layer:
+                enc, cb = streams[(i - cfg.fusion_layer) % len(streams)]
+            else:
+                enc = cb = None
             probe = cross_attn_scale if i == cross_attn_scale_layer else None
-            x = self.layer[i](x, self_bias, encoder_states, cross_bias, probe)
+            x = self.layer[i](x, self_bias, enc, cb, probe)
             feats.append(x)
         return x, torch.stack(feats, dim=1)
 

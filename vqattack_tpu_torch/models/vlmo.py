@@ -13,7 +13,10 @@ Port of ``vqattack_tpu/models/vlmo.py`` (reference
   gathered per layer through host-side index tables;
 - joint inference with per-layer feature taps, image tokens from index
   ``max_text_len``; the attack closures ``attack_feats``, ``attack_mlm``,
-  ``attack_feats_from_embeds``; the 3,129-way VQA classifier.
+  ``attack_feats_from_embeds``; the 3,129-way VQA classifier; with
+  ``with_nlvr2_head``, NLVR2's head over the pair's two pooled outputs
+  (:meth:`VLMo.nlvr2_logits`, the second image at modality row 2, so the
+  modality table holds at least 3 rows).
 
 In the joint ``"vl"`` mode the sequence is split statically at
 ``max_text_len`` and each half runs its expert FFN.  Attention adds two
@@ -179,11 +182,14 @@ class Pooler(nn.Module):
 
 
 class VQAClassifier(nn.Module):
-    """dense(2D) -> LayerNorm -> GELU -> dense(labels) (``vlmo_module.py:274-280``)."""
+    """dense(2D) -> LayerNorm -> GELU -> dense(labels) (``vlmo_module.py:274-280``).
+    ``in_width``: fc1's input (default D; NLVR2's head takes the two pooled
+    outputs, 2D, ``vlmo_module.py:283-290``)."""
 
-    def __init__(self, hidden_size: int, num_labels: int, dtype="float32"):
+    def __init__(self, hidden_size: int, num_labels: int, dtype="float32",
+                 in_width: Optional[int] = None):
         super().__init__()
-        self.fc1 = Linear(hidden_size, 2 * hidden_size, compute_dtype=dtype)
+        self.fc1 = Linear(in_width or hidden_size, 2 * hidden_size, compute_dtype=dtype)
         self.norm = LayerNorm(2 * hidden_size, 1e-5, dtype)
         self.fc2 = Linear(2 * hidden_size, num_labels, compute_dtype=dtype)
 
@@ -210,9 +216,13 @@ def _layer_cls(feats) -> torch.Tensor:
 class VLMo(nn.Module):
     """The VLMo surrogate (and, with its VQA head, the victim); with
     ``cfg.moe`` False the ViLT model.  Holds every parameter of the JAX
-    module's ``init_all``."""
+    module's ``init_all``.  ``with_nlvr2_head``: NLVR2's classifier, and a
+    modality table of ``max(type_vocab_size, 3)`` rows (row 2 is the second
+    image's; the reference widens a 2-row table at load,
+    ``vlmo_module.py:291-296``)."""
 
-    def __init__(self, cfg: VLMoConfig, with_vqa_head: bool = True, dtype="float32"):
+    def __init__(self, cfg: VLMoConfig, with_vqa_head: bool = True, dtype="float32",
+                 with_nlvr2_head: bool = False):
         super().__init__()
         self.cfg = cfg
         self.compute_dtype = resolve_dtype(dtype)
@@ -221,7 +231,8 @@ class VLMo(nn.Module):
                               max_position_embeddings=cfg.max_position_embeddings,
                               type_vocab_size=cfg.type_vocab_size, layer_norm_eps=1e-12)
         self.text_embeddings = BertEmbeddings(bert_cfg, dtype)
-        self.token_type_embeddings = Embedding(cfg.type_vocab_size, d, dtype)
+        n_types = max(cfg.type_vocab_size, 3) if with_nlvr2_head else cfg.type_vocab_size
+        self.token_type_embeddings = Embedding(n_types, d, dtype)
         self.patch_embed = PatchEmbed(cfg.patch_size, 3, d, dtype)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
         self.pos_embed = (nn.Parameter(torch.zeros(1, cfg.image_seq_len, d))
@@ -242,6 +253,8 @@ class VLMo(nn.Module):
             self.logit_vl_scale = LogitScale()
         self.vqa_classifier = (VQAClassifier(d, cfg.vqa_label_size, dtype) if with_vqa_head
                                else None)
+        self.nlvr2_classifier = (VQAClassifier(d, 2, dtype, in_width=2 * d) if with_nlvr2_head
+                                 else None)
         if cfg.need_relative_position_embed:
             tables = build_relative_position_index(cfg.window_size, cfg.max_text_len)
             for kind in ("image", "text", "joint"):
@@ -403,6 +416,14 @@ class VLMo(nn.Module):
         (``objectives.py:375-414``)."""
         xn, _, _ = self._joint_trunk(text_ids, text_masks, pixels, rel_biases=rel_biases)
         return self.vqa_classifier(self.pooler(xn))
+
+    def nlvr2_logits(self, pixels1, pixels2, text_ids, text_masks) -> torch.Tensor:
+        """NLVR2 (``objectives.py:416-475``): the statement encoded with each
+        image, at modality rows 1 and 2, the two pooled outputs concatenated
+        into the 2-way head.  Needs ``with_nlvr2_head``."""
+        x1, _, _ = self._joint_trunk(text_ids, text_masks, pixels1, 1)
+        x2, _, _ = self._joint_trunk(text_ids, text_masks, pixels2, 2)
+        return self.nlvr2_classifier(torch.cat([self.pooler(x1), self.pooler(x2)], dim=-1))
 
     def forward(self, text_ids, text_masks, pixels):
         return self.infer(text_ids, text_masks, pixels)

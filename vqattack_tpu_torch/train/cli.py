@@ -1,6 +1,6 @@
-"""Training CLI: vision-language pretraining and VQA fine-tuning.
+"""Training CLI: vision-language pretraining and downstream fine-tuning.
 
-Port of ``vqattack_tpu/train/cli.py`` for five of its tasks::
+Port of ``vqattack_tpu/train/cli.py`` for its ten tasks::
 
     python -m vqattack_tpu_torch.train.cli --task vlmo_pretrain \\
         --preset task_mlm_itm_itc_base_plus --vocab vocab.txt \\
@@ -13,18 +13,33 @@ Port of ``vqattack_tpu/train/cli.py`` for five of its tasks::
   masked captions;
 - ``albef_vqa``: ALBEF + answer decoder, the weighted answer NLL
   (``albef_vqa_train_loss``);
+- ``retrieval``: ALBEF's retrieval model, identity-aware ITA (same-image
+  items are positives, ``img_idx``) + hard-negative ITM
+  (``retrieval_train_loss``);
+- ``ve`` and ``nlvr2``: ALBEF's 3-way entailment and 2-way NLVR2 heads
+  (``models/albef_tasks.py``; NLVR's 18 layers cross-attend to the pair's
+  two images in turn), cross-entropy on the labels modulo the classes; an
+  item without a pair gives its image twice;
 - ``vlmo_pretrain``: VLMo's MLM + ITC + ITM (``vlmo_pretrain_loss``), the
   weights of the preset's ``loss_names`` and its whole-word masking;
 - ``vlmo_textmlm``: the text-only tower's MLM, whole-word masked;
-- ``vlmo_vqa``: VLMo with its VQA head, BCE over the 3,129 labels.
+- ``vlmo_vqa``: VLMo with its VQA head, BCE over the 3,129 labels;
+- ``vlmo_irtr``: each image against its caption and 2 other captions of
+  the batch by the ITM logit (``vlmo_irtr_train_loss``);
+- ``vlmo_nlvr2``: VLMo with NLVR2's head over the statement encoded with
+  each image (``VLMo.nlvr2_logits``; 3 token types, the file's 2-row table
+  widened at ``--init-ckpt``).
 
 On the card ALBEF's ViT takes the fused residual + LayerNorm kernel
-(``vit.fused_ln``), as the attack CLI does.  A caption is the item's
-``question`` (an annotation's question, or an arrow table's caption).
-``--arrow-root`` reads the pretraining corpora of
+(``vit.fused_ln``), as the attack CLI does.  The text is the item's
+``question`` (an annotation's question, sentence or caption, or an arrow
+table's caption).  ``--arrow-root`` reads the corpora of
 ``data/pretrain_datasets.py`` (pyarrow and PIL; the defaults: wikibk for
-``vlmo_textmlm``, else coco, f30k, gcc, sbu and vg; corpora missing from the
-directory are skipped) in place of ``--ann``.
+``vlmo_textmlm``, nlvr2 for the NLVR2 tasks, else coco, f30k, gcc, sbu
+and vg; corpora missing from the directory are skipped) in place of
+``--ann``.  ``--init-ckpt`` grafts an ALBEF pre-trained file (at the
+12-layer geometry: NLVR's layers 12-17 keep their values) or a VLMo file
+into the task's model; the task's heads the file lacks keep theirs.
 
 The loop: batches drawn in a seeded random order, collated on the host and
 moved to the device, one step (``train/trainer.py``) with a key split off
@@ -35,8 +50,7 @@ newest one.  Like the JAX CLI it has no ``--attn``: attention follows the
 process-wide backend, so ``with attention_impl("flash"): main([...])``
 trains through the flash kernels (with VLMo's relative-position table,
 their bias gradient).  Entry points run on ``cuda`` unless ``--device cpu``
-is given.  The JAX CLI's other tasks (retrieval, VE, NLVR2, VLMo's
-retrieval and NLVR2) are not ported yet and exit with a message.
+is given.
 """
 
 from __future__ import annotations
@@ -54,14 +68,14 @@ from vqattack_tpu_torch.train.trainer import LossFn
 
 TASKS = ["albef_pretrain", "albef_vqa", "retrieval", "ve", "nlvr2", "vlmo_vqa", "vlmo_irtr",
          "vlmo_textmlm", "vlmo_pretrain", "vlmo_nlvr2"]
-PORTED_TASKS = ("albef_pretrain", "albef_vqa", "vlmo_pretrain", "vlmo_textmlm", "vlmo_vqa")
+PORTED_TASKS = TASKS  # every task of the JAX CLI
+ALBEF_TASKS = ("albef_pretrain", "albef_vqa", "retrieval", "ve", "nlvr2")
 ANSWER_LEN = 8  # tokens an answer slot of albef_vqa holds
 
 
 def build_argparser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="Pretraining and VQA fine-tuning on an NVIDIA GPU")
-    p.add_argument("--task", required=True, choices=TASKS,
-                   help=f"ported: {', '.join(PORTED_TASKS)}")
+    p = argparse.ArgumentParser(description="Pretraining and fine-tuning on an NVIDIA GPU")
+    p.add_argument("--task", required=True, choices=TASKS)
     p.add_argument("--preset", nargs="*", default=[],
                    help="sacred named-config presets composed left-to-right "
                         "(vqattack_tpu_torch.named_configs, e.g. "
@@ -159,7 +173,7 @@ def pretrain_loss_weights(preset: dict) -> dict:
 def resolve_config(args, preset: Optional[dict], device: torch.device):
     """The run config: ``--config`` (default the ALBEF attack config), the
     preset's VLMo geometry, ``--image-size`` on both models, and on the card
-    the fused residual + LayerNorm ViT for the ALBEF tasks."""
+    the fused residual + LayerNorm ViT for the ALBEF tasks (:data:`ALBEF_TASKS`)."""
     from vqattack_tpu_torch import config as cfg_mod
 
     cfg = cfg_mod.load_config(args.config) if args.config else cfg_mod.albef_attack_config()
@@ -171,7 +185,7 @@ def resolve_config(args, preset: Optional[dict], device: torch.device):
         vit = dataclasses.replace(cfg.albef.vit, image_size=args.image_size)
         cfg = dataclasses.replace(cfg, albef=dataclasses.replace(cfg.albef, vit=vit),
                                   vlmo=dataclasses.replace(cfg.vlmo, image_size=args.image_size))
-    if device.type == "cuda" and args.task.startswith("albef"):
+    if device.type == "cuda" and args.task in ALBEF_TASKS:
         vit = dataclasses.replace(cfg.albef.vit, fused_ln=True)
         cfg = dataclasses.replace(cfg, albef=dataclasses.replace(cfg.albef, vit=vit))
     return cfg
@@ -217,12 +231,16 @@ def build_task(args, cfg, tokenizer, device: torch.device, preset: Optional[dict
             print(f"--init-ckpt {args.init_ckpt}: {n} tensors grafted", flush=True)
         return model
 
-    if args.task.startswith("albef"):
+    if args.task in ALBEF_TASKS:
         from vqattack_tpu_torch.models.albef import AlbefPretrain, AlbefVQA, init_weights
+        from vqattack_tpu_torch.models.albef_tasks import AlbefNLVR, AlbefRetrieval, AlbefVE
 
-        kind = AlbefPretrain if args.task == "albef_pretrain" else AlbefVQA
+        kind = {"albef_pretrain": AlbefPretrain, "albef_vqa": AlbefVQA,
+                "retrieval": AlbefRetrieval, "ve": AlbefVE, "nlvr2": AlbefNLVR}[args.task]
         with torch.device(device):
             model = init_weights(kind(cfg.albef), seed=args.seed).to(device)
+        # the pre-trained file at cfg.albef's 12 layers: NLVR's layers 12-17
+        # keep their initial values, as in the JAX CLI
         grafted(model, lambda path: ckpt_io.load_albef_pretrain(path, cfg.albef))
         max_len = cfg.attack.max_text_len
 
@@ -259,13 +277,57 @@ def build_task(args, cfg, tokenizer, device: torch.device, preset: Optional[dict
 
         return model, loss_fn, collate
 
+    if args.task == "retrieval":
+        def loss_fn(m, batch, key):
+            return obj.retrieval_train_loss(m, batch, key)
+
+        def collate(items):
+            # same-image items are each other's ITA positives
+            # (grounding_dataset.py:17-24); the position stands for an item
+            # with no image identity
+            idx = np.asarray([i.get("img_idx", n) for n, i in enumerate(items)])
+            ids, mask = text(items, max_len)
+            return {"pixels": pixels(items), "text_ids": ids, "text_mask": mask,
+                    "idx": tensor(idx)}
+
+        return model, loss_fn, collate
+
+    if args.task in ("ve", "nlvr2"):
+        n_cls = 3 if args.task == "ve" else 2
+
+        def loss_fn(m, batch, key):
+            del key
+            logits = m(batch["pixels"], batch["text_ids"], batch["text_mask"])
+            loss = obj.nlvr2_loss(logits, batch["labels"])
+            return loss, {"loss": loss}
+
+        def collate(items):
+            if args.task == "nlvr2" and "pixels0" in items[0]:
+                # the pair stacked, image 0 first (an NLVR annotation's or
+                # NLVR2Dataset's two streams)
+                px = tensor(np.concatenate([i[k] for k in ("pixels0", "pixels1")
+                                            for i in items]))
+            else:
+                px = pixels(items)
+                if args.task == "nlvr2":
+                    px = torch.cat([px, px])  # the second image stream
+            ids, mask = text(items, max_len)
+            labels = np.asarray([int(i.get("label", 0)) % n_cls for i in items])
+            return {"pixels": px, "text_ids": ids, "text_mask": mask, "labels": tensor(labels)}
+
+        return model, loss_fn, collate
+
     from vqattack_tpu_torch.models.vlmo import VLMo, init_vlmo_weights
 
+    nlvr2 = args.task == "vlmo_nlvr2"
+    vcfg = cfg.vlmo
+    if nlvr2:  # the second image's modality row (objectives.compute_nlvr2:416-475)
+        vcfg = dataclasses.replace(vcfg, type_vocab_size=max(3, vcfg.type_vocab_size))
     with torch.device(device):
         # .to: the relative-position indices are buffers made from numpy
-        model = init_vlmo_weights(VLMo(cfg.vlmo), seed=args.seed).to(device)
-    grafted(model, lambda path: ckpt_io.load_vlmo(path, cfg.vlmo))
-    max_len = cfg.vlmo.max_text_len
+        model = init_vlmo_weights(VLMo(vcfg, with_nlvr2_head=nlvr2), seed=args.seed).to(device)
+    grafted(model, lambda path: ckpt_io.load_vlmo(path, vcfg, token_types=3 if nlvr2 else None))
+    max_len = vcfg.max_text_len
 
     if args.task == "vlmo_pretrain":
         # multi-loss VL pretraining (the reference's mlm_itm_itc presets)
@@ -295,6 +357,38 @@ def build_task(args, cfg, tokenizer, device: torch.device, preset: Optional[dict
 
         return model, loss_fn, collate
 
+    if args.task == "vlmo_irtr":
+        def loss_fn(m, batch, key):
+            return obj.vlmo_irtr_train_loss(m, batch, key, num_negs=2)
+
+        def collate(items):
+            ids, mask = text(items, max_len)
+            return {"pixels": pixels(items), "text_ids": ids, "text_mask": mask}
+
+        return model, loss_fn, collate
+
+    if nlvr2:
+        def loss_fn(m, batch, key):
+            del key
+            logits = m.nlvr2_logits(batch["pixels1"], batch["pixels2"], batch["text_ids"],
+                                    batch["text_mask"])
+            loss = obj.nlvr2_loss(logits, batch["labels"])
+            acc = torch.mean((logits.argmax(-1) == batch["labels"]).float())
+            return loss, {"loss": loss, "nlvr2_acc": acc}
+
+        def collate(items):
+            if "pixels0" in items[0]:  # the pair's two streams
+                p1 = tensor(np.concatenate([i["pixels0"] for i in items]))
+                p2 = tensor(np.concatenate([i["pixels1"] for i in items]))
+            else:
+                p1 = p2 = pixels(items)
+            ids, mask = text(items, max_len)
+            labels = np.asarray([int(i.get("label", 0)) % 2 for i in items])
+            return {"pixels1": p1, "pixels2": p2, "text_ids": ids, "text_mask": mask,
+                    "labels": tensor(labels)}
+
+        return model, loss_fn, collate
+
     def loss_fn(m, batch, key):
         del key
         logits = m.vqa_logits(batch["pixels"], batch["text_ids"], batch["text_mask"])
@@ -302,7 +396,7 @@ def build_task(args, cfg, tokenizer, device: torch.device, preset: Optional[dict
         return loss, {"loss": loss}
 
     def collate(items):
-        targets = np.zeros((len(items), cfg.vlmo.vqa_label_size), np.float32)
+        targets = np.zeros((len(items), vcfg.vqa_label_size), np.float32)
         for b, item in enumerate(items):
             for label, score in zip(item.get("answer_labels", []), item.get("answer_scores", [])):
                 targets[b, int(label)] = float(score)
@@ -313,7 +407,8 @@ def build_task(args, cfg, tokenizer, device: torch.device, preset: Optional[dict
     return model, loss_fn, collate
 
 
-DEFAULT_CORPORA = {"vlmo_textmlm": ["wikibk"]}  # every other ported task: the caption corpora
+# every other task: the caption corpora
+DEFAULT_CORPORA = {"vlmo_textmlm": ["wikibk"], "nlvr2": ["nlvr2"], "vlmo_nlvr2": ["nlvr2"]}
 CAPTION_CORPORA = ["coco", "f30k", "gcc", "sbu", "vg"]
 
 
@@ -351,9 +446,6 @@ def main(argv=None) -> dict:
     to that step done)."""
     parser = build_argparser()
     args = parser.parse_args(argv)
-    if args.task not in PORTED_TASKS:
-        raise SystemExit(f"--task {args.task} is not ported yet; the port trains "
-                         f"{', '.join(PORTED_TASKS)}")
     preset = apply_preset(parser, args)
 
     from vqattack_tpu_torch.checkpoint.io import restore_latest_train_state, save_train_state
@@ -367,7 +459,7 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
     cfg = resolve_config(args, preset, device)
     tokenizer = WordPieceTokenizer.from_file(args.vocab)
-    size = cfg.albef.vit.image_size if args.task.startswith("albef") else cfg.vlmo.image_size
+    size = cfg.albef.vit.image_size if args.task in ALBEF_TASKS else cfg.vlmo.image_size
     dataset = build_dataset(args, size)
     model, loss_fn, collate = build_task(args, cfg, tokenizer, device, preset)
 

@@ -13,13 +13,16 @@ Port of ``vqattack_tpu/train/objectives.py``:
   negatives (``sample_hard_negatives``, ``itm_loss``) and the whole step's
   loss, ``albef_pretrain_loss``;
 - VLMo pretraining (``vlmo/modules/objectives.py``): ``vlmo_pretrain_loss``,
-  MLM over the joint trunk, the two-branch ITC and hard-negative ITM.
+  MLM over the joint trunk, the two-branch ITC and hard-negative ITM;
+- retrieval fine-tuning: ALBEF's identity-aware ITA
+  (``indexed_contrastive_loss``) with hard-negative ITM
+  (``retrieval_train_loss``, ``Grounding.py:32-72``), and VLMo's IRTR
+  (``vlmo_irtr_train_loss``, ``objectives.py:301-373``).
 
 The hard negatives are drawn from a key (``rng.py``) with JAX's splits, so
 that the tests can feed both packages the same draws.  The JAX functions'
 ``axis_name`` (negatives gathered across a data axis) is not ported: the
-port has no data axis yet.  The retrieval and IRTR losses are not ported
-yet.
+port has no data axis yet.
 """
 
 from __future__ import annotations
@@ -269,6 +272,78 @@ def albef_pretrain_loss(
     total = loss_ita + loss_itm + loss_mlm
     return total, {"loss": total, "loss_ita": loss_ita, "loss_itm": loss_itm,
                    "loss_mlm": loss_mlm, "image_feat": imgn.detach(), "text_feat": txtn.detach()}
+
+
+# ---------------------------------------------------------------------------
+# retrieval fine-tuning: ALBEF's ITA + ITM, VLMo's IRTR
+# ---------------------------------------------------------------------------
+
+
+def indexed_contrastive_loss(image_feat, text_feat, temp, idx) -> torch.Tensor:
+    """ITA with identity-aware positives (``Grounding.py:55``,
+    ``model_retrieval.py``): the items that share an image index ``idx`` are
+    each other's positives, the target spread evenly over them.  The
+    features are normalised row by row, as the reference's
+    ``F.normalize(dim=-1)``."""
+    img, txt = _normed(image_feat), _normed(text_feat)
+    pos = (idx[:, None] == idx[None, :]).float()
+    tgt = pos / torch.clamp(pos.sum(-1, keepdim=True), min=1.0)
+    loss_i2t = -torch.mean(torch.sum(torch.log_softmax(img @ txt.T / temp, -1) * tgt, -1))
+    loss_t2i = -torch.mean(torch.sum(torch.log_softmax(txt @ img.T / temp, -1) * tgt, -1))
+    return (loss_i2t + loss_t2i) / 2
+
+
+def retrieval_train_loss(model, batch: Dict[str, torch.Tensor], key
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Retrieval fine-tuning of an
+    :class:`~vqattack_tpu_torch.models.albef_tasks.AlbefRetrieval`:
+    identity-aware ITA over ``batch["idx"]`` (the position where absent)
+    plus ITM on hard negatives drawn from the similarities by ``key``
+    (:func:`sample_hard_negatives`).  ``batch``: ``pixels [B, 3, H, W]``,
+    ``text_ids``/``text_mask [B, S]``, optionally ``idx [B]``."""
+    img_feat, image_embeds = model.image_features(batch["pixels"])
+    txt_feat, text_embeds = model.text_features(batch["text_ids"], batch["text_mask"])
+    temp = torch.clamp(model.temp, 0.001, 0.5)
+    idx = batch.get("idx")
+    if idx is None:
+        idx = torch.arange(img_feat.shape[0], device=img_feat.device)
+    loss_ita = indexed_contrastive_loss(img_feat, txt_feat, temp, idx)
+
+    sim = img_feat @ txt_feat.T / temp
+    with torch.no_grad():
+        neg_img_idx, neg_txt_idx = sample_hard_negatives(key, sim, sim.T)
+    mask = batch["text_mask"]
+    pos = model.itm_score(text_embeds, mask, image_embeds)
+    neg1 = model.itm_score(text_embeds, mask, image_embeds[neg_img_idx])
+    neg2 = model.itm_score(text_embeds[neg_txt_idx], mask[neg_txt_idx], image_embeds)
+    loss_itm = itm_loss(pos, torch.cat([neg1, neg2], 0))
+    total = loss_ita + loss_itm
+    return total, {"loss": total, "loss_ita": loss_ita, "loss_itm": loss_itm}
+
+
+def vlmo_irtr_train_loss(model, batch: Dict[str, torch.Tensor], key, num_negs: int = 3
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """VLMo's IRTR fine-tuning (``objectives.py:301-373``): each image scores
+    its own caption and ``num_negs`` other captions of the batch (offsets
+    drawn by ``key.randint`` in ``[1, B)``) by the ITM match logit, one joint
+    forward over the ``B x (1 + num_negs)`` pairs; CE with the own caption
+    at index 0.  ``batch``: ``pixels [B, 3, H, W]``, ``text_ids``/
+    ``text_mask [B, T]``."""
+    pixels = batch["pixels"]
+    b = pixels.shape[0]
+    if b < 2:
+        # the offsets' range [1, 1) is empty: every negative would be the
+        # image's own caption
+        raise ValueError("irtr loss needs batch >= 2 to sample negatives")
+    offs = key.randint((b, num_negs), 1, b).to(pixels.device)
+    rows = torch.arange(b, device=pixels.device)[:, None]
+    idx = torch.cat([rows, (rows + offs) % b], dim=1).reshape(-1)  # [B * (1 + n)]
+    xn, _, _ = model._joint_trunk(batch["text_ids"][idx], batch["text_mask"][idx],
+                                  pixels.repeat_interleave(1 + num_negs, dim=0))
+    logits = model.itm_score(model.pooler(xn))[:, 1].reshape(b, 1 + num_negs)
+    loss = -torch.mean(torch.log_softmax(logits.float(), dim=-1)[:, 0])
+    acc = torch.mean((logits.argmax(-1) == 0).float())
+    return loss, {"loss": loss, "irtr_acc": acc}
 
 
 # ---------------------------------------------------------------------------
