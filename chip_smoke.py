@@ -179,6 +179,21 @@ of the ViT's first query weight, flash against xla (``RETRIEVAL_GRAD_TOL``,
 12 times K3's 2e-5); the two VLMo tasks' table gradient, flash against
 xla; a ``finetuning`` JSON line.
 
+The optimizer slice adds, after ``albef_vqa``'s training phase:
+``train.cli.main --task albef_vqa`` at batch 8 for 3 steps under flash for
+each first-order optimizer of the factory the VQA phases leave out
+(``--opt`` rmsprop, adafactor, lamb, lion, nadam, radam, adamp, sgdp,
+novograd, nvnovograd, rmsproptf, lookahead_adamw), K2 (with parameter sums)
+and K3 launched as the schedule says, every parameter finite and moved
+where the gradients reach it, the median step, the optimizer step's own
+time (CUDA events), the peak and the state's bytes printed; ``--opt
+adahessian`` under xla with the plain LayerNorm and no kernel launched
+(the batch halved only if the double backward leaves the card); the
+full-width Hessian-vector product's symmetry ``z1 . H z2 = z2 . H z1``;
+a second backward through K2 and through K3 refused; and each optimizer's
+``step`` on the card against the CPU on full-width leaves for 7 steps; an
+``optimizers`` JSON line.
+
 The bf16 trunk (``--dtype bfloat16``) adds, after the float32 phases of each
 surrogate: K2 on a bf16 stream (phase 3, beside float32) and K3's bf16
 instance against its plain versions and the float32 computation (ALBEF's
@@ -2561,6 +2576,301 @@ def train_albef(tmp, vocab, gen, smi):
 
 
 # ---------------------------------------------------------------------------
+# the optimizers: the training CLI's --opt (train/optim.py, optim_extra.py,
+# adahessian.py) at full width, and the double-backward repair of K2 and K3
+# ---------------------------------------------------------------------------
+
+OPT_STEPS = 3
+FIRST_ORDER = ("rmsprop", "adafactor", "lamb", "lion", "nadam", "radam", "adamp", "sgdp",
+               "novograd", "nvnovograd", "rmsproptf", "lookahead_adamw")
+# every name of the factory and a lookahead_ prefix, for the card against the CPU
+ALL_OPTIMIZERS = ("adamw", "adam", "sgd") + FIRST_ORDER[:-1] + ("adahessian", "lookahead_adamw")
+# the card against the CPU, 7 steps: rtol 1e-5 and 1e-3 of a step (lr times
+# the head multiplier).  The same float32 formulas; only the reductions'
+# orders differ, and the largest reduction is AdamP's and SGDP's layer
+# projection over the head's 4.8M entries: the same 7 steps in float64 on
+# the CPU move AdamP's head 1.1e-4 of a step from float32's, the others
+# under 1e-5 (no clipping: a clipped gradient far under the decay term
+# makes rmsprop's decay loop amplify rounding 3x a step, and puts Lion's
+# sign arguments within an ulp of 0 where the norm rounds apart)
+OPT_RTOL, OPT_ATOL = 1e-5, 1e-3
+# z1 . H z2 against z2 . H z1 (H is symmetric): the float32 HVPs' entries
+# carry relative errors near 1e-5 (sums over 8 x 901 tokens), which move a
+# product of random-sign terms by about that much of itself; the products
+# are taken in float64
+HVP_SYM_TOL = 1e-3
+
+
+def _state_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_state_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size() if isinstance(tree, torch.Tensor) else 0
+
+
+@contextlib.contextmanager
+def recorded_optimizer_steps():
+    """CUDA events around each outermost optimizer step (``Optimizer.step``,
+    ``Lookahead.step``) of a training run, the parameters before the first
+    step, which of them the first step's gradients reach (on the device),
+    and the last state and parameters."""
+    from vqattack_tpu_torch.train import optim, optim_extra
+
+    rec = {"events": [], "depth": 0}
+    originals = [(cls, cls.step) for cls in (optim.Optimizer, optim_extra.Lookahead)]
+
+    def timed(step):
+        def run(self, params, grads, state, hess_diag=None):
+            outer = rec["depth"] == 0
+            if outer and "before" not in rec:
+                rec["before"] = {n: p.detach().clone() for n, p in params.items()}
+                rec["reached"] = {n: g.ne(0).any() for n, g in grads.items()}
+            rec["depth"] += 1
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            try:
+                out = step(self, params, grads, state, hess_diag)
+            finally:
+                rec["depth"] -= 1
+            e1.record()
+            if outer:
+                rec["events"].append((e0, e1))
+                rec["state"], rec["params"] = out, params
+            return out
+
+        return run
+
+    for cls, step in originals:
+        cls.step = timed(step)
+    try:
+        yield rec
+    finally:
+        for cls, step in originals:
+            cls.step = step
+
+
+def check_optimizer_run(rec, opt):
+    """Every parameter finite, and moved where the gradients reached it;
+    ``(optimizer step ms each, state bytes, parameters the loss leaves
+    unreached)``."""
+    torch.cuda.synchronize()
+    unreached = 0
+    for n, p in rec["params"].items():
+        require(bool(torch.isfinite(p).all()), f"--opt {opt}: {n} is not finite")
+        if bool(rec["reached"][n]):
+            require(not torch.equal(p, rec["before"][n]), f"--opt {opt}: {n} did not move")
+        else:
+            unreached += 1
+    return ([e0.elapsed_time(e1) for e0, e1 in rec["events"]], _state_bytes(rec["state"]),
+            unreached)
+
+
+class OptimizerLeaves(torch.nn.Module):
+    """A handful of full-width leaves: ViT-B/16's patch conv, a square
+    (768 x 768) and a non-square (3072 x 768) Dense kernel, a LayerNorm, and
+    VLMo's VQA head (3129 x 1536)."""
+
+    def __init__(self):
+        super().__init__()
+        self.patch_embed = torch.nn.Module()
+        self.patch_embed.proj = torch.nn.Conv2d(3, D, 16, stride=16)
+        self.query = torch.nn.Linear(D, D)
+        self.intermediate = torch.nn.Linear(D, 4 * D)
+        self.norm = torch.nn.LayerNorm(D)
+        self.vqa_classifier = torch.nn.Linear(2 * D, 3129)
+
+
+def optimizers_card_against_cpu(smi):
+    """Each optimizer's ``step`` on the card and on the CPU from the same
+    full-width leaves, gradients (and Hessian diagonals) for 7 steps
+    (lookahead syncs once), lr 1e-2 with warmup, decay 0.05, head
+    multiplier 2: the largest difference over the leaves, in units of a
+    step, and the seconds of the CPU's and the card's steps."""
+    import copy
+
+    from vqattack_tpu_torch.train import optim
+
+    torch.manual_seed(SEED)
+    cpu = OptimizerLeaves()
+    card = copy.deepcopy(cpu).to("cuda")
+    g_cpu = torch.Generator().manual_seed(SEED + 1)
+    out, seconds = {}, {"cpu": 0.0, "cuda": 0.0}
+    for opt in ALL_OPTIMIZERS:
+        models = (copy.deepcopy(cpu), copy.deepcopy(card))
+        txs = [optim.create_optimizer(m, opt, optim.create_schedule("cosine", 1e-2, 9,
+                                                                    warmup_steps=2),
+                                      weight_decay=0.05, head_lr_mult=2.0)
+               for m in models]
+        params = [optim.named_params(m) for m in models]
+        states = [tx.init(p) for tx, p in zip(txs, params)]
+        for _ in range(7):
+            grads = {n: torch.randn(p.shape, generator=g_cpu) * 0.1
+                     for n, p in params[0].items()}
+            hess = ({n: torch.randn(p.shape, generator=g_cpu) for n, p in params[0].items()}
+                    if opt == "adahessian" else None)
+            for i, dev in enumerate(("cpu", "cuda")):
+                g_dev = {n: g.to(dev) for n, g in grads.items()}
+                h_dev = None if hess is None else {n: h.to(dev) for n, h in hess.items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                states[i] = txs[i].step(params[i], g_dev, states[i], h_dev)
+                torch.cuda.synchronize()
+                seconds[dev] += time.perf_counter() - t0
+        worst = 0.0
+        for n, p in params[0].items():
+            got = params[1][n].detach().cpu()
+            err = (got - p.detach()).abs() - OPT_RTOL * p.detach().abs()
+            worst = max(worst, float(err.max()) / (1e-2 * 2.0))
+        require(worst <= OPT_ATOL, f"--opt {opt}: card against CPU {worst:.3g} of a step "
+                                   f"(tolerance {OPT_ATOL})")
+        out[opt] = worst
+    print(f"  optimizers, card against CPU, 7 steps on full-width leaves: largest difference "
+          f"{max(out.values()):.3g} of a step beyond rtol {OPT_RTOL} (tolerance {OPT_ATOL}); "
+          f"the steps took {seconds['cpu']:.2f} s on the CPU, {seconds['cuda']:.2f} s on the "
+          f"card ({smi})", flush=True)
+    return {"of_a_step": out, "seconds": seconds}
+
+
+def check_second_backward_refused(gen):
+    """A backward that builds a graph through K2 (at the ViT's [8 x 901,
+    768]) and through K3 (at [8, 901, 12, 64]) raises; the first-order one
+    launches each once."""
+    rows = TRAIN_BATCH * 901
+    x, delta, gamma, beta, _, _ = _ln_case(gen, rows, torch.float32)
+    x, delta = x.requires_grad_(), delta.requires_grad_()
+    gamma = gamma.clone().requires_grad_()
+    s, h = fused_ln.residual_layernorm(x, delta, gamma, beta)
+    loss = (h ** 3).sum() + (s ** 2).sum()
+    q, k, v = (t.contiguous().requires_grad_() for t in _qkv(gen, TRAIN_BATCH, 901))
+    o = attention.flash_attention(q, k, v, None, SCALE)
+    loss = loss + (o ** 3).sum()
+    reset_counts()
+    torch.autograd.grad(loss, [x, gamma, q, k, v], retain_graph=True)
+    for name in ("residual_layernorm_bwd", "flash_attention_bwd"):
+        require(counts()[name] == 1, f"{name}: {counts()[name]} launches in a first backward")
+    for what, inputs in (("K2", [x, gamma]), ("K3", [q, k, v])):
+        try:
+            torch.autograd.grad(loss, inputs, create_graph=True, retain_graph=True)
+        except RuntimeError as e:
+            require("no second derivative" in str(e), f"{what}: {e}")
+        else:
+            raise AssertionError(f"{what}: a backward with create_graph=True did not raise")
+    print("  a second backward through K2 and through K3 raises", flush=True)
+
+
+def hvp_symmetry(argv, pixels, batch):
+    """``z1 . (H z2)`` against ``z2 . (H z1)`` of the albef_vqa loss at full
+    width (the plain LayerNorm, xla attention), the CLI's model, first
+    batch and key, the products in float64."""
+    from vqattack_tpu_torch.train import adahessian
+    from vqattack_tpu_torch.train import cli as train_cli
+    from vqattack_tpu_torch.train.optim import named_params
+
+    parser = train_cli.build_argparser()
+    args = parser.parse_args(argv + ["--batch-size", str(batch)])
+    device = torch.device("cuda")
+    cfg = train_cli.resolve_config(args, None, device)
+    require(not cfg.albef.vit.fused_ln, "adahessian: the fused LayerNorm is on")
+    tokenizer = WordPieceTokenizer.from_file(args.vocab)
+    with served_pixels(pixels):
+        dataset = train_cli.build_dataset(args, cfg.albef.vit.image_size)
+        model, loss_fn, collate = train_cli.build_task(args, cfg, tokenizer, device)
+        items = next(train_cli._batches(dataset, batch, args.seed))
+    key = TorchKey(args.seed + 1, device)
+    loss, _ = loss_fn(model, collate(items), key)
+    params = named_params(model)
+    z1, z2 = (adahessian.rademacher_like(model, key.fold_in(i)) for i in (1, 2))
+    reset_counts()
+    _, (h1, h2) = adahessian.grad_and_hvps(loss, params, [z1, z2])
+    launched = counts()
+    require(not any(launched.values()), f"the HVPs launched {launched}")
+    a = sum(float((z1[n].double() * h2[n].double()).sum()) for n in params)
+    b = sum(float((z2[n].double() * h1[n].double()).sum()) for n in params)
+    mass = sum(float((z1[n].double() * h2[n].double()).abs().sum()) for n in params)
+    rel = abs(a - b) / max(abs(a), abs(b))
+    require(rel <= HVP_SYM_TOL and abs(a) > 0, f"HVP symmetry: z1.Hz2 {a}, z2.Hz1 {b}")
+    return {"z1_h_z2": a, "z2_h_z1": b, "rel_diff": rel, "tol": HVP_SYM_TOL,
+            "abs_sum": mass, "params": sum(p.numel() for p in params.values())}
+
+
+def train_optimizers(tmp, vocab, gen, smi):
+    """``train.cli.main --task albef_vqa`` at full width (as
+    :func:`train_albef`) for each first-order optimizer under flash, 3
+    steps: K2 with parameter sums and K3 launched as the schedule says,
+    every parameter finite and moved where the gradients reach it, the
+    median step, the optimizer step's own time, the peak and the state's
+    bytes; then ``--opt adahessian`` under xla (no kernel: the plain
+    LayerNorm, asserted), the HVP's symmetry at full width, the repair's
+    check and each optimizer's step on the card against the CPU."""
+    from vqattack_tpu_torch import config as cfg_mod
+
+    cfg = cfg_mod.albef_attack_config()
+    ann, pixels = write_train_ann(tmp, "albef_opt", 2 * TRAIN_BATCH * OPT_STEPS,
+                                  cfg.albef.vit.image_size, 1200)
+    argv = ["--task", "albef_vqa", "--vocab", vocab, "--ann", ann, "--image-root", tmp,
+            "--steps", str(OPT_STEPS), "--log-every", "1", "--max-answers", "4",
+            "--device", "cuda", "--seed", str(SEED)]
+    depth = cfg.albef.vit.depth
+    out, launched_all = {"card": smi}, {}
+    for opt in FIRST_ORDER:
+        with attention.attention_impl("flash"), recorded_optimizer_steps() as rec:
+            summary, launched, seconds, peak = run_train(
+                argv + ["--batch-size", str(TRAIN_BATCH), "--opt", opt], pixels)
+        expected = train_implied_launches("albef_vqa", depth, OPT_STEPS, True)
+        check_launches(launched, expected, {k for k, n in expected.items() if n},
+                       f"albef_vqa --opt {opt}")
+        opt_ms, state_bytes, unreached = check_optimizer_run(rec, opt)
+        steps = step_seconds(summary)
+        out[opt] = {"s_per_step": float(np.median(steps)), "step_s": steps,
+                    "opt_step_ms": float(np.median(opt_ms)), "opt_steps_ms": opt_ms,
+                    "wall_s": seconds, "peak_gib": peak, "state_gib": state_bytes / 2 ** 30,
+                    "unreached": unreached, "losses": summary["losses"]}
+        launched_all[opt] = launched
+        print(f"  albef_vqa --opt {opt}: {out[opt]['s_per_step']:.4f} s a step after the "
+              f"first, the optimizer's step {out[opt]['opt_step_ms']:.2f} ms, peak "
+              f"{peak:.2f} GiB, state {out[opt]['state_gib']:.3f} GiB, {unreached} parameters "
+              f"unreached, losses {[round(x, 4) for x in summary['losses']]}", flush=True)
+        del rec
+        torch.cuda.empty_cache()
+    # AdaHessian: the plain LayerNorm and xla attention; the batch is cut
+    # (never the widths) only where the double backward leaves the card
+    for batch in (TRAIN_BATCH, TRAIN_BATCH // 2, TRAIN_BATCH // 4):
+        try:
+            with attention.attention_impl("xla"), recorded_optimizer_steps() as rec:
+                summary, launched, seconds, peak = run_train(
+                    argv + ["--batch-size", str(batch), "--opt", "adahessian"], pixels)
+            break
+        except torch.cuda.OutOfMemoryError:
+            print(f"  albef_vqa --opt adahessian: out of memory at batch {batch}", flush=True)
+            rec = summary = None
+            torch.cuda.empty_cache()
+    else:
+        raise AssertionError("albef_vqa --opt adahessian: out of memory at every batch")
+    check_launches(launched, dict.fromkeys(KERNELS, 0), set(), "albef_vqa --opt adahessian")
+    opt_ms, state_bytes, unreached = check_optimizer_run(rec, "adahessian")
+    steps = step_seconds(summary)
+    out["adahessian"] = {"batch": batch, "s_per_step": float(np.median(steps)), "step_s": steps,
+                         "opt_step_ms": float(np.median(opt_ms)), "wall_s": seconds,
+                         "peak_gib": peak, "state_gib": state_bytes / 2 ** 30,
+                         "unreached": unreached, "losses": summary["losses"]}
+    print(f"  albef_vqa --opt adahessian (xla, plain LayerNorm, batch {batch}): "
+          f"{out['adahessian']['s_per_step']:.4f} s a step after the first, the optimizer's "
+          f"step {out['adahessian']['opt_step_ms']:.2f} ms, peak {peak:.2f} GiB, no kernel "
+          f"launched, losses {[round(x, 4) for x in summary['losses']]}", flush=True)
+    del rec
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out["hvp_symmetry"] = hvp_symmetry(argv + ["--opt", "adahessian"], pixels, batch)
+    out["hvp_symmetry"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  full-width HVP symmetry: z1.Hz2 {out['hvp_symmetry']['z1_h_z2']:.6g}, "
+          f"z2.Hz1 {out['hvp_symmetry']['z2_h_z1']:.6g}, relative difference "
+          f"{out['hvp_symmetry']['rel_diff']:.3g} (tolerance {HVP_SYM_TOL})", flush=True)
+    torch.cuda.empty_cache()
+    check_second_backward_refused(gen)
+    out["card_vs_cpu_of_a_step"] = optimizers_card_against_cpu(smi)
+    return out, launched_all
+
+
+# ---------------------------------------------------------------------------
 # the pretraining slice: albef_pretrain, vlmo_pretrain, vlmo_textmlm
 # (vqattack_tpu_torch/train/cli.py, train/objectives.py)
 # ---------------------------------------------------------------------------
@@ -4563,6 +4873,12 @@ def main() -> int:
     with Phase(f"albef_vqa training at full width: batch {TRAIN_BATCH}, {TRAIN_STEPS} steps, "
                f"--attn flash"):
         t_albef, t_albef_launched = train_albef(tmp, paths["vocab"], gen, smi)
+    with Phase(f"the optimizers at full width: albef_vqa, batch {TRAIN_BATCH}, {OPT_STEPS} "
+               f"steps each of {', '.join(FIRST_ORDER)} under flash, adahessian under xla; "
+               f"the HVP's symmetry, the second backward refused, the card against the CPU"
+               ) as ph:
+        t_opt, opt_launched = train_optimizers(tmp, paths["vocab"], gen, smi)
+    t_opt["phase_s"] = round(ph.seconds, 2)
 
     # ------------------------------------------ pretraining: ALBEF and VLMo
     with Phase("K2 and K3 against their plain versions at the pretraining shapes (ALBEF at "
@@ -4663,6 +4979,7 @@ def main() -> int:
             row["launches"] = sum(ft_launched[t][counted] for t in k3_runs[suffix][0])
         require(row["launches"] > 0, f"{name}: no launch on the fine-tuning path")
     rows += ft_rows
+    print(json.dumps({"optimizers": t_opt, "optimizer_launches": opt_launched}), flush=True)
     print(json.dumps({"finetuning": t_ft, "finetuning_launches": ft_launched,
                       "k3_launches_by_shape": {
         run: {"/".join(map(str, k)): n for k, n in seen.items()} for run, seen in ft_seen.items()},

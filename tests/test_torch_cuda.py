@@ -1231,3 +1231,125 @@ def test_vlmo_irtr_step_on_the_card(gen):
     assert abs(lf - lx) <= 1e-5 * max(1.0, abs(lx))
     assert float(gx.abs().max()) > 0
     assert bool(((gf - gx).abs() <= 1e-4 * mass + 1e-6 * float(gx.abs().max())).all())
+
+
+def test_kernels_refuse_a_second_backward(gen):
+    """K2 and K3 (float32) give their first-order gradients, and a backward
+    that builds a graph through them (``create_graph=True``, a Hessian-vector
+    product) raises instead of handing back gradients blind to the inputs;
+    the failed backward launches no kernel."""
+    x = torch.randn(901, 768, generator=gen, device="cuda", requires_grad=True)
+    delta = torch.randn(901, 768, generator=gen, device="cuda", requires_grad=True)
+    gamma = (torch.randn(768, generator=gen, device="cuda") * 0.1 + 1).requires_grad_()
+    beta = (torch.randn(768, generator=gen, device="cuda") * 0.1).requires_grad_()
+    s, h = fused_ln.residual_layernorm(x, delta, gamma, beta)
+    loss = (h ** 3).sum() + (s ** 2).sum()
+    before = fused_ln.residual_layernorm_bwd.launches
+    torch.autograd.grad(loss, [x, gamma], retain_graph=True)
+    assert fused_ln.residual_layernorm_bwd.launches == before + 1
+    with pytest.raises(RuntimeError, match="no second derivative"):
+        torch.autograd.grad(loss, [x, gamma], create_graph=True)
+    assert fused_ln.residual_layernorm_bwd.launches == before + 1
+    q, k, v = (torch.randn(2, 197, 12, 64, generator=gen, device="cuda", requires_grad=True)
+               for _ in range(3))
+    o = attention.flash_attention(q, k, v, None, 0.125)
+    loss = (o ** 3).sum()
+    before = attention.flash_attention_bwd.launches
+    torch.autograd.grad(loss, [q, k, v], retain_graph=True)
+    assert attention.flash_attention_bwd.launches == before + 1
+    with pytest.raises(RuntimeError, match="no second derivative"):
+        torch.autograd.grad(loss, [q, k, v], create_graph=True)
+    assert attention.flash_attention_bwd.launches == before + 1
+
+
+class _OptimizerLeaves(torch.nn.Module):
+    """Leaves of the models' kinds at a width where Adafactor factors."""
+
+    def __init__(self):
+        super().__init__()
+        self.patch_embed = torch.nn.Module()
+        self.patch_embed.proj = torch.nn.Conv2d(3, 128, 8, stride=8)
+        self.query = torch.nn.Linear(128, 128)
+        self.intermediate = torch.nn.Linear(128, 512)
+        self.LayerNorm = torch.nn.LayerNorm(128)
+        self.vqa_classifier = torch.nn.Linear(256, 300)
+
+
+@pytest.mark.parametrize("opt", ["adamw", "adam", "sgd", "rmsprop", "adafactor", "lamb", "lion",
+                                 "nadam", "radam", "adamp", "sgdp", "novograd", "nvnovograd",
+                                 "rmsproptf", "adahessian", "lookahead_adamw"])
+def test_optimizer_steps_on_the_card_match_the_cpu(gen, opt):
+    """7 steps (lookahead syncs once) from the same parameters, gradients
+    (and Hessian diagonals) on the card and on the CPU: every parameter
+    within rtol 1e-5 and 1e-4 of a step (lr 1e-2 times the head's 2), the
+    zoo's CPU tolerance (``tests/test_torch_optim_zoo.py``); only
+    reductions' orders differ.  No clipping: see ``chip_smoke.py``'s
+    ``OPT_ATOL``."""
+    import copy
+
+    from vqattack_tpu_torch.train import optim
+
+    torch.manual_seed(0)
+    cpu = _OptimizerLeaves()
+    card = copy.deepcopy(cpu).to("cuda")
+    txs = [optim.create_optimizer(m, opt, optim.create_schedule("cosine", 1e-2, 9,
+                                                                warmup_steps=2),
+                                  weight_decay=0.05, head_lr_mult=2.0)
+           for m in (cpu, card)]
+    params = [optim.named_params(m) for m in (cpu, card)]
+    states = [tx.init(p) for tx, p in zip(txs, params)]
+    g_cpu = torch.Generator().manual_seed(1)
+    for _ in range(7):
+        grads = {n: torch.randn(p.shape, generator=g_cpu) * 0.1 for n, p in params[0].items()}
+        hess = ({n: torch.randn(p.shape, generator=g_cpu) for n, p in params[0].items()}
+                if opt == "adahessian" else None)
+        for i, (tx, p) in enumerate(zip(txs, params)):
+            dev = "cpu" if i == 0 else "cuda"
+            states[i] = tx.step(p, {n: g.to(dev) for n, g in grads.items()}, states[i],
+                                None if hess is None else {n: h.to(dev) for n, h in hess.items()})
+    for n, p in params[0].items():
+        torch.testing.assert_close(params[1][n].cpu(), p, rtol=1e-5, atol=1e-4 * 1e-2 * 2,
+                                   msg=lambda m: f"{opt} {n}: {m}")
+
+
+def test_hessian_vector_products_on_the_card_are_symmetric(gen, monkeypatch):
+    """A two-block ViT under the plain LayerNorm and xla attention on the
+    card: ``z1 . (H z2) = z2 . (H z1)`` (H is symmetric; the products are
+    taken in float64 from the float32 HVPs, within 1e-4 of their size),
+    and the Hutchinson diagonal of the same loss on the card and on the
+    CPU within 1e-3 of each leaf's largest entry (an entry of ``H z`` is a
+    sum of terms of both signs, far larger than itself, rounded in other
+    orders on the two devices) or 1e-6 of the model's largest (a key
+    projection's bias has a Hessian of rounding noise: the softmax is
+    blind to it)."""
+    import copy
+    import dataclasses
+
+    from vqattack_tpu_torch import config as cfg_mod
+    from vqattack_tpu_torch.models.vit import VisionTransformer
+    from vqattack_tpu_torch.train import adahessian
+
+    # the patch conv in float32, as on the CPU
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    vit_cfg = dataclasses.replace(cfg_mod.tiny_test_config().albef.vit, image_size=64, depth=2,
+                                  fused_ln=False)
+    torch.manual_seed(0)
+    cpu = VisionTransformer(vit_cfg)
+    card = copy.deepcopy(cpu).to("cuda")
+    px = torch.rand(2, 3, 64, 64, generator=gen, device="cuda") * 2 - 1
+
+    def loss_fn(m, x):
+        return (m(x)[0] ** 2).mean()
+
+    params = {n: p for n, p in card.named_parameters()}
+    z1, z2 = (adahessian.rademacher_like(card, TorchKey(s, "cuda")) for s in (1, 2))
+    _, (h1, h2) = adahessian.grad_and_hvps(loss_fn(card, px), params, [z1, z2])
+    a = sum(float((z1[n].double() * h2[n].double()).sum()) for n in params)
+    b = sum(float((z2[n].double() * h1[n].double()).sum()) for n in params)
+    assert abs(a - b) <= 1e-4 * max(abs(a), abs(b)) and abs(a) > 0
+    _, d_card = adahessian.grad_and_hessian_diag(loss_fn, card, TorchKey(3, "cpu"), px)
+    _, d_cpu = adahessian.grad_and_hessian_diag(loss_fn, cpu, TorchKey(3, "cpu"), px.cpu())
+    largest = max(float(d.abs().max()) for d in d_cpu.values())
+    for n, d in d_cpu.items():
+        err = float((d_card[n].cpu() - d).abs().max())
+        assert err <= 1e-3 * float(d.abs().max()) + 1e-6 * largest, (n, err)

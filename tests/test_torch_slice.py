@@ -149,7 +149,8 @@ def test_port_imports_no_jax_and_only_torch_numpy_stdlib_at_module_level():
     files = sorted((ROOT / "vqattack_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     pkg = ROOT / "vqattack_tpu_torch"
-    for module in ("train/cli.py", "train/optim.py", "train/trainer.py", "train/objectives.py",
+    for module in ("train/cli.py", "train/optim.py", "train/optim_extra.py",
+                   "train/adahessian.py", "train/trainer.py", "train/objectives.py",
                    "utils/meters.py", "data/transforms.py", "data/vqa.py", "checkpoint/io.py",
                    "named_configs.py", "transfer_eval.py", "predict.py", "defenses.py",
                    "eval/vqa_eval.py", "attacks/extra.py", "utils/gradcam.py", "visualize.py",

@@ -54,19 +54,42 @@ def _flax_path(module_path: List[str]) -> List[str]:
     return out
 
 
-def _leaf_for(module: nn.Module, pname: str, value: torch.Tensor) -> Tuple[str, Any]:
-    """(flax leaf name, numpy -> torch layout transform) of one parameter."""
+class FlaxToTorch:
+    """A leaf's flax -> torch layout transform: the axes of the flax leaf in
+    the torch parameter's order (``perm``, None where the layouts agree),
+    applied to a numpy array or a tensor alike."""
+
+    def __init__(self, perm: Optional[Tuple[int, ...]] = None):
+        self.perm = perm
+
+    def __call__(self, a):
+        if self.perm is None:
+            return a
+        return a.permute(self.perm) if isinstance(a, torch.Tensor) else np.transpose(a, self.perm)
+
+    def flax_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        """The flax leaf's shape of a torch parameter of ``shape``."""
+        if self.perm is None:
+            return tuple(shape)
+        out = [0] * len(shape)
+        for axis, src in enumerate(self.perm):
+            out[src] = shape[axis]
+        return tuple(out)
+
+
+def _leaf_for(module: nn.Module, pname: str, value: torch.Tensor) -> Tuple[str, FlaxToTorch]:
+    """(flax leaf name, flax -> torch layout transform) of one parameter."""
     if pname == "weight":
         if isinstance(module, nn.Linear):
-            return "kernel", lambda a: a.T
+            return "kernel", FlaxToTorch((1, 0))
         if isinstance(module, nn.Conv2d):
-            return "kernel", lambda a: a.transpose(3, 2, 0, 1)
+            return "kernel", FlaxToTorch((3, 2, 0, 1))
         if isinstance(module, (nn.LayerNorm, ResidualLayerNorm)):
-            return "scale", lambda a: a
+            return "scale", FlaxToTorch()
         if isinstance(module, nn.Embedding):
-            return "embedding", lambda a: a
+            return "embedding", FlaxToTorch()
         raise TypeError(f"no flax leaf for the weight of {type(module).__name__}")
-    return pname, lambda a: a
+    return pname, FlaxToTorch()
 
 
 def _leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()):
@@ -78,7 +101,7 @@ def _leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()):
 
 
 def flax_leaves(module: nn.Module):
-    """``(torch name, flax path, numpy -> torch layout transform, parameter)``
+    """``(torch name, flax path, flax -> torch layout transform, parameter)``
     for every parameter of ``module``, in ``named_parameters`` order."""
     for mod_name, sub in module.named_modules():
         mod_path = mod_name.split(".") if mod_name else []

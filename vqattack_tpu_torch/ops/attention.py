@@ -531,7 +531,10 @@ class _FlashAttentionFn(torch.autograd.Function):
     Where q is padded for its kernel (bf16 at head dim 34) the padded q, k,
     v and o are saved, so that the backward pads only the output's
     gradient.  A bias that needs a gradient gets it from the dbias
-    instance; the key bias gets none."""
+    instance; the key bias gets none.  Differentiable once: a backward
+    that builds a graph (``create_graph=True``, a Hessian-vector product)
+    raises, where the kernels' gradients would carry no dependence on q, k
+    and v and the second derivative would come back short."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale, key_bias):
@@ -543,6 +546,9 @@ class _FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        if torch.is_grad_enabled():
+            raise RuntimeError("flash_attention: the kernels have no second derivative; a "
+                               "Hessian needs attention_impl('xla')")
         q, k, v, bias, o, lse, key_bias = ctx.saved_tensors
         need_dbias = ctx.needs_input_grad[3]
         grads = _launch_bwd(q, k, v, bias, ctx.scale, o, lse, pad_heads(do, q.shape[-1]),

@@ -220,7 +220,11 @@ residual_layernorm_bwd.param_grads_launches = 0
 
 
 class _ResidualLayerNormFn(torch.autograd.Function):
-    """The kernel pair as one differentiable op (the JAX custom VJP)."""
+    """The kernel pair as one differentiable op (the JAX custom VJP), once:
+    the backward fills its outputs through the kernels, so a backward that
+    builds a graph (``create_graph=True``, a Hessian-vector product) would
+    hand back gradients with no dependence on the inputs and a second
+    derivative short of every term through here; it raises instead."""
 
     @staticmethod
     def forward(ctx, x, delta, gamma, beta, eps):
@@ -231,6 +235,9 @@ class _ResidualLayerNormFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gs, gh):
+        if torch.is_grad_enabled():
+            raise RuntimeError("residual_layernorm: the fused kernels have no second derivative; "
+                               "a Hessian needs the plain LayerNorm (vit.fused_ln=False)")
         s, gamma = ctx.saved_tensors
         need_x = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
         need_params = ctx.needs_input_grad[2] or ctx.needs_input_grad[3]

@@ -31,9 +31,13 @@ Port of ``vqattack_tpu/train/cli.py`` for its ten tasks::
   widened at ``--init-ckpt``).
 
 On the card ALBEF's ViT takes the fused residual + LayerNorm kernel
-(``vit.fused_ln``), as the attack CLI does.  The text is the item's
-``question`` (an annotation's question, sentence or caption, or an arrow
-table's caption).  ``--arrow-root`` reads the corpora of
+(``vit.fused_ln``), as the attack CLI does, but under ``--opt adahessian``:
+a Hessian-vector product cannot pass the kernels, so AdaHessian trains
+with the plain LayerNorm and refuses the flash attention backend, as the
+JAX CLI, whose Pallas kernels take no Hessian either, trains with neither.
+``--opt`` takes every optimizer of ``train/optim.py`` and a ``lookahead_``
+prefix.  The text is the item's ``question`` (an annotation's question,
+sentence or caption, or an arrow table's caption).  ``--arrow-root`` reads the corpora of
 ``data/pretrain_datasets.py`` (pyarrow and PIL; the defaults: wikibk for
 ``vlmo_textmlm``, nlvr2 for the NLVR2 tasks, else coco, f30k, gcc, sbu
 and vg; corpora missing from the directory are skipped) in place of
@@ -173,7 +177,8 @@ def pretrain_loss_weights(preset: dict) -> dict:
 def resolve_config(args, preset: Optional[dict], device: torch.device):
     """The run config: ``--config`` (default the ALBEF attack config), the
     preset's VLMo geometry, ``--image-size`` on both models, and on the card
-    the fused residual + LayerNorm ViT for the ALBEF tasks (:data:`ALBEF_TASKS`)."""
+    the fused residual + LayerNorm ViT for the ALBEF tasks (:data:`ALBEF_TASKS`),
+    but for ``--opt adahessian``."""
     from vqattack_tpu_torch import config as cfg_mod
 
     cfg = cfg_mod.load_config(args.config) if args.config else cfg_mod.albef_attack_config()
@@ -186,7 +191,13 @@ def resolve_config(args, preset: Optional[dict], device: torch.device):
         cfg = dataclasses.replace(cfg, albef=dataclasses.replace(cfg.albef, vit=vit),
                                   vlmo=dataclasses.replace(cfg.vlmo, image_size=args.image_size))
     if device.type == "cuda" and args.task in ALBEF_TASKS:
-        vit = dataclasses.replace(cfg.albef.vit, fused_ln=True)
+        # AdaHessian's Hessian-vector product cannot pass the fused kernels:
+        # it trains with the plain LayerNorm, as the JAX CLI always does
+        fused = args.opt != "adahessian"
+        if not fused:
+            print("--opt adahessian: the ViT keeps the plain LayerNorm (vit.fused_ln off): "
+                  "a Hessian cannot pass the fused kernels", flush=True)
+        vit = dataclasses.replace(cfg.albef.vit, fused_ln=fused)
         cfg = dataclasses.replace(cfg, albef=dataclasses.replace(cfg.albef, vit=vit))
     return cfg
 
@@ -450,12 +461,16 @@ def main(argv=None) -> dict:
 
     from vqattack_tpu_torch.checkpoint.io import restore_latest_train_state, save_train_state
     from vqattack_tpu_torch.device import resolve_device
+    from vqattack_tpu_torch.ops.attention import get_impl
     from vqattack_tpu_torch.rng import TorchKey
     from vqattack_tpu_torch.text.tokenizer import WordPieceTokenizer
     from vqattack_tpu_torch.train.optim import create_optimizer, create_schedule
     from vqattack_tpu_torch.train.trainer import create_train_state, make_train_step
     from vqattack_tpu_torch.utils.meters import MetricLogger
 
+    if args.opt == "adahessian" and get_impl() == "flash":
+        raise SystemExit("--opt adahessian takes a Hessian-vector product, which the flash "
+                         "attention kernels cannot pass: train it under attention_impl('xla')")
     device = resolve_device(args.device)
     cfg = resolve_config(args, preset, device)
     tokenizer = WordPieceTokenizer.from_file(args.vocab)
