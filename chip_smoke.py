@@ -194,6 +194,26 @@ a second backward through K2 and through K3 refused; and each optimizer's
 ``step`` on the card against the CPU on full-width leaves for 7 steps; an
 ``optimizers`` JSON line.
 
+The data-parallel slice adds, after the ALBEF batch-16 A/B, the
+``data_parallel`` phase: the batched path's 11 samples through
+``BatchedAlbefAttack`` on ``make_mesh(devices=[cuda:0, cuda:0])`` (two
+replicas of the surrogate, each chunk cut in two shards, every draw made at
+the chunk's size) against the batched phase's unsharded results (per-sample
+texts equal, loss trajectories within tests/test_parallel.py's rtol 2e-4
+and atol 1e-5, the ball and the clip, the largest image gap and the share
+of pixels that differ printed, launches twice each chunk's schedule); one
+PGD step at batch 8 on one replica against two
+(``parallel/sweep.py::batched_attack_step``); ``python -m
+torch.distributed.run --nproc_per_node 2`` over this script's rank entry
+(``--rank-main PIXELS.npz ARGS``: ``run.main(ARGS + --distributed)`` with
+the images served by name) at ``--batch-size 1`` (4 samples, the union of
+the ranks' artifacts against one process's bit for bit) and ``--batch-size
+8 --attn flash --pipeline-depth 2`` (disjoint qids whose union is every
+sample, the text JSON whole, the ball), each rank's launches, seconds and
+peak memory; and ``vlmo_pretrain_loss`` at VLMo-base width, batch 8, under
+a world-1 NCCL group against the same call without one, loss and
+gradients; a ``data_parallel`` JSON line.
+
 The bf16 trunk (``--dtype bfloat16``) adds, after the float32 phases of each
 surrogate: K2 on a bf16 stream (phase 3, beside float32) and K3's bf16
 instance against its plain versions and the float32 computation (ALBEF's
@@ -1345,6 +1365,399 @@ def one_step_ab(pipe, cfg, tokenizer, gen):
 
 
 # ---------------------------------------------------------------------------
+# data parallel: two replicas of the surrogate on the one card (the engine's
+# mesh), two ranks through torch.distributed.run, a world-1 NCCL group
+# ---------------------------------------------------------------------------
+
+DP_DEVICES = 2
+# per-sample --distributed run: two MAR and two feature-only samples, so
+# that each rank gets one of each (rank r: items r and r + 2)
+DP_B1_SAMPLES = BATCH_SAMPLES[:2] + BATCH_SAMPLES[8:10]
+DP_LOSS_TOL = dict(rtol=2e-4, atol=1e-5)  # tests/test_parallel.py:168-169
+DP_STEPS = 5
+RANK_TIMEOUT_S = 420
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_engine_run(pipe, cfg, paths, args, reference):
+    """The batched path (``BATCH_SAMPLES``, ``--batch-size 8 --attn flash
+    --pipeline-depth 2``) through ``BatchedAlbefAttack`` on a mesh of two
+    replicas of the surrogate on cuda:0, against ``reference``, the same
+    samples through the unsharded engine (the batched phase): per sample
+    the same texts, the loss trajectories within ``DP_LOSS_TOL``, the
+    images inside the ball and the clip, and the largest image gap and the
+    share of pixels that differ printed.  Launch counts reset just before
+    and read just after: each chunk's schedule twice (two half-chunks), plus
+    the mixed second loss's calls.  Returns a dict of what it measured."""
+    from vqattack_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(devices=[dev] * DP_DEVICES)
+    engine = batched.BatchedAlbefAttack(pipe, mesh=mesh)
+    require(len(engine._replicas) == DP_DEVICES, "one replica a mesh device")
+    for view, _ in engine._replicas:
+        require(view.surrogate is not pipe.surrogate, "a replica shares the surrogate")
+        for (n, a), (m, b) in zip(pipe.surrogate.state_dict().items(),
+                                  view.surrogate.state_dict().items()):
+            require(n == m and torch.equal(a, b), f"replica parameter {n} differs")
+    mixed_calls = []
+
+    def counted(fn):
+        return lambda *a: mixed_calls.append(1) or fn(*a)
+
+    engine._replicas = [(view, counted(m)) for view, m in engine._replicas]
+    engine._timer = batched.PhaseTimer(True, dev)
+    side = SideTables.load([paths["right"]], [paths["sur"]], [paths["tgt"]],
+                           [paths["para"]], [paths["allc"]])
+    size = cfg.albef.vit.image_size
+    samples = []
+    for i, (qid, question, _, _) in enumerate(BATCH_SAMPLES):
+        info = side.attack_inputs(qid)
+        samples.append({"qid": str(qid), "pixels": sample_pixels(100 + i, size),
+                        "question": question, "paraphrase": info["paraphrase"],
+                        "target_answer": info["target_answer"],
+                        "all_correct_answers": info["all_correct_answers"]})
+    with attention.attention_impl("flash"):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = engine.run(samples, batch_size=args.batch_size, rng=TorchKey(cfg.seed, dev),
+                             pipeline_depth=args.pipeline_depth)
+        torch.cuda.synchronize()
+        attack_s = time.perf_counter() - t0
+        launched = counts()
+    require(engine.last_chunk_sizes == [8, 4], f"chunks {engine.last_chunk_sizes}")
+    expected = dict.fromkeys(KERNELS, 0)
+    for old_alg in (0, 1):
+        # one chunk a bucket, each cut in two shards that run its schedule
+        res = next(r for r in results if r.old_alg == old_alg)
+        passes = implied_launches(cfg, *schedule_passes(res), True, cfg.compute_dtype)
+        add_launches(expected, {k: DP_DEVICES * v for k, v in passes.items()})
+    n_mixed = len(mixed_calls)
+    add_launches(expected, implied_launches(cfg, n_mixed, n_mixed, 0, True, cfg.compute_dtype))
+    check_launches(launched, expected, {"pgd_linf_update", "residual_layernorm_fwd",
+                                        "residual_layernorm_bwd", "flash_attention_fwd",
+                                        "flash_attention_bwd"}, "two-replica batched")
+    require([r.qid for r in results] == [r.qid for r in reference], "results not in qid order")
+    gaps, differ, pixels, loss_err = [], 0, 0, 0.0
+    for smp, r, ref in zip(samples, results, reference):
+        check_result(r, smp["pixels"], cfg.attack, size)
+        require((r.adv_text, r.substitutions) == (ref.adv_text, ref.substitutions),
+                f"{r.qid}: text {r.adv_text!r} against {ref.adv_text!r} unsharded")
+        for got, want in ((r.feat_losses, ref.feat_losses), (r.mlm_losses, ref.mlm_losses)):
+            if want is None:
+                require(got is None, f"{r.qid}: an MLM trajectory the unsharded run lacks")
+                continue
+            require(np.allclose(got, want, **DP_LOSS_TOL),
+                    f"{r.qid}: loss trajectory off the unsharded one by "
+                    f"{np.abs(got - want).max():.3g}")
+            loss_err = max(loss_err, float(np.abs(got - want).max()))
+        gap = np.abs(r.adv_image - ref.adv_image)
+        gaps.append(float(gap.max()))
+        differ += int((gap > 0).sum())
+        pixels += gap.size
+    out = {"samples": len(results), "chunks": engine.last_chunk_sizes,
+           "mixed_loss_calls": n_mixed, "attack_s": attack_s,
+           "sample_iters_per_s": cfg.attack.num_iters * len(results) / attack_s,
+           "max_loss_gap": loss_err, "max_image_gap": max(gaps),
+           "pixels_differing_share": differ / pixels, "launches": launched,
+           "phase_timing_s": dict(engine._timer.acc)}
+    print(f"  two replicas on cuda:0: {len(results)} samples, chunks {engine.last_chunk_sizes} "
+          f"(two shards each), attack {attack_s:.2f} s, "
+          f"{out['sample_iters_per_s']:.2f} sample-iterations/s; largest loss gap {loss_err:.3g}, "
+          f"largest image gap {max(gaps):.3g}, pixels that differ {differ / pixels:.4%}",
+          flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_step_ab(pipe, cfg, tokenizer, gen):
+    """One PGD gradient step (feature loss, --attn flash) on a chunk of 8:
+    one replica (``pgd_feature`` over 8 rows) against two replicas on
+    cuda:0 (``parallel/sweep.py::batched_attack_step``, 4 rows each on a
+    host thread of its own), after one warm-up each, in the turns one, two,
+    two, one; the median seconds and the peak memory of each."""
+    from vqattack_tpu_torch.parallel.mesh import make_mesh, shard_params
+    from vqattack_tpu_torch.parallel.sweep import batched_attack_step
+
+    b, size, dev = BATCH_SIZE, cfg.albef.vit.image_size, pipe.device
+    ori = torch.rand((b, 3, size, size), generator=gen, device=dev) * 2 - 1
+    ids, mask = tokenizer.encode_batch(["what color is the dog"] * b, cfg.attack.max_text_len)
+    ids = torch.as_tensor(ids, dtype=torch.long, device=dev)
+    mask = torch.as_tensor(mask, dtype=torch.long, device=dev)
+    aux = {"text_ids": ids, "text_mask": mask, "ori_ids": ids, "ori_mask": mask,
+           "txt_token_mask": mask.float(), "special_ids": pipe._special}
+    atk = cfg.attack
+    mesh = make_mesh(devices=[dev] * DP_DEVICES)
+    views = [pipe.replica(m) for m in shard_params(pipe.surrogate, mesh)]
+    kw = dict(eps=atk.eps, eps_iter=atk.step_size, nb_iter=1)
+    with attention.attention_impl("flash"):
+        aux.update(pipe._targets_fn(ori, TorchKey(1, dev), aux))
+        steps = {
+            "one_replica": lambda: pgd_feature(pipe._feature_loss, ori, ori, TorchKey(2, dev),
+                                               aux, **kw),
+            "two_replicas": lambda: batched_attack_step([v._feature_loss for v in views], ori,
+                                                        ori, TorchKey(2, dev), aux, mesh, **kw),
+        }
+        out = {k: [] for k in steps}
+        peak = {}
+        results = {}
+        for name in ("one_replica", "two_replicas") + ("one_replica", "two_replicas",
+                                                       "two_replicas", "one_replica") * 2:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            results[name] = steps[name]()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if name in peak:
+                out[name].append(dt)
+            else:
+                peak[name] = torch.cuda.max_memory_allocated()
+    (adv1, l1), (adv2, l2) = results["one_replica"], results["two_replicas"]
+    require(np.allclose(l1.cpu().numpy(), l2.cpu().numpy(), **DP_LOSS_TOL),
+            "the two-replica step's losses differ from one replica's")
+    ab = {k: {"median_s": float(np.median(v)), "steps_s": v, "peak_bytes": peak[k]}
+          for k, v in out.items()}
+    ab["image_gap"] = float((adv1 - adv2).abs().max())
+    for k in steps:
+        print(f"  one gradient step at batch {b}, {k.replace('_', ' ')}: median "
+              f"{ab[k]['median_s']:.4f} s (min {min(ab[k]['steps_s']):.4f}, max "
+              f"{max(ab[k]['steps_s']):.4f}), peak memory {ab[k]['peak_bytes'] / 2 ** 30:.2f} GiB",
+              flush=True)
+    del views
+    torch.cuda.empty_cache()
+    return ab
+
+
+def rank_main(pixels_npz: str, argv: list) -> int:
+    """The entry point of a rank that ``torch.distributed.run`` starts
+    (``chip_smoke.py --rank-main PIXELS.npz ARGS``): ``run.main(ARGS)``
+    with the dataset's images served by name from ``PIXELS.npz`` (the
+    card's machine has no PIL to decode JPEGs), the launch counts reset
+    just before and read just after; writes the rank's qids, launches and
+    peak memory beside ``PIXELS.npz`` (a long line that two ranks print at
+    once may interleave in the launcher's output)."""
+    from vqattack_tpu_torch.attacks import orchestrator
+
+    with np.load(pixels_npz) as f:
+        pixels = {k: f[k] for k in f.files}
+    qids, save = [], orchestrator.save_artifacts
+
+    def recorded(results, *a, **kw):
+        qids.extend(r.qid for r in results)
+        return save(results, *a, **kw)
+
+    orchestrator.save_artifacts = recorded
+    with served_pixels(pixels):
+        reset_counts()
+        t0 = time.perf_counter()
+        summary = port_run.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    with open(f"{pixels_npz}.rank{summary['rank']}.json", "w") as f:
+        json.dump({"rank": summary["rank"], "device": summary["device"], "qids": qids,
+                   "launches": counts(), "peak_bytes": torch.cuda.max_memory_allocated(),
+                   "seconds": seconds, "summary": summary}, f)
+    return 0
+
+
+def run_ranks(argv, sample_list, pixel_base, size, tmp, name):
+    """``python -m torch.distributed.run --nproc_per_node 2`` over
+    :func:`rank_main` with ``argv + --distributed``, both ranks on cuda:0;
+    the launcher's exit code must be 0.  Returns each rank's results and
+    the launcher's seconds.  The launcher runs in a session of its own,
+    killed whole on a time-out."""
+    npz = os.path.join(tmp, f"pixels_{name}.npz")
+    np.savez(npz, **{f"{qid}.jpg": sample_pixels(pixel_base + i, size)
+                     for i, (qid, *_) in enumerate(sample_list)})
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+           "--nproc_per_node", str(DP_DEVICES), "--master_addr", "localhost",
+           "--master_port", str(_free_port()), os.path.abspath(__file__), "--rank-main",
+           npz] + argv + ["--distributed"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=RANK_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    require(proc.returncode == 0, f"torch.distributed.run ({name}) exited "
+                                  f"{proc.returncode}:\n{log[-6000:]}")
+    ranks = []
+    for r in range(DP_DEVICES):
+        with open(f"{npz}.rank{r}.json") as f:
+            ranks.append(json.load(f))
+    for r in range(DP_DEVICES):
+        require(f"rank {r} of {DP_DEVICES}: device cuda:0, backend gloo" in log,
+                f"{name}: rank {r} did not report its device and backend")
+    return ranks, seconds
+
+
+def distributed_runs(common, tmp, size):
+    """(b): ``--distributed`` on two ranks of the one card.  At
+    ``--batch-size 1`` (``DP_B1_SAMPLES``, ``--attn xla``) the union of the
+    ranks' artifacts equals one process's ``run.main`` bit for bit; at
+    ``--batch-size 8 --attn flash --pipeline-depth 2`` (``BATCH_SAMPLES``)
+    the ranks' qids are disjoint, their union is every sample, the text
+    JSON holds every qid and every image stays in the ball.  Each rank
+    launches K1 and K2 (and K3 under flash)."""
+    out = {}
+    b1 = os.path.join(tmp, "ann_dp_b1.json")
+    write_ann(b1, DP_B1_SAMPLES)
+    base = common + ["--image-root", tmp, "--ann", b1]
+    single_dir, union_dir = os.path.join(tmp, "dp_single_b1"), os.path.join(tmp, "dp_ranks_b1")
+    pixels = {f"{qid}.jpg": sample_pixels(900 + i, size)
+              for i, (qid, *_) in enumerate(DP_B1_SAMPLES)}
+    with served_pixels(pixels):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single = port_run.main(base + ["--output", single_dir])
+        torch.cuda.synchronize()
+        out["b1_single_s"] = time.perf_counter() - t0
+    ranks, out["b1_launcher_s"] = run_ranks(base + ["--output", union_dir], DP_B1_SAMPLES, 900,
+                                            size, tmp, "b1")
+    qids = [str(q) for q, *_ in DP_B1_SAMPLES]
+    require([r["qids"] for r in ranks] == [qids[0::2], qids[1::2]],
+            f"round robin: {[r['qids'] for r in ranks]}")
+    require(single["samples"] == len(qids) and all(
+        r["summary"]["samples_all_ranks"] == len(qids) for r in ranks), "b1 sample counts")
+    for q in qids:
+        a = np.load(os.path.join(union_dir, f"{q}.npy"))
+        b = np.load(os.path.join(single_dir, f"{q}.npy"))
+        require(np.array_equal(a, b), f"{q}: the ranks' image is not the single run's bit for "
+                                      f"bit (largest gap {np.abs(a - b).max():.3g})")
+    with open(os.path.join(union_dir, "adv_txt_dict.json")) as f, \
+            open(os.path.join(single_dir, "adv_txt_dict.json")) as g:
+        require(json.load(f) == json.load(g), "b1: the ranks' texts are not the single run's")
+    for r in ranks:
+        require(all(r["launches"][k] > 0 for k in ("pgd_linf_update", "residual_layernorm_fwd",
+                                                    "residual_layernorm_bwd")),
+                f"b1 rank {r['rank']}: K1 or K2 not launched: {r['launches']}")
+    out["b1_ranks"] = [{k: r[k] for k in ("rank", "qids", "peak_bytes", "seconds", "launches")}
+                       for r in ranks]
+
+    b8 = os.path.join(tmp, "ann_dp_b8.json")
+    write_ann(b8, BATCH_SAMPLES)
+    union_dir = os.path.join(tmp, "dp_ranks_b8")
+    ranks, out["b8_launcher_s"] = run_ranks(
+        common + ["--image-root", tmp, "--ann", b8, "--output", union_dir, "--batch-size",
+                  str(BATCH_SIZE), "--attn", "flash", "--pipeline-depth", str(PIPELINE_DEPTH)],
+        BATCH_SAMPLES, 100, size, tmp, "b8")
+    per_rank = [r["qids"] for r in ranks]
+    union = sorted(q for qs in per_rank for q in qs)
+    qids = sorted(str(q) for q, *_ in BATCH_SAMPLES)
+    require(union == qids and len(set(union)) == len(union), f"b8 union {per_rank}")
+    with open(os.path.join(union_dir, "adv_txt_dict.json")) as f:
+        require(sorted(json.load(f)) == qids, "b8: the text JSON lacks a qid")
+    atk_eps = port_run.resolve_config(port_run.build_argparser().parse_args(common)).attack.eps
+    for i, (qid, *_) in enumerate(BATCH_SAMPLES):
+        adv = np.load(os.path.join(union_dir, f"{qid}.npy")).transpose(0, 3, 1, 2)
+        require(np.abs(adv - sample_pixels(100 + i, size)).max() <= atk_eps + 1e-6
+                and np.abs(adv).max() <= 1.0, f"b8 {qid}: outside the ball or the clip")
+    for r in ranks:
+        require(all(r["launches"][k] > 0 for k in ("pgd_linf_update", "residual_layernorm_fwd",
+                                                    "residual_layernorm_bwd",
+                                                    "flash_attention_fwd", "flash_attention_bwd")),
+                f"b8 rank {r['rank']}: a kernel not launched: {r['launches']}")
+    out["b8_ranks"] = [{k: r[k] for k in ("rank", "qids", "peak_bytes", "seconds", "launches")}
+                       for r in ranks]
+    for key in ("b1_ranks", "b8_ranks"):
+        for r in out[key]:
+            print(f"  --distributed {key[:2]} rank {r['rank']}: qids {r['qids']}, run.main "
+                  f"{r['seconds']:.2f} s, peak memory {r['peak_bytes'] / 2 ** 30:.2f} GiB",
+                  flush=True)
+    print(f"  --distributed: launcher {out['b1_launcher_s']:.2f} s (b1; one process "
+          f"{out['b1_single_s']:.2f} s), {out['b8_launcher_s']:.2f} s (b8)", flush=True)
+    return out
+
+
+def nccl_world1_check(gen):
+    """(c): ``vlmo_pretrain_loss`` (MLM + ITC + ITM) at VLMo-base width
+    (``task_mlm_itm_itc_base``), batch 8, ``--attn flash``, under a world-1
+    NCCL group against the same call without a group: the loss, and every
+    parameter's gradient, within 1e-6 of its largest value."""
+    import torch.distributed as dist
+
+    from vqattack_tpu_torch.models.vlmo import VLMo, init_vlmo_weights
+    from vqattack_tpu_torch.named_configs import vlmo_config_from_named, vlmo_named_config
+    from vqattack_tpu_torch.train.objectives import vlmo_pretrain_loss
+
+    dev = torch.device("cuda", 0)
+    vc = vlmo_config_from_named(vlmo_named_config(PRETRAIN_BASE))
+    with torch.device(dev):
+        model = init_vlmo_weights(VLMo(vc), seed=SEED)
+    b, t = TRAIN_BATCH, vc.max_text_len
+    ids = torch.randint(1000, 30000, (b, t), generator=gen, device=dev)
+    ids[:, 0] = 101
+    picked = torch.rand((b, t), generator=gen, device=dev) < 0.15
+    picked[:, 0] = False
+    picked[:, 1] = True
+    batch = {"pixels": torch.rand((b, 3, vc.image_size, vc.image_size), generator=gen,
+                                  device=dev) * 2 - 1,
+             "text_ids": ids, "text_mask": torch.ones_like(ids),
+             "mlm_ids": torch.where(picked, torch.full_like(ids, 103), ids),
+             "mlm_labels": torch.where(picked, ids, torch.full_like(ids, -100))}
+    weights = {"mlm": 1.0, "itc": 1.0, "itm": 1.0}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    runs = {}
+    try:
+        with attention.attention_impl("flash"):
+            for name, group in (("no_group", None), ("nccl_world1", dist.group.WORLD)):
+                model.zero_grad(set_to_none=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, metrics = vlmo_pretrain_loss(model, batch, TorchKey(3, dev), weights,
+                                                   group=group)
+                loss.backward()
+                torch.cuda.synchronize()
+                runs[name] = (loss.item(), {k: p.grad.detach().clone() for k, p in
+                                            model.named_parameters() if p.grad is not None},
+                              time.perf_counter() - t0)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    (l0, g0, s0), (l1, g1, s1) = runs["no_group"], runs["nccl_world1"]
+    require(backend == "nccl" and math.isfinite(l0), f"backend {backend}, loss {l0}")
+    require(abs(l1 - l0) <= 1e-6 * max(1.0, abs(l0)), f"loss {l1} under the group, {l0} without")
+    require(g0.keys() == g1.keys() and len(g0) > 100, "the gradients' parameters")
+    worst = 0.0
+    for k in g0:
+        scale = max(1e-30, float(g0[k].abs().max()))
+        err = float((g1[k] - g0[k]).abs().max()) / scale
+        require(err <= 1e-6, f"{k}: gradient under the group off by {err:.3g} of its largest")
+        worst = max(worst, err)
+    out = {"loss": l0, "loss_gap": abs(l1 - l0), "worst_grad_gap_of_largest": worst,
+           "parameters": len(g0), "no_group_s": s0, "nccl_world1_s": s1, "backend": backend}
+    print(f"  world-1 NCCL group: loss {l1:.6f} against {l0:.6f} without, {len(g0)} "
+          f"gradients within {worst:.3g} of their largest", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def data_parallel_phase(pipe, cfg, tokenizer, paths, args, reference, common, tmp, gen):
+    """The three checks of the data-parallel slice, and their numbers."""
+    out = {"two_replicas": sharded_engine_run(pipe, cfg, paths, args, reference)}
+    out["step_ab_batch8"] = sharded_step_ab(pipe, cfg, tokenizer, gen)
+    out["distributed"] = distributed_runs(common, tmp, cfg.albef.vit.image_size)
+    out["nccl_world1"] = nccl_world1_check(gen)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the VLMo phases (--pipeline vlmo): 941 joint tokens, the relative-position
 # table and the padded-text mask as K3's two additive terms
 # ---------------------------------------------------------------------------
@@ -2191,7 +2604,9 @@ def write_train_ann(tmp, name, n, size, pixel_base):
 
 @contextlib.contextmanager
 def served_pixels(pixels):
-    """The dataset's images served by name (the card's machine has no PIL)."""
+    """The dataset's images served by name (the card's machine has no PIL):
+    a read of a dict that nothing writes, safe on the reader threads of
+    ``iter_batches``."""
     from vqattack_tpu_torch.data.vqa import VQADataset
 
     load_pixels = VQADataset._load_pixels
@@ -3584,8 +3999,8 @@ def record_main():
 
     def recording(cls):
         class Recording(cls):
-            def __init__(self, pipeline):
-                super().__init__(pipeline)
+            def __init__(self, pipeline, **kw):
+                super().__init__(pipeline, **kw)
                 rec["engine"] = self
                 mixed = self._mixed_loss
                 self._mixed_loss = lambda *a: rec["mixed"].append(1) or mixed(*a)
@@ -4610,6 +5025,15 @@ def main() -> int:
     with Phase("one gradient step at batch 16: --attn flash against --attn xla"):
         ab = one_step_ab(pipe, cfg, tokenizer, gen)
 
+    # ------------------------------ data parallel: a mesh, ranks, NCCL group
+    with Phase(f"data parallel: the batched path on {DP_DEVICES} replicas of cuda:0, "
+               f"--distributed on {DP_DEVICES} ranks (batch 1 and 8), a world-1 NCCL "
+               f"group") as ph:
+        dp = data_parallel_phase(pipe, cfg, tokenizer, paths, batch_args, b_results, common,
+                                 tmp, gen)
+    dp["phase_s"] = round(ph.seconds, 2)
+    print(json.dumps({"data_parallel": dp, "card": smi}), flush=True)
+
     # ------------------------- the analysis slice: restarts, Grad-CAM, zoo
     vit32 = {"residual_layernorm_fwd", "residual_layernorm_bwd", "flash_attention_fwd",
              "flash_attention_bwd"}
@@ -5027,4 +5451,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-main"]:
+        sys.exit(rank_main(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

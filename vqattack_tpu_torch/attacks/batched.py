@@ -1,12 +1,20 @@
 """Batched multi-sample attack: the sweep's throughput engine.
 
 Port of ``vqattack_tpu/attacks/batched.py``: the ALBEF engine and its VLMo
-subclass, which swaps the target and ``aux`` adapters and the text dialect
-(the device mesh is not ported yet).  Samples that share a block schedule
-run in lockstep: one PGD loop advances the whole batch, the VL step
-harvests every sample's text-embedding gradients at once, and the candidate
-sentences of all samples are embedded and gated in single device calls.
-The host does the WordPiece bookkeeping between blocks.
+subclass, which swaps the target and ``aux`` adapters and the text dialect.
+Samples that share a block schedule run in lockstep: one PGD loop advances
+the whole batch, the VL step harvests every sample's text-embedding
+gradients at once, and the candidate sentences of all samples are embedded
+and gated in single device calls.  The host does the WordPiece bookkeeping
+between blocks.
+
+Data mesh (``mesh=``, ``parallel/mesh.py``): each PGD block runs one row
+slice of the chunk on each device of the mesh's data axis at once, one host
+thread a device, each on its own replica of the surrogate.  Every draw is
+made at the whole chunk's size and sliced (``rng.py::RowsKey``), so a
+sample's start and masks do not depend on the mesh.  The host text attack
+between blocks works on the gathered chunk.  A chunk whose rows do not
+divide by the data axis runs whole on the mesh's first device (warned).
 
 Bucketing: the schedule is fixed by ``k``, the number of substitutable
 words (``compute_iter_schedule``), so a bucket is the samples with equal
@@ -20,7 +28,9 @@ step to a per-sample convex mix ``w*MAR + (1-w)*feature``.
 Every block takes the fused block forms of ``attacks/pgd.py`` (clean targets
 inside block 0, the VL step at the end of each block but the last).  The
 keys follow the JAX engine's structure (a ``fold_in`` per chunk, a ``split``
-per block), so the tests can replay the JAX draws.
+per block), so the tests can replay the JAX draws.  A chunk pads to the
+next power of two, floored at the data axis and rounded up to a multiple of
+it, and capped at the batch size, as the JAX engine pads.
 """
 
 from __future__ import annotations
@@ -52,7 +62,8 @@ from vqattack_tpu_torch.attacks.text_attack import (
 )
 from vqattack_tpu_torch.models.albef import AlbefPretrain
 from vqattack_tpu_torch.models.vlmo import VLMo
-from vqattack_tpu_torch.rng import TorchKey
+from vqattack_tpu_torch.parallel.mesh import DATA_AXIS, map_shards, shard_params, shard_rows
+from vqattack_tpu_torch.rng import RowsKey, TorchKey, clone_key
 from vqattack_tpu_torch.text.similarity import next_pow2
 
 
@@ -156,12 +167,27 @@ class BatchedAlbefAttack:
     _question_suffix = ""
     _sentence_suffix = ""
 
-    def __init__(self, pipeline: AlbefAttackPipeline):
+    def __init__(self, pipeline: AlbefAttackPipeline, mesh=None):
+        """``mesh``: a ``parallel/mesh.py`` mesh; each chunk's rows shard
+        over its data axis, each device with its own replica of the
+        surrogate (the victim and the candidate MLM stay on the pipeline's
+        device)."""
         self.p = pipeline
+        self.mesh = mesh
         self._mixed_loss = self._mixed_second_loss(pipeline)
         self._timer = _make_timer(pipeline.device)
         self.last_occupancy = 1.0
         self.last_chunk_sizes: List[int] = []
+        # (pipeline view, its mixed second loss) of each data-axis device
+        self._replicas: List[Tuple[Any, Any]] = []
+        if mesh is not None:
+            for module in shard_params(self._surrogate(pipeline), mesh):
+                view = pipeline.replica(module)
+                self._replicas.append((view, _mixed_loss(view._feature_loss, view._mlm_loss)))
+
+    @staticmethod
+    def _surrogate(pipeline):
+        return pipeline.surrogate
 
     @staticmethod
     def _mixed_second_loss(pipeline):
@@ -238,9 +264,10 @@ class BatchedAlbefAttack:
 
     # ---------------------------------------------------------------- attack
 
-    def _mlm_aux(self, states: List[_SampleState], aux: Dict[str, Any]):
-        """The MAR entries of ``aux`` and the second loss: the MLM loss, or
-        the per-sample mix where a sample's labels no longer align."""
+    def _mlm_aux(self, states: List[_SampleState], aux: Dict[str, Any]) -> bool:
+        """Add the MAR entries to ``aux``; True where the second loss is the
+        per-sample mix (some sample's labels no longer align), False where
+        it is the MLM loss."""
         tok = self.p.tokenizer
         mlm_ids, mlm_mask, weights = [], [], []
         for s in states:
@@ -253,9 +280,32 @@ class BatchedAlbefAttack:
         aux["mlm_mask"] = self._tensor(np.stack(mlm_mask))
         aux["mlm_labels"] = self._tensor(np.stack([s.mar.labels for s in states]))
         if all(w == 1.0 for w in weights):
-            return self.p._mlm_loss
+            return False
         aux["mlm_weight"] = self._tensor(weights, torch.float32)
-        return self._mixed_loss
+        return True
+
+    def _shards(self, b: int):
+        """``(pipeline, lo, hi, mixed second loss)`` of each row shard of a
+        ``b``-row chunk: the whole chunk on the pipeline without a mesh."""
+        if self.mesh is None:
+            return [(self.p, 0, b, self._mixed_loss)]
+        return [(view, lo, hi, mixed) for (view, mixed), (_, lo, hi)
+                in zip(self._replicas, shard_rows(self.mesh, b))]
+
+    @staticmethod
+    def _place(aux: Dict[str, Any], view, lo: int, hi: int) -> Dict[str, Any]:
+        """A shard's ``aux``: the rows ``lo:hi`` of every batch entry on the
+        shard's device; the relative-position biases its replica's own; the
+        special ids as they are."""
+        out = {}
+        for k, v in aux.items():
+            if k == "rel_biases":
+                out[k] = view._rel_biases
+            elif isinstance(v, torch.Tensor):
+                out[k] = v[lo:hi].to(view.device)
+            else:
+                out[k] = v
+        return out
 
     def attack_bucket(self, pixels: np.ndarray, states: List[_SampleState], rng
                       ) -> List[AttackResult]:
@@ -270,13 +320,19 @@ class BatchedAlbefAttack:
         old_alg = states[0].mar.old_alg
         iter_list = states[0].cands.iter_list or [atk.num_iters]
 
-        ori_px = torch.as_tensor(pixels, dtype=torch.float32, device=p.device)
-        adv_px = ori_px
+        shards = self._shards(b)
+        # each shard's images, and its keys: without a mesh the chunk's key,
+        # on a mesh a copy of it a shard drawing the whole chunk's rows
+        ori_px = [torch.as_tensor(pixels[lo:hi], dtype=torch.float32, device=view.device)
+                  for view, lo, hi, _ in shards]
+        adv_px = list(ori_px)
+        keys = ([rng] if self.mesh is None else
+                [RowsKey(clone_key(rng), lo, hi, b, view.device) for view, lo, hi, _ in shards])
         ori_ids, ori_mask = p.tokenizer.encode_batch([s.question for s in states],
                                                      self._max_text_len)
         n_ori = np.asarray(ori_mask).sum(1)
-        r_tgt, r_pgd = rng.split(2)
-        targets = None  # computed inside block 0
+        r_tgt, r_pgd = _split(keys)
+        targets: List[Optional[Dict[str, torch.Tensor]]] = [None] * len(shards)  # block 0
         feat_losses: List[List[np.ndarray]] = [[] for _ in range(b)]
         mlm_losses: List[List[np.ndarray]] = [[] for _ in range(b)]
         vl_steps = 0
@@ -299,47 +355,58 @@ class BatchedAlbefAttack:
                 ids, mask = p.tokenizer.encode_batch([s.adv_text for s in states],
                                                      self._max_text_len)
                 n = np.minimum(np.asarray(mask).sum(1), n_ori)
-                aux = self._block_aux(targets, ids, mask, n)
+                aux = self._block_aux(None, ids, mask, n)
                 if block_idx == 0:
                     aux["ori_ids"] = self._tensor(ori_ids)
                     aux["ori_mask"] = self._tensor(ori_mask)
-                if old_alg != 1:
-                    second = self._mlm_aux(states, aux)
-            r_pgd, r_block = r_pgd.split(2)
-            r_pgd, r_vl = r_pgd.split(2)
+                mixed = old_alg != 1 and self._mlm_aux(states, aux)
+            r_pgd, r_block = _split(r_pgd)
+            r_pgd, r_vl = _split(r_pgd)
             if block_iters > atk.num_iters:
                 raise ValueError(f"block_iters={block_iters} exceeds the attack budget "
                                  f"num_iters={atk.num_iters}")
             is_last = block_idx == len(iter_list) - 1 or max_p == 0
-            common = dict(
-                x=adv_px, ori_x=ori_px, key=r_block, vl_key=r_vl, tgt_key=r_tgt,
-                rand_init=block_idx == 0 and atk.rand_init, do_vl=not is_last,
-                positions=positions, aux=aux, target_keys=self._target_keys, **kw,
-            )
-            targets_fn = p._targets_fn if block_idx == 0 else None
-            with self._timer.phase("pgd", sync=True):
+
+            def block(i):
+                view, lo, hi, mixed_loss = shards[i]
+                aux_i = self._place(aux, view, lo, hi)
+                if targets[i] is not None:
+                    aux_i.update(targets[i])
+                common = dict(
+                    x=adv_px[i], ori_x=ori_px[i], key=r_block[i], vl_key=r_vl[i],
+                    tgt_key=r_tgt[i], rand_init=block_idx == 0 and atk.rand_init,
+                    do_vl=not is_last, positions=positions[lo:hi].to(view.device), aux=aux_i,
+                    target_keys=self._target_keys, **kw,
+                )
+                targets_fn = view._targets_fn if block_idx == 0 else None
                 if old_alg == 1:
-                    adv_px, losses, tgf, tgts = pgd_feature_block(
-                        p._feature_loss, p._vl_loss, p._embed_text, targets_fn,
+                    adv, losses, tgf, tgts = pgd_feature_block(
+                        view._feature_loss, view._vl_loss, view._embed_text, targets_fn,
                         nb_iter=block_iters, max_iter=atk.num_iters, **common)
-                    ln = losses.cpu().numpy()
+                    return adv, losses.cpu().numpy(), None, tgf, tgts
+                second = mixed_loss if mixed else view._mlm_loss
+                adv, fl, ml, tgf, tgts = pgd_alternating_block(
+                    view._feature_loss, second, view._vl_loss, view._embed_text, targets_fn,
+                    nb_iter=block_iters // 2, max_iter=atk.num_iters // 2, **common)
+                return adv, fl.cpu().numpy(), ml.cpu().numpy(), tgf, tgts
+
+            with self._timer.phase("pgd", sync=True):
+                outs = map_shards(block, len(shards))
+                fln = np.concatenate([o[1] for o in outs], axis=1)
+                for j in range(b):
+                    feat_losses[j].append(fln[:, j])
+                if old_alg != 1:
+                    mln = np.concatenate([o[2] for o in outs], axis=1)
                     for j in range(b):
-                        feat_losses[j].append(ln[:, j])
-                else:
-                    adv_px, fl, ml, tgf, tgts = pgd_alternating_block(
-                        p._feature_loss, second, p._vl_loss, p._embed_text, targets_fn,
-                        nb_iter=block_iters // 2, max_iter=atk.num_iters // 2, **common)
-                    fln, mln = fl.cpu().numpy(), ml.cpu().numpy()
-                    for j in range(b):
-                        feat_losses[j].append(fln[:, j])
                         mlm_losses[j].append(mln[:, j])
+                adv_px = [o[0] for o in outs]
                 if block_idx == 0:
-                    targets = dict(zip(self._target_keys, tgts))
+                    targets = [dict(zip(self._target_keys, o[4])) for o in outs]
             if is_last:
                 break
             vl_steps += 1
             with self._timer.phase("vl_step"):
-                tg = tgf.cpu().numpy()
+                tg = np.concatenate([o[3].cpu().numpy() for o in outs])
 
             # substitution selection on the host; the bucket's candidate
             # embeddings and gate rounds batch into single device calls
@@ -366,7 +433,7 @@ class BatchedAlbefAttack:
                     if old_alg == 0 and ops:
                         s.mar_words = apply_substitutions_to_paraphrase(s.mar_words, ops)
 
-        adv_np = adv_px.cpu().numpy()
+        adv_np = np.concatenate([a.cpu().numpy() for a in adv_px])
         return [
             AttackResult(
                 qid=s.qid,
@@ -420,6 +487,9 @@ class BatchedAlbefAttack:
         for st, s in prepared:
             buckets.setdefault(self.bucket_key(st), []).append((st, s))
 
+        # a chunk on a mesh pads at least to the data axis, to a multiple of
+        # it (an indivisible chunk runs whole on the mesh's first device)
+        min_b = 1 if self.mesh is None else self.mesh.shape[DATA_AXIS]
         chunks = []
         step = n_padded_rows = 0
         for key in sorted(buckets):
@@ -427,7 +497,8 @@ class BatchedAlbefAttack:
             for i in range(0, len(entries), batch_size):
                 chunk = entries[i : i + batch_size]
                 n_real = len(chunk)
-                target = min(batch_size, next_pow2(n_real))
+                target = max(next_pow2(n_real), min_b)
+                target = min(batch_size, -(-target // min_b) * min_b)
                 chunk += [chunk[-1]] * (target - n_real)
                 step += 1
                 n_padded_rows += target
@@ -454,6 +525,13 @@ class BatchedAlbefAttack:
         return results
 
 
+def _split(keys) -> Tuple[list, list]:
+    """Each shard's key split in two: (the first halves, the second
+    halves)."""
+    pairs = [k.split(2) for k in keys]
+    return [a for a, _ in pairs], [b for _, b in pairs]
+
+
 class BatchedVlmoAttack(BatchedAlbefAttack):
     """Lockstep VLMo buckets: the same block loop over a
     :class:`~vqattack_tpu_torch.attacks.vlmo_orchestrator.VlmoAttackPipeline`,
@@ -464,6 +542,10 @@ class BatchedVlmoAttack(BatchedAlbefAttack):
     _target_keys = ("tgt_layer_cls", "tgt_tokens", "tgt_token_mask")
     _question_suffix = "?"
     _sentence_suffix = "."
+
+    @staticmethod
+    def _surrogate(pipeline):
+        return pipeline.model
 
     @staticmethod
     def _mixed_second_loss(pipeline):

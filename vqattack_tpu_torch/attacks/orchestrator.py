@@ -14,6 +14,7 @@ with respect to the pixels and the text embeddings only.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -109,10 +110,25 @@ class AlbefAttackPipeline:
         self.filter_words = filter_words
         self._special = (tokenizer.mask_token_id, tokenizer.pad_token_id,
                          tokenizer.cls_token_id)
-        self._feature_loss = albef_losses.make_feature_loss(self.surrogate)
-        self._mlm_loss = albef_losses.make_mlm_loss(self.surrogate)
-        self._vl_loss = albef_losses.make_vl_loss(self.surrogate)
+        self._bind_surrogate(self.surrogate)
         self._target_keys = ("tgt_img", "tgt_txt")
+
+    def _bind_surrogate(self, surrogate: AlbefPretrain) -> None:
+        self.surrogate = surrogate
+        self._feature_loss = albef_losses.make_feature_loss(surrogate)
+        self._mlm_loss = albef_losses.make_mlm_loss(surrogate)
+        self._vl_loss = albef_losses.make_vl_loss(surrogate)
+
+    def replica(self, surrogate: AlbefPretrain) -> "AlbefAttackPipeline":
+        """A view of this pipeline over ``surrogate``, a copy of its own on
+        one device of a data mesh (``parallel/mesh.py::shard_params``): the
+        attack's losses, clean targets and text embeddings bound to the
+        copy and its device; the victim, the candidate MLM, the tokenizer
+        and the gate shared."""
+        view = copy.copy(self)
+        view.device = next(surrogate.parameters()).device
+        view._bind_surrogate(surrogate)
+        return view
 
     # ------------------------------------------------------------------ utils
 
@@ -315,12 +331,18 @@ class AlbefAttackPipeline:
 
 
 def save_artifacts(results: Sequence[AttackResult], out_dir: str,
-                   txt_name: str = "adv_txt_dict.json") -> None:
+                   txt_name: str = "adv_txt_dict.json", group=None) -> None:
     """Persist adversarial artifacts in the reference's layout
     (``adv_attack.py:713-715``): per qid a ``.pt`` NCHW tensor (what the
     reference's transfer scripts read) and a ``.npy`` NHWC array (the JAX
     package's layout), plus one adversarial-text JSON merged into any
-    existing one."""
+    existing one.
+
+    ``group``: the ``torch.distributed`` group of ranks that share
+    ``out_dir``.  Each rank writes its own images; the text JSON, which
+    every rank reads, updates and rewrites, is merged one rank at a time in
+    rank order between barriers, so that it ends with the union and no
+    rank's texts are lost to another's write."""
     os.makedirs(out_dir, exist_ok=True)
     txt: Dict[str, str] = {}
     for r in results:
@@ -329,6 +351,19 @@ def save_artifacts(results: Sequence[AttackResult], out_dir: str,
         np.save(os.path.join(out_dir, f"{r.qid}.npy"), img.transpose(0, 2, 3, 1))
         txt[r.qid] = r.adv_text
     path = os.path.join(out_dir, txt_name)
+    if group is None:
+        _merge_texts(path, txt)
+        return
+    import torch.distributed as dist
+
+    for turn in range(dist.get_world_size(group)):
+        dist.barrier(group=group)
+        if turn == dist.get_rank(group):
+            _merge_texts(path, txt)
+    dist.barrier(group=group)
+
+
+def _merge_texts(path: str, txt: Dict[str, str]) -> None:
     existing = {}
     if os.path.exists(path):
         with open(path) as f:

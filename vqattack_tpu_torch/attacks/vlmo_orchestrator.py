@@ -24,6 +24,7 @@ and one per VL step.
 
 from __future__ import annotations
 
+import copy
 import json
 import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -78,14 +79,29 @@ class VlmoAttackPipeline:
 
             filter_words = default_filter_words()
         self.filter_words = filter_words
-        # parameter-only gathers, once (VLMo.precompute_joint_biases)
-        self._rel_biases = self.model.precompute_joint_biases()
+        self._bind_model(self.model)
         self._victim_rel_biases = (self._rel_biases if self.victim is self.model
                                    else self.victim.precompute_joint_biases())
-        self._feature_loss = vlmo_losses.make_feature_loss(self.model)
-        self._mlm_loss = vlmo_losses.make_mlm_loss(self.model)
-        self._vl_loss = vlmo_losses.make_vl_loss(self.model)
         self._target_keys = ("tgt_layer_cls", "tgt_tokens", "tgt_token_mask")
+
+    def _bind_model(self, model: VLMo) -> None:
+        self.model = model
+        # parameter-only gathers, once (VLMo.precompute_joint_biases)
+        self._rel_biases = model.precompute_joint_biases()
+        self._feature_loss = vlmo_losses.make_feature_loss(model)
+        self._mlm_loss = vlmo_losses.make_mlm_loss(model)
+        self._vl_loss = vlmo_losses.make_vl_loss(model)
+
+    def replica(self, model: VLMo) -> "VlmoAttackPipeline":
+        """A view of this pipeline over ``model``, a copy of the surrogate
+        on one device of a data mesh (``parallel/mesh.py::shard_params``):
+        the attack's losses, clean targets, relative-position biases and
+        text embeddings bound to the copy and its device; the victim (and
+        its biases), the candidate MLM, the tokenizer and the gate shared."""
+        view = copy.copy(self)
+        view.device = next(model.parameters()).device
+        view._bind_model(model)
+        return view
 
     # ------------------------------------------------------------------ utils
 

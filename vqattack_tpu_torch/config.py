@@ -3,8 +3,8 @@
 A copy of the ALBEF and VLMo parts of ``vqattack_tpu/config.py`` (the port
 imports nothing of the JAX package): the same frozen dataclasses, field
 names and defaults, so a ``RunConfig`` json written by either package loads
-in the other.  Keys of the JAX tree that this port does not carry (``data``,
-``mesh``: the CLI takes the data paths as flags) are ignored on load.
+in the other.  The key of the JAX tree that this port does not carry
+(``data``: the CLI takes the data paths as flags) is ignored on load.
 
 Fields that shape XLA programs on the TPU (``remat``, ``remat_scores``,
 ``scan_unroll``, ``dynamic_pgd``, ``fused_block``) are kept so configs
@@ -170,10 +170,24 @@ class AttackConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout of the data-parallel attack sweep
+    (``parallel/mesh.py``): the batch of independent attack samples shards
+    over the ``data`` axis; the ``model`` axis stays 1 (tensor parallelism
+    is not ported).  ``data_parallelism`` -1 takes every card."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallelism: int = -1
+    model_parallelism: int = 1
+
+
+@dataclass(frozen=True)
 class RunConfig:
     albef: ALBEFConfig = field(default_factory=ALBEFConfig)
     vlmo: VLMoConfig = field(default_factory=VLMoConfig)
     attack: AttackConfig = field(default_factory=AttackConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     seed: int = 42
     batch_size: int = 1
     k_test: int = 128
@@ -278,6 +292,7 @@ _NESTED = {
     "albef": ALBEFConfig,
     "vlmo": VLMoConfig,
     "attack": AttackConfig,
+    "mesh": MeshConfig,
     "vit": ViTConfig,
     "bert": BertConfig,
 }

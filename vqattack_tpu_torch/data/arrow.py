@@ -16,7 +16,7 @@ decode an image, so the package imports without them.
 from __future__ import annotations
 
 import io
-from typing import Any, Callable, Dict, Iterator, List, Sequence
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 
 def _open_table(path: str):
@@ -62,6 +62,16 @@ class ArrowDataset:
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         for i in range(len(self)):
             yield self[i]
+
+    def iter_batches(self, indices: Optional[Sequence[int]] = None, num_workers: int = 4,
+                     prefetch: int = 8) -> Iterator[Dict[str, Any]]:
+        """The items of ``indices`` (default: all) in order, decoded on
+        ``num_workers`` threads (``data/iter_utils.py``).  A read shares
+        only the table and the column lists, which it does not change, and
+        the transform."""
+        from vqattack_tpu_torch.data.iter_utils import threaded_iter
+
+        yield from threaded_iter(self, indices, num_workers, prefetch)
 
 
 def _column(table, name: str):

@@ -137,3 +137,17 @@ class VQADataset:
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         for i in range(len(self)):
             yield self[i]
+
+    def iter_batches(self, indices: Optional[Sequence[int]] = None, num_workers: int = 4,
+                     prefetch: int = 8) -> Iterator[Dict[str, Any]]:
+        """The items of ``indices`` (default: all) in order, decoded on
+        ``num_workers`` threads (``data/iter_utils.py``).  What a read
+        shares across threads: the identity table, under its lock (a
+        threaded read may number the images in another order than a serial
+        one; same image, same index holds either way), the retry's
+        resampler, drawn from its own ``random.Random``, and the transform,
+        whose shared generator (``train_transform``'s) then draws in the
+        workers' order."""
+        from vqattack_tpu_torch.data.iter_utils import threaded_iter
+
+        yield from threaded_iter(self, indices, num_workers, prefetch)

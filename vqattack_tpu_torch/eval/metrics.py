@@ -3,16 +3,16 @@
 Port of ``vqattack_tpu/eval/metrics.py`` (reference
 ``vlmo/gadgets/my_metrics.py`` and ``adv_attack.py:727-733``): ``Scalar``,
 a running mean; ``VQAScore``, the soft VQA accuracy (the soft target's
-score at the argmax label); ``AttackAccuracy``.  numpy only; the JAX
-module's ``all_reduce_mean`` (a mean across hosts) waits for the port's
-data-parallel runs.
+score at the argmax label); ``AttackAccuracy``; ``all_reduce_mean``, the
+mean of values held across the ranks of a ``torch.distributed`` group.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence
 
 import numpy as np
+import torch
 
 
 class Scalar:
@@ -63,3 +63,22 @@ class AttackAccuracy:
     def maybe_log(self, log_fn=print) -> None:
         if self.flips and len(self.flips) % self.print_every == 0:
             log_fn(f"attack_accuracy {self.value:.4f} ({len(self.flips)} samples)")
+
+
+def all_reduce_mean(values: Sequence[float], group=None) -> float:
+    """The mean of every rank's ``values`` (the reference's meter sync,
+    ``ALBEF_attack/utils.py:24-38``): their sum and count summed over the
+    default process group, or ``group``, in float64.  Without an initialised
+    group, the local mean (0.0 for no values)."""
+    import torch.distributed as dist
+
+    arr = np.asarray(values, np.float64)
+    if not (dist.is_available() and dist.is_initialized()):
+        return float(arr.mean()) if arr.size else 0.0
+    # NCCL reduces device tensors only; gloo host ones
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend(group) == "nccl" else torch.device("cpu"))
+    t = torch.tensor([arr.sum(), float(arr.size)], dtype=torch.float64, device=device)
+    dist.all_reduce(t, group=group)
+    total, count = t.tolist()
+    return total / max(1.0, count)

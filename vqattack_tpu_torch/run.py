@@ -17,8 +17,15 @@ attacks ViLT-B/32 (one shared FFN a block, 185 joint tokens at 384 px) the
 same way.  ``--batch-size 1`` attacks one sample at a time; a larger
 batch buffers ``--buffer-factor`` batches of samples and runs them through
 the lockstep engine (``attacks/batched.py``), ``--pipeline-depth`` chunks at
-a time.  ``--attn flash`` sends every attention over at least 128 queries
-(ALBEF's ViT, VLMo's joint trunk) through the flash kernel, which takes a
+a time; ``--mesh-devices N`` shards each chunk over N devices
+(``parallel/mesh.py``: the first N cards, or N replicas on the CPU with
+``--device cpu``).  ``--distributed`` runs one rank of several that
+``python -m torch.distributed.run --nproc_per_node R -m
+vqattack_tpu_torch.run ... --distributed`` starts: each rank takes its
+round-robin share of the samples, on ``cuda:{LOCAL_RANK}``, and the ranks
+write one artifact directory.  ``--attn flash`` sends every attention
+over at least 128 queries (ALBEF's ViT, VLMo's joint trunk) through the
+flash kernel, which takes a
 head dim of 64 or 34 (VLMo-base+, ``--named-config
 task_finetune_vqa_base_plus_image480``).  ``--dtype bfloat16`` computes
 the surrogate trunk in bf16
@@ -39,13 +46,15 @@ profile and a suggested ``--bert-threshold`` before the attack.
 Data: ``--ann`` VQA json annotations with ``--image-root`` JPEGs, or, with
 ``--pipeline vlmo``, ``--arrow`` VQAv2 tables of the reference's schema
 (``data/arrow.py``; pyarrow and PIL needed), whose items carry the answers'
-soft scores, which the alignment guard then weighs.  The device mesh and
-the USE gate are not ported yet.
+soft scores, which the alignment guard then weighs; either is decoded on
+4 threads ahead of the attack (``iter_batches``).  The USE gate is not
+ported.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -121,6 +130,14 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--pipeline-depth", type=int, default=4,
                    help="chunks in flight at once: one chunk's host text work "
                         "overlaps the next one's device work; 1 runs them in order")
+    p.add_argument("--mesh-devices", type=int, default=0,
+                   help="shard each lockstep chunk over a data mesh of this many devices "
+                        "(the first N cards; N replicas with --device cpu); 0 = no mesh. "
+                        "Needs --batch-size > 1, best a multiple of N")
+    p.add_argument("--distributed", action="store_true",
+                   help="one rank of `python -m torch.distributed.run`: a gloo group "
+                        "from its environment, the rank's round-robin share of the "
+                        "samples on cuda:LOCAL_RANK, one shared artifact directory")
     return p
 
 
@@ -190,7 +207,39 @@ def _load_checkpoint(what: str, loader, path: str, *args, **kw):
     return out
 
 
-def _build_pipeline(args, cfg, tokenizer):
+_LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+def _init_distributed(args) -> str:
+    """``--distributed``: join the gloo group of the ranks that
+    ``python -m torch.distributed.run`` started (``init_method="env://"``);
+    the group carries host values only (barriers, meter sums, the text
+    merge).  Returns the rank's device: ``cuda:{LOCAL_RANK % cards}``, or
+    ``cpu`` with ``--device cpu``.  Exits without the launcher's variables;
+    raises without a card unless ``--device cpu``."""
+    import torch.distributed as dist
+
+    from vqattack_tpu_torch.device import resolve_device
+
+    missing = [k for k in _LAUNCHER_ENV if k not in os.environ]
+    if missing:
+        raise SystemExit(f"--distributed: {', '.join(missing)} not set; start the ranks with "
+                         f"python -m torch.distributed.run --nproc_per_node N -m "
+                         f"vqattack_tpu_torch.run ... --distributed")
+    if args.mesh_devices:
+        raise SystemExit("--distributed runs one card a rank; --mesh-devices shards one "
+                         "process's chunks over several: use one or the other")
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]) % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend="gloo", init_method="env://")
+    print(f"rank {dist.get_rank()} of {dist.get_world_size()}: device {device}, backend "
+          f"{dist.get_backend()}", flush=True)
+    return str(device)
+
+
+def _build_pipeline(args, cfg, tokenizer, device=None):
     """Surrogate, victim and candidate MLM on ``args.device``, random from
     ``--seed`` and then loaded from whichever of ``--surrogate-ckpt``,
     ``--victim-ckpt`` and ``--bert-mlm`` are given; the BertMeanPoolGate
@@ -199,14 +248,15 @@ def _build_pipeline(args, cfg, tokenizer):
     head (the JAX CLI's victim without it).  The surrogate computes in
     ``cfg.compute_dtype``, and so does VLMo's victim (the JAX CLI applies
     the victim's parameters to the surrogate's module); the ALBEF victim
-    and the candidate MLM stay float32."""
+    and the candidate MLM stay float32.  ``device`` (a rank's card) takes
+    the place of ``--device``."""
     from vqattack_tpu_torch.checkpoint import io as ckpt_io
     from vqattack_tpu_torch.device import resolve_device
     from vqattack_tpu_torch.models.albef import init_weights
     from vqattack_tpu_torch.models.bert import FusionBert
     from vqattack_tpu_torch.text.similarity import make_gate
 
-    device = resolve_device(args.device)
+    device = resolve_device(device or args.device)
     mlm_cfg = dataclasses.replace(cfg.albef.bert, fusion_layer=cfg.albef.bert.num_layers)
     kw = {}
     if args.bert_threshold is not None:
@@ -272,17 +322,37 @@ def main(argv: Optional[list] = None) -> dict:
     args = build_argparser().parse_args(argv)
     from vqattack_tpu_torch.ops.attention import attention_impl
 
-    with attention_impl(args.attn):
-        return _main(args)
+    device = _init_distributed(args) if args.distributed else None
+    try:
+        with attention_impl(args.attn):
+            return _main(args, device)
+    finally:
+        if args.distributed:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
-def _main(args) -> dict:
+def _mesh(args, device: torch.device):
+    """The data mesh of ``--mesh-devices``: the first N cards, or N replicas
+    on the CPU; none at batch size 1 (the engine is not used), as in the
+    JAX CLI."""
+    if not args.mesh_devices or args.batch_size <= 1:
+        return None
+    from vqattack_tpu_torch.parallel.mesh import make_mesh
+
+    if device.type == "cpu":
+        return make_mesh(devices=[device] * args.mesh_devices)
+    return make_mesh(args.mesh_devices)
+
+
+def _main(args, device: Optional[str] = None) -> dict:
     from vqattack_tpu_torch.attacks.batched import BatchedAlbefAttack, BatchedVlmoAttack
     from vqattack_tpu_torch.attacks.orchestrator import save_artifacts
     from vqattack_tpu_torch.data.side_tables import SideTables
     from vqattack_tpu_torch.data.transforms import test_transform
     from vqattack_tpu_torch.data.vqa import VQADataset
-    from vqattack_tpu_torch.eval.metrics import AttackAccuracy
+    from vqattack_tpu_torch.eval.metrics import AttackAccuracy, all_reduce_mean
     from vqattack_tpu_torch.rng import TorchKey
     from vqattack_tpu_torch.text.tokenizer import WordPieceTokenizer
 
@@ -293,7 +363,12 @@ def _main(args) -> dict:
         side = SideTables.load(args.right_part, args.surrogate_ans, args.target_ans,
                                args.paraphrases, args.all_correct)
     vlmo = args.pipeline == "vlmo"
-    pipeline = _build_pipeline(args, cfg, tokenizer)
+    group = None
+    if args.distributed:
+        import torch.distributed as dist
+
+        group = dist.group.WORLD
+    pipeline = _build_pipeline(args, cfg, tokenizer, device)
     size = cfg.vlmo.image_size if vlmo else cfg.albef.vit.image_size
     if args.arrow:
         from vqattack_tpu_torch.data.arrow import VQAv2ArrowDataset
@@ -325,7 +400,8 @@ def _main(args) -> dict:
     key = TorchKey(cfg.seed, pipeline.device)
     batched = None
     if args.batch_size > 1:
-        batched = (BatchedVlmoAttack if vlmo else BatchedAlbefAttack)(pipeline)
+        batched = (BatchedVlmoAttack if vlmo else BatchedAlbefAttack)(
+            pipeline, mesh=_mesh(args, pipeline.device))
     results, pending, attack_s, occupancy = [], [], [], []
     sample_buffer: list = []
 
@@ -364,57 +440,70 @@ def _main(args) -> dict:
         if len(pending) >= cfg.eval_every:
             eval_pending()
 
-    for item in dataset:
-        qid = item["qid"]
-        info = side.attack_inputs(qid) if side else {
-            "paraphrase": None, "target_answer": None,
-            "all_correct_answers": [], "surrogate_answer": None,
-        }
-        if info is None:
-            continue  # not in the attack subset
-        # alignment guard (adv_attack.py:416-427; VLMo's test_step,
-        # vlmo_module.py:1735-1741): the stored surrogate answer must be a
-        # max-weight ground-truth answer, else the sample is skipped.  json
-        # items carry weights, arrow items answer_scores; without either,
-        # uniform weights make the guard a membership check
-        if side and item.get("answers"):
-            answers = item["answers"]
-            weights = (item.get("weights") or item.get("answer_scores")
-                       or [1.0] * len(answers))
-            if not side.alignment_ok(qid, answers, weights):
+    # a rank's share: every world-th item of the raw stream from its rank,
+    # counted before the subset and alignment filters, as the JAX CLI's
+    # (n_seen - 1) % world == rank; a rank decodes only its own items
+    rank, world = ((dist.get_rank(group), dist.get_world_size(group)) if group is not None
+                   else (0, 1))
+    items = dataset.iter_batches(range(rank, len(dataset), world))
+    with contextlib.closing(items):
+        for item in items:
+            qid = item["qid"]
+            info = side.attack_inputs(qid) if side else {
+                "paraphrase": None, "target_answer": None,
+                "all_correct_answers": [], "surrogate_answer": None,
+            }
+            if info is None:
+                continue  # not in the attack subset
+            # alignment guard (adv_attack.py:416-427; VLMo's test_step,
+            # vlmo_module.py:1735-1741): the stored surrogate answer must be a
+            # max-weight ground-truth answer, else the sample is skipped.  json
+            # items carry weights, arrow items answer_scores; without either,
+            # uniform weights make the guard a membership check
+            if side and item.get("answers"):
+                answers = item["answers"]
+                weights = (item.get("weights") or item.get("answer_scores")
+                           or [1.0] * len(answers))
+                if not side.alignment_ok(qid, answers, weights):
+                    continue
+            if args.resume and os.path.exists(os.path.join(args.output, f"{qid}.pt")):
                 continue
-        if args.resume and os.path.exists(os.path.join(args.output, f"{qid}.pt")):
-            continue
-        if batched is not None:
-            sample_buffer.append({
-                "qid": str(qid), "pixels": item["pixels"], "question": item["question"],
-                "paraphrase": info["paraphrase"], "target_answer": info["target_answer"],
-                "all_correct_answers": info["all_correct_answers"],
-                "surrogate_answer": info["surrogate_answer"],
-            })
-            if len(sample_buffer) >= args.buffer_factor * args.batch_size:
-                flush_buffer()
-            if args.limit and len(results) + len(sample_buffer) >= args.limit:
-                flush_buffer()
+            if batched is not None:
+                sample_buffer.append({
+                    "qid": str(qid), "pixels": item["pixels"], "question": item["question"],
+                    "paraphrase": info["paraphrase"], "target_answer": info["target_answer"],
+                    "all_correct_answers": info["all_correct_answers"],
+                    "surrogate_answer": info["surrogate_answer"],
+                })
+                if len(sample_buffer) >= args.buffer_factor * args.batch_size:
+                    flush_buffer()
+                if args.limit and len(results) + len(sample_buffer) >= args.limit:
+                    flush_buffer()
+                    break
+                continue
+            t0 = time.perf_counter()
+            res = pipeline.attack_sample(
+                item["pixels"], item["question"], str(qid), info["paraphrase"],
+                info["target_answer"], info["all_correct_answers"], key=key,
+            )
+            attack_s.append(time.perf_counter() - t0)
+            results.append(res)
+            pending.append((res, info["surrogate_answer"]))
+            if len(pending) >= cfg.eval_every:
+                eval_pending()
+            if args.limit and len(results) >= args.limit:
                 break
-            continue
-        t0 = time.perf_counter()
-        res = pipeline.attack_sample(
-            item["pixels"], item["question"], str(qid), info["paraphrase"],
-            info["target_answer"], info["all_correct_answers"], key=key,
-        )
-        attack_s.append(time.perf_counter() - t0)
-        results.append(res)
-        pending.append((res, info["surrogate_answer"]))
-        if len(pending) >= cfg.eval_every:
-            eval_pending()
-        if args.limit and len(results) >= args.limit:
-            break
     if batched is not None:
         flush_buffer()
     eval_pending()
-    save_artifacts(results, args.output)
+    save_artifacts(results, args.output, group=group)
     summary = {"samples": len(results), "attack_accuracy": flip.value}
+    if group is not None:
+        counts = torch.tensor([len(results)], dtype=torch.float64)
+        dist.all_reduce(counts, group=group)
+        summary.update({"rank": rank, "world_size": world,
+                        "samples_all_ranks": int(counts.item()),
+                        "attack_accuracy_all_ranks": all_reduce_mean(flip.flips, group)})
     if not args.victim_ckpt:
         summary["attack_accuracy_note"] = ("random-weight victim (no --victim-ckpt): flips are "
                                            "no evidence of attack success")
@@ -424,6 +513,8 @@ def _main(args) -> dict:
         "pipeline": args.pipeline,
         "output": args.output,
     })
+    if batched is not None and batched.mesh is not None:
+        summary["mesh_devices"] = [str(d) for d in batched.mesh.devices]
     if occupancy:
         # real rows over padded rows of every chunk the engine ran
         summary["bucket_occupancy"] = float(np.mean(occupancy))

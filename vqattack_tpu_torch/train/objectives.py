@@ -20,9 +20,14 @@ Port of ``vqattack_tpu/train/objectives.py``:
   (``vlmo_irtr_train_loss``, ``objectives.py:301-373``).
 
 The hard negatives are drawn from a key (``rng.py``) with JAX's splits, so
-that the tests can feed both packages the same draws.  The JAX functions'
-``axis_name`` (negatives gathered across a data axis) is not ported: the
-port has no data axis yet.
+that the tests can feed both packages the same draws.  ``group`` (a
+``torch.distributed`` process group of data-parallel ranks) is the
+counterpart of the JAX functions' ``axis_name``: the ITC negatives, the
+teacher's pool and VLMo's ITM candidates are gathered across the group's
+ranks in rank order (:func:`gather_rows`), the labels offset by rank x the
+local batch, and the gradient through the gather is the sum over ranks (the
+transpose of ``lax.all_gather``).  Without a group every loss is the
+single-process one.
 """
 
 from __future__ import annotations
@@ -36,6 +41,47 @@ from torch import nn
 from vqattack_tpu_torch.train.optim import named_params
 
 IGNORE_INDEX = -100
+
+
+class _AllGather(torch.autograd.Function):
+    """Rows of every rank, in rank order; the gradient of a rank's rows is
+    the sum over ranks of the gathered tensor's gradient at those rows."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        ctx.group = group
+        ctx.rows = (dist.get_rank(group) * x.shape[0], x.shape[0])
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        start, n = ctx.rows
+        return grad[start : start + n], None
+
+
+def gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x [n, ...]`` of every rank of ``group`` stacked in rank order
+    ``[world * n, ...]`` (JAX's ``all_gather(tiled=True)``), ``x`` itself
+    without a group.  Differentiable: the backward sums the ranks'
+    gradients and keeps this rank's rows."""
+    return x if group is None else _AllGather.apply(x, group)
+
+
+def rank_offset(n: int, group=None) -> int:
+    """The first row of this rank's ``n`` rows in a gathered batch."""
+    if group is None:
+        return 0
+    import torch.distributed as dist
+
+    return dist.get_rank(group) * n
 
 
 def masked_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -87,32 +133,45 @@ def _normed(x: torch.Tensor) -> torch.Tensor:
     return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
 
 
-def _diagonal_ce(logits: torch.Tensor) -> torch.Tensor:
-    """Mean CE of row ``i`` against column ``i``."""
+def _own(n: int, cols: int, offset: int, device) -> torch.Tensor:
+    """``[n, cols]``: True at row ``i``'s own pair, column ``offset + i``."""
+    return (torch.arange(cols, device=device)[None]
+            == torch.arange(offset, offset + n, device=device)[:, None])
+
+
+def _diagonal_ce(logits: torch.Tensor, offset: int = 0) -> torch.Tensor:
+    """Mean CE of row ``i`` against column ``offset + i``."""
+    n = logits.shape[0]
     logp = torch.log_softmax(logits.float(), dim=-1)
-    return -torch.mean(torch.diagonal(logp[:, : logits.shape[0]]))
+    return -torch.mean(torch.diagonal(logp[:, offset : offset + n]))
 
 
-def contrastive_loss(image_feat, text_feat, temp, queue_image=None, queue_text=None
-                     ) -> torch.Tensor:
+def contrastive_loss(image_feat, text_feat, temp, queue_image=None, queue_text=None,
+                     group=None) -> torch.Tensor:
     """ITA/ITC: symmetric InfoNCE.  With queues (``[D, Q]`` memory banks,
-    ``model_pretrain.py:178-184``) the negatives extend past the batch."""
+    ``model_pretrain.py:178-184``) the negatives extend past the batch; with
+    ``group`` past this rank's batch, to every rank's."""
     img, txt = _normed(image_feat), _normed(text_feat)
-    txt_all = txt if queue_text is None else torch.cat([txt, queue_text.T], 0)
-    img_all = img if queue_image is None else torch.cat([img, queue_image.T], 0)
-    return (_diagonal_ce(img @ txt_all.T / temp) + _diagonal_ce(txt @ img_all.T / temp)) / 2
+    img_all, txt_all = gather_rows(img, group), gather_rows(txt, group)
+    if queue_text is not None:
+        txt_all = torch.cat([txt_all, queue_text.T], 0)
+    if queue_image is not None:
+        img_all = torch.cat([img_all, queue_image.T], 0)
+    off = rank_offset(img.shape[0], group)
+    return (_diagonal_ce(img @ txt_all.T / temp, off)
+            + _diagonal_ce(txt @ img_all.T / temp, off)) / 2
 
 
-def sample_hard_negatives(key, sim_i2t: torch.Tensor, sim_t2i: torch.Tensor
+def sample_hard_negatives(key, sim_i2t: torch.Tensor, sim_t2i: torch.Tensor, offset: int = 0
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Similarity-weighted negative indices (``model_pretrain.py:197-220``):
     for each text a negative image drawn with probability softmax(sim), its
-    own pair excluded, and for each image a negative text.  Returns
-    ``(neg_image_idx, neg_text_idx)``."""
-    eye = torch.eye(sim_i2t.shape[0], dtype=torch.bool, device=sim_i2t.device)
+    own pair (column ``offset + i`` of row ``i``) excluded, and for each
+    image a negative text.  Returns ``(neg_image_idx, neg_text_idx)``."""
+    own = _own(sim_i2t.shape[0], sim_i2t.shape[1], offset, sim_i2t.device)
     r1, r2 = key.split()
-    neg_text_idx = r1.categorical(sim_i2t.masked_fill(eye, -torch.inf))
-    neg_image_idx = r2.categorical(sim_t2i.masked_fill(eye, -torch.inf))
+    neg_text_idx = r1.categorical(sim_i2t.masked_fill(own, -torch.inf))
+    neg_image_idx = r2.categorical(sim_t2i.masked_fill(own, -torch.inf))
     return neg_image_idx, neg_text_idx
 
 
@@ -151,21 +210,25 @@ def momentum_update(model: nn.Module, teacher: nn.Module, m: float = 0.995) -> n
 
 
 def soft_contrastive_loss(image_feat, text_feat, temp, t_image_feat, t_text_feat, alpha,
-                          queue_image=None, queue_text=None) -> torch.Tensor:
+                          queue_image=None, queue_text=None, group=None) -> torch.Tensor:
     """ITA with momentum distillation (``model_pretrain.py:158-184``): the
     targets blend the one-hot diagonal with the EMA teacher's softmax
-    similarities at weight ``alpha``."""
+    similarities at weight ``alpha``.  ``group`` extends the teacher's pool
+    across the ranks, as :func:`contrastive_loss` does its negatives."""
     img, txt = _normed(image_feat), _normed(text_feat)
     t_img, t_txt = _normed(t_image_feat), _normed(t_text_feat)
-    txt_all = t_txt if queue_text is None else torch.cat([t_txt, queue_text.T], 0)
-    img_all = t_img if queue_image is None else torch.cat([t_img, queue_image.T], 0)
+    txt_all, img_all = gather_rows(t_txt, group), gather_rows(t_img, group)
+    if queue_text is not None:
+        txt_all = torch.cat([txt_all, queue_text.T], 0)
+    if queue_image is not None:
+        img_all = torch.cat([img_all, queue_image.T], 0)
     sim_i2t = img @ txt_all.T / temp
     sim_t2i = txt @ img_all.T / temp
     with torch.no_grad():
         t_i2t = torch.softmax(t_img @ txt_all.T / temp, -1)
         t_t2i = torch.softmax(t_txt @ img_all.T / temp, -1)
-    onehot = torch.eye(img.shape[0], sim_i2t.shape[1], dtype=sim_i2t.dtype,
-                       device=sim_i2t.device)
+    n = img.shape[0]
+    onehot = _own(n, sim_i2t.shape[1], rank_offset(n, group), sim_i2t.device).to(sim_i2t.dtype)
     tgt_i2t = alpha * t_i2t + (1 - alpha) * onehot
     tgt_t2i = alpha * t_t2i + (1 - alpha) * onehot
     loss_i2t = -torch.mean(torch.sum(torch.log_softmax(sim_i2t, -1) * tgt_i2t, -1))
@@ -208,6 +271,7 @@ def albef_pretrain_loss(
     queue_state: Optional[Dict[str, torch.Tensor]] = None,
     teacher: Optional[nn.Module] = None,
     alpha: float = 0.0,
+    group=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One ALBEF pretraining loss (``model_pretrain.py:144-270``) of an
     :class:`~vqattack_tpu_torch.models.albef.AlbefPretrain`.
@@ -217,9 +281,11 @@ def albef_pretrain_loss(
     ``text_queue``: ``[D, Q]``) adds the queued negatives to ITA;
     ``teacher`` (the EMA copy, updated by the caller with
     :func:`momentum_update`) with ``alpha > 0`` turns on momentum
-    distillation: soft ITA targets and soft MLM labels.  ``key`` draws the
-    hard negatives: split in two, the first half split again by
-    :func:`sample_hard_negatives`.  Returns ``(total, metrics)``; the
+    distillation: soft ITA targets and soft MLM labels.  ``group`` gathers
+    ITA's negatives (and the teacher's pool) across the data-parallel ranks;
+    ITM's hard negatives stay in this rank's batch, as in the JAX loss.
+    ``key`` draws the hard negatives: split in two, the first half split
+    again by :func:`sample_hard_negatives`.  Returns ``(total, metrics)``; the
     metrics hold the three terms and the normalised features (without
     gradient) for the caller's queue update."""
     image_embeds, image_feat, text_last, text_feat = _albef_towers(model, batch)
@@ -232,9 +298,9 @@ def albef_pretrain_loss(
         with torch.no_grad():
             t_image_embeds, t_image_feat, _, t_text_feat = _albef_towers(teacher, batch)
         loss_ita = soft_contrastive_loss(image_feat, text_feat, temp, t_image_feat, t_text_feat,
-                                         alpha, qi, qt)
+                                         alpha, qi, qt, group)
     else:
-        loss_ita = contrastive_loss(image_feat, text_feat, temp, qi, qt)
+        loss_ita = contrastive_loss(image_feat, text_feat, temp, qi, qt, group)
 
     # ITM on in-batch hard negatives
     imgn, txtn = _normed(image_feat), _normed(text_feat)
@@ -356,6 +422,7 @@ def vlmo_pretrain_loss(
     batch: Dict[str, torch.Tensor],
     key,
     weights: Optional[Dict[str, float]] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """VLMo's pretraining loss: MLM over the joint trunk
     (``objectives.py::compute_mlm:18-45``), the contrastive ITC with learnt
@@ -367,7 +434,10 @@ def vlmo_pretrain_loss(
     ``mlm_ids``, ``mlm_labels [B, T]`` (-100 ignored).  ``weights`` (a
     preset's ``loss_names`` over mlm/itc/itm, 1.0 each by default): a term
     of weight 0 is skipped.  ``key`` draws the hard negatives: split in two,
-    texts from the first half, images from the second."""
+    texts from the first half, images from the second.  With ``group`` the
+    ITC negatives and ITM's candidates extend across the data-parallel
+    ranks (the reference's all_gather) and a rank's batch may hold one
+    sample."""
     w = {"mlm": 1.0, "itc": 1.0, "itm": 1.0}
     if weights:
         w.update({k: float(v) for k, v in weights.items() if k in w})
@@ -375,9 +445,13 @@ def vlmo_pretrain_loss(
     metrics: Dict[str, Any] = {}
     total = torch.zeros((), dtype=torch.float32, device=pixels.device)
     n = pixels.shape[0]
+    off = rank_offset(n, group)
 
     def normed(x):
         return _normed(x.float())
+
+    def gathered(x):
+        return gather_rows(x, group)
 
     sim_i2t = sim_t2i = None
     if w["itc"] > 0 or w["itm"] > 0:
@@ -385,14 +459,14 @@ def vlmo_pretrain_loss(
         ii = model.infer_image(pixels, vlffn=True)
         img, txt = normed(ii["cls_feats"]), normed(ti["cls_feats"])
         scale = torch.exp(model.logit_scale())
-        sim_i2t = scale * (img @ txt.T)
-        sim_t2i = scale * (txt @ img.T)
-        itc = (_diagonal_ce(sim_i2t) + _diagonal_ce(sim_t2i)) / 2
+        sim_i2t = scale * (img @ gathered(txt).T)
+        sim_t2i = scale * (txt @ gathered(img).T)
+        itc = (_diagonal_ce(sim_i2t, off) + _diagonal_ce(sim_t2i, off)) / 2
         if "cls_vlffn_feats" in ti:
             vimg, vtxt = normed(ii["cls_vlffn_feats"]), normed(ti["cls_vlffn_feats"])
             vscale = torch.exp(model.logit_vl_scale())
-            itc_vl = (_diagonal_ce(vscale * (vimg @ vtxt.T))
-                      + _diagonal_ce(vscale * (vtxt @ vimg.T))) / 2
+            itc_vl = (_diagonal_ce(vscale * (vimg @ gathered(vtxt).T), off)
+                      + _diagonal_ce(vscale * (vtxt @ gathered(vimg).T), off)) / 2
             itc = (itc + itc_vl) * 0.5  # ref objectives.py:263
             metrics["itc_vl_loss"] = itc_vl
         metrics["itc_loss"] = itc
@@ -400,18 +474,20 @@ def vlmo_pretrain_loss(
             total = total + w["itc"] * itc
 
     if w["itm"] > 0:
-        if n < 2:
+        if n < 2 and group is None:
             raise ValueError("itm hard negatives need batch >= 2")
         # similarity-weighted hard negatives, the own pair (the diagonal the
         # reference fills, ref :126-142) excluded
         with torch.no_grad():
-            neg_img_idx, neg_txt_idx = sample_hard_negatives(key, sim_i2t, sim_t2i)
+            neg_img_idx, neg_txt_idx = sample_hard_negatives(key, sim_i2t, sim_t2i, off)
+            all_px, all_ids, all_mask = (gathered(batch[k]) for k in
+                                         ("pixels", "text_ids", "text_mask"))
         ids, mask = batch["text_ids"], batch["text_mask"]
         # [pos, negative image with its own text, own image with a negative
         # text] in one joint forward
-        px3 = torch.cat([pixels, pixels[neg_img_idx], pixels])
-        ids3 = torch.cat([ids, ids, ids[neg_txt_idx]])
-        mask3 = torch.cat([mask, mask, mask[neg_txt_idx]])
+        px3 = torch.cat([pixels, all_px[neg_img_idx], pixels])
+        ids3 = torch.cat([ids, ids, all_ids[neg_txt_idx]])
+        mask3 = torch.cat([mask, mask, all_mask[neg_txt_idx]])
         xn, _, _ = model._joint_trunk(ids3, mask3, px3)
         itm_logits = model.itm_score(model.pooler(xn))
         itm_labels = torch.cat([torch.ones(n, dtype=torch.long, device=pixels.device),
