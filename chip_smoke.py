@@ -214,6 +214,27 @@ peak memory; and ``vlmo_pretrain_loss`` at VLMo-base width, batch 8, under
 a world-1 NCCL group against the same call without one, loss and
 gradients; a ``data_parallel`` JSON line.
 
+The fused-loss and data slice adds, after the transfer phase, the
+``fused_feats`` phase: the full-width ALBEF and VLMo surrogates rebuilt from
+seed 0 (the batched phases' weights) and ``fused_feats`` twins over the
+same parameter tensors; one PGD step at batch 16 under flash in float32 and
+bf16 for each, the stacked and the fused form (the summed loss and the
+image gradient held to ``FUSED_TOL``, the peak of each form's warm-up step,
+the stacked form saving its [16, 13, S, 768] stack for the backward and the
+fused one none, the median of 5 steps timed in turns with
+``utils/profiling.py``'s ``StepTimer``); a ``trace`` of the fused bf16 ALBEF
+step (its event count and five longest device kernels); cells 2 and 4 with
+the fused surrogate, their launches against the schedules and their
+trajectories against the batched phases' stacked runs; then the
+``data_stack`` phase: ``device_preprocess`` of a seeded uint8 [16, 640,
+480, 3] batch to 480 on the card against the CPU, timed; a BEiT-style
+text-pretrain dict from ``checkpoint/synthetic.py``'s VLMo keys through
+``convert_textpt_state_dict`` at full width, merged over the synthetic VLMo
+dict, converted, loaded into a VLMo on the card and held against its
+sources by name, and one PGD step of it with K3's two terms; a line that
+says the transforms (PIL) are held on the CPU only; a ``fused_feats`` JSON
+line.
+
 The bf16 trunk (``--dtype bfloat16``) adds, after the float32 phases of each
 surrogate: K2 on a bf16 stream (phase 3, beside float32) and K3's bf16
 instance against its plain versions and the float32 computation (ALBEF's
@@ -261,7 +282,7 @@ from vqattack_tpu_torch.attacks.orchestrator import save_artifacts  # noqa: E402
 from vqattack_tpu_torch.attacks.mar_labels import build_mar_labels  # noqa: E402
 from vqattack_tpu_torch.attacks.norms import get_or_guess_labels  # noqa: E402
 from vqattack_tpu_torch.attacks.pgd import (  # noqa: E402
-    pgd_alternating, pgd_feature, pgd_multi_restart)
+    _value_and_grad, pgd_alternating, pgd_feature, pgd_multi_restart)
 from vqattack_tpu_torch.data.side_tables import SideTables  # noqa: E402
 from vqattack_tpu_torch.eval import grounding  # noqa: E402
 from vqattack_tpu_torch.models.albef import AlbefPretrain  # noqa: E402
@@ -269,7 +290,9 @@ from vqattack_tpu_torch.models.layers import mask_to_key_bias  # noqa: E402
 from vqattack_tpu_torch.ops import _build, attention, fused_ln, pgd_update  # noqa: E402
 from vqattack_tpu_torch.rng import TorchKey  # noqa: E402
 from vqattack_tpu_torch.text.tokenizer import WordPieceTokenizer  # noqa: E402
+from vqattack_tpu_torch.utils import profiling  # noqa: E402
 from vqattack_tpu_torch.utils.gradcam import albef_question_gradcam  # noqa: E402
+from vqattack_tpu_torch.utils.profiling import StepTimer, hard_sync  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
@@ -1343,10 +1366,18 @@ def step_ab(step, square, what):
     return ab
 
 
-def one_step_ab(pipe, cfg, tokenizer, gen):
-    """One PGD gradient step (feature loss, forward + backward + K1) at batch
-    16, flash against xla (:func:`step_ab`)."""
-    b, size, dev = 16, cfg.albef.vit.image_size, pipe.device
+def pgd_step(pipe, ori, aux, atk, start=None):
+    """One feature-loss PGD step (forward + backward + K1) of ``pipe``'s
+    surrogate from ``start`` (default ``ori``) in the ball around ``ori``."""
+    return pgd_feature(pipe._feature_loss, ori if start is None else start, ori,
+                       TorchKey(2, ori.device), aux, eps=atk.eps, eps_iter=atk.step_size,
+                       nb_iter=1)
+
+
+def albef_step_inputs(pipe, cfg, tokenizer, gen, b=16):
+    """``(ori, aux)`` of a batch-``b`` ALBEF feature-loss step: pixels from
+    ``gen``, one question, the clean targets from ``pipe``."""
+    size, dev = cfg.albef.vit.image_size, pipe.device
     ori = torch.rand((b, 3, size, size), generator=gen, device=dev) * 2 - 1
     ids, mask = tokenizer.encode_batch(["what color is the dog"] * b, cfg.attack.max_text_len)
     ids = torch.as_tensor(ids, dtype=torch.long, device=dev)
@@ -1354,14 +1385,17 @@ def one_step_ab(pipe, cfg, tokenizer, gen):
     aux = {"text_ids": ids, "text_mask": mask, "ori_ids": ids, "ori_mask": mask,
            "txt_token_mask": mask.float(), "special_ids": pipe._special}
     aux.update(pipe._targets_fn(ori, TorchKey(1, dev), aux))
-    atk = cfg.attack
+    return ori, aux
 
-    def step():
-        pgd_feature(pipe._feature_loss, ori, ori, TorchKey(2, dev), aux,
-                    eps=atk.eps, eps_iter=atk.step_size, nb_iter=1)
 
+def one_step_ab(pipe, cfg, tokenizer, gen):
+    """One PGD gradient step (feature loss, forward + backward + K1) at batch
+    16, flash against xla (:func:`step_ab`)."""
+    b = 16
+    ori, aux = albef_step_inputs(pipe, cfg, tokenizer, gen, b)
     seq = cfg.albef.vit.seq_len
-    return step_ab(step, (b, cfg.albef.vit.num_heads, seq, seq), "one gradient step at batch 16")
+    return step_ab(lambda: pgd_step(pipe, ori, aux, cfg.attack),
+                   (b, cfg.albef.vit.num_heads, seq, seq), "one gradient step at batch 16")
 
 
 # ---------------------------------------------------------------------------
@@ -1384,6 +1418,30 @@ def _free_port() -> int:
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         return sock.getsockname()[1]
+
+
+def against_reference(results, reference, what):
+    """Per sample the same texts and substitutions as ``reference``, the
+    loss trajectories within ``DP_LOSS_TOL``; returns (the largest loss
+    gap, the largest image gap, the share of pixels that differ)."""
+    require([r.qid for r in results] == [r.qid for r in reference], "results not in qid order")
+    gaps, differ, pixels, loss_err = [], 0, 0, 0.0
+    for r, ref in zip(results, reference):
+        require((r.adv_text, r.substitutions) == (ref.adv_text, ref.substitutions),
+                f"{r.qid}: text {r.adv_text!r} against {ref.adv_text!r} {what}")
+        for got, want in ((r.feat_losses, ref.feat_losses), (r.mlm_losses, ref.mlm_losses)):
+            if want is None:
+                require(got is None, f"{r.qid}: an MLM trajectory the {what} run lacks")
+                continue
+            require(np.allclose(got, want, **DP_LOSS_TOL),
+                    f"{r.qid}: loss trajectory off the {what} one by "
+                    f"{np.abs(got - want).max():.3g}")
+            loss_err = max(loss_err, float(np.abs(got - want).max()))
+        gap = np.abs(r.adv_image - ref.adv_image)
+        gaps.append(float(gap.max()))
+        differ += int((gap > 0).sum())
+        pixels += gap.size
+    return loss_err, max(gaps), differ / pixels
 
 
 def sharded_engine_run(pipe, cfg, paths, args, reference):
@@ -1445,34 +1503,19 @@ def sharded_engine_run(pipe, cfg, paths, args, reference):
     check_launches(launched, expected, {"pgd_linf_update", "residual_layernorm_fwd",
                                         "residual_layernorm_bwd", "flash_attention_fwd",
                                         "flash_attention_bwd"}, "two-replica batched")
-    require([r.qid for r in results] == [r.qid for r in reference], "results not in qid order")
-    gaps, differ, pixels, loss_err = [], 0, 0, 0.0
-    for smp, r, ref in zip(samples, results, reference):
+    for smp, r in zip(samples, results):
         check_result(r, smp["pixels"], cfg.attack, size)
-        require((r.adv_text, r.substitutions) == (ref.adv_text, ref.substitutions),
-                f"{r.qid}: text {r.adv_text!r} against {ref.adv_text!r} unsharded")
-        for got, want in ((r.feat_losses, ref.feat_losses), (r.mlm_losses, ref.mlm_losses)):
-            if want is None:
-                require(got is None, f"{r.qid}: an MLM trajectory the unsharded run lacks")
-                continue
-            require(np.allclose(got, want, **DP_LOSS_TOL),
-                    f"{r.qid}: loss trajectory off the unsharded one by "
-                    f"{np.abs(got - want).max():.3g}")
-            loss_err = max(loss_err, float(np.abs(got - want).max()))
-        gap = np.abs(r.adv_image - ref.adv_image)
-        gaps.append(float(gap.max()))
-        differ += int((gap > 0).sum())
-        pixels += gap.size
+    loss_err, max_gap, differ_share = against_reference(results, reference, "unsharded")
     out = {"samples": len(results), "chunks": engine.last_chunk_sizes,
            "mixed_loss_calls": n_mixed, "attack_s": attack_s,
            "sample_iters_per_s": cfg.attack.num_iters * len(results) / attack_s,
-           "max_loss_gap": loss_err, "max_image_gap": max(gaps),
-           "pixels_differing_share": differ / pixels, "launches": launched,
+           "max_loss_gap": loss_err, "max_image_gap": max_gap,
+           "pixels_differing_share": differ_share, "launches": launched,
            "phase_timing_s": dict(engine._timer.acc)}
     print(f"  two replicas on cuda:0: {len(results)} samples, chunks {engine.last_chunk_sizes} "
           f"(two shards each), attack {attack_s:.2f} s, "
           f"{out['sample_iters_per_s']:.2f} sample-iterations/s; largest loss gap {loss_err:.3g}, "
-          f"largest image gap {max(gaps):.3g}, pixels that differ {differ / pixels:.4%}",
+          f"largest image gap {max_gap:.3g}, pixels that differ {differ_share:.4%}",
           flush=True)
     del engine
     torch.cuda.empty_cache()
@@ -2021,10 +2064,10 @@ def run_vlmo_batched_path(pipe, cfg, paths, args):
     return res
 
 
-def vlmo_one_step_ab(pipe, cfg, tokenizer, gen):
-    """One VLMo feature-loss PGD step at batch 16, flash against xla
-    (:func:`step_ab`): the flash step holds no [16, 12, 941, 941] tensor."""
-    b, size, dev = 16, cfg.vlmo.image_size, pipe.device
+def vlmo_step_inputs(pipe, cfg, tokenizer, gen, b=16):
+    """``(ori, aux)`` of a batch-``b`` VLMo feature-loss step: pixels from
+    ``gen``, one question, the precomputed biases and the clean targets."""
+    size, dev = cfg.vlmo.image_size, pipe.device
     ori = torch.rand((b, 3, size, size), generator=gen, device=dev) * 2 - 1
     ids, mask = tokenizer.encode_batch(["what color is the dog?"] * b, pipe.max_text_len)
     ids = torch.as_tensor(ids, dtype=torch.long, device=dev)
@@ -2032,14 +2075,17 @@ def vlmo_one_step_ab(pipe, cfg, tokenizer, gen):
     aux = {"text_ids": ids, "text_mask": mask, "rel_biases": pipe._rel_biases,
            "ori_ids": ids, "ori_mask": mask}
     aux.update(pipe._targets_fn(ori, None, aux))
-    atk = cfg.attack
+    return ori, aux
 
-    def step():
-        pgd_feature(pipe._feature_loss, ori, ori, TorchKey(2, dev), aux,
-                    eps=atk.eps, eps_iter=atk.step_size, nb_iter=1)
 
+def vlmo_one_step_ab(pipe, cfg, tokenizer, gen):
+    """One VLMo feature-loss PGD step at batch 16, flash against xla
+    (:func:`step_ab`): the flash step holds no [16, 12, 941, 941] tensor."""
+    b = 16
+    ori, aux = vlmo_step_inputs(pipe, cfg, tokenizer, gen, b)
     seq = pipe.max_text_len + cfg.vlmo.image_seq_len
-    return step_ab(step, (b, cfg.vlmo.num_heads, seq, seq),
+    return step_ab(lambda: pgd_step(pipe, ori, aux, cfg.attack),
+                   (b, cfg.vlmo.num_heads, seq, seq),
                    "one VLMo gradient step at batch 16")
 
 
@@ -4894,6 +4940,310 @@ def zoo_phase(pipe, cfg, tokenizer):
     return out, launched, expected
 
 
+# ---------------------------------------------------------------------------
+# fused_feats: the attack's feature loss without the [B, L+1, S, D] stack
+# (models/vit.py stack_feats, models/vlmo.py _joint_trunk(stack=False)), and
+# data_stack: device_preprocess, convert_textpt_state_dict
+# ---------------------------------------------------------------------------
+
+FUSED_B, FUSED_REPS = 16, 5
+# fused against stacked at batch 16: (the summed loss's relative gap, the
+# image gradient's largest gap as a share of its largest entry).  float32
+# sums the same terms in another order; a bf16 fused loss is rounded once a
+# layer (13 roundings of 2^-8), while the gradients' backward is the same
+FUSED_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (13 * 2 ** -8, 1e-2)}
+PREPROCESS_SHAPE, PREPROCESS_OUT, PREPROCESS_TOL = (16, 640, 480, 3), 480, 1e-5
+TEXTPT_B = 2
+
+
+def twin(model, cls, cfg, dtype, fused):
+    """``cls(cfg, dtype=dtype, fused_feats=fused)`` over ``model``'s very
+    parameter tensors (``load_state_dict(assign=True)``): the two forms
+    share their weights, and the twin adds no parameter memory."""
+    dev = next(model.parameters()).device
+    with torch.device(dev):
+        out = cls(cfg, dtype=dtype, fused_feats=fused).to(dev)
+    out.load_state_dict(model.state_dict(), assign=True)
+    return out.eval().requires_grad_(False)
+
+
+def fused_step_ab(pipes, aux, ori, start, atk, stack_shape, dtype, what):
+    """:func:`pgd_step` from ``start`` at batch 16 under flash with the
+    stacked and the fused surrogate (``pipes``): the two losses and image
+    gradients at ``start`` held to ``FUSED_TOL[dtype]``; each form's peak
+    memory over its warm-up step, in which the stacked form must save a
+    ``stack_shape`` tensor for the backward and the fused form none; then
+    ``FUSED_REPS`` steps of each in turns (``StepTimer``), the median."""
+    out, grads, losses = {}, {}, {}
+    timers = {form: StepTimer() for form in pipes}
+    with attention.attention_impl("flash"):
+        for form, p in pipes.items():
+            ps, g = _value_and_grad(p._feature_loss, start, TorchKey(2, ori.device), aux)
+            losses[form], grads[form] = float(ps.double().sum()), g.float()
+            saved = []
+
+            def pack(t):
+                if tuple(t.shape) == stack_shape:
+                    saved.append(1)
+                return t
+
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                hard_sync(pgd_step(p, ori, aux, atk, start))
+            out[form] = {"peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                         "saved_stacks": len(saved)}
+        for rnd in range(FUSED_REPS):
+            for form in (("stacked", "fused") if rnd % 2 == 0 else ("fused", "stacked")):
+                timers[form].timeit(pgd_step, pipes[form], ori, aux, atk, start, warmup=0,
+                                    reps=1)
+    for form, t in timers.items():
+        out[form].update(median_s=float(np.median(t.times)), steps_s=t.times)
+    loss_gap = abs(losses["fused"] - losses["stacked"]) / abs(losses["stacked"])
+    g_s = grads["stacked"]
+    grad_gap = float((grads["fused"] - g_s).abs().max() / g_s.abs().max())
+    out.update(loss_stacked=losses["stacked"], loss_fused=losses["fused"],
+               loss_rel_gap=loss_gap, grad_gap_share=grad_gap)
+    print(f"  {what}: loss stacked {losses['stacked']:.6f}, fused {losses['fused']:.6f} "
+          f"(relative gap {loss_gap:.3g}); largest image-gradient gap {grad_gap:.3g} of the "
+          f"largest entry", flush=True)
+    for form in pipes:
+        r = out[form]
+        print(f"  {what}, {form}: median {r['median_s']:.4f} s of {FUSED_REPS} steps (min "
+              f"{min(r['steps_s']):.4f}, max {max(r['steps_s']):.4f}), peak "
+              f"{r['peak_gib']:.2f} GiB, {r['saved_stacks']} saved {list(stack_shape)} "
+              f"tensors", flush=True)
+    loss_tol, grad_tol = FUSED_TOL[dtype]
+    require(loss_gap <= loss_tol, f"{what}: fused loss off the stacked one by {loss_gap:.3g}")
+    require(grad_gap <= grad_tol, f"{what}: fused gradient off the stacked one by {grad_gap:.3g}")
+    require(out["stacked"]["saved_stacks"] > 0 and out["fused"]["saved_stacks"] == 0,
+            f"{what}: saved stacks {out['stacked']['saved_stacks']} (stacked), "
+            f"{out['fused']['saved_stacks']} (fused)")
+    return out
+
+
+def trace_step(step, log_dir, what):
+    """``step()`` under ``utils/profiling.py::trace`` into ``log_dir``: the
+    trace's event count and the five device kernels with the most device
+    time, by name."""
+    with attention.attention_impl("flash"), profiling.trace(log_dir) as prof:
+        hard_sync(step())
+    by_name = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "device_time", None)
+        us = e.cuda_time if us is None else us
+        ms, calls = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + us / 1e3, calls + 1)
+    top = sorted(((k, ms, c) for k, (ms, c) in by_name.items()), key=lambda t: -t[1])[:5]
+    events, size = len(prof.events()), os.path.getsize(os.path.join(log_dir,
+                                                                    profiling.TRACE_FILE))
+    require(size > 0 and events > 0 and top, f"the trace of {what} holds no device kernel")
+    print(f"  trace of {what}: {events} events, {size} bytes; the five device kernels with the "
+          f"most device time:", flush=True)
+    for name, ms, calls in top:
+        print(f"    {ms:9.3f} ms  {calls:4d} x  {name[:110]}", flush=True)
+    return {"events": events, "bytes": size, "top_kernels": top}
+
+
+def fused_forms(make_pipe, step_inputs, atk, stack_shape, name, gen, trace_dir=None):
+    """For float32 and bf16: the stacked and the fused pipelines
+    (``make_pipe(dtype, fused)``) through :func:`fused_step_ab` on
+    ``step_inputs(pipe)``, from a start drawn uniformly in the eps ball (at
+    the clean image every cosine is 1 and the gradient vanishes); with
+    ``trace_dir``, a trace of the fused bf16 step."""
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        pipes = {form: make_pipe(dtype, form == "fused") for form in ("stacked", "fused")}
+        with attention.attention_impl("flash"):
+            ori, aux = step_inputs(pipes["stacked"])
+        noise = torch.rand(ori.shape, generator=gen, device=ori.device) * 2 - 1
+        start = torch.clamp(ori + atk.eps * noise, -1.0, 1.0)
+        what = f"{name} {'bf16' if dtype == 'bfloat16' else 'float32'} batch {FUSED_B}"
+        out[dtype] = fused_step_ab(pipes, aux, ori, start, atk, stack_shape, dtype, what)
+        if dtype == "bfloat16" and trace_dir:
+            out["trace"] = trace_step(lambda: pgd_step(pipes["fused"], ori, aux, atk, start),
+                                      trace_dir, f"the fused bf16 {name} step")
+        del pipes, ori, aux, start
+        torch.cuda.empty_cache()
+    return out
+
+
+def fused_cell(run_path, pipe, cfg, args, reference, kernels, what):
+    """A batched cell through the engine with the fused surrogate of
+    ``pipe``: launches equal to its schedules' (exactly ``kernels``
+    launched), the trajectories against ``reference`` (the stacked run of
+    the same cell earlier in this script)."""
+    with attention.attention_impl("flash"):
+        results, launched, expected, attack_s = run_path(pipe, cfg, args)
+    check_launches(launched, expected, kernels, what)
+    loss_gap, image_gap, differ = against_reference(results, reference, "stacked")
+    print(f"  {what}: {len(results)} samples, attack {attack_s:.2f} s; against the stacked "
+          f"run: largest loss gap {loss_gap:.3g}, largest image gap {image_gap:.3g} "
+          f"({image_gap / cfg.attack.step_size:.1f} steps of {cfg.attack.step_size}), pixels "
+          f"that differ {differ:.4%}", flush=True)
+    return {"attack_s": attack_s, "samples": len(results), "launches": launched,
+            "max_loss_gap": loss_gap, "max_image_gap": image_gap,
+            "max_image_gap_steps": image_gap / cfg.attack.step_size,
+            "pixels_differing_share": differ}
+
+
+def fused_feats_phase(tokenizer, paths, args, batch_args, v_args, v_batch_args, b_results,
+                      vb_results, gen, tmp):
+    """The ``fused_feats`` phase: for ALBEF and VLMo, the full-width
+    pipelines rebuilt from seed 0 (the batched phases' weights), fused
+    twins over the same parameters, :func:`fused_forms`, then cells 2 and 4
+    with the fused surrogate against the batched phases' stacked results."""
+    from vqattack_tpu_torch.attacks.orchestrator import AlbefAttackPipeline
+    from vqattack_tpu_torch.attacks.vlmo_orchestrator import VlmoAttackPipeline
+    from vqattack_tpu_torch.models.vlmo import VLMo
+
+    cfg = port_run.resolve_config(args)
+    pipe = port_run._build_pipeline(args, cfg, tokenizer)
+    sur, dev, vit = pipe.surrogate, pipe.device, cfg.albef.vit
+    albef = fused_forms(
+        lambda dtype, fused: AlbefAttackPipeline(
+            cfg, twin(sur, AlbefPretrain, cfg.albef, dtype, fused), tokenizer, pipe.gate,
+            device=dev),
+        lambda p: albef_step_inputs(p, cfg, tokenizer, gen, FUSED_B), cfg.attack,
+        (FUSED_B, vit.depth + 1, vit.seq_len, vit.hidden_size), "ALBEF", gen,
+        os.path.join(tmp, "trace_fused_bf16"))
+    fused_pipe = AlbefAttackPipeline(cfg, twin(sur, AlbefPretrain, cfg.albef, "float32", True),
+                                     tokenizer, pipe.gate, victim=pipe.victim,
+                                     mlm_model=pipe.mlm_model, device=dev)
+    albef["cell2"] = fused_cell(lambda p, c, a: run_albef_batched_path(p, c, tokenizer, paths, a),
+                                fused_pipe, cfg, batch_args, b_results,
+                                ("pgd_linf_update", "residual_layernorm_fwd",
+                                 "residual_layernorm_bwd", "flash_attention_fwd",
+                                 "flash_attention_bwd"), "cell 2, fused ALBEF surrogate")
+    del pipe, fused_pipe, sur
+    torch.cuda.empty_cache()
+
+    v_cfg = port_run.resolve_config(v_args)
+    v_pipe = port_run._build_pipeline(v_args, v_cfg, tokenizer)
+    model, vc = v_pipe.model, v_cfg.vlmo
+    vlmo = fused_forms(
+        lambda dtype, fused: VlmoAttackPipeline(v_cfg, twin(model, VLMo, vc, dtype, fused),
+                                                tokenizer, v_pipe.gate, device=dev),
+        lambda p: vlmo_step_inputs(p, v_cfg, tokenizer, gen, FUSED_B), v_cfg.attack,
+        (FUSED_B, vc.depth + 1, vc.max_text_len + vc.image_seq_len, vc.hidden_size), "VLMo",
+        gen)
+    # the fused model is the victim too (VLMo's victim is its surrogate module)
+    fused_vpipe = VlmoAttackPipeline(v_cfg, twin(model, VLMo, vc, "float32", True), tokenizer,
+                                     v_pipe.gate, mlm_model=v_pipe.mlm_model,
+                                     id2answer=v_pipe.id2answer, device=dev)
+    vlmo["cell4"] = fused_cell(lambda p, c, a: run_vlmo_batched_path(p, c, paths, a),
+                               fused_vpipe, v_cfg, v_batch_args, vb_results,
+                               ("pgd_linf_update", "flash_attention_fwd", "flash_attention_bwd",
+                                "flash_attention_fwd_key_bias", "flash_attention_bwd_key_bias"),
+                               "cell 4, fused VLMo surrogate")
+    del v_pipe, fused_vpipe, model
+    torch.cuda.empty_cache()
+    return {"albef": albef, "vlmo": vlmo}
+
+
+def data_stack_phase(v_cfg, tokenizer, gen):
+    """The ``data_stack`` phase: ``device_preprocess`` of a seeded uint8
+    batch on the card against the CPU, timed; a BEiT-style text-pretrain
+    dict at full VLMo-base width through ``convert_textpt_state_dict``
+    (over the synthetic VLMo dict's table), merged over that dict,
+    converted, loaded into a VLMo on the card and held against its sources
+    by name; one feature-loss PGD step of that model with K3's two terms.
+    The transforms need PIL: the CPU tests hold them."""
+    from vqattack_tpu_torch.attacks import vlmo as vlmo_losses
+    from vqattack_tpu_torch.checkpoint import synthetic
+    from vqattack_tpu_torch.checkpoint.convert import (convert_textpt_state_dict,
+                                                       convert_vlmo, load_jax_params)
+    from vqattack_tpu_torch.data.device_transforms import device_preprocess
+    from vqattack_tpu_torch.models.vlmo import VLMo
+
+    out = {}
+    raw = torch.from_numpy(np.random.default_rng(SEED).integers(0, 256, PREPROCESS_SHAPE,
+                                                                 dtype=np.uint8))
+    card = device_preprocess(raw.cuda(), PREPROCESS_OUT)
+    cpu = device_preprocess(raw, PREPROCESS_OUT)
+    err = float((card.cpu() - cpu).abs().max())
+    require(card.shape == (PREPROCESS_SHAPE[0], 3, PREPROCESS_OUT, PREPROCESS_OUT)
+            and card.dtype == torch.float32 and err <= PREPROCESS_TOL,
+            f"device_preprocess on the card off the CPU's by {err:.3g}")
+    raw_card = raw.cuda()
+    ms = time_ms(lambda: device_preprocess(raw_card, PREPROCESS_OUT), iters=20)
+    out["device_preprocess"] = {"shape": list(PREPROCESS_SHAPE), "out": PREPROCESS_OUT,
+                                "max_abs_err": err, "ms": ms}
+    print(f"  device_preprocess uint8 {list(PREPROCESS_SHAPE)} -> [{PREPROCESS_SHAPE[0]}, 3, "
+          f"{PREPROCESS_OUT}, {PREPROCESS_OUT}] on the card: {ms:.3f} ms, against the CPU "
+          f"max abs err {err:.3g} (tolerance {PREPROCESS_TOL})", flush=True)
+
+    vc = v_cfg.vlmo
+    t0 = time.perf_counter()
+    full = synthetic.vlmo_state_dict(vc, SEED, heads=synthetic.VLMO_PRETRAIN_HEADS
+                                     + synthetic.VLMO_VQA_HEADS)
+    beit = synthetic.textpt_state_dict(vc, full, SEED + 1)
+    table = full["relative_position_bias_table"].numpy()
+    textpt = convert_textpt_state_dict({k: v.numpy() for k, v in beit.items()}, *table.shape,
+                                       base_table=table)
+    merged = {**{k: v.numpy() for k, v in full.items()}, **textpt}
+    with torch.device("cuda"):
+        model = VLMo(vc).to("cuda")
+    load_jax_params(model, convert_vlmo(merged, depth=vc.depth))
+    n = check_loaded(model, {k: torch.as_tensor(v) for k, v in merged.items()}, vlmo_source, {})
+    h, img_rows = vc.num_heads, beit["blocks.0.attn.relative_position_bias_table"].shape[0]
+    loaded = model.relative_position_bias_table.detach().cpu()
+    for i in range(vc.depth):
+        require(torch.equal(model.blocks[i].mlp_imag.fc1.weight.detach().cpu(),
+                            beit[f"blocks.{i}.mlp.fc1.weight"])
+                and torch.equal(model.blocks[i].norm2_imag.weight.detach().cpu(),
+                                beit[f"blocks.{i}.norm2.weight"])
+                and torch.equal(loaded[:img_rows, i * h:(i + 1) * h],
+                                beit[f"blocks.{i}.attn.relative_position_bias_table"]),
+                f"block {i}: the image expert or the table is not the text-pretrain file's")
+    require(torch.equal(loaded[img_rows:], full["relative_position_bias_table"][img_rows:]),
+            "the table's rows past the image block are not the base table's")
+    load_s = time.perf_counter() - t0
+    model.eval().requires_grad_(False)
+    rel = model.precompute_joint_biases()
+    ids, mask = tokenizer.encode_batch(["what color is the dog?", "is it red?"],
+                                       vc.max_text_len)
+    ids = torch.as_tensor(ids, dtype=torch.long, device="cuda")
+    mask = torch.as_tensor(mask, dtype=torch.long, device="cuda")
+    ori = torch.rand((TEXTPT_B, 3, vc.image_size, vc.image_size), generator=gen,
+                     device="cuda") * 2 - 1
+    with torch.no_grad(), attention.attention_impl("flash"):
+        _, cls_t, tok_t, m_t = model.attack_feats(ori, ids, mask, rel)
+    aux = {"text_ids": ids, "text_mask": mask, "rel_biases": rel, "tgt_layer_cls": cls_t,
+           "tgt_tokens": tok_t, "tgt_token_mask": m_t.float()}
+    reset_counts()
+    with attention.attention_impl("flash"):
+        adv, losses = pgd_feature(vlmo_losses.make_feature_loss(model), ori, ori,
+                                  TorchKey(2, "cuda"), aux, eps=v_cfg.attack.eps,
+                                  eps_iter=v_cfg.attack.step_size, nb_iter=1)
+    torch.cuda.synchronize()
+    launched = counts()
+    check_launches(launched, vlmo_implied_launches(v_cfg, 1, 1, 1, True),
+                   {"pgd_linf_update", "flash_attention_fwd", "flash_attention_bwd",
+                    "flash_attention_fwd_key_bias", "flash_attention_bwd_key_bias"},
+                   "text-pretrain VLMo step")
+    require(bool(torch.isfinite(losses).all())
+            and float((adv - ori).abs().max()) <= v_cfg.attack.eps + 1e-6,
+            "the text-pretrain VLMo step")
+    out["textpt"] = {"tensors_checked": n, "beit_keys": len(beit), "converted_keys": len(textpt),
+                     "build_convert_load_s": load_s, "step_loss": losses.tolist(),
+                     "launches": launched}
+    print(f"  convert_textpt_state_dict at full width: {len(beit)} text-pretrain tensors -> "
+          f"{len(textpt)} VLMo keys over the {len(full)}-tensor synthetic dict, {n} loaded "
+          f"parameters held against their sources ({load_s:.2f} s built, converted and "
+          f"loaded); one PGD step at [{TEXTPT_B}, 941] with K3's two terms: loss "
+          f"{[round(float(x), 4) for x in losses.flatten()]}", flush=True)
+    print("  the transforms (keys_to_transforms, RandAugmentUDA, min_max_resize) need PIL, "
+          "which this machine lacks: tests/test_torch_data_stack.py holds them against the JAX "
+          "package on the CPU only", flush=True)
+    del model, rel
+    torch.cuda.empty_cache()
+    return out
+
+
 def ptxas_summary(report):
     """One line a kernel of ptxas's report of a source (``-Xptxas -v``):
     registers at launch, spill stores and loads, and whether ptxas
@@ -5340,6 +5690,18 @@ def main() -> int:
     with Phase("transfer_eval: the ALBEF batched artifacts against ALBEF-VQA, BLIP-VQA, "
                "VLMo-VQA and ViLT, --attn flash; Predictor.answer"):
         transfer = transfer_path(tmp, paths, batched_out, tokenizer, cfg.albef, v_cfg.vlmo)
+
+    # ----------------- the feature loss without the stack; the data stack
+    with Phase(f"fused_feats: stacked against fused surrogates at batch {FUSED_B} (ALBEF and "
+               f"VLMo, float32 and bf16, --attn flash), a trace, cells 2 and 4 fused") as ph:
+        fused = fused_feats_phase(tokenizer, paths, args, batch_args, v_args, v_batch_args,
+                                  b_results, vb_results, gen, tmp)
+    fused["phase_s"] = round(ph.seconds, 2)
+    with Phase("data_stack: device_preprocess on the card, convert_textpt_state_dict at full "
+               "width, one VLMo step") as ph:
+        data_stack = data_stack_phase(v_cfg, tokenizer, gen)
+    data_stack["phase_s"] = round(ph.seconds, 2)
+    print(json.dumps({"fused_feats": fused, "data_stack": data_stack, "card": smi}), flush=True)
     shutil.rmtree(tmp, ignore_errors=True)
 
     # each row's launches: ALBEF's batched runs (K1, K2, K3 without terms;

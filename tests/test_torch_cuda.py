@@ -1353,3 +1353,78 @@ def test_hessian_vector_products_on_the_card_are_symmetric(gen, monkeypatch):
     for n, d in d_cpu.items():
         err = float((d_card[n].cpu() - d).abs().max())
         assert err <= 1e-3 * float(d.abs().max()) + 1e-6 * largest, (n, err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_feats_on_the_card_match_the_stacked_form(gen, dtype):
+    """The feature loss of a two-block ALBEF at width 128 (head dim 64, K2
+    at the ViT's norm sites, K3 under flash) and of a two-block VLMo, with
+    ``fused_feats`` against the stacked form from the same weights at batch
+    4: per-sample losses within 1e-5 relative in float32 (2^-8 x 13 in
+    bf16, whose fused sum is rounded once a layer), the image gradient
+    within 1e-5 of its largest entry (1e-2 in bf16); the same kernel
+    launches in both forms."""
+    import dataclasses
+
+    from vqattack_tpu_torch import config as cfg_mod
+    from vqattack_tpu_torch.attacks import albef as albef_losses
+    from vqattack_tpu_torch.attacks import vlmo as vlmo_losses
+    from vqattack_tpu_torch.models.albef import AlbefPretrain, init_weights
+    from vqattack_tpu_torch.models.vlmo import VLMo, init_vlmo_weights
+
+    base = cfg_mod.tiny_test_config(image_size=192)
+    vit = dataclasses.replace(base.albef.vit, hidden_size=128, fused_ln=True)
+    bert = dataclasses.replace(base.albef.bert, hidden_size=128, encoder_width=128,
+                               intermediate_size=256, num_layers=2, fusion_layer=1)
+    albef = dataclasses.replace(base.albef, vit=vit, bert=bert)
+    vcfg = dataclasses.replace(base.vlmo, hidden_size=128, depth=2, vlffn_start_layer=1)
+    b, s = 4, base.attack.max_text_len
+    px = torch.rand(b, 3, 192, 192, generator=gen, device="cuda") * 2 - 1
+    ids = torch.randint(5, 64, (b, s), generator=gen, device="cuda")
+    mask = torch.ones_like(ids)
+    mask[1, 5:] = 0
+    ids = ids * mask
+    with torch.device("cuda"):
+        a_stacked = init_weights(AlbefPretrain(albef, dtype=dtype), 0).to("cuda")
+        v_stacked = init_vlmo_weights(VLMo(vcfg, dtype=dtype), 0).to("cuda")
+    pairs = []
+    for cls, stacked, cfg in ((AlbefPretrain, a_stacked, albef), (VLMo, v_stacked, vcfg)):
+        fused = cls(cfg, dtype=dtype, fused_feats=True).to("cuda")
+        fused.load_state_dict(stacked.state_dict())
+        pairs.append((stacked.eval().requires_grad_(False), fused.eval().requires_grad_(False)))
+    with torch.no_grad(), attention.attention_impl("flash"):
+        img_t, txt_t, _ = a_stacked.gen_feats(px.flip(0), ids, mask)
+        _, cls_t, tok_t, m_t = v_stacked.attack_feats(px.flip(0), ids, mask)
+    aux = {"text_ids": ids, "text_mask": mask, "tgt_img": img_t, "tgt_txt": txt_t,
+           "txt_token_mask": mask.float(), "special_ids": (4, 0, 2),
+           "tgt_layer_cls": cls_t, "tgt_tokens": tok_t, "tgt_token_mask": m_t.float()}
+    loss_tol, grad_tol = (1e-5, 1e-5) if dtype == "float32" else (13 * 2 ** -8, 1e-2)
+    kernels = (fused_ln.residual_layernorm_fwd, attention.flash_attention_fwd,
+               attention.flash_attention_bwd)
+    attr = ("" if dtype == "float32" else "bf16_") + "launches"
+    for (stacked, fused), make in zip(pairs, (albef_losses.make_feature_loss,
+                                              vlmo_losses.make_feature_loss)):
+        out = []
+        for model in (stacked, fused):
+            before = [getattr(fn, attr) for fn in kernels]
+            with attention.attention_impl("flash"):
+                ps, g = tpgd._value_and_grad(make(model), px, TorchKey(1, "cuda"), aux)
+            out.append((ps.float(), g.float(),
+                        tuple(getattr(fn, attr) - n0 for fn, n0 in zip(kernels, before))))
+        (ps_s, g_s, n_s), (ps_f, g_f, n_f) = out
+        assert n_s == n_f and n_f[1] == n_f[2] > 0
+        assert bool(torch.isfinite(ps_f).all()) and float(g_s.abs().max()) > 0
+        assert float((ps_f - ps_s).abs().max()) <= loss_tol * float(ps_s.abs().max())
+        assert float((g_f - g_s).abs().max()) <= grad_tol * float(g_s.abs().max())
+
+
+def test_device_preprocess_on_the_card_matches_the_cpu(gen):
+    """``device_preprocess`` of a seeded uint8 batch, 96 x 72 to 64: the
+    card's products (TF32 off) against the CPU's within 1e-5."""
+    from vqattack_tpu_torch.data.device_transforms import device_preprocess
+
+    raw = torch.randint(0, 256, (4, 96, 72, 3), generator=gen, device="cuda",
+                        dtype=torch.uint8)
+    got = device_preprocess(raw, 64)
+    assert got.device.type == "cuda" and got.shape == (4, 3, 64, 64)
+    torch.testing.assert_close(got.cpu(), device_preprocess(raw.cpu(), 64), rtol=0, atol=1e-5)

@@ -7,4 +7,4 @@ Pallas kernels on the ported path are CUDA C++ sources under ``csrc/``,
 compiled with ``nvcc`` at first use (``ops/_build.py``).
 """
 
-__version__ = "0.1.0"
+from vqattack_tpu_torch.version import __version__  # noqa: F401

@@ -9,7 +9,8 @@ Port of ``vqattack_tpu/attacks/losses.py``:
   logits against the answer-masked paraphrase; stacked answer variants
   ``[B, A, S]`` add (``fast_gradient_method.py:128-142``).
 
-Feature stacks are ``[B, L, S, D]``; reductions are per sample.
+Feature stacks are ``[B, L, S, D]``, or on the adversarial side a tuple of
+per-layer ``[B, S, D]`` (``fused_feats``); reductions are per sample.
 """
 
 from __future__ import annotations
@@ -30,9 +31,36 @@ def cosine_sim(a: torch.Tensor, b: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.sum(a * b, dim=dim) / (na * nb)
 
 
-def _neg_cos_sum(adv: torch.Tensor, tgt: torch.Tensor,
-                 token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Per-sample ``-sum(cos)`` over layers and tokens -> ``[B]``."""
+def layer_of(tgt, layer: int) -> torch.Tensor:
+    """Layer ``layer`` of a stacked ``[B, L, S, D]`` target or of a tuple."""
+    return tgt[layer] if isinstance(tgt, (tuple, list)) else tgt[:, layer]
+
+
+def stacked(feats, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``[B, L, S, D]`` of a stack or of a per-layer tuple, in ``dtype``
+    (the clean targets' ``tap_dtype``; the tuple's layers are cast before
+    they are stacked)."""
+    if isinstance(feats, (tuple, list)):
+        return torch.stack([f if dtype is None else f.to(dtype) for f in feats], dim=1)
+    return feats if dtype is None else feats.to(dtype)
+
+
+def _neg_cos_sum(adv, tgt, token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-sample ``-sum(cos)`` over layers and tokens -> ``[B]``.
+
+    ``adv`` is a stacked ``[B, L, S, D]`` tensor or a tuple of per-layer
+    ``[B, S, D]`` (``fused_feats``); ``tgt`` is stacked or a tuple.  The
+    tuple form reduces each layer's cosine in place, masks it per layer and
+    sums the layers in order, and no ``[B, L, S, D]`` stack (nor its
+    gradient or the cosine's product) is formed."""
+    if isinstance(adv, (tuple, list)):
+        ps = 0.0
+        for layer, f in enumerate(adv):
+            c = cosine_sim(f, layer_of(tgt, layer))  # [B, S]
+            if token_mask is not None:
+                c = c * token_mask
+            ps = ps - torch.sum(c, dim=1)
+        return ps
     c = cosine_sim(adv, tgt)  # [B, L, S]
     if token_mask is not None:
         c = c * token_mask[:, None, :]

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from vqattack_tpu_torch.attacks import albef as albef_losses
+from vqattack_tpu_torch.attacks.losses import stacked
 from vqattack_tpu_torch.attacks.mar_labels import MarLabels, build_mar_labels
 from vqattack_tpu_torch.attacks.pgd import pgd_alternating_block, pgd_feature_block
 from vqattack_tpu_torch.attacks.text_attack import (
@@ -145,7 +146,9 @@ class AlbefAttackPipeline:
 
     def _targets_fn(self, ori_px, key, aux) -> Dict[str, torch.Tensor]:
         """Clean per-layer feature stacks of the original question
-        (``Gen_ori_feats``, ``adv_attack.py:111-118``), masked with ``key``."""
+        (``Gen_ori_feats``, ``adv_attack.py:111-118``), masked with ``key``.
+        They stay stacked with a ``fused_feats`` surrogate too: the tuple is
+        the adversarial forward's only."""
         sur = self.surrogate
         masked_ids, _ = mlm_random_mask(
             key, aux["ori_ids"], vocab_size=sur.cfg.bert.vocab_size,
@@ -154,9 +157,8 @@ class AlbefAttackPipeline:
         )
         with torch.no_grad():
             img_f, txt_f, _ = sur.gen_feats(ori_px, masked_ids, aux["ori_mask"])
-        if self.cfg.attack.tap_dtype == "bfloat16":
-            img_f, txt_f = img_f.bfloat16(), txt_f.bfloat16()
-        return {"tgt_img": img_f, "tgt_txt": txt_f}
+        tap = torch.bfloat16 if self.cfg.attack.tap_dtype == "bfloat16" else None
+        return {"tgt_img": stacked(img_f, tap), "tgt_txt": stacked(txt_f, tap)}
 
     @torch.no_grad()
     def candidate_mlm_topk(self, ids: np.ndarray, mask: np.ndarray):

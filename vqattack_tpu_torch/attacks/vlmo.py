@@ -8,8 +8,9 @@ tokens and every image token::
     loss = sum_layers( -cos(layer_cls, tgt_layer_cls)
                        + sum_tokens( -cos(token_feats, tgt_token_feats) ) )
 
-Both sides stay ``[B, L+1, S, D]``, masked by the product of the two
-validity masks.  The MAR loss is the CE of ``mlm_score`` over the text half
+Both sides stay ``[B, L+1, S, D]`` (the adversarial side a per-layer tuple
+with ``VLMo(fused_feats=True)``), masked by the product of the two validity
+masks.  The MAR loss is the CE of ``mlm_score`` over the text half
 against the answer-masked labels (:func:`~vqattack_tpu_torch.attacks.losses.
 per_sample_mlm_loss`).
 
@@ -25,15 +26,22 @@ from __future__ import annotations
 
 import torch
 
-from vqattack_tpu_torch.attacks.losses import cosine_sim, per_sample_mlm_loss
+from vqattack_tpu_torch.attacks.losses import cosine_sim, layer_of, per_sample_mlm_loss
 from vqattack_tpu_torch.models.vlmo import VLMo
 
 
 def vlmo_per_sample_feature_loss(layer_cls, tokens, tgt_layer_cls, tgt_tokens,
                                  token_mask) -> torch.Tensor:
     """``[B]``: minus the cls cosines summed over layers, minus the masked
-    token cosines summed over layers and tokens."""
+    token cosines summed over layers and tokens.  ``tokens`` is stacked or a
+    tuple of per-layer ``[B, S, D]`` (``VLMo(fused_feats=True)``), whose
+    cosines are reduced layer by layer without the stack; ``tgt_tokens`` is
+    stacked or a tuple."""
     ps = -torch.sum(cosine_sim(layer_cls, tgt_layer_cls), dim=1)
+    if isinstance(tokens, (tuple, list)):
+        for layer, f in enumerate(tokens):
+            ps = ps - torch.sum(cosine_sim(f, layer_of(tgt_tokens, layer)) * token_mask, dim=1)
+        return ps
     cos_tok = cosine_sim(tokens, tgt_tokens) * token_mask[:, None, :]
     return ps - torch.sum(cos_tok, dim=(1, 2))
 

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from vqattack_tpu_torch.attacks import vlmo as vlmo_losses
+from vqattack_tpu_torch.attacks.losses import stacked
 from vqattack_tpu_torch.attacks.mar_labels import MarLabels, build_mar_labels
 from vqattack_tpu_torch.attacks.orchestrator import AttackResult, _frozen, pad_eval_batch
 from vqattack_tpu_torch.attacks.pgd import pgd_alternating_block, pgd_feature_block
@@ -123,12 +124,12 @@ class VlmoAttackPipeline:
     @torch.no_grad()
     def clean_targets(self, pixels, text_ids, text_mask):
         """``(tgt_layer_cls, tgt_tokens, tgt_token_mask)`` of the clean pair
-        (``Gen_ori_feats``)."""
+        (``Gen_ori_feats``); the tokens stacked with a ``fused_feats``
+        model too."""
         _, layer_cls, tokens, token_mask = self.model.attack_feats(
             pixels, text_ids, text_mask, self._rel_biases)
-        if self.cfg.attack.tap_dtype == "bfloat16":
-            layer_cls, tokens = layer_cls.bfloat16(), tokens.bfloat16()
-        return layer_cls, tokens, token_mask.float()
+        tap = torch.bfloat16 if self.cfg.attack.tap_dtype == "bfloat16" else None
+        return stacked(layer_cls, tap), stacked(tokens, tap), token_mask.float()
 
     def _targets_fn(self, ori_px, key, aux) -> Dict[str, torch.Tensor]:
         """The clean targets of the original question, for a first block;

@@ -3,8 +3,8 @@ converted to flax-layout trees, and any flax tree loaded into a module.
 
 The converters (``load_torch_checkpoint``, ``convert_vit``,
 ``convert_fusion_bert``, ``convert_albef_pretrain``, ``convert_albef_vqa``,
-``convert_vlmo``, ``resize_vlmo_rel_pos_table``,
-``widen_token_type_embeddings``) are a copy of
+``convert_vlmo``, ``convert_textpt_state_dict``,
+``resize_vlmo_rel_pos_table``, ``widen_token_type_embeddings``) are a copy of
 ``vqattack_tpu/checkpoint/convert.py``: key surgery from the reference's
 torch names to the flax tree of the JAX package (timm's fused qkv split in
 thirds), numpy in and out.  :func:`load_jax_params` is the one place that
@@ -521,6 +521,45 @@ def widen_token_type_embeddings(tree: Dict[str, Any], n_types: int = 3) -> Dict[
         return out
     pad = np.broadcast_to(emb[1:2], (n_types - emb.shape[0], emb.shape[1]))
     out["token_type_embeddings"] = {"embedding": np.concatenate([emb, pad])}
+    return out
+
+
+def convert_textpt_state_dict(sd: Dict[str, np.ndarray], all_num_relative_distance: int,
+                              num_heads_times_layers: int,
+                              base_table: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
+    """A BEiT / text-pretrain state dict in VLMo's keys
+    (``vlmo_module.py::convert_to_textpt_ckpt:47-85``):
+
+    - the per-layer ``blocks.N.attn.relative_position_bias_table`` tensors
+      merge column-wise, in layer order, into the one fused table, written
+      over ``base_table`` (the reference splices into a clone of the
+      module's table, ``vlmo_module.py:79-83``) or over zeros;
+    - ``mlp``/``norm2`` keys move to the image expert (``mlp_imag`` /
+      ``norm2_imag``); every key gains the ``transformer.`` prefix.
+
+    Returns a partial torch-layout dict (the reference loads it with
+    ``strict=False``): merge it over a whole one before
+    :func:`convert_vlmo`, ``convert_vlmo({**full_sd, **textpt_sd})``."""
+    out: Dict[str, np.ndarray] = {}
+    per_layer_tables = {}
+    for key, value in sd.items():
+        if "relative_position_bias_table" in key and ".attn." in key:
+            per_layer_tables[int(key.split(".attn.")[0].split(".")[-1])] = value
+            continue
+        if "mlp" in key:
+            out["transformer." + key.replace("mlp", "mlp_imag")] = value
+        elif "norm2" in key:
+            out["transformer." + key.replace("norm2", "norm2_imag")] = value
+        else:
+            out["transformer." + key] = value
+    if per_layer_tables:
+        merged = np.concatenate([per_layer_tables[i] for i in sorted(per_layer_tables)], axis=1)
+        if base_table is not None:
+            full = np.array(base_table, dtype=merged.dtype, copy=True)
+        else:
+            full = np.zeros((all_num_relative_distance, num_heads_times_layers), merged.dtype)
+        full[: merged.shape[0], :] = merged
+        out["relative_position_bias_table"] = full
     return out
 
 

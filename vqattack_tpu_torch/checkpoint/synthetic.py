@@ -241,6 +241,29 @@ def vlmo_state_dict(cfg: VLMoConfig, seed: int = 0, src_image_size: Optional[int
     return w.sd
 
 
+def textpt_state_dict(cfg: VLMoConfig, vlmo_sd: Dict[str, torch.Tensor],
+                      seed: int = 0) -> Dict[str, torch.Tensor]:
+    """A BEiT / text-pretrain file in the names that
+    ``convert.convert_textpt_state_dict`` reads, built from the image side
+    of ``vlmo_sd`` (a :func:`vlmo_state_dict`): its ``transformer.`` trunk
+    without the prefix, the image expert as ``mlp``/``norm2``, the text and
+    VL experts left out, and per-layer
+    ``blocks.N.attn.relative_position_bias_table`` of ``[(2w - 1)^2 + 3,
+    num_heads]`` (the image block of the fused table's rows) drawn from
+    ``seed``."""
+    w = _Writer(seed)
+    p = "transformer."
+    for key, value in vlmo_sd.items():
+        if not key.startswith(p) or "_text." in key or "_vl." in key:
+            continue
+        w.sd[key[len(p):].replace("mlp_imag", "mlp").replace("norm2_imag", "norm2")] = value
+    window = cfg.image_size // cfg.patch_size
+    for i in range(cfg.depth):
+        w.normal(f"blocks.{i}.attn.relative_position_bias_table",
+                 ((2 * window - 1) ** 2 + 3, cfg.num_heads), 0.5)
+    return w.sd
+
+
 def vilt_state_dict(cfg: VLMoConfig, seed: int = 0, src_image_size: Optional[int] = None,
                     heads: Sequence[str] = VLMO_VQA_HEADS) -> Dict[str, torch.Tensor]:
     """A ViLT checkpoint's state dict at ``src_image_size`` (default: the

@@ -59,12 +59,16 @@ def mlm_random_mask(
 class AlbefPretrain(nn.Module):
     """The pre-trained ALBEF surrogate, the white-box model of the attack.
     ``dtype`` is the compute dtype of the whole trunk and its heads
-    (``--dtype``); the parameters stay float32."""
+    (``--dtype``); the parameters stay float32.  ``fused_feats=True``
+    returns the image taps as a per-layer tuple (JAX ``albef.py:71-84``):
+    the feature loss then reduces each layer without the ``[B, 13, N, D]``
+    stack; the text taps stay stacked."""
 
-    def __init__(self, cfg: ALBEFConfig, dtype="float32"):
+    def __init__(self, cfg: ALBEFConfig, dtype="float32", fused_feats: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.visual_encoder = VisionTransformer(cfg.vit, dtype)
+        self.fused_feats = fused_feats
+        self.visual_encoder = VisionTransformer(cfg.vit, dtype, stack_feats=not fused_feats)
         self.text_encoder = FusionBert(cfg.bert, with_mlm_head=True, dtype=dtype)
         # ITA/ITM heads: unused by the attack, part of the checkpoint surface
         self.vision_proj = Linear(cfg.vit.hidden_size, cfg.embed_dim, compute_dtype=dtype)
@@ -74,7 +78,8 @@ class AlbefPretrain(nn.Module):
 
     def gen_feats(self, pixels, text_ids, text_mask):
         """(pixels, masked ids, mask) -> (img_feats, txt_feats, mlm_logits),
-        feature stacks ``[B, 13, N, D]``."""
+        feature stacks ``[B, 13, N, D]`` (the image taps a tuple with
+        ``fused_feats``)."""
         image_embeds, img_feats = self.visual_encoder(pixels)
         image_mask = torch.ones(image_embeds.shape[:2], dtype=torch.long,
                                 device=image_embeds.device)

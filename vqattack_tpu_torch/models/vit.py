@@ -4,12 +4,13 @@ Port of ``vqattack_tpu/models/vit.py`` (reference ``models/vit.py:97-177``):
 patchify, prepend [CLS], add the (truncated) position embedding, 12 pre-LN
 blocks, final LayerNorm on the output only.  The feature stack holds the
 embedding output plus every block output before the final norm:
-``[B, depth+1, N+1, D]``.  Pixels are NCHW (the reference layout).
+``[B, depth+1, N+1, D]``, or with ``stack_feats=False`` a ``depth+1``-tuple
+of ``[B, N+1, D]``, which the attack's loss reduces layer by layer without
+the stack (JAX ``vit.py:34``, ``:111-113``).  Pixels are NCHW (the
+reference layout).
 """
 
 from __future__ import annotations
-
-from typing import Tuple
 
 import torch
 from torch import nn
@@ -29,9 +30,10 @@ class VisionTransformer(nn.Module):
     the [CLS] token and the position table are cast to it, as the JAX
     encoder casts them, and the feature taps come out in it."""
 
-    def __init__(self, cfg: ViTConfig, dtype="float32"):
+    def __init__(self, cfg: ViTConfig, dtype="float32", stack_feats: bool = True):
         super().__init__()
         self.cfg = cfg
+        self.stack_feats = stack_feats
         self.compute_dtype = resolve_dtype(dtype)
         d = cfg.hidden_size
         self.patch_embed = PatchEmbed(cfg.patch_size, 3, d, dtype)
@@ -45,8 +47,10 @@ class VisionTransformer(nn.Module):
         self.norm = (ResidualLayerNorm(d, cfg.layer_norm_eps) if cfg.fused_ln
                      else LayerNorm(d, cfg.layer_norm_eps, dtype))
 
-    def forward(self, pixels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """pixels ``[B, 3, H, W]`` in [-1, 1] -> ``(normed output, feats)``."""
+    def forward(self, pixels: torch.Tensor):
+        """pixels ``[B, 3, H, W]`` in [-1, 1] -> ``(normed output, feats)``:
+        the stacked ``[B, depth+1, N+1, D]`` or, with ``stack_feats=False``,
+        the tuple of its layers."""
         dt = self.compute_dtype
         x = self.patch_embed(pixels)
         b = x.shape[0]
@@ -69,4 +73,6 @@ class VisionTransformer(nn.Module):
                 x = block(x)
                 feats.append(x)
             out = self.norm(x)
+        if not self.stack_feats:
+            return out, tuple(feats)
         return out, torch.stack(feats, dim=1)

@@ -209,7 +209,10 @@ class LogitScale(nn.Module):
 
 
 def _layer_cls(feats) -> torch.Tensor:
-    """Per-layer cls states ``[B, L+1, D]`` of a stacked ``[B, L+1, S, D]``."""
+    """Per-layer cls states ``[B, L+1, D]`` of a stacked ``[B, L+1, S, D]``
+    or of a tuple of per-layer ``[B, S, D]`` (``fused_feats``)."""
+    if isinstance(feats, (tuple, list)):
+        return torch.stack([f[:, 0] for f in feats], dim=1)
     return feats[:, :, 0, :]
 
 
@@ -219,12 +222,16 @@ class VLMo(nn.Module):
     module's ``init_all``.  ``with_nlvr2_head``: NLVR2's classifier, and a
     modality table of ``max(type_vocab_size, 3)`` rows (row 2 is the second
     image's; the reference widens a 2-row table at load,
-    ``vlmo_module.py:291-296``)."""
+    ``vlmo_module.py:291-296``).  ``fused_feats``: the attack closures
+    return the per-layer token features as a tuple, which the attack's loss
+    reduces layer by layer without the ``[B, L+1, S, D]`` stack (JAX
+    ``vlmo.py:254-258``)."""
 
     def __init__(self, cfg: VLMoConfig, with_vqa_head: bool = True, dtype="float32",
-                 with_nlvr2_head: bool = False):
+                 with_nlvr2_head: bool = False, fused_feats: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.fused_feats = fused_feats
         self.compute_dtype = resolve_dtype(dtype)
         d = cfg.hidden_size
         bert_cfg = BertConfig(vocab_size=cfg.vocab_size, hidden_size=d,
@@ -307,11 +314,12 @@ class VLMo(nn.Module):
                             for i in range(self.cfg.depth)]).contiguous()
 
     def _joint_trunk(self, text_ids, text_masks, pixels, image_token_type_idx: int = 1,
-                     rel_biases: Optional[torch.Tensor] = None,
+                     rel_biases: Optional[torch.Tensor] = None, stack: bool = True,
                      text_embeds: Optional[torch.Tensor] = None):
         """The shared VL forward: ``(normed x, feats [B, L+1, S, D], co_masks
         [B, S])`` with ``S = max_text_len + image_seq_len``.  ``rel_biases``
         (:meth:`precompute_joint_biases`) skips the per-layer gathers;
+        ``stack=False`` returns the feats as a per-layer tuple;
         ``text_embeds`` (before the token-type add) bypasses the embedding
         lookup, the differentiable entry of the VL step."""
         if text_embeds is None:
@@ -330,7 +338,7 @@ class VLMo(nn.Module):
             bias = rel_biases[i][None] if rel_biases is not None else self._rel_bias(i, "joint")
             x = blk(x, "vl", bias, key_bias)
             feats.append(x)
-        return self.norm(x), torch.stack(feats, dim=1), co_masks
+        return self.norm(x), (torch.stack(feats, dim=1) if stack else tuple(feats)), co_masks
 
     # ----------------------------------------------------------- public API
 
@@ -388,16 +396,19 @@ class VLMo(nn.Module):
     def attack_feats(self, pixels, text_ids, text_masks, rel_biases=None):
         """``pgd_attack`` (``vlmo_module.py:1387-1446``): ``(cls_feats [B, D],
         layer_cls [B, L+1, D], token_feats [B, L+1, S, D], token_mask [B, S])``;
-        the mask selects the valid text tokens and every image token."""
+        the mask selects the valid text tokens and every image token; the
+        token feats a per-layer tuple with ``fused_feats``."""
         xn, feats, co_masks = self._joint_trunk(text_ids, text_masks, pixels,
-                                                rel_biases=rel_biases)
+                                                rel_biases=rel_biases,
+                                                stack=not self.fused_feats)
         return self.pooler(xn), _layer_cls(feats), feats, co_masks
 
     def attack_mlm(self, pixels, mlm_ids, mlm_masks, rel_biases=None):
         """``pgd_mlm_attack`` (``vlmo_module.py:1448-1529``): MLM logits over
         the text half and the same feature stacks."""
         xn, feats, co_masks = self._joint_trunk(mlm_ids, mlm_masks, pixels,
-                                                rel_biases=rel_biases)
+                                                rel_biases=rel_biases,
+                                                stack=not self.fused_feats)
         logits = self.mlm_score(xn[:, : self.cfg.max_text_len])
         return logits, _layer_cls(feats), feats, co_masks
 
@@ -405,7 +416,9 @@ class VLMo(nn.Module):
         """``pgd_attack_vl`` (``vlmo_module.py:1328-1385``): text embeddings
         enter before the token-type add, differentiable."""
         xn, feats, co_masks = self._joint_trunk(None, text_masks, pixels,
-                                                rel_biases=rel_biases, text_embeds=text_embeds)
+                                                rel_biases=rel_biases,
+                                                stack=not self.fused_feats,
+                                                text_embeds=text_embeds)
         return self.pooler(xn), _layer_cls(feats), feats, co_masks
 
     def embed_text(self, text_ids: torch.Tensor) -> torch.Tensor:
