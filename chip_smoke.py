@@ -214,6 +214,21 @@ peak memory; and ``vlmo_pretrain_loss`` at VLMo-base width, batch 8, under
 a world-1 NCCL group against the same call without one, loss and
 gradients; a ``data_parallel`` JSON line.
 
+The tensor-parallel slice adds, after the data-parallel phase, the
+``tensor_parallel`` phase, every row of the mesh repeating cuda:0: the
+batched path's 11 samples through ``BatchedAlbefAttack`` on
+``make_mesh(4, model_parallelism=2)`` (data 2 x model 2: each replica's
+2-D parameters cut column-wise over its row, ``parallel/tensor.py``), held
+to the batched phase's unsharded results as the data-parallel run is, each
+cut parameter's pieces concatenated equal to the source bit for bit and
+each whole one equal to it; one PGD step at batch 8 under flash on model
+axis 1 against model axis 2 (data 1), in turns, the median seconds, the
+peaks and the parameter bytes held at each mesh position, cut and whole
+apart; and, after the VLMo batch-16 A/B, cell 4's full-width surrogate on
+data 1 x model 2: feature PGD, 2 iterations from a rand-init start at batch
+8, against the unsharded surrogate on the same draws, its launches as
+scheduled; a ``tensor_parallel`` JSON line.
+
 The fused-loss and data slice adds, after the transfer phase, the
 ``fused_feats`` phase: the full-width ALBEF and VLMo surrogates rebuilt from
 seed 0 (the batched phases' weights) and ``fused_feats`` twins over the
@@ -1444,27 +1459,69 @@ def against_reference(results, reference, what):
     return loss_err, max(gaps), differ / pixels
 
 
-def sharded_engine_run(pipe, cfg, paths, args, reference):
+def check_replicas(source, replicas, mesh, what):
+    """Each replica of ``source`` on its row of ``mesh``: each cut
+    parameter's pieces, concatenated, equal to the source's bit for bit,
+    piece ``j`` on the row's device ``j``; each whole parameter and buffer
+    equal to the source's, on the row's first device.  Returns the
+    parameter bytes held at each mesh position, ``[[{"cut": bytes,
+    "whole": bytes}, ...] a row]``."""
+    from vqattack_tpu_torch.parallel.mesh import MODEL_AXIS
+    from vqattack_tpu_torch.parallel.tensor import column_cuts, cut_layer
+
+    cuts = column_cuts(source, mesh.shape[MODEL_AXIS])
+    src = dict(source.named_parameters())
+    src_buffers = dict(source.named_buffers())
+    layout = []
+    require(len(replicas) == len(mesh.rows), f"{what}: one replica a row")
+    for row, rep in zip(mesh.rows, replicas):
+        require(rep is not source, f"{what}: a replica is the source")
+        held = [{"cut": 0, "whole": 0} for _ in row]
+        pieces = set()
+        for name, dim in cuts.items():
+            parts = list(cut_layer(rep, name).pieces)
+            require(torch.equal(torch.cat([p.detach() for p in parts], dim), src[name]),
+                    f"{what}: the pieces of {name} are not the source's")
+            for j, p in enumerate(parts):
+                require(p.device == row[j], f"{what}: piece {j} of {name} on {p.device}")
+                held[j]["cut"] += p.numel() * p.element_size()
+                pieces.add(id(p))
+        whole = [(n, p) for n, p in rep.named_parameters() if id(p) not in pieces]
+        require(sorted(n for n, _ in whole) == sorted(set(src) - set(cuts)),
+                f"{what}: the whole parameters are not the source's uncut ones")
+        for n, p in whole:
+            require(p.device == row[0] and torch.equal(p, src[n]),
+                    f"{what}: replica parameter {n} differs")
+            held[0]["whole"] += p.numel() * p.element_size()
+        for n, b in rep.named_buffers():
+            require(b.device == row[0] and torch.equal(b, src_buffers[n]),
+                    f"{what}: replica buffer {n} differs")
+        layout.append(held)
+    return layout
+
+
+def sharded_engine_run(pipe, cfg, paths, args, reference, mesh=None,
+                       what="two replicas on cuda:0"):
     """The batched path (``BATCH_SAMPLES``, ``--batch-size 8 --attn flash
-    --pipeline-depth 2``) through ``BatchedAlbefAttack`` on a mesh of two
-    replicas of the surrogate on cuda:0, against ``reference``, the same
-    samples through the unsharded engine (the batched phase): per sample
-    the same texts, the loss trajectories within ``DP_LOSS_TOL``, the
-    images inside the ball and the clip, and the largest image gap and the
-    share of pixels that differ printed.  Launch counts reset just before
-    and read just after: each chunk's schedule twice (two half-chunks), plus
-    the mixed second loss's calls.  Returns a dict of what it measured."""
-    from vqattack_tpu_torch.parallel.mesh import make_mesh
+    --pipeline-depth 2``) through ``BatchedAlbefAttack`` on ``mesh`` (by
+    default two replicas of the surrogate on cuda:0; each replica checked
+    against the source, :func:`check_replicas`), against ``reference``, the
+    same samples through the unsharded engine (the batched phase): per
+    sample the same texts, the loss trajectories within ``DP_LOSS_TOL``,
+    the images inside the ball and the clip, and the largest image gap and
+    the share of pixels that differ printed.  Launch counts reset just
+    before and read just after: each chunk's schedule once a data-axis
+    shard, plus the mixed second loss's calls.  Returns a dict of what it
+    measured."""
+    from vqattack_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
 
     dev = torch.device("cuda", 0)
-    mesh = make_mesh(devices=[dev] * DP_DEVICES)
+    if mesh is None:
+        mesh = make_mesh(devices=[dev] * DP_DEVICES)
+    n_data = mesh.shape[DATA_AXIS]
     engine = batched.BatchedAlbefAttack(pipe, mesh=mesh)
-    require(len(engine._replicas) == DP_DEVICES, "one replica a mesh device")
-    for view, _ in engine._replicas:
-        require(view.surrogate is not pipe.surrogate, "a replica shares the surrogate")
-        for (n, a), (m, b) in zip(pipe.surrogate.state_dict().items(),
-                                  view.surrogate.state_dict().items()):
-            require(n == m and torch.equal(a, b), f"replica parameter {n} differs")
+    layout = check_replicas(pipe.surrogate, [v.surrogate for v, _ in engine._replicas], mesh,
+                            what)
     mixed_calls = []
 
     def counted(fn):
@@ -1497,12 +1554,12 @@ def sharded_engine_run(pipe, cfg, paths, args, reference):
         # one chunk a bucket, each cut in two shards that run its schedule
         res = next(r for r in results if r.old_alg == old_alg)
         passes = implied_launches(cfg, *schedule_passes(res), True, cfg.compute_dtype)
-        add_launches(expected, {k: DP_DEVICES * v for k, v in passes.items()})
+        add_launches(expected, {k: n_data * v for k, v in passes.items()})
     n_mixed = len(mixed_calls)
     add_launches(expected, implied_launches(cfg, n_mixed, n_mixed, 0, True, cfg.compute_dtype))
     check_launches(launched, expected, {"pgd_linf_update", "residual_layernorm_fwd",
                                         "residual_layernorm_bwd", "flash_attention_fwd",
-                                        "flash_attention_bwd"}, "two-replica batched")
+                                        "flash_attention_bwd"}, f"{what}, batched")
     for smp, r in zip(samples, results):
         check_result(r, smp["pixels"], cfg.attack, size)
     loss_err, max_gap, differ_share = against_reference(results, reference, "unsharded")
@@ -1511,9 +1568,10 @@ def sharded_engine_run(pipe, cfg, paths, args, reference):
            "sample_iters_per_s": cfg.attack.num_iters * len(results) / attack_s,
            "max_loss_gap": loss_err, "max_image_gap": max_gap,
            "pixels_differing_share": differ_share, "launches": launched,
-           "phase_timing_s": dict(engine._timer.acc)}
-    print(f"  two replicas on cuda:0: {len(results)} samples, chunks {engine.last_chunk_sizes} "
-          f"(two shards each), attack {attack_s:.2f} s, "
+           "phase_timing_s": dict(engine._timer.acc), "mesh": mesh.shape,
+           "param_bytes_by_position": layout}
+    print(f"  {what}: {len(results)} samples, chunks {engine.last_chunk_sizes} "
+          f"({n_data} shards each), attack {attack_s:.2f} s, "
           f"{out['sample_iters_per_s']:.2f} sample-iterations/s; largest loss gap {loss_err:.3g}, "
           f"largest image gap {max_gap:.3g}, pixels that differ {differ_share:.4%}",
           flush=True)
@@ -1522,60 +1580,62 @@ def sharded_engine_run(pipe, cfg, paths, args, reference):
     return out
 
 
+def turns_ab(steps, what):
+    """The two ``steps`` (``{name: step}``) after one warm-up each, in the
+    turns a, b, then (a, b, b, a) twice: the median seconds, every step's
+    seconds and the peak memory of each's warm-up, and each's last
+    result."""
+    a, b = steps
+    out = {k: [] for k in steps}
+    peak, results = {}, {}
+    for name in (a, b) + (a, b, b, a) * 2:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        results[name] = steps[name]()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if name in peak:
+            out[name].append(dt)
+        else:
+            peak[name] = torch.cuda.max_memory_allocated()
+    ab = {k: {"median_s": float(np.median(v)), "steps_s": v, "peak_bytes": peak[k]}
+          for k, v in out.items()}
+    for k in steps:
+        print(f"  {what}, {k.replace('_', ' ')}: median {ab[k]['median_s']:.4f} s (min "
+              f"{min(ab[k]['steps_s']):.4f}, max {max(ab[k]['steps_s']):.4f}), peak memory "
+              f"{ab[k]['peak_bytes'] / 2 ** 30:.2f} GiB", flush=True)
+    return ab, results
+
+
 def sharded_step_ab(pipe, cfg, tokenizer, gen):
     """One PGD gradient step (feature loss, --attn flash) on a chunk of 8:
     one replica (``pgd_feature`` over 8 rows) against two replicas on
     cuda:0 (``parallel/sweep.py::batched_attack_step``, 4 rows each on a
     host thread of its own), after one warm-up each, in the turns one, two,
-    two, one; the median seconds and the peak memory of each."""
+    two, one (:func:`turns_ab`); the median seconds and the peak memory of
+    each."""
     from vqattack_tpu_torch.parallel.mesh import make_mesh, shard_params
     from vqattack_tpu_torch.parallel.sweep import batched_attack_step
 
-    b, size, dev = BATCH_SIZE, cfg.albef.vit.image_size, pipe.device
-    ori = torch.rand((b, 3, size, size), generator=gen, device=dev) * 2 - 1
-    ids, mask = tokenizer.encode_batch(["what color is the dog"] * b, cfg.attack.max_text_len)
-    ids = torch.as_tensor(ids, dtype=torch.long, device=dev)
-    mask = torch.as_tensor(mask, dtype=torch.long, device=dev)
-    aux = {"text_ids": ids, "text_mask": mask, "ori_ids": ids, "ori_mask": mask,
-           "txt_token_mask": mask.float(), "special_ids": pipe._special}
+    dev = pipe.device
     atk = cfg.attack
     mesh = make_mesh(devices=[dev] * DP_DEVICES)
-    views = [pipe.replica(m) for m in shard_params(pipe.surrogate, mesh)]
+    views = [pipe.replica(m, d) for d, m in zip(mesh.devices, shard_params(pipe.surrogate, mesh))]
     kw = dict(eps=atk.eps, eps_iter=atk.step_size, nb_iter=1)
     with attention.attention_impl("flash"):
-        aux.update(pipe._targets_fn(ori, TorchKey(1, dev), aux))
+        ori, aux = albef_step_inputs(pipe, cfg, tokenizer, gen, BATCH_SIZE)
         steps = {
             "one_replica": lambda: pgd_feature(pipe._feature_loss, ori, ori, TorchKey(2, dev),
                                                aux, **kw),
             "two_replicas": lambda: batched_attack_step([v._feature_loss for v in views], ori,
                                                         ori, TorchKey(2, dev), aux, mesh, **kw),
         }
-        out = {k: [] for k in steps}
-        peak = {}
-        results = {}
-        for name in ("one_replica", "two_replicas") + ("one_replica", "two_replicas",
-                                                       "two_replicas", "one_replica") * 2:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            results[name] = steps[name]()
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            if name in peak:
-                out[name].append(dt)
-            else:
-                peak[name] = torch.cuda.max_memory_allocated()
+        ab, results = turns_ab(steps, f"one gradient step at batch {BATCH_SIZE}")
     (adv1, l1), (adv2, l2) = results["one_replica"], results["two_replicas"]
     require(np.allclose(l1.cpu().numpy(), l2.cpu().numpy(), **DP_LOSS_TOL),
             "the two-replica step's losses differ from one replica's")
-    ab = {k: {"median_s": float(np.median(v)), "steps_s": v, "peak_bytes": peak[k]}
-          for k, v in out.items()}
     ab["image_gap"] = float((adv1 - adv2).abs().max())
-    for k in steps:
-        print(f"  one gradient step at batch {b}, {k.replace('_', ' ')}: median "
-              f"{ab[k]['median_s']:.4f} s (min {min(ab[k]['steps_s']):.4f}, max "
-              f"{max(ab[k]['steps_s']):.4f}), peak memory {ab[k]['peak_bytes'] / 2 ** 30:.2f} GiB",
-              flush=True)
     del views
     torch.cuda.empty_cache()
     return ab
@@ -1797,6 +1857,123 @@ def data_parallel_phase(pipe, cfg, tokenizer, paths, args, reference, common, tm
     out["step_ab_batch8"] = sharded_step_ab(pipe, cfg, tokenizer, gen)
     out["distributed"] = distributed_runs(common, tmp, cfg.albef.vit.image_size)
     out["nccl_world1"] = nccl_world1_check(gen)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tensor parallel: the mesh's model axis, each replica's 2-D parameters cut
+# column-wise over its row (parallel/tensor.py), every row repeating cuda:0
+# ---------------------------------------------------------------------------
+
+TP_MODEL = 2
+
+
+def tensor_step_ab(pipe, cfg, tokenizer, gen):
+    """One PGD gradient step (feature loss, --attn flash) at batch 8 through
+    ``batched_attack_step`` on model axis 1 (the pipeline's surrogate)
+    against model axis 2 (data 1: one replica cut over ``[cuda:0, cuda:0]``),
+    in turns (:func:`turns_ab`): the median seconds, the peaks, the image
+    gap, and the parameter bytes held at each mesh position."""
+    from vqattack_tpu_torch.parallel.mesh import make_mesh, shard_params
+    from vqattack_tpu_torch.parallel.sweep import batched_attack_step
+
+    dev, atk = pipe.device, cfg.attack
+    mesh1 = make_mesh(devices=[dev])
+    mesh2 = make_mesh(TP_MODEL, model_parallelism=TP_MODEL, devices=[dev] * TP_MODEL)
+    replicas = shard_params(pipe.surrogate, mesh2)
+    layout = check_replicas(pipe.surrogate, replicas, mesh2, "ALBEF data 1 x model 2")
+    view = pipe.replica(replicas[0], dev)
+    kw = dict(eps=atk.eps, eps_iter=atk.step_size, nb_iter=1)
+    with attention.attention_impl("flash"):
+        ori, aux = albef_step_inputs(pipe, cfg, tokenizer, gen, BATCH_SIZE)
+        steps = {
+            "model_axis_1": lambda: batched_attack_step([pipe._feature_loss], ori, ori,
+                                                        TorchKey(2, dev), aux, mesh1, **kw),
+            "model_axis_2": lambda: batched_attack_step([view._feature_loss], ori, ori,
+                                                        TorchKey(2, dev), aux, mesh2, **kw),
+        }
+        ab, results = turns_ab(steps, f"one gradient step at batch {BATCH_SIZE}")
+    (adv1, l1), (adv2, l2) = results["model_axis_1"], results["model_axis_2"]
+    require(np.allclose(l1.cpu().numpy(), l2.cpu().numpy(), **DP_LOSS_TOL),
+            "the model-axis-2 step's losses differ from model axis 1's")
+    ab["image_gap"] = float((adv1 - adv2).abs().max())
+    ab["param_bytes_by_position"] = layout
+    (held,) = layout
+    print(f"  parameter bytes at each position of data 1 x model 2: "
+          + ", ".join(f"model {j}: cut {h['cut'] / 2 ** 20:.1f} MiB, whole "
+                      f"{h['whole'] / 2 ** 20:.1f} MiB" for j, h in enumerate(held))
+          + f"; model axis 1 holds {sum(h['cut'] + h['whole'] for h in held) / 2 ** 20:.1f} "
+            f"MiB at its one position", flush=True)
+    del view, replicas
+    torch.cuda.empty_cache()
+    return ab
+
+
+def tensor_parallel_phase(pipe, cfg, paths, args, reference, tokenizer, gen):
+    """The ALBEF checks of the tensor-parallel slice: cell 2 on data 2 x
+    model 2 (:func:`sharded_engine_run`) and the model-axis step A/B."""
+    from vqattack_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(2 * TP_MODEL, model_parallelism=TP_MODEL, devices=[dev] * (2 * TP_MODEL))
+    require(mesh.shape == {"data": 2, "model": TP_MODEL}, f"the mesh {mesh.shape}")
+    out = {"data2_model2": sharded_engine_run(pipe, cfg, paths, args, reference, mesh,
+                                              "data 2 x model 2 on cuda:0")}
+    out["step_ab_batch8"] = tensor_step_ab(pipe, cfg, tokenizer, gen)
+    return out
+
+
+def tensor_parallel_vlmo(pipe, cfg, tokenizer, gen):
+    """Cell 4's full-width surrogate on data 1 x model 2 (``[cuda:0,
+    cuda:0]``): feature PGD, 2 iterations from a rand-init start at batch 8
+    under flash through ``batched_attack_step``, against the unsharded
+    surrogate's ``pgd_feature`` on the same draws: the losses within
+    ``DP_LOSS_TOL``, the images in the ball and the clip, the largest image
+    gap and the share of pixels that differ; the launches, counted over the
+    cut run alone, as the schedule says."""
+    from vqattack_tpu_torch.parallel.mesh import make_mesh, shard_params
+    from vqattack_tpu_torch.parallel.sweep import batched_attack_step
+
+    dev, atk, b, iters = pipe.device, cfg.attack, BATCH_SIZE, 2
+    mesh = make_mesh(TP_MODEL, model_parallelism=TP_MODEL, devices=[dev] * TP_MODEL)
+    replicas = shard_params(pipe.model, mesh)
+    layout = check_replicas(pipe.model, replicas, mesh, "VLMo data 1 x model 2")
+    view = pipe.replica(replicas[0], dev)
+    require(torch.equal(view._rel_biases, pipe._rel_biases),
+            "the cut replica's relative-position biases differ")
+    kw = dict(eps=atk.eps, eps_iter=atk.step_size, nb_iter=iters, rand_init=True)
+    with attention.attention_impl("flash"):
+        ori, aux = vlmo_step_inputs(pipe, cfg, tokenizer, gen, b)
+        adv1, l1 = pgd_feature(pipe._feature_loss, ori, ori, TorchKey(3, dev), aux, **kw)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adv2, l2 = batched_attack_step([view._feature_loss], ori, ori, TorchKey(3, dev),
+                                       dict(aux, rel_biases=view._rel_biases), mesh, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = counts()
+    check_launches(launched, vlmo_implied_launches(cfg, iters, iters, iters, True),
+                   {"pgd_linf_update", "flash_attention_fwd", "flash_attention_bwd",
+                    "flash_attention_fwd_key_bias", "flash_attention_bwd_key_bias"},
+                   "VLMo data 1 x model 2")
+    l1, l2 = l1.cpu().numpy(), l2.cpu().numpy()
+    require(np.isfinite(l2).all() and l2.shape == (iters, b), "the cut run's losses")
+    require(np.allclose(l2, l1, **DP_LOSS_TOL),
+            f"the cut VLMo run's losses off the unsharded ones by {np.abs(l2 - l1).max():.3g}")
+    require(bool(((adv2 - ori).abs() <= atk.eps + 1e-6).all())
+            and bool(((adv2 >= atk.clip_min) & (adv2 <= atk.clip_max)).all()),
+            "the cut VLMo run left the ball or the clip")
+    gap = (adv2 - adv1).abs()
+    out = {"seconds": seconds, "max_loss_gap": float(np.abs(l2 - l1).max()),
+           "max_image_gap": float(gap.max()),
+           "pixels_differing_share": float((gap > 0).float().mean()),
+           "launches": launched, "param_bytes_by_position": layout}
+    print(f"  VLMo on data 1 x model 2: {iters} steps at batch {b} in {seconds:.3f} s; largest "
+          f"loss gap {out['max_loss_gap']:.3g}, largest image gap {out['max_image_gap']:.3g}, "
+          f"pixels that differ {out['pixels_differing_share']:.4%}", flush=True)
+    del view, replicas
+    torch.cuda.empty_cache()
     return out
 
 
@@ -5383,6 +5560,10 @@ def main() -> int:
                                  tmp, gen)
     dp["phase_s"] = round(ph.seconds, 2)
     print(json.dumps({"data_parallel": dp, "card": smi}), flush=True)
+    with Phase(f"tensor parallel: the batched path on data 2 x model {TP_MODEL} of cuda:0, "
+               f"a step on model axis 1 against {TP_MODEL}") as ph:
+        tp = tensor_parallel_phase(pipe, cfg, paths, batch_args, b_results, tokenizer, gen)
+    tp["phase_s"] = round(ph.seconds, 2)
 
     # ------------------------- the analysis slice: restarts, Grad-CAM, zoo
     vit32 = {"residual_layernorm_fwd", "residual_layernorm_bwd", "flash_attention_fwd",
@@ -5503,6 +5684,11 @@ def main() -> int:
 
     with Phase("one VLMo gradient step at batch 16: --attn flash against --attn xla"):
         v_ab = vlmo_one_step_ab(v_pipe, v_cfg, tokenizer, gen)
+    with Phase(f"tensor parallel: VLMo on data 1 x model {TP_MODEL} of cuda:0, feature PGD "
+               f"at batch {BATCH_SIZE}") as ph:
+        tp["vlmo_data1_model2"] = tensor_parallel_vlmo(v_pipe, v_cfg, tokenizer, gen)
+    tp["phase_s"] = round(tp["phase_s"] + ph.seconds, 2)
+    print(json.dumps({"tensor_parallel": tp, "card": smi}), flush=True)
     with Phase(f"attack zoo: seven attacks against the VLMo-VQA victim, B {ZOO_B}, "
                f"--attn flash") as ph:
         zoo, z_launched, z_expected = zoo_phase(v_pipe, v_cfg, tokenizer)

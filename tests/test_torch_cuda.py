@@ -1428,3 +1428,37 @@ def test_device_preprocess_on_the_card_matches_the_cpu(gen):
     got = device_preprocess(raw, 64)
     assert got.device.type == "cuda" and got.shape == (4, 3, 64, 64)
     torch.testing.assert_close(got.cpu(), device_preprocess(raw.cpu(), 64), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cut_layers_on_the_card_equal_uncut(gen, dtype):
+    """The column-cut layers of the model axis (``parallel/tensor.py``) on
+    the row ``[cuda:0, cuda:0]`` against the uncut layers at ALBEF's width
+    (TF32 off): a cut ``Linear``'s output and its weights' gradients within
+    1e-5 (float32) or 2^-7 (bf16) relative, its input gradient, a sum of the
+    pieces' partial products, within that share of its largest value; the
+    cut ``Embedding`` and table equal."""
+    from vqattack_tpu_torch.models.layers import Embedding, Linear
+    from vqattack_tpu_torch.parallel.tensor import ColumnEmbedding, ColumnLinear, ColumnParameter
+
+    row = [torch.device("cuda", 0)] * 2
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    torch.manual_seed(0)
+    lin = Linear(768, 3072, compute_dtype=dtype).cuda()
+    x = torch.randn(8, 901, 768, generator=gen, device="cuda", requires_grad=True)
+    ct = torch.randn(8, 901, 3072, generator=gen, device="cuda").to(dtype)
+    cut = ColumnLinear(lin, row)
+    y_cut = cut(x)
+    g_cut = torch.autograd.grad(y_cut, (x, *cut.pieces), ct)
+    y = lin(x)
+    g = torch.autograd.grad(y, (x, lin.weight), ct)
+    assert y_cut.dtype == y.dtype == dtype and y_cut.device == y.device
+    for got, want in ((y_cut, y), (g_cut[0], g[0]), (torch.cat(g_cut[1:]), g[1])):
+        assert float((got.float() - want.float()).abs().max()) <= tol * float(
+            want.float().abs().max())
+
+    emb = Embedding(30522, 768, compute_dtype=dtype).cuda()
+    ids = torch.randint(0, 30522, (8, 35), generator=gen, device="cuda")
+    assert torch.equal(ColumnEmbedding(emb, row)(ids), emb(ids))
+    table = torch.randn(3970, 144, generator=gen, device="cuda")
+    assert torch.equal(ColumnParameter(table, row)[:, 12:24], table[:, 12:24])

@@ -59,8 +59,8 @@ def test_mesh_shapes_and_refusals():
     mesh = make_mesh(devices=CPU4)
     assert mesh.shape == {DATA_AXIS: 4, MODEL_AXIS: 1}
     assert make_mesh(2, devices=CPU4).shape[DATA_AXIS] == 2
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        make_mesh(4, model_parallelism=2, devices=CPU4)
+    assert make_mesh(4, model_parallelism=2, devices=CPU4).shape == {DATA_AXIS: 2,
+                                                                      MODEL_AXIS: 2}
     with pytest.raises(ValueError, match="5 devices asked for, 4 given"):
         make_mesh(5, devices=CPU4)
     if not torch.cuda.is_available():  # the default mesh takes CUDA cards only
@@ -140,7 +140,7 @@ def test_new_modules_import_only_torch_numpy_stdlib():
     the modules of this slice are among them, and import nothing else."""
     allowed = set(sys.stdlib_module_names) | {"torch", "numpy", "vqattack_tpu_torch"}
     for rel in ("parallel/__init__.py", "parallel/mesh.py", "parallel/sweep.py",
-                "data/iter_utils.py"):
+                "parallel/tensor.py", "data/iter_utils.py"):
         tree = ast.parse((ROOT / "vqattack_tpu_torch" / rel).read_text())
         for node in ast.walk(tree):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import) else

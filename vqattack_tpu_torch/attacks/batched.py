@@ -8,9 +8,12 @@ gradients at once, and the candidate sentences of all samples are embedded
 and gated in single device calls.  The host does the WordPiece bookkeeping
 between blocks.
 
-Data mesh (``mesh=``, ``parallel/mesh.py``): each PGD block runs one row
+Mesh (``mesh=``, ``parallel/mesh.py``): each PGD block runs one row
 slice of the chunk on each device of the mesh's data axis at once, one host
-thread a device, each on its own replica of the surrogate.  Every draw is
+thread a device, each on its own replica of the surrogate; on a data x
+model mesh each replica's parameters are cut column-wise over its row
+(``parallel/tensor.py``) and its activations gathered on the row's first
+device.  Every draw is
 made at the whole chunk's size and sliced (``rng.py::RowsKey``), so a
 sample's start and masks do not depend on the mesh.  The host text attack
 between blocks works on the gathered chunk.  A chunk whose rows do not
@@ -169,9 +172,9 @@ class BatchedAlbefAttack:
 
     def __init__(self, pipeline: AlbefAttackPipeline, mesh=None):
         """``mesh``: a ``parallel/mesh.py`` mesh; each chunk's rows shard
-        over its data axis, each device with its own replica of the
-        surrogate (the victim and the candidate MLM stay on the pipeline's
-        device)."""
+        over its data axis, each position with its own replica of the
+        surrogate, cut over its row where the model axis is above 1 (the
+        victim and the candidate MLM stay on the pipeline's device)."""
         self.p = pipeline
         self.mesh = mesh
         self._mixed_loss = self._mixed_second_loss(pipeline)
@@ -181,8 +184,9 @@ class BatchedAlbefAttack:
         # (pipeline view, its mixed second loss) of each data-axis device
         self._replicas: List[Tuple[Any, Any]] = []
         if mesh is not None:
-            for module in shard_params(self._surrogate(pipeline), mesh):
-                view = pipeline.replica(module)
+            for device, module in zip(mesh.devices,
+                                      shard_params(self._surrogate(pipeline), mesh)):
+                view = pipeline.replica(module, device)
                 self._replicas.append((view, _mixed_loss(view._feature_loss, view._mlm_loss)))
 
     @staticmethod

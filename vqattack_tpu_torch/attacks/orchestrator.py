@@ -120,14 +120,15 @@ class AlbefAttackPipeline:
         self._mlm_loss = albef_losses.make_mlm_loss(surrogate)
         self._vl_loss = albef_losses.make_vl_loss(surrogate)
 
-    def replica(self, surrogate: AlbefPretrain) -> "AlbefAttackPipeline":
-        """A view of this pipeline over ``surrogate``, a copy of its own on
-        one device of a data mesh (``parallel/mesh.py::shard_params``): the
-        attack's losses, clean targets and text embeddings bound to the
-        copy and its device; the victim, the candidate MLM, the tokenizer
-        and the gate shared."""
+    def replica(self, surrogate: AlbefPretrain, device) -> "AlbefAttackPipeline":
+        """A view of this pipeline over ``surrogate``, the copy of one
+        data-axis position of a mesh (``parallel/mesh.py::shard_params``),
+        whose row starts at ``device``: the attack's losses, clean targets
+        and text embeddings bound to the copy, its inputs on ``device``
+        (where a cut copy gathers its activations); the victim, the
+        candidate MLM, the tokenizer and the gate shared."""
         view = copy.copy(self)
-        view.device = next(surrogate.parameters()).device
+        view.device = torch.device(device)
         view._bind_surrogate(surrogate)
         return view
 

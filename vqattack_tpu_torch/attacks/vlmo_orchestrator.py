@@ -93,14 +93,16 @@ class VlmoAttackPipeline:
         self._mlm_loss = vlmo_losses.make_mlm_loss(model)
         self._vl_loss = vlmo_losses.make_vl_loss(model)
 
-    def replica(self, model: VLMo) -> "VlmoAttackPipeline":
-        """A view of this pipeline over ``model``, a copy of the surrogate
-        on one device of a data mesh (``parallel/mesh.py::shard_params``):
-        the attack's losses, clean targets, relative-position biases and
-        text embeddings bound to the copy and its device; the victim (and
-        its biases), the candidate MLM, the tokenizer and the gate shared."""
+    def replica(self, model: VLMo, device) -> "VlmoAttackPipeline":
+        """A view of this pipeline over ``model``, the surrogate's copy of
+        one data-axis position of a mesh (``parallel/mesh.py::shard_params``),
+        whose row starts at ``device``: the attack's losses, clean targets,
+        relative-position biases (from the gathered table of a cut copy)
+        and text embeddings bound to the copy, its inputs on ``device``;
+        the victim (and its biases), the candidate MLM, the tokenizer and
+        the gate shared."""
         view = copy.copy(self)
-        view.device = next(model.parameters()).device
+        view.device = torch.device(device)
         view._bind_model(model)
         return view
 

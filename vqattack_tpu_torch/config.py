@@ -171,10 +171,10 @@ class AttackConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh layout of the data-parallel attack sweep
-    (``parallel/mesh.py``): the batch of independent attack samples shards
-    over the ``data`` axis; the ``model`` axis stays 1 (tensor parallelism
-    is not ported).  ``data_parallelism`` -1 takes every card."""
+    """Device-mesh layout of the attack sweep (``parallel/mesh.py``): the
+    batch of independent attack samples shards over the ``data`` axis; the
+    surrogate's 2-D parameters are cut column-wise over the ``model`` axis
+    (``parallel/tensor.py``).  ``data_parallelism`` -1 takes every card."""
 
     data_axis: str = "data"
     model_axis: str = "model"

@@ -1,5 +1,5 @@
-"""Data parallel: the device mesh (``mesh.py``) and the sweep over it
-(``sweep.py``)."""
+"""The device mesh (``mesh.py``: data x model), the column-cut layers of its
+model axis (``tensor.py``) and the sweep over it (``sweep.py``)."""
 
 from vqattack_tpu_torch.parallel.mesh import (  # noqa: F401
     DATA_AXIS,

@@ -1,18 +1,24 @@
-"""The device mesh of the data-parallel attack sweep.
+"""The device mesh of the attack sweep: a data x model grid.
 
 Port of ``vqattack_tpu/parallel/mesh.py``.  The JAX mesh is one program
 that GSPMD partitions over a ``jax.sharding.Mesh``.  PyTorch has no such
-partitioner, so the port's mesh is a list of devices along the ``data``
-axis: the batch of independent attack samples is cut into one row slice a
-device (:func:`shard_batch`), each device holds its own copy of the
-surrogate (:func:`shard_params`), and the lockstep engine
-(``attacks/batched.py``) drives each slice on its device from a host thread
-of its own.
+partitioner, so the port writes both axes out in one process:
 
-The ``model`` axis stays 1: tensor parallelism over it is not ported (no
-CLI of the JAX package reaches it either), and ``model_parallelism > 1`` is
-refused.  An explicit ``devices`` list may name one device more than once:
-two replicas on one card run concurrently, each on half of the batch.
+- ``data``: the batch of independent attack samples is cut into one row
+  slice a data-axis position (:func:`shard_batch`), each position holds its
+  own copy of the surrogate (:func:`shard_params`), and the lockstep engine
+  (``attacks/batched.py``) drives each slice from a host thread of its own;
+- ``model``: each position is a row of ``model_parallelism`` devices over
+  which its copy's 2-D parameters are cut column-wise, the rule of the JAX
+  ``shard_params`` (``parallel/tensor.py``); activations are gathered on the
+  row's first device, so everything else runs there at the unsharded
+  shapes.
+
+``Mesh.devices`` is the data axis, the first device of each row, where a
+row slice of the batch and its replica's uncut parameters live.  An explicit
+``devices`` list may name one device more than once: two replicas on one
+card run concurrently, each on half of the batch, and a row ``[cuda:0,
+cuda:0]`` cuts a replica's parameters in two on the one card.
 """
 
 from __future__ import annotations
@@ -26,33 +32,41 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from vqattack_tpu_torch.parallel.tensor import column_cuts, cut_replica
+
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """``devices``: the data axis, in order (a device may repeat)."""
+    """``rows``: one row of devices a data-axis position, each row the
+    model axis, in order (a device may repeat)."""
 
-    devices: Tuple[torch.device, ...]
+    rows: Tuple[Tuple[torch.device, ...], ...]
+
+    @property
+    def devices(self) -> Tuple[torch.device, ...]:
+        """The data axis: the first device of each row."""
+        return tuple(row[0] for row in self.rows)
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {DATA_AXIS: len(self.devices), MODEL_AXIS: 1}
+        return {DATA_AXIS: len(self.rows), MODEL_AXIS: len(self.rows[0])}
 
 
 def make_mesh(n_devices: Optional[int] = None, model_parallelism: int = 1,
               devices: Optional[Sequence] = None) -> Mesh:
-    """A data mesh of ``n_devices``: by default the first local cards
-    (``cuda:0 .. n-1``; all of them when ``n_devices`` is None), else the
-    first of ``devices``.  Raises when there are fewer devices than asked
-    for, when there is no card and no ``devices``, and for
-    ``model_parallelism > 1``."""
-    if model_parallelism != 1:
-        raise NotImplementedError(
-            f"model_parallelism={model_parallelism}: tensor parallelism over the mesh's "
-            f"'{MODEL_AXIS}' axis is not ported (ROADMAP.md, Queue 1: tensor parallelism "
-            f"over the model axis); the port's mesh is data-parallel only")
+    """A mesh of ``n_devices`` folded into ``n_devices // model_parallelism``
+    rows of ``model_parallelism``, in order (the JAX ``reshape(n // mp,
+    mp)``): by default the first local cards (``cuda:0 .. n-1``; all of
+    them when ``n_devices`` is None), else the first of ``devices``.
+    Raises when there are fewer devices than asked for, when there is no
+    card and no ``devices``, and when ``model_parallelism`` is below 1 or
+    does not divide the device count."""
+    if model_parallelism < 1:
+        raise ValueError(f"make_mesh: model_parallelism={model_parallelism} for "
+                         f"n_devices={n_devices}: the model axis needs at least one device")
     if n_devices is not None and n_devices < 1:
         raise ValueError(f"n_devices={n_devices}: a mesh needs at least one device")
     if devices is None:
@@ -62,11 +76,11 @@ def make_mesh(n_devices: Optional[int] = None, model_parallelism: int = 1,
                                "of other devices")
         n = count if n_devices is None else n_devices
         if n > count:
-            raise RuntimeError(f"make_mesh: {n} devices asked for, {count} CUDA "
-                               f"device(s) present")
+            raise ValueError(f"make_mesh: {n} devices asked for, {count} CUDA "
+                             f"device(s) present")
         devices = [torch.device("cuda", i) for i in range(n)]
     else:
-        devices = [torch.device(d) for d in devices]
+        devices = [_indexed(d) for d in devices]
         if n_devices is not None:
             if n_devices > len(devices):
                 raise ValueError(f"make_mesh: {n_devices} devices asked for, "
@@ -74,14 +88,34 @@ def make_mesh(n_devices: Optional[int] = None, model_parallelism: int = 1,
             devices = devices[:n_devices]
         if not devices:
             raise ValueError("make_mesh: empty device list")
-    return Mesh(tuple(devices))
+    n = len(devices)
+    if n % model_parallelism:
+        raise ValueError(f"make_mesh: {n} devices do not fold into rows of "
+                         f"model_parallelism={model_parallelism}")
+    return Mesh(tuple(tuple(devices[i : i + model_parallelism])
+                      for i in range(0, n, model_parallelism)))
+
+
+def _indexed(device) -> torch.device:
+    """``device`` as its tensors name it: ``cuda`` is the current card's
+    index."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def shard_params(module: nn.Module, mesh: Mesh) -> List[nn.Module]:
-    """One replica of ``module`` a device of the data axis, each a copy on
-    its device whose parameters and buffers equal the source's bit for
-    bit (the ``model`` axis is 1: nothing is cut)."""
-    return [copy.deepcopy(module).to(device) for device in mesh.devices]
+    """One replica of ``module`` a data-axis position, each a copy on its
+    row: with a model axis of 1 a copy on the position's device; else every
+    2-D parameter whose flax leaf's last axis divides by the model axis cut
+    column-wise over the row (``parallel/tensor.py``) and the others whole
+    on the row's first device.  Every value equals the source's bit for
+    bit.  Cut after the weights are loaded."""
+    if mesh.shape[MODEL_AXIS] == 1:
+        return [copy.deepcopy(module).to(device) for device in mesh.devices]
+    cuts = column_cuts(module, mesh.shape[MODEL_AXIS])
+    return [cut_replica(module, row, cuts) for row in mesh.rows]
 
 
 def shard_rows(mesh: Mesh, b: int) -> List[Tuple[torch.device, int, int]]:

@@ -3,7 +3,8 @@
 Port of ``vqattack_tpu/parallel/sweep.py``: thin wrappers over the one
 batched engine, the lockstep bucketed attack of ``attacks/batched.py``
 (``BatchedAlbefAttack``, ``BatchedVlmoAttack``), whose chunks shard over the
-mesh's data axis.  Every sample, with or without a paraphrase, runs inside
+mesh's data axis, each replica cut over its row of the model axis where
+that axis is above 1.  Every sample, with or without a paraphrase, runs inside
 an ``(old_alg, k)`` bucket; none falls back to the one-at-a-time attack.
 The CLI (``run.py --batch-size --mesh-devices``) builds the engine itself.
 """
@@ -26,20 +27,26 @@ def batched_attack_step(loss_fns, pixels: torch.Tensor, ori_pixels: torch.Tensor
     """One feature-PGD run (:func:`~vqattack_tpu_torch.attacks.pgd.pgd_feature`)
     over a batch sharded on the mesh: ``pixels``, ``ori_pixels`` and each
     batch entry of ``aux`` ``[B, ...]`` cut into one row slice a data-axis
-    device, shard ``i`` driven by ``loss_fns[i]`` (a loss bound to that
-    device's replica, ``parallel/mesh.py::shard_params``) on a host thread
-    of its own, every draw made at the whole batch's size and sliced.
-    Returns ``(adv [B, ...], losses [nb_iter, B])`` on the first device."""
+    device (``rel_biases`` whole on each), shard ``i`` driven by
+    ``loss_fns[i]`` (a loss bound to that position's replica,
+    ``parallel/mesh.py::shard_params``, cut over its row on a data x model
+    mesh) on a host thread of its own, every draw made at the whole batch's
+    size and sliced.  Returns ``(adv [B, ...], losses [nb_iter, B])`` on the first device."""
     b = pixels.shape[0]
-    shards = shard_batch({"x": pixels, "ori": ori_pixels, "aux": aux}, mesh)
+    # VLMo's layer-stacked relative-position biases are batch-free: each
+    # shard takes them whole (the JAX sweep replicates them)
+    whole = {k: v for k, v in aux.items() if k == "rel_biases" and v is not None}
+    shards = shard_batch({"x": pixels, "ori": ori_pixels,
+                          "aux": {k: v for k, v in aux.items() if k not in whole}}, mesh)
     # an indivisible batch is one shard on the first device
     rows = b // len(shards)
 
     def run(i):
         sh = shards[i]
         device = sh["x"].device
+        shard_aux = dict(sh["aux"], **{k: v.to(device) for k, v in whole.items()})
         shard_key = RowsKey(clone_key(key), i * rows, (i + 1) * rows, b, device)
-        return pgd_feature(loss_fns[i], sh["x"], sh["ori"], shard_key, sh["aux"], eps=eps,
+        return pgd_feature(loss_fns[i], sh["x"], sh["ori"], shard_key, shard_aux, eps=eps,
                            eps_iter=eps_iter, nb_iter=nb_iter, clip_min=clip_min,
                            clip_max=clip_max, rand_init=rand_init)
 
