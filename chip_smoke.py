@@ -374,6 +374,13 @@ def tensor_core_bound_ms(n_bytes: float, product_flops: float):
     return bound_ms(n_bytes, 3 * product_flops, TF32_FLOPS)
 
 
+def k3_source(dtype, head_dim: int, dbias: bool = False) -> dict:
+    """The source and the instance (``attention.k3_route``) of the K3
+    kernels that a call on ``dtype`` q/k/v at ``head_dim`` runs."""
+    route = attention.k3_route(dtype, head_dim, dbias)
+    return {"source": attention.K3_ROUTES[route], "instance": route}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -769,7 +776,7 @@ def time_flash_attention(gen, errs, b, s=901, suffix=""):
     bwd_b, bwd_by = tensor_core_bound_ms(8 * row + lse_bytes, 10 * unit)
     fwd = {
         "name": "flash_attention_fwd" + suffix, "route": "cuda",
-        "source": "vqattack_tpu_torch/csrc/flash_attention.cu",
+        **k3_source(torch.float32, HEAD_DIM),
         "replaces": "vqattack_tpu/ops/attention.py:134",
         "shape": [b, s, HEADS, HEAD_DIM],
         "max_abs_err": errs["o"],
@@ -782,7 +789,7 @@ def time_flash_attention(gen, errs, b, s=901, suffix=""):
     }
     bwd = {
         "name": "flash_attention_bwd" + suffix, "route": "cuda",
-        "source": "vqattack_tpu_torch/csrc/flash_attention.cu",
+        **k3_source(torch.float32, HEAD_DIM),
         "replaces": "vqattack_tpu/ops/attention.py:134",
         "shape": [b, s, HEADS, HEAD_DIM],
         "max_abs_err": max(errs["dq"], errs["dk"], errs["dv"]),
@@ -916,7 +923,7 @@ def time_flash_attention_bf16(q, k, v, table, key_bias, errs):
     fwd_b, fwd_by = bound_ms(4 * row + lse_bytes + terms, 4 * unit, BF16_FLOPS)
     bwd_b, bwd_by = bound_ms(8 * row + lse_bytes + terms, 10 * unit, BF16_FLOPS)
     suffix = "" if table is None else "_key_bias"
-    common = {"route": "cuda", "source": "vqattack_tpu_torch/csrc/flash_attention_bf16.cu",
+    common = {"route": "cuda", **k3_source(BF16, HEAD_DIM),
               "replaces": "vqattack_tpu/ops/attention.py:134", "shape": [b, s, HEADS, HEAD_DIM],
               "dtype": "bfloat16"}
     fwd = dict(common, **{
@@ -1124,6 +1131,24 @@ def counts() -> dict:
 def reset_counts() -> None:
     for fn, attr in KERNELS.values():
         setattr(fn, attr, 0)
+    for fn in (attention.flash_attention_fwd, attention.flash_attention_bwd):
+        fn.tf32_wgmma_launches = 0
+
+
+def check_k3_routes(launched, what) -> dict:
+    """Since the last ``reset_counts``: every float32 K3 launch at head dim
+    64 went to the Hopper kernels (``csrc/flash_attention_tf32.cu``) and
+    every one at head dim 34 to the mma.sync ones (``k3_route``).  Returns
+    the Hopper kernels' launches."""
+    routed = {}
+    for d in ("fwd", "bwd"):
+        fn = getattr(attention, f"flash_attention_{d}")
+        hd64 = launched[f"flash_attention_{d}"] - launched[f"flash_attention_{d}_hd34"]
+        require(fn.tf32_wgmma_launches == hd64,
+                f"{what}: {fn.tf32_wgmma_launches} float32 {d} launches of the Hopper kernels, "
+                f"{hd64} at head dim 64")
+        routed[f"flash_attention_{d}_tf32_wgmma"] = fn.tf32_wgmma_launches
+    return routed
 
 
 def implied_launches(cfg, vit_fwd: int, vit_bwd: int, k1: int, flash: bool,
@@ -1290,6 +1315,7 @@ def run_batched_path(engine, cfg, paths, args, sample_list, pixel_base, size, vi
     torch.cuda.synchronize()
     launched = counts()
     wall = time.perf_counter() - t0
+    routed = check_k3_routes(launched, "batched")
 
     require([r.qid for r in results] == [str(q) for q, *_ in sample_list],
             "results not in qid order")
@@ -1311,7 +1337,8 @@ def run_batched_path(engine, cfg, paths, args, sample_list, pixel_base, size, vi
           f"{engine.last_occupancy:.3f}, mixed-loss calls {len(mixed_calls)}, attack "
           f"{attack_s:.2f} s, with the victim {wall:.2f} s: "
           f"{cfg.attack.num_iters * len(results) / attack_s:.2f} aggregate sample-iterations/s "
-          f"({n_iters} PGD gradient steps counted)", flush=True)
+          f"({n_iters} PGD gradient steps counted); K3 float32 on the Hopper kernels: "
+          f"{routed}", flush=True)
     return results, launched, expected, attack_s
 
 
@@ -2076,7 +2103,7 @@ def time_flash_attention_key_bias(pipe, tokenizer, gen, errs):
     long_sleep = 20_000_000
     fwd_b, fwd_by = tensor_core_bound_ms(4 * row + lse_bytes + terms, 4 * unit)
     bwd_b, bwd_by = tensor_core_bound_ms(8 * row + lse_bytes + terms, 10 * unit)
-    common = {"route": "cuda", "source": "vqattack_tpu_torch/csrc/flash_attention.cu",
+    common = {"route": "cuda", **k3_source(torch.float32, HEAD_DIM),
               "replaces": "vqattack_tpu/ops/attention.py:134", "shape": [b, s, HEADS, HEAD_DIM],
               "table_bytes": table.numel() * 4, "table_per_bh_bytes": b * table.numel() * 4}
     fwd = dict(common, **{
@@ -2409,8 +2436,7 @@ def time_flash_attention_hd34(q, k, v, key_bias, errs, suffix=""):
         copies = (None, None)
     long_sleep = 20_000_000
     tag = "_bf16" if dtype == BF16 else ""
-    source = "flash_attention_bf16.cu" if dtype == BF16 else "flash_attention.cu"
-    common = {"route": "cuda", "source": f"vqattack_tpu_torch/csrc/{source}",
+    common = {"route": "cuda", **k3_source(dtype, 34),
               "replaces": "vqattack_tpu/ops/attention.py:134", "shape": [b, s, h, dh],
               "dtype": "bfloat16" if dtype == BF16 else "float32", "kernel_width": width}
     fwd = dict(common, **{
@@ -2758,8 +2784,7 @@ def time_dbias(q, k, v, table, key_bias, scale, errs, name, gen):
 
     long_sleep = 20_000_000
     row_ = {
-        "name": name, "route": "cuda",
-        "source": "vqattack_tpu_torch/csrc/flash_attention.cu",
+        "name": name, "route": "cuda", **k3_source(torch.float32, dh, dbias=True),
         "replaces": "vqattack_tpu/ops/attention.py:134", "shape": [b, s, h, dh],
         "bias_shape": list(table.shape), "key_bias": key_bias is not None,
         "max_abs_err": errs["dbias"],
@@ -4459,7 +4484,7 @@ def time_flash_attention_vilt(q, k, v, key_bias, errs, dtype):
     tag = "_bf16" if dtype == BF16 else ""
     long_sleep = 20_000_000
     common = {"route": "cuda", "replaces": "vqattack_tpu/ops/attention.py:134",
-              "source": f"vqattack_tpu_torch/csrc/flash_attention{tag}.cu",
+              **k3_source(dtype, HEAD_DIM),
               "shape": [b, s, HEADS, HEAD_DIM], "dtype": str(dtype).split(".")[-1]}
     fwd = dict(common, **{
         "name": f"flash_attention{tag}_fwd_vilt", "max_abs_err": errs["o"],
@@ -5476,8 +5501,11 @@ def main() -> int:
     with Phase("build") as ph:
         _build.load()
     print(f"build: {ph.seconds:.2f} s -> {_build.library_path()}", flush=True)
-    for line in ptxas_summary(_build.PTXAS_REPORTS.get("flash_attention_bf16.cu")):
-        print(line, flush=True)
+    # K3: the float32 Hopper kernels (wgmma_{fwd,dq,dkv}_kernel<bias, key bias>)
+    # and the bf16 ones
+    for name in ("flash_attention_tf32.cu", "flash_attention_bf16.cu"):
+        for line in ptxas_summary(_build.PTXAS_REPORTS.get(name)):
+            print(line, flush=True)
     # K2's backward: <stream dtype, values a chunk, chunks a lane, parameter sums>
     for line in ptxas_summary(_build.PTXAS_REPORTS.get("fused_ln.cu")):
         if "residual_ln_bwd_kernel" in line or "no report" in line:

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""One bf16 gradient step at batch 16 of each surrogate, for an A/B of two
-checkouts on one card.
+"""One bf16 (or float32) gradient step at batch 16 of each surrogate, for an
+A/B of two checkouts on one card.
 
-    python3 scripts/bf16_step_ab.py
+    python3 scripts/bf16_step_ab.py [--dtype {bfloat16,float32}]
 
 Runs, from the checkout it lives in, ``chip_smoke.py``'s batch-16 step
-(feature loss, forward + backward + K1, ``--dtype bfloat16``, ``--attn
-flash`` against ``--attn xla`` in turns) for ALBEF and for VLMo, on the
+(feature loss, forward + backward + K1, ``--dtype bfloat16`` by default,
+the float32 trunk with ``--dtype float32``, ``--attn flash`` against
+``--attn xla`` in turns) for ALBEF and for VLMo, on the
 same random full-width weights from seed 0; then profiles three more
 flash steps of each (``torch.profiler``, CUDA activity): the device time
 of all kernels a step, that of the flash-attention kernels, that of K2's
@@ -24,6 +25,7 @@ CUDA device; builds the checkout's kernels at first use.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import shutil
@@ -63,7 +65,9 @@ def device_times(step, steps: int = 3) -> dict:
         us = getattr(e, "device_time", None)
         us = e.cuda_time if us is None else us
         total += us
-        flash += us if "flash_" in e.name else 0.0
+        # K3's kernels: flash_*_kernel (bf16; the mma.sync float32 ones, the
+        # D pass) and vqflash::wgmma_*_kernel (the Hopper float32 ones)
+        flash += us if "flash_" in e.name or "vqflash::" in e.name else 0.0
         k2_fwd += us if "residual_ln_fwd_kernel" in e.name else 0.0
         k2_bwd += us if "residual_ln_bwd_kernel" in e.name else 0.0
     return {"device_ms": total / steps / 1e3, "flash_ms": flash / steps / 1e3,
@@ -72,6 +76,10 @@ def device_times(step, steps: int = 3) -> dict:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--dtype", choices=["bfloat16", "float32"], default="bfloat16",
+                    help="the surrogate trunk's compute dtype (default: bfloat16)")
+    dtype = ap.parse_args().dtype
     if not torch.cuda.is_available():
         print("bf16_step_ab: no CUDA device", file=sys.stderr)
         return 1
@@ -89,7 +97,7 @@ def main() -> int:
             "--right-part", paths["right"], "--surrogate-ans", paths["sur"],
             "--target-ans", paths["tgt"], "--paraphrases", paths["para"],
             "--all-correct", paths["allc"], "--output", os.path.join(tmp, "out"),
-            "--seed", str(cs.SEED), "--device", "cuda", "--dtype", "bfloat16",
+            "--seed", str(cs.SEED), "--device", "cuda", "--dtype", dtype,
         ]
         v_common = [a for a in common if a not in ("--answer-list", paths["answers"])]
         v_common += ["--pipeline", "vlmo", "--id2answer", paths["id2answer"]]
@@ -114,10 +122,11 @@ def main() -> int:
         vlmo_dev = device_times(steps.pop(next(iter(steps))))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    print(json.dumps({"checkout": ROOT, "card": card, **{
-        f"{name}_bf16_{impl}_median_s": ab[impl]["median_s"]
+    tag = "bf16" if dtype == "bfloat16" else "f32"
+    print(json.dumps({"checkout": ROOT, "card": card, "dtype": dtype, **{
+        f"{name}_{tag}_{impl}_median_s": ab[impl]["median_s"]
         for name, ab in (("albef", albef), ("vlmo", vlmo)) for impl in ("flash", "xla")},
-        **{f"{name}_bf16_flash_{k}": v for name, dev in (("albef", albef_dev), ("vlmo", vlmo_dev))
+        **{f"{name}_{tag}_flash_{k}": v for name, dev in (("albef", albef_dev), ("vlmo", vlmo_dev))
            for k, v in dev.items()}}), flush=True)
     return 0
 

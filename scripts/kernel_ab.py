@@ -9,7 +9,9 @@ at PERF.md §6's shapes: without terms at the ALBEF chunk of 8 ([8, 901, 12,
 64]), with both terms (a [1, 12, 941, 941] table and a padded-text key
 bias) at VLMo's batch 16 ([16, 941, 12, 64]), at head dim 34 with the
 key bias alone ([16, 941, 16, 34], bf16 timed with its pad copy) and at
-ViLT-B/32's joint length with the key bias alone ([16, 185, 12, 64]); and K2's
+ViLT-B/32's joint length with the key bias alone ([16, 185, 12, 64]); the
+float32 kernels also without terms at the training paths' [8, 257], [8,
+577] and [16, 577] (12 heads of 64); and K2's
 forward at [7208, 768] on a float32 and a bf16 stream.  Inputs are drawn
 here from seed 0, so the two checkouts time the same tensors; the timer is
 the checkout's ``chip_smoke.time_ms`` (CUDA events, L2 emptied, the stream
@@ -49,10 +51,11 @@ def _k3_case(gen, b, s, h, dh, terms):
     return q, k, v, table, key_bias
 
 
-def _time_k3(gen, name, b, s, h, dh, terms, times):
+def _time_k3(gen, name, b, s, h, dh, terms, times,
+             dtypes=((torch.float32, ""), (torch.bfloat16, "_bf16"))):
     q, k, v, table, kb = _k3_case(gen, b, s, h, dh, terms)
     scale = dh ** -0.5
-    for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+    for dtype, tag in dtypes:
         qd, kd, vd = (t.to(dtype) for t in (q, k, v))
         o, lse = attention.flash_attention_fwd(qd, kd, vd, table, scale, kb)
         do = torch.randn(o.shape, generator=gen, device="cuda").to(dtype)
@@ -79,6 +82,10 @@ def main() -> int:
     _time_k3(gen, "both_terms_b16", 16, 941, 12, 64, "both", times)
     _time_k3(gen, "hd34_key_bias_b16", 16, 941, 16, 34, "key_bias", times)
     _time_k3(gen, "vilt_key_bias_b16", 16, 185, 12, 64, "key_bias", times)
+    # the float32 rows of the training paths: albef_pretrain at 256 px, the
+    # fine-tuning tasks at 384 px (nlvr2's pairs at 16)
+    for b, s in ((8, 257), (8, 577), (16, 577)):
+        _time_k3(gen, f"no_terms_b{b}_s{s}", b, s, 12, 64, None, times, ((torch.float32, ""),))
     rows = 8 * 901
     for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
         x, delta = (torch.randn(rows, 768, generator=gen, device="cuda").to(dtype)

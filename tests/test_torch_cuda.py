@@ -379,6 +379,107 @@ def test_flash_attention_two_term_backward_bit_identical_at_the_victims_batch(ge
 
 
 # ---------------------------------------------------------------------------
+# the float32 Hopper kernels at head dim 64 (csrc/flash_attention_tf32.cu)
+# ---------------------------------------------------------------------------
+
+
+def _one_key_residue(q, k, v, do, scale):
+    """With one key P = 1, so dS = dO V^T - D, and dq and dk are 0 in exact
+    arithmetic: what the kernel and the plain version compute is the
+    rounding residue of dS, which dK sums over every query.  A 3xTF32 term
+    a b errs by up to 2^-21 |a b| twice (each lo read truncated to TF32) and
+    2^-22 |a b| once (lo lo dropped), so dO V^T errs by up to 2^-19 of
+    sum_d |dO_d V_d| with the float32 sums; this bound, carried through dq
+    = scale dS K and dk = scale sum_q dS_q Q_q, is what dq and dk are held
+    to (elementwise, plus the usual 2e-5)."""
+    e = 2.0 ** -19 * torch.einsum("bqhd,bkhd->bhqk", do.abs(), v.abs())  # [B, H, Sq, 1]
+    return {"dq": scale * torch.einsum("bhqk,bkhd->bqhd", e, k.abs()),
+            "dk": scale * torch.einsum("bhqk,bqhd->bkhd", e, q.abs())}
+
+
+def _check_f32_case(gen, q, k, v, bias, key_bias, scale=64 ** -0.5):
+    """Forward (output, m and log l) and backward against the plain
+    versions (:func:`_close`), the backward twice, bit for bit, and each
+    call counted as a launch of the Hopper kernels."""
+    fwd, bwd = (f.tf32_wgmma_launches for f in (attention.flash_attention_fwd,
+                                                 attention.flash_attention_bwd))
+    o, lse = attention.flash_attention_fwd(q, k, v, bias, scale, key_bias)
+    o_r, lse_r = attention.flash_attention_reference(q, k, v, bias, scale, return_lse=True,
+                                                     key_bias=key_bias)
+    _close(o, o_r, "o")
+    _close(lse, lse_r, "lse")
+    do = torch.randn(o.shape, generator=gen, device="cuda")
+    grads = attention.flash_attention_bwd(q, k, v, bias, scale, o, lse, do, key_bias)
+    again = attention.flash_attention_bwd(q, k, v, bias, scale, o, lse, do, key_bias)
+    refs = attention.flash_attention_bwd_reference(q, k, v, bias, scale, o, lse, do, key_bias)
+    residue = _one_key_residue(q, k, v, do, scale) if k.shape[1] == 1 else {}
+    for name, g, g2, r in zip(("dq", "dk", "dv"), grads, again, refs):
+        assert g.shape == r.shape
+        assert torch.equal(g, g2), f"{name} differs between two runs"
+        if name in residue:
+            err = (g - r).abs() - residue[name]
+            assert float(err.max()) <= 2e-5, f"{name}: over its residue bound by {err.max()}"
+        else:
+            _close(g, r, name)
+    assert attention.flash_attention_fwd.tf32_wgmma_launches == fwd + 1
+    assert attention.flash_attention_bwd.tf32_wgmma_launches == bwd + 2
+
+
+# The Hopper float32 kernels' tile edges: a block holds 128 rows in two
+# warpgroups of 64; the forward walks 64-key tiles, dQ 32-key and dK/dV
+# 32-query tiles, the last one ragged.
+_F32_EDGES = (1, 5, 63, 64, 65, 127, 128, 129, 901, 941)
+
+
+@pytest.mark.parametrize("sq,sk", [(s, s) for s in _F32_EDGES] + [
+    (1, 941), (941, 1), (5, 128), (128, 5), (64, 129), (129, 64), (65, 901), (901, 127),
+    (31, 33), (33, 31)])
+def test_flash_attention_f32_tile_edges(gen, sq, sk):
+    """K3-float32 at head dim 64, forward and backward, at every tile edge
+    of its walks, Sq = Sk and Sq != Sk."""
+    q, k, v, _ = _attention_case(gen, 2, sq, sk, "none", h=2)
+    _check_f32_case(gen, q, k, v, None, None)
+
+
+@pytest.mark.parametrize("s,lo,hi", [
+    (130, 0, 64), (130, 64, 128), (130, 128, 130), (901, 0, 64), (901, 0, 128),
+    (901, 896, 901), (941, 896, 941)])
+def test_flash_attention_f32_inf_key_bias_over_a_tile(gen, s, lo, hi):
+    """A -inf key bias over keys [lo, hi) of every row, with the table: over
+    a whole 64-key tile (the forward's; two of dQ's 32-key ones), the first
+    one included, so that a row's first tile is all -inf, or over the ragged
+    last one."""
+    q, k, v, table, _ = _two_terms(gen, 2, s, "zero", h=2)
+    key_bias = torch.zeros(2, s, device="cuda")
+    key_bias[:, lo:hi] = -torch.inf
+    _check_f32_case(gen, q, k, v, table, key_bias)
+
+
+def test_flash_attention_f32_backward_bit_identical_at_the_batched_chunk(gen):
+    """At [8, 901, 12, 64] without terms (ALBEF's batched chunk), two
+    backward runs give the same bits, and everything is held as in
+    :func:`test_flash_attention_f32_tile_edges`."""
+    q, k, v, _ = _attention_case(gen, 8, 901, 901, "none", h=12)
+    _check_f32_case(gen, q, k, v, None, None)
+
+
+def test_flash_attention_f32_routes_by_head_dim(gen):
+    """Head dim 64 runs the Hopper kernels, head dim 34 the mma.sync ones
+    (counted as hd34 launches, not as Hopper ones), as ``k3_route`` says."""
+    assert attention.k3_route(torch.float32, 64) == "tf32_wgmma"
+    assert attention.k3_route(torch.float32, 34) == "mma_sync_hd34"
+    for dh, tf32 in ((64, 1), (34, 0)):
+        q, k, v = (torch.randn(2, 130, 2, dh, generator=gen, device="cuda") for _ in range(3))
+        before = {n: getattr(attention.flash_attention_fwd, n)
+                  for n in ("launches", "hd34_launches", "tf32_wgmma_launches")}
+        o, _ = attention.flash_attention_fwd(q, k, v, None, dh ** -0.5)
+        _close(o, attention.flash_attention_reference(q, k, v, None, dh ** -0.5), "o")
+        after = {n: getattr(attention.flash_attention_fwd, n) for n in before}
+        assert {n: after[n] - before[n] for n in before} == {
+            "launches": 1, "hd34_launches": 1 - tf32, "tf32_wgmma_launches": tf32}
+
+
+# ---------------------------------------------------------------------------
 # the bias gradient (dbias): the float32 dQ kernel's dbias instance
 # ---------------------------------------------------------------------------
 

@@ -1,0 +1,65 @@
+"""Which K3 instance each call takes (``ops/attention.py::k3_route``).
+
+The float32 kernels at head dim 64 are the Hopper ones
+(``csrc/flash_attention_tf32.cu``); head dim 34 keeps the mma.sync kernels
+of ``csrc/flash_attention.cu`` by its head dim, and the bias gradient keeps
+that file's dQ instance beside the Hopper dK/dV kernel.  Runs on the CPU:
+no kernel is launched and nothing of JAX is compiled.
+"""
+
+from __future__ import annotations
+
+import pytest
+import torch
+
+from vqattack_tpu_torch.ops import _build, attention
+
+ROUTES = {
+    (torch.float32, 64, False): "tf32_wgmma",
+    (torch.float32, 64, True): "tf32_wgmma_dbias",
+    (torch.float32, 34, False): "mma_sync_hd34",
+    (torch.float32, 34, True): "mma_sync_hd34_dbias",
+    (torch.bfloat16, 64, False): "bf16_wgmma",
+    (torch.bfloat16, 34, False): "bf16_wgmma",
+}
+
+
+@pytest.mark.parametrize("dtype,head_dim,dbias", list(ROUTES))
+def test_each_call_takes_its_declared_instance(dtype, head_dim, dbias):
+    route = attention.k3_route(dtype, head_dim, dbias)
+    assert route == ROUTES[dtype, head_dim, dbias]
+    source = attention.K3_ROUTES[route]
+    assert source.startswith("vqattack_tpu_torch/csrc/")
+    assert source.rsplit("/", 1)[1] in _build.SOURCES
+
+
+def test_every_declared_instance_is_reached():
+    """No instance is declared that no (dtype, head dim, dbias) takes."""
+    assert set(ROUTES.values()) == set(attention.K3_ROUTES)
+
+
+@pytest.mark.parametrize("dtype,head_dim,dbias,error", [
+    (torch.bfloat16, 64, True, ValueError),  # no bf16 dbias
+    (torch.float32, 40, False, ValueError),  # the bf16 row width is no head dim
+    (torch.float32, 128, False, ValueError),
+    (torch.float16, 64, False, TypeError),
+])
+def test_what_no_instance_takes_is_refused(dtype, head_dim, dbias, error):
+    with pytest.raises(error):
+        attention.k3_route(dtype, head_dim, dbias)
+
+
+@pytest.mark.parametrize("dtype,head_dim,key_bias,dbias,counts", [
+    (torch.float32, 64, False, False, ("launches", "tf32_wgmma_launches")),
+    (torch.float32, 64, True, True, ("launches", "key_bias_launches", "tf32_wgmma_launches")),
+    (torch.float32, 34, True, False, ("launches", "key_bias_launches", "hd34_launches")),
+    (torch.bfloat16, 64, False, False, ("bf16_launches",)),
+    (torch.bfloat16, 34, True, False,
+     ("bf16_launches", "bf16_key_bias_launches", "bf16_hd34_launches")),
+])
+def test_launch_counts_follow_the_route(dtype, head_dim, key_bias, dbias, counts):
+    """A launch of the Hopper float32 kernels is counted apart from the
+    mma.sync ones (``tf32_wgmma_launches``), which ``chip_smoke.py`` holds
+    against the head-dim-64 launches of each batched run."""
+    kb = torch.zeros(1, 8) if key_bias else None
+    assert attention._counts(dtype, kb, head_dim, dbias) == counts

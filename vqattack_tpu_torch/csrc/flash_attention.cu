@@ -1,5 +1,11 @@
 // Flash attention, forward and backward, float32, head dim 64 or 34, on
-// the tensor cores with a 3xTF32 split.
+// the tensor cores with a 3xTF32 split: the C entry points, the D pass, and
+// the mma.sync kernels that run head dim 34 and the bias gradient (the dQ
+// kernel's dbias instance, at both head dims).  At head dim 64 the entry
+// points launch the Hopper kernels of flash_attention_tf32.cu (wgmma and
+// TMA; the same function, layout and arithmetic) for the forward, dK/dV
+// and, without dbias, dQ; ops/attention.py::k3_route names the instance a
+// call takes.
 //
 // Replaces the TPU kernel behind vqattack_tpu/ops/attention.py::flash_attention,
 // which wraps jax.experimental.pallas.ops.tpu.flash_attention (its forward,
@@ -135,17 +141,21 @@
 // products still set the pace (PERF.md times the kernels with both terms,
 // with the table alone and with neither).
 //
-// What bounds it now (PERF.md): instruction issue.  The forward's loop
-// issues ~3,200 instructions a warp and key tile for its 384 mma.sync; the
-// split (3 a value) and the fragment loads are most of the rest, the 4
+// What bounds these kernels (PERF.md): instruction issue.  The forward's
+// loop issues ~3,200 instructions a warp and key tile for its 384 mma.sync;
+// the split (3 a value) and the fragment loads are most of the rest, the 4
 // warps of a block split the same K and V values, and 2 blocks an SM
 // (registers, shared memory) leave 2 warps a scheduler to hide latency.
-// wgmma reads B from shared memory, where a block would split each value
-// once, not once a warp.
+// flash_attention_tf32.cu splits each value once a block and multiplies
+// with wgmma; head dim 34 stays here because a head of a [B, S, 544]
+// projection starts 136 bytes after the last, off the 16-byte strides a TMA
+// map takes (ROADMAP).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "flash_attention.cuh"
 
 namespace {
 
@@ -166,31 +176,7 @@ struct Width {
   static constexpr int kChunk = kDh % 4 == 0 ? 4 : 2;
 };
 
-struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
-  const float* bias;  // nullptr: no bias
-  const float* key_bias;  // nullptr: no key bias; [1|B, Sk]
-  const float* o;     // backward: forward output, contiguous [B, Sq, H, Dh]
-  const float* lse;   // backward: the forward's out_lse
-  const float* dout;  // backward: contiguous [B, Sq, H, Dh]
-  float* out;         // forward: O; backward: dQ   (contiguous [B, Sq, H, Dh])
-  float* out_lse;     // forward: m, then log l ([2, B, H, Sq])
-  float* dk;          // contiguous [B, Sk, H, Dh]
-  float* dv;          // contiguous [B, Sk, H, Dh]
-  float* delta;       // backward: D [B, H, Sq]
-  float* dbias;       // backward: the bias's gradient (dbias planes, [planes, H, Sq, Sk]);
-                      // nullptr: not asked for
-  long long qsb, qss, qsh;
-  long long ksb, kss, ksh;
-  long long vsb, vss, vsh;
-  long long bsb, bsh, bsq, bsk;
-  long long kbsb;  // the key bias's batch stride (0: broadcast)
-  int B, H, Sq, Sk;
-  int cluster;  // dbias: blocks a cluster, along z (batch rows summed together)
-  float scale;
-};
+using Params = vqflash::Params;
 
 // ---------------------------------------------------------------------------
 // shared-memory tiles and asynchronous copies
@@ -968,26 +954,16 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, c
   return cudaGetLastError();
 }
 
-// The instance of a kernel for the head dim and the terms present:
-// ``L::run<kDh, kBias, kKeyBias>``; an error for a head dim without one.
-template <typename L>
-cudaError_t dispatch(const Params& p, int Dh, dim3 grid, cudaStream_t stream) {
+// The instance of a kernel at head dim kDh for the terms present:
+// ``L::run<kDh, kBias, kKeyBias>``.
+template <int kDh, typename L>
+cudaError_t dispatch(const Params& p, dim3 grid, cudaStream_t stream) {
   const bool kb = p.key_bias != nullptr;
-  if (Dh == 64) {
-    if (p.bias != nullptr)
-      return kb ? L::template run<64, true, true>(p, grid, stream)
-                : L::template run<64, true, false>(p, grid, stream);
-    return kb ? L::template run<64, false, true>(p, grid, stream)
-              : L::template run<64, false, false>(p, grid, stream);
-  }
-  if (Dh == 34) {
-    if (p.bias != nullptr)
-      return kb ? L::template run<34, true, true>(p, grid, stream)
-                : L::template run<34, true, false>(p, grid, stream);
-    return kb ? L::template run<34, false, true>(p, grid, stream)
-              : L::template run<34, false, false>(p, grid, stream);
-  }
-  return cudaErrorInvalidValue;
+  if (p.bias != nullptr)
+    return kb ? L::template run<kDh, true, true>(p, grid, stream)
+              : L::template run<kDh, true, false>(p, grid, stream);
+  return kb ? L::template run<kDh, false, true>(p, grid, stream)
+            : L::template run<kDh, false, false>(p, grid, stream);
 }
 
 struct Fwd {
@@ -1090,8 +1066,9 @@ extern "C" int vq_flash_attention_fwd(
                          ksh, vsb, vss, vsh, bsb, bsh, bsq, bsk, kbsb, scale);
   p.out = (float*)out;
   p.out_lse = (float*)lse;
-  const dim3 grid((Sq + kTile - 1) / kTile, H, B);
-  return (int)dispatch<Fwd>(p, Dh, grid, (cudaStream_t)stream);
+  if (Dh == 64) return (int)vqflash::tf32_fwd(p, (cudaStream_t)stream);
+  if (Dh != 34) return (int)cudaErrorInvalidValue;
+  return (int)dispatch<34, Fwd>(p, dim3((Sq + kTile - 1) / kTile, H, B), (cudaStream_t)stream);
 }
 
 // dQ [B, Sq, H, Dh], dK and dV [B, Sk, H, Dh], all contiguous; o and dout
@@ -1137,11 +1114,15 @@ extern "C" int vq_flash_attention_bwd(
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 kv_grid((Sk + kTile - 1) / kTile, H, B), q_grid((Sq + kTile - 1) / kTile, H, B);
-  err = dispatch<Dkv>(p, Dh, kv_grid, s);
+  // head dim 64: the Hopper kernels (flash_attention_tf32.cu) but the dbias
+  // instance of the dQ kernel; head dim 34: the kernels of this file
+  err = Dh == 64 ? vqflash::tf32_dkv(p, s) : dispatch<34, Dkv>(p, kv_grid, s);
   if (err != cudaSuccess) return (int)err;
-  if (dbias == nullptr) return (int)dispatch<Dq>(p, Dh, q_grid, s);
+  if (dbias == nullptr)
+    return (int)(Dh == 64 ? vqflash::tf32_dq(p, s) : dispatch<34, Dq>(p, q_grid, s));
   // B rounded up to whole clusters
-  err = dispatch<DqDbias>(p, Dh, dim3(q_grid.x, H, groups * p.cluster), s);
+  const dim3 dbias_grid(q_grid.x, H, groups * p.cluster);
+  err = Dh == 64 ? dispatch<64, DqDbias>(p, dbias_grid, s) : dispatch<34, DqDbias>(p, dbias_grid, s);
   if (err != cudaSuccess || !over_b || groups == 1) return (int)err;
   const long long n = (long long)H * Sq * Sk;
   long long sum_blocks = (n + 255) / 256;

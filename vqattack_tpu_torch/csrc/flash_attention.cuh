@@ -1,0 +1,43 @@
+// The float32 flash-attention kernels' call contract, shared by the entry
+// points in flash_attention.cu and the Hopper kernels of
+// flash_attention_tf32.cu (one library: both are linked together).
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace vqflash {
+
+struct Params {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* bias;  // nullptr: no bias
+  const float* key_bias;  // nullptr: no key bias; [1|B, Sk]
+  const float* o;     // backward: forward output, contiguous [B, Sq, H, Dh]
+  const float* lse;   // backward: the forward's out_lse
+  const float* dout;  // backward: contiguous [B, Sq, H, Dh]
+  float* out;         // forward: O; backward: dQ   (contiguous [B, Sq, H, Dh])
+  float* out_lse;     // forward: m, then log l ([2, B, H, Sq])
+  float* dk;          // contiguous [B, Sk, H, Dh]
+  float* dv;          // contiguous [B, Sk, H, Dh]
+  float* delta;       // backward: D [B, H, Sq]
+  float* dbias;       // backward: the bias's gradient (dbias planes, [planes, H, Sq, Sk]);
+                      // nullptr: not asked for
+  long long qsb, qss, qsh;
+  long long ksb, kss, ksh;
+  long long vsb, vss, vsh;
+  long long bsb, bsh, bsq, bsk;
+  long long kbsb;  // the key bias's batch stride (0: broadcast)
+  int B, H, Sq, Sk;
+  int cluster;  // dbias: blocks a cluster, along z (batch rows summed together)
+  float scale;
+};
+
+// The Hopper kernels at head dim 64 (flash_attention_tf32.cu): the forward
+// (O and m, log l), and the backward's dK/dV and dQ passes, which read D
+// from p.delta.  Each returns the launch's error.
+cudaError_t tf32_fwd(const Params& p, cudaStream_t stream);
+cudaError_t tf32_dkv(const Params& p, cudaStream_t stream);
+cudaError_t tf32_dq(const Params& p, cudaStream_t stream);
+
+}  // namespace vqflash

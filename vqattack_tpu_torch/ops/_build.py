@@ -28,7 +28,9 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("pgd_update.cu", "fused_ln.cu", "flash_attention.cu", "flash_attention_bf16.cu")
+SOURCES = ("pgd_update.cu", "fused_ln.cu", "flash_attention.cu", "flash_attention_tf32.cu",
+           "flash_attention_bf16.cu")
+HEADERS = ("flash_attention.cuh",)  # included by the sources: part of the version's hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -82,7 +84,7 @@ def find_nvcc() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -9,11 +9,15 @@ choice with the JAX package's values, so the CLI's ``--attn`` carries over:
   sequences of at least 128 queries (the ViT's 901 tokens).
 
 :func:`flash_attention` takes the JAX layout ``[B, S, H, Dh]`` and returns
-``[B, Sq, H, Dh]``.  On a CUDA tensor it runs the kernels of
-``csrc/flash_attention.cu`` behind a ``torch.autograd.Function`` (forward,
-and the backward from the saved row statistics); on a CPU tensor it runs the
-plain version under autograd.  There is no sequence padding and no dense
-bias: the kernel masks ragged lengths itself, reads ``bias`` through broadcast strides
+``[B, Sq, H, Dh]``.  On a CUDA tensor it runs the kernels behind
+``csrc/flash_attention.cu``'s entry points in a ``torch.autograd.Function``
+(forward, and the backward from the saved row statistics): in float32 at
+head dim 64 the Hopper kernels of ``csrc/flash_attention_tf32.cu`` (tf32
+``wgmma`` and TMA), at head dim 34 and for the bias gradient's dQ pass that
+file's ``mma.sync`` ones (:func:`k3_route` names the instance a call takes);
+on a CPU tensor it runs the plain version under autograd.  There is no
+sequence padding and no dense bias: the kernel masks ragged lengths itself,
+reads ``bias`` through broadcast strides
 and ``key_bias``, a second term with one value a key (VLMo's padded-text
 mask beside its relative-position table), as a vector.  The plain versions
 are also the kernels' oracles on the card: :func:`flash_attention_bwd_reference`
@@ -333,7 +337,8 @@ def _check_inputs(q, k, v, bias, key_bias=None) -> Tuple[int, int, int, int]:
             continue  # copied into padded rows, whatever its layout
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention kernel: {name}'s head dim is not contiguous")
-        # the kernel copies rows in 16-byte chunks (8-byte ones at head dim 34)
+        # TMA maps (head dim 64) take a base and strides on 16 bytes; the
+        # mma.sync kernels (head dim 34) copy rows in 8-byte chunks
         align = 16 if t.shape[-1] % 4 == 0 else 8
         chunk = align // t.element_size()
         if t.data_ptr() % align or any(st % chunk for st, n in zip(t.stride()[:3], t.shape)
@@ -417,7 +422,7 @@ def _launch_bwd(q, k, v, bias, scale, o, lse, do, key_bias, dims, head_dim, dbia
     b, h, sq, sk = dims
     width = q.shape[-1]
     do = do.contiguous()
-    if do.data_ptr() % 16:  # the kernel copies rows in 16-byte chunks
+    if do.data_ptr() % 16:  # a TMA map's base, or the 16-byte copies, on 16 bytes
         do = do.clone()
     for name, t, shape, dtype in (("o", o, (b, sq, h, width), q.dtype),
                                   ("grad of o", do, (b, sq, h, width), q.dtype),
@@ -450,7 +455,7 @@ def _launch_bwd(q, k, v, bias, scale, o, lse, do, key_bias, dims, head_dim, dbia
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(status, "flash_attention_bwd")
-    _build.count_launch(flash_attention_bwd, *_counts(q.dtype, key_bias, head_dim),
+    _build.count_launch(flash_attention_bwd, *_counts(q.dtype, key_bias, head_dim, dbias),
                         *(("dbias_launches",) if dbias else ()))
     return (dq, dk, dv) if grad is None else (dq, dk, dv, grad)
 
@@ -505,23 +510,62 @@ _ENTRY_POINTS = {torch.float32: "vq_flash_attention_",
                  torch.bfloat16: "vq_flash_attention_bf16_"}
 
 
-def _counts(dtype, key_bias, head_dim):
+# The instances of K3, by the rule the entry points apply (k3_route)
+K3_ROUTES = {
+    # float32 at head dim 64: csrc/flash_attention_tf32.cu (wgmma, TMA)
+    "tf32_wgmma": "vqattack_tpu_torch/csrc/flash_attention_tf32.cu",
+    # float32 at head dim 64 with dbias: csrc/flash_attention.cu's dQ kernel
+    # with the cluster sum (its entry points launch it), the forward and
+    # dK/dV kernels of csrc/flash_attention_tf32.cu
+    "tf32_wgmma_dbias": "vqattack_tpu_torch/csrc/flash_attention.cu",
+    # float32 at head dim 34, with dbias or not: csrc/flash_attention.cu's
+    # mma.sync kernels
+    "mma_sync_hd34": "vqattack_tpu_torch/csrc/flash_attention.cu",
+    "mma_sync_hd34_dbias": "vqattack_tpu_torch/csrc/flash_attention.cu",
+    # bfloat16 at either head dim (34 padded to 40): wgmma, TMA, no dbias
+    "bf16_wgmma": "vqattack_tpu_torch/csrc/flash_attention_bf16.cu",
+}
+
+
+def k3_route(dtype: torch.dtype, head_dim: int, dbias: bool = False) -> str:
+    """The K3 instance a call on ``dtype`` q/k/v at ``head_dim`` takes
+    (``dbias``: a backward that also gives the bias its gradient), a key of
+    :data:`K3_ROUTES`: head dim 34 in float32 is routed to the ``mma.sync``
+    kernels by its head dim, not as a fallback (a head of a [B, S, 544]
+    projection starts 136 bytes after the last, off the 16 bytes a TMA
+    stride takes).  Raises for what no instance takes."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"k3_route: head dim {head_dim}; the kernels take {HEAD_DIMS}")
+    if dtype == torch.bfloat16:
+        if dbias:
+            raise ValueError("k3_route: the bf16 instance has no dbias")
+        return "bf16_wgmma"
+    if dtype != torch.float32:
+        raise TypeError(f"k3_route: {dtype}; the kernels take float32 or bfloat16")
+    route = "tf32_wgmma" if head_dim == 64 else "mma_sync_hd34"
+    return route + "_dbias" if dbias else route
+
+
+def _counts(dtype, key_bias, head_dim, dbias=False):
     """The counts a launch adds one to: each dtype's instances apart, those
-    with a key bias (VLMo's attention) also apart, and those at head dim 34
-    (VLMo-base+'s) also apart."""
+    with a key bias (VLMo's attention) also apart, those at head dim 34
+    (VLMo-base+'s) also apart, and the float32 calls that run the Hopper
+    kernels (``tf32_wgmma_launches``: :func:`k3_route`) also apart."""
     prefix = "bf16_" if dtype == torch.bfloat16 else ""
+    tf32 = k3_route(dtype, head_dim, dbias).startswith("tf32_wgmma")
     return ((prefix + "launches",)
             + ((prefix + "key_bias_launches",) if key_bias is not None else ())
-            + ((prefix + "hd34_launches",) if head_dim == 34 else ()))
+            + ((prefix + "hd34_launches",) if head_dim == 34 else ())
+            + (("tf32_wgmma_launches",) if tf32 else ()))
 
 
 # calls of each entry point in this process: float32 (``launches``) and
 # bfloat16 (``bf16_launches``) instances, and those of each with a key bias
-# and at head dim 34; the backward's with dbias also apart (plain counts for
-# chip_smoke.py)
+# and at head dim 34, and the float32 calls of the Hopper kernels; the
+# backward's with dbias also apart (plain counts for chip_smoke.py)
 for _fn in (flash_attention_fwd, flash_attention_bwd):
     for _name in ("launches", "key_bias_launches", "hd34_launches", "bf16_launches",
-                  "bf16_key_bias_launches", "bf16_hd34_launches"):
+                  "bf16_key_bias_launches", "bf16_hd34_launches", "tf32_wgmma_launches"):
         setattr(_fn, _name, 0)
 flash_attention_bwd.dbias_launches = 0
 
