@@ -93,8 +93,13 @@ runs after the VLMo phases: K3 at head dim 34 in float32 and bf16,
 forward and backward, against its plain versions at [B, 941, 16, 34] for
 B = 1, 8 and 16 (strided views of [B, 941, 544] projections, the
 padded-text key bias), ragged lengths, a -inf first key tile and the
-autograd Function, timed at B = 16 beside the bf16 copies into 40-wide rows
-and ``scaled_dot_product_attention`` (its backend named); the full-width
+autograd Function; in float32, which reads a head's rows as a 40-column
+box of one folded TMA map, also the last head's box past column 544 (NaN
+beyond it in memory), a fused-qkv view, and the forward and backward
+repeated bit for bit, all read in place (no copy); timed at B = 16 beside
+the bf16 copies into 40-wide rows and ``scaled_dot_product_attention``
+(its backend named); every float32 K3 launch of the base+ paths counted
+on the Hopper kernels, with no copy of q, k or v; the full-width
 model, flash against xla; the per-sample path (2 samples, ``--attn
 flash``); the batched path (11 samples, ``--batch-size 8 --attn flash
 --pipeline-depth 2``) in float32 and ``--dtype bfloat16``; the batch-16
@@ -1133,21 +1138,28 @@ def reset_counts() -> None:
         setattr(fn, attr, 0)
     for fn in (attention.flash_attention_fwd, attention.flash_attention_bwd):
         fn.tf32_wgmma_launches = 0
+        fn.hd34_copy_launches = 0
 
 
 def check_k3_routes(launched, what) -> dict:
-    """Since the last ``reset_counts``: every float32 K3 launch at head dim
-    64 went to the Hopper kernels (``csrc/flash_attention_tf32.cu``) and
-    every one at head dim 34 to the mma.sync ones (``k3_route``).  Returns
-    the Hopper kernels' launches."""
+    """Since the last ``reset_counts``: every float32 K3 launch, at head dim
+    34 too, went to the Hopper kernels (``csrc/flash_attention_tf32.cu``,
+    ``k3_route``), and no float32 q, k or v at head dim 34 was copied on the
+    way (the base+ trunk's projection views fit the folded map,
+    ``hd34_copy_launches``).  Returns the Hopper kernels' launches and the
+    copies."""
     routed = {}
     for d in ("fwd", "bwd"):
         fn = getattr(attention, f"flash_attention_{d}")
-        hd64 = launched[f"flash_attention_{d}"] - launched[f"flash_attention_{d}_hd34"]
-        require(fn.tf32_wgmma_launches == hd64,
+        f32 = launched[f"flash_attention_{d}"]
+        require(fn.tf32_wgmma_launches == f32,
                 f"{what}: {fn.tf32_wgmma_launches} float32 {d} launches of the Hopper kernels, "
-                f"{hd64} at head dim 64")
+                f"{f32} float32 launches ({launched[f'flash_attention_{d}_hd34']} at head dim 34)")
+        require(fn.hd34_copy_launches == 0,
+                f"{what}: {fn.hd34_copy_launches} float32 head-dim-34 tensors copied on the way "
+                f"to the {d} kernels")
         routed[f"flash_attention_{d}_tf32_wgmma"] = fn.tf32_wgmma_launches
+        routed[f"flash_attention_{d}_hd34_copies"] = fn.hd34_copy_launches
     return routed
 
 
@@ -2326,13 +2338,55 @@ def _plus_qkv(gen, b, sq, sk=None, dtype=torch.float32):
         b, s, PLUS_HEADS, PLUS_HEAD_DIM) for s in (sq, sk, sk)]
 
 
+def check_hd34_folded_box(pipe, tokenizer, gen, seq):
+    """float32 K3 at head dim 34, the folded map's own cases (the kernels
+    read a head's rows as a 40-column box of one (H * 34, S, B) map): the
+    last head's box past column 544, where each row of the three [8, 941,
+    548] buffers holds NaN (TMA must bring zeros there, not read them); q, k
+    and v as views of one fused [8, 941, 1632] projection; and at the
+    victim's batch 16 the forward and two backward runs equal bit for bit.
+    All read in place: no copy counted."""
+    b, width = TIMED_BATCH, PLUS_HEADS * PLUS_HEAD_DIM
+    kb = _text_key_bias(pipe, tokenizer, b, seq)
+    copies = [attention.flash_attention_fwd.hd34_copy_launches,
+              attention.flash_attention_bwd.hd34_copy_launches]
+    bufs = [torch.full((b, seq, width + 4), float("nan"), device="cuda") for _ in range(3)]
+    for t in bufs:
+        t[..., :width] = torch.randn(b, seq, width, generator=gen, device="cuda")
+    q, k, v = (t[..., :width].view(b, seq, PLUS_HEADS, PLUS_HEAD_DIM) for t in bufs)
+    _check_two_term_case(q, k, v, None, kb, "head dim 34, the last head's box past column 544, "
+                         "NaN in the rows there", PLUS_SCALE)
+    fused = torch.randn(b, seq, 3 * width, generator=gen, device="cuda")
+    q, k, v = (fused[..., i * width:(i + 1) * width].view(b, seq, PLUS_HEADS, PLUS_HEAD_DIM)
+               for i in range(3))
+    _check_two_term_case(q, k, v, None, kb, "head dim 34, a fused [B, S, 1632] qkv view",
+                         PLUS_SCALE)
+    q, k, v = _plus_qkv(gen, 16, seq)
+    kb = _text_key_bias(pipe, tokenizer, 16, seq)
+    o, lse = attention.flash_attention_fwd(q, k, v, None, PLUS_SCALE, kb)
+    o2, lse2 = attention.flash_attention_fwd(q, k, v, None, PLUS_SCALE, kb)
+    do = torch.randn(o.shape, generator=gen, device="cuda")
+    runs = [attention.flash_attention_bwd(q, k, v, None, PLUS_SCALE, o, lse, do, kb)
+            for _ in range(2)]
+    require(torch.equal(o, o2) and torch.equal(lse, lse2),
+            "head dim 34: the forward differs between two runs")
+    for name, a, c in zip(("dq", "dk", "dv"), *runs):
+        require(torch.equal(a, c), f"head dim 34: {name} differs between two backward runs")
+    require([attention.flash_attention_fwd.hd34_copy_launches,
+             attention.flash_attention_bwd.hd34_copy_launches] == copies,
+            "head dim 34: a projection view was copied on the way to the kernels")
+    print(f"  flash_attention float32 head dim 34 [16, {seq}, 16, 34]: forward and two backward "
+          f"runs equal bit for bit; every view read in place (no copy)", flush=True)
+
+
 def check_flash_attention_hd34(pipe, tokenizer, gen):
     """K3 at head dim 34, float32 and bf16, forward and backward, against
     the plain versions at the float32 (2e-5) and bf16 (:func:`_bf16_attn_err`)
     tolerances: at [B, 941, 16, 34] for B = 1, 8 (the batched chunk) and 16
     (the victim), strided views of [B, 941, 544] projections with the
     padded-text key bias of real questions; ragged lengths (1, 63, 130 and
-    200 queries over 77 keys); a -inf first key tile; the autograd Function.
+    200 queries over 77 keys); a -inf first key tile; the autograd Function;
+    in float32 also the folded map's cases (:func:`check_hd34_folded_box`).
     Then each dtype's times at [16, 941, 16, 34]
     (:func:`time_flash_attention_hd34`)."""
     seq = pipe.max_text_len + pipe.model.cfg.image_seq_len
@@ -2374,6 +2428,8 @@ def check_flash_attention_hd34(pipe, tokenizer, gen):
                 _attn_err(f"head dim 34 autograd {what}", a, r)
         print(f"  flash_attention {name} head dim 34 autograd Function matches autograd of the "
               f"plain version", flush=True)
+        if dtype == torch.float32:
+            check_hd34_folded_box(pipe, tokenizer, gen, seq)
         rows += time_flash_attention_hd34(*_plus_qkv(gen, 16, seq, dtype=dtype),
                                           _text_key_bias(pipe, tokenizer, 16, seq),
                                           errs[name, 16])
@@ -5501,11 +5557,15 @@ def main() -> int:
     with Phase("build") as ph:
         _build.load()
     print(f"build: {ph.seconds:.2f} s -> {_build.library_path()}", flush=True)
-    # K3: the float32 Hopper kernels (wgmma_{fwd,dq,dkv}_kernel<bias, key bias>)
+    # K3: the float32 Hopper kernels (wgmma_{fwd,dq,dkv}_kernel<head dim, bias, key bias>)
     # and the bf16 ones
     for name in ("flash_attention_tf32.cu", "flash_attention_bf16.cu"):
         for line in ptxas_summary(_build.PTXAS_REPORTS.get(name)):
             print(line, flush=True)
+            # setmaxnreg hands 168 - 40 registers of each splitting thread to
+            # the computing ones: at launch they must hold exactly 168
+            require("wgmma_" not in line or "168 registers at launch" in line,
+                    f"{name}: {line.strip()}: not 168 registers at launch")
     # K2's backward: <stream dtype, values a chunk, chunks a lane, parameter sums>
     for line in ptxas_summary(_build.PTXAS_REPORTS.get("fused_ln.cu")):
         if "residual_ln_bwd_kernel" in line or "no report" in line:
@@ -5788,6 +5848,8 @@ def main() -> int:
             p_results, p_launched, p_expected = run_vlmo_main_path(p_pipe, p_cfg, paths)
     require(sorted(r.old_alg for r in p_results) == [0, 1], "both base+ PGD paths must run")
     check_plus_launches(p_launched, p_expected, "float32", "VLMo-base+ per-sample")
+    print(f"  K3 float32 on the Hopper kernels: "
+          f"{check_k3_routes(p_launched, 'VLMo-base+ per-sample')}", flush=True)
     with Phase(f"VLMo-base+ batched path: {len(VLMO_BATCH_SAMPLES)} samples, --batch-size "
                f"{BATCH_SIZE} --attn flash --pipeline-depth {PIPELINE_DEPTH}"):
         with attention.attention_impl("flash"):

@@ -3,11 +3,13 @@
 A/B of two checkouts on one card.
 
     python3 scripts/bf16_step_ab.py [--dtype {bfloat16,float32}]
+                                    [--surrogates albef,vlmo,base_plus]
 
 Runs, from the checkout it lives in, ``chip_smoke.py``'s batch-16 step
 (feature loss, forward + backward + K1, ``--dtype bfloat16`` by default,
 the float32 trunk with ``--dtype float32``, ``--attn flash`` against
-``--attn xla`` in turns) for ALBEF and for VLMo, on the
+``--attn xla`` in turns) for each surrogate named (ALBEF and VLMo by
+default; ``base_plus``: VLMo-base+, head dim 34), on the
 same random full-width weights from seed 0; then profiles three more
 flash steps of each (``torch.profiler``, CUDA activity): the device time
 of all kernels a step, that of the flash-attention kernels, that of K2's
@@ -65,8 +67,8 @@ def device_times(step, steps: int = 3) -> dict:
         us = getattr(e, "device_time", None)
         us = e.cuda_time if us is None else us
         total += us
-        # K3's kernels: flash_*_kernel (bf16; the mma.sync float32 ones, the
-        # D pass) and vqflash::wgmma_*_kernel (the Hopper float32 ones)
+        # K3's kernels: flash_*_kernel (bf16; the float32 dbias and D pass)
+        # and vqflash::wgmma_*_kernel (the Hopper float32 ones)
         flash += us if "flash_" in e.name or "vqflash::" in e.name else 0.0
         k2_fwd += us if "residual_ln_fwd_kernel" in e.name else 0.0
         k2_bwd += us if "residual_ln_bwd_kernel" in e.name else 0.0
@@ -79,7 +81,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dtype", choices=["bfloat16", "float32"], default="bfloat16",
                     help="the surrogate trunk's compute dtype (default: bfloat16)")
-    dtype = ap.parse_args().dtype
+    ap.add_argument("--surrogates", default="albef,vlmo",
+                    help="comma-separated, of albef, vlmo, base_plus (default: albef,vlmo)")
+    args = ap.parse_args()
+    dtype, names = args.dtype, args.surrogates.split(",")
+    if not set(names) <= {"albef", "vlmo", "base_plus"}:
+        ap.error(f"--surrogates {args.surrogates}: albef, vlmo or base_plus")
     if not torch.cuda.is_available():
         print("bf16_step_ab: no CUDA device", file=sys.stderr)
         return 1
@@ -112,21 +119,23 @@ def main() -> int:
             return step_ab(step, square, what)
 
         cs.step_ab = keep_step
-        _, cfg, pipe = cs.build_pipelines(common, tokenizer)
-        albef = cs.one_step_ab(pipe, cfg, tokenizer, gen)
-        albef_dev = device_times(steps.pop(next(iter(steps))))
-        del pipe
-        torch.cuda.empty_cache()
-        _, v_cfg, v_pipe = cs.build_pipelines(v_common, tokenizer)
-        vlmo = cs.vlmo_one_step_ab(v_pipe, v_cfg, tokenizer, gen)
-        vlmo_dev = device_times(steps.pop(next(iter(steps))))
+        argv = {"albef": common, "vlmo": v_common,
+                "base_plus": v_common + ["--named-config", cs.BASE_PLUS]}
+        abs_, devs = {}, {}
+        for name in names:
+            _, cfg, pipe = cs.build_pipelines(argv[name], tokenizer)
+            one_step = cs.one_step_ab if name == "albef" else cs.vlmo_one_step_ab
+            abs_[name] = one_step(pipe, cfg, tokenizer, gen)
+            devs[name] = device_times(steps.pop(next(iter(steps))))
+            del pipe
+            torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     tag = "bf16" if dtype == "bfloat16" else "f32"
     print(json.dumps({"checkout": ROOT, "card": card, "dtype": dtype, **{
         f"{name}_{tag}_{impl}_median_s": ab[impl]["median_s"]
-        for name, ab in (("albef", albef), ("vlmo", vlmo)) for impl in ("flash", "xla")},
-        **{f"{name}_{tag}_flash_{k}": v for name, dev in (("albef", albef_dev), ("vlmo", vlmo_dev))
+        for name, ab in abs_.items() for impl in ("flash", "xla")},
+        **{f"{name}_{tag}_flash_{k}": v for name, dev in devs.items()
            for k, v in dev.items()}}), flush=True)
     return 0
 

@@ -11,7 +11,9 @@ bias) at VLMo's batch 16 ([16, 941, 12, 64]), at head dim 34 with the
 key bias alone ([16, 941, 16, 34], bf16 timed with its pad copy) and at
 ViLT-B/32's joint length with the key bias alone ([16, 185, 12, 64]); the
 float32 kernels also without terms at the training paths' [8, 257], [8,
-577] and [16, 577] (12 heads of 64); and K2's
+577] and [16, 577] (12 heads of 64), and at head dim 34 at vlmo_pretrain
+base+'s ITM shape with the key bias ([24, 237, 16, 34]) and at [8, 197,
+16, 34] without terms; and K2's
 forward at [7208, 768] on a float32 and a bf16 stream.  Inputs are drawn
 here from seed 0, so the two checkouts time the same tensors; the timer is
 the checkout's ``chip_smoke.time_ms`` (CUDA events, L2 emptied, the stream
@@ -86,6 +88,10 @@ def main() -> int:
     # fine-tuning tasks at 384 px (nlvr2's pairs at 16)
     for b, s in ((8, 257), (8, 577), (16, 577)):
         _time_k3(gen, f"no_terms_b{b}_s{s}", b, s, 12, 64, None, times, ((torch.float32, ""),))
+    # head dim 34 (VLMo-base+) at the pretraining shapes, float32
+    _time_k3(gen, "hd34_key_bias_b24_s237", 24, 237, 16, 34, "key_bias", times,
+             ((torch.float32, ""),))
+    _time_k3(gen, "hd34_no_terms_b8_s197", 8, 197, 16, 34, None, times, ((torch.float32, ""),))
     rows = 8 * 901
     for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
         x, delta = (torch.randn(rows, 768, generator=gen, device="cuda").to(dtype)

@@ -464,19 +464,22 @@ def test_flash_attention_f32_backward_bit_identical_at_the_batched_chunk(gen):
 
 
 def test_flash_attention_f32_routes_by_head_dim(gen):
-    """Head dim 64 runs the Hopper kernels, head dim 34 the mma.sync ones
-    (counted as hd34 launches, not as Hopper ones), as ``k3_route`` says."""
+    """Both head dims run the Hopper kernels (head dim 34 counted as an hd34
+    launch too), as ``k3_route`` says; contiguous q/k/v at 34 are read in
+    place, with no copy."""
     assert attention.k3_route(torch.float32, 64) == "tf32_wgmma"
-    assert attention.k3_route(torch.float32, 34) == "mma_sync_hd34"
-    for dh, tf32 in ((64, 1), (34, 0)):
+    assert attention.k3_route(torch.float32, 34) == "tf32_wgmma"
+    for dh, hd34 in ((64, 0), (34, 1)):
         q, k, v = (torch.randn(2, 130, 2, dh, generator=gen, device="cuda") for _ in range(3))
         before = {n: getattr(attention.flash_attention_fwd, n)
-                  for n in ("launches", "hd34_launches", "tf32_wgmma_launches")}
+                  for n in ("launches", "hd34_launches", "tf32_wgmma_launches",
+                            "hd34_copy_launches")}
         o, _ = attention.flash_attention_fwd(q, k, v, None, dh ** -0.5)
         _close(o, attention.flash_attention_reference(q, k, v, None, dh ** -0.5), "o")
         after = {n: getattr(attention.flash_attention_fwd, n) for n in before}
         assert {n: after[n] - before[n] for n in before} == {
-            "launches": 1, "hd34_launches": 1 - tf32, "tf32_wgmma_launches": tf32}
+            "launches": 1, "hd34_launches": hd34, "tf32_wgmma_launches": 1,
+            "hd34_copy_launches": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -965,9 +968,11 @@ def test_flash_attention_hd34_autograd_counts_and_refusals(gen, dtype):
     """The autograd Function at head dim 34 against autograd through the
     plain version, counted as a head-dim-34 launch of the dtype's instance
     (and as a key-bias launch); the gradients come back in the inputs'
-    shapes.  The float32 kernel reads rows in 8-byte copies: a view whose
-    rows start off 8 bytes is refused; a head dim of neither 34 nor 64 is
-    refused in both dtypes."""
+    shapes.  The float32 kernels read q/k/v through the folded map: a view
+    whose base is off 16 bytes is copied into packed rows (counted, one a
+    tensor) and gives the plain version's output; an odd head count is
+    refused (dO's rows); a head dim of neither 34 nor 64 is refused in both
+    dtypes."""
     q, k, v, key_bias = _hd34_case(gen, 2, 150, 150, "text_pad", dtype)
     w = torch.randn(q.shape, generator=gen, device="cuda")
     prefix = "bf16_" if dtype == torch.bfloat16 else ""
@@ -995,9 +1000,45 @@ def test_flash_attention_hd34_autograd_counts_and_refusals(gen, dtype):
         attention.flash_attention(q[..., :32], k[..., :32], v[..., :32], None, 0.125)
     if dtype == torch.float32:
         buf = torch.randn(2, 130, 4 * 34 + 1, generator=gen, device="cuda")
-        off = buf[..., 1:].view(2, 130, 4, 34)  # rows start 4 bytes off 8
-        with pytest.raises(ValueError, match="8 bytes"):
-            attention.flash_attention_fwd(off, off, off, None, 0.125)
+        off = buf[..., 1:].view(2, 130, 4, 34)  # the base 4 bytes off 16
+        copies = attention.flash_attention_fwd.hd34_copy_launches
+        o, _ = attention.flash_attention_fwd(off, off, off, None, 0.125)
+        assert attention.flash_attention_fwd.hd34_copy_launches == copies + 3
+        _close(o, attention.flash_attention_reference(off, off, off, None, 0.125), "o")
+        odd = torch.randn(2, 130, 3, 34, generator=gen, device="cuda")
+        with pytest.raises(ValueError, match="H must be even"):
+            attention.flash_attention_fwd(odd, odd, odd, None, 0.125)
+
+
+@pytest.mark.parametrize("b,sq,sk", [(2, 63, 63), (2, 200, 77), (2, 941, 941)])
+def test_flash_attention_hd34_no_neighbour_head_leaks_in(gen, b, sq, sk):
+    """float32 at head dim 34 on the Hopper route, q/k/v [B, S, 16, 34] in
+    the projections' layout (read in place: no copy), every odd head's v
+    and dO at 1e3 times the others' (and its q, k at 3 times): each
+    head's output columns 0-33, forward and backward, against the plain
+    version within 2e-5 of that head's largest magnitude.  A 40-column box
+    whose columns 34-39 (the next head's first 6) reached a product would
+    add the large head's products into the one before it, and a store of 40
+    columns would overwrite the next head's first 6."""
+    q, k, v, key_bias = _hd34_case(gen, b, sq, sk, "text_pad", torch.float32)
+    odd = torch.arange(16, device="cuda") % 2 == 1
+    big = torch.where(odd, 1e3, 1.0)[:, None]
+    q, k = (t * torch.where(odd, 3.0, 1.0)[:, None] for t in (q, k))
+    v = v * big
+    do = torch.randn(q.shape, generator=gen, device="cuda") * big
+    assert all(attention.fits_folded_box(t) for t in (q, k, v))
+    assert attention.k3_route(torch.float32, 34) == "tf32_wgmma"
+    scale = 34 ** -0.5
+    copies = attention.flash_attention_fwd.hd34_copy_launches
+    o, lse = attention.flash_attention_fwd(q, k, v, None, scale, key_bias)
+    assert attention.flash_attention_fwd.hd34_copy_launches == copies
+    o_r = attention.flash_attention_reference(q, k, v, None, scale, key_bias=key_bias)
+    grads = attention.flash_attention_bwd(q, k, v, None, scale, o, lse, do, key_bias)
+    refs = attention.flash_attention_bwd_reference(q, k, v, None, scale, o, lse, do, key_bias)
+    for name, g, r in [("o", o, o_r)] + list(zip(("dq", "dk", "dv"), grads, refs)):
+        assert torch.isfinite(g).all(), name
+        for h in range(16):
+            _close(g[:, :, h], r[:, :, h], f"{name} head {h}")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,10 +1,10 @@
 """Which K3 instance each call takes (``ops/attention.py::k3_route``).
 
-The float32 kernels at head dim 64 are the Hopper ones
-(``csrc/flash_attention_tf32.cu``); head dim 34 keeps the mma.sync kernels
-of ``csrc/flash_attention.cu`` by its head dim, and the bias gradient keeps
-that file's dQ instance beside the Hopper dK/dV kernel.  Runs on the CPU:
-no kernel is launched and nothing of JAX is compiled.
+The float32 kernels are the Hopper ones (``csrc/flash_attention_tf32.cu``)
+at both head dims, head dim 34 read through the folded map's 40-column
+boxes; the bias gradient keeps ``csrc/flash_attention.cu``'s mma.sync dQ
+kernel beside the Hopper dK/dV kernel.  Runs on the CPU: no kernel is
+launched and nothing of JAX is compiled.
 """
 
 from __future__ import annotations
@@ -17,8 +17,8 @@ from vqattack_tpu_torch.ops import _build, attention
 ROUTES = {
     (torch.float32, 64, False): "tf32_wgmma",
     (torch.float32, 64, True): "tf32_wgmma_dbias",
-    (torch.float32, 34, False): "mma_sync_hd34",
-    (torch.float32, 34, True): "mma_sync_hd34_dbias",
+    (torch.float32, 34, False): "tf32_wgmma",
+    (torch.float32, 34, True): "tf32_wgmma_dbias",
     (torch.bfloat16, 64, False): "bf16_wgmma",
     (torch.bfloat16, 34, False): "bf16_wgmma",
 }
@@ -52,14 +52,15 @@ def test_what_no_instance_takes_is_refused(dtype, head_dim, dbias, error):
 @pytest.mark.parametrize("dtype,head_dim,key_bias,dbias,counts", [
     (torch.float32, 64, False, False, ("launches", "tf32_wgmma_launches")),
     (torch.float32, 64, True, True, ("launches", "key_bias_launches", "tf32_wgmma_launches")),
-    (torch.float32, 34, True, False, ("launches", "key_bias_launches", "hd34_launches")),
+    (torch.float32, 34, True, False,
+     ("launches", "key_bias_launches", "hd34_launches", "tf32_wgmma_launches")),
     (torch.bfloat16, 64, False, False, ("bf16_launches",)),
     (torch.bfloat16, 34, True, False,
      ("bf16_launches", "bf16_key_bias_launches", "bf16_hd34_launches")),
 ])
 def test_launch_counts_follow_the_route(dtype, head_dim, key_bias, dbias, counts):
-    """A launch of the Hopper float32 kernels is counted apart from the
-    mma.sync ones (``tf32_wgmma_launches``), which ``chip_smoke.py`` holds
-    against the head-dim-64 launches of each batched run."""
+    """Every float32 launch, at head dim 34 too, is counted as one of the
+    Hopper kernels (``tf32_wgmma_launches``), which ``chip_smoke.py`` holds
+    against all float32 launches of each batched run."""
     kb = torch.zeros(1, 8) if key_bias else None
     assert attention._counts(dtype, kb, head_dim, dbias) == counts

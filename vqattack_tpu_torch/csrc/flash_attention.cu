@@ -1,11 +1,10 @@
 // Flash attention, forward and backward, float32, head dim 64 or 34, on
 // the tensor cores with a 3xTF32 split: the C entry points, the D pass, and
-// the mma.sync kernels that run head dim 34 and the bias gradient (the dQ
-// kernel's dbias instance, at both head dims).  At head dim 64 the entry
-// points launch the Hopper kernels of flash_attention_tf32.cu (wgmma and
-// TMA; the same function, layout and arithmetic) for the forward, dK/dV
-// and, without dbias, dQ; ops/attention.py::k3_route names the instance a
-// call takes.
+// the mma.sync kernel that gives the bias its gradient (dbias) with dQ, at
+// both head dims.  The entry points launch the Hopper kernels of
+// flash_attention_tf32.cu (wgmma and TMA; the same function, layout and
+// arithmetic) for the forward, dK/dV and, without dbias, dQ;
+// ops/attention.py::k3_route names the instance a call takes.
 //
 // Replaces the TPU kernel behind vqattack_tpu/ops/attention.py::flash_attention,
 // which wraps jax.experimental.pallas.ops.tpu.flash_attention (its forward,
@@ -46,48 +45,29 @@
 // dense TF32 rate (495 TFLOP/s) three passes bound the forward at 0.242 ms
 // and the backward at 0.605 ms.
 //
-// Design:
-// - every product runs as mma.sync.m16n8k8 tf32 (inline PTX, sm_80+); one
-//   block of 4 warps per 64-row query tile (forward, dQ) or key tile
-//   (dK/dV), 16 rows a warp;
+// The dbias kernel (mma.sync; the Hopper kernels have no dbias instance):
+// - every product runs as mma.sync.m16n8k8 tf32 (inline PTX); one block of
+//   4 warps per 64-row query tile, 16 rows a warp, walking every 64-key
+//   tile (S = Q K^T and dP = dO V^T recomputed, dQ += dS K);
 // - the m16n8k8 accumulator does not have the A operand's layout (a thread
 //   holds columns 2t, 2t+1 of a row, the A operand wants t and t+4).  The
-//   product that consumes P or dS sums over its depth in the permuted order
+//   product that consumes dS sums over its depth in the permuted order
 //   t -> 2t, t + 4 -> 2t + 1, and reads the matching rows of its B operand,
-//   so the accumulator feeds the next product as it is: no shuffles, no
-//   round trip through shared memory;
-// - 64 x 64 tiles in shared memory with rows padded to 68 floats.  The
-//   fragments read a tile either at rows g, columns t (banks 4g + t) or,
-//   in the permuted order, at rows 2t or 2t + 1, columns g (banks 8t + g
-//   and 8t + 4 + g): 32 distinct banks both ways.  Every fragment load is a
-//   per-thread base plus a constant, so the products issue no address
-//   arithmetic (an XOR swizzle would make every address a runtime
-//   computation: ~1,500 integer instructions a warp and key tile);
-// - the bias and the key bias are template parameters: without them the
-//   scores take no branch, and keys past Sk (queries past Sq) are masked on
-//   the last tile only.  A key tile's 64 key-bias values arrive with its K
-//   tile (forward, dQ; or once, with the block's K tile, in dK/dV) into
-//   shared memory, where the scores read them: no registers held across the
-//   loop;
-// - tiles arrive by 16-byte cp.async (zero-filled past Sq or Sk), double
-//   buffered: the next key tile (forward, dQ) or query tile (dK/dV) loads
-//   while the current one is in the products;
-// - forward: online softmax (running max and sum per row) in registers,
-//   row reductions by shuffles inside the quad that owns a row;
-// - backward: a pass for D, one kernel over key tiles that accumulates dK
-//   and dV in registers while it walks every query tile (it computes S^T and
-//   dP^T, so P^T and dS^T come out in its own rows), and one over query
-//   tiles that accumulates dQ while it walks every key tile.  No atomics:
-//   every sum runs in a fixed order, so the result is the same on every run.
-//   The dQ kernel recomputes S and dO V^T, so the backward performs 14x
-//   B*H*S^2*Dh where the bound counts 10x.  The other way, partial dQ per
-//   key tile from the dK/dV kernel summed by a fixed-order pass, needs a
-//   third 16 x 64 accumulator there, where dK, dV, P^T and dS^T already
-//   take 208 registers (255 with a bias, with or without a key bias).
+//   so the accumulator feeds the next product as it is;
+// - tiles in shared memory with rows padded to 68 floats (44 at head dim
+//   34, whose 34 columns a tile holds as 40, the last 6 zero-filled by the
+//   copies): the fragments read a tile at rows g, columns t, or in the
+//   permuted order at rows 2t or 2t + 1, columns g, 32 distinct banks both
+//   ways;
+// - tiles arrive by cp.async (16 bytes, or 8 at head dim 34, whose heads
+//   start 136 bytes apart; zero-filled past Sq or Sk), double buffered; a
+//   key tile's 64 key-bias values arrive with its K tile;
+// - no atomics: every sum runs in a fixed order, so the result is the same
+//   on every run.
 //
 // The bias gradient (dbias; the library's dQ kernel returns its ds as the
-// gradient of its bias ``ab``, flash_attention.py:1287, :1477) is an
-// instance of the dQ kernel, selected only when the bias needs a gradient.
+// gradient of its bias ``ab``, flash_attention.py:1287, :1477) comes from
+// this file's dQ kernel, launched only when the bias needs a gradient.
 // dS, which the kernel forms anyway, is the gradient of the post-scale
 // score and so of the post-scale bias; the bias's gradient is dS summed
 // over the dimensions along which the bias broadcasts.  VLMo's table is
@@ -125,31 +105,18 @@
 // 941]); dbias adds one [1, H, Sq, Sk] write, 42.5 MB there, 12.7 us at
 // 3.35 TB/s.  The sum's order is fixed, so the result repeats bit for bit.
 
-// Head dim 34 (VLMo-base+: 544 over 16 heads) is a template instance of the
-// same kernels.  m16n8k8 steps 8 columns at a time, so a tile holds 40
-// columns, the last 6 zero-filled by the copies; zero columns add nothing to
-// a product over the head dim, and the product whose outputs are head-dim
-// columns computes 40 and stores 34.  q, k and v are read in place from the
-// model's [B, S, 544] projections: a head starts 136 bytes after the last,
-// which is 8-byte but not 16-byte aligned, so rows arrive in 8-byte cp.async
-// chunks (the wrapper checks 8-byte alignment).  Rows of 44 floats keep the
-// fragment reads free of bank conflicts, as 68 do at head dim 64.
-//
 // With both terms, at VLMo's [16, 941, 12, 64] (a [1, 12, 941, 941] table,
 // 42.5 MB, and the padded-text mask), each (batch, head) reads its head's
 // 3.5 MB slice of the table, 680 MB in all when L2 keeps none of it; the
 // products still set the pace (PERF.md times the kernels with both terms,
 // with the table alone and with neither).
 //
-// What bounds these kernels (PERF.md): instruction issue.  The forward's
-// loop issues ~3,200 instructions a warp and key tile for its 384 mma.sync;
-// the split (3 a value) and the fragment loads are most of the rest, the 4
-// warps of a block split the same K and V values, and 2 blocks an SM
-// (registers, shared memory) leave 2 warps a scheduler to hide latency.
-// flash_attention_tf32.cu splits each value once a block and multiplies
-// with wgmma; head dim 34 stays here because a head of a [B, S, 544]
-// projection starts 136 bytes after the last, off the 16-byte strides a TMA
-// map takes (ROADMAP).
+// What bounds the dbias kernel (PERF.md): instruction issue, as it bounded
+// the mma.sync forward and dK/dV that flash_attention_tf32.cu replaced: the
+// 4 warps of a block split the same K and V values (3 instructions a value)
+// and load every fragment themselves, and 2 blocks an SM leave 2 warps a
+// scheduler; the cluster's barrier and its sum through distributed shared
+// memory add their own.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -242,20 +209,6 @@ __device__ __forceinline__ void load_key_bias(float* dst, const float* kb, int k
     const int key = k0 + threadIdx.x;
     const bool ok = key < Sk;
     cp_async4(dst + threadIdx.x, ok ? kb + key : kb, ok);
-  }
-}
-
-// m, log l and D of query rows [q0, q0 + 64) (0 past Sq); ``off`` is
-// (b, h)'s row 0.
-__device__ __forceinline__ void load_rows(const Params& p, float* Ms, float* Gs, float* Ds,
-                                          long long off, int q0) {
-  if (threadIdx.x < kTile) {
-    const int row = q0 + threadIdx.x;
-    const bool ok = row < p.Sq;
-    const float* lgl = p.lse + (long long)p.B * p.H * p.Sq;
-    cp_async4(Ms + threadIdx.x, ok ? p.lse + off + row : p.lse, ok);
-    cp_async4(Gs + threadIdx.x, ok ? lgl + off + row : lgl, ok);
-    cp_async4(Ds + threadIdx.x, ok ? p.delta + off + row : p.delta, ok);
   }
 }
 
@@ -405,14 +358,12 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // s = (s * scale + bias) + key_bias over a 16 x 64 accumulator tile whose
-// element (n, e) sits at row r + 8 (e / 2) and column c + 8 n + (e % 2)
-// (r = its first row + g, c = its first column + 2t).  Rows are queries and
-// columns keys, or the other way round (``kKeyRows``).  The bias index is
-// clamped, so that rows and columns past Sq and Sk (masked or never written)
-// read in bounds.  ``kbs`` is the key-bias tile in shared memory, offset to
-// this thread's first key: + 2t for key columns, + the warp's first row + g
-// for key rows.
-template <bool kBias, bool kKeyBias, bool kKeyRows>
+// element (n, e) sits at query row r + 8 (e / 2) and key column c + 8 n + (e
+// % 2) (r = its first row + g, c = its first column + 2t).  The bias index
+// is clamped, so that rows and columns past Sq and Sk (never written or
+// masked) read in bounds.  ``kbs`` is the key-bias tile in shared memory,
+// offset to this thread's first key (+ 2t).
+template <bool kKeyBias>
 __device__ __forceinline__ void scale_bias(float s[kKeySteps][4], const Params& p,
                                            const float* bias_bh, const float* kbs, int r,
                                            int c) {
@@ -420,14 +371,9 @@ __device__ __forceinline__ void scale_bias(float s[kKeySteps][4], const Params& 
   for (int n = 0; n < kKeySteps; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      float x = s[n][e] * p.scale;
-      if (kBias) {
-        const int row = r + 8 * (e >> 1), col = c + 8 * n + (e & 1);
-        const int qi = min(kKeyRows ? col : row, p.Sq - 1);
-        const int kj = min(kKeyRows ? row : col, p.Sk - 1);
-        x += bias_bh[qi * p.bsq + kj * p.bsk];
-      }
-      if (kKeyBias) x += kKeyRows ? kbs[8 * (e >> 1)] : kbs[8 * n + (e & 1)];
+      const int qi = min(r + 8 * (e >> 1), p.Sq - 1), kj = min(c + 8 * n + (e & 1), p.Sk - 1);
+      float x = s[n][e] * p.scale + bias_bh[qi * p.bsq + kj * p.bsk];
+      if (kKeyBias) x += kbs[8 * n + (e & 1)];
       s[n][e] = x;
     }
 }
@@ -562,106 +508,6 @@ __global__ void dbias_plane_sum_kernel(float* buf, long long n, int planes) {
 // kernels
 // ---------------------------------------------------------------------------
 
-template <int kDh, bool kBias, bool kKeyBias>
-__global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(const Params p) {
-  using W = Width<kDh>;
-  constexpr int kTileFloats = W::kTileFloats;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + kTileFloats;      // two buffers
-  float* Vs = Ks + 2 * kTileFloats;  // two buffers
-  float* KBs = Vs + 2 * kTileFloats; // two buffers of 64 (with a key bias)
-
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16;  // this warp's rows of the tile
-  const int rows_off = g * W::kLd + t, cols_off = 2 * t * W::kLd + g;
-  const float* kb = p.k + b * p.ksb + h * p.ksh;
-  const float* vb = p.v + b * p.vsb + h * p.vsh;
-  const float* bias_bh = kBias ? p.bias + b * p.bsb + h * p.bsh : nullptr;
-  const float* kbb = kKeyBias ? p.key_bias + b * p.kbsb : nullptr;
-  const int n_tiles = (p.Sk + kTile - 1) / kTile;
-
-  load_tile<kDh>(Qs, p.q + b * p.qsb + h * p.qsh, p.qss, q0, p.Sq);
-  load_tile<kDh>(Ks, kb, p.kss, 0, p.Sk);
-  load_tile<kDh>(Vs, vb, p.vss, 0, p.Sk);
-  if (kKeyBias) load_key_bias(KBs, kbb, 0, p.Sk);
-  cp_async_commit();
-
-  // rows q0 + r0 + g (i = 0: c0, c1) and q0 + r0 + g + 8 (i = 1: c2, c3)
-  const int row = q0 + r0 + g;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float acc[W::kSteps][4];
-#pragma unroll
-  for (int n = 0; n < W::kSteps; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kTile;
-    const float* Kt = Ks + (j & 1) * kTileFloats;
-    const float* Vt = Vs + (j & 1) * kTileFloats;
-    if (j + 1 < n_tiles) {  // into the buffers that tile j - 1 used
-      load_tile<kDh>(Ks + ((j + 1) & 1) * kTileFloats, kb, p.kss, k0 + kTile, p.Sk);
-      load_tile<kDh>(Vs + ((j + 1) & 1) * kTileFloats, vb, p.vss, k0 + kTile, p.Sk);
-      if (kKeyBias) load_key_bias(KBs + ((j + 1) & 1) * kTile, kbb, k0 + kTile, p.Sk);
-    }
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();
-
-    float s[kKeySteps][4];
-    product_abt<kDh>(s, Qs + rows_off, r0, Kt + rows_off);
-    scale_bias<kBias, kKeyBias, false>(s, p, bias_bh, KBs + (j & 1) * kTile + 2 * t, row,
-                                       k0 + 2 * t);
-    if (k0 + kTile > p.Sk) mask_cols(s, k0 + 2 * t, p.Sk);
-
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < kKeySteps; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-    float m_ref[2], alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m[i], quad_max(mx[i]));
-      // -inf while every key so far is masked (a -inf bias): exponentiate
-      // against 0 instead, so that alpha and every p come out 0, not NaN
-      m_ref[i] = m_new == -INFINITY ? 0.f : m_new;
-      alpha[i] = exp2_approx((m[i] - m_ref[i]) * kLog2e);  // 0 on the first tile
-      m[i] = m_new;
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < kKeySteps; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = exp2_approx((s[n][e] - m_ref[e >> 1]) * kLog2e);  // 0 for a masked key
-        rs[e >> 1] += s[n][e];
-        if (n < W::kSteps) acc[n][e] *= alpha[e >> 1];
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(rs[i]);
-
-    product_cx<kDh>(acc, s, Vt + cols_off);  // O += P V
-    __syncthreads();  // every warp is done with tile j's buffers
-  }
-
-  const long long oss = (long long)p.H * kDh, osb = (long long)p.Sq * oss;
-  store_rows<kDh>(p.out + b * osb + (long long)h * kDh, oss, row, p.Sq, acc, 1.f / l[0],
-                  1.f / l[1], t);
-  if (t == 0) {
-    const long long n_rows = (long long)p.B * p.H * p.Sq;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      if (row + 8 * i < p.Sq) {
-        const long long idx = ((long long)b * p.H + h) * p.Sq + row + 8 * i;
-        p.out_lse[idx] = m[i];
-        p.out_lse[n_rows + idx] = logf(l[i]);
-      }
-  }
-}
-
 // D[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d]: one warp per row.
 template <int kDh>
 __global__ void flash_bwd_delta_kernel(const Params p) {
@@ -682,102 +528,20 @@ __global__ void flash_bwd_delta_kernel(const Params p) {
   }
 }
 
-template <int kDh, bool kBias, bool kKeyBias>
-__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_kernel(const Params p) {
+// dQ and the bias's gradient (dbias: a bias is given): a block walks the
+// 64-key tiles for 64 query rows, and its cluster sums each tile's dS over
+// its batch rows.
+template <int kDh, bool kKeyBias>
+__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_dbias_kernel(const Params p) {
   using W = Width<kDh>;
   constexpr int kTileFloats = W::kTileFloats;
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + kTileFloats;
-  float* Qs = Vs + kTileFloats;       // two buffers
-  float* dOs = Qs + 2 * kTileFloats;  // two buffers
-  float* Ms = dOs + 2 * kTileFloats;  // two buffers of 64 m
-  float* Gs = Ms + 2 * kTile;         // two buffers of 64 log l
-  float* Ds = Gs + 2 * kTile;         // two buffers of 64
-  float* KBs = Ds + 2 * kTile;        // 64, the block's keys (with a key bias)
-
-  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16;  // this warp's keys of the tile
-  const int rows_off = g * W::kLd + t, cols_off = 2 * t * W::kLd + g;
-  const long long oss = (long long)p.H * kDh, osb = (long long)p.Sq * oss;
-  const float* qb = p.q + b * p.qsb + h * p.qsh;
-  const float* dob = p.dout + b * osb + (long long)h * kDh;
-  const long long rows_bh = ((long long)b * p.H + h) * p.Sq;
-  const float* bias_bh = kBias ? p.bias + b * p.bsb + h * p.bsh : nullptr;
-  const int n_tiles = (p.Sq + kTile - 1) / kTile;
-
-  load_tile<kDh>(Ks, p.k + b * p.ksb + h * p.ksh, p.kss, k0, p.Sk);
-  load_tile<kDh>(Vs, p.v + b * p.vsb + h * p.vsh, p.vss, k0, p.Sk);
-  if (kKeyBias) load_key_bias(KBs, p.key_bias + b * p.kbsb, k0, p.Sk);
-  load_tile<kDh>(Qs, qb, p.qss, 0, p.Sq);
-  load_tile<kDh>(dOs, dob, oss, 0, p.Sq);
-  load_rows(p, Ms, Gs, Ds, rows_bh, 0);
-  cp_async_commit();
-
-  // keys k0 + r0 + g (c0, c1) and k0 + r0 + g + 8 (c2, c3); columns are
-  // queries.  Keys past Sk are never written, so only queries are masked.
-  const int key = k0 + r0 + g;
-  float dk[W::kSteps][4], dv[W::kSteps][4];
-#pragma unroll
-  for (int n = 0; n < W::kSteps; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int q0 = j * kTile, buf = j & 1, nxt = (j + 1) & 1;
-    const float* Qt = Qs + buf * kTileFloats;
-    const float* dOt = dOs + buf * kTileFloats;
-    const float* Mt = Ms + buf * kTile + 2 * t;
-    const float* Gt = Gs + buf * kTile + 2 * t;
-    const float* Dt = Ds + buf * kTile + 2 * t;
-    if (j + 1 < n_tiles) {  // into the buffers that tile j - 1 used
-      load_tile<kDh>(Qs + nxt * kTileFloats, qb, p.qss, q0 + kTile, p.Sq);
-      load_tile<kDh>(dOs + nxt * kTileFloats, dob, oss, q0 + kTile, p.Sq);
-      load_rows(p, Ms + nxt * kTile, Gs + nxt * kTile, Ds + nxt * kTile, rows_bh, q0 + kTile);
-    }
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T over this warp's 16 keys
-    float pt[kKeySteps][4], dst[kKeySteps][4];
-    product_abt<kDh>(pt, Ks + rows_off, r0, Qt + rows_off);
-    product_abt<kDh>(dst, Vs + rows_off, r0, dOt + rows_off);
-    scale_bias<kBias, kKeyBias, true>(pt, p, bias_bh, KBs + r0 + g, key, q0 + 2 * t);
-    if (q0 + kTile > p.Sq) mask_cols(pt, q0 + 2 * t, p.Sq);
-    // P^T = exp((S^T - m) - log l) and dS^T = P^T o (dP^T - D): 0 for a
-    // masked query
-#pragma unroll
-    for (int n = 0; n < kKeySteps; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = 8 * n + (e & 1);
-        pt[n][e] = exp2_approx(((pt[n][e] - Mt[i]) - Gt[i]) * kLog2e);
-        dst[n][e] = pt[n][e] * (dst[n][e] - Dt[i]);
-      }
-    product_cx<kDh>(dv, pt, dOt + cols_off);  // dV += P^T dO
-    product_cx<kDh>(dk, dst, Qt + cols_off);  // dK += dS^T Q
-    __syncthreads();  // every warp is done with tile j's buffers
-  }
-
-  const long long kss = (long long)p.H * kDh, ksb = (long long)p.Sk * kss;
-  const long long off = b * ksb + (long long)h * kDh;
-  store_rows<kDh>(p.dk + off, kss, key, p.Sk, dk, p.scale, p.scale, t);
-  store_rows<kDh>(p.dv + off, kss, key, p.Sk, dv, 1.f, 1.f, t);
-}
-
-template <int kDh, bool kBias, bool kKeyBias, bool kDbias>
-__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Params p) {
-  using W = Width<kDh>;
-  constexpr int kTileFloats = W::kTileFloats;
-  // dbias stages tile j's dS in V_j's buffer where its rows are kStageLd
+  // tile j's dS is staged in V_j's buffer where its rows are kStageLd
   // floats (head dim 64), else in two tiles of its own, by parity of j.
   // In V_j's buffer V_{j+1} arrives late (kLateV): the buffer holds tile
   // j - 1's dS until every peer has summed it, and S = Q K^T is formed
   // before V_j is waited for
-  constexpr bool kOwnStage = kDbias && W::kLd != kStageLd;
-  constexpr bool kLateV = kDbias && !kOwnStage;
+  constexpr bool kOwnStage = W::kLd != kStageLd;
+  constexpr bool kLateV = !kOwnStage;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* dOs = Qs + kTileFloats;
@@ -787,15 +551,15 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Params 
   float* DSs = KBs + (kKeyBias ? 2 * kTile : 0);  // two tiles of 64 rows of kStageLd (kOwnStage)
 
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  // dbias: a block of the last cluster past B only stages zeros and sums
-  const bool live = !kDbias || b < p.B;
+  // a block of the last cluster past B only stages zeros and sums
+  const bool live = b < p.B;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = (threadIdx.x >> 5) * 16;  // this warp's rows of the tile
   const int rows_off = g * W::kLd + t, cols_off = 2 * t * W::kLd + g;
   const long long oss = (long long)p.H * kDh, osb = (long long)p.Sq * oss;
   const float* kb = p.k + b * p.ksb + h * p.ksh;
   const float* vb = p.v + b * p.vsb + h * p.vsh;
-  const float* bias_bh = kBias ? p.bias + b * p.bsb + h * p.bsh : nullptr;
+  const float* bias_bh = p.bias + b * p.bsb + h * p.bsh;
   const float* kbb = kKeyBias ? p.key_bias + b * p.kbsb : nullptr;
   const int n_tiles = (p.Sk + kTile - 1) / kTile;
 
@@ -811,7 +575,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Params 
     if (live) load_tile<kDh>(Vs, vb, p.vss, 0, p.Sk);
     cp_async_commit();
   }
-  if (kDbias && !live) {  // zeros in every buffer this block stages in
+  if (!live) {  // zeros in every buffer this block stages in
     float* z = kOwnStage ? DSs : Vs;
     for (int i = threadIdx.x; i < (kOwnStage ? 2 * kTile * kStageLd : 2 * kTileFloats);
          i += kThreads)
@@ -862,8 +626,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Params 
         __syncthreads();
       }
       product_abt<kDh>(dp, dOs + rows_off, r0, Vt + rows_off);
-      scale_bias<kBias, kKeyBias, false>(s, p, bias_bh, KBs + (j & 1) * kTile + 2 * t, row,
-                                         k0 + 2 * t);
+      scale_bias<kKeyBias>(s, p, bias_bh, KBs + (j & 1) * kTile + 2 * t, row, k0 + 2 * t);
       if (k0 + kTile > p.Sk) mask_cols(s, k0 + 2 * t, p.Sk);
       // dS = P o (dP - D), P = exp((S - m) - log l): 0 for a masked key
 #pragma unroll
@@ -873,54 +636,44 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Params 
           s[n][e] = exp2_approx(((s[n][e] - mx[e >> 1]) - lgl[e >> 1]) * kLog2e) *
                     (dp[n][e] - dlt[e >> 1]);
     }
-    if constexpr (kDbias) {
-      float* stage = kOwnStage ? DSs + (j & 1) * kTile * kStageLd : Vs + (j & 1) * kTileFloats;
-      if (live) {
-        if (!kOwnStage) __syncthreads();  // every warp is past its last read of V_j
-        stage_ds(stage, s, r0 + g, 2 * t);
-      }
-      // One cluster barrier a tile: arriving, a block has staged tile j and
-      // read its peers' tile j - 1 (staged in the other buffer), so once
-      // every peer has arrived that buffer is free to stage (or refill) again
-      cluster_arrive();
-      if (live) product_cx<kDh>(dq, s, Kt + cols_off);  // dQ += dS K
-      cluster_wait();
-      if constexpr (kLateV) {  // V_{j+1} into tile j - 1's staged buffer
-        if (live && j + 1 < n_tiles)
-          load_tile<kDh>(Vs + nxt * kTileFloats, vb, p.vss, k0 + kTile, p.Sk);
-        cp_async_commit();
-      }
-      reduce_ds(p, stage, b / p.cluster, h, q0, k0);
-    } else {
-      product_cx<kDh>(dq, s, Kt + cols_off);  // dQ += dS K
+    float* stage = kOwnStage ? DSs + (j & 1) * kTile * kStageLd : Vs + (j & 1) * kTileFloats;
+    if (live) {
+      if (!kOwnStage) __syncthreads();  // every warp is past its last read of V_j
+      stage_ds(stage, s, r0 + g, 2 * t);
     }
+    // One cluster barrier a tile: arriving, a block has staged tile j and
+    // read its peers' tile j - 1 (staged in the other buffer), so once
+    // every peer has arrived that buffer is free to stage (or refill) again
+    cluster_arrive();
+    if (live) product_cx<kDh>(dq, s, Kt + cols_off);  // dQ += dS K
+    cluster_wait();
+    if constexpr (kLateV) {  // V_{j+1} into tile j - 1's staged buffer
+      if (live && j + 1 < n_tiles)
+        load_tile<kDh>(Vs + nxt * kTileFloats, vb, p.vss, k0 + kTile, p.Sk);
+      cp_async_commit();
+    }
+    reduce_ds(p, stage, b / p.cluster, h, q0, k0);
     __syncthreads();  // every warp is done with tile j's buffers
   }
 
   if (live)
     store_rows<kDh>(p.out + b * osb + (long long)h * kDh, oss, row, p.Sq, dq, p.scale, p.scale,
                     t);
-  if (kDbias) {  // no peer reads this block's staged tiles once it exits
-    cluster_arrive();
-    cluster_wait();
-  }
+  // no peer reads this block's staged tiles once it exits
+  cluster_arrive();
+  cluster_wait();
 }
 
-// dynamic shared memory of each kernel, without and with a key bias
+// dynamic shared memory of the dbias kernel, without and with a key bias:
+// Q, dO, two K and two V tiles, two key-bias tiles, and two staging tiles
+// of their own where V's rows are not kStageLd floats
 template <int kDh>
 struct Smem {
   static constexpr size_t kTileBytes = Width<kDh>::kTileFloats * sizeof(float);
-  static constexpr size_t kFwd = 5 * kTileBytes;
-  static constexpr size_t kDkv = 6 * kTileBytes + 6 * kTile * sizeof(float);
-  static constexpr size_t kDq = 6 * kTileBytes;
-  static constexpr size_t kFwdKb = kFwd + 2 * kTile * sizeof(float);
-  static constexpr size_t kDkvKb = kDkv + kTile * sizeof(float);
-  static constexpr size_t kDqKb = kDq + 2 * kTile * sizeof(float);
-  // dbias: two staging tiles of their own where V's rows are not kStageLd floats
   static constexpr size_t kStage =
       Width<kDh>::kLd == kStageLd ? 0 : 2 * kTile * kStageLd * sizeof(float);
-  static constexpr size_t kDqDbias = kDq + kStage;
-  static constexpr size_t kDqDbiasKb = kDqKb + kStage;
+  static constexpr size_t kDqDbias = 6 * kTileBytes + kStage;
+  static constexpr size_t kDqDbiasKb = kDqDbias + 2 * kTile * sizeof(float);
 };
 
 Params make_params(const void* q, const void* k, const void* v, const void* bias,
@@ -944,49 +697,6 @@ Params make_params(const void* q, const void* k, const void* v, const void* bias
   return p;
 }
 
-// Launch ``kernel`` with ``smem`` bytes of dynamic shared memory.
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, const Params& p) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-// The instance of a kernel at head dim kDh for the terms present:
-// ``L::run<kDh, kBias, kKeyBias>``.
-template <int kDh, typename L>
-cudaError_t dispatch(const Params& p, dim3 grid, cudaStream_t stream) {
-  const bool kb = p.key_bias != nullptr;
-  if (p.bias != nullptr)
-    return kb ? L::template run<kDh, true, true>(p, grid, stream)
-              : L::template run<kDh, true, false>(p, grid, stream);
-  return kb ? L::template run<kDh, false, true>(p, grid, stream)
-            : L::template run<kDh, false, false>(p, grid, stream);
-}
-
-struct Fwd {
-  template <int kDh, bool kB, bool kKB>
-  static cudaError_t run(const Params& p, dim3 grid, cudaStream_t s) {
-    return launch(flash_fwd_kernel<kDh, kB, kKB>, grid,
-                  kKB ? Smem<kDh>::kFwdKb : Smem<kDh>::kFwd, s, p);
-  }
-};
-struct Dkv {
-  template <int kDh, bool kB, bool kKB>
-  static cudaError_t run(const Params& p, dim3 grid, cudaStream_t s) {
-    return launch(flash_bwd_dkv_kernel<kDh, kB, kKB>, grid,
-                  kKB ? Smem<kDh>::kDkvKb : Smem<kDh>::kDkv, s, p);
-  }
-};
-struct Dq {
-  template <int kDh, bool kB, bool kKB>
-  static cudaError_t run(const Params& p, dim3 grid, cudaStream_t s) {
-    return launch(flash_bwd_dq_kernel<kDh, kB, kKB, false>, grid,
-                  kKB ? Smem<kDh>::kDqKb : Smem<kDh>::kDq, s, p);
-  }
-};
 // The dQ kernel's dbias instance (a bias and its gradient only), for the
 // occupancy query and the launch.
 template <int kDh, bool kKB>
@@ -1012,14 +722,14 @@ struct DbiasInstance {
 
   // cudaOccupancyMaxActiveClusters for clusters of ``cluster`` blocks.
   static cudaError_t max_clusters(int cluster, int* n) {
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<kDh, true, kKB, true>,
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_dbias_kernel<kDh, kKB>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return err;
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
     config(cfg, attr, dim3(1, 1, cluster), cluster, nullptr);
-    return cudaOccupancyMaxActiveClusters(n, flash_bwd_dq_kernel<kDh, true, kKB, true>, &cfg);
+    return cudaOccupancyMaxActiveClusters(n, flash_bwd_dq_dbias_kernel<kDh, kKB>, &cfg);
   }
 
   // Refused (cudaErrorInvalidConfiguration) where the card holds no such
@@ -1032,29 +742,25 @@ struct DbiasInstance {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
     config(cfg, attr, grid, p.cluster, stream);
-    err = cudaLaunchKernelEx(&cfg, flash_bwd_dq_kernel<kDh, true, kKB, true>, p);
+    err = cudaLaunchKernelEx(&cfg, flash_bwd_dq_dbias_kernel<kDh, kKB>, p);
     return err != cudaSuccess ? err : cudaGetLastError();
   }
 };
 
-// the dQ kernel that also gives the bias its gradient
-struct DqDbias {
-  template <int kDh, bool kB, bool kKB>
-  static cudaError_t run(const Params& p, dim3 grid, cudaStream_t s) {
-    if constexpr (!kB) {
-      return cudaErrorInvalidValue;
-    } else {
-      return DbiasInstance<kDh, kKB>::launch(p, grid, s);
-    }
-  }
-};
+// The dbias kernel at head dim kDh, with a key bias or not
+template <int kDh>
+cudaError_t launch_dbias(const Params& p, dim3 grid, cudaStream_t stream) {
+  return p.key_bias != nullptr ? DbiasInstance<kDh, true>::launch(p, grid, stream)
+                               : DbiasInstance<kDh, false>::launch(p, grid, stream);
+}
 
 }  // namespace
 
 // O [B, Sq, H, Dh] and m, log l [2, B, H, Sq], both contiguous; Dh is 64
-// or 34.  q,
-// k and v start every row on 16 bytes (8 at head dim 34; the wrapper
-// checks).  bias and key_bias may be null.
+// or 34.  q, k and v start every row on 16 bytes at head dim 64; at head dim
+// 34 their heads are packed (head stride 34), their row and batch strides
+// are multiples of 4 floats and their base is on 16 bytes (the wrapper
+// checks, and copies what is not).  bias and key_bias may be null.
 extern "C" int vq_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* bias, const void* key_bias,
     void* out, void* lse, int B, int H, int Sq, int Sk, int Dh, long long qsb, long long qss,
@@ -1066,13 +772,12 @@ extern "C" int vq_flash_attention_fwd(
                          ksh, vsb, vss, vsh, bsb, bsh, bsq, bsk, kbsb, scale);
   p.out = (float*)out;
   p.out_lse = (float*)lse;
-  if (Dh == 64) return (int)vqflash::tf32_fwd(p, (cudaStream_t)stream);
-  if (Dh != 34) return (int)cudaErrorInvalidValue;
-  return (int)dispatch<34, Fwd>(p, dim3((Sq + kTile - 1) / kTile, H, B), (cudaStream_t)stream);
+  return (int)vqflash::tf32_fwd(p, Dh, (cudaStream_t)stream);
 }
 
 // dQ [B, Sq, H, Dh], dK and dV [B, Sk, H, Dh], all contiguous; o and dout
-// contiguous [B, Sq, H, Dh], dout aligned as q; delta a [B, H, Sq] scratch.
+// contiguous [B, Sq, H, Dh], dout on 16 bytes (and H * 34 a multiple of 4 at
+// head dim 34: TMA reads its rows); delta a [B, H, Sq] scratch.
 // dbias, when not null, receives the bias's gradient (a bias must be given),
 // contiguous [planes, H, Sq, Sk]: for a bias read with batch stride 0 and
 // B > 1 (broadcast over B), dS summed over B by clusters of C = min(B, 8)
@@ -1113,16 +818,14 @@ extern "C" int vq_flash_attention_bwd(
     flash_bwd_delta_kernel<34><<<(unsigned)blocks, 256, 0, s>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 kv_grid((Sk + kTile - 1) / kTile, H, B), q_grid((Sq + kTile - 1) / kTile, H, B);
-  // head dim 64: the Hopper kernels (flash_attention_tf32.cu) but the dbias
-  // instance of the dQ kernel; head dim 34: the kernels of this file
-  err = Dh == 64 ? vqflash::tf32_dkv(p, s) : dispatch<34, Dkv>(p, kv_grid, s);
+  // the Hopper kernels (flash_attention_tf32.cu) but, with dbias, this
+  // file's dbias kernel for dQ
+  err = vqflash::tf32_dkv(p, Dh, s);
   if (err != cudaSuccess) return (int)err;
-  if (dbias == nullptr)
-    return (int)(Dh == 64 ? vqflash::tf32_dq(p, s) : dispatch<34, Dq>(p, q_grid, s));
-  // B rounded up to whole clusters
-  const dim3 dbias_grid(q_grid.x, H, groups * p.cluster);
-  err = Dh == 64 ? dispatch<64, DqDbias>(p, dbias_grid, s) : dispatch<34, DqDbias>(p, dbias_grid, s);
+  if (dbias == nullptr) return (int)vqflash::tf32_dq(p, Dh, s);
+  // 64-row query tiles, B rounded up to whole clusters
+  const dim3 dbias_grid((Sq + kTile - 1) / kTile, H, groups * p.cluster);
+  err = Dh == 64 ? launch_dbias<64>(p, dbias_grid, s) : launch_dbias<34>(p, dbias_grid, s);
   if (err != cudaSuccess || !over_b || groups == 1) return (int)err;
   const long long n = (long long)H * Sq * Sk;
   long long sum_blocks = (n + 255) / 256;

@@ -33,11 +33,15 @@ struct Params {
   float scale;
 };
 
-// The Hopper kernels at head dim 64 (flash_attention_tf32.cu): the forward
-// (O and m, log l), and the backward's dK/dV and dQ passes, which read D
-// from p.delta.  Each returns the launch's error.
-cudaError_t tf32_fwd(const Params& p, cudaStream_t stream);
-cudaError_t tf32_dkv(const Params& p, cudaStream_t stream);
-cudaError_t tf32_dq(const Params& p, cudaStream_t stream);
+// The Hopper kernels (flash_attention_tf32.cu) at head dim 64 or 34: the
+// forward (O and m, log l), and the backward's dK/dV and dQ passes, which
+// read D from p.delta.  At head dim 34 q, k and v have packed heads (head
+// stride 34), row and batch strides of multiples of 4 floats and a base on
+// 16 bytes, and H * 34 is a multiple of 4 (dO's rows).  Each returns the
+// launch's error (cudaErrorInvalidValue for another head dim, or for a
+// tensor its TMA map cannot take).
+cudaError_t tf32_fwd(const Params& p, int head_dim, cudaStream_t stream);
+cudaError_t tf32_dkv(const Params& p, int head_dim, cudaStream_t stream);
+cudaError_t tf32_dq(const Params& p, int head_dim, cudaStream_t stream);
 
 }  // namespace vqflash

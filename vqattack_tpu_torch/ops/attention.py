@@ -11,11 +11,11 @@ choice with the JAX package's values, so the CLI's ``--attn`` carries over:
 :func:`flash_attention` takes the JAX layout ``[B, S, H, Dh]`` and returns
 ``[B, Sq, H, Dh]``.  On a CUDA tensor it runs the kernels behind
 ``csrc/flash_attention.cu``'s entry points in a ``torch.autograd.Function``
-(forward, and the backward from the saved row statistics): in float32 at
-head dim 64 the Hopper kernels of ``csrc/flash_attention_tf32.cu`` (tf32
-``wgmma`` and TMA), at head dim 34 and for the bias gradient's dQ pass that
-file's ``mma.sync`` ones (:func:`k3_route` names the instance a call takes);
-on a CPU tensor it runs the plain version under autograd.  There is no
+(forward, and the backward from the saved row statistics): in float32 the
+Hopper kernels of ``csrc/flash_attention_tf32.cu`` (tf32 ``wgmma`` and TMA)
+at both head dims, and for the bias gradient's dQ pass that file's
+``mma.sync`` kernel (:func:`k3_route` names the instance a call takes); on
+a CPU tensor it runs the plain version under autograd.  There is no
 sequence padding and no dense bias: the kernel masks ragged lengths itself,
 reads ``bias`` through broadcast strides
 and ``key_bias``, a second term with one value a key (VLMo's padded-text
@@ -28,9 +28,12 @@ arithmetic on the CPU for the tests.
 
 The kernels take head dims 34 (VLMo-base+: 544 over 16 heads) and 64
 (ALBEF's ViT, VLMo-base and -large).  float32 q/k/v at head dim 34 are read
-in place, as views of the model's projections, like those at 64; bf16 ones
-are copied into zero-padded 40-wide rows first (:func:`kernel_width`), whose
-outputs come back sliced to 34: the zero columns change no product.
+in place, as views of the model's projections, like those at 64: the heads
+folded into the columns of one TMA map, a 40-column box a head
+(:func:`fits_folded_box` says which tensors it takes; the wrapper copies the
+others into packed rows and counts the copies, :func:`folded_or_copied`).  bf16
+ones are copied into zero-padded 40-wide rows first (:func:`kernel_width`),
+whose outputs come back sliced to 34: the zero columns change no product.
 
 The forward saves each query row's softmax statistics for the backward,
 the row maximum ``m`` and ``log l`` apart (``[2, B, H, Sq]`` float32), as
@@ -295,11 +298,56 @@ def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def kernel_width(dtype: torch.dtype, head_dim: int) -> int:
-    """The row width the kernel of ``dtype`` reads at ``head_dim``: the head
-    dim, but 40 for bf16 at 34, whose rows the wrapper copies into
-    zero-padded 40-wide ones (a head of a [B, S, 544] bf16 projection starts
-    68 bytes after the last, and TMA takes strides of 16 bytes)."""
+    """The row width of the tensors the wrapper hands the kernel of
+    ``dtype`` at ``head_dim``: the head dim, but 40 for bf16 at 34, whose
+    rows the wrapper copies into zero-padded 40-wide ones (a head of a [B, S,
+    544] bf16 projection starts 68 bytes after the last, and TMA takes
+    strides of 16 bytes).  float32 at 34 keeps 34: its kernels read a head's
+    rows as 40 columns of the folded map (:func:`fits_folded_box`) and write
+    34."""
     return _BF16_PADDED.get(head_dim, head_dim) if dtype == torch.bfloat16 else head_dim
+
+
+FOLDED_HEAD_DIM = 34  # float32 q/k/v read through the folded map (a 40-column box a head)
+
+
+def fits_folded_box(t: torch.Tensor) -> bool:
+    """Whether the float32 Hopper kernels read ``t`` (``[B, S, H, 34]``) in
+    place: their TMA map folds the heads into the columns, ``(H * 34, S,
+    B)`` over ``t``'s row and batch strides, and reads a head's rows as a
+    40-column box from column ``34 h`` (``34 h - 2`` for an odd head: a box
+    starts on 16 bytes).  So the heads must be packed (head
+    stride 34, the head dim contiguous), the row and batch strides multiples
+    of 4 floats (a TMA stride is a multiple of 16 bytes) and the base on 16
+    bytes; a dimension of extent 1 is never stepped, so its stride is free.
+    The views of the model's ``[B, S, 544]`` projections, of a fused ``[B,
+    S, 1632]`` one and a contiguous ``[B, S, 16, 34]`` qualify."""
+    b, s, h, d = t.shape
+    sb, ss, sh, sd = t.stride()
+    return ((d == 1 or sd == 1) and (h == 1 or sh == d) and (s == 1 or ss % 4 == 0)
+            and (b == 1 or sb % 4 == 0) and t.data_ptr() % 16 == 0)
+
+
+def _folded(q, k, v, head_dim, counted):
+    """q, k, v as the float32 kernels read them at head dim 34
+    (:func:`folded_or_copied`, copies counted on ``counted``); as they are
+    otherwise."""
+    if q.dtype != torch.float32 or head_dim != FOLDED_HEAD_DIM:
+        return q, k, v
+    return tuple(folded_or_copied(t, counted) for t in (q, k, v))
+
+
+def folded_or_copied(t: torch.Tensor, counted) -> torch.Tensor:
+    """``t`` (``[B, S, H, Dh]``) where :func:`fits_folded_box` takes it,
+    else a copy that it takes, counted in ``counted.hd34_copy_launches``:
+    packed heads in rows of ``H * Dh`` floats rounded up to a multiple of 4."""
+    if fits_folded_box(t):
+        return t
+    counted.hd34_copy_launches += 1
+    b, s, h, d = t.shape
+    row = -(-h * d // 4) * 4
+    out = torch.empty((b, s, row), dtype=t.dtype, device=t.device)[..., :h * d]
+    return out.view(b, s, h, d).copy_(t)
 
 
 def pad_heads(t: torch.Tensor, width: int) -> torch.Tensor:
@@ -333,21 +381,23 @@ def _check_inputs(q, k, v, bias, key_bias=None) -> Tuple[int, int, int, int]:
         if t.dim() != 4 or t.shape[-1] not in HEAD_DIMS or t.shape[-1] != q.shape[-1]:
             raise ValueError(f"flash_attention kernel: {name} {tuple(t.shape)}; takes "
                              f"[B, S, H, Dh] with Dh one of {HEAD_DIMS}, alike for q, k, v")
-        if kernel_width(t.dtype, t.shape[-1]) != t.shape[-1]:
-            continue  # copied into padded rows, whatever its layout
+        if t.shape[-1] == FOLDED_HEAD_DIM:
+            continue  # read in place where it fits, else copied, whatever its layout
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention kernel: {name}'s head dim is not contiguous")
-        # TMA maps (head dim 64) take a base and strides on 16 bytes; the
-        # mma.sync kernels (head dim 34) copy rows in 8-byte chunks
-        align = 16 if t.shape[-1] % 4 == 0 else 8
-        chunk = align // t.element_size()
-        if t.data_ptr() % align or any(st % chunk for st, n in zip(t.stride()[:3], t.shape)
-                                       if n > 1):
-            raise ValueError(f"flash_attention kernel: {name}'s rows do not start on {align} "
+        # TMA maps take a base and strides on 16 bytes
+        chunk = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(st % chunk for st, n in zip(t.stride()[:3], t.shape)
+                                    if n > 1):
+            raise ValueError(f"flash_attention kernel: {name}'s rows do not start on 16 "
                              f"bytes (data pointer {t.data_ptr()}, strides {t.stride()}); the "
                              f"b, s and h strides must be multiples of {chunk}")
-    b, sq, h, _ = q.shape
+    b, sq, h, dh = q.shape
     sk = k.shape[1]
+    if q.dtype == torch.float32 and dh == FOLDED_HEAD_DIM and h * dh % 4:
+        raise ValueError(f"flash_attention kernel: {h} heads of 34 floats; the float32 kernels "
+                         f"read dO's [B, Sq, H * 34] rows by TMA, which takes strides of 16 "
+                         f"bytes: H must be even")
     if k.shape != v.shape or k.shape[0] != b or k.shape[2] != h or k.device != q.device:
         raise ValueError(f"flash_attention kernel: k {tuple(k.shape)}, v {tuple(v.shape)} "
                          f"do not match q {tuple(q.shape)}")
@@ -396,9 +446,11 @@ def _common_args(q, k, v, bias, key_bias, b, h, sq, sk):
 
 def _launch_fwd(q, k, v, bias, scale, key_bias, dims, head_dim):
     """The forward kernel on q/k/v of the kernel's row width (checked, and
-    padded where :func:`kernel_width` says): ``(o, lse)``, o as wide, lse
-    the row statistics ``[2, B, H, Sq]``."""
+    padded where :func:`kernel_width` says; float32 at head dim 34 copied
+    where the folded map does not take them, :func:`folded_or_copied`):
+    ``(o, lse)``, o as wide, lse the row statistics ``[2, B, H, Sq]``."""
     b, h, sq, sk = dims
+    q, k, v = _folded(q, k, v, head_dim, flash_attention_fwd)
     ptrs, sizes = _common_args(q, k, v, bias, key_bias, b, h, sq, sk)
     out = torch.empty((b, sq, h, q.shape[-1]), dtype=q.dtype, device=q.device)
     lse = torch.empty((2, b, h, sq), dtype=torch.float32, device=q.device)
@@ -421,6 +473,7 @@ def _launch_bwd(q, k, v, bias, scale, o, lse, do, key_bias, dims, head_dim, dbia
     (:func:`dbias_buffers`)."""
     b, h, sq, sk = dims
     width = q.shape[-1]
+    q, k, v = _folded(q, k, v, head_dim, flash_attention_bwd)
     do = do.contiguous()
     if do.data_ptr() % 16:  # a TMA map's base, or the 16-byte copies, on 16 bytes
         do = do.clone()
@@ -512,16 +565,13 @@ _ENTRY_POINTS = {torch.float32: "vq_flash_attention_",
 
 # The instances of K3, by the rule the entry points apply (k3_route)
 K3_ROUTES = {
-    # float32 at head dim 64: csrc/flash_attention_tf32.cu (wgmma, TMA)
+    # float32 at head dim 64 or 34 (a 40-column box of the folded map):
+    # csrc/flash_attention_tf32.cu (wgmma, TMA)
     "tf32_wgmma": "vqattack_tpu_torch/csrc/flash_attention_tf32.cu",
-    # float32 at head dim 64 with dbias: csrc/flash_attention.cu's dQ kernel
-    # with the cluster sum (its entry points launch it), the forward and
-    # dK/dV kernels of csrc/flash_attention_tf32.cu
+    # float32 with dbias, at either head dim: csrc/flash_attention.cu's dQ
+    # kernel with the cluster sum (its entry points launch it), the forward
+    # and dK/dV kernels of csrc/flash_attention_tf32.cu
     "tf32_wgmma_dbias": "vqattack_tpu_torch/csrc/flash_attention.cu",
-    # float32 at head dim 34, with dbias or not: csrc/flash_attention.cu's
-    # mma.sync kernels
-    "mma_sync_hd34": "vqattack_tpu_torch/csrc/flash_attention.cu",
-    "mma_sync_hd34_dbias": "vqattack_tpu_torch/csrc/flash_attention.cu",
     # bfloat16 at either head dim (34 padded to 40): wgmma, TMA, no dbias
     "bf16_wgmma": "vqattack_tpu_torch/csrc/flash_attention_bf16.cu",
 }
@@ -530,10 +580,9 @@ K3_ROUTES = {
 def k3_route(dtype: torch.dtype, head_dim: int, dbias: bool = False) -> str:
     """The K3 instance a call on ``dtype`` q/k/v at ``head_dim`` takes
     (``dbias``: a backward that also gives the bias its gradient), a key of
-    :data:`K3_ROUTES`: head dim 34 in float32 is routed to the ``mma.sync``
-    kernels by its head dim, not as a fallback (a head of a [B, S, 544]
-    projection starts 136 bytes after the last, off the 16 bytes a TMA
-    stride takes).  Raises for what no instance takes."""
+    :data:`K3_ROUTES`: float32 runs the Hopper kernels at both head dims (at
+    34 through the folded map, :func:`fits_folded_box`), with dbias beside
+    the ``mma.sync`` dQ kernel.  Raises for what no instance takes."""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"k3_route: head dim {head_dim}; the kernels take {HEAD_DIMS}")
     if dtype == torch.bfloat16:
@@ -542,15 +591,15 @@ def k3_route(dtype: torch.dtype, head_dim: int, dbias: bool = False) -> str:
         return "bf16_wgmma"
     if dtype != torch.float32:
         raise TypeError(f"k3_route: {dtype}; the kernels take float32 or bfloat16")
-    route = "tf32_wgmma" if head_dim == 64 else "mma_sync_hd34"
-    return route + "_dbias" if dbias else route
+    return "tf32_wgmma_dbias" if dbias else "tf32_wgmma"
 
 
 def _counts(dtype, key_bias, head_dim, dbias=False):
     """The counts a launch adds one to: each dtype's instances apart, those
     with a key bias (VLMo's attention) also apart, those at head dim 34
     (VLMo-base+'s) also apart, and the float32 calls that run the Hopper
-    kernels (``tf32_wgmma_launches``: :func:`k3_route`) also apart."""
+    kernels (``tf32_wgmma_launches``: :func:`k3_route`, every float32 call)
+    also apart."""
     prefix = "bf16_" if dtype == torch.bfloat16 else ""
     tf32 = k3_route(dtype, head_dim, dbias).startswith("tf32_wgmma")
     return ((prefix + "launches",)
@@ -562,10 +611,13 @@ def _counts(dtype, key_bias, head_dim, dbias=False):
 # calls of each entry point in this process: float32 (``launches``) and
 # bfloat16 (``bf16_launches``) instances, and those of each with a key bias
 # and at head dim 34, and the float32 calls of the Hopper kernels; the
-# backward's with dbias also apart (plain counts for chip_smoke.py)
+# backward's with dbias also apart; and the float32 q/k/v at head dim 34
+# copied into packed rows on the way to each (``hd34_copy_launches``, one
+# a tensor): plain counts for chip_smoke.py
 for _fn in (flash_attention_fwd, flash_attention_bwd):
     for _name in ("launches", "key_bias_launches", "hd34_launches", "bf16_launches",
-                  "bf16_key_bias_launches", "bf16_hd34_launches", "tf32_wgmma_launches"):
+                  "bf16_key_bias_launches", "bf16_hd34_launches", "tf32_wgmma_launches",
+                  "hd34_copy_launches"):
         setattr(_fn, _name, 0)
 flash_attention_bwd.dbias_launches = 0
 
