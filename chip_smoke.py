@@ -93,13 +93,16 @@ runs after the VLMo phases: K3 at head dim 34 in float32 and bf16,
 forward and backward, against its plain versions at [B, 941, 16, 34] for
 B = 1, 8 and 16 (strided views of [B, 941, 544] projections, the
 padded-text key bias), ragged lengths, a -inf first key tile and the
-autograd Function; in float32, which reads a head's rows as a 40-column
-box of one folded TMA map, also the last head's box past column 544 (NaN
-beyond it in memory), a fused-qkv view, and the forward and backward
-repeated bit for bit, all read in place (no copy); timed at B = 16 beside
-the bf16 copies into 40-wide rows and ``scaled_dot_product_attention``
-(its backend named); every float32 K3 launch of the base+ paths counted
-on the Hopper kernels, with no copy of q, k or v; the full-width
+autograd Function; in both dtypes, which read a head's rows as a box of
+one folded TMA map (40 float32 columns, 64 bf16 ones), also the last
+head's box past column 544 (NaN beyond it in memory), a fused-qkv view,
+and the forward and backward repeated bit for bit, all read in place (no
+copy), and in bf16 3 and 2 heads, whose rows are copied and counted;
+timed at B = 16 through the entry points beside
+``scaled_dot_product_attention`` (its backend named); every float32 K3
+launch of the base+ paths counted on the Hopper kernels, and no tensor at
+head dim 34 copied on the way to either dtype's kernels (the bf16 batched
+path and the bf16 step at batch 16 too); the full-width
 model, flash against xla; the per-sample path (2 samples, ``--attn
 flash``); the batched path (11 samples, ``--batch-size 8 --attn flash
 --pipeline-depth 2``) in float32 and ``--dtype bfloat16``; the batch-16
@@ -1144,9 +1147,11 @@ def reset_counts() -> None:
 def check_k3_routes(launched, what) -> dict:
     """Since the last ``reset_counts``: every float32 K3 launch, at head dim
     34 too, went to the Hopper kernels (``csrc/flash_attention_tf32.cu``,
-    ``k3_route``), and no float32 q, k or v at head dim 34 was copied on the
-    way (the base+ trunk's projection views fit the folded map,
-    ``hd34_copy_launches``).  Returns the Hopper kernels' launches and the
+    ``k3_route``), and no tensor at head dim 34 was copied on the way to
+    the float32 or the bf16 kernels (the base+ trunk's projection views fit
+    the folded map, O comes back in the layout the backward reads and
+    autograd hands dO over in it: ``hd34_copy_launches``).  Returns the
+    Hopper kernels' launches, the bf16 head-dim-34 launches and the
     copies."""
     routed = {}
     for d in ("fwd", "bwd"):
@@ -1156,9 +1161,11 @@ def check_k3_routes(launched, what) -> dict:
                 f"{what}: {fn.tf32_wgmma_launches} float32 {d} launches of the Hopper kernels, "
                 f"{f32} float32 launches ({launched[f'flash_attention_{d}_hd34']} at head dim 34)")
         require(fn.hd34_copy_launches == 0,
-                f"{what}: {fn.hd34_copy_launches} float32 head-dim-34 tensors copied on the way "
-                f"to the {d} kernels")
+                f"{what}: {fn.hd34_copy_launches} head-dim-34 tensors copied on the way to the "
+                f"{d} kernels ({launched[f'flash_attention_{d}_hd34']} float32 and "
+                f"{launched[f'flash_attention_bf16_{d}_hd34']} bf16 launches at head dim 34)")
         routed[f"flash_attention_{d}_tf32_wgmma"] = fn.tf32_wgmma_launches
+        routed[f"flash_attention_bf16_{d}_hd34"] = launched[f"flash_attention_bf16_{d}_hd34"]
         routed[f"flash_attention_{d}_hd34_copies"] = fn.hd34_copy_launches
     return routed
 
@@ -2338,45 +2345,77 @@ def _plus_qkv(gen, b, sq, sk=None, dtype=torch.float32):
         b, s, PLUS_HEADS, PLUS_HEAD_DIM) for s in (sq, sk, sk)]
 
 
-def check_hd34_folded_box(pipe, tokenizer, gen, seq):
-    """float32 K3 at head dim 34, the folded map's own cases (the kernels
-    read a head's rows as a 40-column box of one (H * 34, S, B) map): the
-    last head's box past column 544, where each row of the three [8, 941,
-    548] buffers holds NaN (TMA must bring zeros there, not read them); q, k
-    and v as views of one fused [8, 941, 1632] projection; and at the
-    victim's batch 16 the forward and two backward runs equal bit for bit.
-    All read in place: no copy counted."""
+def _hd34_copies():
+    return [attention.flash_attention_fwd.hd34_copy_launches,
+            attention.flash_attention_bwd.hd34_copy_launches]
+
+
+def check_hd34_folded_box(pipe, tokenizer, gen, seq, dtype=torch.float32):
+    """K3 at head dim 34 in ``dtype``, the folded map's own cases (the
+    kernels read a head's rows as one box of an (H * 34, S, B) map: 40
+    float32 columns, 64 bf16 ones): the last head's box past column 544,
+    where each row of the three [8, 941, 548] (bf16: [8, 941, 552])
+    buffers holds NaN (TMA must bring zeros there, not read them); q, k and v as views of one fused [8,
+    941, 1632] projection; and at the victim's batch 16 the forward and two
+    backward runs equal bit for bit.  All read in place: no copy counted.
+    In bf16 also 3 and 2 heads (rows of 102 and 68 elements, off 16 bytes):
+    q, k and v copied into rows of 104 and 72 (counted, three a launch), O
+    back in such rows, a contiguous dO copied there (counted)."""
     b, width = TIMED_BATCH, PLUS_HEADS * PLUS_HEAD_DIM
+    name = "bf16" if dtype == BF16 else "float32"
+
+    def check(q, k, v, kb, what):
+        if dtype == BF16:
+            return _check_bf16_attention(q, k, v, None, kb, what, PLUS_SCALE)
+        return _check_two_term_case(q, k, v, None, kb, what, PLUS_SCALE)
+
     kb = _text_key_bias(pipe, tokenizer, b, seq)
-    copies = [attention.flash_attention_fwd.hd34_copy_launches,
-              attention.flash_attention_bwd.hd34_copy_launches]
-    bufs = [torch.full((b, seq, width + 4), float("nan"), device="cuda") for _ in range(3)]
+    copies = _hd34_copies()
+    # 16 bytes of NaN past column 544, so that the rows stay on 16 bytes
+    bufs = [torch.full((b, seq, width + 128 // torch.finfo(dtype).bits), float("nan"),
+                       device="cuda").to(dtype) for _ in range(3)]
     for t in bufs:
-        t[..., :width] = torch.randn(b, seq, width, generator=gen, device="cuda")
+        t[..., :width] = torch.randn(b, seq, width, generator=gen, device="cuda").to(dtype)
     q, k, v = (t[..., :width].view(b, seq, PLUS_HEADS, PLUS_HEAD_DIM) for t in bufs)
-    _check_two_term_case(q, k, v, None, kb, "head dim 34, the last head's box past column 544, "
-                         "NaN in the rows there", PLUS_SCALE)
-    fused = torch.randn(b, seq, 3 * width, generator=gen, device="cuda")
+    check(q, k, v, kb, "head dim 34, the last head's box past column 544, NaN in the rows there")
+    fused = torch.randn(b, seq, 3 * width, generator=gen, device="cuda").to(dtype)
     q, k, v = (fused[..., i * width:(i + 1) * width].view(b, seq, PLUS_HEADS, PLUS_HEAD_DIM)
                for i in range(3))
-    _check_two_term_case(q, k, v, None, kb, "head dim 34, a fused [B, S, 1632] qkv view",
-                         PLUS_SCALE)
-    q, k, v = _plus_qkv(gen, 16, seq)
+    check(q, k, v, kb, "head dim 34, a fused [B, S, 1632] qkv view")
+    q, k, v = _plus_qkv(gen, 16, seq, dtype=dtype)
     kb = _text_key_bias(pipe, tokenizer, 16, seq)
     o, lse = attention.flash_attention_fwd(q, k, v, None, PLUS_SCALE, kb)
     o2, lse2 = attention.flash_attention_fwd(q, k, v, None, PLUS_SCALE, kb)
-    do = torch.randn(o.shape, generator=gen, device="cuda")
+    do = torch.randn(o.shape, generator=gen, device="cuda").to(dtype)
     runs = [attention.flash_attention_bwd(q, k, v, None, PLUS_SCALE, o, lse, do, kb)
             for _ in range(2)]
     require(torch.equal(o, o2) and torch.equal(lse, lse2),
-            "head dim 34: the forward differs between two runs")
-    for name, a, c in zip(("dq", "dk", "dv"), *runs):
-        require(torch.equal(a, c), f"head dim 34: {name} differs between two backward runs")
-    require([attention.flash_attention_fwd.hd34_copy_launches,
-             attention.flash_attention_bwd.hd34_copy_launches] == copies,
-            "head dim 34: a projection view was copied on the way to the kernels")
-    print(f"  flash_attention float32 head dim 34 [16, {seq}, 16, 34]: forward and two backward "
+            f"{name} head dim 34: the forward differs between two runs")
+    for g_name, a, c in zip(("dq", "dk", "dv"), *runs):
+        require(torch.equal(a, c), f"{name} head dim 34: {g_name} differs between two backward "
+                                   f"runs")
+    require(_hd34_copies() == copies,
+            f"{name} head dim 34: a projection view was copied on the way to the kernels")
+    print(f"  flash_attention {name} head dim 34 [16, {seq}, 16, 34]: forward and two backward "
           f"runs equal bit for bit; every view read in place (no copy)", flush=True)
+    if dtype != BF16:
+        return
+    for heads in (3, 2):
+        q, k, v = (torch.randn(2, seq, heads * PLUS_HEAD_DIM, generator=gen, device="cuda").to(
+            BF16).view(2, seq, heads, PLUS_HEAD_DIM) for _ in range(3))
+        before = _hd34_copies()
+        check(q, k, v, _text_key_bias(pipe, tokenizer, 2, seq), f"head dim 34, {heads} heads")
+        o, _ = attention.flash_attention_fwd(q, k, v, None, PLUS_SCALE)
+        row = attention.folded_row(heads, BF16)
+        require(o.stride() == (seq * row, row, PLUS_HEAD_DIM, 1),
+                f"bf16 head dim 34, {heads} heads: O's strides {o.stride()}, rows of {row}")
+        # the check: two forwards (the kernel's, and the one above) and two
+        # backwards, each copying q, k, v; each backward also its dO
+        got = [a - c for a, c in zip(_hd34_copies(), before)]
+        require(got == [6, 8], f"bf16 head dim 34, {heads} heads: {got} copies counted "
+                               f"(forward, backward), expected [6, 8]")
+        print(f"  flash_attention bf16 head dim 34, {heads} heads: rows of {heads * 34} copied "
+              f"into rows of {row} and counted ({got}), O back in rows of {row}", flush=True)
 
 
 def check_flash_attention_hd34(pipe, tokenizer, gen):
@@ -2386,7 +2425,7 @@ def check_flash_attention_hd34(pipe, tokenizer, gen):
     (the victim), strided views of [B, 941, 544] projections with the
     padded-text key bias of real questions; ragged lengths (1, 63, 130 and
     200 queries over 77 keys); a -inf first key tile; the autograd Function;
-    in float32 also the folded map's cases (:func:`check_hd34_folded_box`).
+    the folded map's cases (:func:`check_hd34_folded_box`).
     Then each dtype's times at [16, 941, 16, 34]
     (:func:`time_flash_attention_hd34`)."""
     seq = pipe.max_text_len + pipe.model.cfg.image_seq_len
@@ -2428,8 +2467,7 @@ def check_flash_attention_hd34(pipe, tokenizer, gen):
                 _attn_err(f"head dim 34 autograd {what}", a, r)
         print(f"  flash_attention {name} head dim 34 autograd Function matches autograd of the "
               f"plain version", flush=True)
-        if dtype == torch.float32:
-            check_hd34_folded_box(pipe, tokenizer, gen, seq)
+        check_hd34_folded_box(pipe, tokenizer, gen, seq, dtype)
         rows += time_flash_attention_hd34(*_plus_qkv(gen, 16, seq, dtype=dtype),
                                           _text_key_bias(pipe, tokenizer, 16, seq),
                                           errs[name, 16])
@@ -2453,26 +2491,31 @@ def sdpa_backend(fn) -> str:
 
 def time_flash_attention_hd34(q, k, v, key_bias, errs, suffix=""):
     """Device times at [16, 941, 16, 34] with the padded-text key bias, in
-    q's dtype: the kernels alone (``ms``; bf16 on the padded 40-wide
-    copies), the copies the main path adds (``copy_ms``: bf16 q, k, v into
-    40-wide rows before the forward, dO before the backward; float32 reads
-    the projections in place), the plain versions, and
-    ``scaled_dot_product_attention`` on the same inputs with the key bias as
-    a [16, 1, 1, 941] mask (forward; backward through autograd), whose
-    backend is named.  The bound counts what the function needs: 4 and 10
-    x B*H*S^2*Dh at Dh = 34 (float32: three TF32 passes), each input and
-    output once; ``executed_tflops`` counts what the kernels execute (40
-    columns in float32, 64 in bf16; 14 in the backward).  The rows' names
-    end in ``_hd34`` and ``suffix``."""
+    q's dtype: the entry points as the main path calls them on the
+    projection views (``ms``: both dtypes read them in place through the
+    folded map, O comes back in the layout the backward reads, so no copy
+    is made: ``copy_ms`` 0, checked on the copy counts), the plain versions,
+    and ``scaled_dot_product_attention`` on the same inputs with the key
+    bias as a [16, 1, 1, 941] mask (forward; backward through autograd),
+    whose backend is named.  The bound counts what the function needs: 4
+    and 10 x B*H*S^2*Dh at Dh = 34 (float32: three TF32 passes), each input
+    and output once; ``executed_tflops`` counts what the kernels execute:
+    float32 every product over 40 columns (4 and 14 units of B*H*S^2 x 40),
+    bf16 the products over the head dim over 48 columns (3 k16 steps; 1 in
+    the forward, 4 in the backward) and those into it over 40 (wgmma N = 40;
+    1 and 3), 2 flops a multiply-add.  The rows' names end in ``_hd34`` and
+    ``suffix``."""
     b, s, h, dh = q.shape
     dtype = q.dtype
-    width = attention.kernel_width(dtype, dh)
-    dims = (b, h, s, s)
     o, lse = attention.flash_attention_fwd(q, k, v, None, PLUS_SCALE, key_bias)
     do = torch.randn(o.shape, generator=torch.Generator("cuda").manual_seed(4),
                      device="cuda").to(dtype)
-    qp, kp, vp, op, dop = (attention.pad_heads(t, width) for t in (q, k, v, o, do))
-    executed_dh = 64 if dtype == BF16 else 40  # the columns the kernels' products run over
+    # the products' columns executed, over and into the head dim: forward, backward
+    if dtype == BF16:
+        executed = (2 * (48 + 40), 2 * (4 * 48 + 3 * 40))
+    else:
+        executed = (4 * 40, 14 * 40)
+    copies_before = _hd34_copies()
     mask = key_bias[:, None, None, :].to(dtype)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2484,23 +2527,21 @@ def time_flash_attention_hd34(q, k, v, key_bias, errs, suffix=""):
     if dtype == BF16:
         fwd_b, fwd_by = bound_ms(4 * row + small, 4 * unit, BF16_FLOPS)
         bwd_b, bwd_by = bound_ms(8 * row + small, 10 * unit, BF16_FLOPS)
-        copies = (lambda: [attention.pad_heads(t, width) for t in (q, k, v)],
-                  lambda: attention.pad_heads(do, width))
     else:
         fwd_b, fwd_by = tensor_core_bound_ms(4 * row + small, 4 * unit)
         bwd_b, bwd_by = tensor_core_bound_ms(8 * row + small, 10 * unit)
-        copies = (None, None)
     long_sleep = 20_000_000
     tag = "_bf16" if dtype == BF16 else ""
     common = {"route": "cuda", **k3_source(dtype, 34),
               "replaces": "vqattack_tpu/ops/attention.py:134", "shape": [b, s, h, dh],
-              "dtype": "bfloat16" if dtype == BF16 else "float32", "kernel_width": width}
+              "dtype": "bfloat16" if dtype == BF16 else "float32",
+              "executed_columns": [48, 40] if dtype == BF16 else [40, 40]}
     fwd = dict(common, **{
         "name": f"flash_attention{tag}_fwd_hd34{suffix}",
         "max_abs_err": errs["o"],
-        "ms": time_ms(lambda: attention._launch_fwd(qp, kp, vp, None, PLUS_SCALE, key_bias,
-                                                    dims, dh), 20),
-        "copy_ms": 0.0 if copies[0] is None else time_ms(copies[0], 20),
+        "ms": time_ms(lambda: attention.flash_attention_fwd(q, k, v, None, PLUS_SCALE,
+                                                            key_bias), 20),
+        "copy_ms": 0.0,
         "plain_ms": time_ms(lambda: attention.flash_attention_reference(
             q, k, v, None, PLUS_SCALE, key_bias=key_bias), 20, long_sleep),
         "bound_ms": fwd_b, "bound_by": fwd_by,
@@ -2511,9 +2552,9 @@ def time_flash_attention_hd34(q, k, v, key_bias, errs, suffix=""):
     bwd = dict(common, **{
         "name": f"flash_attention{tag}_bwd_hd34{suffix}",
         "max_abs_err": max(errs["dq"], errs["dk"], errs["dv"]),
-        "ms": time_ms(lambda: attention._launch_bwd(qp, kp, vp, None, PLUS_SCALE, op, lse, dop,
-                                                    key_bias, dims, dh), 20),
-        "copy_ms": 0.0 if copies[1] is None else time_ms(copies[1], 20),
+        "ms": time_ms(lambda: attention.flash_attention_bwd(q, k, v, None, PLUS_SCALE, o, lse,
+                                                            do, key_bias), 20),
+        "copy_ms": 0.0,
         "plain_ms": time_ms(lambda: attention.flash_attention_bwd_reference(
             q, k, v, None, PLUS_SCALE, o, lse, do, key_bias), 20, long_sleep),
         "bound_ms": bwd_b, "bound_by": bwd_by,
@@ -2522,9 +2563,11 @@ def time_flash_attention_hd34(q, k, v, key_bias, errs, suffix=""):
         "library_backend": sdpa_backend(lambda: torch.autograd.grad(
             sdpa_out, (qt, kt, vt), do_t, retain_graph=True)),
     })
-    for r, executed in ((fwd, 4), (bwd, 14)):
+    require(_hd34_copies() == copies_before,
+            f"head dim 34 {dtype}: the timed calls copied a tensor on the way to the kernels")
+    for r, flops in zip((fwd, bwd), executed):
         r["bound_share"] = r["bound_ms"] / r["ms"]
-        r["executed_tflops"] = executed * b * h * s * s * executed_dh / r["ms"] / 1e9
+        r["executed_tflops"] = flops * b * h * s * s / r["ms"] / 1e9
         require(r["bound_share"] <= 1.0, f"{r['name']}: {r['ms']} ms is under its bound "
                                          f"{r['bound_ms']} ms: the timing or the bound is wrong")
         print(f"  {r['name']} {r['shape']} {r['dtype']}: {r['ms']:.4f} ms, copies "
@@ -5872,8 +5915,13 @@ def main() -> int:
                 p_pipe16, p_cfg16, paths,
                 port_run.build_argparser().parse_args(v_common + plus + bf16_flags + batch_flags))
     check_plus_launches(pb16_launched, pb16_expected, "bfloat16", "VLMo-base+ bf16 batched")
+    reset_counts()
     with Phase("one VLMo-base+ bf16 gradient step at batch 16: --attn flash against --attn xla"):
         p_ab16 = vlmo_one_step_ab(p_pipe16, p_cfg16, tokenizer, gen)
+    p_ab16_routed = check_k3_routes(counts(), "VLMo-base+ bf16 step at batch 16")
+    require(all(p_ab16_routed[f"flash_attention_bf16_{d}_hd34"] > 0 for d in ("fwd", "bwd")),
+            f"VLMo-base+ bf16 step at batch 16: no bf16 head-dim-34 K3 launch: {p_ab16_routed}")
+    print(f"  K3 bf16 at head dim 34 in the step, no copy: {p_ab16_routed}", flush=True)
     del p_pipe16
     torch.cuda.empty_cache()
 

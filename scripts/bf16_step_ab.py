@@ -16,7 +16,8 @@ of all kernels a step, that of the flash-attention kernels, that of K2's
 forward and backward kernels (``residual_ln_fwd_kernel``,
 ``residual_ln_bwd_kernel``), and the step's wall time under the profiler,
 whose difference from the device time is the card's idle share.  Prints
-one JSON line with these and the card's name and power limit.  Step times
+one JSON line with these, each step's median and peak device memory
+(GiB) under both backends, and the card's name and power limit.  Step times
 include the host's enqueueing and vary from call to call, so two versions
 are compared in one call, each in its own process from its own checkout,
 in turns: parent, change, change, parent.  A parent checkout that lacks
@@ -133,8 +134,9 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     tag = "bf16" if dtype == "bfloat16" else "f32"
     print(json.dumps({"checkout": ROOT, "card": card, "dtype": dtype, **{
-        f"{name}_{tag}_{impl}_median_s": ab[impl]["median_s"]
-        for name, ab in abs_.items() for impl in ("flash", "xla")},
+        f"{name}_{tag}_{impl}_{k}": ab[impl][key] / scale
+        for name, ab in abs_.items() for impl in ("flash", "xla")
+        for k, key, scale in (("median_s", "median_s", 1), ("peak_gib", "peak_bytes", 2 ** 30))},
         **{f"{name}_{tag}_flash_{k}": v for name, dev in devs.items()
            for k, v in dev.items()}}), flush=True)
     return 0

@@ -8,13 +8,14 @@ Times, from the checkout it lives in, K3 forward and backward in each dtype
 at PERF.md §6's shapes: without terms at the ALBEF chunk of 8 ([8, 901, 12,
 64]), with both terms (a [1, 12, 941, 941] table and a padded-text key
 bias) at VLMo's batch 16 ([16, 941, 12, 64]), at head dim 34 with the
-key bias alone ([16, 941, 16, 34], bf16 timed with its pad copy) and at
+key bias alone ([16, 941, 16, 34], each entry point timed as the main path
+calls it, with whatever copy it makes: a parent's bf16 pad copy) and at
 ViLT-B/32's joint length with the key bias alone ([16, 185, 12, 64]); the
 float32 kernels also without terms at the training paths' [8, 257], [8,
 577] and [16, 577] (12 heads of 64), and at head dim 34 at vlmo_pretrain
 base+'s ITM shape with the key bias ([24, 237, 16, 34]) and at [8, 197,
-16, 34] without terms; and K2's
-forward at [7208, 768] on a float32 and a bf16 stream.  Inputs are drawn
+16, 34] without terms; the bf16 ones at [16, 941, 16, 34] without terms
+too; and K2's forward at [7208, 768] on a float32 and a bf16 stream.  Inputs are drawn
 here from seed 0, so the two checkouts time the same tensors; the timer is
 the checkout's ``chip_smoke.time_ms`` (CUDA events, L2 emptied, the stream
 held busy).  Prints one line: ``AB`` and a JSON object of each kernel's
@@ -92,6 +93,8 @@ def main() -> int:
     _time_k3(gen, "hd34_key_bias_b24_s237", 24, 237, 16, 34, "key_bias", times,
              ((torch.float32, ""),))
     _time_k3(gen, "hd34_no_terms_b8_s197", 8, 197, 16, 34, None, times, ((torch.float32, ""),))
+    # bf16 at head dim 34 without the key bias: what the term costs
+    _time_k3(gen, "hd34_no_terms_b16", 16, 941, 16, 34, None, times, ((torch.bfloat16, "_bf16"),))
     rows = 8 * 901
     for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
         x, delta = (torch.randn(rows, 768, generator=gen, device="cuda").to(dtype)

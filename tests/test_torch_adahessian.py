@@ -348,10 +348,10 @@ def test_kernel_wrappers_refuse_a_second_backward(monkeypatch):
     with pytest.raises(RuntimeError, match="no second derivative"):
         torch.autograd.grad((h ** 3).sum(), [x, gamma], create_graph=True)
 
-    def padded(q, k, v, bias, key_bias):
-        return (q.shape[0], q.shape[2], q.shape[1], k.shape[1]), q.shape[-1], q.shape[-1], [q, k, v]
+    def checked(q, k, v, bias, key_bias=None):
+        return q.shape[0], q.shape[2], q.shape[1], k.shape[1]
 
-    monkeypatch.setattr(attention, "_checked_and_padded", padded)
+    monkeypatch.setattr(attention, "_check_inputs", checked)
     monkeypatch.setattr(attention, "_launch_fwd", lambda q, k, v, bias, scale, key_bias, dims, dh:
                         attention.flash_attention_reference(q, k, v, bias, scale, True, key_bias))
     monkeypatch.setattr(

@@ -972,7 +972,10 @@ def test_flash_attention_hd34_autograd_counts_and_refusals(gen, dtype):
     whose base is off 16 bytes is copied into packed rows (counted, one a
     tensor) and gives the plain version's output; an odd head count is
     refused (dO's rows); a head dim of neither 34 nor 64 is refused in both
-    dtypes."""
+    dtypes.  The bf16 kernels read through their own folded map: such a view
+    is copied and counted too, and 3 heads (rows of 102 elements, off 16
+    bytes) run: q, k, v copied into rows of 104, O back in such rows, dO
+    copied there, each counted."""
     q, k, v, key_bias = _hd34_case(gen, 2, 150, 150, "text_pad", dtype)
     w = torch.randn(q.shape, generator=gen, device="cuda")
     prefix = "bf16_" if dtype == torch.bfloat16 else ""
@@ -1008,37 +1011,67 @@ def test_flash_attention_hd34_autograd_counts_and_refusals(gen, dtype):
         odd = torch.randn(2, 130, 3, 34, generator=gen, device="cuda")
         with pytest.raises(ValueError, match="H must be even"):
             attention.flash_attention_fwd(odd, odd, odd, None, 0.125)
+        return
+    buf = torch.randn(2, 130, 4 * 34 + 1, generator=gen, device="cuda").bfloat16()
+    off = buf[..., 1:].view(2, 130, 4, 34)  # the base 2 bytes off 16
+    copies = attention.flash_attention_fwd.hd34_copy_launches
+    o, _ = attention.flash_attention_fwd(off, off, off, None, 0.125)
+    assert attention.flash_attention_fwd.hd34_copy_launches == copies + 3
+    _bf16_close(o, attention.flash_attention_reference(off, off, off, None, 0.125),
+                _bf16_truth(off, off, off, None, 0.125, torch.zeros_like(off))[0], "o")
+    q3, k3, v3 = (torch.randn(2, 130, 3 * 34, generator=gen, device="cuda").bfloat16().view(
+        2, 130, 3, 34) for _ in range(3))
+    do = torch.randn(q3.shape, generator=gen, device="cuda").bfloat16()
+    copies = [attention.flash_attention_fwd.hd34_copy_launches,
+              attention.flash_attention_bwd.hd34_copy_launches]
+    o, _ = attention.flash_attention_fwd(q3, k3, v3, None, 34 ** -0.5)
+    assert o.stride() == (130 * 104, 104, 34, 1)
+    _check_bf16_case(q3, k3, v3, None, None, do, 34 ** -0.5)
+    # two forwards and two backwards: q, k, v each time, and dO in each backward
+    assert [attention.flash_attention_fwd.hd34_copy_launches,
+            attention.flash_attention_bwd.hd34_copy_launches] == [copies[0] + 6, copies[1] + 8]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,sq,sk", [(2, 63, 63), (2, 200, 77), (2, 941, 941)])
-def test_flash_attention_hd34_no_neighbour_head_leaks_in(gen, b, sq, sk):
-    """float32 at head dim 34 on the Hopper route, q/k/v [B, S, 16, 34] in
-    the projections' layout (read in place: no copy), every odd head's v
-    and dO at 1e3 times the others' (and its q, k at 3 times): each
-    head's output columns 0-33, forward and backward, against the plain
-    version within 2e-5 of that head's largest magnitude.  A 40-column box
-    whose columns 34-39 (the next head's first 6) reached a product would
-    add the large head's products into the one before it, and a store of 40
-    columns would overwrite the next head's first 6."""
+def test_flash_attention_hd34_no_neighbour_head_leaks_in(gen, b, sq, sk, dtype):
+    """Head dim 34 on the Hopper route in both dtypes, q/k/v [B, S, 16, 34]
+    in the projections' layout (read in place: no copy), every odd head's v
+    and dO at 1e3 times the others' (and its q, k at 3 times): each head's
+    output columns, forward and backward, against the plain version within
+    the dtype's tolerance of that head's largest magnitude (float32 2e-5;
+    bf16 :func:`_bf16_close`).  A box whose columns past the head (float32:
+    the next head's first 6 of 40; bf16: up to 30 on the right and 6 on the
+    left of 64) reached a product would add a large head's products into a
+    small one, and a store past the head's 34 columns would overwrite its
+    neighbour's."""
     q, k, v, key_bias = _hd34_case(gen, b, sq, sk, "text_pad", torch.float32)
     odd = torch.arange(16, device="cuda") % 2 == 1
     big = torch.where(odd, 1e3, 1.0)[:, None]
-    q, k = (t * torch.where(odd, 3.0, 1.0)[:, None] for t in (q, k))
-    v = v * big
-    do = torch.randn(q.shape, generator=gen, device="cuda") * big
+    q, k = ((t * torch.where(odd, 3.0, 1.0)[:, None]).to(dtype) for t in (q, k))
+    v = (v * big).to(dtype)
+    do = (torch.randn(q.shape, generator=gen, device="cuda") * big).to(dtype)
     assert all(attention.fits_folded_box(t) for t in (q, k, v))
-    assert attention.k3_route(torch.float32, 34) == "tf32_wgmma"
+    assert attention.k3_route(dtype, 34) == ("tf32_wgmma" if dtype == torch.float32
+                                             else "bf16_wgmma")
     scale = 34 ** -0.5
-    copies = attention.flash_attention_fwd.hd34_copy_launches
+    copies = [attention.flash_attention_fwd.hd34_copy_launches,
+              attention.flash_attention_bwd.hd34_copy_launches]
     o, lse = attention.flash_attention_fwd(q, k, v, None, scale, key_bias)
-    assert attention.flash_attention_fwd.hd34_copy_launches == copies
     o_r = attention.flash_attention_reference(q, k, v, None, scale, key_bias=key_bias)
     grads = attention.flash_attention_bwd(q, k, v, None, scale, o, lse, do, key_bias)
     refs = attention.flash_attention_bwd_reference(q, k, v, None, scale, o, lse, do, key_bias)
-    for name, g, r in [("o", o, o_r)] + list(zip(("dq", "dk", "dv"), grads, refs)):
+    assert [attention.flash_attention_fwd.hd34_copy_launches,
+            attention.flash_attention_bwd.hd34_copy_launches] == copies
+    truth = (_bf16_truth(q, k, v, None, scale, do, key_bias) if dtype == torch.bfloat16
+             else (None,) * 4)
+    for name, g, r, t in zip(("o", "dq", "dk", "dv"), (o, *grads), (o_r, *refs), truth):
         assert torch.isfinite(g).all(), name
         for h in range(16):
-            _close(g[:, :, h], r[:, :, h], f"{name} head {h}")
+            if dtype == torch.float32:
+                _close(g[:, :, h], r[:, :, h], f"{name} head {h}")
+            else:
+                _bf16_close(g[:, :, h], r[:, :, h], t[:, :, h], f"{name} head {h}")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -2,17 +2,18 @@
 package, on the CPU.
 
 The card's kernels take head dim 34 as a template instance of their head-dim
-64 code: the float32 kernel reads 40 columns, the last 6 zero-filled, and the
-bf16 one reads rows the wrapper copies into zero-padded 40-wide tensors.
-What the CPU can hold of that:
+64 code, reading each head in place as a box of one folded TMA map over the
+``[B, S, H * 34]`` projection (40 float32 or 64 bf16 columns, from a column
+on 16 bytes at or before the head's first), the columns around the head
+zeroed where they would reach a product.  What the CPU can hold of that:
 
 - K3's plain versions (float32 and bf16) and the kernel's 3xTF32 arithmetic
   (``mm_3xtf32``) at head dims 34, 40 and 64, with a key bias, against the
   library kernel's ``mha_reference`` behind the JAX wrapper's ``_prepare``
   and ``jax.vjp`` of the JAX einsum path (of ``mha_reference`` in bf16);
-- the padded route's arithmetic: the plain version on zero-padded inputs,
-  sliced back, against the plain version unpadded, and exactly zero
-  gradients in the padded columns;
+- the folded route's arithmetic: the plain version on each head's box, the
+  neighbours' columns in it and the kernels' operands zeroed, read back at
+  the head's columns, against the plain version on the packed heads;
 - a tiny VLMo-base+ geometry (width 68 over 2 heads, so head dim 34;
   absolute position embeddings, no relative-position table, no layer scale;
   176 px, so the joint sequence is 130 tokens and takes the flash branch)
@@ -53,6 +54,8 @@ from vqattack_tpu.text.similarity import NullGate as JNullGate
 from vqattack_tpu.text.tokenizer import WordPieceTokenizer as JTokenizer
 from vqattack_tpu_torch.attacks.batched import BatchedVlmoAttack
 from vqattack_tpu_torch.attacks.vlmo_orchestrator import VlmoAttackPipeline
+from vqattack_tpu_torch.checkpoint.convert import load_jax_params
+from vqattack_tpu_torch.models.vlmo import VLMo
 from vqattack_tpu_torch.ops import attention
 from vqattack_tpu_torch.text.similarity import NullGate
 from vqattack_tpu_torch.text.tokenizer import WordPieceTokenizer
@@ -183,55 +186,67 @@ def test_plain_bf16_version_at_head_dim_34_matches_the_library_oracle(s):
         assert err <= 2 ** -7 * max(1.0, float(np.abs(w).max())), f"{name}: {err}"
 
 
-def test_kernel_width_and_pad_heads():
-    """The bf16 kernel reads head dim 34 as 40-wide rows, everything else
-    as it is; ``pad_heads`` appends zero columns to a contiguous copy and
-    leaves a tensor of the width alone."""
-    assert attention.kernel_width(BF16, 34) == 40
-    assert attention.kernel_width(BF16, 64) == 64
-    assert attention.kernel_width(torch.float32, 34) == 34
-    assert attention.kernel_width(torch.float32, 64) == 64
-    assert attention.HEAD_DIMS == (34, 64)
-    x = torch.randn(2, 5, 16 * 34).view(2, 5, 16, 34)[:, :, 3:7]  # a strided view
-    p = attention.pad_heads(x, 40)
-    assert p.shape == (2, 5, 4, 40) and p.is_contiguous()
-    assert torch.equal(p[..., :34], x) and not p[..., 34:].any()
-    assert attention.pad_heads(x, 34) is x
+def _folded_box(x, h, dtype):
+    """Head h's box of the folded map over ``x`` ``[B, S, H * 34]`` as TMA
+    brings it, zeros past column ``H * 34``: float32, 40 columns from ``34 h
+    - 2 (h % 2)``; bf16, 64 from ``34 h - (2 h mod 8)``.  Returns ``(box
+    [B, S, 1, width], shift)``, the head at box columns ``shift .. shift +
+    33``."""
+    width, shift = (40, 2 * (h % 2)) if dtype == torch.float32 else (64, (2 * h) % 8)
+    start = 34 * h - shift
+    assert start * x.element_size() % 16 == 0  # a box starts on 16 bytes
+    box = torch.nn.functional.pad(x, (0, width))[..., start:start + width]
+    return box[:, :, None], shift
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, BF16])
-def test_the_padded_route_changes_nothing_but_adds_zero_columns(dtype):
-    """The bf16 kernel's route at head dim 34 in plain PyTorch: q, k, v
-    padded with zeros to 40 columns, the plain forward and backward, the
-    outputs sliced back to 34, equal the plain version on the unpadded
-    inputs (float32 sums over 34 or 40 terms, the extra ones zero: within
-    1e-6 of the largest magnitude, at least 1, and the bf16 outputs within
-    one bf16 ulp of it); the padded columns of O and of every gradient are
-    exactly zero, through the explicit backward and through autograd."""
-    s, dh, width = 130, 34, 40
+def _only_head(box, shift):
+    out = box.clone()
+    out[..., :shift] = 0
+    out[..., shift + 34:] = 0
+    return out
+
+
+@pytest.mark.parametrize("dtype,h", [(torch.float32, 2), (BF16, 2), (BF16, 3), (BF16, 4)],
+                         ids=["float32-2_heads", "bf16-2_heads", "bf16-3_heads", "bf16-4_heads"])
+def test_the_folded_route_changes_nothing_outside_the_head(dtype, h):
+    """The kernels' route at head dim 34 in plain PyTorch, head by head: the
+    plain forward and backward on each head's box of the folded map over
+    packed ``[B, S, H * 34]`` q, k, v, O and dO, the neighbours' columns in
+    it, the operands the kernel zeroes zeroed (float32: q, k, v and dO
+    outside the head, as the splitters and the register loads do; bf16:
+    only the register A operands, q and dO), the outputs read back at the
+    head's columns: the plain version on the unpadded inputs (float32 sums
+    over 34 or 40 terms, the extra ones zero: within 1e-6 of the largest
+    magnitude, at least 1; bf16 outputs within one bf16 ulp of it), for H
+    a multiple of 4 and not, where bf16 rows are off 16 bytes."""
+    s, dh = 130, 34
     scale = dh ** -0.5
-    q, k, v, do, kb = (T(x) for x in _inputs(s, dh, seed=300))
-    q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
-    kb_t = kb
-    qp, kp, vp, dop = (attention.pad_heads(x, width) for x in (q, k, v, do))
-    o, lse = attention.flash_attention_reference(q, k, v, None, scale, True, kb_t)
-    o_p, lse_p = attention.flash_attention_reference(qp, kp, vp, None, scale, True, kb_t)
-    grads = attention.flash_attention_bwd_reference(q, k, v, None, scale, o, lse, do, kb_t)
-    grads_p = attention.flash_attention_bwd_reference(qp, kp, vp, None, scale, o_p, lse_p, dop,
-                                                      kb_t)
+    rng = np.random.default_rng(310 + h)
+    q, k, v, do = (T(rng.normal(size=(B, s, h, dh)).astype(np.float32)).to(dtype)
+                   for _ in range(4))
+    kb = torch.zeros(B, s)
+    kb[1, s // 3 : s // 3 + 5] = -1e9
+    o, lse = attention.flash_attention_reference(q, k, v, None, scale, True, kb)
+    grads = attention.flash_attention_bwd_reference(q, k, v, None, scale, o, lse, do, kb)
+    rows = [t.reshape(B, s, h * dh) for t in (q, k, v, o, do)]
     tol = 1e-6 if dtype == torch.float32 else 2 ** -7
-    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), (o, lse, *grads),
-                          (o_p, lse_p, *grads_p)):
-        b = b if name == "lse" else b[..., :dh]
-        err = float((a.float() - b.float()).abs().max())
-        assert err <= (1e-6 if name == "lse" else tol) * max(1.0, float(a.float().abs().max())), \
-            f"{name}: {err}"
-    for name, t in zip(("o", "dq", "dk", "dv"), (o_p, *grads_p)):
-        assert not t[..., dh:].any(), f"{name}: nonzero padded columns"
-    leaves = [x.detach().clone().requires_grad_(True) for x in (qp, kp, vp)]
-    out = attention.flash_attention(*leaves, None, scale, key_bias=kb_t)
-    for leaf, g in zip(leaves, torch.autograd.grad((out.float() * dop.float()).sum(), leaves)):
-        assert not g[..., dh:].any()
+    for head in range(h):
+        boxes = [_folded_box(x, head, dtype) for x in rows]
+        shift = boxes[0][1]
+        qb, kb_, vb, ob, dob = (box for box, _ in boxes)
+        if dtype == torch.float32:
+            qb, kb_, vb, dob = (_only_head(t, shift) for t in (qb, kb_, vb, dob))
+        else:
+            qb, dob = _only_head(qb, shift), _only_head(dob, shift)
+        o_b, lse_b = attention.flash_attention_reference(qb, kb_, vb, None, scale, True, kb)
+        grads_b = attention.flash_attention_bwd_reference(qb, kb_, vb, None, scale, ob,
+                                                          lse_b, dob, kb)
+        err = float((lse_b[:, :, 0] - lse[:, :, head]).abs().max())
+        assert err <= 1e-6 * max(1.0, float(lse.abs().max())), f"head {head} lse: {err}"
+        for name, a, b in zip(("o", "dq", "dk", "dv"), (o, *grads), (o_b, *grads_b)):
+            want, got = a[:, :, head].float(), b[:, :, 0, shift:shift + dh].float()
+            err = float((got - want).abs().max())
+            assert err <= tol * max(1.0, float(want.abs().max())), f"head {head} {name}: {err}"
 
 
 # ---------------------------------------------------------------------------
@@ -292,18 +307,21 @@ def _close(got, want, rtol, atol):
     np.testing.assert_allclose(got, want, rtol=rtol, atol=atol * scale)
 
 
-def test_tiny_base_plus_model_under_flash_matches_jax(jax_flash):
-    """The tiny base+ VLMo: no table (``precompute_joint_biases`` is None),
-    its attack features and their pixel gradient and its VQA logits under
-    ``attention_impl("flash")``, where every joint attention (130 queries,
-    head dim 34) takes K3 with the padded-text key bias alone, against the
-    JAX module under its flash path on the same weights."""
+def _tiny_base_plus_under_flash(dtype):
+    """The tiny base+ VLMo of ``dtype`` (its trunk's compute dtype) in both
+    packages under ``attention_impl("flash")``: ``((port features, JAX
+    features), (port pixel gradient, JAX one), (port VQA logits, JAX ones))``
+    on the same weights, with the port's flash calls checked (the key bias
+    alone, no table, head dim 34, q/k/v in ``dtype``)."""
     jc, tc = _base_plus_configs()
     j_model, params, model = _base_plus_models(jc, tc, seed=0)
     ids0 = jnp.ones((1, jc.vlmo.max_text_len), jnp.int32)
     assert_same_tree(params, init_tree_shapes(j_model, ids0, ids0,
                                               jnp.zeros((1, IMAGE, IMAGE, 3)),
                                               method=JVLMo.init_all))
+    if dtype == BF16:
+        j_model = JVLMo(jc.vlmo, dtype=jnp.bfloat16)
+        model = load_jax_params(VLMo(tc.vlmo, dtype="bfloat16"), params).eval()
     assert model.precompute_joint_biases() is None
     assert model.blocks[0].attn.head_dim == 34 and model.pos_embed is not None
     rng = np.random.default_rng(5)
@@ -316,17 +334,18 @@ def test_tiny_base_plus_model_under_flash_matches_jax(jax_flash):
 
     def jloss(p, x):
         out = j_model.apply(p, x, ids, mask, None, method=JVLMo.attack_feats)
-        return jnp.sum(out[1] * w_cls) + jnp.sum(out[2] * w_tok) + jnp.sum(out[0]), out
+        return (jnp.sum(out[1].astype(jnp.float32) * w_cls)
+                + jnp.sum(out[2].astype(jnp.float32) * w_tok)
+                + jnp.sum(out[0].astype(jnp.float32))), out
 
     # one compiled program (eager, every primitive compiles on its own)
     (_, j_out), j_g, j_logits = jax.jit(lambda p, x: (
         *jax.value_and_grad(jloss, argnums=1, has_aux=True)(p, x),
         j_model.apply(p, x, ids, mask, method=JVLMo.vqa_logits)))(params, jnp.asarray(px))
-    assert jax_flash  # the JAX side took its flash path
     calls, real = [], attention.flash_attention
 
     def spy(*a, **kw):
-        calls.append(tuple(a[0].shape))
+        calls.append((tuple(a[0].shape), a[0].dtype))
         assert a[3] is None and a[5] is not None  # the key bias alone, no table
         return real(*a, **kw)
 
@@ -335,17 +354,49 @@ def test_tiny_base_plus_model_under_flash_matches_jax(jax_flash):
         with attention.attention_impl("flash"):
             x = T(nchw(px)).requires_grad_(True)
             out = model.attack_feats(x, T(ids).long(), T(mask).long(), None)
-            loss = (out[1] * T(w_cls)).sum() + (out[2] * T(w_tok)).sum() + out[0].sum()
+            loss = ((out[1].float() * T(w_cls)).sum() + (out[2].float() * T(w_tok)).sum()
+                    + out[0].float().sum())
             (g,) = torch.autograd.grad(loss, x)
             with torch.no_grad():
                 logits = model.vqa_logits(T(nchw(px)), T(ids).long(), T(mask).long())
     finally:
         attention.flash_attention = real
-    assert calls == [(2, 130, 2, 34)] * 2
+    assert calls == [((2, 130, 2, 34), dtype)] * 2
+    return (out, j_out), (g, j_g), (logits, j_logits)
+
+
+def test_tiny_base_plus_model_under_flash_matches_jax(jax_flash):
+    """The tiny base+ VLMo: no table (``precompute_joint_biases`` is None),
+    its attack features and their pixel gradient and its VQA logits under
+    ``attention_impl("flash")``, where every joint attention (130 queries,
+    head dim 34) takes K3 with the padded-text key bias alone, against the
+    JAX module under its flash path on the same weights."""
+    (out, j_out), (g, j_g), (logits, j_logits) = _tiny_base_plus_under_flash(torch.float32)
+    assert jax_flash  # the JAX side took its flash path
     for a, b in zip(out, j_out):
         _close(a.detach().numpy(), b, 1e-4, 1e-5)
     _close(g.numpy(), nchw(j_g), 1e-3, 1e-6)
     _close(logits.numpy(), j_logits, 1e-4, 1e-5)
+
+
+def test_tiny_base_plus_bf16_model_under_flash_matches_jax(jax_flash):
+    """The bf16 case of :func:`test_tiny_base_plus_model_under_flash_matches_jax`:
+    the tiny base+ VLMo with its trunk in bf16 in both packages
+    (``VLMo(dtype="bfloat16")``, ``JVLMo(dtype=jnp.bfloat16)``), every joint
+    attention the bf16 K3 at head dim 34, held as ``tests/test_torch_dtype.py``
+    holds the bf16 VLMo: features and logits within four bf16 ulps (2^-5) of
+    the largest magnitude, and the pixel gradient's signs, what a PGD step
+    takes, agreeing on more than 85% of the pixels."""
+    (out, j_out), (g, j_g), (logits, j_logits) = _tiny_base_plus_under_flash(BF16)
+    assert jax_flash  # the JAX side took its flash path
+    for name, a, b in zip(("cls_feats", "layer_cls", "token_feats", "vqa_logits"),
+                          (*out[:3], logits), (*j_out[:3], j_logits)):
+        assert (a.dtype, b.dtype) == (BF16, jnp.bfloat16), name
+        want = np.asarray(b.astype(jnp.float32))
+        err = float(np.abs(a.detach().float().numpy() - want).max())
+        assert err <= 2 ** -5 * max(1.0, float(np.abs(want).max())), f"{name}: {err}"
+    assert g.dtype == torch.float32
+    assert float((np.sign(g.numpy()) == np.sign(nchw(np.asarray(j_g)))).mean()) > 0.85
 
 
 WORDS = ["what", "color", "is", "the", "dog", "cat", "red", "blue", "hat", "a",

@@ -3,8 +3,12 @@
 The float32 kernels are the Hopper ones (``csrc/flash_attention_tf32.cu``)
 at both head dims, head dim 34 read through the folded map's 40-column
 boxes; the bias gradient keeps ``csrc/flash_attention.cu``'s mma.sync dQ
-kernel beside the Hopper dK/dV kernel.  Runs on the CPU: no kernel is
-launched and nothing of JAX is compiled.
+kernel beside the Hopper dK/dV kernel.  The bf16 kernels
+(``csrc/flash_attention_bf16.cu``) take both head dims too, head dim 34
+through the folded map's 64-column boxes, with no pad copy: a tensor the
+map does not take is copied into packed rows and counted on the entry
+point (``hd34_copy_launches``), in either dtype.  Runs on the CPU: no
+kernel is launched and nothing of JAX is compiled.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ ROUTES = {
     (torch.float32, 34, False): "tf32_wgmma",
     (torch.float32, 34, True): "tf32_wgmma_dbias",
     (torch.bfloat16, 64, False): "bf16_wgmma",
-    (torch.bfloat16, 34, False): "bf16_wgmma",
+    (torch.bfloat16, 34, False): "bf16_wgmma",  # the folded map, no pad copy
 }
 
 
@@ -64,3 +68,22 @@ def test_launch_counts_follow_the_route(dtype, head_dim, key_bias, dbias, counts
     against all float32 launches of each batched run."""
     kb = torch.zeros(1, 8) if key_bias else None
     assert attention._counts(dtype, kb, head_dim, dbias) == counts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_head_dim_34_copies_are_counted_on_the_entry_point(dtype, direction):
+    """A q/k/v tensor at head dim 34 that the folded map does not take (its
+    base off 16 bytes) is copied once and counted in the entry point's
+    ``hd34_copy_launches``, in either dtype; a projection view is read in
+    place and adds nothing."""
+    fn = getattr(attention, f"flash_attention_{direction}")
+    before = fn.hd34_copy_launches
+    view = torch.zeros(2, 5, 16 * 34, dtype=dtype).view(2, 5, 16, 34)
+    assert attention.folded_or_copied(view, fn) is view
+    assert fn.hd34_copy_launches == before
+    off = torch.zeros(2, 5, 16 * 34 + 1, dtype=dtype)[..., 1:].view(2, 5, 16, 34)
+    copy = attention.folded_or_copied(off, fn)
+    assert copy is not off and torch.equal(copy, off) and attention.fits_folded_box(copy)
+    assert fn.hd34_copy_launches == before + 1
+    fn.hd34_copy_launches = before

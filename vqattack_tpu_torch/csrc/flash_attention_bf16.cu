@@ -1,8 +1,7 @@
-// Flash attention, forward and backward, bfloat16 q/k/v, head dim 64 (or
-// 34, padded to 40 columns by the wrapper), on
-// Hopper's warpgroup tensor-core instructions (wgmma) with tiles brought in
-// by the Tensor Memory Accelerator (TMA): one bf16 pass a product, float32
-// accumulation.
+// Flash attention, forward and backward, bfloat16 q/k/v, head dim 64 or 34,
+// on Hopper's warpgroup tensor-core instructions (wgmma) with tiles brought
+// in by the Tensor Memory Accelerator (TMA): one bf16 pass a product,
+// float32 accumulation.
 //
 // Replaces the TPU kernel behind vqattack_tpu/ops/attention.py::flash_attention
 // when the surrogate trunk computes in bfloat16 (--dtype bfloat16): the JAX
@@ -25,30 +24,52 @@
 // power of two, so scaling dS before or after its rounding gives the same
 // bits.  The two terms are summed before they join the scores, as the JAX
 // caller sums them into its one bias.)  O, dQ, dK, dV come back bf16, m
-// and log l float32.  The layout contract is that of flash_attention.cu: q/k/v through
-// their [B, S, H, D] element strides (multiples of 8, rows on 16 bytes: the
-// wrapper checks), O/dQ/dK/dV contiguous [B, S, H, D], m and log l
-// [2, B, H, Sq], D [B, H, Sq],
-// the bias through broadcast strides and the key bias ([1|B, Sk]) as a
-// vector, both float32 and both optional; ragged lengths masked inside;
-// scale > 0.
+// and log l float32.  The layout contract: q/k/v through their [B, S, H, D]
+// element strides (multiples of 8, rows on 16 bytes: the wrapper checks; at
+// head dim 34 packed heads, below), dQ/dK/dV contiguous [B, S, H, D], O and
+// dO [B, Sq, H, D] in rows of H * D rounded up to 8 elements (16 bytes),
+// m and log l [2, B, H, Sq], D [B, H, Sq], the bias through broadcast
+// strides and the key bias ([1|B, Sk]) as a vector, both float32 and both
+// optional; ragged lengths masked inside; scale > 0.
 //
 // Bound on the H100: operations.  At ALBEF's batched chunk [8, 901, 12, 64]
 // the forward needs 4 B*H*S^2*Dh = 20.0 GFLOP, 20 us at the dense bf16 rate
 // (989 TFLOP/s), against 44 MB of bf16 q, k, v and o (13 us at 3.35 TB/s);
 // the backward, recomputing P, 10x (49.9 GFLOP, 50 us).
 //
-// Head dim 34 (VLMo-base+: 544 over 16 heads): a head of a [B, S, 544]
-// projection starts 68 bytes after the last, and a TMA map's strides must be
-// multiples of 16 bytes, so the wrapper copies q, k and v into zero-padded
-// [B, S, H, 40] tensors (80-byte rows) and hands the kernels D = 40 (their
-// template instances of width 40).  The
-// maps then span 40 columns with 64-column boxes: TMA fills the columns past
-// 40 with zeros, so the tiles, the swizzle and every product are those of
-// head dim 64, and the zero columns add nothing.  O, dQ, dK and dV are
-// written D columns wide (the wrapper slices them back to 34), and the
-// backward reads O and dO D columns wide too.
-//
+// Head dim 34 (VLMo-base+: 544 over 16 heads; the instances' kDh = 34).  A
+// head of a [B, S, 544] projection starts 68 bytes after the last, off the
+// 16-byte strides a TMA map takes, so the heads are folded into the
+// columns: one 3-D map (H * 34, S, B) over the tensor's own row and batch
+// strides, read in place (the wrapper copies a tensor whose heads are not
+// packed, or whose rows or base are off 16 bytes:
+// ops/attention.py::fits_folded_box).  A head's rows come as the same
+// 64-column, 128-byte-swizzled box as at head dim 64, so the tiles, the
+// swizzle, the ldmatrix reads and the descriptors are unchanged; but a box
+// must start on 16 bytes (TMA traps otherwise), and 68 h bytes is 4 h mod 16
+// off it, so head h's box starts at column 34 h - shift(h), shift(h) = 2 h
+// mod 8, and the head is box columns shift .. shift + 33 (at most 39): the
+// columns around it are the neighbours', or past column H * 34 (the last
+// head's box) TMA's zeros.  Then:
+// - every product over the head dim (S = Q K^T; dP = dO V^T; S^T = K Q^T,
+//   dP^T = V dO^T) has as its register A operand one that a warpgroup
+//   holds for the whole walk (Q; Q and dO; K and V): those fragments are
+//   zeroed outside [shift, shift + 34) once a tile, after their ldmatrix,
+//   so the neighbours' columns in the B tiles add nothing (their values
+//   must be finite: 0 x inf is NaN) and K, V, Q and dO in shared memory
+//   need no zeroing.  Such a product takes 3 k16 steps (columns 0-47), not
+//   4.  D = rowsum(dO o O) comes from the zeroed dO fragments, so is exact;
+// - the products whose output is the head dim (P V, dS K, P^T dO, dS^T Q)
+//   run at wgmma N = 40 over box columns 0-39 (the MN-major 128-byte
+//   swizzle takes it: a row of B is read in 16-byte chunks), their
+//   accumulators 20 floats a thread, not 32; the neighbours' columns land
+//   in accumulator columns that are never stored;
+// - a store writes accumulator column j to column 34 h + j - shift, only
+//   for j in [shift, shift + 34): shift is even, so the bf16x2 stores stay
+//   on 4 bytes.
+// So the products execute 48 (over the head dim) or 40 columns where the
+// bound counts 34, and no pad copy precedes them.
+
 // Design (what held the mma.sync version back, and the answer to each):
 // - tensor-core instructions: every product is wgmma.mma_async m64nNk16
 //   bf16 -> f32, issued by a warpgroup (4 warps, 64 rows), its A operand in
@@ -127,16 +148,40 @@ constexpr int kFwdStages = 3;                  // the forward's ring (32 KB a st
 constexpr int kBwdStages = 4;                  // the backward's rings (16 KB a stage)
 constexpr float kLog2e = 1.4426950408889634f;
 
+// What an instance of head dim kDh (64, or 34 through the folded map)
+// executes: kSteps 16-deep steps in a product over the head dim, and kN
+// columns (kAcc floats a thread) in a product whose output is the head dim.
+template <int kDh>
+struct Head {
+  static_assert(kDh == 64 || kDh == 34, "the kernels take head dims 64 and 34");
+  static constexpr int kSteps = kDh == 64 ? 4 : 3;
+  static constexpr int kN = kDh == 64 ? 64 : 40;
+  static constexpr int kAcc = kN / 2;
+};
+
+// The box column at which head h starts: at head dim 34 its box starts
+// 2 h mod 8 columns early, on 16 bytes; 0 at head dim 64.
+template <int kDh>
+__device__ __forceinline__ int head_shift(int h) {
+  return kDh == 34 ? (2 * h) & 7 : 0;
+}
+
+// The elements from one row of O (and dO) to the next: H heads of D,
+// rounded up to 8 (16 bytes, a TMA stride).
+__host__ __device__ __forceinline__ long long o_row(int H, int D) {
+  return ((long long)H * D + 7) / 8 * 8;
+}
+
 struct Params {
   const bf16* q;
   const bf16* k;
   const bf16* v;
   const float* bias;      // nullptr: no bias
   const float* key_bias;  // nullptr: no key bias; [1|B, Sk]
-  const bf16* o;          // backward: forward output, contiguous [B, Sq, H, D]
+  const bf16* o;          // backward: forward output, [B, Sq, H, D] in rows of o_row
   const float* lse;       // backward: the forward's out_lse
-  const bf16* dout;       // backward: contiguous [B, Sq, H, D]
-  bf16* out;              // forward: O; backward: dQ   (contiguous [B, Sq, H, D])
+  const bf16* dout;       // backward: as o
+  bf16* out;              // forward: O (as o); backward: dQ (contiguous [B, Sq, H, D])
   float* out_lse;         // forward: m, then log l ([2, B, H, Sq])
   bf16* dk;               // contiguous [B, Sk, H, D]
   bf16* dv;               // contiguous [B, Sk, H, D]
@@ -151,7 +196,8 @@ struct Params {
 };
 
 // TMA maps of the [B, S, H, D] tensors the tiles come from, passed to the
-// kernels by value (__grid_constant__), where TMA reads them.
+// kernels by value (__grid_constant__), where TMA reads them: (64, S, H, B)
+// at head dim 64, (H * 34, S, B) at 34.
 struct Maps {
   CUtensorMap q, k, v, o, dout;
 };
@@ -210,16 +256,28 @@ __device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-// Rows [row, row + 64) of (batch b, head h) from a (64, S, H, B) map into a
-// 128-byte-swizzled 8 KB tile at ``dst``; rows past S arrive as zeros.  The
-// bytes count toward ``bar``'s phase.
+// Rows [row, row + 64) of (batch b, head h) into a 128-byte-swizzled 8 KB
+// tile at ``dst``: from a (64, S, H, B) map at head dim 64, from an (H *
+// 34, S, B) map at 34 the box of 64 columns from column 34 h - shift(h);
+// rows past S, and columns past H * 34, arrive as zeros.  The bytes count
+// toward ``bar``'s phase.
+template <int kDh>
 __device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                          int row, int h, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row), "r"(h), "r"(b)
-      : "memory");
+  if constexpr (kDh == 64) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row), "r"(h), "r"(b)
+        : "memory");
+  } else {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(kDh * h - head_shift<kDh>(h)),
+        "r"(row), "r"(b)
+        : "memory");
+  }
 }
 
 __device__ __forceinline__ void st_shared(uint32_t addr, float x) {
@@ -371,6 +429,20 @@ struct Rs<64, kTrans> {
 };
 
 template <int kTrans>
+struct Rs<40, kTrans> {
+  static __device__ __forceinline__ void run(float (&d)[20], const uint32_t (&a)[4], uint64_t x,
+                                             int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19}, {%20, %21, %22, %23}, %24, p, 1, 1, %26;\n}\n"
+        : VQ_F8(0), VQ_F8(8), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(x), "r"(acc), "n"(kTrans));
+  }
+};
+
+template <int kTrans>
 struct Rs<16, kTrans> {
   static __device__ __forceinline__ void run(float (&d)[8], const uint32_t (&a)[4], uint64_t x,
                                              int acc) {
@@ -386,40 +458,63 @@ struct Rs<16, kTrans> {
 #undef VQ_F8
 
 // Issue d += C X as one group: C a 64 x N operand in registers (N deep, its
-// first N / 16 steps), X the tile at ``x`` (its first N rows, MN-major).
-template <int N, int R>
-__device__ __forceinline__ void issue_rs(float (&d)[32], const uint32_t (&c)[R][4], uint32_t x) {
+// first N / 16 steps), X the tile at ``x`` (its first N rows, MN-major), d
+// the first kN columns (64, or 40 at head dim 34).
+template <int N, int kN, int R>
+__device__ __forceinline__ void issue_rs(float (&d)[kN / 2], const uint32_t (&c)[R][4],
+                                         uint32_t x) {
   static_assert(N / 16 <= R, "operand too short");
   wg_fence();
 #pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) Rs<64, 1>::run(d, c[kk], desc(x + 2048 * kk), 1);
+  for (int kk = 0; kk < N / 16; ++kk) Rs<kN, 1>::run(d, c[kk], desc(x + 2048 * kk), 1);
   wg_commit();
 }
 
-// Issue d = A B^T over the 64 columns as one group: A 64 rows held as
-// register operands (``a``, four 16-deep steps), B the tile at ``b`` (its
-// first N rows, K-major).
-template <int N>
-__device__ __forceinline__ void issue_rs_k(float (&d)[N / 2], const uint32_t (&a)[4][4],
+// Issue d = A B^T over the head dim as one group: A 64 rows held as
+// register operands (``a``, kSteps 16-deep steps: 4 over the 64 columns, 3
+// over columns 0-47 at head dim 34), B the tile at ``b`` (its first N
+// rows, K-major).
+template <int N, int kSteps>
+__device__ __forceinline__ void issue_rs_k(float (&d)[N / 2], const uint32_t (&a)[kSteps][4],
                                            uint32_t b) {
   wg_fence();
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) Rs<N, 0>::run(d, a[kk], desc(b + 32 * kk), kk);
+  for (int kk = 0; kk < kSteps; ++kk) Rs<N, 0>::run(d, a[kk], desc(b + 32 * kk), kk);
   wg_commit();
 }
 
 // The register A operand of this warp's 16 rows of a 64-row tile at ``tile``
-// over its 64 columns (four 16-deep steps), by ldmatrix from the 128-byte
+// over its first kSteps 16-deep steps, by ldmatrix from the 128-byte
 // swizzle: lanes 0-15 give rows 0-15 at the step's first 8 columns, lanes
 // 16-31 at its second 8; 16-byte chunk k of row r sits at chunk k ^ (r % 8).
-__device__ __forceinline__ void load_a(uint32_t (&a)[4][4], uint32_t tile) {
+template <int kSteps>
+__device__ __forceinline__ void load_a(uint32_t (&a)[kSteps][4], uint32_t tile) {
   const int lane = threadIdx.x & 31, row = 16 * ((threadIdx.x >> 5) & 3) + (lane & 15);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < kSteps; ++kk) {
     const uint32_t addr = tile + row * 128 + (((2 * kk + (lane >> 4)) ^ (row & 7)) << 4);
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                  : "=r"(a[kk][0]), "=r"(a[kk][1]), "=r"(a[kk][2]), "=r"(a[kk][3])
                  : "r"(addr));
+  }
+}
+
+// load_a, and at head dim 34 the columns outside the head's [shift, shift +
+// 34) set to 0: register r of step kk holds the pair of columns 16 kk + 8 (r
+// / 2) + 2 (lane % 4) and + 1, both in the head or both out (shift is even).
+template <int kDh>
+__device__ __forceinline__ void load_head(uint32_t (&a)[Head<kDh>::kSteps][4], uint32_t tile,
+                                          int shift) {
+  load_a(a, tile);
+  if constexpr (kDh == 34) {
+    const int c2 = 2 * (threadIdx.x & 3);
+#pragma unroll
+    for (int kk = 0; kk < Head<kDh>::kSteps; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int col = 16 * kk + 8 * (r >> 1) + c2;
+        if (col < shift || col >= shift + kDh) a[kk][r] = 0u;
+      }
   }
 }
 
@@ -511,25 +606,28 @@ __device__ __forceinline__ void prep(float (&s)[N / 2], const float (&t)[N / 2],
   }
 }
 
-// Store rows r and r + 8 of a 64 x 64 accumulator tile (this thread's part)
-// times ``mul0`` / ``mul1``, as bf16, to a contiguous [B, S, H, kW] tensor
-// (``base`` at row 0 of this batch and head; kW 64 or 40); rows at or past
-// ``nrows``, and columns past kW, are not written.
-template <int kW>
+// Store rows r and r + 8 of a 64 x kN accumulator tile (this thread's part)
+// times ``mul0`` / ``mul1``, as bf16, to a [B, S, H, kDh] tensor (``base``
+// at row 0 of this batch and head, ``row_stride`` elements a row):
+// accumulator column j to column j - shift, for j in [shift, shift + kDh)
+// (every column at head dim 64); rows at or past ``nrows`` are not written.
+template <int kDh>
 __device__ __forceinline__ void store_rows(bf16* base, long long row_stride, int r, int nrows,
-                                           const float (&acc)[32], float mul0, float mul1,
-                                           int c) {
+                                           const float (&acc)[Head<kDh>::kAcc], float mul0,
+                                           float mul1, int c, int shift) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int rr = r + 8 * i;
     if (rr >= nrows) continue;
     const float mul = i == 0 ? mul0 : mul1;
-    bf16* dst = base + rr * row_stride + 2 * c;
+    bf16* dst = base + rr * row_stride - shift;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      if (8 * j < kW)
-        *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+    for (int j = 0; j < Head<kDh>::kN / 8; ++j) {
+      const int col = 8 * j + 2 * c;
+      if (kDh == 64 || (col >= shift && col < shift + kDh))
+        *reinterpret_cast<uint32_t*>(dst + col) =
             pack_bf16(acc[4 * j + 2 * i] * mul, acc[4 * j + 2 * i + 1] * mul);
+    }
   }
 }
 
@@ -587,8 +685,9 @@ struct Work {
 
 constexpr int kFwdTiles = 2 + 4 * kFwdStages;  // Q (128 rows); K and V (128 rows) a stage
 
+template <int kAcc>
 struct FwdRows {  // one warpgroup's running softmax state and output
-  float o[32];
+  float o[kAcc];
   float m[2], l[2];  // l: this thread's part of the row sums
 };
 
@@ -632,9 +731,10 @@ __device__ __forceinline__ void online_softmax(float (&s)[N / 2], float (&m)[2],
 // Step j of a warpgroup: S_j of key tile j's N keys at k0, issued with the
 // previous tile's P V (``issue_prev``, none in step 0), through the softmax.
 // Returns with P_j packed into ``pa`` and the state rescaled.
-template <int N, bool kBias, bool kKeyBias, bool kMask, typename IssuePrev>
-__device__ __forceinline__ void fwd_step(const Params& p, FwdRows& st, float (&s)[N / 2],
-                                         uint32_t (&pa)[8][4], const uint32_t (&qa)[4][4],
+template <int N, bool kBias, bool kKeyBias, bool kMask, int kAcc, int kSteps,
+          typename IssuePrev>
+__device__ __forceinline__ void fwd_step(const Params& p, FwdRows<kAcc>& st, float (&s)[N / 2],
+                                         uint32_t (&pa)[8][4], const uint32_t (&qa)[kSteps][4],
                                          uint32_t k_tile, const Ring<kFwdStages>& ring, const Turns& turns,
                                          int j, const float* bias_bh, const float* kbb, int row,
                                          int k0, int c, IssuePrev issue_prev, bool has_prev) {
@@ -660,26 +760,28 @@ __device__ __forceinline__ void fwd_step(const Params& p, FwdRows& st, float (&s
   keep(pa);
   if (has_prev) bar_arrive(ring.empty(j - 1));
 #pragma unroll
-  for (int i = 0; i < 32; ++i) st.o[i] *= alpha[(i >> 1) & 1];
+  for (int i = 0; i < kAcc; ++i) st.o[i] *= alpha[(i >> 1) & 1];
 #pragma unroll
   for (int r = 0; r < 2; ++r) st.l[r] = st.l[r] * alpha[r] + rs[r];
   pack_a<N>(pa, s);
 }
 
 // O += P V for a key tile of width w (128, 64 or 16) as one group.
-__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&pa)[8][4], uint32_t v,
-                                         int w) {
+template <int kAcc>
+__device__ __forceinline__ void issue_pv(float (&o)[kAcc], const uint32_t (&pa)[8][4],
+                                         uint32_t v, int w) {
   if (w == 128)
-    issue_rs<128>(o, pa, v);
+    issue_rs<128, 2 * kAcc>(o, pa, v);
   else if (w == 64)
-    issue_rs<64>(o, pa, v);
+    issue_rs<64, 2 * kAcc>(o, pa, v);
   else
-    issue_rs<16>(o, pa, v);
+    issue_rs<16, 2 * kAcc>(o, pa, v);
 }
 
-template <int kW, bool kBias, bool kKeyBias>
+template <int kDh, bool kBias, bool kKeyBias>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const Params p, const __grid_constant__ Maps maps) {
+  using Hd = Head<kDh>;
   const uint32_t base = smem_base();
   const uint32_t q_s = base, k_s = q_s + 2 * kBoxBytes, v_s = k_s + 2 * kFwdStages * kBoxBytes;
   // Q's barriers: full when it has arrived, empty when every computing
@@ -708,17 +810,17 @@ __global__ void __launch_bounds__(kThreads, 1)
         const Work w(t, n_qt, p.B);
         if (it > 0) bar_wait(q_empty, (it - 1) & 1);
         bar_expect(q_full, 2 * kBoxBytes);
-        tma_rows(q_s, &maps.q, q_full, w.row0, w.h, w.b);
-        tma_rows(q_s + kBoxBytes, &maps.q, q_full, w.row0 + kBox, w.h, w.b);
+        tma_rows<kDh>(q_s, &maps.q, q_full, w.row0, w.h, w.b);
+        tma_rows<kDh>(q_s + kBoxBytes, &maps.q, q_full, w.row0 + kBox, w.h, w.b);
         for (int s = 0; s < n_steps; ++s, ++j) {
           const uint32_t st = stage(j), full = ring.full(j);
           const int k0 = 128 * kt(s);
           ring.wait_empty(j);
           bar_expect(full, 4 * kBoxBytes);
-          tma_rows(k_s + st, &maps.k, full, k0, w.h, w.b);
-          tma_rows(k_s + st + kBoxBytes, &maps.k, full, k0 + kBox, w.h, w.b);
-          tma_rows(v_s + st, &maps.v, full, k0, w.h, w.b);
-          tma_rows(v_s + st + kBoxBytes, &maps.v, full, k0 + kBox, w.h, w.b);
+          tma_rows<kDh>(k_s + st, &maps.k, full, k0, w.h, w.b);
+          tma_rows<kDh>(k_s + st + kBoxBytes, &maps.k, full, k0 + kBox, w.h, w.b);
+          tma_rows<kDh>(v_s + st, &maps.v, full, k0, w.h, w.b);
+          tma_rows<kDh>(v_s + st + kBoxBytes, &maps.v, full, k0 + kBox, w.h, w.b);
         }
       }
     }
@@ -736,15 +838,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int row = w.row0 + kBox * wg + 16 * ((threadIdx.x >> 5) & 3) + g;
       const float* bias_bh = kBias ? p.bias + w.b * p.bsb + w.h * p.bsh : nullptr;
       const float* kbb = kKeyBias ? p.key_bias + w.b * p.kbsb : nullptr;
-      FwdRows st;
+      const int shift = head_shift<kDh>(w.h);
+      FwdRows<Hd::kAcc> st;
 #pragma unroll
-      for (int i = 0; i < 32; ++i) st.o[i] = 0.f;
+      for (int i = 0; i < Hd::kAcc; ++i) st.o[i] = 0.f;
       st.m[0] = st.m[1] = -INFINITY;
       st.l[0] = st.l[1] = 0.f;
       float s[64];
-      uint32_t pa[8][4], qa[4][4];
+      uint32_t pa[8][4], qa[Hd::kSteps][4];
       bar_wait(q_full, it & 1);
-      load_a(qa, q_s + wg * kBoxBytes);
+      load_head<kDh>(qa, q_s + wg * kBoxBytes, shift);
       bar_arrive(q_empty);
       if (w0 == 128)
         fwd_step<128, kBias, kKeyBias, true>(p, st, head<64>(s), pa, qa, k_s + stage(j), ring,
@@ -771,10 +874,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       keep(pa);
       bar_arrive(ring.empty(j + n_steps - 1));
 
-      const long long oss = (long long)p.H * kW, osb = (long long)p.Sq * oss;
+      // the same row at head dim 64, written as the product: computed from
+      // o_row there, ptxas serialized the head-dim-64 forwards' wgmmas (C7511)
+      const long long oss = kDh == 64 ? (long long)p.H * kDh : o_row(p.H, kDh);
+      const long long osb = (long long)p.Sq * oss;
       const float l0 = quad_sum(st.l[0]), l1 = quad_sum(st.l[1]);
-      store_rows<kW>(p.out + w.b * osb + (long long)w.h * kW, oss, row, p.Sq, st.o, 1.f / l0,
-                     1.f / l1, c);
+      store_rows<kDh>(p.out + w.b * osb + (long long)w.h * kDh, oss, row, p.Sq, st.o, 1.f / l0,
+                      1.f / l1, c, shift);
       if (c == 0) {
         // m and log l apart: m may be near -1e9 (a row whose every key is
         // masked by a finite term), where m + log l rounds back to m
@@ -816,10 +922,10 @@ struct Pending {
 // bf16(P^T) dO is issued while dS^T = P^T o (dP^T - D) is computed, and dK
 // += bf16(dS^T) Q is left in flight: the next step (or the caller) waits
 // for both and releases this step's stage.
-template <int N, bool kBias, bool kKeyBias, bool kMask>
-__device__ __forceinline__ void dkv_step(const Params& p, float (&dk)[32], float (&dv)[32],
-                                         Pending& pend, const uint32_t (&ka)[4][4],
-                                         const uint32_t (&va)[4][4], uint32_t q_s, uint32_t do_s,
+template <int N, bool kBias, bool kKeyBias, bool kMask, int kAcc, int kSteps>
+__device__ __forceinline__ void dkv_step(const Params& p, float (&dk)[kAcc], float (&dv)[kAcc],
+                                         Pending& pend, const uint32_t (&ka)[kSteps][4],
+                                         const uint32_t (&va)[kSteps][4], uint32_t q_s, uint32_t do_s,
                                          uint32_t ld_s, const BwdRing& ring, const Turns& turns,
                                          int i, int j, const float* bias_bh, const float* kbb,
                                          int key, int c) {
@@ -867,7 +973,7 @@ __device__ __forceinline__ void dkv_step(const Params& p, float (&dk)[32], float
     }
   }
   pack_a<N>(pend.a, st);
-  issue_rs<N>(dv, pend.a, do_tile);  // dV += bf16(P^T) dO
+  issue_rs<N, 2 * kAcc>(dv, pend.a, do_tile);  // dV += bf16(P^T) dO
   wg_wait<1>();                      // dP^T
   keep(dpt);
   // dS^T = P^T o (dP^T - D)
@@ -879,12 +985,13 @@ __device__ __forceinline__ void dkv_step(const Params& p, float (&dk)[32], float
       dpt[4 * jj + e] = st[4 * jj + e] * (dpt[4 * jj + e] - (e & 1 ? d.y : d.x));
   }
   pack_a<N>(pend.b, dpt);
-  issue_rs<N>(dk, pend.b, q_tile);  // dK += bf16(dS^T) Q
+  issue_rs<N, 2 * kAcc>(dk, pend.b, q_tile);  // dK += bf16(dS^T) Q
 }
 
-template <int kW, bool kBias, bool kKeyBias>
+template <int kDh, bool kBias, bool kKeyBias>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_kernel(const Params p, const __grid_constant__ Maps maps) {
+  using Hd = Head<kDh>;
   constexpr bool kTerms = kBias || kKeyBias;
   const uint32_t base = smem_base();
   const uint32_t k_s = base, v_s = k_s + 2 * kBoxBytes, q_s = v_s + 2 * kBoxBytes,
@@ -920,18 +1027,18 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (lane == 0) {
           if (it > 0) bar_wait(kv_empty, (it - 1) & 1);
           bar_expect(kv_full, 4 * kBoxBytes);
-          tma_rows(k_s, &maps.k, kv_full, w.row0, w.h, w.b);
-          tma_rows(k_s + kBoxBytes, &maps.k, kv_full, w.row0 + kBox, w.h, w.b);
-          tma_rows(v_s, &maps.v, kv_full, w.row0, w.h, w.b);
-          tma_rows(v_s + kBoxBytes, &maps.v, kv_full, w.row0 + kBox, w.h, w.b);
+          tma_rows<kDh>(k_s, &maps.k, kv_full, w.row0, w.h, w.b);
+          tma_rows<kDh>(k_s + kBoxBytes, &maps.k, kv_full, w.row0 + kBox, w.h, w.b);
+          tma_rows<kDh>(v_s, &maps.v, kv_full, w.row0, w.h, w.b);
+          tma_rows<kDh>(v_s + kBoxBytes, &maps.v, kv_full, w.row0 + kBox, w.h, w.b);
         }
         for (int i = 0; i < n_steps; ++i, ++j) {
           const uint32_t st = (j % kBwdStages) * kBoxBytes, full = ring.full(j);
           ring.wait_empty(j);
           if (lane == 0) {
             bar_expect(full, 2 * kBoxBytes);
-            tma_rows(q_s + st, &maps.q, full, kBox * i, w.h, w.b);
-            tma_rows(do_s + st, &maps.dout, full, kBox * i, w.h, w.b);
+            tma_rows<kDh>(q_s + st, &maps.q, full, kBox * i, w.h, w.b);
+            tma_rows<kDh>(do_s + st, &maps.dout, full, kBox * i, w.h, w.b);
           }
           for (int r = lane; r < kBox; r += 32) {
             const int qi = kBox * i + r;
@@ -958,14 +1065,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int key = w.row0 + kBox * wg + 16 * ((threadIdx.x >> 5) & 3) + g;
       const float* bias_bh = kBias ? p.bias + w.b * p.bsb + w.h * p.bsh : nullptr;
       const float* kbb = kKeyBias ? p.key_bias + w.b * p.kbsb : nullptr;
-      float dk[32], dv[32];
+      const int shift = head_shift<kDh>(w.h);
+      float dk[Hd::kAcc], dv[Hd::kAcc];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+      for (int i = 0; i < Hd::kAcc; ++i) dk[i] = dv[i] = 0.f;
       Pending pend;
-      uint32_t ka[4][4], va[4][4];
+      uint32_t ka[Hd::kSteps][4], va[Hd::kSteps][4];
       bar_wait(kv_full, it & 1);
-      load_a(ka, k_s + wg * kBoxBytes);
-      load_a(va, v_s + wg * kBoxBytes);
+      load_head<kDh>(ka, k_s + wg * kBoxBytes, shift);
+      load_head<kDh>(va, v_s + wg * kBoxBytes, shift);
       bar_arrive(kv_empty);
       for (int i = 0; i < n_steps - 1; ++i)
         dkv_step<kBox, kBias, kKeyBias, false>(p, dk, dv, pend, ka, va, q_s, do_s, ld_s,
@@ -983,10 +1091,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       keep(pend.a);
       keep(pend.b);
       bar_arrive(ring.empty(j + i));
-      const long long kss = (long long)p.H * kW, ksb = (long long)p.Sk * kss;
-      const long long off = w.b * ksb + (long long)w.h * kW;
-      store_rows<kW>(p.dk + off, kss, key, p.Sk, dk, p.scale, p.scale, c);
-      store_rows<kW>(p.dv + off, kss, key, p.Sk, dv, 1.f, 1.f, c);
+      const long long kss = (long long)p.H * kDh, ksb = (long long)p.Sk * kss;
+      const long long off = w.b * ksb + (long long)w.h * kDh;
+      store_rows<kDh>(p.dk + off, kss, key, p.Sk, dk, p.scale, p.scale, c, shift);
+      store_rows<kDh>(p.dv + off, kss, key, p.Sk, dv, 1.f, 1.f, c, shift);
     }
     turns.finish();
   }
@@ -996,9 +1104,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 // over key tile i (N keys), ring step j: S = Q K^T and dP = dO V^T, dS =
 // exp(S - L) o (dP - D), then dQ += bf16(dS) K, left in flight: the next
 // step (or the caller) waits for it and releases this step's stage.
-template <int N, bool kBias, bool kKeyBias, bool kMask>
-__device__ __forceinline__ void dq_step(const Params& p, float (&dq)[32], Pending& pend,
-                                        const uint32_t (&qa)[4][4], const uint32_t (&doa)[4][4],
+template <int N, bool kBias, bool kKeyBias, bool kMask, int kAcc, int kSteps>
+__device__ __forceinline__ void dq_step(const Params& p, float (&dq)[kAcc], Pending& pend,
+                                        const uint32_t (&qa)[kSteps][4],
+                                        const uint32_t (&doa)[kSteps][4],
                                         uint32_t k_s, uint32_t v_s, const BwdRing& ring,
                                         const Turns& turns, int i, int j, const float* bias_bh,
                                         const float* kbb, const float (&lse)[2],
@@ -1036,12 +1145,13 @@ __device__ __forceinline__ void dq_step(const Params& p, float (&dq)[32], Pendin
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) s[i] *= dp[i] - dlt[(i >> 1) & 1];
   pack_a<N>(pend.a, s);
-  issue_rs<N>(dq, pend.a, k_tile);  // dQ += bf16(dS) K
+  issue_rs<N, 2 * kAcc>(dq, pend.a, k_tile);  // dQ += bf16(dS) K
 }
 
-template <int kW, bool kBias, bool kKeyBias>
+template <int kDh, bool kBias, bool kKeyBias>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_kernel(const Params p, const __grid_constant__ Maps maps) {
+  using Hd = Head<kDh>;
   const uint32_t base = smem_base();
   const uint32_t q_s = base, do_s = q_s + 2 * kBoxBytes, o_s = do_s + 2 * kBoxBytes,
                  k_s = o_s + 2 * kBoxBytes, v_s = k_s + kBwdStages * kBoxBytes;
@@ -1069,18 +1179,18 @@ __global__ void __launch_bounds__(kThreads, 1)
         const Work w(t, n_qt, p.B);
         if (it > 0) bar_wait(q_empty, (it - 1) & 1);
         bar_expect(q_full, 6 * kBoxBytes);
-        tma_rows(q_s, &maps.q, q_full, w.row0, w.h, w.b);
-        tma_rows(q_s + kBoxBytes, &maps.q, q_full, w.row0 + kBox, w.h, w.b);
-        tma_rows(do_s, &maps.dout, q_full, w.row0, w.h, w.b);
-        tma_rows(do_s + kBoxBytes, &maps.dout, q_full, w.row0 + kBox, w.h, w.b);
-        tma_rows(o_s, &maps.o, q_full, w.row0, w.h, w.b);
-        tma_rows(o_s + kBoxBytes, &maps.o, q_full, w.row0 + kBox, w.h, w.b);
+        tma_rows<kDh>(q_s, &maps.q, q_full, w.row0, w.h, w.b);
+        tma_rows<kDh>(q_s + kBoxBytes, &maps.q, q_full, w.row0 + kBox, w.h, w.b);
+        tma_rows<kDh>(do_s, &maps.dout, q_full, w.row0, w.h, w.b);
+        tma_rows<kDh>(do_s + kBoxBytes, &maps.dout, q_full, w.row0 + kBox, w.h, w.b);
+        tma_rows<kDh>(o_s, &maps.o, q_full, w.row0, w.h, w.b);
+        tma_rows<kDh>(o_s + kBoxBytes, &maps.o, q_full, w.row0 + kBox, w.h, w.b);
         for (int i = 0; i < n_steps; ++i, ++j) {
           const uint32_t full = ring.full(j);
           ring.wait_empty(j);
           bar_expect(full, 2 * kBoxBytes);
-          tma_rows(k_s + stage(j), &maps.k, full, kBox * i, w.h, w.b);
-          tma_rows(v_s + stage(j), &maps.v, full, kBox * i, w.h, w.b);
+          tma_rows<kDh>(k_s + stage(j), &maps.k, full, kBox * i, w.h, w.b);
+          tma_rows<kDh>(v_s + stage(j), &maps.v, full, kBox * i, w.h, w.b);
         }
       }
     }
@@ -1108,22 +1218,24 @@ __global__ void __launch_bounds__(kThreads, 1)
         lgl[r] = ok ? p.lse[(long long)p.B * p.H * p.Sq + rows_bh + row + 8 * r] : 0.f;
         lse[r] = kBias || kKeyBias ? m : m + lgl[r];
       }
-      float dq[32];
+      const int shift = head_shift<kDh>(w.h);
+      float dq[Hd::kAcc];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+      for (int i = 0; i < Hd::kAcc; ++i) dq[i] = 0.f;
       Pending pend;
-      uint32_t qa[4][4], doa[4][4], oa[4][4];
+      uint32_t qa[Hd::kSteps][4], doa[Hd::kSteps][4], oa[Hd::kSteps][4];
       bar_wait(q_full, it & 1);
-      load_a(qa, q_s + wg * kBoxBytes);
-      load_a(doa, do_s + wg * kBoxBytes);
+      load_head<kDh>(qa, q_s + wg * kBoxBytes, shift);
+      load_head<kDh>(doa, do_s + wg * kBoxBytes, shift);
       load_a(oa, o_s + wg * kBoxBytes);
       bar_arrive(q_empty);
-      // D = rowsum(dO o O) in float32, from this thread's 16 columns of rows
+      // D = rowsum(dO o O) in float32, from this thread's columns of rows
       // row and row + 8 (the register operands' layout) summed over the
-      // quad; written for the dK/dV kernel, which runs next
+      // quad (at head dim 34 dO is 0 outside the head); written for the
+      // dK/dV kernel, which runs next
       float dlt[2] = {0.f, 0.f};
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
+      for (int kk = 0; kk < Hd::kSteps; ++kk)
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           const float2 d = bf16x2_to_float2(doa[kk][r]), o = bf16x2_to_float2(oa[kk][r]);
@@ -1148,9 +1260,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       keep(dq);
       keep(pend.a);
       bar_arrive(ring.empty(j + i));
-      const long long oss = (long long)p.H * kW, osb = (long long)p.Sq * oss;
-      store_rows<kW>(p.out + w.b * osb + (long long)w.h * kW, oss, row, p.Sq, dq, p.scale,
-                     p.scale, c);
+      const long long oss = (long long)p.H * kDh, osb = (long long)p.Sq * oss;
+      store_rows<kDh>(p.out + w.b * osb + (long long)w.h * kDh, oss, row, p.Sq, dq, p.scale,
+                      p.scale, c, shift);
     }
     turns.finish();
   }
@@ -1184,35 +1296,49 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A (D, S, H, B) map over a [B, S, H, D] bf16 tensor with element strides
-// (sb, ss, sh), 64 x 64 boxes in the 128-byte swizzle, zeros out of bounds
-// (the columns past D of a box, with D = 40, and the rows past S).  A
-// dimension of extent 1 is never stepped, so its stride is set to one any
-// encoding accepts.
+// A map over a [B, S, H, D] bf16 tensor with element strides (sb, ss,
+// sh), 64 x 64 boxes in the 128-byte swizzle, zeros out of bounds.  Head
+// dim 64: (64, S, H, B).  Head dim 34: the heads folded into the columns,
+// (H * 34, S, B) over the row and batch strides (sh is 34: packed heads,
+// which the wrapper checks), zeros past column H * 34.  A dimension of
+// extent 1 is never stepped, so its stride is set to one any encoding
+// accepts.
 cudaError_t encode_rows(CUtensorMap* map, const void* ptr, int D, int B, int S, int H,
                         long long sb, long long ss, long long sh) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {S > 1 ? (cuuint64_t)ss * 2 : 128u,
-                                 H > 1 ? (cuuint64_t)sh * 2 : 128u,
-                                 B > 1 ? (cuuint64_t)sb * 2 : 128u};
   const cuuint32_t box[4] = {(cuuint32_t)kD, (cuuint32_t)kBox, 1u, 1u};
   const cuuint32_t unit[4] = {1u, 1u, 1u, 1u};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  CUresult r;
+  if (D == 64) {
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {S > 1 ? (cuuint64_t)ss * 2 : 128u,
+                                   H > 1 ? (cuuint64_t)sh * 2 : 128u,
+                                   B > 1 ? (cuuint64_t)sb * 2 : 128u};
+    r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+           unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+           CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  } else {
+    // a row of H heads, on 16 bytes, where a stride is never stepped
+    const cuuint64_t row = (cuuint64_t)o_row(H, D) * 2;
+    const cuuint64_t row_stride = S > 1 ? (cuuint64_t)ss * 2 : row;
+    const cuuint64_t dims[3] = {(cuuint64_t)H * D, (cuuint64_t)S, (cuuint64_t)B};
+    const cuuint64_t strides[2] = {row_stride,
+                                   B > 1 ? (cuuint64_t)sb * 2 : row_stride * (cuuint64_t)S};
+    r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+           unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+           CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  }
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The maps of a call whose tensors have rows of D columns.
+// The maps of a call at head dim D; O and dO in rows of o_row(H, D).
 cudaError_t make_maps(const Params& p, int D, Maps* m, bool backward) {
   cudaError_t err = encode_rows(&m->q, p.q, D, p.B, p.Sq, p.H, p.qsb, p.qss, p.qsh);
   if (err == cudaSuccess) err = encode_rows(&m->k, p.k, D, p.B, p.Sk, p.H, p.ksb, p.kss, p.ksh);
   if (err == cudaSuccess) err = encode_rows(&m->v, p.v, D, p.B, p.Sk, p.H, p.vsb, p.vss, p.vsh);
   if (err == cudaSuccess && backward) {
-    const long long oss = (long long)p.H * D;
+    const long long oss = o_row(p.H, D);
     err = encode_rows(&m->dout, p.dout, D, p.B, p.Sq, p.H, p.Sq * oss, oss, D);
     if (err == cudaSuccess) err = encode_rows(&m->o, p.o, D, p.B, p.Sq, p.H, p.Sq * oss, oss, D);
   }
@@ -1251,41 +1377,40 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, c
   return cudaGetLastError();
 }
 
-// The instance of a kernel for the row width D (64, or 40: head dim 34
-// padded) and the terms present: ``L::run<kW, kBias, kKeyBias>``; an error
-// for another width.
-template <int kW, typename L>
+// The instance of a kernel at head dim kDh and the terms present:
+// ``L::run<kDh, kBias, kKeyBias>``.
+template <int kDh, typename L>
 cudaError_t dispatch_terms(const Params& p, const Maps& maps, dim3 grid, cudaStream_t stream) {
   if (p.bias != nullptr)
-    return p.key_bias != nullptr ? L::template run<kW, true, true>(p, maps, grid, stream)
-                                 : L::template run<kW, true, false>(p, maps, grid, stream);
-  return p.key_bias != nullptr ? L::template run<kW, false, true>(p, maps, grid, stream)
-                               : L::template run<kW, false, false>(p, maps, grid, stream);
+    return p.key_bias != nullptr ? L::template run<kDh, true, true>(p, maps, grid, stream)
+                                 : L::template run<kDh, true, false>(p, maps, grid, stream);
+  return p.key_bias != nullptr ? L::template run<kDh, false, true>(p, maps, grid, stream)
+                               : L::template run<kDh, false, false>(p, maps, grid, stream);
 }
 
 template <typename L>
 cudaError_t dispatch(const Params& p, const Maps& maps, int D, dim3 grid, cudaStream_t stream) {
   if (D == 64) return dispatch_terms<64, L>(p, maps, grid, stream);
-  if (D == 40) return dispatch_terms<40, L>(p, maps, grid, stream);
+  if (D == 34) return dispatch_terms<34, L>(p, maps, grid, stream);
   return cudaErrorInvalidValue;
 }
 
 struct Fwd {
-  template <int kW, bool kB, bool kKB>
+  template <int kDh, bool kB, bool kKB>
   static cudaError_t run(const Params& p, const Maps& m, dim3 grid, cudaStream_t s) {
-    return launch(flash_fwd_kernel<kW, kB, kKB>, grid, kFwdSmem, s, p, m);
+    return launch(flash_fwd_kernel<kDh, kB, kKB>, grid, kFwdSmem, s, p, m);
   }
 };
 struct Dkv {
-  template <int kW, bool kB, bool kKB>
+  template <int kDh, bool kB, bool kKB>
   static cudaError_t run(const Params& p, const Maps& m, dim3 grid, cudaStream_t s) {
-    return launch(flash_bwd_dkv_kernel<kW, kB, kKB>, grid, kDkvSmem, s, p, m);
+    return launch(flash_bwd_dkv_kernel<kDh, kB, kKB>, grid, kDkvSmem, s, p, m);
   }
 };
 struct Dq {
-  template <int kW, bool kB, bool kKB>
+  template <int kDh, bool kB, bool kKB>
   static cudaError_t run(const Params& p, const Maps& m, dim3 grid, cudaStream_t s) {
-    return launch(flash_bwd_dq_kernel<kW, kB, kKB>, grid, kDqSmem, s, p, m);
+    return launch(flash_bwd_dq_kernel<kDh, kB, kKB>, grid, kDqSmem, s, p, m);
   }
 };
 
@@ -1301,12 +1426,11 @@ dim3 grid_of(int n, const Params& p) {
 
 }  // namespace
 
-// O [B, Sq, H, D] bf16 and m, log l [2, B, H, Sq] float32, both
-// contiguous; D is 64,
-// or 40 for head dim 34 padded with zeros.  q,
-// k and v (bf16, [B, S, H, D]) start every row on 16 bytes, with b, s, h
-// strides that are multiples of 8 (the wrapper checks).  bias and key_bias
-// (float32) may be null.
+// O [B, Sq, H, D] bf16 in rows of o_row(H, D) elements, m and log l [2, B,
+// H, Sq] float32; D, the head dim, is 64 or 34.  q, k and v (bf16, [B, S,
+// H, D]) start every row on 16 bytes, with b, s (and at 64 h) strides that
+// are multiples of 8, at 34 packed heads (the wrapper checks).  bias and
+// key_bias (float32) may be null.
 extern "C" int vq_flash_attention_bf16_fwd(
     const void* q, const void* k, const void* v, const void* bias, const void* key_bias,
     void* out, void* lse, int B, int H, int Sq, int Sk, int D, long long qsb, long long qss,
@@ -1314,7 +1438,7 @@ extern "C" int vq_flash_attention_bf16_fwd(
     long long vss, long long vsh, long long bsb, long long bsh, long long bsq,
     long long bsk, long long kbsb, float scale, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return 0;
-  if (D != 64 && D != 40) return (int)cudaErrorInvalidValue;
+  if (D != 64 && D != 34) return (int)cudaErrorInvalidValue;
   Params p = make_params(q, k, v, bias, key_bias, B, H, Sq, Sk, qsb, qss, qsh, ksb, kss,
                          ksh, vsb, vss, vsh, bsb, bsh, bsq, bsk, kbsb, scale);
   p.out = (bf16*)out;
@@ -1326,9 +1450,9 @@ extern "C" int vq_flash_attention_bf16_fwd(
 }
 
 // dQ [B, Sq, H, D], dK and dV [B, Sk, H, D], all bf16 and contiguous; o and
-// dout contiguous bf16 [B, Sq, H, D] on 16 bytes (TMA reads both: a map
-// over a tensor off 16 bytes does not encode, and the call returns its
-// error); delta a float32 [B, H, Sq] scratch.
+// dout bf16 [B, Sq, H, D] in rows of o_row(H, D) elements, on 16 bytes (TMA
+// reads both: a map over a tensor off 16 bytes does not encode, and the
+// call returns its error); delta a float32 [B, H, Sq] scratch.
 extern "C" int vq_flash_attention_bf16_bwd(
     const void* q, const void* k, const void* v, const void* bias, const void* key_bias,
     const void* o, const void* lse, const void* dout, void* dq, void* dk,
@@ -1337,7 +1461,7 @@ extern "C" int vq_flash_attention_bf16_bwd(
     long long vsb, long long vss, long long vsh, long long bsb, long long bsh,
     long long bsq, long long bsk, long long kbsb, float scale, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return 0;
-  if (D != 64 && D != 40) return (int)cudaErrorInvalidValue;
+  if (D != 64 && D != 34) return (int)cudaErrorInvalidValue;
   Params p = make_params(q, k, v, bias, key_bias, B, H, Sq, Sk, qsb, qss, qsh, ksb, kss,
                          ksh, vsb, vss, vsh, bsb, bsh, bsq, bsk, kbsb, scale);
   p.o = (const bf16*)o;

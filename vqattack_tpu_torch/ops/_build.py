@@ -56,8 +56,8 @@ SIGNATURES = {
     # cudaOccupancyMaxActiveClusters (or minus a CUDA error)
     "vq_flash_attention_dbias_clusters": (_I, _I, _I),
     # the bfloat16 instances (flash_attention_bf16.cu): the same arguments
-    # but dbias, q/k/v, o, dout, dq, dk, dv bfloat16 (the width 40 at head
-    # dim 34, padded), the rest as above
+    # but dbias, q/k/v, o, dout, dq, dk, dv bfloat16, the rest as above
+    # (o and dout in rows of H * D rounded up to 8 elements)
     "vq_flash_attention_bf16_fwd": (_P,) * 7 + (_I,) * 5 + (_LL,) * 14 + (_F, _P),
     "vq_flash_attention_bf16_bwd": (_P,) * 12 + (_I,) * 5 + (_LL,) * 14 + (_F, _P),
 }

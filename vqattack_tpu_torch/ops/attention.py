@@ -27,13 +27,14 @@ on the tensor cores in three TF32 passes; :func:`mm_3xtf32` emulates that
 arithmetic on the CPU for the tests.
 
 The kernels take head dims 34 (VLMo-base+: 544 over 16 heads) and 64
-(ALBEF's ViT, VLMo-base and -large).  float32 q/k/v at head dim 34 are read
-in place, as views of the model's projections, like those at 64: the heads
-folded into the columns of one TMA map, a 40-column box a head
-(:func:`fits_folded_box` says which tensors it takes; the wrapper copies the
-others into packed rows and counts the copies, :func:`folded_or_copied`).  bf16
-ones are copied into zero-padded 40-wide rows first (:func:`kernel_width`),
-whose outputs come back sliced to 34: the zero columns change no product.
+(ALBEF's ViT, VLMo-base and -large).  q/k/v at head dim 34 are read in
+place, as views of the model's projections, like those at 64, in both
+dtypes: the heads folded into the columns of one TMA map, a box a head from
+a column on 16 bytes (40 float32 columns, 64 bf16 ones; :func:`fits_folded_box`
+says which tensors it takes; the wrapper copies the others into packed rows
+and counts the copies, :func:`folded_or_copied`).  O comes back packed, in
+rows of ``H * 34`` rounded up to 16 bytes (:func:`folded_row`), which the
+backward reads O and dO in; the gradients come back contiguous.
 
 The forward saves each query row's softmax statistics for the backward,
 the row maximum ``m`` and ``log l`` apart (``[2, B, H, Sq]`` float32), as
@@ -75,7 +76,6 @@ import torch
 from vqattack_tpu_torch.ops import _build
 
 HEAD_DIMS = (34, 64)  # the head widths the kernels take: VLMo-base+'s; ALBEF's and VLMo's
-_BF16_PADDED = {34: 40}  # head dim -> the bf16 kernel's row width (TMA strides: 16 bytes)
 
 _IMPL = "xla"
 _KINDS = ("xla", "flash")
@@ -297,63 +297,71 @@ def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def kernel_width(dtype: torch.dtype, head_dim: int) -> int:
-    """The row width of the tensors the wrapper hands the kernel of
-    ``dtype`` at ``head_dim``: the head dim, but 40 for bf16 at 34, whose
-    rows the wrapper copies into zero-padded 40-wide ones (a head of a [B, S,
-    544] bf16 projection starts 68 bytes after the last, and TMA takes
-    strides of 16 bytes).  float32 at 34 keeps 34: its kernels read a head's
-    rows as 40 columns of the folded map (:func:`fits_folded_box`) and write
-    34."""
-    return _BF16_PADDED.get(head_dim, head_dim) if dtype == torch.bfloat16 else head_dim
+FOLDED_HEAD_DIM = 34  # q/k/v read through the folded map (a box a head)
 
 
-FOLDED_HEAD_DIM = 34  # float32 q/k/v read through the folded map (a 40-column box a head)
+def folded_row(h: int, dtype: torch.dtype, head_dim: int = FOLDED_HEAD_DIM) -> int:
+    """Elements in a row of ``h`` packed heads of ``head_dim`` rounded up to
+    16 bytes (a TMA stride): the rows of O, of the dO the backward reads and
+    of a copy :func:`folded_or_copied` makes."""
+    chunk = 128 // torch.finfo(dtype).bits
+    return -(-h * head_dim // chunk) * chunk
 
 
 def fits_folded_box(t: torch.Tensor) -> bool:
-    """Whether the float32 Hopper kernels read ``t`` (``[B, S, H, 34]``) in
-    place: their TMA map folds the heads into the columns, ``(H * 34, S,
-    B)`` over ``t``'s row and batch strides, and reads a head's rows as a
-    40-column box from column ``34 h`` (``34 h - 2`` for an odd head: a box
-    starts on 16 bytes).  So the heads must be packed (head
-    stride 34, the head dim contiguous), the row and batch strides multiples
-    of 4 floats (a TMA stride is a multiple of 16 bytes) and the base on 16
-    bytes; a dimension of extent 1 is never stepped, so its stride is free.
-    The views of the model's ``[B, S, 544]`` projections, of a fused ``[B,
-    S, 1632]`` one and a contiguous ``[B, S, 16, 34]`` qualify."""
+    """Whether the Hopper kernels read ``t`` (``[B, S, H, 34]``, float32 or
+    bf16) in place: their TMA map folds the heads into the columns, ``(H *
+    34, S, B)`` over ``t``'s row and batch strides, and reads a head's rows
+    as one box from a column on 16 bytes at or before the head's first
+    (float32: 40 columns from ``34 h - 2 (h % 2)``; bf16: 64 columns from
+    ``34 h - (2 h mod 8)``).  So the heads must be packed (head stride 34,
+    the head dim contiguous), the row and batch strides multiples of 16
+    bytes (4 floats, 8 bf16) and the base on 16 bytes; a dimension of
+    extent 1 is never stepped, so its stride is free.  The views of the
+    model's ``[B, S, 544]`` projections, of a fused ``[B, S, 1632]`` one and
+    a contiguous ``[B, S, 16, 34]`` qualify; bf16 rows of ``H * 34`` with H
+    not a multiple of 4 do not."""
     b, s, h, d = t.shape
     sb, ss, sh, sd = t.stride()
-    return ((d == 1 or sd == 1) and (h == 1 or sh == d) and (s == 1 or ss % 4 == 0)
-            and (b == 1 or sb % 4 == 0) and t.data_ptr() % 16 == 0)
-
-
-def _folded(q, k, v, head_dim, counted):
-    """q, k, v as the float32 kernels read them at head dim 34
-    (:func:`folded_or_copied`, copies counted on ``counted``); as they are
-    otherwise."""
-    if q.dtype != torch.float32 or head_dim != FOLDED_HEAD_DIM:
-        return q, k, v
-    return tuple(folded_or_copied(t, counted) for t in (q, k, v))
+    chunk = 16 // t.element_size()
+    return ((d == 1 or sd == 1) and (h == 1 or sh == d) and (s == 1 or ss % chunk == 0)
+            and (b == 1 or sb % chunk == 0) and t.data_ptr() % 16 == 0)
 
 
 def folded_or_copied(t: torch.Tensor, counted) -> torch.Tensor:
-    """``t`` (``[B, S, H, Dh]``) where :func:`fits_folded_box` takes it,
-    else a copy that it takes, counted in ``counted.hd34_copy_launches``:
-    packed heads in rows of ``H * Dh`` floats rounded up to a multiple of 4."""
+    """``t`` (``[B, S, H, 34]``) where :func:`fits_folded_box` takes it, else
+    a copy that it takes (:func:`packed_rows`), counted in
+    ``counted.hd34_copy_launches``."""
     if fits_folded_box(t):
         return t
     counted.hd34_copy_launches += 1
+    return packed_rows(*t.shape, t.dtype, t.device).copy_(t)
+
+
+def packed_rows(b: int, s: int, h: int, d: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """An empty ``[b, s, h, d]`` with packed heads in rows of
+    :func:`folded_row` elements, on 16 bytes: the layout O comes back in,
+    contiguous where ``h * d`` fills the rows."""
+    row = folded_row(h, dtype, d)
+    if row == h * d:
+        return torch.empty((b, s, h, d), dtype=dtype, device=device)
+    return torch.empty((b, s, row), dtype=dtype, device=device)[..., :h * d].view(b, s, h, d)
+
+
+def in_packed_rows(t: torch.Tensor, counted) -> torch.Tensor:
+    """``t`` (O, or dO, ``[B, S, H, Dh]``) where it lies as
+    :func:`packed_rows` lays it out, the backward's TMA maps read it so;
+    else such a copy, at head dim 34 counted in
+    ``counted.hd34_copy_launches``."""
     b, s, h, d = t.shape
-    row = -(-h * d // 4) * 4
-    out = torch.empty((b, s, row), dtype=t.dtype, device=t.device)[..., :h * d]
-    return out.view(b, s, h, d).copy_(t)
-
-
-def pad_heads(t: torch.Tensor, width: int) -> torch.Tensor:
-    """``[B, S, H, Dh]`` as a contiguous ``[B, S, H, width]`` with zeros in
-    the columns past ``Dh``; ``t`` itself when ``width`` is ``Dh``."""
-    return t if t.shape[-1] == width else torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+    row = folded_row(h, t.dtype, d)
+    want = (s * row, row, d, 1)
+    if t.data_ptr() % 16 == 0 and all(n == 1 or st == w
+                                      for n, st, w in zip(t.shape, t.stride(), want)):
+        return t
+    if d == FOLDED_HEAD_DIM:
+        counted.hd34_copy_launches += 1
+    return packed_rows(b, s, h, d, t.dtype, t.device).copy_(t)
 
 
 def check_gradients(dtype: torch.dtype, bias, key_bias) -> None:
@@ -444,15 +452,24 @@ def _common_args(q, k, v, bias, key_bias, b, h, sq, sk):
             [b, h, sq, sk, q.shape[-1], *strides, *bias_strides, kb_stride])
 
 
+def _folded(q, k, v, head_dim, counted):
+    """q, k, v as the kernels read them at head dim 34
+    (:func:`folded_or_copied`, copies counted on ``counted``); as they are
+    at 64."""
+    if head_dim != FOLDED_HEAD_DIM:
+        return q, k, v
+    return tuple(folded_or_copied(t, counted) for t in (q, k, v))
+
+
 def _launch_fwd(q, k, v, bias, scale, key_bias, dims, head_dim):
-    """The forward kernel on q/k/v of the kernel's row width (checked, and
-    padded where :func:`kernel_width` says; float32 at head dim 34 copied
-    where the folded map does not take them, :func:`folded_or_copied`):
-    ``(o, lse)``, o as wide, lse the row statistics ``[2, B, H, Sq]``."""
+    """The forward kernel on checked q/k/v (at head dim 34 copied where the
+    folded map does not take them, :func:`folded_or_copied`): ``(o, lse)``,
+    o ``[B, Sq, H, Dh]`` in :func:`packed_rows`, lse the row statistics
+    ``[2, B, H, Sq]``."""
     b, h, sq, sk = dims
     q, k, v = _folded(q, k, v, head_dim, flash_attention_fwd)
     ptrs, sizes = _common_args(q, k, v, bias, key_bias, b, h, sq, sk)
-    out = torch.empty((b, sq, h, q.shape[-1]), dtype=q.dtype, device=q.device)
+    out = packed_rows(b, sq, h, head_dim, q.dtype, q.device)
     lse = torch.empty((2, b, h, sq), dtype=torch.float32, device=q.device)
     lib = _build.load()
     with torch.cuda.device(q.device):
@@ -466,23 +483,21 @@ def _launch_fwd(q, k, v, bias, scale, key_bias, dims, head_dim):
 
 
 def _launch_bwd(q, k, v, bias, scale, o, lse, do, key_bias, dims, head_dim, dbias=False):
-    """The backward kernels on tensors of the kernel's row width, as
-    :func:`_launch_fwd` takes them: ``(dq, dk, dv)`` as wide, and with
-    ``dbias`` (float32, a bias given) also the bias's gradient summed over
-    B where the bias broadcasts over it, ``[1|B, H, Sq, Sk]`` float32
-    (:func:`dbias_buffers`)."""
+    """The backward kernels on tensors as :func:`_launch_fwd` takes them, o
+    and do laid out as it returns o (else copied, :func:`in_packed_rows`):
+    ``(dq, dk, dv)`` contiguous, and with ``dbias`` (float32, a bias given)
+    also the bias's gradient summed over B where the bias broadcasts over
+    it, ``[1|B, H, Sq, Sk]`` float32 (:func:`dbias_buffers`)."""
     b, h, sq, sk = dims
-    width = q.shape[-1]
     q, k, v = _folded(q, k, v, head_dim, flash_attention_bwd)
-    do = do.contiguous()
-    if do.data_ptr() % 16:  # a TMA map's base, or the 16-byte copies, on 16 bytes
-        do = do.clone()
-    for name, t, shape, dtype in (("o", o, (b, sq, h, width), q.dtype),
-                                  ("grad of o", do, (b, sq, h, width), q.dtype),
+    for name, t, shape, dtype in (("o", o, (b, sq, h, head_dim), q.dtype),
+                                  ("grad of o", do, (b, sq, h, head_dim), q.dtype),
                                   ("lse", lse, (2, b, h, sq), torch.float32)):
-        if tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous():
+        if tuple(t.shape) != shape or t.dtype != dtype or (name == "lse"
+                                                           and not t.is_contiguous()):
             raise ValueError(f"flash_attention_bwd: {name} {tuple(t.shape)} {t.dtype}; "
-                             f"takes contiguous {dtype} {shape}")
+                             f"takes {dtype} {shape}")
+    o, do = (in_packed_rows(t, flash_attention_bwd) for t in (o, do))
     if dbias and (bias is None or q.dtype != torch.float32):
         raise ValueError(f"flash_attention_bwd: dbias takes a bias and float32 q/k/v "
                          f"(bias {'absent' if bias is None else 'given'}, q {q.dtype})")
@@ -491,8 +506,8 @@ def _launch_bwd(q, k, v, bias, scale, o, lse, do, key_bias, dims, head_dim, dbia
         # broadcast over B, which it sums over
         bias = bias.contiguous()
     ptrs, sizes = _common_args(q, k, v, bias, key_bias, b, h, sq, sk)
-    dq = torch.empty((b, sq, h, width), dtype=q.dtype, device=q.device)
-    dk = torch.empty((b, sk, h, width), dtype=q.dtype, device=q.device)
+    dq = torch.empty((b, sq, h, head_dim), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, h, head_dim), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     buf = grad = None
@@ -513,39 +528,29 @@ def _launch_bwd(q, k, v, bias, scale, o, lse, do, key_bias, dims, head_dim, dbia
     return (dq, dk, dv) if grad is None else (dq, dk, dv, grad)
 
 
-def _checked_and_padded(q, k, v, bias, key_bias):
-    """``(dims, head dim, row width, q, k, v as the kernel reads them)``."""
-    dims = _check_inputs(q, k, v, bias, key_bias)
-    dh = q.shape[-1]
-    width = kernel_width(q.dtype, dh)
-    return dims, dh, width, [pad_heads(t, width) for t in (q, k, v)]
-
-
 def flash_attention_fwd(q, k, v, bias, scale: float, key_bias=None):
     """Forward kernel: ``(o [B, Sq, H, Dh] in q's dtype, lse [2, B, H, Sq]
-    float32)``, lse the rows' maxima and the logs of their sums; o is a view
-    of the padded output where q was padded."""
-    dims, dh, _, qkv = _checked_and_padded(q, k, v, bias, key_bias)
-    o, lse = _launch_fwd(*qkv, bias, scale, key_bias, dims, dh)
-    return o[..., :dh], lse
+    float32)``, lse the rows' maxima and the logs of their sums; o in
+    :func:`packed_rows`, as :func:`flash_attention_bwd` reads it."""
+    dims = _check_inputs(q, k, v, bias, key_bias)
+    return _launch_fwd(q, k, v, bias, scale, key_bias, dims, q.shape[-1])
 
 
 def flash_attention_bwd(q, k, v, bias, scale: float, o, lse, do, key_bias=None,
                         dbias: bool = False):
     """Backward kernels (the D pass, dK/dV over key tiles, dQ over query
-    tiles): ``(dq, dk, dv)`` in the shapes and dtype of ``q``, ``k``, ``v``
-    (views of padded outputs where q was padded, else contiguous); ``o``
-    and ``do`` in that dtype, ``lse`` the forward's statistics.  With
+    tiles): ``(dq, dk, dv)`` contiguous, in the shapes and dtype of ``q``,
+    ``k``, ``v``; ``o`` and ``do`` in that dtype, copied where they do not
+    lie as :func:`flash_attention_fwd` returns o (:func:`in_packed_rows`),
+    ``lse`` the forward's statistics.  With
     ``dbias`` (float32 q/k/v and a bias) the dQ kernel's dbias instance
     runs and the bias's gradient, dS summed over the bias's broadcast
     dimensions (over B inside the kernel, :func:`dbias_plan`), comes back
     fourth, in the bias's shape.  The same bit for bit on every run: no
     atomics."""
-    dims, dh, width, qkv = _checked_and_padded(q, k, v, bias, key_bias)
-    grads = _launch_bwd(*qkv, bias, scale, pad_heads(o, width), lse, pad_heads(do, width),
-                        key_bias, dims, dh, dbias)
-    out = tuple(g[..., :dh] for g in grads[:3])
-    return out + (grads[3].sum_to_size(bias.shape),) if dbias else out
+    dims = _check_inputs(q, k, v, bias, key_bias)
+    grads = _launch_bwd(q, k, v, bias, scale, o, lse, do, key_bias, dims, q.shape[-1], dbias)
+    return grads[:3] + (grads[3].sum_to_size(bias.shape),) if dbias else grads
 
 
 def dbias_max_clusters(head_dim: int, key_bias: bool, cluster: int) -> int:
@@ -572,7 +577,9 @@ K3_ROUTES = {
     # kernel with the cluster sum (its entry points launch it), the forward
     # and dK/dV kernels of csrc/flash_attention_tf32.cu
     "tf32_wgmma_dbias": "vqattack_tpu_torch/csrc/flash_attention.cu",
-    # bfloat16 at either head dim (34 padded to 40): wgmma, TMA, no dbias
+    # bfloat16 at either head dim (34 through the folded map: a 64-column
+    # box a head, 48 columns executed over the head dim, 40 into it): wgmma,
+    # TMA, no dbias
     "bf16_wgmma": "vqattack_tpu_torch/csrc/flash_attention_bf16.cu",
 }
 
@@ -582,7 +589,9 @@ def k3_route(dtype: torch.dtype, head_dim: int, dbias: bool = False) -> str:
     (``dbias``: a backward that also gives the bias its gradient), a key of
     :data:`K3_ROUTES`: float32 runs the Hopper kernels at both head dims (at
     34 through the folded map, :func:`fits_folded_box`), with dbias beside
-    the ``mma.sync`` dQ kernel.  Raises for what no instance takes."""
+    the ``mma.sync`` dQ kernel; bfloat16 its own kernels at both head dims
+    (at 34 through the folded map too).  Raises for what no instance
+    takes."""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"k3_route: head dim {head_dim}; the kernels take {HEAD_DIMS}")
     if dtype == torch.bfloat16:
@@ -611,9 +620,10 @@ def _counts(dtype, key_bias, head_dim, dbias=False):
 # calls of each entry point in this process: float32 (``launches``) and
 # bfloat16 (``bf16_launches``) instances, and those of each with a key bias
 # and at head dim 34, and the float32 calls of the Hopper kernels; the
-# backward's with dbias also apart; and the float32 q/k/v at head dim 34
-# copied into packed rows on the way to each (``hd34_copy_launches``, one
-# a tensor): plain counts for chip_smoke.py
+# backward's with dbias also apart; and the tensors at head dim 34 (q/k/v,
+# and the backward's o and do, in either dtype) copied into packed rows on
+# the way to each (``hd34_copy_launches``, one a tensor): plain counts for
+# chip_smoke.py
 for _fn in (flash_attention_fwd, flash_attention_bwd):
     for _name in ("launches", "key_bias_launches", "hd34_launches", "bf16_launches",
                   "bf16_key_bias_launches", "bf16_hd34_launches", "tf32_wgmma_launches",
@@ -624,21 +634,21 @@ flash_attention_bwd.dbias_launches = 0
 
 class _FlashAttentionFn(torch.autograd.Function):
     """The kernel pair as one differentiable op (the library kernel's VJP).
-    Where q is padded for its kernel (bf16 at head dim 34) the padded q, k,
-    v and o are saved, so that the backward pads only the output's
-    gradient.  A bias that needs a gradient gets it from the dbias
-    instance; the key bias gets none.  Differentiable once: a backward
+    q, k, v (the model's views) and o are saved as they are; the backward
+    takes the output's gradient as autograd hands it over (copied only
+    where it does not lie as o does).  A bias that needs a gradient gets it
+    from the dbias instance; the key bias gets none.  Differentiable once: a backward
     that builds a graph (``create_graph=True``, a Hessian-vector product)
     raises, where the kernels' gradients would carry no dependence on q, k
     and v and the second derivative would come back short."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale, key_bias):
-        dims, dh, _, qkv = _checked_and_padded(q, k, v, bias, key_bias)
-        o, lse = _launch_fwd(*qkv, bias, scale, key_bias, dims, dh)
-        ctx.save_for_backward(*qkv, bias, o, lse, key_bias)
-        ctx.scale, ctx.dims, ctx.dh = scale, dims, dh
-        return o[..., :dh]
+        dims = _check_inputs(q, k, v, bias, key_bias)
+        o, lse = _launch_fwd(q, k, v, bias, scale, key_bias, dims, q.shape[-1])
+        ctx.save_for_backward(q, k, v, bias, o, lse, key_bias)
+        ctx.scale, ctx.dims = scale, dims
+        return o
 
     @staticmethod
     def backward(ctx, do):
@@ -647,9 +657,9 @@ class _FlashAttentionFn(torch.autograd.Function):
                                "Hessian needs attention_impl('xla')")
         q, k, v, bias, o, lse, key_bias = ctx.saved_tensors
         need_dbias = ctx.needs_input_grad[3]
-        grads = _launch_bwd(q, k, v, bias, ctx.scale, o, lse, pad_heads(do, q.shape[-1]),
-                            key_bias, ctx.dims, ctx.dh, need_dbias)
-        dq, dk, dv = (g[..., :ctx.dh] for g in grads[:3])
+        grads = _launch_bwd(q, k, v, bias, ctx.scale, o, lse, do, key_bias, ctx.dims,
+                            q.shape[-1], need_dbias)
+        dq, dk, dv = grads[:3]
         return dq, dk, dv, grads[3].sum_to_size(bias.shape) if need_dbias else None, None, None
 
 
